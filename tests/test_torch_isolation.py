@@ -1,0 +1,33 @@
+"""The port stands alone: every module of weaviate_tpu_torch, and
+chip_smoke.py, imports with ``jax`` and ``weaviate_tpu`` blocked."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["weaviate_tpu"] = None
+import weaviate_tpu_torch
+names = ["weaviate_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(weaviate_tpu_torch.__path__,
+                                          "weaviate_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "weaviate_tpu",
+                                       "ml_dtypes") and sys.modules[m])
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
