@@ -47,6 +47,8 @@ ATOL, RTOL = 1e-2, 1e-4
 MIN_ID_AGREEMENT = 0.999
 
 ROWS, DIMS, BATCH, K = 1_000_000, 768, 256, 10
+# the kernel variant the main path's shapes take
+MAIN_VARIANT = "ring"
 INGEST_BATCH = 65536
 
 
@@ -117,6 +119,22 @@ def compare(kv, ki, pv, pi, near):
             n_live - int(diff.sum()), n_live)
 
 
+def l2_bytes_model(variant: str, plan: dict, b: int, n: int, d: int,
+                   esize: int, block: int) -> int:
+    """Bytes the kernel moves from L2 into the SMs per call, by its design:
+    each corpus block once per query tile (once per cluster of tiles), the
+    norms and mask with it, and the float32 query tile once per CTA (ring)
+    or once per row tile of the block (legacy, which restages it)."""
+    qt, cluster = plan["query_tile"], plan["cluster"]
+    tiles = -(-b // qt)
+    ctas = tiles * (n // block)
+    corpus = n * (d * esize + 5) * tiles // cluster
+    per_cta = qt * d * 4
+    if variant == "legacy":
+        per_cta *= block // (128 if qt == 16 else 64)
+    return corpus + ctas * per_cta
+
+
 def phase_env() -> dict:
     t0 = time.perf_counter()
     logs = _build.build(fused_flat.KERNEL)
@@ -129,55 +147,84 @@ def phase_env() -> dict:
             "cuda": torch.version.cuda, "build_s": build_s}
 
 
+# kernel grid: B covers query tiles of 1 to 4 with ragged last tiles; D
+# covers the resident-tile widths, and LEGACY_D is too wide for it
+GRID_B = (1, 7, 64, 65, 100, 200, 256)
+GRID_D = (64, 100, 768, 1024, 1536)
+LEGACY_D = 6144
+
+
+def check_case(gen, block, n, fold, k, b, d, masked_block, bf16_too):
+    """One kernel-vs-plain case: returns [(variant, max err, equal ids,
+    compared ids)] for the float32 corpus and, with ``bf16_too``, its bf16
+    copy."""
+    dev = torch.device("cuda")
+    corpus = torch.randn(n, d, generator=gen, device=dev)
+    q = corpus[:b] + 0.1 * torch.randn(b, d, generator=gen, device=dev)
+    q = q.contiguous()
+    sq = (corpus * corpus).sum(1)
+    mask = torch.rand(n, generator=gen, device=dev) > 0.3
+    if masked_block:
+        mask[:block] = False
+    out = []
+    for c in (corpus, corpus.to(torch.bfloat16)) if bf16_too else (corpus,):
+        variant, _ = fused_flat.kernel_variant(q, c, k, block, fold)
+        kv, ki = fused_flat.block_topk_cuda(q, c, sq, mask, k, block, fold)
+        pv, pi = fused_flat.block_topk_reference(q, c, sq, mask, k, block,
+                                                 fold)
+        torch.cuda.synchronize()
+        raw = (kv - pv).abs()
+        if bool((raw > ATOL + RTOL * pv.abs()).any()):
+            raise AssertionError(
+                f"block outputs differ: {variant} block={block} fold={fold} "
+                f"k={k} B={b} D={d} {c.dtype}: max {raw.max().item()}")
+        mk = fused_flat.merge_blocks(kv, ki, block, k)
+        mp = fused_flat.merge_blocks(pv, pi, block, k)
+        e, s, t = compare(
+            *mk, *mp, lambda ids, c=c: pair_distance(q, c, sq, mask, ids))
+        out.append((variant, e, s, t))
+    return out
+
+
 def phase_kernels(seed: int) -> dict:
     """fused_flat kernel vs plain over blocks 128/2048, folds 1/2/16, k
-    1/10/64, B 1/7/256, D 64/100/768, partial masks and masked blocks."""
+    1/10/64, B in GRID_B, D in GRID_D (and LEGACY_D), float32 and bf16
+    corpora, partial masks and masked blocks; every case of both variants
+    must agree."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     cases, max_err, same, total, raised = 0, 0.0, 0, 0, 0
-    for block, n in ((128, 384), (2048, 4096)):
-        for fold in (1, 2, 16):
-            for k in (1, 10, 64):
-                for b in (1, 7, 256):
-                    for d in (64, 100, 768):
-                        corpus = torch.randn(n, d, generator=gen, device=dev)
-                        q = corpus[:b] + 0.1 * torch.randn(
-                            b, d, generator=gen, device=dev)
-                        q = q.contiguous()
-                        sq = (corpus * corpus).sum(1)
-                        mask = torch.rand(n, generator=gen, device=dev) > 0.3
-                        if cases % 2:  # every other case: block 0 fully masked
-                            mask[:block] = False
-                        if block // fold < k:
-                            try:
-                                fused_flat.block_topk_cuda(
-                                    q, corpus, sq, mask, k, block, fold)
-                            except ValueError:
-                                raised += 1
-                                continue
-                            raise AssertionError(
-                                f"k={k} > {block}/{fold} buckets did not raise")
-                        for c in (corpus, corpus.to(torch.bfloat16)) if (
-                                b == 7 and fold == 16) else (corpus,):
-                            kv, ki = fused_flat.block_topk_cuda(
-                                q, c, sq, mask, k, block, fold)
-                            pv, pi = fused_flat.block_topk_reference(
-                                q, c, sq, mask, k, block, fold)
-                            torch.cuda.synchronize()
-                            raw = (kv - pv).abs()
-                            if bool((raw > ATOL + RTOL * pv.abs()).any()):
-                                raise AssertionError(
-                                    f"block outputs differ: block={block} "
-                                    f"fold={fold} k={k} B={b} D={d}")
-                            mk = fused_flat.merge_blocks(kv, ki, block, k)
-                            mp = fused_flat.merge_blocks(pv, pi, block, k)
-                            e, s, t = compare(
-                                *mk, *mp,
-                                lambda ids, c=c: pair_distance(q, c, sq, mask, ids))
-                            max_err = max(max_err, e)
-                            same += s
-                            total += t
-                            cases += 1
+    by_variant: dict[str, int] = dict.fromkeys(fused_flat.VARIANTS, 0)
+    grid = [(block, n, fold, k, b, d)
+            for block, n in ((128, 384), (2048, 4096))
+            for fold in (1, 2, 16) for k in (1, 10, 64)
+            for b in GRID_B for d in GRID_D]
+    grid += [(128, 384, fold, 10, b, LEGACY_D)
+             for fold in (1, 16) for b in (7, 65)]
+    for block, n, fold, k, b, d in grid:
+        if block // fold < k:
+            q = torch.zeros(b, d, device=dev)
+            c = torch.zeros(n, d, device=dev)
+            try:
+                fused_flat.block_topk_cuda(
+                    q, c, c[:, 0].contiguous(),
+                    torch.ones(n, dtype=torch.bool, device=dev), k, block,
+                    fold)
+            except ValueError:
+                raised += 1
+                continue
+            raise AssertionError(
+                f"k={k} > {block}/{fold} buckets did not raise")
+        for variant, e, s, t in check_case(
+                gen, block, n, fold, k, b, d, masked_block=bool(cases % 2),
+                bf16_too=fold == 16 and b in (7, 100)):
+            max_err = max(max_err, e)
+            same += s
+            total += t
+            by_variant[variant] += 1
+            cases += 1
+    if by_variant["legacy"] == 0 or by_variant["ring"] == 0:
+        raise AssertionError(f"a variant went untested: {by_variant}")
     # a fully masked corpus gives only sentinels
     corpus = torch.randn(2048, 64, generator=gen, device=dev)
     none = torch.zeros(2048, dtype=torch.bool, device=dev)
@@ -189,8 +236,8 @@ def phase_kernels(seed: int) -> dict:
     agreement = same / max(1, total)
     if agreement < MIN_ID_AGREEMENT:
         raise AssertionError(f"id agreement {agreement} < {MIN_ID_AGREEMENT}")
-    return {"cases": cases, "raised_as_expected": raised,
-            "max_abs_err": max_err, "id_agreement": agreement,
+    return {"cases": cases, "cases_by_variant": by_variant,
+            "raised_as_expected": raised, "max_abs_err": max_err, "id_agreement": agreement,
             "tolerance": {"atol": ATOL, "rtol": RTOL}}
 
 
@@ -243,11 +290,15 @@ def phase_main(seed: int, state: dict) -> dict:
         raise AssertionError("float32 ground truth disagrees with float64")
 
     # the served path: FlatIndex.search through the fused kernel
-    fused_flat.fused_flat_topk.launches = 0
+    fused_flat.reset_launches()
     res = idx.search(queries, K)
     launches = fused_flat.fused_flat_topk.launches
+    by_variant = dict(fused_flat.fused_flat_topk.launches_by_variant)
     if launches < 1:
         raise AssertionError("FlatIndex.search did not launch the kernel")
+    if by_variant[MAIN_VARIANT] != launches:
+        raise AssertionError(
+            f"FlatIndex.search launched {by_variant}, not {MAIN_VARIANT}")
     rec = recall(res.ids, gt_i)
     if rec < 0.95:
         raise AssertionError(f"recall@10 {rec} < 0.95")
@@ -270,6 +321,7 @@ def phase_main(seed: int, state: dict) -> dict:
     kw = {"chunk_size": min(idx.config.search_chunk_size, corpus.shape[0]),
           "live_rows": live_rows}
     block, fold = fused_flat.plan(corpus, K, kw["chunk_size"], live_rows)
+    variant, plan = fused_flat.kernel_variant(qt, corpus, K, block, fold)
     kv, ki = fused_flat.fused_flat_topk(*args, **kw)
     pv, pi = fused_flat.fused_flat_topk_reference(*args, **kw)
     err, same, total = compare(
@@ -300,6 +352,8 @@ def phase_main(seed: int, state: dict) -> dict:
     bound_by = "bytes" if bytes_moved / HBM_BYTES_S >= flops / BF16_FLOP_S \
         else "operations"
     state.update(idx=idx, exact32=exact32, queries=queries, res=res)
+    l2_bytes = l2_bytes_model(variant, plan, BATCH, n_rows, d,
+                              corpus.element_size(), block)
     state["kernel"] = {
         "name": "fused_flat_l2_topk", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/fused_flat.cu",
@@ -308,13 +362,17 @@ def phase_main(seed: int, state: dict) -> dict:
         "ms": float(np.median(kernel_ms)),
         "plain_ms": float(np.median(plain_ms)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "variant": variant, "l2_bytes_model": l2_bytes,
+        "share_of_bound": bound_ms / float(np.median(kernel_ms)),
     }
     return {
         "rows": ROWS, "capacity": n_rows, "dims": d, "batch": BATCH, "k": K,
         "live": idx.store.live_count, "block": block, "fold": fold,
         "ingest_s": ingest_s, "ground_truth_s": gt_s,
         "recall_at_10": rec, "recall_at_10_exact_bf16": rec_exact_bf16,
-        "launches": launches, "kernel_vs_plain_max_abs_err": err,
+        "launches": launches, "launches_by_variant": by_variant,
+        "variant": variant, "plan": plan, "l2_bytes_model": l2_bytes,
+        "kernel_vs_plain_max_abs_err": err,
         "kernel_vs_plain_id_agreement": same / max(1, total),
         "kernel_ms_median": float(np.median(kernel_ms)),
         "kernel_ms_p90": float(np.percentile(kernel_ms, 90)),

@@ -142,3 +142,72 @@ def test_shape_helpers_match_jax():
                 assert tf.fold_width(block, k, live) == _jax_fold(block, k, live)
     with pytest.raises(ValueError):
         tf.fold_width(128, 129, 10**6)
+
+
+@pytest.mark.parametrize("case", [
+    # (n, b, k, chunk, mask rows allowed, seed): batches that leave a ragged
+    # last query tile (65 = 64 + 1, 100 = 64 + 36), at fold 16 and fold 1
+    (4096, 65, 10, 2048, None, 5),
+    (4096, 100, 3, 2048, 3000, 6),
+    (2048, 65, 10, 1024, 64, 7),
+    (2048, 100, 5, 512, None, 8),
+])
+def test_plain_matches_pallas_interpret_ragged_batches(case):
+    n, b, k, chunk, allowed, seed = case
+    q, corpus, sq = _data(n=n, d=48, b=b, seed=seed)
+    mask = np.ones(n, np.float32)
+    if allowed is not None:
+        mask[allowed:] = 0.0
+    jv, ji, tv, ti = _both(q, corpus, sq, mask, k, chunk,
+                           live_rows=1 << 20)
+    _same(jv, ji, tv, ti)
+    # the CPU wrapper takes the plain version, so it gives the same
+    args = (torch.from_numpy(q), torch.from_numpy(corpus),
+            torch.from_numpy(sq), torch.from_numpy(mask), k)
+    wv, wi = tf.fused_flat_topk(*args, chunk_size=chunk, live_rows=1 << 20)
+    assert torch.equal(wv, torch.from_numpy(tv))
+    assert torch.equal(wi, torch.from_numpy(ti))
+
+
+def test_variant_query_rejects_shapes_outside_the_contract():
+    q = torch.zeros(4, 64)
+    corpus = torch.zeros(2048, 64)
+    bad = [
+        (q, corpus, 0, 2048, 16),                  # k < 1
+        (q, corpus, 65, 2048, 1),                  # k > MAX_K
+        (q, corpus, 10, 1000, 1),                  # block off the ladder
+        (q, corpus, 10, 4096, 1),                  # block > rows
+        (q, torch.zeros(3000, 64), 10, 2048, 16),  # block does not divide
+        (q, corpus, 10, 2048, 32),                 # fold > 16
+        (q, corpus, 10, 2048, 3),                  # fold does not divide
+        (q, corpus, 10, 128, 16),                  # k > buckets
+        (torch.zeros(0, 64), corpus, 10, 2048, 16),  # empty batch
+        (q, corpus.half(), 10, 2048, 16),          # corpus dtype
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tf.kernel_variant(*args)
+
+
+def test_launch_counts_by_variant_and_reset():
+    saved = (tf.fused_flat_topk.launches,
+             dict(tf.fused_flat_topk.launches_by_variant))
+    try:
+        tf.reset_launches()
+        assert tf.fused_flat_topk.launches == 0
+        assert tf.fused_flat_topk.launches_by_variant == dict.fromkeys(
+            tf.VARIANTS, 0)
+        tf.count_launch("ring")
+        tf.count_launch("ring")
+        tf.count_launch("legacy")
+        assert tf.fused_flat_topk.launches == 3
+        assert tf.fused_flat_topk.launches_by_variant["ring"] == 2
+        assert tf.fused_flat_topk.launches_by_variant["legacy"] == 1
+        with pytest.raises(KeyError):
+            tf.count_launch("no-such-variant")
+        tf.reset_launches()
+        assert tf.fused_flat_topk.launches == 0
+        assert set(tf.fused_flat_topk.launches_by_variant.values()) == {0}
+    finally:
+        tf.fused_flat_topk.launches = saved[0]
+        tf.fused_flat_topk.launches_by_variant = saved[1]

@@ -1,39 +1,59 @@
 // Fused L2 distance + per-block bucketed top-k for Hopper (sm_90a).
 //
-// Replaces the TPU kernel weaviate_tpu/ops/pallas_flat.py `_kernel`, launched
-// by `pallas_flat_topk`. For each corpus block of C rows and each query it
-// computes the bf16 product with float32 sums, d = max(|q|^2 - 2 q.c + |c|^2, 0)
-// with |q|^2 in float32 from the unrounded query, sets masked rows to 1e30,
-// folds the C columns into C/fold strided buckets (bucket j holds columns
-// {j, j + C/fold, ...} and keeps its minimum and the lowest column reaching
-// it) and runs k rounds of extract-min over the bucket minima (lowest bucket
-// on ties; a taken bucket retires to 1e30). Output: vals/ids [N/C, B, k],
-// ids being the column inside the block. The global merge of the
-// [B, (N/C)*k] candidates is plain PyTorch in ops/fused_flat.py.
+// Replaces the TPU kernel weaviate_tpu/ops/pallas_flat.py:104 `_kernel`,
+// launched by `pallas_flat_topk`. For each corpus block of C rows and each
+// query it computes the bf16 product with float32 sums, d = max(|q|^2 -
+// 2 q.c + |c|^2, 0) with |q|^2 in float32 from the unrounded query, sets
+// masked rows to 1e30, folds the C columns into C/fold strided buckets
+// (bucket j holds columns {j, j + C/fold, ...} and keeps its minimum and the
+// lowest column reaching it) and runs k rounds of extract-min over the
+// bucket minima (lowest bucket on ties; a taken bucket retires to 1e30).
+// Output: vals/ids [N/C, B, k], ids being the column inside the block. The
+// global merge of the [B, (N/C)*k] candidates is plain PyTorch in
+// ops/fused_flat.py.
 //
 // What bounds it on an H100: at the serving shapes (N = 1,048,576 rows of
 // D = 768 float32, B = 256, k = 10) the corpus read is 3.2 GB, about 0.96 ms
 // at 3.35 TB/s, while the product is 412 GFLOP, about 0.42 ms at the bf16
-// tensor-core peak: the kernel is bound by the corpus bytes. The score
-// matrix [B, N] (1 GB in float32) never reaches device memory: each block
-// folds its scores in shared memory, so device traffic is the corpus read
-// plus [N/C, B, k] candidates.
+// tensor-core peak, so the bound is the corpus bytes. The score matrix
+// [B, N] never reaches device memory. What held the first design far above
+// that bound was traffic from L2 into the SMs and load latency: it restaged
+// the query chunk at every step (12.9 GB a batch) and read each corpus
+// block once per 64-query tile (12.9 GB), each load waiting on the last.
 //
-// The simple design: one CTA per (corpus block, tile of QT queries), the
-// query tile fastest in the grid so the B/QT CTAs that read one corpus block
-// run side by side and share it through L2. A CTA walks its block in tiles
-// of RT rows and each tile in steps of 64 dimensions: the step's query and
-// row chunks sit in shared memory as bf16, the QT x RT product runs on the
-// tensor cores (WMMA bf16 16x16x16, float32 sums) while the next step's
-// chunks load from device memory into registers (two shared buffers, one
-// barrier a step). After a tile's last step the scores fold into
-// per-(query, bucket) minima in shared memory (float value + 8-bit position
-// in the bucket: 5 bytes a bucket); after the last tile one warp per query
-// runs the k rounds with warp shuffles. The query chunk is restaged at every
-// step and each corpus block is read once per query tile; a TMA/wgmma
-// pipeline with the query tile resident is the next step toward the bound.
-// Blocks with more than 512 buckets a query (fold 1 or 2 at C = 2048) take
-// QT = 16, RT = 128 so the bucket state still fits in shared memory.
+// The ring design (variant 1): one CTA per (corpus block, tile of QT
+// queries), the query tiles of one block side by side in the grid.
+//  - The query tile is resident: loaded once at CTA start, rounded to bf16
+//    into shared memory with a pitch of D + 8 (rounded up to 64) so the
+//    ldmatrix fragment loads have no bank conflicts, |q|^2 summed in the same
+//    pass. The queries now cross from L2 once per CTA (0.4 GB a batch).
+//  - The corpus streams through a ring of S = 3 or 4 stages of RT x KC
+//    (64 x 64) elements, filled with 16-byte cp.async copies that zero-fill
+//    the dims past D; S - 1 stages are in flight at every step, the fold of a
+//    finished row tile included, and one barrier a step frees the slot the
+//    previous step read. Rows of a stage have a pitch of KC + 8 elements so
+//    the float2 fragment loads have no bank conflicts.
+//  - The products are raw mma.sync m16n8k16 (bf16 in, float32 sums): A from
+//    the resident tile by ldmatrix, B straight from the ring, rounded to
+//    bf16 as it goes into the fragment (a bf16 corpus is used as it is).
+//  - When the bucket count is a multiple of RT (fold 16 at C = 2048: 128
+//    buckets) every column of a row tile lies in its own bucket and always
+//    in the same thread, so each thread folds its accumulators straight into
+//    the bucket minima, with no score tile and no barrier. Other bucket
+//    counts go through a score tile in shared memory and the old per-bucket
+//    walk.
+// QT is 64, falling to 32 and 16, and S is 4, falling to 3, until the tile,
+// the ring and the bucket state fit in the 232,448 bytes a block may use;
+// that holds D up to 1536 at 128 buckets. A corpus row tile still crosses
+// from L2 once per query tile.
+//
+// The legacy design (variant 0), kept for shapes the ring cannot hold (a D
+// too wide for the resident tile at QT = 16, or a bucket state too large
+// beside it): it stages a query chunk and a row chunk per 64-dimension step
+// through registers into two shared buffers, WMMA products, a score tile and
+// the per-bucket fold; blocks with more than 512 buckets take QT = 16,
+// RT = 128. The variant is chosen by shape before the launch
+// (`fused_flat_variant` says which).
 //
 // Tie rules match the JAX kernel exactly: within a bucket a strict `<` while
 // walking rows upward keeps the lowest column; across buckets the shuffle
@@ -56,10 +76,54 @@ constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float MASKD = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t MAX_SMEM = 232448;  // shared memory a block may use on sm_90
+
+enum Variant { LEGACY = 0, RING = 1 };
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
 }
+
+// k rounds of extract-min over the bucket minima of each live query row,
+// one warp a query. Row r's minima are at bval + r * vpitch, its positions
+// in the bucket at bloc + r * folds.
+__device__ void extract_rounds(float* bval, int vpitch,
+                               const uint8_t* bloc, int folds, int qrows,
+                               int k, size_t obase0, float* out_v,
+                               int* out_i, int warp, int lane) {
+  for (int r = warp; r < qrows; r += NWARPS) {
+    float* v = bval + size_t(r) * vpitch;
+    const uint8_t* lc = bloc + size_t(r) * folds;
+    const size_t obase = obase0 + size_t(r) * k;
+    for (int round = 0; round < k; ++round) {
+      float bv = INFINITY;
+      int bj = 0x7fffffff;
+      for (int j = lane; j < folds; j += 32) {
+        const float x = v[j];
+        if (x < bv) {
+          bv = x;
+          bj = j;
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(FULL, bv, o);
+        const int oj = __shfl_xor_sync(FULL, bj, o);
+        if (ov < bv || (ov == bv && oj < bj)) {
+          bv = ov;
+          bj = oj;
+        }
+      }
+      if (lane == 0) {
+        out_v[obase + round] = bv;
+        out_i[obase + round] = int(lc[bj]) * folds + bj;
+        v[bj] = MASKD;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------- legacy
 
 // One load unit of a staged chunk: four values (16 or 8 bytes) when the
 // rows allow vector loads, else one value.
@@ -150,12 +214,11 @@ struct Layout {
 
 template <typename T, int QT, int RT, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
-fused_flat_l2_topk_kernel(const float* __restrict__ q,
-                          const T* __restrict__ corpus,
-                          const float* __restrict__ sqn,
-                          const uint8_t* __restrict__ mask, int B, int D,
-                          int k, int block, int fold,
-                          float* __restrict__ out_v, int* __restrict__ out_i) {
+legacy_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
+              const float* __restrict__ sqn,
+              const uint8_t* __restrict__ mask, int B, int D, int k,
+              int block, int fold, float* __restrict__ out_v,
+              int* __restrict__ out_i) {
   using L = Layout<QT, RT>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int folds = block / fold;
@@ -230,19 +293,25 @@ fused_flat_l2_topk_kernel(const float* __restrict__ q,
     }
     const __nv_bfloat16* A = As + (s & 1) * QT * LDK;
     const __nv_bfloat16* Bm = Bs + (s & 1) * RT * LDK;
+    // the step's products sum apart and join the running sums with
+    // float32 adds, so the tensor cores never add into a large sum
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
+    for (int f = 0; f < FPW; ++f) {
+      const int fid = warp * FPW + f, fr = fid / FC, fc = fid % FC;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> part;
+      wmma::fill_fragment(part, 0.f);
 #pragma unroll
-      for (int f = 0; f < FPW; ++f) {
-        const int fid = warp * FPW + f, fr = fid / FC, fc = fid % FC;
+      for (int kk = 0; kk < KC; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::col_major> b;
         wmma::load_matrix_sync(a, A + fr * 16 * LDK + kk, LDK);
         wmma::load_matrix_sync(b, Bm + fc * 16 * LDK + kk, LDK);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
+        wmma::mma_sync(part, a, b, part);
       }
+#pragma unroll
+      for (int e = 0; e < part.num_elements; ++e) acc[f].x[e] += part.x[e];
     }
     if (more) {  // the other buffers: nobody reads them until the sync
       ca.stash(As + ((s + 1) & 1) * QT * LDK, LDK, tid);
@@ -279,69 +348,468 @@ fused_flat_l2_topk_kernel(const float* __restrict__ q,
     __syncthreads();
   }
 
-  // k rounds of extract-min over the bucket minima, one warp a query
-  for (int r = warp; r < qrows; r += NWARPS) {
-    float* v = bval + r * folds;
-    const uint8_t* lc = bloc + r * folds;
-    const size_t obase = (g * B + q0 + r) * size_t(k);
-    for (int round = 0; round < k; ++round) {
-      float bv = INFINITY;
-      int bj = 0x7fffffff;
-      for (int j = lane; j < folds; j += 32) {
-        const float x = v[j];
-        if (x < bv) {
-          bv = x;
-          bj = j;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, bv, o);
-        const int oj = __shfl_xor_sync(FULL, bj, o);
-        if (ov < bv || (ov == bv && oj < bj)) {
-          bv = ov;
-          bj = oj;
-        }
-      }
-      if (lane == 0) {
-        out_v[obase + round] = bv;
-        out_i[obase + round] = int(lc[bj]) * folds + bj;
-        v[bj] = MASKD;
-      }
-      __syncwarp();
+  extract_rounds(bval, folds, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
+                 out_v, out_i, warp, lane);
+}
+
+// ------------------------------------------------------------------ ring
+
+constexpr int RT = 64;         // corpus rows per tile
+constexpr int LDR = KC + 8;    // element pitch of a ring row
+constexpr int LDS = RT + 4;    // float pitch of the score tile
+
+// Shared-memory layout of the ring kernel, the same on host and device:
+// the resident bf16 query tile, the ring, |q|^2, the bucket minima (pitch
+// folds + 8 so float2 accesses of 8 query rows hit distinct banks), their
+// positions in the bucket, and the score tile where the fold needs one.
+struct RingLayout {
+  int ldq;        // bf16 pitch of the query tile
+  int vp;         // float pitch of the bucket minima
+  size_t stage;   // bytes of one ring stage
+  size_t ring_off, qsq_off, val_off, loc_off, s_off, bytes;
+};
+
+__host__ __device__ inline bool direct_fold(int folds) {
+  return folds % RT == 0;
+}
+
+__host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
+                                                  int folds, int esize) {
+  RingLayout L;
+  L.ldq = (D + KC - 1) / KC * KC + 8;
+  L.vp = folds + 8;
+  L.stage = size_t(RT) * LDR * esize;
+  L.ring_off = align128(size_t(qt) * L.ldq * 2);
+  L.qsq_off = L.ring_off + stages * L.stage;
+  L.val_off = L.qsq_off + align128(size_t(qt) * 4);
+  L.loc_off = L.val_off + align128(size_t(qt) * L.vp * 4);
+  L.s_off = L.loc_off + align128(size_t(qt) * folds);
+  L.bytes = L.s_off + (direct_fold(folds) ? 0 : align128(size_t(qt) * LDS * 4));
+  return L;
+}
+
+// Warp tiling of a QT x RT product: WM x WN warps, each MI m16 tiles by NI
+// n8 tiles of mma.sync m16n8k16.
+template <int QT>
+struct Warps {
+  static constexpr int WM = QT >= 32 ? QT / 32 : 1;
+  static constexpr int WN = NWARPS / WM;
+  static constexpr int MI = QT / (16 * WM);
+  static constexpr int NI = RT / (8 * WN);
+  static_assert(MI >= 1 && NI >= 1 && WM * WN == NWARPS, "warp tiling");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; bytes past `src_bytes` are zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// B fragment of mma m16n8k16 from a ring row: dims k, k+1 and k+8, k+9 of
+// corpus row n (B[k][n] is the row's dim k), lower dim in the lower half.
+__device__ __forceinline__ void b_frag(const float* p, uint32_t& b0,
+                                       uint32_t& b1) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  const float2 y = *reinterpret_cast<const float2*>(p + 8);
+  b0 = pack_bf16(x.x, x.y);
+  b1 = pack_bf16(y.x, y.y);
+}
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* p, uint32_t& b0,
+                                       uint32_t& b1) {
+  b0 = *reinterpret_cast<const uint32_t*>(p);
+  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// Step p of a block's walk into one ring stage: row tile p / nk, dims
+// (p % nk) * KC on, dims past D zero. VEC: 16-byte cp.async copies (rows
+// 16-byte aligned); else plain loads and stores.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fill_stage(T* dst, const T* cblock, int D,
+                                           int nk, int p, int tid) {
+  const int t = p / nk, k0 = (p - t * nk) * KC;
+  const T* src = cblock + size_t(t) * RT * D;
+  if constexpr (VEC) {
+    constexpr int W = 16 / sizeof(T);  // elements per copy
+    constexpr int G = KC / W;          // copies per row
+    constexpr int N = RT * G / NTHREADS;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + i * NTHREADS, row = e / G, cu = (e % G) * W;
+      const int col = k0 + cu;
+      const int valid = min(max(D - col, 0), W);
+      cp_async16(dst + row * LDR + cu,
+                 src + size_t(row) * D + (valid > 0 ? col : 0),
+                 valid * int(sizeof(T)));
+    }
+  } else {
+    for (int e = tid; e < RT * KC; e += NTHREADS) {
+      const int row = e / KC, c = e % KC, col = k0 + c;
+      T v;
+      zero(v);
+      if (col < D) v = src[size_t(row) * D + col];
+      dst[row * LDR + c] = v;
     }
   }
 }
 
-template <typename T, int QT, int RT, bool VEC>
-cudaError_t launch(const float* q, const T* c, const float* sqn,
-                   const uint8_t* m, int B, int N, int D, int k, int block,
-                   int fold, float* ov, int* oi, cudaStream_t stream) {
-  auto kern = fused_flat_l2_topk_kernel<T, QT, RT, VEC>;
-  const size_t smem = Layout<QT, RT>::bytes(block / fold);
+template <typename T, int QT, bool VEC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
+            const float* __restrict__ sqn, const uint8_t* __restrict__ mask,
+            int B, int D, int k, int block, int fold, int stages,
+            float* __restrict__ out_v, int* __restrict__ out_i) {
+  using W = Warps<QT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int folds = block / fold;
+  const RingLayout L = ring_layout(QT, stages, D, folds, sizeof(T));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + L.ring_off);
+  float* qsq = reinterpret_cast<float*>(smem + L.qsq_off);
+  float* bval = reinterpret_cast<float*>(smem + L.val_off);
+  uint8_t* bloc = smem + L.loc_off;
+  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
+
+  const int ntiles = (B + QT - 1) / QT;
+  const int tile = blockIdx.x % ntiles;
+  const size_t g = blockIdx.x / ntiles;
+  const int q0 = tile * QT, qrows = min(QT, B - q0);
+  const size_t row0 = g * size_t(block);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk = (D + KC - 1) / KC, steps = (block / RT) * nk;
+  const T* cblock = corpus + row0 * D;
+  const int stage_elems = RT * LDR;
+
+  // The ring's first S - 1 stages go out before anything else.
+  for (int p = 0; p < stages - 1; ++p) {
+    if (p < steps)
+      fill_stage<T, VEC>(ring + p * stage_elems, cblock, D, nk, p, tid);
+    cp_async_commit();
+  }
+  // The query tile, once: bf16 into shared memory, |q|^2 in float32 from
+  // the unrounded values, one warp a query; rows past B and dims past D
+  // are zero.
+  for (int r = warp; r < QT; r += NWARPS) {
+    const float* src = q + size_t(q0 + r) * D;
+    float s = 0.f;
+    for (int d = lane; d < L.ldq - 8; d += 32) {
+      const float x = (r < qrows && d < D) ? src[d] : 0.f;
+      s = fmaf(x, x, s);
+      Qs[r * L.ldq + d] = __float2bfloat16_rn(x);
+    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    if (lane == 0) qsq[r] = s;
+  }
+  for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
+  for (int i = tid; i < QT * folds; i += NTHREADS) bloc[i] = 0;
+  __syncthreads();
+
+  // This thread's accumulators: rows mrow + mi*16 + lr (+8), columns
+  // ncol + ni*8 + lc (+1) of each row tile.
+  const int wm = warp / W::WN, wn = warp % W::WN;
+  const int mrow = wm * W::MI * 16, ncol = wn * W::NI * 8;
+  const int lr = lane >> 2, lc = (lane & 3) * 2;
+  float qv[W::MI][2];
+#pragma unroll
+  for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mrow + mi * 16 + lr + h * 8];
+  const bool direct = direct_fold(folds);
+
+  int s = 0;
+  for (int t = 0; t < block / RT; ++t) {
+    const int c0 = t * RT;
+    float acc[W::MI][W::NI][4];
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    // this tile's norms and mask for the direct fold, in flight now
+    float cn[W::NI][2];
+    bool cm[W::NI][2];
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const size_t c = row0 + c0 + ncol + ni * 8 + lc + e;
+        cn[ni][e] = direct ? __ldg(sqn + c) : 0.f;
+        cm[ni][e] = direct && __ldg(mask + c) != 0;
+      }
+
+    for (int kc = 0; kc < nk; ++kc, ++s) {
+      // stage s has landed once at most S - 2 newer groups are pending;
+      // the barrier also frees the slot step s - 1 read
+      if (stages == 4)
+        cp_async_wait<2>();
+      else
+        cp_async_wait<1>();
+      __syncthreads();
+      const int p = s + stages - 1;
+      if (p < steps)
+        fill_stage<T, VEC>(ring + (p % stages) * stage_elems, cblock, D, nk,
+                           p, tid);
+      cp_async_commit();
+      const T* R = ring + (s % stages) * stage_elems;
+      const __nv_bfloat16* A = Qs + kc * KC;
+      // the step's products sum apart and join the running sums with
+      // float32 adds, so the tensor cores never add into a large sum
+      float part[W::MI][W::NI][4];
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t a[W::MI][4];
+#pragma unroll
+        for (int mi = 0; mi < W::MI; ++mi)
+          ldmatrix_x4(a[mi], A + (mrow + mi * 16 + (lane & 15)) * L.ldq +
+                                 kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni) {
+          uint32_t b0, b1;
+          b_frag(R + (ncol + ni * 8 + lr) * LDR + kk + lc, b0, b1);
+#pragma unroll
+          for (int mi = 0; mi < W::MI; ++mi) mma_bf16(part[mi][ni], a[mi], b0, b1);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    }
+
+    if (direct) {
+      // Column c is alone in bucket c % folds within the tile and every
+      // tile puts that bucket in this thread, so the minima need no
+      // barrier; tiles go upward and `<` is strict, so ties keep the
+      // lowest column.
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mrow + mi * 16 + lr + h * 8;
+          if (r >= qrows) continue;
+#pragma unroll
+          for (int ni = 0; ni < W::NI; ++ni) {
+            const int c = c0 + ncol + ni * 8 + lc;  // even: c + 1 is bucket j + 1
+            const int j = c % folds;
+            const float d0 =
+                cm[ni][0] ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h] + cn[ni][0], 0.f)
+                          : MASKD;
+            const float d1 =
+                cm[ni][1] ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + 1] + cn[ni][1], 0.f)
+                          : MASKD;
+            float2* vp = reinterpret_cast<float2*>(bval + r * L.vp + j);
+            float2 cur = *vp;
+            if (d0 < cur.x || d1 < cur.y) {
+              const uint8_t pos = static_cast<uint8_t>(c / folds);
+              if (d0 < cur.x) {
+                cur.x = d0;
+                bloc[r * folds + j] = pos;
+              }
+              if (d1 < cur.y) {
+                cur.y = d1;
+                bloc[r * folds + j + 1] = pos;
+              }
+              *vp = cur;
+            }
+          }
+        }
+    } else {
+      // Several columns of the tile share a bucket: scores to the score
+      // tile, then one thread per (query, bucket present in the tile)
+      // walks the bucket's columns upward. The next tile's first barrier
+      // orders this fold before the tile is written again.
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int ni = 0; ni < W::NI; ++ni)
+            *reinterpret_cast<float2*>(
+                Ss + (mrow + mi * 16 + lr + h * 8) * LDS + ncol + ni * 8 + lc) =
+                make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      __syncthreads();
+      const int ni = folds < RT ? folds : RT;
+      for (int p = tid; p < qrows * ni; p += NTHREADS) {
+        const int r = p / ni, i = p % ni;
+        const float qs = qsq[r];
+        for (int cc = i; cc < RT; cc += folds) {
+          const size_t c = row0 + c0 + cc;
+          const float d =
+              mask[c] ? fmaxf(qs - 2.f * Ss[r * LDS + cc] + sqn[c], 0.f)
+                      : MASKD;
+          const int j = (c0 + cc) % folds;
+          if (d < bval[r * L.vp + j]) {
+            bval[r * L.vp + j] = d;
+            bloc[r * folds + j] = static_cast<uint8_t>((c0 + cc) / folds);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
+                 out_v, out_i, warp, lane);
+}
+
+// ------------------------------------------------------------- dispatch
+
+struct Plan {
+  int variant, qt, stages;
+  size_t smem;
+};
+
+// The variant and its tiling, from the shape alone: the ring with the
+// widest query tile and the deepest ring that fit, else the legacy kernel.
+Plan make_plan(bool bf16, int D, int block, int fold) {
+  const int folds = block / fold;
+  const int qts[] = {64, 32, 16}, sts[] = {4, 3};
+  for (int qt : qts)
+    for (int st : sts) {
+      const size_t b = ring_layout(qt, st, D, folds, bf16 ? 2 : 4).bytes;
+      if (b <= MAX_SMEM) return {RING, qt, st, b};
+    }
+  if (folds > 512) return {LEGACY, 16, 0, Layout<16, 128>::bytes(folds)};
+  return {LEGACY, 64, 0, Layout<64, 64>::bytes(folds)};
+}
+
+bool valid_args(int B, int N, int D, int k, int block, int fold) {
+  return !(B < 1 || D < 1 || k < 1 || k > 64 || fold < 1 || fold > 16 ||
+           block < 128 || block > 2048 || block % 128 != 0 ||
+           block % fold != 0 || block / fold < k || N < block ||
+           N % block != 0);
+}
+
+// Opens the kernel's shared-memory limit and sizes its grid: one CTA per
+// (corpus block, query tile), the query tiles of a block side by side.
+template <typename Kern>
+cudaError_t prepare(Kern kern, int qt, size_t smem, int B, int N, int block,
+                    dim3& grid) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  const long long grid = (long long)((B + QT - 1) / QT) * (N / block);
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kern<<<unsigned(grid), NTHREADS, smem, stream>>>(q, c, sqn, m, B, D, k,
-                                                  block, fold, ov, oi);
+  const long long g = (long long)((B + qt - 1) / qt) * (N / block);
+  if (g > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  grid = dim3(unsigned(g));
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC>
+cudaError_t run_legacy(const Plan& pl, const float* q, const T* c,
+                       const float* sqn, const uint8_t* m, int B, int N,
+                       int D, int k, int block, int fold, float* ov, int* oi,
+                       cudaStream_t s) {
+  dim3 grid;
+  if (pl.qt == 16) {
+    auto kern = legacy_kernel<T, 16, 128, VEC>;
+    cudaError_t e = prepare(kern, 16, pl.smem, B, N, block, grid);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, NTHREADS, pl.smem, s>>>(q, c, sqn, m, B, D, k, block, fold,
+                                        ov, oi);
+  } else {
+    auto kern = legacy_kernel<T, 64, 64, VEC>;
+    cudaError_t e = prepare(kern, 64, pl.smem, B, N, block, grid);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, NTHREADS, pl.smem, s>>>(q, c, sqn, m, B, D, k, block, fold,
+                                        ov, oi);
+  }
   return cudaGetLastError();
 }
 
+template <typename T, int QT, bool VEC>
+cudaError_t run_ring_qt(const Plan& pl, const float* q, const T* c,
+                        const float* sqn, const uint8_t* m, int B, int N,
+                        int D, int k, int block, int fold, float* ov, int* oi,
+                        cudaStream_t s) {
+  auto kern = ring_kernel<T, QT, VEC>;
+  dim3 grid;
+  cudaError_t e = prepare(kern, QT, pl.smem, B, N, block, grid);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, NTHREADS, pl.smem, s>>>(q, c, sqn, m, B, D, k, block, fold,
+                                      pl.stages, ov, oi);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t run_ring(const Plan& pl, const float* q, const T* c,
+                     const float* sqn, const uint8_t* m, int B, int N, int D,
+                     int k, int block, int fold, float* ov, int* oi,
+                     cudaStream_t s) {
+  if (pl.qt == 64)
+    return run_ring_qt<T, 64, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                   ov, oi, s);
+  if (pl.qt == 32)
+    return run_ring_qt<T, 32, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                   ov, oi, s);
+  return run_ring_qt<T, 16, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                 ov, oi, s);
+}
+
 template <typename T>
-cudaError_t dispatch(const float* q, const T* c, const float* sqn,
-                     const uint8_t* m, int B, int N, int D, int k, int block,
-                     int fold, float* ov, int* oi, cudaStream_t s, bool vec) {
-  const bool wide = block / fold > 512;
-  if (wide)
-    return vec ? launch<T, 16, 128, true>(q, c, sqn, m, B, N, D, k, block,
-                                          fold, ov, oi, s)
-               : launch<T, 16, 128, false>(q, c, sqn, m, B, N, D, k, block,
-                                           fold, ov, oi, s);
-  return vec ? launch<T, 64, 64, true>(q, c, sqn, m, B, N, D, k, block, fold,
-                                       ov, oi, s)
-             : launch<T, 64, 64, false>(q, c, sqn, m, B, N, D, k, block, fold,
-                                        ov, oi, s);
+cudaError_t dispatch(const Plan& pl, const float* q, const T* c,
+                     const float* sqn, const uint8_t* m, int B, int N, int D,
+                     int k, int block, int fold, float* ov, int* oi,
+                     cudaStream_t s) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
+  if (pl.variant == LEGACY) {
+    const bool vec = D % 4 == 0 && qa % 16 == 0 && ca % (bf16 ? 8 : 16) == 0;
+    return vec ? run_legacy<T, true>(pl, q, c, sqn, m, B, N, D, k, block,
+                                     fold, ov, oi, s)
+               : run_legacy<T, false>(pl, q, c, sqn, m, B, N, D, k, block,
+                                      fold, ov, oi, s);
+  }
+  // 16-byte copies need every corpus row on a 16-byte boundary
+  const bool vec = D % (bf16 ? 8 : 4) == 0 && ca % 16 == 0;
+  return vec ? run_ring<T, true>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                 ov, oi, s)
+             : run_ring<T, false>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                  ov, oi, s);
 }
 
 }  // namespace
@@ -357,14 +825,9 @@ int fused_flat_l2_topk(const void* queries, const void* corpus,
                        int corpus_bf16, const void* sqnorms, const void* mask,
                        int B, int N, int D, int k, int block, int fold,
                        void* out_vals, void* out_ids, void* stream) {
-  if (B < 1 || D < 1 || k < 1 || k > 64 || fold < 1 || fold > 16 ||
-      block < 128 || block > 2048 || block % 128 != 0 || block % fold != 0 ||
-      block / fold < k || N < block || N % block != 0)
+  if (!valid_args(B, N, D, k, block, fold))
     return int(cudaErrorInvalidValue);
-  const uintptr_t qa = reinterpret_cast<uintptr_t>(queries);
-  const uintptr_t ca = reinterpret_cast<uintptr_t>(corpus);
-  const bool vec = D % 4 == 0 && qa % 16 == 0 &&
-                   ca % (corpus_bf16 ? 8 : 16) == 0;
+  const Plan pl = make_plan(corpus_bf16 != 0, D, block, fold);
   const float* q = static_cast<const float*>(queries);
   const float* sq = static_cast<const float*>(sqnorms);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -373,11 +836,28 @@ int fused_flat_l2_topk(const void* queries, const void* corpus,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       corpus_bf16
-          ? dispatch(q, static_cast<const __nv_bfloat16*>(corpus), sq, m, B, N,
-                     D, k, block, fold, ov, oi, s, vec)
-          : dispatch(q, static_cast<const float*>(corpus), sq, m, B, N, D, k,
-                     block, fold, ov, oi, s, vec);
+          ? dispatch(pl, q, static_cast<const __nv_bfloat16*>(corpus), sq, m,
+                     B, N, D, k, block, fold, ov, oi, s)
+          : dispatch(pl, q, static_cast<const float*>(corpus), sq, m, B, N, D,
+                     k, block, fold, ov, oi, s);
   return int(e);
+}
+
+// The variant a call with these arguments launches (0 legacy, 1 ring), or
+// -1 for arguments outside the kernel's contract. When `plan` is not null
+// it receives {query tile rows, ring stages, cluster size, shared bytes}.
+int fused_flat_variant(const void* corpus, int corpus_bf16, int B, int N,
+                       int D, int k, int block, int fold, int* plan) {
+  (void)corpus;
+  if (!valid_args(B, N, D, k, block, fold)) return -1;
+  const Plan pl = make_plan(corpus_bf16 != 0, D, block, fold);
+  if (plan) {
+    plan[0] = pl.qt;
+    plan[1] = pl.stages;
+    plan[2] = 1;
+    plan[3] = int(pl.smem);
+  }
+  return pl.variant;
 }
 
 const char* fused_flat_error_string(int err) {

@@ -32,6 +32,10 @@ KERNEL = "fused_flat"
 # the k extract-min rounds are unrolled per query; the serving route only
 # sends k <= MAX_K here
 MAX_K = 64
+# the kernel's variants, by the code ``fused_flat_variant`` returns: the
+# resident-query ring design, and the first design kept for the shapes the
+# ring cannot hold (see the header of csrc/fused_flat.cu)
+VARIANTS = ("legacy", "ring")
 
 # corpus block rows, largest first; the ladder walks down for small or
 # oddly sized corpora
@@ -124,6 +128,19 @@ def block_topk_reference(queries, corpus, corpus_sqnorms, mask, k: int,
     return vals.contiguous(), ids.contiguous()
 
 
+def _check_shape(b: int, n: int, d: int, k: int, block: int, fold: int):
+    """The kernel's shape contract (its C side refuses the same)."""
+    if b < 1 or d < 1 or not 1 <= k <= MAX_K:
+        raise ValueError(f"B={b}, D={d}, k={k} outside the kernel's range "
+                         f"(B >= 1, D >= 1, 1 <= k <= {MAX_K})")
+    if block not in _BLOCK_LADDER or n < block or n % block:
+        raise ValueError(f"block {block} must be a ladder block dividing "
+                         f"the {n} corpus rows")
+    if not 1 <= fold <= 16 or block % fold or block // fold < k:
+        raise ValueError(f"fold {fold} must divide block {block} into at "
+                         f"least k={k} buckets, fold <= 16")
+
+
 def _check(queries, corpus, corpus_sqnorms, mask, k, block, fold):
     n, d = corpus.shape
     if queries.dtype != torch.float32 or queries.ndim != 2 \
@@ -143,9 +160,40 @@ def _check(queries, corpus, corpus_sqnorms, mask, k, block, fold):
             raise ValueError(f"{name} must be contiguous")
         if t.device != corpus.device:
             raise ValueError(f"{name} is on {t.device}, corpus on {corpus.device}")
-    if k > MAX_K or block // fold < k:
-        raise ValueError(f"k={k} outside the kernel's range (k <= {MAX_K}, "
-                         f"k <= block/fold = {block // fold})")
+    _check_shape(queries.shape[0], n, d, k, block, fold)
+
+
+def kernel_variant(queries, corpus, k: int, block: int,
+                   fold: int) -> tuple[str, dict]:
+    """The variant of the CUDA kernel that ``block_topk_cuda`` launches for
+    these arguments, and its plan: query tile rows, ring stages, cluster
+    size and shared-memory bytes. The kernel's C side chooses it from the
+    shape alone; arguments outside the contract raise ValueError."""
+    n, d = corpus.shape
+    _check_shape(queries.shape[0], n, d, k, block, fold)
+    if corpus.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"corpus must be float32 or bfloat16, got {corpus.dtype}")
+    plan = (ctypes.c_int * 4)()
+    code = _library().fused_flat_variant(
+        corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+        queries.shape[0], n, d, k, block, fold, plan)
+    if not 0 <= code < len(VARIANTS):
+        raise RuntimeError(f"fused_flat_variant refused the shape ({code})")
+    return VARIANTS[code], dict(zip(
+        ("query_tile", "stages", "cluster", "smem_bytes"), plan))
+
+
+def count_launch(variant: str) -> None:
+    """Counts one launch of ``variant``: the total and the per-variant
+    counts on ``fused_flat_topk``."""
+    fused_flat_topk.launches += 1
+    fused_flat_topk.launches_by_variant[variant] += 1
+
+
+def reset_launches() -> None:
+    """Sets every launch count to 0."""
+    fused_flat_topk.launches = 0
+    fused_flat_topk.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def block_topk_cuda(queries, corpus, corpus_sqnorms, mask, k: int,
@@ -158,6 +206,7 @@ def block_topk_cuda(queries, corpus, corpus_sqnorms, mask, k: int,
     n, d = corpus.shape
     b = queries.shape[0]
     lib = _library()
+    variant, _ = kernel_variant(queries, corpus, k, block, fold)
     vals = torch.empty((n // block, b, k), dtype=torch.float32,
                        device=corpus.device)
     ids = torch.empty((n // block, b, k), dtype=torch.int32,
@@ -173,7 +222,7 @@ def block_topk_cuda(queries, corpus, corpus_sqnorms, mask, k: int,
         raise RuntimeError(
             f"fused_flat_l2_topk launch failed: "
             f"{lib.fused_flat_error_string(err).decode()} (cudaError {err})")
-    fused_flat_topk.launches += 1
+    count_launch(variant)
     return vals, ids
 
 
@@ -188,6 +237,8 @@ def _library() -> ctypes.CDLL:
     lib.fused_flat_l2_topk.argtypes = [
         p, p, i, p, p, i, i, i, i, i, i, p, p, p]
     lib.fused_flat_l2_topk.restype = i
+    lib.fused_flat_variant.argtypes = [p, i, i, i, i, i, i, i, p]
+    lib.fused_flat_variant.restype = i
     lib.fused_flat_error_string.argtypes = [i]
     lib.fused_flat_error_string.restype = ctypes.c_char_p
     return lib
@@ -229,7 +280,8 @@ def fused_flat_topk(queries, corpus, corpus_sqnorms, mask, k: int,
     slots.
 
     CUDA tensors go to the kernel, CPU tensors to the plain version. The
-    ``launches`` attribute counts kernel launches.
+    ``launches`` attribute counts kernel launches, ``launches_by_variant``
+    the launches of each of ``VARIANTS``; ``reset_launches`` zeroes both.
     """
     block, fold = plan(corpus, k, chunk_size, live_rows)
     if corpus.device.type == "cuda":
@@ -243,4 +295,4 @@ def fused_flat_topk(queries, corpus, corpus_sqnorms, mask, k: int,
     return merge_blocks(vals, ids, block, k)
 
 
-fused_flat_topk.launches = 0
+reset_launches()
