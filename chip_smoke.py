@@ -48,7 +48,7 @@ MIN_ID_AGREEMENT = 0.999
 
 ROWS, DIMS, BATCH, K = 1_000_000, 768, 256, 10
 # the kernel variant the main path's shapes take
-MAIN_VARIANT = "ring"
+MAIN_VARIANT = "cluster"
 INGEST_BATCH = 65536
 
 
@@ -152,6 +152,7 @@ def phase_env() -> dict:
 GRID_B = (1, 7, 64, 65, 100, 200, 256)
 GRID_D = (64, 100, 768, 1024, 1536)
 LEGACY_D = 6144
+ODD_D = 99
 
 
 def check_case(gen, block, n, fold, k, b, d, masked_block, bf16_too):
@@ -188,7 +189,7 @@ def check_case(gen, block, n, fold, k, b, d, masked_block, bf16_too):
 
 def phase_kernels(seed: int) -> dict:
     """fused_flat kernel vs plain over blocks 128/2048, folds 1/2/16, k
-    1/10/64, B in GRID_B, D in GRID_D (and LEGACY_D), float32 and bf16
+    1/10/64, B in GRID_B, D in GRID_D (and LEGACY_D, ODD_D), float32 and bf16
     corpora, partial masks and masked blocks; every case of both variants
     must agree."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -201,6 +202,8 @@ def phase_kernels(seed: int) -> dict:
             for b in GRID_B for d in GRID_D]
     grid += [(128, 384, fold, 10, b, LEGACY_D)
              for fold in (1, 16) for b in (7, 65)]
+    # rows off 16-byte boundaries: the per-thread ring
+    grid += [(2048, 4096, 16, 10, b, ODD_D) for b in (65, 256)]
     for block, n, fold, k, b, d in grid:
         if block // fold < k:
             q = torch.zeros(b, d, device=dev)
@@ -217,13 +220,13 @@ def phase_kernels(seed: int) -> dict:
                 f"k={k} > {block}/{fold} buckets did not raise")
         for variant, e, s, t in check_case(
                 gen, block, n, fold, k, b, d, masked_block=bool(cases % 2),
-                bf16_too=fold == 16 and b in (7, 100)):
+                bf16_too=fold == 16 and b in (7, 100) or d == ODD_D):
             max_err = max(max_err, e)
             same += s
             total += t
             by_variant[variant] += 1
             cases += 1
-    if by_variant["legacy"] == 0 or by_variant["ring"] == 0:
+    if not all(by_variant.values()):
         raise AssertionError(f"a variant went untested: {by_variant}")
     # a fully masked corpus gives only sentinels
     corpus = torch.randn(2048, 64, generator=gen, device=dev)

@@ -61,6 +61,7 @@
 // rounds name the lowest bucket again at 1e30 and the wrapper maps those
 // slots to id -1.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -78,7 +79,7 @@ constexpr float MASKD = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t MAX_SMEM = 232448;  // shared memory a block may use on sm_90
 
-enum Variant { LEGACY = 0, RING = 1 };
+enum Variant { LEGACY = 0, RING = 1, CLUSTER = 2 };
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
@@ -354,61 +355,93 @@ legacy_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
 
 // ------------------------------------------------------------------ ring
 
-constexpr int RT = 64;         // corpus rows per tile
-constexpr int LDR = KC + 8;    // element pitch of a ring row
+constexpr int RT = 128;        // corpus rows per tile
+constexpr int KS = 32;         // dimensions per ring stage
+constexpr int LDR = KS + 8;    // element pitch of a per-thread ring row
 constexpr int LDS = RT + 4;    // float pitch of the score tile
+constexpr int BULK = -1;       // fill mode: cluster TMA copies (else the
+                               // bytes of a per-thread copy, 0 = plain)
+constexpr int MAX_CLUSTER = 8; // portable cluster size
 
 // Shared-memory layout of the ring kernel, the same on host and device:
-// the resident bf16 query tile, the ring, |q|^2, the bucket minima (pitch
-// folds + 8 so float2 accesses of 8 query rows hit distinct banks), their
-// positions in the bucket, and the score tile where the fold needs one.
+// the resident bf16 query tile, the ring (1024-byte aligned for the TMA
+// swizzle), |q|^2, the bucket minima, their positions in the bucket, the
+// score tile where the fold needs one, and the ring's full, empty and
+// consumed barriers.
 struct RingLayout {
   int ldq;        // bf16 pitch of the query tile
   int vp;         // float pitch of the bucket minima
   size_t stage;   // bytes of one ring stage
-  size_t ring_off, qsq_off, val_off, loc_off, s_off, bytes;
+  size_t ring_off, qsq_off, val_off, loc_off, s_off, bar_off, bytes;
 };
+
+__host__ __device__ constexpr size_t align1024(size_t x) {
+  return (x + 1023) & ~size_t(1023);
+}
 
 __host__ __device__ inline bool direct_fold(int folds) {
   return folds % RT == 0;
 }
 
 __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
-                                                  int folds, int esize) {
+                                                  int folds, int esize,
+                                                  bool bulk) {
   RingLayout L;
-  L.ldq = (D + KC - 1) / KC * KC + 8;
+  L.ldq = (D + KS - 1) / KS * KS + 8;
   L.vp = folds + 8;
-  L.stage = size_t(RT) * LDR * esize;
-  L.ring_off = align128(size_t(qt) * L.ldq * 2);
+  L.stage = size_t(RT) * (bulk ? KS : LDR) * esize;
+  L.ring_off = align1024(size_t(qt) * L.ldq * 2);
   L.qsq_off = L.ring_off + stages * L.stage;
   L.val_off = L.qsq_off + align128(size_t(qt) * 4);
   L.loc_off = L.val_off + align128(size_t(qt) * L.vp * 4);
   L.s_off = L.loc_off + align128(size_t(qt) * folds);
-  L.bytes = L.s_off + (direct_fold(folds) ? 0 : align128(size_t(qt) * LDS * 4));
+  L.bar_off =
+      L.s_off + (direct_fold(folds) ? 0 : align128(size_t(qt) * LDS * 4));
+  L.bytes = L.bar_off + stages * 3 * sizeof(uint64_t);
   return L;
 }
 
-// Warp tiling of a QT x RT product: WM x WN warps, each MI m16 tiles by NI
-// n8 tiles of mma.sync m16n8k16.
+// Warp tiling of a QT x RT product: each of the 8 warps takes all QT
+// queries by 16 rows, MI m16 tiles by NI n8 tiles of mma.sync m16n8k16, so
+// every row of a stage is read from shared memory by one warp only.
 template <int QT>
 struct Warps {
-  static constexpr int WM = QT >= 32 ? QT / 32 : 1;
-  static constexpr int WN = NWARPS / WM;
-  static constexpr int MI = QT / (16 * WM);
-  static constexpr int NI = RT / (8 * WN);
-  static_assert(MI >= 1 && NI >= 1 && WM * WN == NWARPS, "warp tiling");
+  static constexpr int MI = QT / 16;
+  static constexpr int NI = RT / (8 * NWARPS);
+  static_assert(MI >= 1 && NI >= 1, "warp tiling");
 };
+
+// Row of an 8-row group that B-fragment row n reads. A TMA stage is dense
+// with a 128-byte swizzle (16-byte chunk ^= row % 8), which sends rows n
+// and n + 1 to the same banks; reading rows 0,2,4,6 with lanes 0-15 and
+// 1,3,5,7 with lanes 16-31 keeps the float2 loads conflict-free. The
+// per-thread ring is padded instead and reads rows in order.
+template <bool SWZ>
+__device__ __forceinline__ int frag_row(int n) {
+  return SWZ ? (n & 3) * 2 + (n >> 2) : n;
+}
+
+// Element offset of (row, dim k) in a ring stage: padded rows, or the TMA
+// swizzle of a dense stage (128-byte rows of float32: chunk ^= row % 8;
+// 64-byte rows of bf16: chunk ^= (row / 2) % 4).
+template <typename T, bool SWZ>
+__device__ __forceinline__ int ring_index(int row, int k) {
+  if (!SWZ) return row * LDR + k;
+  if (sizeof(T) == 4) return row * KS + ((((k >> 2) ^ (row & 7)) << 2) | (k & 3));
+  return row * KS + (k ^ (((row >> 1) & 3) << 3));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy global -> shared; bytes past `src_bytes` are zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+// async copy of CB bytes global -> shared; bytes past `src_bytes` are zeroed
+template <int CB>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
                    smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
+               "l"(src), "n"(CB), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -417,6 +450,91 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Spins until the barrier's phase of the given parity has completed. A wait
+// that never ends (a broken ring protocol) traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 22)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// Arrives on the barrier at the same offset in CTA `cta` of the cluster.
+// Release at CTA scope only: what it orders is this CTA's reads of a ring
+// slot, whose values the products have already consumed, before a peer's
+// copy overwrites the slot; a cluster-scope fence here would cost more
+// than the products.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n"
+      " mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
+          "r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+// TMA copy of the box at (x, y) of `map` into this CTA, or into every CTA
+// of `mask`, each completing its bytes on the barrier at the same offset
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar,
+                                         uint16_t mask) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (mask == 1)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+        "l"(m), "r"(x), "r"(y), "r"(smem_u32(bar))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+            smem_u32(dst)),
+        "l"(m), "r"(x), "r"(y), "r"(smem_u32(bar)), "h"(mask)
+        : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_local(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -440,45 +558,73 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// B fragment of mma m16n8k16 from a ring row: dims k, k+1 and k+8, k+9 of
-// corpus row n (B[k][n] is the row's dim k), lower dim in the lower half.
-__device__ __forceinline__ void b_frag(const float* p, uint32_t& b0,
-                                       uint32_t& b1) {
+// B fragment of mma m16n8k16: dims k, k+1 (at p) and k+8, k+9 (at q) of one
+// corpus row (B[k][n] is the row's dim k), lower dim in the lower half.
+__device__ __forceinline__ void b_frag(const float* p, const float* q,
+                                       uint32_t& b0, uint32_t& b1) {
   const float2 x = *reinterpret_cast<const float2*>(p);
-  const float2 y = *reinterpret_cast<const float2*>(p + 8);
+  const float2 y = *reinterpret_cast<const float2*>(q);
   b0 = pack_bf16(x.x, x.y);
   b1 = pack_bf16(y.x, y.y);
 }
-__device__ __forceinline__ void b_frag(const __nv_bfloat16* p, uint32_t& b0,
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* p,
+                                       const __nv_bfloat16* q, uint32_t& b0,
                                        uint32_t& b1) {
   b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+  b1 = *reinterpret_cast<const uint32_t*>(q);
 }
 
-// Step p of a block's walk into one ring stage: row tile p / nk, dims
-// (p % nk) * KC on, dims past D zero. VEC: 16-byte cp.async copies (rows
-// 16-byte aligned); else plain loads and stores.
-template <typename T, bool VEC>
+// One stage's products into `part`: A from the resident query tile at the
+// stage's dims, B from this warp's rows ncol.. of the stage.
+template <typename T, int QT, bool SWZ>
+__device__ __forceinline__ void stage_mma(
+    float (&part)[Warps<QT>::MI][Warps<QT>::NI][4],
+    const __nv_bfloat16* A, int ldq, const T* R, int ncol, int lane) {
+  using W = Warps<QT>;
+  const int lc = (lane & 3) * 2;
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 16) {
+    uint32_t a[W::MI][4];
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+      ldmatrix_x4(a[mi], A + (mi * 16 + (lane & 15)) * ldq + kk +
+                             (lane >> 4) * 8);
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni) {
+      const int row = ncol + ni * 8 + frag_row<SWZ>(lane >> 2);
+      uint32_t b0, b1;
+      b_frag(R + ring_index<T, SWZ>(row, kk + lc),
+             R + ring_index<T, SWZ>(row, kk + lc + 8), b0, b1);
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi) mma_bf16(part[mi][ni], a[mi], b0, b1);
+    }
+  }
+}
+
+// Per-thread fill of ring stage p: row tile p / nk, dims (p % nk) * KS on,
+// dims past D zero. CB-byte cp.async copies (zero-filling), or plain loads
+// and stores for CB = 0.
+template <typename T, int CB>
 __device__ __forceinline__ void fill_stage(T* dst, const T* cblock, int D,
                                            int nk, int p, int tid) {
-  const int t = p / nk, k0 = (p - t * nk) * KC;
+  const int t = p / nk, k0 = (p - t * nk) * KS;
   const T* src = cblock + size_t(t) * RT * D;
-  if constexpr (VEC) {
-    constexpr int W = 16 / sizeof(T);  // elements per copy
-    constexpr int G = KC / W;          // copies per row
+  if constexpr (CB > 0) {
+    constexpr int W = CB / sizeof(T);  // elements per copy
+    constexpr int G = KS / W;          // copies per row
     constexpr int N = RT * G / NTHREADS;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int e = tid + i * NTHREADS, row = e / G, cu = (e % G) * W;
       const int col = k0 + cu;
       const int valid = min(max(D - col, 0), W);
-      cp_async16(dst + row * LDR + cu,
-                 src + size_t(row) * D + (valid > 0 ? col : 0),
-                 valid * int(sizeof(T)));
+      cp_async<CB>(dst + row * LDR + cu,
+                   src + size_t(row) * D + (valid > 0 ? col : 0),
+                   valid * int(sizeof(T)));
     }
   } else {
-    for (int e = tid; e < RT * KC; e += NTHREADS) {
-      const int row = e / KC, c = e % KC, col = k0 + c;
+    for (int e = tid; e < RT * KS; e += NTHREADS) {
+      const int row = e / KS, c = e % KS, col = k0 + c;
       T v;
       zero(v);
       if (col < D) v = src[size_t(row) * D + col];
@@ -487,22 +633,71 @@ __device__ __forceinline__ void fill_stage(T* dst, const T* cblock, int D,
   }
 }
 
-template <typename T, int QT, bool VEC>
-__global__ void __launch_bounds__(NTHREADS, 1)
-ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
+// The producer warp of a cluster CTA: fills every ring stage in turn with
+// this CTA's share (rows rank * RT/cs on), one TMA box multicast into every
+// CTA of the cluster (TMA zero-fills the dims past D). Before it refills a
+// slot, this CTA's consumer warps must be done with it; the producer then
+// releases the slot in every CTA of the cluster and waits until every CTA
+// has released it, since its copy lands in all of them.
+template <typename T>
+__device__ __forceinline__ void produce_all(T* ring, uint64_t* full,
+                                            uint64_t* empty,
+                                            uint64_t* consumed,
+                                            const CUtensorMap* map,
+                                            size_t row0, int nk, int steps,
+                                            int stages, int rank, int cs,
+                                            int lane) {
+  const int rows = RT / cs;
+  const uint16_t mask = uint16_t((1u << cs) - 1);
+  int slot = 0, phase = 0, t = 0, kc = 0;
+  for (int p = 0; p < steps; ++p) {
+    if (p >= stages) {  // the slot's previous round: phase ^ 1
+      mbar_wait(consumed + slot, phase ^ 1);
+      if (lane < cs) mbar_arrive_cluster(empty + slot, lane);
+      mbar_wait(empty + slot, phase ^ 1);
+    }
+    if (lane == 0) {
+      mbar_expect_tx(full + slot, RT * KS * int(sizeof(T)));
+      tma_load(ring + size_t(slot) * RT * KS + rank * rows * KS, map,
+               kc * KS, int(row0) + t * RT + rank * rows, full + slot, mask);
+    }
+    __syncwarp();
+    if (++kc == nk) kc = 0, ++t;
+    if (++slot == stages) slot = 0, phase ^= 1;
+  }
+}
+
+// The 256 consumer threads of a CTA (a producer warp, where there is one,
+// goes its own way)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NTHREADS) : "memory");
+}
+
+// One CTA per (corpus block, query tile). CB == BULK: the block's query
+// tiles form a cluster that shares every ring stage through TMA multicast
+// (needs rows on 16-byte boundaries), fed by a ninth, producer warp; else
+// the 8 warps fill their own ring with per-thread copies.
+template <typename T, int QT, int CB>
+__global__ void __launch_bounds__(NTHREADS + 32, 1)
+ring_kernel(const __grid_constant__ CUtensorMap map,
+            const float* __restrict__ q, const T* __restrict__ corpus,
             const float* __restrict__ sqn, const uint8_t* __restrict__ mask,
             int B, int D, int k, int block, int fold, int stages,
             float* __restrict__ out_v, int* __restrict__ out_i) {
   using W = Warps<QT>;
-  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool bulk = CB == BULK;
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int folds = block / fold;
-  const RingLayout L = ring_layout(QT, stages, D, folds, sizeof(T));
+  const RingLayout L = ring_layout(QT, stages, D, folds, sizeof(T), bulk);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   T* ring = reinterpret_cast<T*>(smem + L.ring_off);
   float* qsq = reinterpret_cast<float*>(smem + L.qsq_off);
   float* bval = reinterpret_cast<float*>(smem + L.val_off);
   uint8_t* bloc = smem + L.loc_off;
   float* Ss = reinterpret_cast<float*>(smem + L.s_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t* empty = full + stages;
+  uint64_t* consumed = empty + stages;
 
   const int ntiles = (B + QT - 1) / QT;
   const int tile = blockIdx.x % ntiles;
@@ -510,15 +705,39 @@ ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
   const int q0 = tile * QT, qrows = min(QT, B - q0);
   const size_t row0 = g * size_t(block);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nk = (D + KC - 1) / KC, steps = (block / RT) * nk;
+  const int nk = (D + KS - 1) / KS, steps = (block / RT) * nk;
   const T* cblock = corpus + row0 * D;
-  const int stage_elems = RT * LDR;
+  const int stage_elems = int(L.stage / sizeof(T));
 
-  // The ring's first S - 1 stages go out before anything else.
-  for (int p = 0; p < stages - 1; ++p) {
-    if (p < steps)
-      fill_stage<T, VEC>(ring + p * stage_elems, cblock, D, nk, p, tid);
-    cp_async_commit();
+  if constexpr (bulk) {
+    // The CTAs of one corpus block form the cluster; its barriers must
+    // exist before any peer copies into this CTA or arrives on them.
+    const int cs = int(cluster_size()), rank = int(cluster_rank());
+    if (smem_u32(ring) % 1024) __trap();  // the swizzle needs it
+    if (tid == 0) {
+      for (int i = 0; i < stages; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, cs);
+        mbar_init(consumed + i, NWARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    cluster_sync();
+    if (warp == NWARPS) {
+      produce_all(ring, full, empty, consumed, &map, row0, nk, steps, stages,
+                  rank, cs, lane);
+      // no CTA leaves while a peer may still copy into it or arrive on
+      // its barriers
+      cluster_sync();
+      return;
+    }
+  } else {
+    for (int p = 0; p < stages - 1; ++p) {
+      if (p < steps)
+        fill_stage<T, CB>(ring + p * stage_elems, cblock, D, nk, p, tid);
+      cp_async_commit();
+    }
   }
   // The query tile, once: bf16 into shared memory, |q|^2 in float32 from
   // the unrounded values, one warp a query; rows past B and dims past D
@@ -536,23 +755,49 @@ ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
   }
   for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
   for (int i = tid; i < QT * folds; i += NTHREADS) bloc[i] = 0;
-  __syncthreads();
+  consumer_sync();
 
-  // This thread's accumulators: rows mrow + mi*16 + lr (+8), columns
-  // ncol + ni*8 + lc (+1) of each row tile.
-  const int wm = warp / W::WN, wn = warp % W::WN;
-  const int mrow = wm * W::MI * 16, ncol = wn * W::NI * 8;
-  const int lr = lane >> 2, lc = (lane & 3) * 2;
+  // This thread's accumulators: rows mi*16 + lr (+8), and per n8 tile ni
+  // the two columns cols[ni][e] of each row tile.
+  const int ncol = warp * W::NI * 8;
+  const int lr = lane >> 2;
+  int cols[W::NI][2];
+#pragma unroll
+  for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      cols[ni][e] = ncol + ni * 8 + frag_row<bulk>((lane & 3) * 2 + e);
   float qv[W::MI][2];
 #pragma unroll
   for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mrow + mi * 16 + lr + h * 8];
+    for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mi * 16 + lr + h * 8];
   const bool direct = direct_fold(folds);
 
-  int s = 0;
-  for (int t = 0; t < block / RT; ++t) {
+  // this thread's norms and mask of a row tile, for the direct fold: the
+  // next tile's are loaded while this one's products run
+  float cn[W::NI][2], cn_next[W::NI][2];
+  bool cm[W::NI][2], cm_next[W::NI][2];
+  const int ntile = block / RT;
+  auto load_norms = [&](int t, float (&n)[W::NI][2], bool (&m)[W::NI][2]) {
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const size_t c = row0 + size_t(t) * RT + cols[ni][e];
+        n[ni][e] = direct && t < ntile ? __ldg(sqn + c) : 0.f;
+        m[ni][e] = direct && t < ntile && __ldg(mask + c) != 0;
+      }
+  };
+  load_norms(0, cn_next, cm_next);
+
+  int s = 0, slot = 0, phase = 0;
+  for (int t = 0; t < ntile; ++t) {
     const int c0 = t * RT;
+    // direct fold: column c0 + col lies in bucket c0 % folds + col, at
+    // position c0 / folds in it
+    const int jb = c0 % folds;
+    const uint8_t pos = static_cast<uint8_t>(c0 / folds);
     float acc[W::MI][W::NI][4];
 #pragma unroll
     for (int mi = 0; mi < W::MI; ++mi)
@@ -560,63 +805,60 @@ ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
       for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    // this tile's norms and mask for the direct fold, in flight now
-    float cn[W::NI][2];
-    bool cm[W::NI][2];
 #pragma unroll
     for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const size_t c = row0 + c0 + ncol + ni * 8 + lc + e;
-        cn[ni][e] = direct ? __ldg(sqn + c) : 0.f;
-        cm[ni][e] = direct && __ldg(mask + c) != 0;
+        cn[ni][e] = cn_next[ni][e];
+        cm[ni][e] = cm_next[ni][e];
       }
+    load_norms(t + 1, cn_next, cm_next);
 
+    // the products of each 64 dims sum apart and join the running sums
+    // with float32 adds, so the tensor cores never add into a large sum
+    float part[W::MI][W::NI][4];
     for (int kc = 0; kc < nk; ++kc, ++s) {
-      // stage s has landed once at most S - 2 newer groups are pending;
-      // the barrier also frees the slot step s - 1 read
-      if (stages == 4)
-        cp_async_wait<2>();
-      else
-        cp_async_wait<1>();
-      __syncthreads();
-      const int p = s + stages - 1;
-      if (p < steps)
-        fill_stage<T, VEC>(ring + (p % stages) * stage_elems, cblock, D, nk,
-                           p, tid);
-      cp_async_commit();
-      const T* R = ring + (s % stages) * stage_elems;
-      const __nv_bfloat16* A = Qs + kc * KC;
-      // the step's products sum apart and join the running sums with
-      // float32 adds, so the tensor cores never add into a large sum
-      float part[W::MI][W::NI][4];
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        uint32_t a[W::MI][4];
+      if (kc % 2 == 0) {
 #pragma unroll
         for (int mi = 0; mi < W::MI; ++mi)
-          ldmatrix_x4(a[mi], A + (mrow + mi * 16 + (lane & 15)) * L.ldq +
-                                 kk + (lane >> 4) * 8);
 #pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni) {
-          uint32_t b0, b1;
-          b_frag(R + (ncol + ni * 8 + lr) * LDR + kk + lc, b0, b1);
+          for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
-          for (int mi = 0; mi < W::MI; ++mi) mma_bf16(part[mi][ni], a[mi], b0, b1);
-        }
+            for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
       }
+      if constexpr (bulk) {
+        mbar_wait(full + slot, phase);
+      } else {
+        // stage s has landed once at most S - 2 newer groups are pending;
+        // the barrier also frees the slot step s - 1 read
+        if (stages == 4)
+          cp_async_wait<2>();
+        else
+          cp_async_wait<1>();
+        consumer_sync();
+        const int p = s + stages - 1;
+        if (p < steps)
+          fill_stage<T, CB>(ring + (p % stages) * stage_elems, cblock, D, nk,
+                            p, tid);
+        cp_async_commit();
+      }
+      stage_mma<T, QT, bulk>(part, Qs + kc * KS, L.ldq,
+                             ring + slot * stage_elems, ncol, lane);
+      if constexpr (bulk) {
+        // every lane's products have issued, so its reads of the slot are
+        // done: tell the producer
+        __syncwarp();
+        if (lane == 0) mbar_arrive_local(consumed + slot);
+      }
+      if (++slot == stages) slot = 0, phase ^= 1;
+      if (kc % 2 == 1 || kc == nk - 1) {
 #pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
+        for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni)
+          for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+      }
     }
 
     if (direct) {
@@ -628,49 +870,39 @@ ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
       for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = mrow + mi * 16 + lr + h * 8;
+          const int r = mi * 16 + lr + h * 8;
           if (r >= qrows) continue;
 #pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni) {
-            const int c = c0 + ncol + ni * 8 + lc;  // even: c + 1 is bucket j + 1
-            const int j = c % folds;
-            const float d0 =
-                cm[ni][0] ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h] + cn[ni][0], 0.f)
-                          : MASKD;
-            const float d1 =
-                cm[ni][1] ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + 1] + cn[ni][1], 0.f)
-                          : MASKD;
-            float2* vp = reinterpret_cast<float2*>(bval + r * L.vp + j);
-            float2 cur = *vp;
-            if (d0 < cur.x || d1 < cur.y) {
-              const uint8_t pos = static_cast<uint8_t>(c / folds);
-              if (d0 < cur.x) {
-                cur.x = d0;
+          for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = jb + cols[ni][e];
+              const float d =
+                  cm[ni][e]
+                      ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + e] + cn[ni][e], 0.f)
+                      : MASKD;
+              if (d < bval[r * L.vp + j]) {
+                bval[r * L.vp + j] = d;
                 bloc[r * folds + j] = pos;
               }
-              if (d1 < cur.y) {
-                cur.y = d1;
-                bloc[r * folds + j + 1] = pos;
-              }
-              *vp = cur;
             }
-          }
         }
     } else {
       // Several columns of the tile share a bucket: scores to the score
       // tile, then one thread per (query, bucket present in the tile)
-      // walks the bucket's columns upward. The next tile's first barrier
-      // orders this fold before the tile is written again.
+      // walks the bucket's columns upward. The barrier after the walk
+      // keeps the next tile from writing the score tile too early.
 #pragma unroll
       for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int ni = 0; ni < W::NI; ++ni)
-            *reinterpret_cast<float2*>(
-                Ss + (mrow + mi * 16 + lr + h * 8) * LDS + ncol + ni * 8 + lc) =
-                make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      __syncthreads();
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              Ss[(mi * 16 + lr + h * 8) * LDS + cols[ni][e]] =
+                  acc[mi][ni][2 * h + e];
+      consumer_sync();
       const int ni = folds < RT ? folds : RT;
       for (int p = tid; p < qrows * ni; p += NTHREADS) {
         const int r = p / ni, i = p % ni;
@@ -687,41 +919,101 @@ ring_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
           }
         }
       }
+      consumer_sync();
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  if constexpr (!bulk) cp_async_wait<0>();
+  consumer_sync();
 
   extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
                  out_v, out_i, warp, lane);
+  if constexpr (bulk) cluster_sync();
 }
 
 // ------------------------------------------------------------- dispatch
 
 struct Plan {
-  int variant, qt, stages;
+  int variant, qt, stages, cluster, cb;
   size_t smem;
 };
-
-// The variant and its tiling, from the shape alone: the ring with the
-// widest query tile and the deepest ring that fit, else the legacy kernel.
-Plan make_plan(bool bf16, int D, int block, int fold) {
-  const int folds = block / fold;
-  const int qts[] = {64, 32, 16}, sts[] = {4, 3};
-  for (int qt : qts)
-    for (int st : sts) {
-      const size_t b = ring_layout(qt, st, D, folds, bf16 ? 2 : 4).bytes;
-      if (b <= MAX_SMEM) return {RING, qt, st, b};
-    }
-  if (folds > 512) return {LEGACY, 16, 0, Layout<16, 128>::bytes(folds)};
-  return {LEGACY, 64, 0, Layout<64, 64>::bytes(folds)};
-}
 
 bool valid_args(int B, int N, int D, int k, int block, int fold) {
   return !(B < 1 || D < 1 || k < 1 || k > 64 || fold < 1 || fold > 16 ||
            block < 128 || block > 2048 || block % 128 != 0 ||
            block % fold != 0 || block / fold < k || N < block ||
            N % block != 0);
+}
+
+// The variant and its tiling, from the shape and the corpus alignment
+// alone. Rows on 16-byte boundaries take the cluster ring (TMA copies),
+// others the per-thread ring with the widest copy their alignment allows;
+// each with the widest query tile and the deepest ring that fit. The
+// cluster is the largest power of two up to 8 dividing the query tiles.
+// Shapes neither ring fits take the legacy kernel.
+Plan make_plan(bool bf16, int B, int D, int block, int fold,
+               uintptr_t corpus) {
+  const int folds = block / fold, esize = bf16 ? 2 : 4;
+  const size_t row_bytes = size_t(D) * esize;
+  const bool aligned = row_bytes % 16 == 0 && corpus % 16 == 0;
+  int cb = 0;
+  const int widths[] = {8, 4}, qts[] = {64, 32, 16};
+  for (int w : widths)
+    if (!cb && row_bytes % w == 0 && corpus % w == 0 && w >= esize) cb = w;
+  const int max_st = aligned ? 6 : 4;
+  for (int qt : qts)
+    for (int st = max_st; st >= 3; --st) {
+      const size_t b = ring_layout(qt, st, D, folds, esize, aligned).bytes;
+      if (b > MAX_SMEM) continue;
+      if (!aligned) return {RING, qt, st, 1, cb, b};
+      const int ntiles = (B + qt - 1) / qt;
+      int cs = MAX_CLUSTER;
+      while (ntiles % cs) cs /= 2;
+      return {CLUSTER, qt, st, cs, BULK, b};
+    }
+  if (folds > 512) return {LEGACY, 16, 0, 1, 0, Layout<16, 128>::bytes(folds)};
+  return {LEGACY, 64, 0, 1, 0, Layout<64, 64>::bytes(folds)};
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library needs
+// no link to the driver; null where the driver does not offer it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The corpus as a 2-D tensor [N, D] with boxes of KS dims by RT/cs rows, in
+// the swizzle ring_index reads: 128-byte rows of float32, 64-byte of bf16.
+template <typename T>
+cudaError_t corpus_map(CUtensorMap* map, const T* corpus, int N, int D,
+                       int cs) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return cudaErrorNotSupported;
+  constexpr bool bf16 = sizeof(T) == 2;
+  const cuuint64_t dims[2] = {cuuint64_t(D), cuuint64_t(N)};
+  const cuuint64_t strides[1] = {cuuint64_t(D) * sizeof(T)};
+  const cuuint32_t box[2] = {cuuint32_t(KS), cuuint32_t(RT / cs)};
+  const cuuint32_t estrides[2] = {1, 1};
+  const CUresult r = encode(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<T*>(corpus), dims, strides, box, estrides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Opens the kernel's shared-memory limit and sizes its grid: one CTA per
@@ -760,33 +1052,51 @@ cudaError_t run_legacy(const Plan& pl, const float* q, const T* c,
   return cudaGetLastError();
 }
 
-template <typename T, int QT, bool VEC>
+template <typename T, int QT, int CB>
 cudaError_t run_ring_qt(const Plan& pl, const float* q, const T* c,
                         const float* sqn, const uint8_t* m, int B, int N,
                         int D, int k, int block, int fold, float* ov, int* oi,
                         cudaStream_t s) {
-  auto kern = ring_kernel<T, QT, VEC>;
+  auto kern = ring_kernel<T, QT, CB>;
   dim3 grid;
   cudaError_t e = prepare(kern, QT, pl.smem, B, N, block, grid);
   if (e != cudaSuccess) return e;
-  kern<<<grid, NTHREADS, pl.smem, s>>>(q, c, sqn, m, B, D, k, block, fold,
-                                      pl.stages, ov, oi);
+  CUtensorMap map = {};
+  if (CB == BULK) {
+    e = corpus_map(&map, c, N, D, pl.cluster);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(CB == BULK ? NTHREADS + 32 : NTHREADS);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(pl.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CB == BULK ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, map, q, c, sqn, m, B, D, k, block, fold,
+                         pl.stages, ov, oi);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+template <typename T, int CB>
 cudaError_t run_ring(const Plan& pl, const float* q, const T* c,
                      const float* sqn, const uint8_t* m, int B, int N, int D,
                      int k, int block, int fold, float* ov, int* oi,
                      cudaStream_t s) {
   if (pl.qt == 64)
-    return run_ring_qt<T, 64, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                   ov, oi, s);
+    return run_ring_qt<T, 64, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                  ov, oi, s);
   if (pl.qt == 32)
-    return run_ring_qt<T, 32, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                   ov, oi, s);
-  return run_ring_qt<T, 16, VEC>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                 ov, oi, s);
+    return run_ring_qt<T, 32, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                  ov, oi, s);
+  return run_ring_qt<T, 16, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
+                                ov, oi, s);
 }
 
 template <typename T>
@@ -795,21 +1105,29 @@ cudaError_t dispatch(const Plan& pl, const float* q, const T* c,
                      int k, int block, int fold, float* ov, int* oi,
                      cudaStream_t s) {
   constexpr bool bf16 = sizeof(T) == 2;
-  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
-  const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
   if (pl.variant == LEGACY) {
+    const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+    const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
     const bool vec = D % 4 == 0 && qa % 16 == 0 && ca % (bf16 ? 8 : 16) == 0;
     return vec ? run_legacy<T, true>(pl, q, c, sqn, m, B, N, D, k, block,
                                      fold, ov, oi, s)
                : run_legacy<T, false>(pl, q, c, sqn, m, B, N, D, k, block,
                                       fold, ov, oi, s);
   }
-  // 16-byte copies need every corpus row on a 16-byte boundary
-  const bool vec = D % (bf16 ? 8 : 4) == 0 && ca % 16 == 0;
-  return vec ? run_ring<T, true>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                 ov, oi, s)
-             : run_ring<T, false>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                  ov, oi, s);
+  switch (pl.cb) {
+    case BULK:
+      return run_ring<T, BULK>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
+                               oi, s);
+    case 8:
+      return run_ring<T, 8>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
+                            oi, s);
+    case 4:
+      return run_ring<T, 4>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
+                            oi, s);
+    default:
+      return run_ring<T, 0>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
+                            oi, s);
+  }
 }
 
 }  // namespace
@@ -827,7 +1145,8 @@ int fused_flat_l2_topk(const void* queries, const void* corpus,
                        void* out_vals, void* out_ids, void* stream) {
   if (!valid_args(B, N, D, k, block, fold))
     return int(cudaErrorInvalidValue);
-  const Plan pl = make_plan(corpus_bf16 != 0, D, block, fold);
+  const Plan pl = make_plan(corpus_bf16 != 0, B, D, block, fold,
+                            reinterpret_cast<uintptr_t>(corpus));
   const float* q = static_cast<const float*>(queries);
   const float* sq = static_cast<const float*>(sqnorms);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -843,18 +1162,19 @@ int fused_flat_l2_topk(const void* queries, const void* corpus,
   return int(e);
 }
 
-// The variant a call with these arguments launches (0 legacy, 1 ring), or
-// -1 for arguments outside the kernel's contract. When `plan` is not null
-// it receives {query tile rows, ring stages, cluster size, shared bytes}.
+// The variant a call with these arguments launches (0 legacy, 1 ring,
+// 2 cluster), or -1 for arguments outside the kernel's contract. When
+// `plan` is not null it receives {query tile rows, ring stages, cluster
+// size, shared-memory bytes}.
 int fused_flat_variant(const void* corpus, int corpus_bf16, int B, int N,
                        int D, int k, int block, int fold, int* plan) {
-  (void)corpus;
   if (!valid_args(B, N, D, k, block, fold)) return -1;
-  const Plan pl = make_plan(corpus_bf16 != 0, D, block, fold);
+  const Plan pl = make_plan(corpus_bf16 != 0, B, D, block, fold,
+                            reinterpret_cast<uintptr_t>(corpus));
   if (plan) {
     plan[0] = pl.qt;
     plan[1] = pl.stages;
-    plan[2] = 1;
+    plan[2] = pl.cluster;
     plan[3] = int(pl.smem);
   }
   return pl.variant;
