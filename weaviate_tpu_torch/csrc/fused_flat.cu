@@ -383,6 +383,12 @@ __host__ __device__ inline bool direct_fold(int folds) {
   return folds % RT == 0;
 }
 
+// One bucket a column of the row tile: each thread keeps its buckets'
+// minima in registers and writes them to shared memory once, at the end.
+__host__ __device__ inline bool register_fold(int folds) {
+  return folds == RT;
+}
+
 __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
                                                   int folds, int esize,
                                                   bool bulk) {
@@ -391,10 +397,13 @@ __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
   L.vp = folds + 8;
   L.stage = size_t(RT) * (bulk ? KS : LDR) * esize;
   L.ring_off = align1024(size_t(qt) * L.ldq * 2);
-  L.qsq_off = L.ring_off + stages * L.stage;
-  L.val_off = L.qsq_off + align128(size_t(qt) * 4);
+  const size_t ring_end = L.ring_off + stages * L.stage;
+  // bucket state after the ring, or over it once the ring is drained
+  L.val_off = register_fold(folds) ? L.ring_off : ring_end;
   L.loc_off = L.val_off + align128(size_t(qt) * L.vp * 4);
-  L.s_off = L.loc_off + align128(size_t(qt) * folds);
+  const size_t buckets_end = L.loc_off + align128(size_t(qt) * folds);
+  L.qsq_off = buckets_end > ring_end ? buckets_end : ring_end;
+  L.s_off = L.qsq_off + align128(size_t(qt) * 4);
   L.bar_off =
       L.s_off + (direct_fold(folds) ? 0 : align128(size_t(qt) * LDS * 4));
   L.bytes = L.bar_off + stages * 3 * sizeof(uint64_t);
@@ -753,8 +762,10 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
     if (lane == 0) qsq[r] = s;
   }
-  for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
-  for (int i = tid; i < QT * folds; i += NTHREADS) bloc[i] = 0;
+  if (!register_fold(folds)) {
+    for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
+    for (int i = tid; i < QT * folds; i += NTHREADS) bloc[i] = 0;
+  }
   consumer_sync();
 
   // This thread's accumulators: rows mi*16 + lr (+8), and per n8 tile ni
@@ -772,7 +783,20 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mi * 16 + lr + h * 8];
-  const bool direct = direct_fold(folds);
+  const bool direct = direct_fold(folds), regs = register_fold(folds);
+  // the register fold's minima and positions (byte ni*2+e of rpos)
+  float rval[W::MI][2][W::NI][2];
+  uint32_t rpos[W::MI][2];
+#pragma unroll
+  for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rpos[mi][h] = 0;
+#pragma unroll
+      for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) rval[mi][h][ni][e] = INFINITY;
+    }
 
   // this thread's norms and mask of a row tile, for the direct fold: the
   // next tile's are loaded while this one's products run
@@ -814,18 +838,17 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
       }
     load_norms(t + 1, cn_next, cm_next);
 
-    // the products of each 64 dims sum apart and join the running sums
-    // with float32 adds, so the tensor cores never add into a large sum
-    float part[W::MI][W::NI][4];
-    for (int kc = 0; kc < nk; ++kc, ++s) {
-      if (kc % 2 == 0) {
+    // Each stage's products sum apart and join the running sums with
+    // float32 adds, so the tensor cores never add into a large sum; a
+    // stage's sums join one stage late, once its products have finished
+    // behind the next stage's.
+    auto step = [&](int kc, float (&part)[W::MI][W::NI][4]) {
 #pragma unroll
-        for (int mi = 0; mi < W::MI; ++mi)
+      for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni)
+        for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
-      }
+          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
       if constexpr (bulk) {
         mbar_wait(full + slot, phase);
       } else {
@@ -851,17 +874,46 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
         if (lane == 0) mbar_arrive_local(consumed + slot);
       }
       if (++slot == stages) slot = 0, phase ^= 1;
-      if (kc % 2 == 1 || kc == nk - 1) {
+      ++s;
+    };
+    auto join = [&](const float (&part)[W::MI][W::NI][4]) {
 #pragma unroll
-        for (int mi = 0; mi < W::MI; ++mi)
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    };
+    float p0[W::MI][W::NI][4], p1[W::MI][W::NI][4];
+    for (int kc = 0; kc < nk; kc += 2) {
+      step(kc, p0);
+      if (kc > 0) join(p1);
+      if (kc + 1 < nk) step(kc + 1, p1);
+      join(p0);
+    }
+    if (nk % 2 == 0) join(p1);
+
+    if (regs) {
+      // as below, with the minima in registers
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
-      }
-    }
-
-    if (direct) {
+            for (int e = 0; e < 2; ++e) {
+              const float d =
+                  cm[ni][e]
+                      ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + e] + cn[ni][e], 0.f)
+                      : MASKD;
+              if (d < rval[mi][h][ni][e]) {
+                const int sh = (ni * 2 + e) * 8;
+                rval[mi][h][ni][e] = d;
+                rpos[mi][h] = (rpos[mi][h] & ~(0xffu << sh)) | (uint32_t(pos) << sh);
+              }
+            }
+    } else if (direct) {
       // Column c is alone in bucket c % folds within the tile and every
       // tile puts that bucket in this thread, so the minima need no
       // barrier; tiles go upward and `<` is strict, so ties keep the
@@ -924,6 +976,21 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   }
   if constexpr (!bulk) cp_async_wait<0>();
   consumer_sync();
+  if (regs) {  // the ring is drained: the minima go over it
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = mi * 16 + lr + h * 8, j = cols[ni][e];
+            bval[r * L.vp + j] = rval[mi][h][ni][e];
+            bloc[r * folds + j] = uint8_t(rpos[mi][h] >> ((ni * 2 + e) * 8));
+          }
+    consumer_sync();
+  }
 
   extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
                  out_v, out_i, warp, lane);
@@ -959,7 +1026,7 @@ Plan make_plan(bool bf16, int B, int D, int block, int fold,
   const int widths[] = {8, 4}, qts[] = {64, 32, 16};
   for (int w : widths)
     if (!cb && row_bytes % w == 0 && corpus % w == 0 && w >= esize) cb = w;
-  const int max_st = aligned ? 6 : 4;
+  const int max_st = aligned ? 8 : 4;
   for (int qt : qts)
     for (int st = max_st; st >= 3; --st) {
       const size_t b = ring_layout(qt, st, D, folds, esize, aligned).bytes;
