@@ -16,44 +16,65 @@
 // D = 768 float32, B = 256, k = 10) the corpus read is 3.2 GB, about 0.96 ms
 // at 3.35 TB/s, while the product is 412 GFLOP, about 0.42 ms at the bf16
 // tensor-core peak, so the bound is the corpus bytes. The score matrix
-// [B, N] never reaches device memory. What held the first design far above
-// that bound was traffic from L2 into the SMs and load latency: it restaged
-// the query chunk at every step (12.9 GB a batch) and read each corpus
-// block once per 64-query tile (12.9 GB), each load waiting on the last.
+// [B, N] never reaches device memory. The first design (the legacy variant
+// below) was held far above that bound by traffic from L2 into the SMs and
+// by load latency: it restaged the query chunk at every step (12.9 GB a
+// batch) and read each corpus block once per 64-query tile (12.9 GB), each
+// load waiting on the last. This design is held by shared-memory bandwidth
+// instead: mma.sync takes its operands from registers, so every product
+// reads its fragments out of shared memory (48 KB per 64x128x32 step, plus
+// the 16 KB the corpus copy writes).
 //
-// The ring design (variant 1): one CTA per (corpus block, tile of QT
-// queries), the query tiles of one block side by side in the grid.
+// The cluster ring (variant 2): one CTA per (corpus block, tile of QT
+// queries); the query tiles of one block run side by side as a thread-block
+// cluster of up to MAX_CLUSTER CTAs.
 //  - The query tile is resident: loaded once at CTA start, rounded to bf16
-//    into shared memory with a pitch of D + 8 (rounded up to 64) so the
-//    ldmatrix fragment loads have no bank conflicts, |q|^2 summed in the same
-//    pass. The queries now cross from L2 once per CTA (0.4 GB a batch).
-//  - The corpus streams through a ring of S = 3 or 4 stages of RT x KC
-//    (64 x 64) elements, filled with 16-byte cp.async copies that zero-fill
-//    the dims past D; S - 1 stages are in flight at every step, the fold of a
-//    finished row tile included, and one barrier a step frees the slot the
-//    previous step read. Rows of a stage have a pitch of KC + 8 elements so
-//    the float2 fragment loads have no bank conflicts.
-//  - The products are raw mma.sync m16n8k16 (bf16 in, float32 sums): A from
-//    the resident tile by ldmatrix, B straight from the ring, rounded to
-//    bf16 as it goes into the fragment (a bf16 corpus is used as it is).
-//  - When the bucket count is a multiple of RT (fold 16 at C = 2048: 128
-//    buckets) every column of a row tile lies in its own bucket and always
-//    in the same thread, so each thread folds its accumulators straight into
-//    the bucket minima, with no score tile and no barrier. Other bucket
-//    counts go through a score tile in shared memory and the old per-bucket
-//    walk.
-// QT is 64, falling to 32 and 16, and S is 4, falling to 3, until the tile,
-// the ring and the bucket state fit in the 232,448 bytes a block may use;
-// that holds D up to 1536 at 128 buckets. A corpus row tile still crosses
-// from L2 once per query tile.
+//    into shared memory with a pitch of D + 8 (D rounded up to 32) so the
+//    ldmatrix fragment loads have no bank conflicts, |q|^2 summed in float32
+//    in the same pass. Queries cross from L2 once per CTA (0.4 GB a batch).
+//  - The corpus streams through a ring of S stages (3 to 8, as many as fit)
+//    of RT x KS = 128 rows x 32 dims. A ninth, producer warp fills each
+//    stage with one 2-D TMA copy of its CTA's share of the rows, multicast
+//    into every CTA of the cluster, so each corpus block leaves L2 once per
+//    cluster; TMA zero-fills the dims past D. Per stage and CTA a full
+//    barrier counts the bytes, a consumed barrier the 8 consumer warps done
+//    with it, and an empty barrier the cluster's CTAs done with it: the
+//    producer refills a slot only once every CTA of the cluster has
+//    released it. Cluster syncs follow the barriers' set-up and precede the
+//    exit, so no CTA leaves while a peer may still copy into it. Every CTA
+//    runs every stage, a ragged or empty query tile included.
+//  - The products are raw mma.sync m16n8k16 (bf16 in, float32 sums): each
+//    consumer warp takes all QT queries by 16 rows of the stage, A from the
+//    resident tile by ldmatrix, B straight from the stage in TMA's 128-byte
+//    swizzle (float2 loads, rounded to bf16 into the fragment; a bf16
+//    corpus is used as it is), reading the rows of an 8-row group in the
+//    order 0,2,4,6,1,3,5,7 so the loads have no bank conflicts. Each
+//    stage's products sum apart and join the running float32 sums with
+//    plain adds, so the tensor cores never add into a large sum (a single
+//    chain over D = 1536 drifted past the tolerance).
+//  - The fold: at 128 buckets (fold 16 at C = 2048) each column of a row
+//    tile is its own bucket, always in the same thread, so each thread
+//    keeps its buckets' minima in registers and writes them out once at the
+//    end, over the drained ring. With a multiple of 128 buckets each thread
+//    folds straight into the minima in shared memory; with fewer, the
+//    scores go through a score tile and a per-bucket walk.
 //
-// The legacy design (variant 0), kept for shapes the ring cannot hold (a D
-// too wide for the resident tile at QT = 16, or a bucket state too large
-// beside it): it stages a query chunk and a row chunk per 64-dimension step
-// through registers into two shared buffers, WMMA products, a score tile and
-// the per-bucket fold; blocks with more than 512 buckets take QT = 16,
-// RT = 128. The variant is chosen by shape before the launch
-// (`fused_flat_variant` says which).
+// The per-thread ring (variant 1), for corpus rows off 16-byte boundaries
+// (a bf16 corpus with D % 8 != 0, a float32 one with D % 4 != 0): the same
+// CTA without cluster or producer warp; the 8 warps fill the ring with 8-
+// or 4-byte cp.async copies (plain loads for odd bf16 rows), padded rows,
+// one barrier a step.
+//
+// QT is 64, falling to 32 and 16, until the tile, a ring of 3 stages and
+// the bucket state fit in the 232,448 bytes a block may use; that holds D
+// up to 1536 at 128 buckets. The legacy design (variant 0) is kept for
+// shapes neither ring can hold (a D too wide for the resident tile at
+// QT = 16, or a bucket state too large beside it): it stages a query chunk
+// and a row chunk per 64-dimension step through registers into two shared
+// buffers, WMMA products, a score tile and the per-bucket fold; blocks
+// with more than 512 buckets take QT = 16, RT = 128. The variant is chosen
+// from the shape and the corpus alignment before the launch
+// (`fused_flat_variant` says which) and never after a failure.
 //
 // Tie rules match the JAX kernel exactly: within a bucket a strict `<` while
 // walking rows upward keeps the lowest column; across buckets the shuffle
@@ -87,7 +108,9 @@ __host__ __device__ constexpr size_t align128(size_t x) {
 
 // k rounds of extract-min over the bucket minima of each live query row,
 // one warp a query. Row r's minima are at bval + r * vpitch, its positions
-// in the bucket at bloc + r * folds.
+// in the bucket at bloc + r * folds. Minima are >= 0 (or -0), so their bits
+// with the sign cleared order like the values: a round is two warp-wide
+// integer minimums, the value's and then the lowest bucket holding it.
 __device__ void extract_rounds(float* bval, int vpitch,
                                const uint8_t* bloc, int folds, int qrows,
                                int k, size_t obase0, float* out_v,
@@ -97,29 +120,71 @@ __device__ void extract_rounds(float* bval, int vpitch,
     const uint8_t* lc = bloc + size_t(r) * folds;
     const size_t obase = obase0 + size_t(r) * k;
     for (int round = 0; round < k; ++round) {
-      float bv = INFINITY;
-      int bj = 0x7fffffff;
+      uint32_t best = 0xffffffffu, bj = 0xffffffffu;
       for (int j = lane; j < folds; j += 32) {
-        const float x = v[j];
-        if (x < bv) {
-          bv = x;
-          bj = j;
+        const uint32_t key = __float_as_uint(v[j]) & 0x7fffffffu;
+        if (key < best) {
+          best = key;
+          bj = uint32_t(j);
         }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, bv, o);
-        const int oj = __shfl_xor_sync(FULL, bj, o);
-        if (ov < bv || (ov == bv && oj < bj)) {
-          bv = ov;
-          bj = oj;
-        }
-      }
+      const uint32_t m = __reduce_min_sync(FULL, best);
+      const uint32_t jm = __reduce_min_sync(FULL, best == m ? bj : 0xffffffffu);
       if (lane == 0) {
-        out_v[obase + round] = bv;
-        out_i[obase + round] = int(lc[bj]) * folds + bj;
-        v[bj] = MASKD;
+        out_v[obase + round] = __uint_as_float(m);
+        out_i[obase + round] = int(lc[jm]) * folds + int(jm);
+        v[jm] = MASKD;
       }
       __syncwarp();
+    }
+  }
+}
+
+// The same rounds for up to 128 buckets, with each lane's 4 minima (of
+// buckets lane, lane + 32, ...) in registers and the RPW query rows of a
+// warp (warp, warp + 8, ...) interleaved, so the rounds of different rows
+// overlap.
+template <int RPW>
+__device__ void extract_rounds_regs(const float* bval, int vpitch,
+                                    const uint8_t* bloc, int folds,
+                                    int qrows, int k, size_t obase0,
+                                    float* out_v, int* out_i, int warp,
+                                    int lane) {
+  constexpr uint32_t NONE = 0xffffffffu;
+  const uint32_t retired = __float_as_uint(MASKD);
+  uint32_t key[RPW][4];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = warp + i * NWARPS, j = lane + 32 * u;
+      key[i][u] = r < qrows && j < folds
+                      ? __float_as_uint(bval[r * vpitch + j]) & 0x7fffffffu
+                      : NONE;
+    }
+  for (int round = 0; round < k; ++round) {
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + i * NWARPS;
+      uint32_t best = NONE, bj = NONE;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (key[i][u] < best) {
+          best = key[i][u];
+          bj = uint32_t(lane + 32 * u);
+        }
+      const uint32_t m = __reduce_min_sync(FULL, best);
+      const uint32_t jm = __reduce_min_sync(FULL, best == m ? bj : NONE);
+      if (r < qrows) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (uint32_t(lane + 32 * u) == jm) key[i][u] = retired;
+        if (lane == 0) {
+          const size_t o = obase0 + size_t(r) * k + round;
+          out_v[o] = __uint_as_float(m);
+          out_i[o] = int(bloc[r * folds + jm]) * folds + int(jm);
+        }
+      }
     }
   }
 }
@@ -361,7 +426,11 @@ constexpr int LDR = KS + 8;    // element pitch of a per-thread ring row
 constexpr int LDS = RT + 4;    // float pitch of the score tile
 constexpr int BULK = -1;       // fill mode: cluster TMA copies (else the
                                // bytes of a per-thread copy, 0 = plain)
-constexpr int MAX_CLUSTER = 8; // portable cluster size
+// Largest cluster. Up to 8 is portable, but on an H100 at the main path's
+// shapes clusters of 4 ran 0.4-0.5 ms slower than clusters of 2, which ran
+// level with no sharing at all (probe_fused_flat.py): 2 halves the L2 reads
+// and costs nothing.
+constexpr int MAX_CLUSTER = 2;
 
 // Shared-memory layout of the ring kernel, the same on host and device:
 // the resident bf16 query tile, the ring (1024-byte aligned for the TMA
@@ -749,18 +818,49 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
     }
   }
   // The query tile, once: bf16 into shared memory, |q|^2 in float32 from
-  // the unrounded values, one warp a query; rows past B and dims past D
-  // are zero.
-  for (int r = warp; r < QT; r += NWARPS) {
-    const float* src = q + size_t(q0 + r) * D;
-    float s = 0.f;
-    for (int d = lane; d < L.ldq - 8; d += 32) {
-      const float x = (r < qrows && d < D) ? src[d] : 0.f;
-      s = fmaf(x, x, s);
-      Qs[r * L.ldq + d] = __float2bfloat16_rn(x);
+  // the unrounded values; rows past B and dims past D are zero. Each warp
+  // takes QT/8 rows and keeps a load of each in flight together.
+  {
+    constexpr int RPW = QT / NWARPS;
+    const int dp = L.ldq - 8;
+    const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    float sq[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) sq[i] = 0.f;
+    for (int d = vec4 ? lane * 4 : lane; d < dp; d += vec4 ? 128 : 32) {
+      float4 x[RPW];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const int r = warp + i * NWARPS;
+        const float* src = q + size_t(q0 + r) * D + d;
+        x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < qrows && d < D) {
+          if (vec4)
+            x[i] = *reinterpret_cast<const float4*>(src);
+          else
+            x[i].x = *src;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        __nv_bfloat16* dst = Qs + (warp + i * NWARPS) * L.ldq + d;
+        sq[i] = fmaf(x[i].x, x[i].x, sq[i]);
+        if (vec4) {
+          sq[i] = fmaf(x[i].y, x[i].y, sq[i]);
+          sq[i] = fmaf(x[i].z, x[i].z, sq[i]);
+          sq[i] = fmaf(x[i].w, x[i].w, sq[i]);
+          put(dst, x[i]);
+        } else {
+          *dst = __float2bfloat16_rn(x[i].x);
+        }
+      }
     }
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-    if (lane == 0) qsq[r] = s;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      float t = sq[i];
+      for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(FULL, t, o);
+      if (lane == 0) qsq[warp + i * NWARPS] = t;
+    }
   }
   if (!register_fold(folds)) {
     for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
@@ -992,8 +1092,13 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
     consumer_sync();
   }
 
-  extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
-                 out_v, out_i, warp, lane);
+  if (folds <= 128)
+    extract_rounds_regs<QT / NWARPS>(bval, L.vp, bloc, folds, qrows, k,
+                                     (g * B + q0) * size_t(k), out_v, out_i,
+                                     warp, lane);
+  else
+    extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
+                   out_v, out_i, warp, lane);
   if constexpr (bulk) cluster_sync();
 }
 

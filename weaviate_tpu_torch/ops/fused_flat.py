@@ -228,13 +228,9 @@ def block_topk_cuda(queries, corpus, corpus_sqnorms, mask, k: int,
     return vals, ids
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared (pointers and
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a built kernel library (pointers and
     the stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
-    from weaviate_tpu_torch import _build
-
-    lib = _build.load(KERNEL)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_flat_l2_topk.argtypes = [
         p, p, i, p, p, i, i, i, i, i, i, p, p, p]
@@ -244,6 +240,15 @@ def _library() -> ctypes.CDLL:
     lib.fused_flat_error_string.argtypes = [i]
     lib.fused_flat_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built on first use, with its C signatures
+    declared."""
+    from weaviate_tpu_torch import _build
+
+    return declare(_build.load(KERNEL))
 
 
 def merge_blocks(vals: torch.Tensor, ids: torch.Tensor, block: int, k: int):
