@@ -202,7 +202,7 @@ def phase_kernels(seed: int) -> dict:
             for b in GRID_B for d in GRID_D]
     grid += [(128, 384, fold, 10, b, LEGACY_D)
              for fold in (1, 16) for b in (7, 65)]
-    # rows off 16-byte boundaries: the per-thread ring
+    # rows off 16-byte boundaries: the legacy kernel
     grid += [(2048, 4096, 16, 10, b, ODD_D) for b in (65, 256)]
     for block, n, fold, k, b, d in grid:
         if block // fold < k:

@@ -39,19 +39,19 @@ N, D, B, K, BLOCK, FOLD = 1 << 20, 768, 256, 10, 2048, 16
 
 # (old, new) replacements of each copy; the names say what changes
 PLANS = "      int cs = MAX_CLUSTER;"
-STAGES = "    for (int st = max_st; st >= 3; --st) {"
+STAGES = "    for (int st = 8; st >= 3 && aligned && ring_folds(folds); --st) {"
 EDITS = {
     "as_is": [],
     "cluster_1": [(PLANS, "      int cs = 1;")],
     "cluster_4": [(PLANS, "      int cs = 4;")],
-    "stages_4": [(STAGES, "    for (int st = 4; st >= 3; --st) {")],
+    "stages_4": [(STAGES, "    for (int st = 4; st >= 3 && aligned && ring_folds(folds); --st) {")],
     "no_copies": [(
         "      mbar_expect_tx(full + slot, RT * KS * int(sizeof(T)));\n"
         "      tma_load(",
         "      mbar_expect_tx(full + slot, 0);\n      if (0) tma_load(")],
     "no_products": [(
-        "      stage_mma<T, QT, bulk>(part, Qs + kc * KS, L.ldq,\n",
-        "      if (0) stage_mma<T, QT, bulk>(part, Qs + kc * KS, L.ldq,\n")],
+        "      stage_mma<T, QT>(part, Qs + kc * KS, L.ldq,",
+        "      if (0) stage_mma<T, QT>(part, Qs + kc * KS, L.ldq,")],
     "no_fold": [
         ("rval[mi][h][ni][e] = INFINITY;", "rval[mi][h][ni][e] = 0.f;"),
         ("    if (regs) {\n      // as below",
@@ -62,9 +62,9 @@ EDITS = {
 # loop, [5] set-up, [6] extraction (summed over warps)
 COUNTERS = [
     ("namespace {\n", "__device__ unsigned long long g_probe[8];\nnamespace {\n"),
-    ("  using W = Warps<QT>;\n  constexpr bool bulk = CB == BULK;\n",
-     "  using W = Warps<QT>;\n  constexpr bool bulk = CB == BULK;\n"
-     "  const long long tk0 = clock64();\n"),
+    ("  using W = Warps<QT>;\n  extern __shared__",
+     "  using W = Warps<QT>;\n  const long long tk0 = clock64();\n"
+     "  extern __shared__"),
     ("  int slot = 0, phase = 0, t = 0, kc = 0;\n",
      "  int slot = 0, phase = 0, t = 0, kc = 0;\n"
      "  long long tc = 0, te = 0, t0 = clock64();\n"),
@@ -81,19 +81,19 @@ COUNTERS = [
     ("  consumer_sync();\n\n  // This thread's accumulators",
      "  consumer_sync();\n  if (lane == 0) atomicAdd(&g_probe[5], clock64() - tk0);\n"
      "  long long tw = 0, tl = clock64();\n\n  // This thread's accumulators"),
-    ("        mbar_wait(full + slot, phase);\n",
-     "        long long w = clock64(); mbar_wait(full + slot, phase);"
+    ("      mbar_wait(full + slot, phase);\n",
+     "      long long w = clock64(); mbar_wait(full + slot, phase);"
      " tw += clock64() - w;\n"),
-    ("  if constexpr (!bulk) cp_async_wait<0>();\n  consumer_sync();\n",
-     "  if constexpr (!bulk) cp_async_wait<0>();\n"
-     "  if (lane == 0) { atomicAdd(&g_probe[0], tw);"
-     " atomicAdd(&g_probe[1], clock64() - tl); }\n  consumer_sync();\n"),
+    ("    }\n  }\n  consumer_sync();\n  if (regs) {",
+     "    }\n  }\n  if (lane == 0) { atomicAdd(&g_probe[0], tw);"
+     " atomicAdd(&g_probe[1], clock64() - tl); }\n  consumer_sync();\n"
+     "  if (regs) {"),
     ("  if (folds <= 128)\n    extract_rounds_regs",
      "  const long long tx = clock64();\n  if (folds <= 128)\n    extract_rounds_regs"),
-    ("                   out_v, out_i, warp, lane);\n  if constexpr (bulk) cluster_sync();",
+    ("                   out_v, out_i, warp, lane);\n  cluster_sync();",
      "                   out_v, out_i, warp, lane);\n"
      "  if (lane == 0) atomicAdd(&g_probe[6], clock64() - tx);\n"
-     "  if constexpr (bulk) cluster_sync();"),
+     "  cluster_sync();"),
     ("const char* fused_flat_error_string(int err) {",
      "int probe_counters(unsigned long long* out) {\n"
      "  unsigned long long zero[8] = {};\n"

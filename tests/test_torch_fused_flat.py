@@ -197,11 +197,11 @@ def test_launch_counts_by_variant_and_reset():
         assert tf.fused_flat_topk.launches == 0
         assert tf.fused_flat_topk.launches_by_variant == dict.fromkeys(
             tf.VARIANTS, 0)
-        tf.count_launch("ring")
-        tf.count_launch("ring")
+        tf.count_launch("cluster")
+        tf.count_launch("cluster")
         tf.count_launch("legacy")
         assert tf.fused_flat_topk.launches == 3
-        assert tf.fused_flat_topk.launches_by_variant["ring"] == 2
+        assert tf.fused_flat_topk.launches_by_variant["cluster"] == 2
         assert tf.fused_flat_topk.launches_by_variant["legacy"] == 1
         with pytest.raises(KeyError):
             tf.count_launch("no-such-variant")

@@ -25,7 +25,7 @@
 // reads its fragments out of shared memory (48 KB per 64x128x32 step, plus
 // the 16 KB the corpus copy writes).
 //
-// The cluster ring (variant 2): one CTA per (corpus block, tile of QT
+// The cluster ring (variant 1): one CTA per (corpus block, tile of QT
 // queries); the query tiles of one block run side by side as a thread-block
 // cluster of up to MAX_CLUSTER CTAs.
 //  - The query tile is resident: loaded once at CTA start, rounded to bf16
@@ -42,39 +42,34 @@
 //    producer refills a slot only once every CTA of the cluster has
 //    released it. Cluster syncs follow the barriers' set-up and precede the
 //    exit, so no CTA leaves while a peer may still copy into it. Every CTA
-//    runs every stage, a ragged or empty query tile included.
+//    runs every stage, a ragged query tile included.
 //  - The products are raw mma.sync m16n8k16 (bf16 in, float32 sums): each
 //    consumer warp takes all QT queries by 16 rows of the stage, A from the
-//    resident tile by ldmatrix, B straight from the stage in TMA's 128-byte
-//    swizzle (float2 loads, rounded to bf16 into the fragment; a bf16
-//    corpus is used as it is), reading the rows of an 8-row group in the
-//    order 0,2,4,6,1,3,5,7 so the loads have no bank conflicts. Each
-//    stage's products sum apart and join the running float32 sums with
-//    plain adds, so the tensor cores never add into a large sum (a single
-//    chain over D = 1536 drifted past the tolerance).
-//  - The fold: at 128 buckets (fold 16 at C = 2048) each column of a row
-//    tile is its own bucket, always in the same thread, so each thread
-//    keeps its buckets' minima in registers and writes them out once at the
-//    end, over the drained ring. With a multiple of 128 buckets each thread
-//    folds straight into the minima in shared memory; with fewer, the
-//    scores go through a score tile and a per-bucket walk.
-//
-// The per-thread ring (variant 1), for corpus rows off 16-byte boundaries
-// (a bf16 corpus with D % 8 != 0, a float32 one with D % 4 != 0): the same
-// CTA without cluster or producer warp; the 8 warps fill the ring with 8-
-// or 4-byte cp.async copies (plain loads for odd bf16 rows), padded rows,
-// one barrier a step.
-//
+//    resident tile by ldmatrix, B straight from the stage in TMA's swizzle
+//    (float2 loads rounded to bf16 into the fragment; a bf16 corpus is used
+//    as it is), reading the rows of an 8-row group in the order
+//    0,2,4,6,1,3,5,7 so the loads have no bank conflicts. Each stage's
+//    products sum apart and join the running float32 sums with plain adds,
+//    so the tensor cores never add into a large sum (a single chain over
+//    D = 1536 drifted past the tolerance).
+//  - The fold: with a multiple of 128 buckets each column of a row tile is
+//    its own bucket, always in the same thread, so each thread folds its
+//    accumulators straight into the minima with no barrier. At exactly 128
+//    (fold 16 at C = 2048, the main path) the minima stay in registers and
+//    go to shared memory once at the end, over the drained ring.
 // QT is 64, falling to 32 and 16, until the tile, a ring of 3 stages and
 // the bucket state fit in the 232,448 bytes a block may use; that holds D
-// up to 1536 at 128 buckets. The legacy design (variant 0) is kept for
-// shapes neither ring can hold (a D too wide for the resident tile at
-// QT = 16, or a bucket state too large beside it): it stages a query chunk
-// and a row chunk per 64-dimension step through registers into two shared
-// buffers, WMMA products, a score tile and the per-bucket fold; blocks
-// with more than 512 buckets take QT = 16, RT = 128. The variant is chosen
-// from the shape and the corpus alignment before the launch
-// (`fused_flat_variant` says which) and never after a failure.
+// up to 1536 at 128 buckets.
+//
+// The legacy design (variant 0) serves every other shape: corpus rows off
+// 16-byte boundaries (TMA needs them), bucket counts that are not a
+// multiple of 128, a D too wide for the resident tile at QT = 16, or a
+// bucket state too large beside it. It stages a query chunk and a row chunk
+// per 64-dimension step through registers into two shared buffers, WMMA
+// products, a score tile and the per-bucket fold; blocks with more than 512
+// buckets take QT = 16, RT = 128. The variant is chosen from the shape and
+// the corpus alignment before the launch (`fused_flat_variant` says which)
+// and never after a failure.
 //
 // Tie rules match the JAX kernel exactly: within a bucket a strict `<` while
 // walking rows upward keeps the lowest column; across buckets the shuffle
@@ -100,7 +95,7 @@ constexpr float MASKD = 1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t MAX_SMEM = 232448;  // shared memory a block may use on sm_90
 
-enum Variant { LEGACY = 0, RING = 1, CLUSTER = 2 };
+enum Variant { LEGACY = 0, CLUSTER = 1 };
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
@@ -422,33 +417,31 @@ legacy_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
 
 constexpr int RT = 128;        // corpus rows per tile
 constexpr int KS = 32;         // dimensions per ring stage
-constexpr int LDR = KS + 8;    // element pitch of a per-thread ring row
-constexpr int LDS = RT + 4;    // float pitch of the score tile
-constexpr int BULK = -1;       // fill mode: cluster TMA copies (else the
-                               // bytes of a per-thread copy, 0 = plain)
 // Largest cluster. Up to 8 is portable, but on an H100 at the main path's
-// shapes clusters of 4 ran 0.4-0.5 ms slower than clusters of 2, which ran
+// shapes clusters of 4 ran 0.3-0.5 ms slower than clusters of 2, which ran
 // level with no sharing at all (probe_fused_flat.py): 2 halves the L2 reads
 // and costs nothing.
 constexpr int MAX_CLUSTER = 2;
 
 // Shared-memory layout of the ring kernel, the same on host and device:
 // the resident bf16 query tile, the ring (1024-byte aligned for the TMA
-// swizzle), |q|^2, the bucket minima, their positions in the bucket, the
-// score tile where the fold needs one, and the ring's full, empty and
-// consumed barriers.
+// swizzle), |q|^2, the bucket minima, their positions in the bucket, and
+// the ring's full, empty and consumed barriers.
 struct RingLayout {
   int ldq;        // bf16 pitch of the query tile
   int vp;         // float pitch of the bucket minima
   size_t stage;   // bytes of one ring stage
-  size_t ring_off, qsq_off, val_off, loc_off, s_off, bar_off, bytes;
+  size_t ring_off, qsq_off, val_off, loc_off, bar_off, bytes;
 };
 
 __host__ __device__ constexpr size_t align1024(size_t x) {
   return (x + 1023) & ~size_t(1023);
 }
 
-__host__ __device__ inline bool direct_fold(int folds) {
+// The ring kernel folds only bucket counts that are a multiple of RT: then
+// every column of a row tile lies in its own bucket, the same one in every
+// tile, so each thread folds its own accumulators without a barrier.
+__host__ __device__ inline bool ring_folds(int folds) {
   return folds % RT == 0;
 }
 
@@ -459,12 +452,11 @@ __host__ __device__ inline bool register_fold(int folds) {
 }
 
 __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
-                                                  int folds, int esize,
-                                                  bool bulk) {
+                                                  int folds, int esize) {
   RingLayout L;
   L.ldq = (D + KS - 1) / KS * KS + 8;
   L.vp = folds + 8;
-  L.stage = size_t(RT) * (bulk ? KS : LDR) * esize;
+  L.stage = size_t(RT) * KS * esize;
   L.ring_off = align1024(size_t(qt) * L.ldq * 2);
   const size_t ring_end = L.ring_off + stages * L.stage;
   // bucket state after the ring, or over it once the ring is drained
@@ -472,9 +464,7 @@ __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
   L.loc_off = L.val_off + align128(size_t(qt) * L.vp * 4);
   const size_t buckets_end = L.loc_off + align128(size_t(qt) * folds);
   L.qsq_off = buckets_end > ring_end ? buckets_end : ring_end;
-  L.s_off = L.qsq_off + align128(size_t(qt) * 4);
-  L.bar_off =
-      L.s_off + (direct_fold(folds) ? 0 : align128(size_t(qt) * LDS * 4));
+  L.bar_off = L.qsq_off + align128(size_t(qt) * 4);
   L.bytes = L.bar_off + stages * 3 * sizeof(uint64_t);
   return L;
 }
@@ -489,45 +479,25 @@ struct Warps {
   static_assert(MI >= 1 && NI >= 1, "warp tiling");
 };
 
-// Row of an 8-row group that B-fragment row n reads. A TMA stage is dense
-// with a 128-byte swizzle (16-byte chunk ^= row % 8), which sends rows n
-// and n + 1 to the same banks; reading rows 0,2,4,6 with lanes 0-15 and
-// 1,3,5,7 with lanes 16-31 keeps the float2 loads conflict-free. The
-// per-thread ring is padded instead and reads rows in order.
-template <bool SWZ>
+// Row of an 8-row group that B-fragment row n reads. A stage is dense with
+// TMA's 128-byte swizzle (16-byte chunk ^= row % 8), which sends rows n and
+// n + 1 to the same banks; reading rows 0,2,4,6 with lanes 0-15 and 1,3,5,7
+// with lanes 16-31 keeps the float2 loads conflict-free.
 __device__ __forceinline__ int frag_row(int n) {
-  return SWZ ? (n & 3) * 2 + (n >> 2) : n;
+  return (n & 3) * 2 + (n >> 2);
 }
 
-// Element offset of (row, dim k) in a ring stage: padded rows, or the TMA
-// swizzle of a dense stage (128-byte rows of float32: chunk ^= row % 8;
-// 64-byte rows of bf16: chunk ^= (row / 2) % 4).
-template <typename T, bool SWZ>
+// Element offset of (row, dim k) in a ring stage, in the TMA swizzle:
+// 128-byte rows of float32 (chunk ^= row % 8), 64-byte rows of bf16
+// (chunk ^= (row / 2) % 4).
+template <typename T>
 __device__ __forceinline__ int ring_index(int row, int k) {
-  if (!SWZ) return row * LDR + k;
   if (sizeof(T) == 4) return row * KS + ((((k >> 2) ^ (row & 7)) << 2) | (k & 3));
   return row * KS + (k ^ (((row >> 1) & 3) << 3));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// async copy of CB bytes global -> shared; bytes past `src_bytes` are zeroed
-template <int CB>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "n"(CB), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -653,8 +623,8 @@ __device__ __forceinline__ void b_frag(const __nv_bfloat16* p,
 }
 
 // One stage's products into `part`: A from the resident query tile at the
-// stage's dims, B from this warp's rows ncol.. of the stage.
-template <typename T, int QT, bool SWZ>
+// stage's dims, B from this warp's 16 rows of the stage.
+template <typename T, int QT>
 __device__ __forceinline__ void stage_mma(
     float (&part)[Warps<QT>::MI][Warps<QT>::NI][4],
     const __nv_bfloat16* A, int ldq, const T* R, int ncol, int lane) {
@@ -669,44 +639,12 @@ __device__ __forceinline__ void stage_mma(
                              (lane >> 4) * 8);
 #pragma unroll
     for (int ni = 0; ni < W::NI; ++ni) {
-      const int row = ncol + ni * 8 + frag_row<SWZ>(lane >> 2);
+      const int row = ncol + ni * 8 + frag_row(lane >> 2);
       uint32_t b0, b1;
-      b_frag(R + ring_index<T, SWZ>(row, kk + lc),
-             R + ring_index<T, SWZ>(row, kk + lc + 8), b0, b1);
+      b_frag(R + ring_index<T>(row, kk + lc),
+             R + ring_index<T>(row, kk + lc + 8), b0, b1);
 #pragma unroll
       for (int mi = 0; mi < W::MI; ++mi) mma_bf16(part[mi][ni], a[mi], b0, b1);
-    }
-  }
-}
-
-// Per-thread fill of ring stage p: row tile p / nk, dims (p % nk) * KS on,
-// dims past D zero. CB-byte cp.async copies (zero-filling), or plain loads
-// and stores for CB = 0.
-template <typename T, int CB>
-__device__ __forceinline__ void fill_stage(T* dst, const T* cblock, int D,
-                                           int nk, int p, int tid) {
-  const int t = p / nk, k0 = (p - t * nk) * KS;
-  const T* src = cblock + size_t(t) * RT * D;
-  if constexpr (CB > 0) {
-    constexpr int W = CB / sizeof(T);  // elements per copy
-    constexpr int G = KS / W;          // copies per row
-    constexpr int N = RT * G / NTHREADS;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int e = tid + i * NTHREADS, row = e / G, cu = (e % G) * W;
-      const int col = k0 + cu;
-      const int valid = min(max(D - col, 0), W);
-      cp_async<CB>(dst + row * LDR + cu,
-                   src + size_t(row) * D + (valid > 0 ? col : 0),
-                   valid * int(sizeof(T)));
-    }
-  } else {
-    for (int e = tid; e < RT * KS; e += NTHREADS) {
-      const int row = e / KS, c = e % KS, col = k0 + c;
-      T v;
-      zero(v);
-      if (col < D) v = src[size_t(row) * D + col];
-      dst[row * LDR + c] = v;
     }
   }
 }
@@ -751,11 +689,10 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NTHREADS) : "memory");
 }
 
-// One CTA per (corpus block, query tile). CB == BULK: the block's query
-// tiles form a cluster that shares every ring stage through TMA multicast
-// (needs rows on 16-byte boundaries), fed by a ninth, producer warp; else
-// the 8 warps fill their own ring with per-thread copies.
-template <typename T, int QT, int CB>
+// One CTA per (corpus block, query tile): 8 consumer warps and a producer
+// warp. The block's query tiles form a cluster that shares every ring stage
+// through TMA multicast (which needs rows on 16-byte boundaries).
+template <typename T, int QT>
 __global__ void __launch_bounds__(NTHREADS + 32, 1)
 ring_kernel(const __grid_constant__ CUtensorMap map,
             const float* __restrict__ q, const T* __restrict__ corpus,
@@ -763,16 +700,14 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
             int B, int D, int k, int block, int fold, int stages,
             float* __restrict__ out_v, int* __restrict__ out_i) {
   using W = Warps<QT>;
-  constexpr bool bulk = CB == BULK;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int folds = block / fold;
-  const RingLayout L = ring_layout(QT, stages, D, folds, sizeof(T), bulk);
+  const RingLayout L = ring_layout(QT, stages, D, folds, sizeof(T));
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   T* ring = reinterpret_cast<T*>(smem + L.ring_off);
   float* qsq = reinterpret_cast<float*>(smem + L.qsq_off);
   float* bval = reinterpret_cast<float*>(smem + L.val_off);
   uint8_t* bloc = smem + L.loc_off;
-  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   uint64_t* empty = full + stages;
   uint64_t* consumed = empty + stages;
@@ -784,10 +719,9 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   const size_t row0 = g * size_t(block);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nk = (D + KS - 1) / KS, steps = (block / RT) * nk;
-  const T* cblock = corpus + row0 * D;
-  const int stage_elems = int(L.stage / sizeof(T));
+  const int stage_elems = RT * KS;
 
-  if constexpr (bulk) {
+  {
     // The CTAs of one corpus block form the cluster; its barriers must
     // exist before any peer copies into this CTA or arrives on them.
     const int cs = int(cluster_size()), rank = int(cluster_rank());
@@ -809,12 +743,6 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
       // its barriers
       cluster_sync();
       return;
-    }
-  } else {
-    for (int p = 0; p < stages - 1; ++p) {
-      if (p < steps)
-        fill_stage<T, CB>(ring + p * stage_elems, cblock, D, nk, p, tid);
-      cp_async_commit();
     }
   }
   // The query tile, once: bf16 into shared memory, |q|^2 in float32 from
@@ -877,13 +805,13 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
-      cols[ni][e] = ncol + ni * 8 + frag_row<bulk>((lane & 3) * 2 + e);
+      cols[ni][e] = ncol + ni * 8 + frag_row((lane & 3) * 2 + e);
   float qv[W::MI][2];
 #pragma unroll
   for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mi * 16 + lr + h * 8];
-  const bool direct = direct_fold(folds), regs = register_fold(folds);
+  const bool regs = register_fold(folds);
   // the register fold's minima and positions (byte ni*2+e of rpos)
   float rval[W::MI][2][W::NI][2];
   uint32_t rpos[W::MI][2];
@@ -898,8 +826,8 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
         for (int e = 0; e < 2; ++e) rval[mi][h][ni][e] = INFINITY;
     }
 
-  // this thread's norms and mask of a row tile, for the direct fold: the
-  // next tile's are loaded while this one's products run
+  // this thread's norms and mask of a row tile, for the fold: the next
+  // tile's are loaded while this one's products run
   float cn[W::NI][2], cn_next[W::NI][2];
   bool cm[W::NI][2], cm_next[W::NI][2];
   const int ntile = block / RT;
@@ -909,17 +837,17 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const size_t c = row0 + size_t(t) * RT + cols[ni][e];
-        n[ni][e] = direct && t < ntile ? __ldg(sqn + c) : 0.f;
-        m[ni][e] = direct && t < ntile && __ldg(mask + c) != 0;
+        n[ni][e] = t < ntile ? __ldg(sqn + c) : 0.f;
+        m[ni][e] = t < ntile && __ldg(mask + c) != 0;
       }
   };
   load_norms(0, cn_next, cm_next);
 
-  int s = 0, slot = 0, phase = 0;
+  int slot = 0, phase = 0;
   for (int t = 0; t < ntile; ++t) {
     const int c0 = t * RT;
-    // direct fold: column c0 + col lies in bucket c0 % folds + col, at
-    // position c0 / folds in it
+    // column c0 + col lies in bucket c0 % folds + col, at position
+    // c0 / folds in it
     const int jb = c0 % folds;
     const uint8_t pos = static_cast<uint8_t>(c0 / folds);
     float acc[W::MI][W::NI][4];
@@ -949,32 +877,14 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
         for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
-      if constexpr (bulk) {
-        mbar_wait(full + slot, phase);
-      } else {
-        // stage s has landed once at most S - 2 newer groups are pending;
-        // the barrier also frees the slot step s - 1 read
-        if (stages == 4)
-          cp_async_wait<2>();
-        else
-          cp_async_wait<1>();
-        consumer_sync();
-        const int p = s + stages - 1;
-        if (p < steps)
-          fill_stage<T, CB>(ring + (p % stages) * stage_elems, cblock, D, nk,
-                            p, tid);
-        cp_async_commit();
-      }
-      stage_mma<T, QT, bulk>(part, Qs + kc * KS, L.ldq,
-                             ring + slot * stage_elems, ncol, lane);
-      if constexpr (bulk) {
-        // every lane's products have issued, so its reads of the slot are
-        // done: tell the producer
-        __syncwarp();
-        if (lane == 0) mbar_arrive_local(consumed + slot);
-      }
+      mbar_wait(full + slot, phase);
+      stage_mma<T, QT>(part, Qs + kc * KS, L.ldq, ring + slot * stage_elems,
+                       ncol, lane);
+      // every lane's products have issued, so its reads of the slot are
+      // done: tell the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive_local(consumed + slot);
       if (++slot == stages) slot = 0, phase ^= 1;
-      ++s;
     };
     auto join = [&](const float (&part)[W::MI][W::NI][4]) {
 #pragma unroll
@@ -1013,7 +923,7 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
                 rpos[mi][h] = (rpos[mi][h] & ~(0xffu << sh)) | (uint32_t(pos) << sh);
               }
             }
-    } else if (direct) {
+    } else {
       // Column c is alone in bucket c % folds within the tile and every
       // tile puts that bucket in this thread, so the minima need no
       // barrier; tiles go upward and `<` is strict, so ties keep the
@@ -1039,42 +949,8 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
               }
             }
         }
-    } else {
-      // Several columns of the tile share a bucket: scores to the score
-      // tile, then one thread per (query, bucket present in the tile)
-      // walks the bucket's columns upward. The barrier after the walk
-      // keeps the next tile from writing the score tile too early.
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              Ss[(mi * 16 + lr + h * 8) * LDS + cols[ni][e]] =
-                  acc[mi][ni][2 * h + e];
-      consumer_sync();
-      const int ni = folds < RT ? folds : RT;
-      for (int p = tid; p < qrows * ni; p += NTHREADS) {
-        const int r = p / ni, i = p % ni;
-        const float qs = qsq[r];
-        for (int cc = i; cc < RT; cc += folds) {
-          const size_t c = row0 + c0 + cc;
-          const float d =
-              mask[c] ? fmaxf(qs - 2.f * Ss[r * LDS + cc] + sqn[c], 0.f)
-                      : MASKD;
-          const int j = (c0 + cc) % folds;
-          if (d < bval[r * L.vp + j]) {
-            bval[r * L.vp + j] = d;
-            bloc[r * folds + j] = static_cast<uint8_t>((c0 + cc) / folds);
-          }
-        }
-      }
-      consumer_sync();
     }
   }
-  if constexpr (!bulk) cp_async_wait<0>();
   consumer_sync();
   if (regs) {  // the ring is drained: the minima go over it
 #pragma unroll
@@ -1099,13 +975,13 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   else
     extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
                    out_v, out_i, warp, lane);
-  if constexpr (bulk) cluster_sync();
+  cluster_sync();
 }
 
 // ------------------------------------------------------------- dispatch
 
 struct Plan {
-  int variant, qt, stages, cluster, cb;
+  int variant, qt, stages, cluster;
   size_t smem;
 };
 
@@ -1117,33 +993,27 @@ bool valid_args(int B, int N, int D, int k, int block, int fold) {
 }
 
 // The variant and its tiling, from the shape and the corpus alignment
-// alone. Rows on 16-byte boundaries take the cluster ring (TMA copies),
-// others the per-thread ring with the widest copy their alignment allows;
-// each with the widest query tile and the deepest ring that fit. The
-// cluster is the largest power of two up to 8 dividing the query tiles.
-// Shapes neither ring fits take the legacy kernel.
+// alone. The cluster ring takes rows on 16-byte boundaries and bucket
+// counts that are a multiple of RT, with the widest query tile and the
+// deepest ring that fit, and the largest power-of-two cluster up to
+// MAX_CLUSTER that divides the query tiles; every other shape takes the
+// legacy kernel.
 Plan make_plan(bool bf16, int B, int D, int block, int fold,
                uintptr_t corpus) {
   const int folds = block / fold, esize = bf16 ? 2 : 4;
-  const size_t row_bytes = size_t(D) * esize;
-  const bool aligned = row_bytes % 16 == 0 && corpus % 16 == 0;
-  int cb = 0;
-  const int widths[] = {8, 4}, qts[] = {64, 32, 16};
-  for (int w : widths)
-    if (!cb && row_bytes % w == 0 && corpus % w == 0 && w >= esize) cb = w;
-  const int max_st = aligned ? 8 : 4;
+  const bool aligned = size_t(D) * esize % 16 == 0 && corpus % 16 == 0;
+  const int qts[] = {64, 32, 16};
   for (int qt : qts)
-    for (int st = max_st; st >= 3; --st) {
-      const size_t b = ring_layout(qt, st, D, folds, esize, aligned).bytes;
+    for (int st = 8; st >= 3 && aligned && ring_folds(folds); --st) {
+      const size_t b = ring_layout(qt, st, D, folds, esize).bytes;
       if (b > MAX_SMEM) continue;
-      if (!aligned) return {RING, qt, st, 1, cb, b};
       const int ntiles = (B + qt - 1) / qt;
       int cs = MAX_CLUSTER;
       while (ntiles % cs) cs /= 2;
-      return {CLUSTER, qt, st, cs, BULK, b};
+      return {CLUSTER, qt, st, cs, b};
     }
-  if (folds > 512) return {LEGACY, 16, 0, 1, 0, Layout<16, 128>::bytes(folds)};
-  return {LEGACY, 64, 0, 1, 0, Layout<64, 64>::bytes(folds)};
+  if (folds > 512) return {LEGACY, 16, 0, 1, Layout<16, 128>::bytes(folds)};
+  return {LEGACY, 64, 0, 1, Layout<64, 64>::bytes(folds)};
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
@@ -1224,23 +1094,21 @@ cudaError_t run_legacy(const Plan& pl, const float* q, const T* c,
   return cudaGetLastError();
 }
 
-template <typename T, int QT, int CB>
-cudaError_t run_ring_qt(const Plan& pl, const float* q, const T* c,
-                        const float* sqn, const uint8_t* m, int B, int N,
-                        int D, int k, int block, int fold, float* ov, int* oi,
-                        cudaStream_t s) {
-  auto kern = ring_kernel<T, QT, CB>;
+template <typename T, int QT>
+cudaError_t run_ring(const Plan& pl, const float* q, const T* c,
+                     const float* sqn, const uint8_t* m, int B, int N, int D,
+                     int k, int block, int fold, float* ov, int* oi,
+                     cudaStream_t s) {
+  auto kern = ring_kernel<T, QT>;
   dim3 grid;
   cudaError_t e = prepare(kern, QT, pl.smem, B, N, block, grid);
   if (e != cudaSuccess) return e;
   CUtensorMap map = {};
-  if (CB == BULK) {
-    e = corpus_map(&map, c, N, D, pl.cluster);
-    if (e != cudaSuccess) return e;
-  }
+  e = corpus_map(&map, c, N, D, pl.cluster);
+  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(CB == BULK ? NTHREADS + 32 : NTHREADS);
+  cfg.blockDim = dim3(NTHREADS + 32);  // 8 consumer warps, 1 producer
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -1249,26 +1117,11 @@ cudaError_t run_ring_qt(const Plan& pl, const float* q, const T* c,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = CB == BULK ? 1 : 0;
+  cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, map, q, c, sqn, m, B, D, k, block, fold,
                          pl.stages, ov, oi);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
-}
-
-template <typename T, int CB>
-cudaError_t run_ring(const Plan& pl, const float* q, const T* c,
-                     const float* sqn, const uint8_t* m, int B, int N, int D,
-                     int k, int block, int fold, float* ov, int* oi,
-                     cudaStream_t s) {
-  if (pl.qt == 64)
-    return run_ring_qt<T, 64, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                  ov, oi, s);
-  if (pl.qt == 32)
-    return run_ring_qt<T, 32, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                  ov, oi, s);
-  return run_ring_qt<T, 16, CB>(pl, q, c, sqn, m, B, N, D, k, block, fold,
-                                ov, oi, s);
 }
 
 template <typename T>
@@ -1286,20 +1139,14 @@ cudaError_t dispatch(const Plan& pl, const float* q, const T* c,
                : run_legacy<T, false>(pl, q, c, sqn, m, B, N, D, k, block,
                                       fold, ov, oi, s);
   }
-  switch (pl.cb) {
-    case BULK:
-      return run_ring<T, BULK>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
-                               oi, s);
-    case 8:
-      return run_ring<T, 8>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
-                            oi, s);
-    case 4:
-      return run_ring<T, 4>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
-                            oi, s);
-    default:
-      return run_ring<T, 0>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov,
-                            oi, s);
-  }
+  if (pl.qt == 64)
+    return run_ring<T, 64>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov, oi,
+                           s);
+  if (pl.qt == 32)
+    return run_ring<T, 32>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov, oi,
+                           s);
+  return run_ring<T, 16>(pl, q, c, sqn, m, B, N, D, k, block, fold, ov, oi,
+                         s);
 }
 
 }  // namespace
@@ -1334,8 +1181,8 @@ int fused_flat_l2_topk(const void* queries, const void* corpus,
   return int(e);
 }
 
-// The variant a call with these arguments launches (0 legacy, 1 ring,
-// 2 cluster), or -1 for arguments outside the kernel's contract. When
+// The variant a call with these arguments launches (0 legacy, 1 cluster),
+// or -1 for arguments outside the kernel's contract. When
 // `plan` is not null it receives {query tile rows, ring stages, cluster
 // size, shared-memory bytes}.
 int fused_flat_variant(const void* corpus, int corpus_bf16, int B, int N,

@@ -33,11 +33,10 @@ KERNEL = "fused_flat"
 # sends k <= MAX_K here
 MAX_K = 64
 # the kernel's variants, by the code ``fused_flat_variant`` returns: the
-# first design, kept for the shapes the ring cannot hold; the resident-query
-# ring filled by per-thread copies (rows off 16-byte boundaries); the same
-# ring shared by a cluster through multicast bulk copies (see the header of
+# first design, kept for the shapes the new one cannot take, and the
+# resident-query ring shared by a thread-block cluster (see the header of
 # csrc/fused_flat.cu)
-VARIANTS = ("legacy", "ring", "cluster")
+VARIANTS = ("legacy", "cluster")
 
 # corpus block rows, largest first; the ladder walks down for small or
 # oddly sized corpora
