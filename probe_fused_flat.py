@@ -6,8 +6,9 @@ At the main path's shapes (a seeded randn 1,048,576 x 768 float32 device
 corpus, 1% masked, B = 256, k = 10, block 2048, fold 16) it times
 ``block_topk_cuda`` (CUDA events, median) for copies of
 ``weaviate_tpu_torch/csrc/fused_flat.cu`` built with one setting changed
-(cluster size, ring depth) or one part switched off (the corpus copies, the
-products, the fold: such a copy gives wrong answers and is only timed),
+(cluster size, ring depth, consumer warps, stages per join) or one part
+switched off (the corpus copies, the products, the fold: such a copy gives
+wrong answers and is only timed),
 and counts with clock64 how a CTA's cycles split into set-up, the ring
 loop, the consumer warps' waits for data, the producer warp's waits and
 the extraction. The unchanged copy is held against the plain version.
@@ -25,6 +26,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,22 +42,28 @@ N, D, B, K, BLOCK, FOLD = 1 << 20, 768, 256, 10, 2048, 16
 # (old, new) replacements of each copy; the names say what changes
 PLANS = "      int cs = MAX_CLUSTER;"
 STAGES = "    for (int st = 8; st >= 3 && aligned && ring_folds(folds); --st) {"
+CONSUMERS = "constexpr int CWARPS = 8;"
+JOINS = "constexpr int JOIN = 4;"
 EDITS = {
     "as_is": [],
     "cluster_1": [(PLANS, "      int cs = 1;")],
     "cluster_4": [(PLANS, "      int cs = 4;")],
     "stages_4": [(STAGES, "    for (int st = 4; st >= 3 && aligned && ring_folds(folds); --st) {")],
+    "consumers_4": [(CONSUMERS, "constexpr int CWARPS = 4;")],
+    "join_2": [(JOINS, "constexpr int JOIN = 2;")],
+    "join_8": [(JOINS, "constexpr int JOIN = 8;")],
     "no_copies": [(
         "      mbar_expect_tx(full + slot, RT * KS * int(sizeof(T)));\n"
         "      tma_load(",
         "      mbar_expect_tx(full + slot, 0);\n      if (0) tma_load(")],
     "no_products": [(
-        "      stage_mma<T, QT>(part, Qs + kc * KS, L.ldq,",
-        "      if (0) stage_mma<T, QT>(part, Qs + kc * KS, L.ldq,")],
-    "no_fold": [
-        ("rval[mi][h][ni][e] = INFINITY;", "rval[mi][h][ni][e] = 0.f;"),
-        ("    if (regs) {\n      // as below",
-         "    if (1) {\n    } else if (regs) {\n      // as below")],
+        "      if (kc % JOIN == 0)\n"
+        "        stage_mma<T, QT, true>(acc, part, A, L.ldq, R, ncol, lane);\n"
+        "      else\n"
+        "        stage_mma<T, QT, false>(acc, part, A, L.ldq, R, ncol, lane);\n",
+        "      (void)A, (void)R;\n")],
+    "no_fold": [("            if (d < bval[r * L.vp + j]) {",
+                 "            if (0) {")],
 }
 # clock64 counters: [0] consumer waits for data, [1] consumer ring loop,
 # [2] producer waits on consumed, [3] producer waits on empty, [4] producer
@@ -84,14 +92,14 @@ COUNTERS = [
     ("      mbar_wait(full + slot, phase);\n",
      "      long long w = clock64(); mbar_wait(full + slot, phase);"
      " tw += clock64() - w;\n"),
-    ("    }\n  }\n  consumer_sync();\n  if (regs) {",
-     "    }\n  }\n  if (lane == 0) { atomicAdd(&g_probe[0], tw);"
-     " atomicAdd(&g_probe[1], clock64() - tl); }\n  consumer_sync();\n"
-     "  if (regs) {"),
+    ("  }\n  consumer_sync();\n\n  if (folds <= 128)",
+     "  }\n  if (lane == 0) { atomicAdd(&g_probe[0], tw);"
+     " atomicAdd(&g_probe[1], clock64() - tl); }\n  consumer_sync();\n\n"
+     "  if (folds <= 128)"),
     ("  if (folds <= 128)\n    extract_rounds_regs",
      "  const long long tx = clock64();\n  if (folds <= 128)\n    extract_rounds_regs"),
-    ("                   out_v, out_i, warp, lane);\n  cluster_sync();",
-     "                   out_v, out_i, warp, lane);\n"
+    ("                   out_v, out_i, CWARPS, warp, lane);\n  cluster_sync();",
+     "                   out_v, out_i, CWARPS, warp, lane);\n"
      "  if (lane == 0) atomicAdd(&g_probe[6], clock64() - tx);\n"
      "  cluster_sync();"),
     ("const char* fused_flat_error_string(int err) {",
@@ -110,6 +118,10 @@ def edited(edits) -> str:
             raise SystemExit(f"probe: the source no longer holds {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def consumer_warps(src: str) -> int:
+    return int(re.search(r"constexpr int CWARPS = (\d+);", src).group(1))
 
 
 def build(copies: dict[str, str]) -> dict[str, Path]:
@@ -209,7 +221,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             lib.probe_counters(cnt)
             ctas = (-(-B // plan["query_tile"])) * (N // BLOCK)
-            warps = ctas * 8
+            warps = ctas * consumer_warps(copies[name])
             out["cycles_per_cta"] = {
                 "setup": cnt[5] / warps, "ring_loop": cnt[1] / warps,
                 "waiting_for_data": cnt[0] / warps,

@@ -48,15 +48,14 @@
 //    resident tile by ldmatrix, B straight from the stage in TMA's swizzle
 //    (float2 loads rounded to bf16 into the fragment; a bf16 corpus is used
 //    as it is), reading the rows of an 8-row group in the order
-//    0,2,4,6,1,3,5,7 so the loads have no bank conflicts. Each stage's
-//    products sum apart and join the running float32 sums with plain adds,
-//    so the tensor cores never add into a large sum (a single chain over
-//    D = 1536 drifted past the tolerance).
+//    0,2,4,6,1,3,5,7 so the loads have no bank conflicts. The products of
+//    JOIN stages sum apart and join the running float32 sums with plain
+//    adds, so the tensor cores never add into a large sum (a single chain
+//    over D = 1536 drifted past the tolerance).
 //  - The fold: with a multiple of 128 buckets each column of a row tile is
 //    its own bucket, always in the same thread, so each thread folds its
-//    accumulators straight into the minima with no barrier. At exactly 128
-//    (fold 16 at C = 2048, the main path) the minima stay in registers and
-//    go to shared memory once at the end, over the drained ring.
+//    accumulators straight into the minima in shared memory with no
+//    barrier.
 // QT is 64, falling to 32 and 16, until the tile, a ring of 3 stages and
 // the bucket state fit in the 232,448 bytes a block may use; that holds D
 // up to 1536 at 128 buckets.
@@ -102,15 +101,16 @@ __host__ __device__ constexpr size_t align128(size_t x) {
 }
 
 // k rounds of extract-min over the bucket minima of each live query row,
-// one warp a query. Row r's minima are at bval + r * vpitch, its positions
-// in the bucket at bloc + r * folds. Minima are >= 0 (or -0), so their bits
-// with the sign cleared order like the values: a round is two warp-wide
-// integer minimums, the value's and then the lowest bucket holding it.
+// one warp a query, the nw warps taking rows in turn. Row r's minima are at
+// bval + r * vpitch, its positions in the bucket at bloc + r * folds.
+// Minima are >= 0 (or -0), so their bits with the sign cleared order like
+// the values: a round is two warp-wide integer minimums, the value's and
+// then the lowest bucket holding it.
 __device__ void extract_rounds(float* bval, int vpitch,
                                const uint8_t* bloc, int folds, int qrows,
                                int k, size_t obase0, float* out_v,
-                               int* out_i, int warp, int lane) {
-  for (int r = warp; r < qrows; r += NWARPS) {
+                               int* out_i, int nw, int warp, int lane) {
+  for (int r = warp; r < qrows; r += nw) {
     float* v = bval + size_t(r) * vpitch;
     const uint8_t* lc = bloc + size_t(r) * folds;
     const size_t obase = obase0 + size_t(r) * k;
@@ -137,9 +137,9 @@ __device__ void extract_rounds(float* bval, int vpitch,
 
 // The same rounds for up to 128 buckets, with each lane's 4 minima (of
 // buckets lane, lane + 32, ...) in registers and the RPW query rows of a
-// warp (warp, warp + 8, ...) interleaved, so the rounds of different rows
+// warp (warp, warp + NW, ...) interleaved, so the rounds of different rows
 // overlap.
-template <int RPW>
+template <int RPW, int NW>
 __device__ void extract_rounds_regs(const float* bval, int vpitch,
                                     const uint8_t* bloc, int folds,
                                     int qrows, int k, size_t obase0,
@@ -152,7 +152,7 @@ __device__ void extract_rounds_regs(const float* bval, int vpitch,
   for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int r = warp + i * NWARPS, j = lane + 32 * u;
+      const int r = warp + i * NW, j = lane + 32 * u;
       key[i][u] = r < qrows && j < folds
                       ? __float_as_uint(bval[r * vpitch + j]) & 0x7fffffffu
                       : NONE;
@@ -160,7 +160,7 @@ __device__ void extract_rounds_regs(const float* bval, int vpitch,
   for (int round = 0; round < k; ++round) {
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const int r = warp + i * NWARPS;
+      const int r = warp + i * NW;
       uint32_t best = NONE, bj = NONE;
 #pragma unroll
       for (int u = 0; u < 4; ++u)
@@ -410,13 +410,21 @@ legacy_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
   }
 
   extract_rounds(bval, folds, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
-                 out_v, out_i, warp, lane);
+                 out_v, out_i, NWARPS, warp, lane);
 }
 
 // ------------------------------------------------------------------ ring
 
 constexpr int RT = 128;        // corpus rows per tile
 constexpr int KS = 32;         // dimensions per ring stage
+// Consumer warps of a ring CTA, each taking all QT queries by RT/CWARPS
+// rows. Four warps of 32 rows read a quarter less shared memory a stage but
+// ran no faster on an H100 (probe_fused_flat.py).
+constexpr int CWARPS = 8;
+// Ring stages whose products sum in the tensor cores before they join the
+// running float32 sums
+constexpr int JOIN = 4;
+constexpr int CTHREADS = CWARPS * 32;
 // Largest cluster. Up to 8 is portable, but on an H100 at the main path's
 // shapes clusters of 4 ran 0.3-0.5 ms slower than clusters of 2, which ran
 // level with no sharing at all (probe_fused_flat.py): 2 halves the L2 reads
@@ -425,7 +433,7 @@ constexpr int MAX_CLUSTER = 2;
 
 // Shared-memory layout of the ring kernel, the same on host and device:
 // the resident bf16 query tile, the ring (1024-byte aligned for the TMA
-// swizzle), |q|^2, the bucket minima, their positions in the bucket, and
+// swizzle), the bucket minima, their positions in the bucket, |q|^2, and
 // the ring's full, empty and consumed barriers.
 struct RingLayout {
   int ldq;        // bf16 pitch of the query tile
@@ -445,12 +453,6 @@ __host__ __device__ inline bool ring_folds(int folds) {
   return folds % RT == 0;
 }
 
-// One bucket a column of the row tile: each thread keeps its buckets'
-// minima in registers and writes them to shared memory once, at the end.
-__host__ __device__ inline bool register_fold(int folds) {
-  return folds == RT;
-}
-
 __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
                                                   int folds, int esize) {
   RingLayout L;
@@ -458,24 +460,22 @@ __host__ __device__ inline RingLayout ring_layout(int qt, int stages, int D,
   L.vp = folds + 8;
   L.stage = size_t(RT) * KS * esize;
   L.ring_off = align1024(size_t(qt) * L.ldq * 2);
-  const size_t ring_end = L.ring_off + stages * L.stage;
-  // bucket state after the ring, or over it once the ring is drained
-  L.val_off = register_fold(folds) ? L.ring_off : ring_end;
+  L.val_off = L.ring_off + stages * L.stage;
   L.loc_off = L.val_off + align128(size_t(qt) * L.vp * 4);
-  const size_t buckets_end = L.loc_off + align128(size_t(qt) * folds);
-  L.qsq_off = buckets_end > ring_end ? buckets_end : ring_end;
+  L.qsq_off = L.loc_off + align128(size_t(qt) * folds);
   L.bar_off = L.qsq_off + align128(size_t(qt) * 4);
   L.bytes = L.bar_off + stages * 3 * sizeof(uint64_t);
   return L;
 }
 
-// Warp tiling of a QT x RT product: each of the 8 warps takes all QT
-// queries by 16 rows, MI m16 tiles by NI n8 tiles of mma.sync m16n8k16, so
-// every row of a stage is read from shared memory by one warp only.
+// Warp tiling of a QT x RT product: each consumer warp takes all QT
+// queries by RT/CWARPS rows, MI m16 tiles by NI n8 tiles of mma.sync
+// m16n8k16, so every row of a stage is read from shared memory by one warp
+// only.
 template <int QT>
 struct Warps {
   static constexpr int MI = QT / 16;
-  static constexpr int NI = RT / (8 * NWARPS);
+  static constexpr int NI = RT / (8 * CWARPS);
   static_assert(MI >= 1 && NI >= 1, "warp tiling");
 };
 
@@ -622,17 +622,37 @@ __device__ __forceinline__ void b_frag(const __nv_bfloat16* p,
   b1 = *reinterpret_cast<const uint32_t*>(q);
 }
 
+// the same with a zero accumulator in: c = a * b
+__device__ __forceinline__ void mma_bf16_first(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+template <int QT>
+using Acc = float[Warps<QT>::MI][Warps<QT>::NI][4];
+
 // One stage's products into `part`: A from the resident query tile at the
-// stage's dims, B from this warp's 16 rows of the stage.
-template <typename T, int QT>
-__device__ __forceinline__ void stage_mma(
-    float (&part)[Warps<QT>::MI][Warps<QT>::NI][4],
-    const __nv_bfloat16* A, int ldq, const T* R, int ncol, int lane) {
+// stage's dims, B from this warp's rows of the stage. The products of JOIN
+// stages sum apart and join the running float32 sums `acc` with plain adds,
+// so the tensor cores never add into a large sum (a single chain over
+// D = 1536 drifted past the tolerance). FRESH starts a new `part`: the last
+// one joins once this stage's first fragments are on their way, by when
+// its products are done.
+template <typename T, int QT, bool FRESH>
+__device__ __forceinline__ void stage_mma(Acc<QT>& acc, Acc<QT>& part,
+                                          const __nv_bfloat16* A, int ldq,
+                                          const T* R, int ncol, int lane) {
   using W = Warps<QT>;
   const int lc = (lane & 3) * 2;
 #pragma unroll
   for (int kk = 0; kk < KS; kk += 16) {
-    uint32_t a[W::MI][4];
+    uint32_t a[W::MI][4], b[W::NI][2];
 #pragma unroll
     for (int mi = 0; mi < W::MI; ++mi)
       ldmatrix_x4(a[mi], A + (mi * 16 + (lane & 15)) * ldq + kk +
@@ -640,12 +660,26 @@ __device__ __forceinline__ void stage_mma(
 #pragma unroll
     for (int ni = 0; ni < W::NI; ++ni) {
       const int row = ncol + ni * 8 + frag_row(lane >> 2);
-      uint32_t b0, b1;
       b_frag(R + ring_index<T>(row, kk + lc),
-             R + ring_index<T>(row, kk + lc + 8), b0, b1);
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi) mma_bf16(part[mi][ni], a[mi], b0, b1);
+             R + ring_index<T>(row, kk + lc + 8), b[ni][0], b[ni][1]);
     }
+    if (FRESH && kk == 0) {
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+    }
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+      for (int mi = 0; mi < W::MI; ++mi) {
+        if (FRESH && kk == 0)
+          mma_bf16_first(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
+        else
+          mma_bf16(part[mi][ni], a[mi], b[ni][0], b[ni][1]);
+      }
   }
 }
 
@@ -683,17 +717,17 @@ __device__ __forceinline__ void produce_all(T* ring, uint64_t* full,
   }
 }
 
-// The 256 consumer threads of a CTA (a producer warp, where there is one,
-// goes its own way)
+// The consumer threads of a ring CTA (the producer warp goes its own way)
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NTHREADS) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CTHREADS) : "memory");
 }
 
-// One CTA per (corpus block, query tile): 8 consumer warps and a producer
-// warp. The block's query tiles form a cluster that shares every ring stage
-// through TMA multicast (which needs rows on 16-byte boundaries).
+// One CTA per (corpus block, query tile): CWARPS consumer warps and a
+// producer warp. The block's query tiles form a cluster that shares every
+// ring stage through TMA multicast (which needs rows on 16-byte
+// boundaries).
 template <typename T, int QT>
-__global__ void __launch_bounds__(NTHREADS + 32, 1)
+__global__ void __launch_bounds__(CTHREADS + 32, 1)
 ring_kernel(const __grid_constant__ CUtensorMap map,
             const float* __restrict__ q, const T* __restrict__ corpus,
             const float* __restrict__ sqn, const uint8_t* __restrict__ mask,
@@ -730,13 +764,13 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
       for (int i = 0; i < stages; ++i) {
         mbar_init(full + i, 1);
         mbar_init(empty + i, cs);
-        mbar_init(consumed + i, NWARPS);
+        mbar_init(consumed + i, CWARPS);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
     cluster_sync();
-    if (warp == NWARPS) {
+    if (warp == CWARPS) {
       produce_all(ring, full, empty, consumed, &map, row0, nk, steps, stages,
                   rank, cs, lane);
       // no CTA leaves while a peer may still copy into it or arrive on
@@ -747,9 +781,9 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   }
   // The query tile, once: bf16 into shared memory, |q|^2 in float32 from
   // the unrounded values; rows past B and dims past D are zero. Each warp
-  // takes QT/8 rows and keeps a load of each in flight together.
+  // takes QT/CWARPS rows and keeps a load of each in flight together.
   {
-    constexpr int RPW = QT / NWARPS;
+    constexpr int RPW = QT / CWARPS;
     const int dp = L.ldq - 8;
     const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
     float sq[RPW];
@@ -759,7 +793,7 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
       float4 x[RPW];
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
-        const int r = warp + i * NWARPS;
+        const int r = warp + i * CWARPS;
         const float* src = q + size_t(q0 + r) * D + d;
         x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (r < qrows && d < D) {
@@ -771,7 +805,7 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
       }
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
-        __nv_bfloat16* dst = Qs + (warp + i * NWARPS) * L.ldq + d;
+        __nv_bfloat16* dst = Qs + (warp + i * CWARPS) * L.ldq + d;
         sq[i] = fmaf(x[i].x, x[i].x, sq[i]);
         if (vec4) {
           sq[i] = fmaf(x[i].y, x[i].y, sq[i]);
@@ -787,13 +821,11 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
     for (int i = 0; i < RPW; ++i) {
       float t = sq[i];
       for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(FULL, t, o);
-      if (lane == 0) qsq[warp + i * NWARPS] = t;
+      if (lane == 0) qsq[warp + i * CWARPS] = t;
     }
   }
-  if (!register_fold(folds)) {
-    for (int i = tid; i < QT * L.vp; i += NTHREADS) bval[i] = INFINITY;
-    for (int i = tid; i < QT * folds; i += NTHREADS) bloc[i] = 0;
-  }
+  for (int i = tid; i < QT * L.vp; i += CTHREADS) bval[i] = INFINITY;
+  for (int i = tid; i < QT * folds; i += CTHREADS) bloc[i] = 0;
   consumer_sync();
 
   // This thread's accumulators: rows mi*16 + lr (+8), and per n8 tile ni
@@ -811,38 +843,8 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
   for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) qv[mi][h] = qsq[mi * 16 + lr + h * 8];
-  const bool regs = register_fold(folds);
-  // the register fold's minima and positions (byte ni*2+e of rpos)
-  float rval[W::MI][2][W::NI][2];
-  uint32_t rpos[W::MI][2];
-#pragma unroll
-  for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rpos[mi][h] = 0;
-#pragma unroll
-      for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) rval[mi][h][ni][e] = INFINITY;
-    }
 
-  // this thread's norms and mask of a row tile, for the fold: the next
-  // tile's are loaded while this one's products run
-  float cn[W::NI][2], cn_next[W::NI][2];
-  bool cm[W::NI][2], cm_next[W::NI][2];
   const int ntile = block / RT;
-  auto load_norms = [&](int t, float (&n)[W::NI][2], bool (&m)[W::NI][2]) {
-#pragma unroll
-    for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const size_t c = row0 + size_t(t) * RT + cols[ni][e];
-        n[ni][e] = t < ntile ? __ldg(sqn + c) : 0.f;
-        m[ni][e] = t < ntile && __ldg(mask + c) != 0;
-      }
-  };
-  load_norms(0, cn_next, cm_next);
-
   int slot = 0, phase = 0;
   for (int t = 0; t < ntile; ++t) {
     const int c0 = t * RT;
@@ -850,131 +852,81 @@ ring_kernel(const __grid_constant__ CUtensorMap map,
     // c0 / folds in it
     const int jb = c0 % folds;
     const uint8_t pos = static_cast<uint8_t>(c0 / folds);
-    float acc[W::MI][W::NI][4];
+    Acc<QT> acc, part;
 #pragma unroll
     for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
       for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.f;
+    // this thread's norms and mask bits (bit ni*2+e) of the tile, loaded
+    // now and first used by the fold, after the products
+    float cn[W::NI][2];
+    uint32_t cm = 0;
 #pragma unroll
     for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        cn[ni][e] = cn_next[ni][e];
-        cm[ni][e] = cm_next[ni][e];
+        const size_t c = row0 + size_t(c0) + cols[ni][e];
+        cn[ni][e] = __ldg(sqn + c);
+        cm |= uint32_t(__ldg(mask + c) != 0) << (ni * 2 + e);
       }
-    load_norms(t + 1, cn_next, cm_next);
 
-    // Each stage's products sum apart and join the running sums with
-    // float32 adds, so the tensor cores never add into a large sum; a
-    // stage's sums join one stage late, once its products have finished
-    // behind the next stage's.
-    auto step = [&](int kc, float (&part)[W::MI][W::NI][4]) {
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+    for (int kc = 0; kc < nk; ++kc) {
       mbar_wait(full + slot, phase);
-      stage_mma<T, QT>(part, Qs + kc * KS, L.ldq, ring + slot * stage_elems,
-                       ncol, lane);
+      const __nv_bfloat16* A = Qs + kc * KS;
+      const T* R = ring + slot * stage_elems;
+      if (kc % JOIN == 0)
+        stage_mma<T, QT, true>(acc, part, A, L.ldq, R, ncol, lane);
+      else
+        stage_mma<T, QT, false>(acc, part, A, L.ldq, R, ncol, lane);
       // every lane's products have issued, so its reads of the slot are
       // done: tell the producer
       __syncwarp();
       if (lane == 0) mbar_arrive_local(consumed + slot);
       if (++slot == stages) slot = 0, phase ^= 1;
-    };
-    auto join = [&](const float (&part)[W::MI][W::NI][4]) {
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
-    };
-    float p0[W::MI][W::NI][4], p1[W::MI][W::NI][4];
-    for (int kc = 0; kc < nk; kc += 2) {
-      step(kc, p0);
-      if (kc > 0) join(p1);
-      if (kc + 1 < nk) step(kc + 1, p1);
-      join(p0);
     }
-    if (nk % 2 == 0) join(p1);
-
-    if (regs) {
-      // as below, with the minima in registers
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float d =
-                  cm[ni][e]
-                      ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + e] + cn[ni][e], 0.f)
-                      : MASKD;
-              if (d < rval[mi][h][ni][e]) {
-                const int sh = (ni * 2 + e) * 8;
-                rval[mi][h][ni][e] = d;
-                rpos[mi][h] = (rpos[mi][h] & ~(0xffu << sh)) | (uint32_t(pos) << sh);
-              }
-            }
-    } else {
-      // Column c is alone in bucket c % folds within the tile and every
-      // tile puts that bucket in this thread, so the minima need no
-      // barrier; tiles go upward and `<` is strict, so ties keep the
-      // lowest column.
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = mi * 16 + lr + h * 8;
-          if (r >= qrows) continue;
-#pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int j = jb + cols[ni][e];
-              const float d =
-                  cm[ni][e]
-                      ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + e] + cn[ni][e], 0.f)
-                      : MASKD;
-              if (d < bval[r * L.vp + j]) {
-                bval[r * L.vp + j] = d;
-                bloc[r * folds + j] = pos;
-              }
-            }
-        }
-    }
-  }
-  consumer_sync();
-  if (regs) {  // the ring is drained: the minima go over it
 #pragma unroll
     for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+
+    // Column c is alone in bucket c % folds within the tile and every tile
+    // puts that bucket in this thread, so the minima need no barrier; tiles
+    // go upward and `<` is strict, so ties keep the lowest column.
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mi * 16 + lr + h * 8;
+        if (r >= qrows) continue;
 #pragma unroll
         for (int ni = 0; ni < W::NI; ++ni)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int r = mi * 16 + lr + h * 8, j = cols[ni][e];
-            bval[r * L.vp + j] = rval[mi][h][ni][e];
-            bloc[r * folds + j] = uint8_t(rpos[mi][h] >> ((ni * 2 + e) * 8));
+            const int j = jb + cols[ni][e];
+            const float d =
+                cm >> (ni * 2 + e) & 1u
+                    ? fmaxf(qv[mi][h] - 2.f * acc[mi][ni][2 * h + e] + cn[ni][e], 0.f)
+                    : MASKD;
+            if (d < bval[r * L.vp + j]) {
+              bval[r * L.vp + j] = d;
+              bloc[r * folds + j] = pos;
+            }
           }
-    consumer_sync();
+      }
   }
+  consumer_sync();
 
   if (folds <= 128)
-    extract_rounds_regs<QT / NWARPS>(bval, L.vp, bloc, folds, qrows, k,
-                                     (g * B + q0) * size_t(k), out_v, out_i,
-                                     warp, lane);
+    extract_rounds_regs<QT / CWARPS, CWARPS>(bval, L.vp, bloc, folds, qrows,
+                                             k, (g * B + q0) * size_t(k),
+                                             out_v, out_i, warp, lane);
   else
     extract_rounds(bval, L.vp, bloc, folds, qrows, k, (g * B + q0) * size_t(k),
-                   out_v, out_i, warp, lane);
+                   out_v, out_i, CWARPS, warp, lane);
   cluster_sync();
 }
 
@@ -1108,7 +1060,7 @@ cudaError_t run_ring(const Plan& pl, const float* q, const T* c,
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(NTHREADS + 32);  // 8 consumer warps, 1 producer
+  cfg.blockDim = dim3(CTHREADS + 32);  // consumer warps and the producer
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
