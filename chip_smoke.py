@@ -240,7 +240,8 @@ def phase_kernels(seed: int) -> dict:
     if agreement < MIN_ID_AGREEMENT:
         raise AssertionError(f"id agreement {agreement} < {MIN_ID_AGREEMENT}")
     return {"cases": cases, "cases_by_variant": by_variant,
-            "raised_as_expected": raised, "max_abs_err": max_err, "id_agreement": agreement,
+            "raised_as_expected": raised, "max_abs_err": max_err,
+            "id_agreement": agreement,
             "tolerance": {"atol": ATOL, "rtol": RTOL}}
 
 
