@@ -1,24 +1,29 @@
 """Where the fused flat kernel's time goes, on one card.
 
-    python3 probe_fused_flat.py [--against DIR] [--iters 20]
+    python3 probe_fused_flat.py [--shapes] [--copies a,b] [--against DIR]
+                                [--iters 20]
 
 At the main path's shapes (a seeded randn 1,048,576 x 768 float32 device
 corpus, 1% masked, B = 256, k = 10, block 2048, fold 16) it times
 ``block_topk_cuda`` (CUDA events, median) for copies of
 ``weaviate_tpu_torch/csrc/fused_flat.cu`` built with one setting changed
-(cluster size, ring depth, consumer warps, stages per join) or one part
-switched off (the corpus copies, the products, the fold: such a copy gives
-wrong answers and is only timed),
-and counts with clock64 how a CTA's cycles split into set-up, the ring
-loop, the consumer warps' waits for data, the producer warp's waits and
-the extraction. The unchanged copy is held against the plain version.
-With ``--against DIR`` it also times the kernel of the checkout at DIR,
-in turns with this one (DIR, this, this, DIR), each in its own process.
+(cluster size, ring depth, consumer warps, stages per join, the legacy
+variant everywhere, a 16-query tile) or one part switched off (the corpus
+copies, the products, the fold: such a copy gives wrong answers and is only
+timed), and counts with clock64 how a CTA's cycles split into set-up, the
+ring loop, the consumer warps' waits for data, the producer warp's waits
+and the extraction. Every copy that should be right is held against the
+plain version. ``--shapes`` times the copies over ``SHAPES`` instead (other
+k, fold, batch and width on the same number of rows), and ``--copies``
+picks copies by name. With ``--against DIR`` it also times the kernel of
+the checkout at DIR, in turns with this one (DIR, this, this, DIR), each in
+its own process.
 
 A copy is made by replacing exact lines of the source; when the source no
-longer holds one, the probe stops and names it. Builds go to
-``weaviate_tpu_torch/_build/probe/``. Prints one JSON line per
-measurement, then the card's name and power limit. Needs a CUDA card.
+longer holds one, the probe stops and names it (the CPU tests apply every
+copy's edits). Builds go to ``weaviate_tpu_torch/_build/probe/``. Prints
+one JSON line per measurement, then the card's name and power limit. Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ EDITS = {
     "cluster_1": [(PLANS, "      int cs = 1;")],
     "cluster_4": [(PLANS, "      int cs = 4;")],
     "stages_4": [(STAGES, "    for (int st = 4; st >= 3 && aligned && ring_folds(folds); --st) {")],
+    "legacy": [(STAGES, "    for (int st = 8; st >= 3 && false; --st) {")],
+    "query_tile_16": [("  const int qts[] = {64, 32, 16};",
+                       "  const int qts[] = {16};")],
     "consumers_4": [(CONSUMERS, "constexpr int CWARPS = 4;")],
     "join_2": [(JOINS, "constexpr int JOIN = 2;")],
     "join_8": [(JOINS, "constexpr int JOIN = 8;")],
@@ -65,6 +73,19 @@ EDITS = {
     "no_fold": [("            if (d < bval[r * L.vp + j]) {",
                  "            if (0) {")],
 }
+# copies that give wrong answers by design, so are only timed
+ABLATIONS = ("no_copies", "no_products", "no_fold")
+# --shapes: (name, B, D, k, fold) on N rows, block 2048
+SHAPES = [
+    ("main", 256, 768, 10, 16),
+    ("k32_fold8", 256, 768, 32, 8),
+    ("k32_fold4", 256, 768, 32, 4),
+    ("k64_fold4", 256, 768, 64, 4),
+    ("k10_fold2", 256, 768, 10, 2),
+    ("b1", 1, 768, 10, 16),
+    ("b16", 16, 768, 10, 16),
+    ("d99_legacy", 256, 99, 10, 16),
+]
 # clock64 counters: [0] consumer waits for data, [1] consumer ring loop,
 # [2] producer waits on consumed, [3] producer waits on empty, [4] producer
 # loop, [5] set-up, [6] extraction (summed over warps)
@@ -145,12 +166,12 @@ def build(copies: dict[str, str]) -> dict[str, Path]:
     return libs
 
 
-def inputs():
+def inputs(b: int = B, d: int = D):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    c = torch.randn(N, D, device="cuda", generator=gen)
+    c = torch.randn(N, d, device="cuda", generator=gen)
     sq = (c * c).sum(1)
     m = torch.rand(N, device="cuda", generator=gen) > 0.01
-    q = (c[:B] + 0.1 * torch.randn(B, D, device="cuda", generator=gen))
+    q = (c[:b] + 0.1 * torch.randn(b, d, device="cuda", generator=gen))
     return q.contiguous(), c, sq, m
 
 
@@ -169,72 +190,93 @@ def median_ms(fn, iters: int) -> float:
     return sorted(ts)[len(ts) // 2]
 
 
-def time_checkout(root: str, iters: int) -> None:
+def shapes(all_shapes: bool):
+    return SHAPES if all_shapes else SHAPES[:1]
+
+
+def time_checkout(root: str, iters: int, all_shapes: bool) -> None:
     """Times the kernel of the checkout at ``root`` (its own build)."""
     sys.path.insert(0, root)
     from weaviate_tpu_torch.ops import fused_flat as ff
 
-    q, c, sq, m = inputs()
-    ms = median_ms(lambda: ff.block_topk_cuda(q, c, sq, m, K, BLOCK, FOLD),
-                   iters)
-    print(json.dumps({"checkout": root, "kernel_ms": ms}), flush=True)
+    for shape, b, d, k, fold in shapes(all_shapes):
+        q, c, sq, m = inputs(b, d)
+        out = {"checkout": root, "shape": shape}
+        try:
+            out["kernel_ms"] = median_ms(
+                lambda: ff.block_topk_cuda(q, c, sq, m, k, BLOCK, fold), iters)
+        except (RuntimeError, ValueError) as e:
+            out["error"] = str(e)
+        print(json.dumps(out), flush=True)
+        del q, c, sq, m
+
+
+def cycles(lib, run, plan: dict, cwarps: int) -> dict:
+    """A CTA's clock64 cycles from the ``counters`` copy, per part."""
+    lib.probe_counters.argtypes = [ctypes.c_void_p]
+    cnt = (ctypes.c_ulonglong * 8)()
+    run()
+    torch.cuda.synchronize()
+    lib.probe_counters(cnt)  # reset
+    run()
+    torch.cuda.synchronize()
+    lib.probe_counters(cnt)
+    ctas = (-(-B // plan["query_tile"])) * (N // BLOCK)
+    warps = ctas * cwarps
+    return {"setup": cnt[5] / warps, "ring_loop": cnt[1] / warps,
+            "waiting_for_data": cnt[0] / warps, "extraction": cnt[6] / warps,
+            "producer_loop": cnt[4] / ctas,
+            "producer_waiting_on_consumers": cnt[2] / ctas,
+            "producer_waiting_on_cluster": cnt[3] / ctas}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--shapes", action="store_true")
+    ap.add_argument("--copies", default=None)
     ap.add_argument("--time-checkout", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 2
     if args.time_checkout:
-        time_checkout(args.time_checkout, args.iters)
+        time_checkout(args.time_checkout, args.iters, args.shapes)
         return 0
     sys.path.insert(0, str(ROOT))
     from weaviate_tpu_torch.ops import fused_flat as ff
 
-    copies = {name: edited(e) for name, e in EDITS.items()}
-    copies["counters"] = edited(COUNTERS)
-    libs = build(copies)
-    q, c, sq, m = inputs()
-    pv, pi = ff.block_topk_reference(q, c, sq, m, K, BLOCK, FOLD)
-    for name, path in libs.items():
-        lib = ff.declare(ctypes.CDLL(str(path)))
-        ff._library = lambda lib=lib: lib
-        run = lambda: ff.block_topk_cuda(q, c, sq, m, K, BLOCK, FOLD)
-        variant, plan = ff.kernel_variant(q, c, K, BLOCK, FOLD)
-        out = {"copy": name, "variant": variant, "plan": plan}
-        if name == "as_is":
-            kv, ki = run()
-            out["outside_tolerance"] = int(
-                ((kv - pv).abs() > 1e-2 + 1e-4 * pv.abs()).sum())
-            out["ids_equal_share"] = float((ki == pi).float().mean())
-        if name == "counters":
-            lib.probe_counters.argtypes = [ctypes.c_void_p]
-            cnt = (ctypes.c_ulonglong * 8)()
-            run()
-            torch.cuda.synchronize()
-            lib.probe_counters(cnt)  # reset
-            run()
-            torch.cuda.synchronize()
-            lib.probe_counters(cnt)
-            ctas = (-(-B // plan["query_tile"])) * (N // BLOCK)
-            warps = ctas * consumer_warps(copies[name])
-            out["cycles_per_cta"] = {
-                "setup": cnt[5] / warps, "ring_loop": cnt[1] / warps,
-                "waiting_for_data": cnt[0] / warps,
-                "extraction": cnt[6] / warps,
-                "producer_loop": cnt[4] / ctas,
-                "producer_waiting_on_consumers": cnt[2] / ctas,
-                "producer_waiting_on_cluster": cnt[3] / ctas}
-        out["kernel_ms"] = median_ms(run, args.iters)
-        print(json.dumps(out), flush=True)
+    names = args.copies.split(",") if args.copies else [*EDITS, "counters"]
+    copies = {name: edited(COUNTERS if name == "counters" else EDITS[name])
+              for name in names}
+    libs = {name: ff.declare(ctypes.CDLL(str(path)))
+            for name, path in build(copies).items()}
+    for shape, b, d, k, fold in shapes(args.shapes):
+        q, c, sq, m = inputs(b, d)
+        pv, pi = ff.block_topk_reference(q, c, sq, m, k, BLOCK, fold)
+        for name, lib in libs.items():
+            ff._library = lambda lib=lib: lib
+            run = lambda: ff.block_topk_cuda(q, c, sq, m, k, BLOCK, fold)
+            variant, plan = ff.kernel_variant(q, c, k, BLOCK, fold)
+            out = {"copy": name, "shape": shape, "variant": variant,
+                   "plan": plan}
+            if name not in ABLATIONS:
+                kv, ki = run()
+                out["outside_tolerance"] = int(
+                    ((kv - pv).abs() > 1e-2 + 1e-4 * pv.abs()).sum())
+                out["ids_equal_share"] = float((ki == pi).float().mean())
+            if name == "counters" and shape == "main":
+                out["cycles_per_cta"] = cycles(lib, run, plan,
+                                               consumer_warps(copies[name]))
+            out["kernel_ms"] = median_ms(run, args.iters)
+            print(json.dumps(out), flush=True)
+        del q, c, sq, m, pv, pi
     if args.against:
+        extra = ["--shapes"] if args.shapes else []
         for root in (args.against, str(ROOT), str(ROOT), args.against):
             subprocess.run([sys.executable, __file__, "--time-checkout", root,
-                            "--iters", str(args.iters)], check=True,
+                            "--iters", str(args.iters), *extra], check=True,
                            timeout=600)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

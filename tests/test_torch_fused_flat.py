@@ -16,6 +16,8 @@ import torch
 from weaviate_tpu.ops import pallas_flat as jp
 from weaviate_tpu_torch.ops import fused_flat as tf
 
+import probe_fused_flat as probe
+
 
 def _data(n=4096, d=64, b=8, seed=0):
     rng = np.random.default_rng(seed)
@@ -211,3 +213,14 @@ def test_launch_counts_by_variant_and_reset():
     finally:
         tf.fused_flat_topk.launches = saved[0]
         tf.fused_flat_topk.launches_by_variant = saved[1]
+
+
+@pytest.mark.parametrize("name", [*probe.EDITS, "counters"])
+def test_probe_copies_apply_to_the_kernel_source(name):
+    # each copy of probe_fused_flat.py replaces lines the kernel source
+    # holds exactly once, so a kernel edit that drops one fails here
+    edits = probe.COUNTERS if name == "counters" else probe.EDITS[name]
+    src = probe.SOURCE.read_text()
+    for old, _ in edits:
+        assert src.count(old) == 1, f"{name}: {old!r}"
+    assert (probe.edited(edits) == src) == (not edits)

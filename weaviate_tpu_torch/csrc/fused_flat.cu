@@ -68,7 +68,11 @@
 // products, a score tile and the per-bucket fold; blocks with more than 512
 // buckets take QT = 16, RT = 128. The variant is chosen from the shape and
 // the corpus alignment before the launch (`fused_flat_variant` says which)
-// and never after a failure.
+// and never after a failure. The redesign set out to leave only two kinds
+// of shape here, more than 512 buckets and a D too wide for the tile; rows
+// off 16-byte boundaries (which want a per-thread cp.async path into the
+// ring) and bucket counts off a multiple of 128 (which want another fold)
+// go beyond that and are left for later.
 //
 // Tie rules match the JAX kernel exactly: within a bucket a strict `<` while
 // walking rows upward keeps the lowest column; across buckets the shuffle
