@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's near-vector search path on one card.
+"""Drive the PyTorch/CUDA port's near-vector search paths on one card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -6,23 +6,41 @@ Phases, each printing one JSON line with its seconds; any failure exits
 non-zero without the final line:
 
 1. env     — card name and power limit, torch and CUDA versions, the time to
-             build every kernel from ``weaviate_tpu_torch/csrc`` and the
-             native host libraries from ``weaviate_tpu_torch/native``.
+             build every kernel from ``weaviate_tpu_torch/csrc`` (one nvcc
+             each, all at once) and the native host libraries from
+             ``weaviate_tpu_torch/native``.
 2. kernels — each kernel against its plain PyTorch version on the card over
-             a grid of shapes, masks and edge cases.
+             a grid: the fused flat scan (K1) over shapes, masks and edge
+             cases; the fused HNSW walk (B2) over every metric, widths D of
+             25/99/128/768, layer-0 widths M0 of 32/64, beams of 16 to 512,
+             batches of 1 to 256, on graphs the port builds on the card.
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
              kernel / plain / search / exact-path times, device memory.
 4. warm    — demote the index to host RAM, search there, promote, search
              again: the answers agree.
-5. db      — the user's entry point at the same width: ``DB`` ->
-             ``Collection.put_batch`` of the same 1,000,000 vectors as
-             objects with an int and a text property, 1% deleted, then
-             ``Collection.vector_search_batch`` (B = 256, k = 10) through
-             the fused kernel: recall@10, a filtered query, close and
-             reopen with the same answers, ingest and reopen seconds,
-             search p50/p99, the kernel's share of a search, device memory.
+5. db      — the user's entry point for the flat path, cut in depth to the
+             first DB_ROWS of those vectors: ``DB`` ->
+             ``Collection.put_batch`` as objects with an int and a text
+             property, 1% deleted, then ``Collection.vector_search_batch``
+             (B = 256, k = 10) through the fused kernel: recall@10, a
+             filtered query, close and reopen with the same answers, ingest
+             and reopen seconds, search p50/p99, the kernel's share of a
+             search, device memory.
+6. hnsw    — ``HNSWIndex`` at the GloVe-25 configuration of the JAX
+             package's ``bench.py bench_glove``: HNSW_ROWS seeded unit
+             25-d rows, cosine, ef 64, ef_construction 96, M 16, the fused
+             walk (B2) for search and layer-0 construction. Build rate and
+             launches, recall@10 against the exact float32 answer, search
+             p50/p99 and launches per search, B2's time per launch beside
+             its bound and its plain version, the host walk on the same
+             index, an ef sweep, a 1% delete, device memory.
+7. hnsw_db — the same rows (the first HNSW_DB_ROWS) as objects through
+             ``DB`` -> ``Collection`` with an HNSW index: search unfiltered
+             and under a 1% filter (the planner's exact plan), then close
+             and reopen (graph.npz) and a crash and reopen (commit-log
+             replay), each with the same uuids.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -47,30 +65,43 @@ import torch
 from weaviate_tpu_torch import _build, native
 from weaviate_tpu_torch.core.db import DB
 from weaviate_tpu_torch.index.flat import FlatIndex
+from weaviate_tpu_torch.index.hnsw import HNSWIndex
+from weaviate_tpu_torch.index.hnsw.graph import HostGraph
 from weaviate_tpu_torch.inverted.filters import Where
-from weaviate_tpu_torch.ops import fused_flat
-from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search
+from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
+from weaviate_tpu_torch.ops import device_beam, fused_flat
+from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search, normalize
+from weaviate_tpu_torch.query.planner import PLAN_EXACT
 from weaviate_tpu_torch.schema.config import (
     CollectionConfig,
     DataType,
     FlatIndexConfig,
+    HNSWIndexConfig,
     Property,
 )
 from weaviate_tpu_torch.storage.objects import StorageObject
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and float32
+# (outside the tensor cores) FLOP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
+FP32_FLOP_S = 67e12
 
 # kernel vs plain: float32 sums of the same bf16 products in another order
 ATOL, RTOL = 1e-2, 1e-4
 MIN_ID_AGREEMENT = 0.999
+# B2 with bf16 products: a pair of candidates within a bf16-rounded sum's
+# error can swap, and the walk then diverges from there
+MIN_ID_AGREEMENT_BF16 = 0.99
 
 ROWS, DIMS, BATCH, K = 1_000_000, 768, 256, 10
 # the kernel variant the main path's shapes take
 MAIN_VARIANT = "cluster"
 INGEST_BATCH = 65536
-# phase db: objects per put_batch, the seeded text vocabulary, the filter
+# phase db: its depth (the first DB_ROWS of phase main's vectors; cut from
+# 1M so the HNSW phases fit the time limit), objects per put_batch, the
+# seeded text vocabulary, the filter
+DB_ROWS = 3 * INGEST_BATCH
 DB_BATCH = 10_000
 VOCAB, TEXT_WORDS = 1000, 8
 FILTER_BUCKET = 7
@@ -167,7 +198,7 @@ def phase_env() -> dict:
     host = threading.Thread(target=lambda: host_err.extend(
         _native_build(lib) for lib in ("segment_merge", "bm25_wand")))
     host.start()
-    logs = _build.build(fused_flat.KERNEL)
+    logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL)
     host.join()
     errs = [e for e in host_err if e]
     if errs:
@@ -285,7 +316,161 @@ def phase_kernels(seed: int) -> dict:
     return {"cases": cases, "cases_by_variant": by_variant,
             "raised_as_expected": raised, "max_abs_err": max_err,
             "id_agreement": agreement,
-            "tolerance": {"atol": ATOL, "rtol": RTOL}}
+            "tolerance": {"atol": ATOL, "rtol": RTOL},
+            "b2": beam_kernel_grid(seed)}
+
+
+# B2 grid: graphs the port builds on the card (rows, widths D, M = half of
+# M0), the walks' metrics, beams and batches
+B2_ROWS = 20_000
+B2_DIMS = (25, 99, 128, 768)
+B2_M = (16, 32)
+B2_METRICS = (("l2-squared", "fp32"), ("dot", "fp32"), ("dot", "bf16"),
+              ("cosine", "fp32"), ("cosine", "bf16"), ("manhattan", "fp32"),
+              ("hamming", "fp32"))
+B2_EFS = (16, 64, 128, 512)
+B2_BS = (1, 8, 64, 256)
+
+
+def b2_operands(metric: str, rows: torch.Tensor) -> torch.Tensor:
+    """The corpus (or queries) a metric walks: unit rows for dot and cosine,
+    coarse integer rows for hamming (so dimensions match often), raw rows
+    otherwise."""
+    if metric in ("dot", "cosine"):
+        return normalize(rows).contiguous()
+    if metric == "hamming":
+        return torch.round(rows * 2.0).contiguous()
+    return rows.contiguous()
+
+
+def compare_walks(kernel, plain, agreement_min: float):
+    """B2 against its plain version, [b, ef] ids and distances: the ids agree
+    on at least ``agreement_min`` of the slots, and the distances of the
+    slots whose ids agree are within ATOL + RTOL * |plain|. Returns (max abs
+    error, equal slots, slots)."""
+    (ki, kd), (pi, pd) = kernel, plain
+    same = ki == pi
+    agree = float(same.float().mean())
+    if agree < agreement_min:
+        raise AssertionError(f"B2 ids agree on {agree} < {agreement_min}")
+    live = same & (pi >= 0)
+    err = (kd - pd).abs()
+    if bool((err[live] > ATOL + RTOL * pd.abs()[live]).any()):
+        raise AssertionError(f"B2 distances differ: max {err[live].max()}")
+    return (float(err[live].max()) if bool(live.any()) else 0.0,
+            int(same.sum()), same.numel())
+
+
+def beam_kernel_grid(seed: int) -> dict:
+    """B2 against its plain version on the card. One graph per (D, M) from
+    the port's own build (``HNSWIndex`` with the fused walk, 2% deleted:
+    tombstones stay traversable); every other graph also loses 1% of its
+    nodes (absent: present False). Each graph walks every metric, cycling
+    the beam, the batch, and with or without the upper layers; one more
+    walk per graph stops after 5 expansions (max_steps binds)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    cases, max_err, same, total, builds = 0, 0.0, 0, 0, 0.0
+    seen = {"ef": set(), "b": set(), "metric": set(), "upper": set(),
+            "absent": set(), "max_steps_binds": 0}
+    case = 0
+    for gi, (d, m) in enumerate((d, m) for d in B2_DIMS for m in B2_M):
+        rows = rng.standard_normal((B2_ROWS, d), dtype=np.float32)
+        t0 = time.perf_counter()
+        idx = HNSWIndex(d, HNSWIndexConfig(
+            distance="l2-squared", precision="fp32", max_connections=m,
+            ef_construction=64, ef=64, device_beam=True, insert_batch=4096,
+            initial_capacity=B2_ROWS))
+        idx.add_batch(np.arange(B2_ROWS), rows)
+        idx.delete(np.arange(0, B2_ROWS, 50))
+        builds += time.perf_counter() - t0
+        graph = idx.graph
+        absent = gi % 2 == 1
+        if absent:
+            graph = HostGraph.from_arrays(idx.graph.to_arrays())
+            gone = np.arange(7, B2_ROWS, 97)
+            graph.levels[gone[gone != graph.entrypoint]] = -1
+        mirror = device_beam.DeviceAdjacency(graph, dev)
+        adj, present = mirror.sync()
+        ua, us = mirror.sync_upper()
+        if ua.shape[0] == 0:
+            raise AssertionError("a grid graph has no upper layers")
+        base = torch.from_numpy(rows).to(dev)
+        noise = torch.from_numpy(
+            rng.standard_normal((max(B2_BS), d), dtype=np.float32)).to(dev)
+        walks = [(metric, prec, B2_EFS[(case + i) % 4],
+                  B2_BS[((case + i) // 4) % 4], (case + i) % 2 == 0, None)
+                 for i, (metric, prec) in enumerate(B2_METRICS)]
+        walks.append(("l2-squared", "fp32", 64, 64, True, 5))
+        for metric, prec, ef, b, upper, steps in walks:
+            corpus = b2_operands(metric, base)
+            q = b2_operands(metric, base[:b] + 0.1 * noise[:b])
+            eps = torch.full((b,), graph.entrypoint, dtype=torch.int32,
+                             device=dev)
+            up = (ua, us) if upper else device_beam._empty_upper(dev)
+            max_steps = steps if steps else 4 * ef + 64
+            scorer = device_beam.RawScorer(metric, prec)
+            kernel = device_beam.fused_search_cuda(
+                scorer, q, corpus, adj, present, eps, *up, ef, max_steps)
+            plain = device_beam._fused_search(
+                scorer, q, (corpus,), adj, present, eps, *up, ef, max_steps)
+            torch.cuda.synchronize()
+            e, s_, t = compare_walks(
+                kernel, plain,
+                MIN_ID_AGREEMENT_BF16 if prec == "bf16" else MIN_ID_AGREEMENT)
+            if bool(((kernel[0] >= 0) & ~present[kernel[0].clamp(min=0).long()]
+                     ).any()):
+                raise AssertionError("B2 returned an absent node")
+            if steps:
+                full = device_beam.fused_search_cuda(
+                    scorer, q, corpus, adj, present, eps, *up, ef, 4 * ef + 64)
+                if torch.equal(full[0], kernel[0]):
+                    raise AssertionError("max_steps did not bind")
+                seen["max_steps_binds"] += 1
+            max_err = max(max_err, e)
+            same += s_
+            total += t
+            cases += 1
+            seen["ef"].add(ef)
+            seen["b"].add(b)
+            seen["metric"].add(f"{metric}/{prec}")
+            seen["upper"].add(upper)
+            seen["absent"].add(absent)
+        case += len(B2_METRICS)
+        del idx, mirror, adj, present, ua, us, base, noise
+        torch.cuda.empty_cache()
+    if seen["ef"] != set(B2_EFS) or seen["b"] != set(B2_BS) \
+            or len(seen["metric"]) != len(B2_METRICS) \
+            or seen["upper"] != {True, False} or seen["absent"] != {True, False}:
+        raise AssertionError(f"the B2 grid left a case out: {seen}")
+    # what the kernel does not take, it refuses before launching
+    raised = 0
+    z = torch.zeros((64, 8), device=dev)
+    for over in (dict(ef=1024), dict(adjacency=torch.full(
+            (64, 256), -1, dtype=torch.int32, device=dev))):
+        args = dict(scorer=device_beam.RawScorer("l2-squared", "fp32"),
+                    queries=z[:2], corpus=z,
+                    adjacency=torch.full((64, 8), -1, dtype=torch.int32,
+                                         device=dev),
+                    present=torch.ones(64, dtype=torch.bool, device=dev),
+                    eps=torch.zeros(2, dtype=torch.int32, device=dev),
+                    upper_adj=device_beam._empty_upper(dev)[0],
+                    upper_slots=device_beam._empty_upper(dev)[1], ef=16,
+                    max_steps=8)
+        args.update(over)
+        try:
+            device_beam.fused_search_cuda(**args)
+        except ValueError:
+            raised += 1
+    if raised != 2:
+        raise AssertionError("B2 launched on arguments outside its contract")
+    return {"cases": cases, "graphs": len(B2_DIMS) * len(B2_M),
+            "graph_rows": B2_ROWS, "graph_build_s": builds,
+            "max_abs_err": max_err, "id_agreement": same / max(1, total),
+            "max_steps_binds": seen["max_steps_binds"],
+            "raised_as_expected": raised,
+            "min_id_agreement": {"fp32": MIN_ID_AGREEMENT,
+                                 "bf16": MIN_ID_AGREEMENT_BF16}}
 
 
 def recall(ids, gt: np.ndarray) -> float:
@@ -398,7 +583,7 @@ def phase_main(seed: int, state: dict) -> dict:
     bound_by = "bytes" if bytes_moved / HBM_BYTES_S >= flops / BF16_FLOP_S \
         else "operations"
     state.update(idx=idx, exact32=exact32, queries=queries, res=res,
-                 chunks=chunks, deleted=deleted, gt=gt_i)
+                 chunks=chunks, deleted=deleted)
     l2_bytes = l2_bytes_model(variant, plan, BATCH, n_rows, d,
                               corpus.element_size(), block)
     state["kernel"] = {
@@ -484,33 +669,46 @@ def phase_db(seed: int, state: dict) -> dict:
     ``FlatIndex`` -> the fused kernel, and back through
     ``Collection.vector_search_batch``."""
     rng = np.random.default_rng(seed + 1)
-    uuids = _uuids(rng, ROWS)
+    uuids = _uuids(rng, DB_ROWS)
     uuid_arr = np.array(uuids)
     vocab = np.array(["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
                                          int(rng.integers(3, 9))))
                       for _ in range(VOCAB)])
-    words = rng.integers(0, VOCAB, (ROWS, TEXT_WORDS))
-    bucket = np.arange(ROWS) % 100
-    queries, deleted = state["queries"], state["deleted"]
+    words = rng.integers(0, VOCAB, (DB_ROWS, TEXT_WORDS))
+    bucket = np.arange(DB_ROWS) % 100
+    queries = state["queries"]
+    deleted = state["deleted"][state["deleted"] < DB_ROWS]
+    chunks = state.pop("chunks")[: DB_ROWS // INGEST_BATCH]
 
-    # exact float32 ground truths on the index-level store: the same
-    # vectors with the same rows deleted, unfiltered (phase main's) and
-    # under the filter bucket == FILTER_BUCKET
+    # exact float32 ground truths on the index-level store: the first
+    # DB_ROWS vectors with the same rows deleted, unfiltered and under the
+    # filter bucket == FILTER_BUCKET
     corpus, valid, sqn = state["idx"].store.snapshot()
     qt = torch.from_numpy(queries).cuda()
+    head = valid.clone()
+    head[DB_ROWS:] = False
     allow = torch.zeros_like(valid)
-    allow[:ROWS] = torch.from_numpy(bucket == FILTER_BUCKET).cuda()
-    _, gt_f = flat_search(qt, corpus, K, "l2-squared", valid_mask=valid,
-                          allow_mask=allow, corpus_sqnorms=sqn,
-                          chunk_size=131072, precision="fp32")
-    gt_f = gt_f.cpu().numpy()
-    gt, index_ids = state["gt"], state["res"].ids
+    allow[:DB_ROWS] = torch.from_numpy(bucket == FILTER_BUCKET).cuda()
+    gts = [flat_search(qt, corpus, K, "l2-squared", valid_mask=head,
+                       allow_mask=a, corpus_sqnorms=sqn, chunk_size=131072,
+                       precision="fp32")[1].cpu().numpy() for a in (None, allow)]
+    gt, gt_f = gts
     # free the index-level phases' device memory before the DB's
     for key in ("idx", "exact32", "res"):
         state.pop(key)
-    del corpus, valid, sqn, qt, allow
+    del corpus, valid, sqn, qt, allow, head
+    torch.cuda.empty_cache()
+    # the index-level answer on the same rows, for the DB's to agree with
+    sub = FlatIndex(DIMS, FlatIndexConfig(
+        distance="l2-squared", precision="bf16", flat_approx_recall=0.99))
+    for i, c in enumerate(chunks):
+        sub.add_batch(np.arange(i * INGEST_BATCH, (i + 1) * INGEST_BATCH), c)
+    sub.delete(deleted)
+    index_ids = sub.search(queries, K).ids
+    del sub
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    state["db_chunks"] = chunks
 
     root = tempfile.mkdtemp(prefix="chip_smoke_db_")
     try:
@@ -533,8 +731,8 @@ def _drive_db(state, root, uuids, uuid_arr, vocab, words, bucket, queries,
             flat_approx_recall=0.99)))
     fused_flat.reset_launches()
     t0 = time.perf_counter()
-    row, marks, next_mark = 0, [t0], ROWS // 10
-    for chunk in state.pop("chunks"):
+    row, marks, next_mark = 0, [t0], DB_ROWS // 10
+    for chunk in state.pop("db_chunks"):
         for s in range(0, len(chunk), DB_BATCH):
             part = chunk[s:s + DB_BATCH]
             col.put_batch([StorageObject(
@@ -545,15 +743,15 @@ def _drive_db(state, root, uuids, uuid_arr, vocab, words, bucket, queries,
             row += len(part)
             if row >= next_mark:
                 marks.append(time.perf_counter())
-                next_mark += ROWS // 10
+                next_mark += DB_ROWS // 10
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     # objects/s over each tenth of the ingest
-    rates = [ROWS // 10 / (b - a) for a, b in zip(marks, marks[1:])]
+    rates = [DB_ROWS // 10 / (b - a) for a, b in zip(marks, marks[1:])]
     t0 = time.perf_counter()
     n_del = col.delete([uuids[i] for i in deleted])
     delete_s = time.perf_counter() - t0
-    live = ROWS - len(deleted)
+    live = DB_ROWS - len(deleted)
     if n_del != len(deleted) or col.count() != live:
         raise AssertionError(f"deleted {n_del}, count {col.count()}")
 
@@ -643,9 +841,9 @@ def _drive_db(state, root, uuids, uuid_arr, vocab, words, bucket, queries,
     db.close()
     state["kernel"]["launches_db"] = launches
     return {
-        "rows": ROWS, "deleted": len(deleted), "live": live,
+        "rows": DB_ROWS, "deleted": len(deleted), "live": live,
         "batch": BATCH, "k": K, "put_batch": DB_BATCH,
-        "ingest_s": ingest_s, "objects_per_s": ROWS / ingest_s,
+        "ingest_s": ingest_s, "objects_per_s": DB_ROWS / ingest_s,
         "objects_per_s_by_tenth": rates,
         "compaction_bytes_written": compaction_bytes,
         "object_segments": segments,
@@ -667,6 +865,366 @@ def _drive_db(state, root, uuids, uuid_arr, vocab, words, bucket, queries,
     }
 
 
+# phase hnsw: bench.py bench_glove's configuration and data (seed 7, unit
+# iid normal 25-d rows, queries = the first 256 rows + 0.08 noise)
+HNSW_ROWS, HNSW_DIMS, HNSW_SEED = 1_200_000, 25, 7
+HNSW_EF, HNSW_EFC, HNSW_M, HNSW_INSERT = 64, 96, 16, 4096
+HNSW_ADD_STEP = 100_000
+EF_SWEEP = (64, 128, 256, 512)
+HNSW_RECALL_TARGET = 0.95  # BASELINE.json: recall@10 >= 0.95
+# phase hnsw_db: objects through the DB (the first rows of phase hnsw's)
+HNSW_DB_ROWS = 100_000
+HNSW_DB_EXTRA = 2_000  # added after the last snapshot: replayed from the log
+
+
+def glove_data(n: int):
+    """bench.py bench_glove's rows and queries, as float32 numpy."""
+    rng = np.random.default_rng(HNSW_SEED)
+    corpus = rng.standard_normal((n, HNSW_DIMS), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True) + 1e-12
+    queries = corpus[:BATCH] + 0.08 * rng.standard_normal(
+        (BATCH, HNSW_DIMS)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True) + 1e-12
+    return corpus, queries
+
+
+def cosine_truth(corpus: torch.Tensor, valid: torch.Tensor,
+                 queries: np.ndarray) -> np.ndarray:
+    """Exact float32 cosine top-K ids (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = normalize(torch.from_numpy(queries).cuda())
+    return flat_search(q, corpus, K, "cosine", valid_mask=valid,
+                       chunk_size=262144, precision="fp32")[1].cpu().numpy()
+
+
+def host_p(fn, n: int) -> list[float]:
+    """Host ms of ``fn`` over n calls, after one warm-up."""
+    fn()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def capture_launch(idx, queries: np.ndarray) -> dict:
+    """The arguments of the first B2 launch of ``idx.search(queries, K)``,
+    caught at the wrapper."""
+    real = device_beam.fused_search_cuda
+    caught = {}
+
+    def spy(*a, **kw):
+        if not caught:
+            caught["args"] = a
+        return real(*a, **kw)
+
+    device_beam.fused_search_cuda = spy
+    try:
+        idx.search(queries, K)
+    finally:
+        device_beam.fused_search_cuda = real
+    return caught
+
+
+def walk_bound(args, stats: torch.Tensor) -> tuple[float, str, dict]:
+    """The least time of one B2 launch on this run's data: the bytes it
+    must move (query rows, the rows it scored, the adjacency rows it read,
+    the outputs) over the memory rate, against its float32 operations
+    (3 a scored element) over the float32 rate."""
+    scorer, q, corpus, adj, present, eps, ua, us, ef, _ = args
+    st = stats.long().sum(0).tolist()
+    d, m0 = corpus.shape[1], adj.shape[1]
+    m = ua.shape[2] if ua.shape[0] else 0
+    b = q.shape[0]
+    nbytes = (b * d * 4 + st[1] * (d * 4 + 1) + st[2] * m0 * 4
+              + st[3] * m * 4 + b * ef * 8)
+    flops = 3.0 * st[1] * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    per_q = stats.float()
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "flops": flops,
+             "steps_mean": float(per_q[:, 0].mean()),
+             "steps_max": int(stats[:, 0].max()),
+             "scored_mean": float(per_q[:, 1].mean()),
+             "upper_rows_mean": float(per_q[:, 3].mean())})
+
+
+def phase_hnsw(state: dict) -> dict:
+    """The HNSW index at bench_glove's configuration, B2 on the path."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus, queries = glove_data(HNSW_ROWS)
+    state["glove"] = (corpus, queries)
+    cfg = HNSWIndexConfig(distance="cosine", ef=HNSW_EF,
+                          ef_construction=HNSW_EFC, max_connections=HNSW_M,
+                          initial_capacity=HNSW_ROWS, device_beam=True,
+                          insert_batch=HNSW_INSERT)
+    idx = HNSWIndex(HNSW_DIMS, cfg)
+    ids = np.arange(HNSW_ROWS, dtype=np.int64)
+    device_beam.fused_search.launches = 0
+    t0 = time.perf_counter()
+    marks = []
+    for s in range(0, HNSW_ROWS, HNSW_ADD_STEP):
+        idx.add_batch(ids[s:s + HNSW_ADD_STEP], corpus[s:s + HNSW_ADD_STEP])
+        marks.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = device_beam.fused_search.launches
+    if build_launches < 1:
+        raise AssertionError("construction did not launch B2")
+    store_corpus, valid, _ = idx.store.snapshot()
+    gt = cosine_truth(store_corpus, valid, queries)
+
+    # the served path: launches counted from 0 for one search
+    device_beam.fused_search.launches = 0
+    res = idx.search(queries, K)
+    search_launches = device_beam.fused_search.launches
+    if search_launches < 1:
+        raise AssertionError("HNSWIndex.search did not launch B2")
+    rec = recall(res.ids, gt)
+    search_ms = host_p(lambda: idx.search(queries, K), 50)
+
+    # B2 alone at the main path's shapes: one sub-batch launch
+    args = capture_launch(idx, queries)["args"]
+    scorer, q, c, adj, present, eps, ua, us, ef, max_steps = args
+    stats = torch.zeros((q.shape[0], 4), dtype=torch.int32, device="cuda")
+    k_ids, k_d = device_beam.fused_search_cuda(*args, stats=stats)
+    p_ids, p_d = device_beam._fused_search(scorer, q, (c,), adj, present, eps,
+                                           ua, us, ef, max_steps)
+    torch.cuda.synchronize()
+    err, same, total = compare_walks((k_ids, k_d), (p_ids, p_d),
+                                     MIN_ID_AGREEMENT)
+    kernel_ms = cuda_ms(lambda: device_beam.fused_search_cuda(*args), 30, 3)
+    plain_ms = cuda_ms(lambda: device_beam._fused_search(
+        scorer, q, (c,), adj, present, eps, ua, us, ef, max_steps), 3, 1)
+    bound_ms, bound_by, work = walk_bound(args, stats)
+
+    # the host walk on the same index (bench_glove clears the mirror)
+    beam = idx._device_beam
+    idx._device_beam = None
+    try:
+        host_res = idx.search(queries, K)
+        host_ms = host_p(lambda: idx.search(queries, K), 3)
+    finally:
+        idx._device_beam = beam
+    host_rec = recall(host_res.ids, gt)
+    if rec < host_rec - 0.01:
+        raise AssertionError(f"fused walk recall {rec} < host walk "
+                             f"{host_rec} - 0.01")
+
+    # ef sweep: recall and p50 at each ef; the smallest ef at the target
+    sweep = []
+    for ef_s in EF_SWEEP:
+        idx.config.ef = ef_s
+        r = recall(idx.search(queries, K).ids, gt)
+        p50 = float(np.percentile(host_p(lambda: idx.search(queries, K), 10),
+                                  50))
+        sweep.append({"ef": ef_s, "recall_at_10": r, "p50_ms": p50,
+                      "qps": BATCH / p50 * 1e3})
+    idx.config.ef = HNSW_EF
+    at_target = next((x for x in sweep if x["recall_at_10"]
+                      >= HNSW_RECALL_TARGET), None)
+
+    # a 1% delete: no deleted id comes back
+    rng = np.random.default_rng(HNSW_SEED + 1)
+    deleted = rng.choice(HNSW_ROWS, HNSW_ROWS // 100, replace=False)
+    idx.delete(deleted)
+    after = idx.search(queries, K)
+    if np.isin(after.ids, deleted).any():
+        raise AssertionError("a deleted id came back from the HNSW index")
+    valid_after = idx.store.snapshot()[1]
+    rec_after = recall(after.ids, cosine_truth(store_corpus, valid_after,
+                                               queries))
+    peak = torch.cuda.max_memory_allocated()
+    n_d = q.shape[0]
+    state["kernel_b2"] = {
+        "name": "device_beam_search", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/device_beam.cu",
+        "replaces": "weaviate_tpu/ops/device_beam.py:222",
+        "launches": build_launches + search_launches,
+        "max_abs_err": err,
+        "ms": float(np.median(kernel_ms)),
+        "plain_ms": float(np.median(plain_ms)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_build": build_launches,
+        "launches_per_search": search_launches,
+        "share_of_bound": bound_ms / float(np.median(kernel_ms)),
+    }
+    del idx, store_corpus, valid, valid_after, args, q, c, adj, present
+    torch.cuda.empty_cache()
+    return {
+        "rows": HNSW_ROWS, "dims": HNSW_DIMS, "metric": "cosine",
+        "ef": HNSW_EF, "ef_construction": HNSW_EFC, "max_connections": HNSW_M,
+        "insert_batch": HNSW_INSERT, "batch": BATCH, "k": K,
+        "build_s": build_s, "vectors_per_s": HNSW_ROWS / build_s,
+        "build_s_at_each_100k": marks,
+        "b2_launches_build": build_launches,
+        "recall_at_10": rec, "host_walk_recall_at_10": host_rec,
+        "search_p50_ms": float(np.percentile(search_ms, 50)),
+        "search_p99_ms": float(np.percentile(search_ms, 99)),
+        "b2_launches_per_search": search_launches,
+        "b2_rows_per_launch": n_d, "b2_ef_pad": ef,
+        "b2_max_steps": max_steps,
+        "b2_ms_median": float(np.median(kernel_ms)),
+        "b2_ms_max": float(np.max(kernel_ms)),
+        "b2_plain_ms": float(np.median(plain_ms)),
+        "b2_bound_ms": bound_ms, "b2_bound_by": bound_by, "b2_work": work,
+        "b2_vs_plain_max_abs_err": err,
+        "b2_vs_plain_id_agreement": same / max(1, total),
+        "host_walk_p50_ms": float(np.percentile(host_ms, 50)),
+        "ef_sweep": sweep,
+        "smallest_ef_at_recall_0.95": at_target,
+        "deleted": len(deleted), "recall_at_10_after_delete": rec_after,
+        "peak_device_bytes": peak,
+        "card": state["card"],
+    }
+
+
+def phase_hnsw_db(seed: int, state: dict) -> dict:
+    """The HNSW path through the user's entry point: ``DB`` ->
+    ``Collection`` -> ``Shard`` -> ``HNSWIndex`` -> B2."""
+    corpus, queries = state.pop("glove")
+    rows = corpus[:HNSW_DB_ROWS + HNSW_DB_EXTRA]
+    rng = np.random.default_rng(seed + 2)
+    uuids = _uuids(rng, len(rows))
+    uuid_arr = np.array(uuids)
+    bucket = np.arange(len(rows)) % 100
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="chip_smoke_hnsw_db_")
+    try:
+        return _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr,
+                              bucket)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _crash_leaving_commit_logs(db) -> int:
+    """Objects and delta logs durable, the HNSW graphs not condensed: the
+    commit logs hold the graph edits since the last snapshot. Returns their
+    bytes."""
+    pending = 0
+    for col in db._collections.values():
+        for shard in col._shards.values():
+            shard.async_queue.flush()
+            shard._delta.flush()
+            shard.store.flush_all()
+            shard._persist_counter()
+            shard._persist_meta()
+            for idx in shard._vector_indexes.values():
+                idx._commitlog.flush()
+                pending += idx._commitlog.pending_bytes
+    db.cycles.stop()
+    return pending
+
+
+def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
+    flt = Where.eq("bucket", FILTER_BUCKET)
+    n = HNSW_DB_ROWS
+
+    def put(db_col, lo, hi):
+        for s in range(lo, hi, DB_BATCH):
+            e = min(hi, s + DB_BATCH)
+            db_col.put_batch([StorageObject(
+                uuid=uuids[i], collection="Glove", vector=rows[i],
+                properties={"bucket": int(bucket[i])}) for i in range(s, e)])
+
+    db = DB(root)
+    col = db.create_collection(CollectionConfig(
+        name="Glove", properties=[Property("bucket", DataType.INT)],
+        vector_config=HNSWIndexConfig(
+            distance="cosine", ef=HNSW_EF, ef_construction=HNSW_EFC,
+            max_connections=HNSW_M, device_beam=True)))
+    device_beam.fused_search.launches = 0
+    t0 = time.perf_counter()
+    put(col, 0, n)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_launches = device_beam.fused_search.launches
+    shard = next(iter(col._shards.values()))
+    index = shard.vector_index()
+    if not isinstance(index, HNSWIndex) or index._device_beam is None:
+        raise AssertionError("the collection did not build a fused-walk HNSW")
+    corpus_t, valid, _ = index.store.snapshot()
+    gt = cosine_truth(corpus_t, valid, queries)
+
+    device_beam.fused_search.launches = 0
+    got = uuid_rows(db_search(col, queries))
+    launches = device_beam.fused_search.launches
+    if launches < 1:
+        raise AssertionError("vector_search_batch did not launch B2")
+    rec = recall(got, uuid_arr[gt])
+    index_rec = recall(index.search(queries, K).ids, gt)
+    plans = PLANNER_PLANS.value(plan=PLAN_EXACT)
+    rows_f = db_search(col, queries, flt)
+    if PLANNER_PLANS.value(plan=PLAN_EXACT) != plans + 1:
+        raise AssertionError("the 1% filter did not take the exact plan")
+    got_f = uuid_rows(rows_f)
+    if any(o.properties["bucket"] != FILTER_BUCKET
+           for r in rows_f for o, _ in r):
+        raise AssertionError("the filtered query returned a non-matching object")
+    allow = torch.zeros_like(valid)
+    allow[:n] = torch.from_numpy(bucket[:n] == FILTER_BUCKET).cuda()
+    q = normalize(torch.from_numpy(queries).cuda())
+    gt_f = flat_search(q, corpus_t, K, "cosine", valid_mask=valid,
+                       allow_mask=allow, precision="fp32")[1].cpu().numpy()
+    rec_f = recall(got_f, uuid_arr[gt_f])
+    if rec_f < 0.99:
+        raise AssertionError(f"exact-plan filtered recall@10 {rec_f} < 0.99")
+    search_ms = host_p(lambda: db_search(col, queries), 20)
+    filtered_ms = host_p(lambda: db_search(col, queries, flt), 10)
+    del corpus_t, valid, allow, q
+
+    # close and reopen: the graph comes back from graph.npz
+    t0 = time.perf_counter()
+    db.close()
+    db = DB(root)
+    col = db.get_collection("Glove")
+    reopen_s = time.perf_counter() - t0
+    if col.count() != n:
+        raise AssertionError(f"reopened count {col.count()} != {n}")
+    if uuid_rows(db_search(col, queries)) != got \
+            or uuid_rows(db_search(col, queries, flt)) != got_f:
+        raise AssertionError("the reopened HNSW collection answers differently")
+
+    # a snapshot, more objects, then a crash: their graph edits replay
+    # from the commit log
+    db.flush()
+    put(col, n, n + HNSW_DB_EXTRA)
+    want = uuid_rows(db_search(col, queries))
+    pending = _crash_leaving_commit_logs(db)
+    if pending <= 0:
+        raise AssertionError("the crash left no commit log to replay")
+    t0 = time.perf_counter()
+    db = DB(root)
+    col = db.get_collection("Glove")
+    crash_reopen_s = time.perf_counter() - t0
+    index = next(iter(col._shards.values())).vector_index()
+    if col.count() != n + HNSW_DB_EXTRA or index.count() != n + HNSW_DB_EXTRA:
+        raise AssertionError("the crash-reopened collection lost objects")
+    if uuid_rows(db_search(col, queries)) != want:
+        raise AssertionError("the crash-reopened HNSW collection answers "
+                             "differently")
+    db.close()
+    return {
+        "rows": n, "extra_rows_after_snapshot": HNSW_DB_EXTRA,
+        "batch": BATCH, "k": K, "put_batch": DB_BATCH,
+        "ingest_s": ingest_s, "objects_per_s": n / ingest_s,
+        "b2_launches_ingest": ingest_launches,
+        "b2_launches_search": launches,
+        "recall_at_10": rec, "index_recall_at_10": index_rec,
+        "recall_at_10_filtered": rec_f, "filtered_plan": PLAN_EXACT,
+        "search_p50_ms": float(np.percentile(search_ms, 50)),
+        "search_p99_ms": float(np.percentile(search_ms, 99)),
+        "filtered_search_p50_ms": float(np.percentile(filtered_ms, 50)),
+        "reopen_s": reopen_s, "crash_reopen_s": crash_reopen_s,
+        "commit_log_bytes_replayed": pending,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "card": state["card"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -681,6 +1239,8 @@ def main(argv=None) -> int:
         ("main", lambda: phase_main(args.seed, state)),
         ("warm", lambda: phase_warm(state)),
         ("db", lambda: phase_db(args.seed, state)),
+        ("hnsw", lambda: phase_hnsw(state)),
+        ("hnsw_db", lambda: phase_hnsw_db(args.seed, state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -688,7 +1248,7 @@ def main(argv=None) -> int:
         if name == "env":
             state["card"] = out["card"]
         emit({"phase": name, "seconds": time.perf_counter() - t0, **out})
-    emit({"kernels": [state["kernel"]]})
+    emit({"kernels": [state["kernel"], state["kernel_b2"]]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -403,15 +403,15 @@ UNPORTED = {
                   "slice 6"),
     "shard_multi_target": (lambda col, db: next(iter(
         col._shards.values())).multi_target_search({}, 1, "minimum"),
-        "slices 3 and 7"),
+        "slice 7"),
     "qos": (lambda col, db: db.qos, "slice 8"),
     "vectorizer": (lambda col, db: col.put_batch([StorageObject(
         uuid="", collection="Doc", properties={"bucket": 1})]), "slice 9"),
     "frozen_tenant": (lambda col, db: _freeze(db), "slice 9"),
     "hnsw_index": (lambda col, db: build_vector_index(
-        DIMS, config.HNSWIndexConfig(), device="cpu"), "slice 3"),
-    "dynamic_index": (lambda col, db: build_vector_index(
-        DIMS, config.DynamicIndexConfig(), device="cpu"), "slice 3"),
+        DIMS, config.HNSWIndexConfig(quantizer=config.SQConfig()),
+        device="cpu"), "slice 4"),
+    "dynamic_index": (lambda col, db: _dynamic_filtered_beam(), "slice 5"),
     "multivector_index": (lambda col, db: build_vector_index(
         DIMS, config.MultiVectorIndexConfig(), device="cpu"), "slice 7"),
     "hfresh_index": (lambda col, db: build_vector_index(
@@ -425,6 +425,21 @@ UNPORTED = {
     "rerank_module": (lambda col, db: config.RerankModuleConfig().validate(),
                       "slice 7"),
 }
+
+
+def _dynamic_filtered_beam():
+    """A dynamic index past its cutover, with the fused walk on, asked a
+    filtered query the planner sends to the beam: the filtered device walk
+    is slice 5."""
+    idx = build_vector_index(DIMS, config.DynamicIndexConfig(
+        distance="l2-squared", threshold=10, cutover_background=False,
+        hnsw={"device_beam": True, "ef": 16, "max_connections": 4,
+              "flat_search_cutoff": 0}), device="cpu")
+    vecs = np.random.default_rng(1).standard_normal((200, DIMS)).astype(
+        np.float32)
+    idx.add_batch(np.arange(200), vecs)
+    assert idx.upgraded
+    idx.search(vecs[:2], 5, allow_list=np.arange(200) % 5 < 3)
 
 
 def _freeze(db):
@@ -463,20 +478,20 @@ def test_unported_db_options_raise(tmp_path, monkeypatch, kw, env, where):
 
 def test_unported_index_types_refused_at_create_and_open(dbs, tmp_path):
     tdb = dbs("torch", "t")
-    for cfg in (config.HNSWIndexConfig(), config.DynamicIndexConfig()):
+    for cfg in (config.MultiVectorIndexConfig(), config.HFreshIndexConfig()):
         c = _cfg(config)
         c.vector_config = cfg
-        with pytest.raises(ValueError, match="slice 3"):
+        with pytest.raises(ValueError, match="slice 7"):
             tdb.create_collection(c)
-    # a JAX-written HNSW collection: the port refuses it at open
-    jdb = dbs("jax", "hnsw")
+    # a JAX-written hfresh collection: the port refuses it at open
+    jdb = dbs("jax", "hfresh")
     c = _cfg(jconfig)
-    c.vector_config = jconfig.HNSWIndexConfig(distance="l2-squared")
+    c.vector_config = jconfig.HFreshIndexConfig(distance="l2-squared")
     jcol = jdb.create_collection(c)
     _put(jcol, JaxObject, _records(10, n=30))
     jdb.close()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        DB(str(tmp_path / "hnsw"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        DB(str(tmp_path / "hfresh"), device="cpu")
 
 
 # -- the query-coalescing dispatcher ----------------------------------------

@@ -1,0 +1,259 @@
+"""Parity: the port's fused HNSW walk (``weaviate_tpu_torch/ops/
+device_beam.py``) against the JAX package's ``device_search``, on the CPU.
+
+- ``DeviceAdjacency.sync``/``sync_upper`` give the JAX mirror's arrays for
+  the same ``HostGraph``, after incremental inserts too.
+- The plain ``_fused_search`` (the CUDA kernel's plain version) against
+  JAX ``device_search`` on a graph the JAX index built: with and without
+  upper tables, l2-squared fp32 and cosine bf16, with tombstoned and
+  absent nodes, and with ``max_steps`` binding. Same ids on >= 0.99 of the
+  (query, rank) slots; distances of matched slots within rtol 1e-5 (fp32)
+  and 1e-3 (bf16): both sides sum the same float32 (or bf16-rounded)
+  products, in another order.
+- ``dispatch_count()`` goes up by exactly one per sub-batch of a search.
+- The routes of later slices raise ``NotImplementedError``; the kernel's
+  argument checks refuse what it does not take.
+
+The JAX side compiles one program per shape, so the cases share three.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from weaviate_tpu.index.hnsw import HNSWIndex as JaxHNSW
+from weaviate_tpu.ops import device_beam as jbeam
+from weaviate_tpu.schema import config as jconfig
+from weaviate_tpu_torch.index.hnsw import HNSWIndex
+from weaviate_tpu_torch.index.hnsw.graph import HostGraph
+from weaviate_tpu_torch.ops import device_beam as tbeam
+from weaviate_tpu_torch.schema import config
+
+N, DIMS, B, EF = 1500, 16, 16, 32
+MIN_ID_AGREEMENT = 0.99
+RTOL = {"fp32": 1e-5, "bf16": 1e-3}
+
+
+def _vectors(seed, n, d=DIMS):
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain walk runs many small torch ops: one thread each, beside
+    the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def jax_index():
+    """A JAX HNSW build (host walk) over N seeded rows: its graph feeds
+    both walks."""
+    import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, conftest)
+
+    idx = JaxHNSW(DIMS, jconfig.HNSWIndexConfig(
+        distance="l2-squared", precision="fp32", max_connections=8,
+        ef_construction=48, ef=EF))
+    idx.add_batch(np.arange(N), _vectors(1, N))
+    return idx
+
+
+def _walk_inputs(graph, corpus, normalize):
+    """Both packages' device inputs for one graph: (jax tuple, torch
+    tuple) of (queries, corpus, adjacency, present, eps, upper, slots)."""
+    import jax.numpy as jnp
+
+    jm = jbeam.DeviceAdjacency(graph)
+    adj, present = jm.sync()
+    ua, us = jm.sync_upper()
+    q = _vectors(5, B)
+    c = corpus
+    if normalize:
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        # capacity rows past the corpus are zeros: keep them finite
+        c = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-12)
+    eps = np.full(B, graph.entrypoint, np.int32)
+    j = (jnp.asarray(q), jnp.asarray(c), adj, present, eps, ua, us)
+    t = tuple(torch.from_numpy(np.array(a)) for a in (q, c, adj, present, eps,
+                                                       ua, us))
+    return j, t
+
+
+def _compare(jout, tout, precision):
+    ji, jd = (np.asarray(a) for a in jout)
+    ti, td = (a.numpy() for a in tout)
+    assert ti.shape == ji.shape and ti.dtype == np.int32
+    same = ti == ji
+    assert same.mean() >= MIN_ID_AGREEMENT, same.mean()
+    live = same & (ji >= 0)
+    np.testing.assert_allclose(td[live], jd[live], rtol=RTOL[precision],
+                               atol=1e-6)
+    return same.mean()
+
+
+@pytest.mark.parametrize("metric,precision", [("l2-squared", "fp32"),
+                                              ("cosine", "bf16")])
+@pytest.mark.parametrize("upper", [True, False], ids=["upper", "layer0"])
+def test_plain_walk_matches_jax_device_search(jax_index, metric, precision,
+                                              upper):
+    g = jax_index.graph
+    corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
+    (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
+                                            tus) = _walk_inputs(
+        g, corpus, metric == "cosine")
+    if not upper:
+        jua = jus = None
+        tua, tus = tbeam._empty_upper("cpu")
+    jout = jbeam.device_search(
+        jbeam.RawScorer(metric, precision), jq, (jc,), jadj, jpres, jeps,
+        ef=EF, max_steps=4 * EF + 64, upper_adj=jua, upper_slots=jus)
+    tout = tbeam._fused_search(
+        tbeam.RawScorer(metric, precision), tq, (tc,), tadj, tpres, teps,
+        tua, tus, EF, 4 * EF + 64)
+    _compare(jout, tout, precision)
+
+
+def test_plain_walk_tombstones_absent_nodes_and_max_steps(jax_index):
+    """Tombstoned nodes stay present and traversable; hard-removed nodes are
+    absent (present False) and never scored; a small max_steps cuts both
+    the descent and the beam."""
+    import jax.numpy as jnp
+
+    g = HostGraph.from_arrays(jax_index.graph.to_arrays())
+    for node in range(0, N, 7):
+        g.add_tombstone(node)
+    for node in range(3, N, 11):
+        if node != g.entrypoint:
+            g.levels[node] = -1  # absent: present False, edges to it stay
+    corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
+    (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
+                                            tus) = _walk_inputs(g, corpus, False)
+    assert not bool(np.asarray(jpres)[3])
+    sc = ("l2-squared", "fp32")
+    beams = []
+    for steps in (4 * EF + 64, 5):
+        jout = jbeam.device_search(
+            jbeam.RawScorer(*sc), jq, (jc,), jadj, jpres, jeps, ef=EF,
+            max_steps=steps, upper_adj=jua, upper_slots=jus)
+        tout = tbeam._fused_search(tbeam.RawScorer(*sc), tq, (tc,), tadj,
+                                   tpres, teps, tua, tus, EF, steps)
+        _compare(jout, tout, "fp32")
+        ids = tout[0].numpy()
+        absent = ~np.asarray(jpres)
+        assert not absent[ids[ids >= 0]].any()
+        beams.append(ids)
+    # max_steps binds: five expansions leave another beam than the full walk
+    assert not np.array_equal(beams[0], beams[1])
+    # the tombstoned nodes are traversed: some come back from the walk
+    assert np.isin(ids, np.arange(0, N, 7)).any()
+
+
+def test_device_adjacency_matches_jax_mirror_after_inserts():
+    jidx = JaxHNSW(DIMS, jconfig.HNSWIndexConfig(
+        distance="l2-squared", precision="fp32", max_connections=8,
+        ef_construction=32, insert_batch=128))
+    vecs = _vectors(2, 700)
+    jidx.add_batch(np.arange(300), vecs[:300])
+    g = jidx.graph
+    jm, tm = jbeam.DeviceAdjacency(g), tbeam.DeviceAdjacency(g, "cpu")
+
+    def check():
+        ja, jp = jm.sync()
+        ta, tp = tm.sync()
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        jua, jus = jm.sync_upper()
+        tua, tus = tm.sync_upper()
+        np.testing.assert_array_equal(tua.numpy(), np.asarray(jua))
+        np.testing.assert_array_equal(tus.numpy(), np.asarray(jus))
+        assert ta.dtype == torch.int32 and tp.dtype == torch.bool
+
+    check()
+    g.dirty_hook = lambda *n: (jm.mark_dirty(*n), tm.mark_dirty(*n))
+    first = tm.sync()[0]
+    jidx.add_batch(np.arange(300, 500), vecs[300:500])   # dirty rows
+    check()
+    # the dirty-row scatter is out of place: a walk holding the old tensor
+    # keeps it
+    assert tm.sync()[0] is not first
+    jidx.delete(np.arange(0, 40))
+    jidx.add_batch(np.arange(500, 700), vecs[500:700])   # may grow capacity
+    check()
+    assert tm.nbytes > 0
+    assert tm.drop_device() > 0 and tm.nbytes == 0
+    check()
+    # an edge to a node past the capacity read (a torn read during a
+    # grow) reaches the mirror as -1, never as an index past its rows
+    node = int(np.flatnonzero(g.levels >= 0)[0])
+    g.layer0[node, 0] = g.capacity + 3
+    tm.mark_dirty(node)
+    assert int(tm.sync()[0][node, 0]) == -1
+
+
+def test_dispatch_count_is_one_per_sub_batch():
+    idx = HNSWIndex(DIMS, config.HNSWIndexConfig(
+        distance="l2-squared", precision="fp32", max_connections=8,
+        ef_construction=32, ef=EF, device_beam=True), device="cpu")
+    idx.add_batch(np.arange(400), _vectors(3, 400))
+    sub_b = idx._sub_batch()
+    assert sub_b == 64
+    for rows in (1, 64, 130):
+        before = tbeam.dispatch_count()
+        launches = tbeam.fused_search.launches
+        res = idx.search(_vectors(4, rows), 5)
+        assert tbeam.dispatch_count() - before == -(-rows // sub_b)
+        # on the CPU the wrapper runs the plain version: no kernel launch
+        assert tbeam.fused_search.launches == launches
+        assert res.ids.shape == (rows, 5) and (res.ids >= 0).all()
+
+
+def _tiny_walk_args(**over):
+    corpus = torch.zeros((64, DIMS))
+    args = dict(
+        scorer=tbeam.RawScorer("l2-squared", "fp32"), queries=corpus[:2],
+        operands=(corpus,), adjacency=torch.full((64, 8), -1, dtype=torch.int32),
+        present=torch.ones(64, dtype=torch.bool),
+        eps=torch.zeros(2, dtype=torch.int32),
+        upper_adj=tbeam._empty_upper("cpu")[0],
+        upper_slots=tbeam._empty_upper("cpu")[1], ef=16, max_steps=8)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("kw,where", [
+    (dict(allow=np.ones(64, bool)), "slice 5"),
+    (dict(keep_k=8), "slice 5"),
+    (dict(expand=2), "slice 5"),
+    (dict(rerank=object(), rerank_k=4), "slice 7"),
+])
+def test_fused_search_raises_for_later_slices(kw, where):
+    with pytest.raises(NotImplementedError, match=where):
+        tbeam.fused_search(**_tiny_walk_args(), **kw)
+
+
+def test_fused_search_plain_on_cpu_returns_beam():
+    ids, d = tbeam.fused_search(**_tiny_walk_args())
+    assert ids.dtype == torch.int32 and d.dtype == torch.float32
+    assert ids[:, 0].tolist() == [0, 0] and (ids[:, 1:] == -1).all()
+    assert (d[:, 1:] == tbeam._INF).all()
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(ef=1024), "ef"),
+    (dict(adjacency=torch.full((64, 256), -1, dtype=torch.int32)), "width"),
+    (dict(queries=torch.zeros((2, 8))), "queries"),
+    (dict(eps=torch.zeros(2, dtype=torch.int64)), "eps"),
+    (dict(present=torch.ones(64, dtype=torch.uint8)), "present"),
+])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(over, match):
+    a = _tiny_walk_args(**over)
+    with pytest.raises(ValueError, match=match):
+        tbeam._check_kernel_args(
+            a["scorer"], a["queries"], a["operands"][0], a["adjacency"],
+            a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
+            a["ef"], a["max_steps"])
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tbeam._check_kernel_args(object(), *[None] * 9)

@@ -200,7 +200,7 @@ def test_config_defaults_and_checks_match_jax():
     t.validate()
     for bad in (dict(distance="l1"), dict(precision="fp16"),
                 dict(flat_approx_recall=1.0), dict(flat_approx_recall=-0.5),
-                dict(index_type="hnsw")):
+                dict(index_type="hfresh")):
         with pytest.raises(ValueError):
             FlatIndexConfig(**bad).validate()
         if "index_type" not in bad:

@@ -1,0 +1,397 @@
+"""Parity: the port's HNSW index (``weaviate_tpu_torch/index/hnsw/``,
+``index/dynamic.py``) against the JAX package's, on the CPU.
+
+Construction draws random levels and links in lockstep batches, so the
+build and the walk are tested apart:
+
+- ``HostGraph`` and ``HNSWCommitLog``: the same edits write byte-identical
+  logs and equal snapshots, and each package replays the other's log.
+- The same ``levels`` from the same seeded generator.
+- Walks on one graph: a graph the JAX index built and flushed to
+  ``graph.npz`` loads into the port, and the same queries give the same
+  ids on >= 0.99 of the (query, rank) slots, distances within rtol 1e-5,
+  on the host walk and on the fused walk (plain version on the CPU).
+- The port's own builds clear the JAX tests' recall gates
+  (``tests/test_hnsw.py`` shapes: 2000 x 32, M = 16, ef_construction 96,
+  ef 64, recall@10 >= 0.95 against brute force).
+- Tombstones are traversed but never returned; ``cleanup_tombstones``
+  rewires around them; ``DynamicIndex`` cuts over to HNSW.
+- An HNSW DB directory written by one package opens in the other with the
+  same uuids, after a close and after a crash that leaves a commit log.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from weaviate_tpu.core.db import DB as JaxDB
+from weaviate_tpu.index.hnsw import HNSWIndex as JaxHNSW
+from weaviate_tpu.index.hnsw.commitlog import HNSWCommitLog as JaxLog
+from weaviate_tpu.index.hnsw.graph import HostGraph as JaxGraph
+from weaviate_tpu.schema import config as jconfig
+from weaviate_tpu.storage.objects import StorageObject as JaxObject
+from weaviate_tpu_torch.core.db import DB
+from weaviate_tpu_torch.index.dynamic import DynamicIndex
+from weaviate_tpu_torch.index.hnsw import HNSWIndex
+from weaviate_tpu_torch.index.hnsw.commitlog import HNSWCommitLog
+from weaviate_tpu_torch.index.hnsw.graph import HostGraph
+from weaviate_tpu_torch.ops import device_beam as tbeam
+from weaviate_tpu_torch.schema import config
+from weaviate_tpu_torch.storage.objects import StorageObject
+
+N, DIMS, K = 2000, 32, 10
+MIN_ID_AGREEMENT = 0.99
+RECALL_GATE = 0.95  # tests/test_hnsw.py
+
+
+def _cfg(mod, **kw):
+    base = dict(distance="l2-squared", precision="fp32", max_connections=16,
+                ef_construction=96, ef=64, flat_search_cutoff=50)
+    return mod.HNSWIndexConfig(**{**base, **kw})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain walk runs many small torch ops: one thread each, beside
+    the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(11)
+    vecs = rng.standard_normal((N, DIMS)).astype(np.float32)
+    queries = rng.standard_normal((50, DIMS)).astype(np.float32)
+    return vecs, queries
+
+
+def brute_force(vecs, queries, k, metric="l2-squared"):
+    if metric == "cosine":
+        vecs = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+        queries = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        d = -queries @ vecs.T
+    else:
+        d = ((queries[:, None, :] - vecs[None]) ** 2).sum(-1)
+    return np.argsort(d, axis=1, kind="stable")[:, :k]
+
+
+def recall(got, want):
+    return sum(len(set(g[g >= 0]) & set(w)) for g, w in zip(got, want)) \
+        / want.size
+
+
+# -- graph and commit log ---------------------------------------------------
+
+
+def _edit(graph_cls, log_cls, logdir, seed=3):
+    """One seeded sequence of graph edits, logged."""
+    rng = np.random.default_rng(seed)
+    g = graph_cls(m=4, capacity=16)
+    g.log = log_cls(logdir)
+    for node in range(40):
+        g.add_node(node, int(rng.integers(0, 3)))
+    for node in range(40):
+        for level in range(int(g.levels[node]) + 1):
+            nb = rng.choice(40, size=g.width(level) // 2, replace=False)
+            g.set_neighbors(level, node, nb[nb != node])
+        # replay skips an edge the row has, so append a new one
+        fresh = np.setdiff1d(np.arange(40), g.get_neighbors(0, node))
+        g.append_neighbor(0, node, int(rng.choice(fresh)))
+    for node in (3, 17, int(g.entrypoint)):
+        g.add_tombstone(node)
+    g.remove_node_hard(5)
+    g.log.close()
+    return g
+
+
+def _arrays_equal(a, b):
+    da, db = a.to_arrays(), b.to_arrays()
+    assert da.keys() == db.keys()
+    for key in da:
+        np.testing.assert_array_equal(np.asarray(da[key]), np.asarray(db[key]),
+                                      err_msg=key)
+
+
+def test_graph_and_commit_log_write_what_jax_writes(tmp_path):
+    tg = _edit(HostGraph, HNSWCommitLog, str(tmp_path / "t"))
+    jg = _edit(JaxGraph, JaxLog, str(tmp_path / "j"))
+    _arrays_equal(tg, jg)
+    files = sorted(os.listdir(tmp_path / "t"))
+    assert files == sorted(os.listdir(tmp_path / "j")) and files
+    for f in files:
+        assert (tmp_path / "t" / f).read_bytes() == \
+            (tmp_path / "j" / f).read_bytes()
+    # the snapshot format: either package loads the other's graph.npz
+    for src, dst_cls in ((tg, JaxGraph), (jg, HostGraph)):
+        path = tmp_path / f"{dst_cls.__module__}.npz"
+        np.savez_compressed(path, **src.to_arrays())
+        with np.load(path) as z:
+            _arrays_equal(dst_cls.from_arrays({k: z[k] for k in z.files}), src)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_each_package_replays_the_others_log(tmp_path, writer):
+    wg, wl, rg, rl = ((JaxGraph, JaxLog, HostGraph, HNSWCommitLog)
+                      if writer == "jax" else
+                      (HostGraph, HNSWCommitLog, JaxGraph, JaxLog))
+    src = _edit(wg, wl, str(tmp_path / "log"))
+    replayed = rg(m=4, capacity=16)
+    applied = rl(str(tmp_path / "log")).replay_into(replayed)
+    assert applied > 100
+    _arrays_equal(replayed, src)
+    assert replayed.tombstones == src.tombstones
+    assert replayed.entrypoint == src.entrypoint
+
+
+def test_levels_match_jax_for_the_same_seed():
+    t = HNSWIndex(DIMS, _cfg(config), device="cpu")
+    j = JaxHNSW(DIMS, _cfg(jconfig))
+    for n in (1, 100, 4096):
+        np.testing.assert_array_equal(t._level_for_new(n), j._level_for_new(n))
+
+
+# -- walks on one graph -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_built(corpus, tmp_path_factory):
+    """A JAX build flushed to graph.npz, and the port index that loads it
+    (vectors re-put: ``add_batch`` skips the nodes the graph has)."""
+    vecs, _ = corpus
+    path = str(tmp_path_factory.mktemp("jax_hnsw"))
+    j = JaxHNSW(DIMS, _cfg(jconfig), path=path)
+    j.add_batch(np.arange(N), vecs)
+    j.flush()
+    t = HNSWIndex(DIMS, _cfg(config), path=path, device="cpu")
+    assert t.count() == N and t.graph.entrypoint == j.graph.entrypoint
+    t.add_batch(np.arange(N), vecs)
+    _arrays_equal(t.graph, j.graph)
+    return j, t, path
+
+
+@pytest.mark.parametrize("walk", ["host", "fused"])
+def test_walks_on_a_jax_built_graph_match(corpus, jax_built, walk):
+    from weaviate_tpu.ops import device_beam as jbeam
+
+    vecs, queries = corpus
+    j, t, path = jax_built
+    if walk == "host":
+        jr, tr = j.search(queries, K), t.search(queries, K)
+    else:
+        # the JAX fused walk on the same graph, and the port's index with
+        # device_beam on (its plain version on the CPU)
+        jd = JaxHNSW(DIMS, _cfg(jconfig, device_beam=True), path=path)
+        jd.add_batch(np.arange(N), vecs)
+        td = HNSWIndex(DIMS, _cfg(config, device_beam=True), path=path,
+                       device="cpu")
+        td.add_batch(np.arange(N), vecs)
+        before = (jbeam.dispatch_count(), tbeam.dispatch_count())
+        jr, tr = jd.search(queries, K), td.search(queries, K)
+        assert jbeam.dispatch_count() - before[0] == 1
+        assert tbeam.dispatch_count() - before[1] == 1
+    same = tr.ids == jr.ids
+    assert same.mean() >= MIN_ID_AGREEMENT, same.mean()
+    np.testing.assert_allclose(tr.dists[same], jr.dists[same], rtol=1e-5,
+                               atol=1e-5)
+    assert recall(tr.ids, brute_force(vecs, queries, K)) >= RECALL_GATE
+
+
+# -- the port's own builds ---------------------------------------------------
+
+
+@pytest.mark.parametrize("metric", ["l2-squared", "cosine"])
+def test_batched_construction_builds_the_jax_loops_graph(metric):
+    """The port runs the selection heuristic's sort and accept loop on the
+    device and links and backlinks in batched passes; the JAX index's
+    loops (linking, heuristic, cleanup), bound to the same index, are the
+    reference: the same graph, edge for edge, through inserts, deletes and
+    cleanup."""
+    import types
+
+    vecs = np.random.default_rng(5).standard_normal((1000, 16)).astype(
+        np.float32)
+    graphs = []
+    for loops in (False, True):
+        idx = HNSWIndex(16, _cfg(config, distance=metric, max_connections=6,
+                                 ef_construction=32, insert_batch=400),
+                        device="cpu")
+        if loops:
+            for name in ("_select_heuristic_batch", "cleanup_tombstones"):
+                setattr(idx, name,
+                        types.MethodType(getattr(JaxHNSW, name), idx))
+            # the JAX loops take the batch's levels (registered in the
+            # graph by now) and read its pairwise block on the host
+            idx._link_level = types.MethodType(
+                lambda self, level, ids, sub, res_ids, res_d, bb:
+                JaxHNSW._link_level(self, level, ids, self.graph.levels[ids],
+                                    sub, res_ids, res_d, bb.cpu().numpy()),
+                idx)
+            idx._mesh_mirror = lambda: None
+        idx.add_batch(np.arange(1000), vecs)
+        idx.delete(np.arange(0, 1000, 5))
+        idx.cleanup_tombstones()
+        graphs.append(idx.graph)
+    _arrays_equal(*graphs)
+
+
+@pytest.fixture(scope="module")
+def port_built(corpus):
+    """The port's own build at the JAX gate's shapes, the fused walk at
+    layer 0 of construction (its plain version on the CPU)."""
+    vecs, _ = corpus
+    idx = HNSWIndex(DIMS, _cfg(config, device_beam=True), device="cpu")
+    idx.add_batch(np.arange(N), vecs)
+    return idx
+
+
+@pytest.mark.parametrize("walk", ["host", "fused"])
+def test_port_build_clears_the_recall_gate(corpus, port_built, walk):
+    vecs, queries = corpus
+    idx = port_built
+    want = brute_force(vecs, queries, K)
+    idx._device_beam = (tbeam.DeviceAdjacency(idx.graph, "cpu")
+                        if walk == "fused" else None)
+    res = idx.search(queries, K)
+    assert recall(res.ids, want) >= RECALL_GATE
+    assert (np.diff(res.dists, axis=1) >= -1e-6).all()
+    # a node queried by its own vector comes back first
+    res = idx.search(vecs[123:124], K)
+    assert res.ids[0, 0] == 123 and res.dists[0, 0] == pytest.approx(0, abs=1e-4)
+
+
+def test_port_build_cosine_clears_the_recall_gate(corpus):
+    vecs, queries = corpus
+    idx = HNSWIndex(DIMS, _cfg(config, distance="cosine", device_beam=True),
+                    device="cpu")
+    idx.add_batch(np.arange(1000), vecs[:1000])
+    want = brute_force(vecs[:1000], queries, K, metric="cosine")
+    assert recall(idx.search(queries, K).ids, want) >= RECALL_GATE
+
+
+@pytest.mark.parametrize("beam", [False, True], ids=["host", "fused"])
+def test_tombstones_traversed_never_returned_then_cleaned(corpus, beam):
+    vecs, queries = corpus
+    idx = HNSWIndex(DIMS, _cfg(config, ef_construction=64, device_beam=beam),
+                    device="cpu")
+    idx.add_batch(np.arange(1000), vecs[:1000])
+    dead = np.arange(0, 1000, 4)
+    idx.delete(dead)
+    assert idx.count() == 750 and len(idx.graph.tombstones) == 250
+    res = idx.search(queries, K)
+    assert not set(res.ids.ravel().tolist()) & set(dead.tolist())
+    live = np.setdiff1d(np.arange(1000), dead)
+    want = live[brute_force(vecs[live], queries, K)]
+    assert recall(res.ids, want) >= 0.9
+    assert idx.cleanup_tombstones() == 250
+    assert not idx.graph.tombstones and idx.count() == 750
+    assert not (set(idx.graph.layer0[idx.graph.levels >= 0].ravel().tolist())
+                & set(dead.tolist()))
+    assert recall(idx.search(queries, K).ids, want) >= 0.9
+
+
+def test_dynamic_index_cuts_over_to_hnsw(corpus):
+    vecs, queries = corpus
+    idx = DynamicIndex(DIMS, config.DynamicIndexConfig(
+        distance="l2-squared", precision="fp32", threshold=500,
+        hnsw={"max_connections": 16, "ef_construction": 64, "ef": 64,
+              "device_beam": True}), device="cpu")
+    idx.add_batch(np.arange(300), vecs[:300])
+    assert not idx.upgraded and idx.stats()["type"] == "dynamic[flat]"
+    want = brute_force(vecs[:300], queries, K)
+    assert recall(idx.search(queries, K).ids, want) == 1.0
+    idx.add_batch(np.arange(300, 1000), vecs[300:1000])
+    assert idx.wait_cutover(timeout=120.0)
+    assert idx.upgraded and idx.stats()["type"] == "dynamic[hnsw]"
+    assert isinstance(idx.inner, HNSWIndex) and idx.inner._device_beam
+    assert idx.count() == 1000
+    # the graph was built over the flat index's store: no copy of the corpus
+    assert str(idx.inner.store.device) == "cpu"
+    want = brute_force(vecs[:1000], queries, K)
+    assert recall(idx.search(queries, K).ids, want) >= RECALL_GATE
+
+
+# -- the DB directory crosses ----------------------------------------------
+
+
+def _records(n=600, seed=5):
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((n, DIMS)).astype(np.float32)
+    recs = []
+    for i in range(n):
+        u = rng.bytes(16).hex()
+        recs.append(dict(
+            uuid=f"{u[:8]}-{u[8:12]}-4{u[13:16]}-8{u[17:20]}-{u[20:32]}",
+            collection="Doc", vector=vecs[i],
+            properties={"bucket": i % 10}, creation_time_ms=1,
+            update_time_ms=1))
+    return recs
+
+
+def _collection_cfg(mod):
+    return mod.CollectionConfig(
+        name="Doc", properties=[mod.Property("bucket", mod.DataType.INT)],
+        vector_config=_cfg(mod, ef_construction=64, max_connections=8,
+                           insert_batch=128))
+
+
+def _open(mod, root):
+    return JaxDB(root) if mod == "jax" else DB(root, device="cpu")
+
+
+def _uuids(col, queries):
+    return [[o.uuid for o, _ in row]
+            for row in col.vector_search_batch(queries, K)]
+
+
+def _crash_leaving_commit_logs(db):
+    """Objects and delta logs durable, the HNSW graphs not condensed: the
+    commit logs carry the edits since the last snapshot."""
+    pending = 0
+    for col in db._collections.values():
+        for shard in col._shards.values():
+            shard.async_queue.flush()
+            shard._delta.flush()
+            shard.store.flush_all()
+            shard._persist_counter()
+            shard._persist_meta()
+            for idx in shard._vector_indexes.values():
+                idx._commitlog.flush()
+                pending += idx._commitlog.pending_bytes
+    db.cycles.stop()
+    return pending
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("how", ["close", "crash"])
+def test_hnsw_db_directory_opens_in_the_other_package(tmp_path, writer, how):
+    mod = jconfig if writer == "jax" else config
+    cls = JaxObject if writer == "jax" else StorageObject
+    recs = _records()
+    root = str(tmp_path / "db")
+    db = _open(writer, root)
+    col = db.create_collection(_collection_cfg(mod))
+    col.put_batch([cls(**r) for r in recs[:400]])
+    db.flush()  # a graph snapshot; the rest rides the commit log
+    col.put_batch([cls(**r) for r in recs[400:]])
+    q = np.stack([r["vector"] for r in recs[:16]]) + 0.05
+    want = _uuids(col, q)
+    assert all(len(r) == K for r in want)
+    if how == "close":
+        db.close()
+    else:
+        assert _crash_leaving_commit_logs(db) > 0
+    reader = "torch" if writer == "jax" else "jax"
+    db2 = _open(reader, root)
+    try:
+        col2 = db2.get_collection("Doc")
+        assert col2.count() == len(recs)
+        idx = next(iter(col2._shards.values())).vector_index()
+        assert type(idx).__name__ == "HNSWIndex" and idx.count() == len(recs)
+        assert _uuids(col2, q) == want
+    finally:
+        db2.close()

@@ -9,8 +9,8 @@ and a doc-id counter. Write path mirrors ``shard_write_batch_objects.go:33``
 Port of ``weaviate_tpu/core/shard.py``. A shard's vector indexes and filter
 planes live on the device it was opened with (``device=``, ``cuda`` unless
 the caller names another); every on-disk artifact (LSM store, delta log,
-inverted snapshot, vector checkpoints, counters) has the JAX package's
-format, so either package opens a shard directory the other wrote. The
+inverted snapshot, vector checkpoints, HNSW graph snapshot and commit log,
+counters) has the JAX package's format, so either package opens a shard directory the other wrote. The
 fused multi-target search and the segment-resident inverted tier are not
 ported yet and raise ``NotImplementedError``.
 """
@@ -49,15 +49,23 @@ def build_vector_index(
     device=None,
 ) -> VectorIndex:
     """Factory mirroring ``shard_init_vector.go`` index selection, on
-    ``device``. The port has the flat index only; the other types raise
+    ``device``. ``path`` is the index's own directory (the HNSW graph
+    snapshot and commit log live there). Index types not ported yet raise
     ``NotImplementedError`` naming the slice that brings them (a schema
     written by the JAX package may name them: ``validate`` is not run on
     load)."""
-    if isinstance(cfg, (HNSWIndexConfig, DynamicIndexConfig)) \
-            or cfg.index_type in ("hnsw", "dynamic"):
-        raise NotImplementedError(
-            f"{cfg.index_type} vector index: not ported yet (ROADMAP "
-            "queue A, slice 3)")
+    if isinstance(cfg, HNSWIndexConfig) or cfg.index_type == "hnsw":
+        from weaviate_tpu_torch.index.hnsw import HNSWIndex
+
+        if not isinstance(cfg, HNSWIndexConfig):
+            cfg = cfg.as_type(HNSWIndexConfig, "hnsw")
+        return HNSWIndex(dims, cfg, path=path, device=device)
+    if isinstance(cfg, DynamicIndexConfig) or cfg.index_type == "dynamic":
+        from weaviate_tpu_torch.index.dynamic import DynamicIndex
+
+        if not isinstance(cfg, DynamicIndexConfig):
+            cfg = cfg.as_type(DynamicIndexConfig, "dynamic")
+        return DynamicIndex(dims, cfg, path=path, device=device)
     if cfg.index_type in ("multivector", "hfresh"):
         raise NotImplementedError(
             f"{cfg.index_type} vector index: not ported yet (ROADMAP "
@@ -814,7 +822,7 @@ class Shard:
         JAX package): not ported yet."""
         raise NotImplementedError(
             "fused multi-target search (device beam legs): not ported yet "
-            "(ROADMAP queue A, slices 3 and 7)")
+            "(ROADMAP queue A, slice 7)")
 
     # -- tiered residency (docs/tiering.md) --------------------------------
     def hbm_bytes(self) -> int:

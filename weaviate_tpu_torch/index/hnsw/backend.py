@@ -1,7 +1,13 @@
-"""Warm-tier exact search over a detached store's host corpus (port of
-``host_exact_topk``, ``_live_under_allow`` and ``host_store_topk`` from
-``weaviate_tpu/index/hnsw/backend.py``; the HNSW backends come with the
-HNSW slice).
+"""Distance backends for HNSW traversal, and the warm-tier exact search
+over a detached store's host corpus (port of
+``weaviate_tpu/index/hnsw/backend.py``).
+
+The graph walk is the same for every backend; only the batched distance
+calls differ. ``RawBackend`` keeps the full-precision corpus in device
+memory (``DeviceVectorStore``) and scores with ``ops/distance.py``.
+``QuantizedBackend`` (code planes + exact host rescore) comes with the
+quantizer slice and raises. The port's store is single-device, so the JAX
+backend's mesh branches have no counterpart here (multi-GPU: slice 11).
 """
 
 from __future__ import annotations
@@ -12,6 +18,12 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch.index.store import DeviceVectorStore
+from weaviate_tpu_torch.ops.distance import (
+    candidate_pairwise,
+    flat_search,
+    gather_distance,
+    normalize,
+)
 
 _INF = np.float32(np.inf)
 
@@ -111,3 +123,205 @@ def host_store_topk(store: DeviceVectorStore, metric: str,
         return host_exact_topk(q, vecs, live, metric, k)
     live = _live_under_allow(store.host_valid_mask, allow)
     return host_exact_topk(q, _gather_rows(corpus, live), live, metric, k)
+
+
+class RawBackend:
+    """Full-precision distances over the device-resident corpus."""
+
+    quantized = False
+
+    def __init__(self, dims: int, config, store: Optional[DeviceVectorStore] = None,
+                 device=None):
+        self.config = config
+        self.metric = config.distance
+        self.dims = dims
+        self.store = store or DeviceVectorStore(
+            dims,
+            capacity=config.initial_capacity,
+            normalized=(self.metric == "cosine"),
+            device=device,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
+
+    # -- storage ----------------------------------------------------------
+    def put(self, doc_ids: np.ndarray, vectors: np.ndarray) -> None:
+        self.store.put(doc_ids, vectors)
+
+    def delete(self, doc_ids: np.ndarray) -> None:
+        self.store.delete(doc_ids)
+
+    def contains(self, doc_id: int) -> bool:
+        return self.store.contains(doc_id)
+
+    @property
+    def capacity(self) -> int:
+        return self.store.capacity
+
+    @property
+    def host_valid_mask(self) -> np.ndarray:
+        return self.store.host_valid_mask
+
+    # -- tiered residency ---------------------------------------------------
+    @property
+    def device_resident(self) -> bool:
+        return self.store.device_resident
+
+    def hbm_bytes(self) -> int:
+        return self.store.nbytes
+
+    def host_tier_bytes(self) -> int:
+        return self.store.host_bytes
+
+    def demote_device(self) -> int:
+        return self.store.detach()
+
+    def promote_device(self) -> int:
+        return self.store.attach()
+
+    def host_topk(self, queries: np.ndarray, k: int,
+                  allow: Optional[np.ndarray]
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        """Warm-tier exact search over the detached host corpus."""
+        return host_store_topk(self.store, self.metric, queries, k, allow)
+
+    # -- query prep -------------------------------------------------------
+    def prep_queries(self, queries: np.ndarray) -> torch.Tensor:
+        q = torch.from_numpy(np.ascontiguousarray(
+            np.atleast_2d(np.asarray(queries, np.float32)))).to(self.device)
+        if self.metric == "cosine":
+            q = normalize(q)
+        return q
+
+    def prep_query_ids(self, ids: np.ndarray) -> torch.Tensor:
+        corpus = self.store.corpus
+        q = corpus[_index(ids, corpus.device)]
+        if self.metric == "cosine":
+            q = normalize(q)
+        return q
+
+    @staticmethod
+    def take_queries(qrep: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+        """Row subset of a query rep (lockstep construction sub-batching)."""
+        return qrep[_index(rows, qrep.device)]
+
+    # -- device beam ------------------------------------------------------
+    def device_scorer(self):
+        """(scorer, operands) for the fused device walk: the raw corpus
+        snapshot, gather-scored at full precision. None while demoted to
+        the warm tier (searches belong on the host path then)."""
+        if not self.store.device_resident:
+            return None
+        from weaviate_tpu_torch.ops.device_beam import RawScorer
+
+        corpus, _valid, _sqnorms = self.store.snapshot()
+        return RawScorer(self.metric, self.config.precision), (corpus,)
+
+    def beam_queries(self, qrep: torch.Tensor) -> torch.Tensor:
+        """Device query rep for the fused walk (``prep_queries`` output is
+        already a normalized device tensor)."""
+        return qrep
+
+    def beam_queries_for_ids(self, ids: np.ndarray) -> torch.Tensor:
+        """Construction-side query rep gathered from the device corpus by
+        id: nothing crosses from the host. Rows are already metric-prepped
+        (cosine rows are normalized at put)."""
+        corpus, _valid, _sqnorms = self.store.snapshot()
+        return corpus[_index(ids, corpus.device)].float().contiguous()
+
+    # -- distance calls ---------------------------------------------------
+    def frontier_dists(self, qrep: torch.Tensor, cand: np.ndarray) -> np.ndarray:
+        """Host-walk frontier evaluation: one device call per beam hop
+        (the host walk serves when the device beam is off, and at the
+        upper levels of construction)."""
+        corpus = self.store.corpus
+        clipped = _index(np.maximum(cand, 0), corpus.device)
+        d = gather_distance(qrep, corpus, clipped, self.metric,
+                            precision=self.config.precision).cpu().numpy()
+        d[cand < 0] = _INF
+        return d
+
+    def pairwise(self, ids: np.ndarray) -> np.ndarray:
+        """[G, C] ids (pads clipped to 0 by caller) -> [G, C, C] distances."""
+        return self.pairwise_device(ids).cpu().numpy()
+
+    def pairwise_device(self, ids) -> torch.Tensor:
+        """``pairwise`` left on the device (the selection heuristic's
+        accept loop runs there)."""
+        corpus = self.store.corpus
+        return candidate_pairwise(
+            corpus, _index(ids, corpus.device), self.metric,
+            precision=self.config.precision)
+
+    def flat_topk(
+        self, queries: np.ndarray, k: int, allow: Optional[np.ndarray]
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Brute-force top-k (the planner's exact route). Returns (dists,
+        ids)."""
+        if not self.store.device_resident:
+            return self.host_topk(queries, k, allow)
+        qrep = self.prep_queries(queries)
+        corpus, valid, sqnorms = self.store.snapshot()
+        cap = corpus.shape[0]
+        allow_t = None
+        if allow is not None:
+            al = np.asarray(allow, bool)
+            if len(al) < cap:
+                al = np.pad(al, (0, cap - len(al)))
+            allow_t = torch.from_numpy(
+                np.ascontiguousarray(al[:cap])).to(corpus.device)
+        d, ids = flat_search(
+            qrep,
+            corpus,
+            k=k,
+            metric=self.metric,
+            valid_mask=valid,
+            allow_mask=allow_t,
+            corpus_sqnorms=sqnorms if self.metric == "l2-squared" else None,
+            precision=self.config.precision,
+            approx_recall=_resolved_approx_recall(self.config),
+        )
+        d = d.cpu().numpy()
+        ids = ids.cpu().numpy().astype(np.int64)
+        d[ids < 0] = _INF
+        return d, ids
+
+    def rescore_topk(
+        self, queries: np.ndarray, cand_ids: np.ndarray, cand_d: np.ndarray, k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Raw distances are already exact: just truncate."""
+        return cand_ids[:, :k], cand_d[:, :k]
+
+
+def _index(ids, device) -> torch.Tensor:
+    """An int64 index tensor on ``device`` from host ids (or a tensor)."""
+    if torch.is_tensor(ids):
+        return ids.to(device, torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(device)
+
+
+def _resolved_approx_recall(config) -> float:
+    """The unset (-1) resolution ``FlatIndex.search`` applies: follow the
+    hot-reloadable fleet default; 0.0 stays pinned exact."""
+    r = config.flat_approx_recall
+    if r < 0.0:
+        from weaviate_tpu_torch.utils.runtime_config import (
+            FLAT_APPROX_RECALL_DEFAULT,
+        )
+
+        return FLAT_APPROX_RECALL_DEFAULT.get()
+    return r
+
+
+class QuantizedBackend:
+    """Code-space distances + exact host rescore (HNSW+PQ/BQ/SQ/RQ): comes
+    with the quantizer slice."""
+
+    quantized = True
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "quantized HNSW backend: not ported yet (ROADMAP queue A, "
+            "slice 4: the quantizers)")

@@ -1,0 +1,501 @@
+"""Device-resident HNSW search: one launch per batch (port of the
+single-device raw-corpus walk of ``weaviate_tpu/ops/device_beam.py``).
+
+The whole walk of a query batch, the greedy descent over the upper layers
+from the entrypoint and then the layer-0 best-first beam, runs in one
+hand-written CUDA kernel (``csrc/device_beam.cu``) over an incrementally
+synced device mirror of the host graph (``DeviceAdjacency``). The host
+pays one launch and one fetch per batch instead of one round trip per hop.
+
+``_fused_search`` is the plain PyTorch version of that kernel: a Python
+loop over the JAX program's steps (``argmin`` takes the first index on
+ties, the merge is a stable sort). ``fused_search`` takes it for tensors on
+the CPU, as the tests do; for tensors on the card it launches the kernel or
+raises, with no fallback. ``chip_smoke.py`` holds the kernel against the
+plain version on the card.
+
+Semantics are the JAX program's: lockstep best-first expansion, an
+ef-bounded beam, a stop when no unexpanded entry is left (or after
+``max_steps``). Tombstoned nodes stay traversable; results are filtered
+after the walk. Not ported yet, each raising ``NotImplementedError``: the
+filtered walk's ``allow``/``keep_k`` track and its two-hop widening
+(slice 5), the quantized scorers (slice 4), the fused rerank stage and the
+multi-target legs (slice 7), the mesh walk (slice 11).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_distance
+
+KERNEL = "device_beam"
+_INF = MASK_DISTANCE
+
+# what the kernel takes (its C side refuses the same)
+MAX_EF = 512
+MAX_WIDTH = 128
+MAX_DIMS = 4096
+
+# Test/ops hook: fused-walk dispatches made by this process (the
+# one-dispatch-per-batch contract is asserted against it).
+_dispatch_count = 0
+
+
+def dispatch_count() -> int:
+    return _dispatch_count
+
+
+@dataclasses.dataclass(frozen=True)
+class RawScorer:
+    """Full-precision gather-score. operands = (corpus [N, D],)."""
+
+    metric: str
+    precision: str
+
+    def __call__(self, q, ids, operands):
+        (corpus,) = operands
+        return gather_distance(q, corpus, ids, self.metric,
+                               precision=self.precision)
+
+
+def _masked_scores(scorer, q, ids, operands):
+    """[B, C] distances for candidate ids (-1 -> MASK) via the scorer."""
+    d = scorer(q, ids.clamp(min=0), operands)
+    return torch.where(ids >= 0, d, _INF)
+
+
+_NO_UPPER: dict = {}
+
+
+def _empty_upper(device):
+    """Empty upper tables (layer-0-only walks): [0, 1, 1] and [0, 1]."""
+    key = torch.device(device)
+    if key not in _NO_UPPER:
+        _NO_UPPER[key] = (torch.zeros((0, 1, 1), dtype=torch.int32, device=key),
+                          torch.zeros((0, 1), dtype=torch.int32, device=key))
+    return _NO_UPPER[key]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version of the kernel
+# ---------------------------------------------------------------------------
+
+
+def _fused_search(scorer, queries, operands, adjacency, present, eps,
+                  upper_adj, upper_slots, ef: int, max_steps: int):
+    """The JAX program's walk as a Python loop over torch ops: ->
+    (ids [B, ef] int32, dists [B, ef] float32) ascending, -1/MASK padded."""
+    b = queries.shape[0]
+    n = adjacency.shape[0]
+    dev = adjacency.device
+    rows = torch.arange(b, device=dev)
+    eps = eps.to(torch.int64)
+    d0 = _masked_scores(scorer, queries, eps[:, None], operands)[:, 0]
+
+    # upper-layer greedy descent, index 0 = top level
+    for li in range(upper_adj.shape[0]):
+        adj_l, slot_l = upper_adj[li], upper_slots[li]
+        live = torch.ones(b, dtype=torch.bool, device=dev)
+        step = 0
+        while step < max_steps and bool(live.any()):
+            slot = slot_l[eps].long()
+            nbrs = adj_l[slot.clamp(min=0)].long()
+            ok = ((slot >= 0) & live)[:, None] & (nbrs >= 0)
+            ok &= present[nbrs.clamp(min=0)]
+            nbrs = torch.where(ok, nbrs, -1)
+            d = _masked_scores(scorer, queries, nbrs, operands)
+            j = torch.argmin(d, dim=1)  # first index on ties
+            bd = d[rows, j]
+            upd = live & (bd < d0)
+            eps = torch.where(upd, nbrs[rows, j], eps)
+            d0 = torch.where(upd, bd, d0)
+            live = upd
+            step += 1
+
+    # layer-0 best-first beam
+    beam_ids = torch.full((b, ef), -1, dtype=torch.int64, device=dev)
+    beam_ids[:, 0] = eps
+    beam_d = torch.full((b, ef), _INF, dtype=torch.float32, device=dev)
+    beam_d[:, 0] = d0
+    expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    visited[rows, eps.clamp(min=0)] = eps >= 0
+    step, alive = 0, True
+    while step < max_steps and alive:
+        cand_d = torch.where(expanded | (beam_ids < 0), _INF, beam_d)
+        j = torch.argmin(cand_d, dim=1)
+        cd = cand_d[rows, j]
+        active = cd < _INF
+        expanded[rows, j] |= active
+        cur = torch.where(active, beam_ids[rows, j], 0)
+        nbrs = adjacency[cur].long()
+        nbrs = torch.where(active[:, None], nbrs, -1)
+        safe = nbrs.clamp(min=0)
+        seen = torch.gather(visited, 1, safe)
+        ok = (nbrs >= 0) & ~seen & present[safe]
+        nbrs = torch.where(ok, nbrs, -1)
+        rr = rows[:, None].expand_as(nbrs)
+        visited[rr[ok], safe[ok]] = True
+        nd = _masked_scores(scorer, queries, nbrs, operands)
+        all_ids = torch.cat([beam_ids, nbrs], dim=1)
+        all_d = torch.cat([beam_d, nd], dim=1)
+        all_exp = torch.cat([expanded, torch.zeros_like(ok)], dim=1)
+        order = torch.sort(all_d, dim=1, stable=True).indices[:, :ef]
+        beam_ids = torch.gather(all_ids, 1, order)
+        beam_d = torch.gather(all_d, 1, order)
+        expanded = torch.gather(all_exp, 1, order)
+        alive = bool(active.any())
+        step += 1
+    return beam_ids.to(torch.int32), beam_d
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
+                       upper_adj, upper_slots, ef: int, max_steps: int):
+    if not isinstance(scorer, RawScorer):
+        raise NotImplementedError(
+            f"{type(scorer).__name__}: the quantized scorers are not ported "
+            "yet (ROADMAP queue A, slice 4)")
+    if scorer.metric not in METRICS:
+        raise ValueError(f"unknown metric {scorer.metric!r}")
+    # the graph's rows (adjacency, present, slots) and the corpus rows may
+    # differ: each grows by its own rule, and every node id is a corpus row
+    n = adjacency.shape[0]
+    d = corpus.shape[1]
+    b = queries.shape[0]
+    want = (
+        ("queries", queries, torch.float32, (b, d)),
+        ("corpus", corpus, torch.float32, (corpus.shape[0], d)),
+        ("adjacency", adjacency, torch.int32, (n, adjacency.shape[1])),
+        ("present", present, torch.bool, (n,)),
+        ("eps", eps, torch.int32, (b,)),
+        ("upper_adj", upper_adj, torch.int32, tuple(upper_adj.shape)),
+        ("upper_slots", upper_slots, torch.int32,
+         (upper_adj.shape[0], n) if upper_adj.shape[0] else
+         tuple(upper_slots.shape)),
+    )
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype or tuple(t.shape) != shape or t.ndim != len(shape):
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != corpus.device:
+            raise ValueError(f"{name} is on {t.device}, corpus on {corpus.device}")
+    if b < 1:
+        raise ValueError("empty query batch")
+    if not 1 <= ef <= MAX_EF:
+        raise ValueError(f"ef {ef} outside the kernel's [1, {MAX_EF}]")
+    if max_steps < 0:
+        raise ValueError(f"max_steps {max_steps} < 0")
+    if not 1 <= adjacency.shape[1] <= MAX_WIDTH:
+        raise ValueError(f"layer-0 width {adjacency.shape[1]} outside "
+                         f"[1, {MAX_WIDTH}]")
+    if upper_adj.shape[0] and not 1 <= upper_adj.shape[2] <= MAX_WIDTH:
+        raise ValueError(f"upper width {upper_adj.shape[2]} outside "
+                         f"[1, {MAX_WIDTH}]")
+    if not 1 <= d <= MAX_DIMS:
+        raise ValueError(f"D={d} outside [1, {MAX_DIMS}]")
+
+
+def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
+                      upper_adj, upper_slots, ef: int, max_steps: int,
+                      stats: Optional[torch.Tensor] = None):
+    """Launches the kernel on the current stream: same contract as
+    ``_fused_search`` with ``operands = (corpus,)``. ``stats``, an int32
+    [B, 4] tensor, receives per query the layer-0 expansions, the rows
+    scored, the layer-0 adjacency rows read and the upper rows read.
+    Raises on arguments outside the kernel's contract or a refused
+    launch."""
+    _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
+                       upper_adj, upper_slots, ef, max_steps)
+    n, d = adjacency.shape[0], corpus.shape[1]
+    b = queries.shape[0]
+    dev = corpus.device
+    if stats is not None and (stats.dtype != torch.int32
+                              or tuple(stats.shape) != (b, 4)
+                              or stats.device != dev
+                              or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous int32 [{b}, 4] on {dev}")
+    levels = upper_adj.shape[0]
+    s, m = (upper_adj.shape[1], upper_adj.shape[2]) if levels else (1, 1)
+    visited = torch.zeros((b, (n + 31) // 32), dtype=torch.int32, device=dev)
+    ids = torch.empty((b, ef), dtype=torch.int32, device=dev)
+    dists = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.device_beam_search(
+            queries.data_ptr(), corpus.data_ptr(), adjacency.data_ptr(),
+            present.data_ptr(), eps.data_ptr(), upper_adj.data_ptr(),
+            upper_slots.data_ptr(), visited.data_ptr(), ids.data_ptr(),
+            dists.data_ptr(), stats.data_ptr() if stats is not None else None,
+            b, n, d, adjacency.shape[1], levels, s, m, ef, max_steps,
+            METRICS.index(scorer.metric), int(scorer.precision == "bf16"),
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"device_beam_search launch failed: "
+            f"{lib.device_beam_error_string(err).decode()} (code {err})")
+    fused_search.launches += 1
+    return ids, dists
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of the built library (pointers and the
+    stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.device_beam_search.argtypes = [p] * 11 + [i] * 11 + [p]
+    lib.device_beam_search.restype = i
+    lib.device_beam_error_string.argtypes = [i]
+    lib.device_beam_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built on first use, with its C signatures
+    declared."""
+    from weaviate_tpu_torch import _build
+
+    return declare(_build.load(KERNEL))
+
+
+def fused_search(scorer, queries, operands, adjacency, present, eps,
+                 upper_adj, upper_slots, ef: int, max_steps: int,
+                 allow=None, keep_k: int = 0, expand: int = 0, rerank=None,
+                 rerank_k: int = 0, **rerank_planes):
+    """The fused walk of a batch: -> (ids [B, ef] int32, dists [B, ef]
+    float32) ascending, -1/MASK padded. CUDA tensors go to the kernel, CPU
+    tensors to the plain version. The ``launches`` attribute counts kernel
+    launches."""
+    if allow is not None or keep_k or expand:
+        raise NotImplementedError(
+            "filtered device walk (allow / keep_k / two-hop expand): not "
+            "ported yet (ROADMAP queue A, slice 5)")
+    if rerank is not None or rerank_k or rerank_planes:
+        raise NotImplementedError(
+            "fused rerank stage: not ported yet (ROADMAP queue A, slice 7)")
+    dev = adjacency.device
+    if dev.type == "cuda":
+        (corpus,) = operands
+        return fused_search_cuda(scorer, queries, corpus, adjacency, present,
+                                 eps, upper_adj, upper_slots, ef, max_steps)
+    if dev.type == "cpu":
+        return _fused_search(scorer, queries, operands, adjacency, present,
+                             eps, upper_adj, upper_slots, ef, max_steps)
+    raise ValueError(f"no fused walk for device {dev}")
+
+
+fused_search.launches = 0
+
+
+def device_search(
+    scorer,
+    queries,
+    operands,
+    adjacency,
+    present,
+    eps,
+    ef: int,
+    max_steps: int,
+    upper_adj=None,
+    upper_slots=None,
+    allow=None,
+    keep_k: int = 0,
+    expand: int = 0,
+    rerank=None,
+    rerank_k: int = 0,
+    **rerank_planes,
+):
+    """Dispatch one fused walk (descent + layer-0 beam). Without upper
+    tables the walk starts at layer 0 (construction / flat graphs).
+    Increments the module dispatch counter."""
+    global _dispatch_count
+    if upper_adj is None or upper_adj.shape[0] == 0:
+        upper_adj, upper_slots = _empty_upper(adjacency.device)
+    if not torch.is_tensor(eps):
+        eps = torch.from_numpy(np.ascontiguousarray(eps, np.int32))
+    eps = eps.to(device=adjacency.device, dtype=torch.int32).contiguous()
+    _dispatch_count += 1
+    return fused_search(scorer, queries, operands, adjacency, present, eps,
+                        upper_adj, upper_slots, ef=ef, max_steps=max_steps,
+                        allow=allow, keep_k=keep_k, expand=expand,
+                        rerank=rerank, rerank_k=rerank_k, **rerank_planes)
+
+
+def beam_search_layer0(
+    queries,
+    corpus,
+    adjacency,
+    present,
+    eps,
+    ef: int,
+    max_steps: int,
+    metric: str = "l2-squared",
+    precision: str = "bf16",
+    allow=None,
+    keep_k: int = 0,
+):
+    """Layer-0-only raw-corpus walk (compat wrapper over ``device_search``)."""
+    return device_search(
+        RawScorer(metric, precision), queries, (corpus,), adjacency,
+        present, eps, ef=ef, max_steps=max_steps, allow=allow,
+        keep_k=keep_k)
+
+
+# ---------------------------------------------------------------------------
+# device mirror of the host graph
+# ---------------------------------------------------------------------------
+
+
+class DeviceAdjacency:
+    """Incrementally synced device mirror of the host graph topology.
+
+    Layer 0: inserts and deletes mutate host rows; the mirror tracks dirty
+    rows and scatters only those before a walk. The scatter is out of
+    place (``index_copy``): a concurrent walk may still hold the old
+    tensor. Capacity growth re-uploads wholesale.
+
+    Upper layers: compact slot-addressed tables ([L, S, M] adjacency and
+    [L, N] node -> slot maps, top level first) for the kernel's greedy
+    descent, rebuilt wholesale when the host graph's ``upper_version``
+    (or its capacity) moves."""
+
+    def __init__(self, graph, device):
+        self.graph = graph
+        self.device = torch.device(device)
+        self._adj = None        # [cap, M0] int32
+        self._present = None    # [cap] bool
+        self._synced_cap = 0
+        self._dirty: set[int] = set()
+        self._upper = None      # (upper_adj [L, S, M], upper_slots [L, cap])
+        self._upper_version = -1
+        self._upper_cap = 0
+
+    def mark_dirty(self, *node_ids) -> None:
+        self._dirty.update(int(x) for x in node_ids)
+
+    def drop_device(self) -> int:
+        """Release the mirrored tables (warm tier). Returns bytes released;
+        the next ``sync`` re-uploads wholesale."""
+        freed = self.nbytes
+        self._adj = None
+        self._present = None
+        self._synced_cap = 0
+        self._dirty.clear()
+        self._upper = None
+        self._upper_version = -1
+        return freed
+
+    @property
+    def nbytes(self) -> int:
+        """Device footprint of the mirrored topology (layer 0 + upper)."""
+        total = 0
+        for a in (self._adj, self._present):
+            if a is not None:
+                total += a.numel() * a.element_size()
+        if self._upper is not None:
+            total += sum(a.numel() * a.element_size() for a in self._upper)
+        return total
+
+    def sync(self):
+        """-> (adjacency, present) device tensors, up to date.
+
+        Inserts may run while this reads the host graph (torn reads, as on
+        the host walk): it takes one reference to each host array, and an
+        edge to a node past the capacity it read, linked after that read,
+        becomes -1, as the host walk skips it. The kernel never reads past
+        the mirror."""
+        g = self.graph
+        layer0, levels = g.layer0, g.levels
+        cap = min(len(layer0), len(levels))
+        if self._adj is None or self._synced_cap != cap:
+            self._adj = torch.from_numpy(_within(layer0[:cap], cap)).to(
+                self.device)
+            self._present = torch.from_numpy(levels[:cap] >= 0).to(self.device)
+            self._synced_cap = cap
+            self._dirty.clear()
+            return self._adj, self._present
+        if self._dirty:
+            # swap the set first: construction keeps marking rows while
+            # this scatter runs
+            dirty, self._dirty = self._dirty, set()
+            idx = np.fromiter((i for i in dirty if i < cap), np.int64)
+            if len(idx):
+                it = torch.from_numpy(idx).to(self.device)
+                rows = torch.from_numpy(_within(layer0[idx], cap)).to(
+                    self.device)
+                pres = torch.from_numpy(levels[idx] >= 0).to(self.device)
+                self._adj = self._adj.index_copy(0, it, rows)
+                self._present = self._present.index_copy(0, it, pres)
+        return self._adj, self._present
+
+    def sync_upper(self):
+        """-> (upper_adj, upper_slots) device tables for the descent,
+        rebuilt only when the host graph's upper_version (or capacity)
+        moved."""
+        g = self.graph
+        ver = getattr(g, "upper_version", 0)
+        cap = g.capacity
+        if (self._upper is not None and self._upper_version == ver
+                and self._upper_cap == cap):
+            return self._upper
+        levels = max(0, int(g.max_level))
+        if levels == 0:
+            self._upper = _empty_upper(self.device)
+        else:
+            snap = _snap_upper(g, levels)
+            if snap is None:
+                # pathological churn: serve the previous tables (older
+                # edges are a valid graph) and retry on the next search
+                return self._upper if self._upper is not None \
+                    else _empty_upper(self.device)
+            sizes = [len(items) for items in snap]
+            # pow2-pad the slot axis, as the JAX mirror does
+            s_pad = 1 << max(3, (max(1, max(sizes)) - 1).bit_length())
+            adj = np.full((levels, s_pad, g.m), -1, np.int32)
+            slots = np.full((levels, cap), -1, np.int32)
+            for li, items in enumerate(snap):
+                for slot, (node, nbrs) in enumerate(items):
+                    if node >= cap:
+                        continue  # torn read mid-grow; next sync catches up
+                    slots[li, node] = slot
+                    nb = nbrs[:g.m]
+                    if len(nb):
+                        adj[li, slot, :len(nb)] = _within(nb, cap)
+            self._upper = (torch.from_numpy(adj).to(self.device),
+                           torch.from_numpy(slots).to(self.device))
+        self._upper_version = ver
+        self._upper_cap = cap
+        return self._upper
+
+
+def _within(ids: np.ndarray, cap: int) -> np.ndarray:
+    """int32 ``ids`` with those at or past ``cap`` set to -1."""
+    ids = np.asarray(ids, np.int32)
+    return np.ascontiguousarray(np.where(ids < cap, ids, -1), np.int32)
+
+
+def _snap_upper(g, levels: int):
+    """Lock-free snapshot of the upper-level dicts, top level first, with a
+    short retry when a dict resizes under a concurrent insert. None =
+    pathological churn; the caller serves stale tables."""
+    for _ in range(8):
+        try:
+            return [list(g.upper.get(lv, {}).items())
+                    for lv in range(levels, 0, -1)]
+        except RuntimeError:  # resized under us; re-read
+            continue
+    return None

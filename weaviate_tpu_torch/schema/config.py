@@ -7,10 +7,11 @@ with validation + defaults). Everything is a plain dataclass serializable to
 JSON, with the JAX package's field names and defaults, so a ``schema.json``
 written by either package loads in the other.
 
-Every index config is here as a plain dataclass, but only ``flat`` has an
-implementation in the port: ``validate`` refuses the other index types and
-rerank modules, and the shard's index factory raises
-``NotImplementedError`` naming the slice that brings each one.
+Every index config is here as a plain dataclass, but only ``flat``,
+``hnsw`` and ``dynamic`` have an implementation in the port: ``validate``
+refuses the other index types and rerank modules, and the shard's index
+factory raises ``NotImplementedError`` naming the slice that brings each
+one.
 """
 
 from __future__ import annotations
@@ -242,9 +243,9 @@ def rerank_from_dict(d: Optional[dict]) -> Optional[RerankModuleConfig]:
 
 
 # Index types with an implementation in the port (kept in sync with
-# weaviate_tpu_torch.core.shard.build_vector_index). hnsw and dynamic come
-# with ROADMAP queue A slice 3, multivector and hfresh with slice 7.
-AVAILABLE_INDEX_TYPES = ("flat",)
+# weaviate_tpu_torch.core.shard.build_vector_index). multivector and hfresh
+# come with ROADMAP queue A slice 7.
+AVAILABLE_INDEX_TYPES = ("flat", "hnsw", "dynamic")
 
 
 @dataclass
@@ -281,8 +282,8 @@ class VectorIndexConfig:
         if self.index_type not in AVAILABLE_INDEX_TYPES:
             raise ValueError(
                 f"index type {self.index_type!r} not available; "
-                f"have {AVAILABLE_INDEX_TYPES} (hnsw and dynamic: ROADMAP "
-                f"queue A slice 3; multivector and hfresh: slice 7)"
+                f"have {AVAILABLE_INDEX_TYPES} (multivector and hfresh: "
+                f"ROADMAP queue A slice 7)"
             )
         if self.distance not in METRICS:
             raise ValueError(f"invalid distance {self.distance!r}")
