@@ -13,7 +13,9 @@ non-zero without the final line:
              a grid: the fused flat scan (K1) over shapes, masks and edge
              cases; the fused HNSW walk (B2) over every metric, widths D of
              25/99/128/768, layer-0 widths M0 of 32/64, beams of 16 to 512,
-             batches of 1 to 256, on graphs the port builds on the card.
+             batches of 1 to 256, unfiltered and filtered (allow masks of
+             1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
+             graphs the port builds on the card.
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -31,16 +33,19 @@ non-zero without the final line:
 6. hnsw    — ``HNSWIndex`` at the GloVe-25 configuration of the JAX
              package's ``bench.py bench_glove``: HNSW_ROWS seeded unit
              25-d rows, cosine, ef 64, ef_construction 96, M 16, the fused
-             walk (B2) for search and layer-0 construction. Build rate and
-             launches, recall@10 against the exact float32 answer, search
-             p50/p99 and launches per search, B2's time per launch beside
-             its bound and its plain version, the host walk on the same
-             index, an ef sweep, a 1% delete, device memory.
+             walk (B2) for search and layer-0 construction. Build rate,
+             launches and B2's summed time in the build, recall@10 against
+             the exact float32 answer, search p50/p99 and one launch per
+             search, B2's time on the search's launch and on a construction
+             launch beside its bound and its plain version, the host walk on
+             the same index, an ef sweep, a 1% delete, device memory.
 7. hnsw_db — the same rows (the first HNSW_DB_ROWS) as objects through
-             ``DB`` -> ``Collection`` with an HNSW index: search unfiltered
-             and under a 1% filter (the planner's exact plan), then close
-             and reopen (graph.npz) and a crash and reopen (commit-log
-             replay), each with the same uuids.
+             ``DB`` -> ``Collection`` with an HNSW index: search unfiltered,
+             under a 1% filter (the planner's exact plan) and under the
+             resident 45% filter ``bucket < 45`` (the filtered beam: one B2
+             launch with the kept track), then close and reopen (graph.npz)
+             and a crash and reopen (commit-log replay), each with the same
+             uuids.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -71,7 +76,7 @@ from weaviate_tpu_torch.inverted.filters import Where
 from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
 from weaviate_tpu_torch.ops import device_beam, fused_flat
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search, normalize
-from weaviate_tpu_torch.query.planner import PLAN_EXACT
+from weaviate_tpu_torch.query.planner import PLAN_BEAM, PLAN_EXACT
 from weaviate_tpu_torch.schema.config import (
     CollectionConfig,
     DataType,
@@ -330,6 +335,13 @@ B2_METRICS = (("l2-squared", "fp32"), ("dot", "fp32"), ("dot", "bf16"),
               ("hamming", "fp32"))
 B2_EFS = (16, 64, 128, 512)
 B2_BS = (1, 8, 64, 256)
+# the filtered walks of the grid: allowed fractions, kept tracks, two-hop
+# budgets (the planner's 0-4), and beams at least as wide as the track
+B2_SELECTIVITY = (0.01, 0.1, 0.5)
+B2_KEEP = (8, 32)
+B2_EXPAND = (0, 1, 2, 3, 4)
+B2_FILTERED_EFS = (64, 128, 512)
+B2_FILTERED_PER_GRAPH = 3
 
 
 def b2_operands(metric: str, rows: torch.Tensor) -> torch.Tensor:
@@ -361,19 +373,34 @@ def compare_walks(kernel, plain, agreement_min: float):
             int(same.sum()), same.numel())
 
 
+def check_kept(kernel, plain, allow, present, agreement_min):
+    """The kept tracks of a filtered walk: ids and distances as
+    ``compare_walks``; every kept id allowed and present."""
+    out = compare_walks(kernel, plain, agreement_min)
+    ids = kernel[0][kernel[0] >= 0].long()
+    if not bool(allow[ids].all()) or not bool(present[ids].all()):
+        raise AssertionError("B2 kept a disallowed or absent node")
+    return out
+
+
 def beam_kernel_grid(seed: int) -> dict:
     """B2 against its plain version on the card. One graph per (D, M) from
     the port's own build (``HNSWIndex`` with the fused walk, 2% deleted:
     tombstones stay traversable); every other graph also loses 1% of its
     nodes (absent: present False). Each graph walks every metric, cycling
-    the beam, the batch, and with or without the upper layers; one more
-    walk per graph stops after 5 expansions (max_steps binds)."""
+    the beam, the batch, and with or without the upper layers; then three
+    filtered walks (an allow mask of 1%, 10% or 50%, a kept track of 8 or
+    32, a two-hop budget of 0-4), whose beam and kept track are both held
+    against the plain version; one more walk per graph stops after 5
+    expansions (max_steps binds), filtered on every other graph."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 5)
+    lib = device_beam._library()
     cases, max_err, same, total, builds = 0, 0.0, 0, 0, 0.0
     seen = {"ef": set(), "b": set(), "metric": set(), "upper": set(),
-            "absent": set(), "max_steps_binds": 0}
-    case = 0
+            "absent": set(), "selectivity": set(), "keep_k": set(),
+            "expand": set(), "max_steps_binds": 0}
+    case = fcase = 0
     for gi, (d, m) in enumerate((d, m) for d in B2_DIMS for m in B2_M):
         rows = rng.standard_normal((B2_ROWS, d), dtype=np.float32)
         t0 = time.perf_counter()
@@ -399,10 +426,19 @@ def beam_kernel_grid(seed: int) -> dict:
         noise = torch.from_numpy(
             rng.standard_normal((max(B2_BS), d), dtype=np.float32)).to(dev)
         walks = [(metric, prec, B2_EFS[(case + i) % 4],
-                  B2_BS[((case + i) // 4) % 4], (case + i) % 2 == 0, None)
+                  B2_BS[((case + i) // 4) % 4], (case + i) % 2 == 0, None,
+                  None)
                  for i, (metric, prec) in enumerate(B2_METRICS)]
-        walks.append(("l2-squared", "fp32", 64, 64, True, 5))
-        for metric, prec, ef, b, upper, steps in walks:
+        for i in range(fcase, fcase + B2_FILTERED_PER_GRAPH):
+            metric, prec = B2_METRICS[i % len(B2_METRICS)]
+            walks.append((metric, prec, B2_FILTERED_EFS[(i // 3) % 3],
+                          B2_BS[(i // 2) % 4], i % 2 == 1, None,
+                          (B2_SELECTIVITY[i % 3], B2_KEEP[i % 2],
+                           B2_EXPAND[i % 5])))
+        fcase += B2_FILTERED_PER_GRAPH
+        walks.append(("l2-squared", "fp32", 64, 64, True, 5,
+                      (0.1, 32, 2) if absent else None))
+        for metric, prec, ef, b, upper, steps, flt in walks:
             corpus = b2_operands(metric, base)
             q = b2_operands(metric, base[:b] + 0.1 * noise[:b])
             eps = torch.full((b,), graph.entrypoint, dtype=torch.int32,
@@ -410,20 +446,44 @@ def beam_kernel_grid(seed: int) -> dict:
             up = (ua, us) if upper else device_beam._empty_upper(dev)
             max_steps = steps if steps else 4 * ef + 64
             scorer = device_beam.RawScorer(metric, prec)
+            kw = {}
+            if flt:
+                sel, keep, expand = flt
+                kw = dict(allow=torch.from_numpy(
+                    rng.random(adj.shape[0]) < sel).to(dev), keep_k=keep,
+                    expand=expand)
+                m = ua.shape[2] if upper else 1
+                if lib.device_beam_warp_bytes(
+                        corpus.shape[1], adj.shape[1], m, ef, keep,
+                        expand) != device_beam.warp_bytes(
+                            corpus.shape[1], adj.shape[1], m, ef, keep,
+                            expand):
+                    raise AssertionError("B2's shared-memory sizes differ "
+                                         "between the kernel and its wrapper")
             kernel = device_beam.fused_search_cuda(
-                scorer, q, corpus, adj, present, eps, *up, ef, max_steps)
+                scorer, q, corpus, adj, present, eps, *up, ef, max_steps,
+                **kw)
             plain = device_beam._fused_search(
-                scorer, q, (corpus,), adj, present, eps, *up, ef, max_steps)
+                scorer, q, (corpus,), adj, present, eps, *up, ef, max_steps,
+                **kw)
             torch.cuda.synchronize()
-            e, s_, t = compare_walks(
-                kernel, plain,
-                MIN_ID_AGREEMENT_BF16 if prec == "bf16" else MIN_ID_AGREEMENT)
+            agreement = (MIN_ID_AGREEMENT_BF16 if prec == "bf16"
+                         else MIN_ID_AGREEMENT)
+            e, s_, t = compare_walks(kernel[:2], plain[:2], agreement)
+            if flt:
+                ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"],
+                                        present, agreement)
+                e, s_, t = max(e, ek), s_ + sk, t + tk
+                seen["selectivity"].add(flt[0])
+                seen["keep_k"].add(flt[1])
+                seen["expand"].add(flt[2])
             if bool(((kernel[0] >= 0) & ~present[kernel[0].clamp(min=0).long()]
                      ).any()):
                 raise AssertionError("B2 returned an absent node")
             if steps:
                 full = device_beam.fused_search_cuda(
-                    scorer, q, corpus, adj, present, eps, *up, ef, 4 * ef + 64)
+                    scorer, q, corpus, adj, present, eps, *up, ef, 4 * ef + 64,
+                    **kw)
                 if torch.equal(full[0], kernel[0]):
                     raise AssertionError("max_steps did not bind")
                 seen["max_steps_binds"] += 1
@@ -431,8 +491,9 @@ def beam_kernel_grid(seed: int) -> dict:
             same += s_
             total += t
             cases += 1
-            seen["ef"].add(ef)
-            seen["b"].add(b)
+            if not flt:
+                seen["ef"].add(ef)
+                seen["b"].add(b)
             seen["metric"].add(f"{metric}/{prec}")
             seen["upper"].add(upper)
             seen["absent"].add(absent)
@@ -441,13 +502,19 @@ def beam_kernel_grid(seed: int) -> dict:
         torch.cuda.empty_cache()
     if seen["ef"] != set(B2_EFS) or seen["b"] != set(B2_BS) \
             or len(seen["metric"]) != len(B2_METRICS) \
-            or seen["upper"] != {True, False} or seen["absent"] != {True, False}:
+            or seen["upper"] != {True, False} \
+            or seen["absent"] != {True, False} \
+            or seen["selectivity"] != set(B2_SELECTIVITY) \
+            or seen["keep_k"] != set(B2_KEEP) \
+            or seen["expand"] != set(B2_EXPAND):
         raise AssertionError(f"the B2 grid left a case out: {seen}")
     # what the kernel does not take, it refuses before launching
     raised = 0
     z = torch.zeros((64, 8), device=dev)
     for over in (dict(ef=1024), dict(adjacency=torch.full(
-            (64, 256), -1, dtype=torch.int32, device=dev))):
+            (64, 256), -1, dtype=torch.int32, device=dev)),
+            dict(allow=torch.ones(64, dtype=torch.bool, device=dev),
+                 keep_k=32)):
         args = dict(scorer=device_beam.RawScorer("l2-squared", "fp32"),
                     queries=z[:2], corpus=z,
                     adjacency=torch.full((64, 8), -1, dtype=torch.int32,
@@ -462,9 +529,11 @@ def beam_kernel_grid(seed: int) -> dict:
             device_beam.fused_search_cuda(**args)
         except ValueError:
             raised += 1
-    if raised != 2:
+    if raised != 3:
         raise AssertionError("B2 launched on arguments outside its contract")
-    return {"cases": cases, "graphs": len(B2_DIMS) * len(B2_M),
+    return {"cases": cases,
+            "filtered_cases": fcase + len(B2_DIMS) * len(B2_M) // 2,
+            "graphs": len(B2_DIMS) * len(B2_M),
             "graph_rows": B2_ROWS, "graph_build_s": builds,
             "max_abs_err": max_err, "id_agreement": same / max(1, total),
             "max_steps_binds": seen["max_steps_binds"],
@@ -875,6 +944,10 @@ HNSW_RECALL_TARGET = 0.95  # BASELINE.json: recall@10 >= 0.95
 # phase hnsw_db: objects through the DB (the first rows of phase hnsw's)
 HNSW_DB_ROWS = 100_000
 HNSW_DB_EXTRA = 2_000  # added after the last snapshot: replayed from the log
+# a resident filter the planner sends to the filtered beam: 45% of the
+# objects, above flat_search_cutoff (40,000) and filter_flat_selectivity
+# (0.35); expansion 1; cost 2,048 for the beam against 2,276 to over-fetch
+BEAM_FILTER_BUCKETS = 45
 
 
 def glove_data(n: int):
@@ -908,47 +981,103 @@ def host_p(fn, n: int) -> list[float]:
     return out
 
 
-def capture_launch(idx, queries: np.ndarray) -> dict:
-    """The arguments of the first B2 launch of ``idx.search(queries, K)``,
-    caught at the wrapper."""
-    real = device_beam.fused_search_cuda
-    caught = {}
+class LaunchSpy:
+    """Wraps B2's wrapper while it is installed: CUDA events around every
+    launch (``ms()`` sums them), and the arguments of the last launch."""
 
-    def spy(*a, **kw):
-        if not caught:
-            caught["args"] = a
-        return real(*a, **kw)
+    def __init__(self):
+        self.events, self.last = [], None
 
-    device_beam.fused_search_cuda = spy
-    try:
-        idx.search(queries, K)
-    finally:
-        device_beam.fused_search_cuda = real
-    return caught
+    def __enter__(self):
+        self.real = device_beam.fused_search_cuda
+
+        def spy(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.real(*a, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            self.last = (a, kw)
+            return out
+
+        device_beam.fused_search_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        device_beam.fused_search_cuda = self.real
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def walk_bound(args, stats: torch.Tensor) -> tuple[float, str, dict]:
+def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
     """The least time of one B2 launch on this run's data: the bytes it
-    must move (query rows, the rows it scored, the adjacency rows it read,
-    the outputs) over the memory rate, against its float32 operations
-    (3 a scored element) over the float32 rate."""
+    must move (query rows; every corpus row it read, with its presence and
+    allow bytes, the rows it scored before the visited test included; the
+    adjacency rows it read; the outputs) over the memory rate, against its
+    float32 operations (3 a scored element) over the float32 rate."""
     scorer, q, corpus, adj, present, eps, ua, us, ef, _ = args
+    keep_k = kw.get("keep_k", 0) if kw.get("allow") is not None else 0
     st = stats.long().sum(0).tolist()
     d, m0 = corpus.shape[1], adj.shape[1]
     m = ua.shape[2] if ua.shape[0] else 0
     b = q.shape[0]
-    nbytes = (b * d * 4 + st[1] * (d * 4 + 1) + st[2] * m0 * 4
-              + st[3] * m * 4 + b * ef * 8)
-    flops = 3.0 * st[1] * d
+    rows = st[1] + st[4]
+    nbytes = (b * d * 4 + rows * (d * 4 + 1 + (1 if keep_k else 0))
+              + st[2] * m0 * 4 + st[3] * m * 4 + b * (ef + keep_k) * 8)
+    flops = 3.0 * rows * d
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     per_q = stats.float()
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
             {"bytes": nbytes, "flops": flops,
+             "speculative_row_bytes": st[4] * (d * 4 + 1),
              "steps_mean": float(per_q[:, 0].mean()),
              "steps_max": int(stats[:, 0].max()),
              "scored_mean": float(per_q[:, 1].mean()),
+             "speculative_rows_mean": float(per_q[:, 4].mean()),
              "upper_rows_mean": float(per_q[:, 3].mean())})
+
+
+def time_walk(args, kw, iters: int, plain_iters: int) -> dict:
+    """One captured B2 launch: the kernel against its plain version on the
+    same inputs (beam, and kept track when filtered), the kernel's and the
+    plain version's times, the bound from the kernel's counters."""
+    scorer, q, c, adj, present, eps, ua, us, ef, max_steps = args
+    stats = torch.zeros((q.shape[0], len(device_beam.STATS)),
+                        dtype=torch.int32, device="cuda")
+    kernel = device_beam.fused_search_cuda(*args, **kw, stats=stats)
+    plain = device_beam._fused_search(scorer, q, (c,), adj, present, eps,
+                                      ua, us, ef, max_steps, **kw)
+    torch.cuda.synchronize()
+    err, same, total = compare_walks(kernel[:2], plain[:2], MIN_ID_AGREEMENT)
+    if len(kernel) == 4:
+        ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"], present,
+                                MIN_ID_AGREEMENT)
+        err, same, total = max(err, ek), same + sk, total + tk
+    ms = cuda_ms(lambda: device_beam.fused_search_cuda(*args, **kw), iters, 3)
+    # the same launches back to back: the device time without the host's
+    # part of each call (its checks, the visited set's allocation)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        device_beam.fused_search_cuda(*args, **kw)
+    t1.record()
+    t1.synchronize()
+    plain_ms = cuda_ms(lambda: device_beam._fused_search(
+        scorer, q, (c,), adj, present, eps, ua, us, ef, max_steps, **kw),
+        plain_iters, 1)
+    bound_ms, bound_by, work = walk_bound(args, kw, stats)
+    return {"rows": q.shape[0], "ef_pad": ef, "max_steps": max_steps,
+            "ms_median": float(np.median(ms)), "ms_max": float(np.max(ms)),
+            "ms_back_to_back": t0.elapsed_time(t1) / iters,
+            "ms_per_hop": float(np.median(ms)) / max(1, work["steps_max"]),
+            "plain_ms": float(np.median(plain_ms)), "bound_ms": bound_ms,
+            "bound_by": bound_by, "work": work, "vs_plain_max_abs_err": err,
+            "vs_plain_id_agreement": same / max(1, total)}
 
 
 def phase_hnsw(state: dict) -> dict:
@@ -966,40 +1095,41 @@ def phase_hnsw(state: dict) -> dict:
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
     marks = []
-    for s in range(0, HNSW_ROWS, HNSW_ADD_STEP):
-        idx.add_batch(ids[s:s + HNSW_ADD_STEP], corpus[s:s + HNSW_ADD_STEP])
-        marks.append(time.perf_counter() - t0)
+    with LaunchSpy() as build_spy:
+        for s in range(0, HNSW_ROWS, HNSW_ADD_STEP):
+            idx.add_batch(ids[s:s + HNSW_ADD_STEP],
+                          corpus[s:s + HNSW_ADD_STEP])
+            marks.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = device_beam.fused_search.launches
     if build_launches < 1:
         raise AssertionError("construction did not launch B2")
+    build_b2_ms = build_spy.ms()
     store_corpus, valid, _ = idx.store.snapshot()
     gt = cosine_truth(store_corpus, valid, queries)
 
-    # the served path: launches counted from 0 for one search
+    # the served path: launches counted from 0 for one search, one launch
+    # for the batch
     device_beam.fused_search.launches = 0
+    dispatches = device_beam.dispatch_count()
     res = idx.search(queries, K)
     search_launches = device_beam.fused_search.launches
-    if search_launches < 1:
-        raise AssertionError("HNSWIndex.search did not launch B2")
+    if search_launches != 1 or device_beam.dispatch_count() - dispatches != 1:
+        raise AssertionError(f"HNSWIndex.search made {search_launches} B2 "
+                             "launches, not one")
     rec = recall(res.ids, gt)
     search_ms = host_p(lambda: idx.search(queries, K), 50)
 
-    # B2 alone at the main path's shapes: one sub-batch launch
-    args = capture_launch(idx, queries)["args"]
-    scorer, q, c, adj, present, eps, ua, us, ef, max_steps = args
-    stats = torch.zeros((q.shape[0], 4), dtype=torch.int32, device="cuda")
-    k_ids, k_d = device_beam.fused_search_cuda(*args, stats=stats)
-    p_ids, p_d = device_beam._fused_search(scorer, q, (c,), adj, present, eps,
-                                           ua, us, ef, max_steps)
-    torch.cuda.synchronize()
-    err, same, total = compare_walks((k_ids, k_d), (p_ids, p_d),
-                                     MIN_ID_AGREEMENT)
-    kernel_ms = cuda_ms(lambda: device_beam.fused_search_cuda(*args), 30, 3)
-    plain_ms = cuda_ms(lambda: device_beam._fused_search(
-        scorer, q, (c,), adj, present, eps, ua, us, ef, max_steps), 3, 1)
-    bound_ms, bound_by, work = walk_bound(args, stats)
+    # B2 alone at the main path's shapes: the search's launch, and one
+    # construction launch (the build's last, ef_construction padded)
+    with LaunchSpy() as spy:
+        idx.search(queries, K)
+    args, kw = spy.last
+    walk = time_walk(args, kw, 30, 3)
+    cargs, ckw = build_spy.last
+    cwalk = time_walk(cargs, ckw, 10, 1)
+    del build_spy
 
     # the host walk on the same index (bench_glove clears the mirror)
     beam = idx._device_beam
@@ -1038,21 +1168,20 @@ def phase_hnsw(state: dict) -> dict:
     rec_after = recall(after.ids, cosine_truth(store_corpus, valid_after,
                                                queries))
     peak = torch.cuda.max_memory_allocated()
-    n_d = q.shape[0]
     state["kernel_b2"] = {
         "name": "device_beam_search", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/device_beam.cu",
         "replaces": "weaviate_tpu/ops/device_beam.py:222",
         "launches": build_launches + search_launches,
-        "max_abs_err": err,
-        "ms": float(np.median(kernel_ms)),
-        "plain_ms": float(np.median(plain_ms)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": walk["vs_plain_max_abs_err"],
+        "ms": walk["ms_median"], "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
+        "library_ms": None,
         "launches_build": build_launches,
         "launches_per_search": search_launches,
-        "share_of_bound": bound_ms / float(np.median(kernel_ms)),
+        "share_of_bound": walk["bound_ms"] / walk["ms_median"],
     }
-    del idx, store_corpus, valid, valid_after, args, q, c, adj, present
+    del idx, store_corpus, valid, valid_after, args, kw, cargs, ckw
     torch.cuda.empty_cache()
     return {
         "rows": HNSW_ROWS, "dims": HNSW_DIMS, "metric": "cosine",
@@ -1061,18 +1190,13 @@ def phase_hnsw(state: dict) -> dict:
         "build_s": build_s, "vectors_per_s": HNSW_ROWS / build_s,
         "build_s_at_each_100k": marks,
         "b2_launches_build": build_launches,
+        "b2_build_ms": build_b2_ms,
         "recall_at_10": rec, "host_walk_recall_at_10": host_rec,
         "search_p50_ms": float(np.percentile(search_ms, 50)),
         "search_p99_ms": float(np.percentile(search_ms, 99)),
         "b2_launches_per_search": search_launches,
-        "b2_rows_per_launch": n_d, "b2_ef_pad": ef,
-        "b2_max_steps": max_steps,
-        "b2_ms_median": float(np.median(kernel_ms)),
-        "b2_ms_max": float(np.max(kernel_ms)),
-        "b2_plain_ms": float(np.median(plain_ms)),
-        "b2_bound_ms": bound_ms, "b2_bound_by": bound_by, "b2_work": work,
-        "b2_vs_plain_max_abs_err": err,
-        "b2_vs_plain_id_agreement": same / max(1, total),
+        "b2_search_launch": walk,
+        "b2_construction_launch": cwalk,
         "host_walk_p50_ms": float(np.percentile(host_ms, 50)),
         "ef_sweep": sweep,
         "smallest_ef_at_recall_0.95": at_target,
@@ -1121,6 +1245,7 @@ def _crash_leaving_commit_logs(db) -> int:
 
 def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     flt = Where.eq("bucket", FILTER_BUCKET)
+    beam_flt = Where.lt("bucket", BEAM_FILTER_BUCKETS)
     n = HNSW_DB_ROWS
 
     def put(db_col, lo, hi):
@@ -1135,7 +1260,8 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         name="Glove", properties=[Property("bucket", DataType.INT)],
         vector_config=HNSWIndexConfig(
             distance="cosine", ef=HNSW_EF, ef_construction=HNSW_EFC,
-            max_connections=HNSW_M, device_beam=True)))
+            max_connections=HNSW_M, device_beam=True),
+        resident_filters=[beam_flt.to_dict()]))
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
     put(col, 0, n)
@@ -1172,9 +1298,38 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     rec_f = recall(got_f, uuid_arr[gt_f])
     if rec_f < 0.99:
         raise AssertionError(f"exact-plan filtered recall@10 {rec_f} < 0.99")
+
+    # the resident 45% filter: the planner's filtered beam, one B2 launch
+    # with the kept track and a two-hop budget of 1
+    plans = PLANNER_PLANS.value(plan=PLAN_BEAM)
+    device_beam.fused_search.launches = 0
+    with LaunchSpy() as spy:
+        rows_b = db_search(col, queries, beam_flt)
+    beam_launches = device_beam.fused_search.launches
+    if PLANNER_PLANS.value(plan=PLAN_BEAM) != plans + 1:
+        raise AssertionError("the 45% filter did not take the filtered beam")
+    if beam_launches != 1 or spy.last[1].get("allow") is None \
+            or spy.last[1]["expand"] != 1:
+        raise AssertionError("the filtered beam did not run as one filtered "
+                             "B2 launch with expansion 1")
+    if any(o.properties["bucket"] >= BEAM_FILTER_BUCKETS
+           for r in rows_b for o, _ in r):
+        raise AssertionError("the filtered beam returned a non-matching "
+                             "object")
+    got_b = uuid_rows(rows_b)
+    allow_b = torch.zeros_like(valid)
+    allow_b[:n] = torch.from_numpy(bucket[:n] < BEAM_FILTER_BUCKETS).cuda()
+    gt_b = flat_search(q, corpus_t, K, "cosine", valid_mask=valid,
+                       allow_mask=allow_b, precision="fp32")[1].cpu().numpy()
+    rec_b = recall(got_b, uuid_arr[gt_b])
+    if rec_b < HNSW_RECALL_TARGET:
+        raise AssertionError(f"filtered-beam recall@10 {rec_b} < "
+                             f"{HNSW_RECALL_TARGET}")
+    beam_walk = time_walk(*spy.last, 10, 1)
     search_ms = host_p(lambda: db_search(col, queries), 20)
     filtered_ms = host_p(lambda: db_search(col, queries, flt), 10)
-    del corpus_t, valid, allow, q
+    beam_ms = host_p(lambda: db_search(col, queries, beam_flt), 10)
+    del corpus_t, valid, allow, allow_b, q, spy
 
     # close and reopen: the graph comes back from graph.npz
     t0 = time.perf_counter()
@@ -1185,7 +1340,8 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     if col.count() != n:
         raise AssertionError(f"reopened count {col.count()} != {n}")
     if uuid_rows(db_search(col, queries)) != got \
-            or uuid_rows(db_search(col, queries, flt)) != got_f:
+            or uuid_rows(db_search(col, queries, flt)) != got_f \
+            or uuid_rows(db_search(col, queries, beam_flt)) != got_b:
         raise AssertionError("the reopened HNSW collection answers differently")
 
     # a snapshot, more objects, then a crash: their graph edits replay
@@ -1218,6 +1374,13 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "search_p50_ms": float(np.percentile(search_ms, 50)),
         "search_p99_ms": float(np.percentile(search_ms, 99)),
         "filtered_search_p50_ms": float(np.percentile(filtered_ms, 50)),
+        "beam_filter": beam_flt.to_dict(),
+        "beam_filter_selectivity": float(np.mean(
+            bucket[:n] < BEAM_FILTER_BUCKETS)),
+        "recall_at_10_filtered_beam": rec_b, "filtered_beam_plan": PLAN_BEAM,
+        "b2_launches_filtered_beam": beam_launches,
+        "filtered_beam_search_p50_ms": float(np.percentile(beam_ms, 50)),
+        "b2_filtered_beam_launch": beam_walk,
         "reopen_s": reopen_s, "crash_reopen_s": crash_reopen_s,
         "commit_log_bytes_replayed": pending,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),

@@ -411,7 +411,6 @@ UNPORTED = {
     "hnsw_index": (lambda col, db: build_vector_index(
         DIMS, config.HNSWIndexConfig(quantizer=config.SQConfig()),
         device="cpu"), "slice 4"),
-    "dynamic_index": (lambda col, db: _dynamic_filtered_beam(), "slice 5"),
     "multivector_index": (lambda col, db: build_vector_index(
         DIMS, config.MultiVectorIndexConfig(), device="cpu"), "slice 7"),
     "hfresh_index": (lambda col, db: build_vector_index(
@@ -427,19 +426,50 @@ UNPORTED = {
 }
 
 
-def _dynamic_filtered_beam():
+def _dynamic_filtered_beam(col, db):
     """A dynamic index past its cutover, with the fused walk on, asked a
-    filtered query the planner sends to the beam: the filtered device walk
-    is slice 5."""
-    idx = build_vector_index(DIMS, config.DynamicIndexConfig(
-        distance="l2-squared", threshold=10, cutover_background=False,
-        hnsw={"device_beam": True, "ef": 16, "max_connections": 4,
-              "flat_search_cutoff": 0}), device="cpu")
+    filtered query the planner sends to the beam (slice 5): the same graph
+    and the same answer as the JAX ``DynamicIndex``, in one walk each."""
+    from weaviate_tpu.core.shard import build_vector_index as jbuild
+    from weaviate_tpu.ops import device_beam as jbeam
+    from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
+    from weaviate_tpu_torch.ops import device_beam as tbeam
+    from weaviate_tpu_torch.query.planner import PLAN_BEAM
+
+    def dynamic(mod, build, **kw):
+        return build(DIMS, mod.DynamicIndexConfig(
+            distance="l2-squared", threshold=10, cutover_background=False,
+            hnsw={"device_beam": True, "ef": 16, "max_connections": 4,
+                  "flat_search_cutoff": 0}), **kw)
+
     vecs = np.random.default_rng(1).standard_normal((200, DIMS)).astype(
         np.float32)
-    idx.add_batch(np.arange(200), vecs)
-    assert idx.upgraded
-    idx.search(vecs[:2], 5, allow_list=np.arange(200) % 5 < 3)
+    jidx = dynamic(jconfig, jbuild)
+    tidx = dynamic(config, build_vector_index, device="cpu")
+    for idx in (jidx, tidx):
+        idx.add_batch(np.arange(200), vecs)
+        assert idx.upgraded
+    ja, ta = jidx.inner.graph.to_arrays(), tidx.inner.graph.to_arrays()
+    for key in ja:
+        np.testing.assert_array_equal(np.asarray(ta[key]), np.asarray(ja[key]))
+    allow = np.arange(200) % 5 < 3
+    before = (jbeam.dispatch_count(), tbeam.dispatch_count(),
+              PLANNER_PLANS.value(plan=PLAN_BEAM))
+    jr = jidx.search(vecs[:8], 5, allow_list=allow)
+    tr = tidx.search(vecs[:8], 5, allow_list=allow)
+    assert (jbeam.dispatch_count() - before[0],
+            tbeam.dispatch_count() - before[1]) == (1, 1)
+    assert PLANNER_PLANS.value(plan=PLAN_BEAM) == before[2] + 1
+    np.testing.assert_array_equal(tr.ids, jr.ids)
+    np.testing.assert_allclose(tr.dists, jr.dists, rtol=1e-5, atol=1e-5)
+    assert allow[tr.ids].all()
+
+
+# routes of this list's slices that are ported since: each answers as the
+# JAX package does
+PORTED = {
+    "dynamic_index": _dynamic_filtered_beam,
+}
 
 
 def _freeze(db):
@@ -450,7 +480,7 @@ def _freeze(db):
     col.set_tenant_status("t1", "FROZEN")
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", sorted(UNPORTED.keys() | PORTED.keys()))
 def test_unported_route_raises(dbs, name):
     tdb = dbs("torch", "t")
     cfg = _cfg(config)
@@ -458,6 +488,9 @@ def test_unported_route_raises(dbs, name):
         cfg.vectorizer = "text2vec-hash"
     tcol = tdb.create_collection(cfg)
     _put(tcol, StorageObject, _records(8, n=20))
+    if name in PORTED:
+        PORTED[name](tcol, tdb)
+        return
     fn, where = UNPORTED[name]
     with pytest.raises(NotImplementedError, match=where):
         fn(tcol, tdb)

@@ -10,11 +10,19 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   (query, rank) slots; distances of matched slots within rtol 1e-5 (fp32)
   and 1e-3 (bf16): both sides sum the same float32 (or bf16-rounded)
   products, in another order.
-- ``dispatch_count()`` goes up by exactly one per sub-batch of a search.
-- The routes of later slices raise ``NotImplementedError``; the kernel's
-  argument checks refuse what it does not take.
+- The filtered walk (``allow``/``keep_k``/``expand``, the kept track and
+  the two-hop widening) against JAX ``device_search``: l2-squared fp32 and
+  cosine bf16, ``expand`` 0/1/2/4, ``keep_k`` 8/32, allow masks at 1%,
+  10% and 50%, tombstoned and absent nodes and a binding ``max_steps``.
+  Beam and kept ids equal, distances within 1e-5.
+- ``dispatch_count()`` goes up by exactly one per launch of a search: one
+  for a batch whose visited bitsets fit the budget.
+- The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
+  argument checks refuse what it does not take; ``probe_device_beam.py``'s
+  copies still apply to the kernel source.
 
-The JAX side compiles one program per shape, so the cases share three.
+The JAX side compiles one program per shape and static arguments, so the
+cases share a few.
 """
 
 import numpy as np
@@ -29,9 +37,15 @@ from weaviate_tpu_torch.index.hnsw.graph import HostGraph
 from weaviate_tpu_torch.ops import device_beam as tbeam
 from weaviate_tpu_torch.schema import config
 
+import probe_device_beam as probe
+
 N, DIMS, B, EF = 1500, 16, 16, 32
 MIN_ID_AGREEMENT = 0.99
 RTOL = {"fp32": 1e-5, "bf16": 1e-3}
+# the filtered walk: ids equal, distances within this (both sides sum the
+# same float32 or bf16-rounded products of D = 16, in another order)
+FILTERED_TOL = 1e-5
+SELECTIVITIES = (0.01, 0.1, 0.5)
 
 
 def _vectors(seed, n, d=DIMS):
@@ -151,6 +165,92 @@ def test_plain_walk_tombstones_absent_nodes_and_max_steps(jax_index):
     assert np.isin(ids, np.arange(0, N, 7)).any()
 
 
+def _allow_mask(n, selectivity, seed=9):
+    return np.random.default_rng(seed).random(n) < selectivity
+
+
+def _compare_filtered(jout, tout):
+    """Beam and kept track: ids equal, distances within FILTERED_TOL."""
+    assert len(jout) == len(tout) == 4
+    for ja, ta in zip(jout, tout):
+        ja, ta = np.asarray(ja), ta.numpy()
+        assert ta.shape == ja.shape and ta.dtype == ja.dtype
+        if ja.dtype == np.int32:
+            np.testing.assert_array_equal(ta, ja)
+        else:
+            np.testing.assert_allclose(ta, ja, rtol=FILTERED_TOL,
+                                       atol=FILTERED_TOL)
+
+
+@pytest.mark.parametrize("metric,precision,expand,keep_k", [
+    ("l2-squared", "fp32", 0, 8), ("l2-squared", "fp32", 1, 32),
+    ("l2-squared", "fp32", 2, 8), ("l2-squared", "fp32", 4, 32),
+    ("cosine", "bf16", 0, 32), ("cosine", "bf16", 1, 8),
+    ("cosine", "bf16", 2, 32), ("cosine", "bf16", 4, 8),
+])
+def test_plain_filtered_walk_matches_jax(jax_index, metric, precision,
+                                         expand, keep_k):
+    """The kept track and the two-hop widening at 1%, 10% and 50% allowed:
+    the same beam and kept track as JAX ``_fused_search``."""
+    import jax.numpy as jnp
+
+    g = jax_index.graph
+    corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
+    (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
+                                            tus) = _walk_inputs(
+        g, corpus, metric == "cosine")
+    kept = []
+    for sel in SELECTIVITIES:
+        allow = _allow_mask(g.capacity, sel)
+        jout = jbeam.device_search(
+            jbeam.RawScorer(metric, precision), jq, (jc,), jadj, jpres, jeps,
+            ef=EF, max_steps=4 * EF + 64, upper_adj=jua, upper_slots=jus,
+            allow=jnp.asarray(allow), keep_k=keep_k, expand=expand)
+        tout = tbeam.fused_search(
+            tbeam.RawScorer(metric, precision), tq, (tc,), tadj, tpres, teps,
+            tua, tus, EF, 4 * EF + 64, allow=torch.from_numpy(allow),
+            keep_k=keep_k, expand=expand)
+        _compare_filtered(jout, tout)
+        ids = tout[2].numpy()
+        assert allow[ids[ids >= 0]].all()
+        kept.append(int((ids >= 0).sum()))
+    # the track fills as the filter opens
+    assert 0 < kept[0] <= kept[-1] == B * keep_k
+
+
+def test_plain_filtered_walk_tombstones_absent_nodes_and_max_steps(jax_index):
+    """Tombstoned nodes stay traversable and may be kept; absent nodes are
+    neither scored nor kept; a binding max_steps cuts the filtered walk."""
+    import jax.numpy as jnp
+
+    g = HostGraph.from_arrays(jax_index.graph.to_arrays())
+    for node in range(0, N, 7):
+        g.add_tombstone(node)
+    for node in range(3, N, 11):
+        if node != g.entrypoint:
+            g.levels[node] = -1
+    corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
+    (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
+                                            tus) = _walk_inputs(g, corpus, False)
+    allow = _allow_mask(g.capacity, 0.1)
+    sc = ("l2-squared", "fp32")
+    kept = []
+    for steps in (4 * EF + 64, 5):
+        jout = jbeam.device_search(
+            jbeam.RawScorer(*sc), jq, (jc,), jadj, jpres, jeps, ef=EF,
+            max_steps=steps, upper_adj=jua, upper_slots=jus,
+            allow=jnp.asarray(allow), keep_k=16, expand=2)
+        tout = tbeam._fused_search(
+            tbeam.RawScorer(*sc), tq, (tc,), tadj, tpres, teps, tua, tus, EF,
+            steps, allow=torch.from_numpy(allow), keep_k=16, expand=2)
+        _compare_filtered(jout, tout)
+        ids = tout[2].numpy()
+        assert not (~np.asarray(jpres))[ids[ids >= 0]].any()
+        kept.append(ids)
+    assert not np.array_equal(kept[0], kept[1])
+    assert np.isin(kept[0], np.arange(0, N, 7)).any()
+
+
 def test_device_adjacency_matches_jax_mirror_after_inserts():
     jidx = JaxHNSW(DIMS, jconfig.HNSWIndexConfig(
         distance="l2-squared", precision="fp32", max_connections=8,
@@ -193,21 +293,29 @@ def test_device_adjacency_matches_jax_mirror_after_inserts():
     assert int(tm.sync()[0][node, 0]) == -1
 
 
-def test_dispatch_count_is_one_per_sub_batch():
+def test_dispatch_count_is_one_per_sub_batch(monkeypatch):
+    """One launch a search while the rows' visited bitsets fit
+    ``_VISITED_BUDGET``; past it, one launch per as many rows as fit."""
+    from weaviate_tpu_torch.index.hnsw import hnsw as thnsw
+
     idx = HNSWIndex(DIMS, config.HNSWIndexConfig(
         distance="l2-squared", precision="fp32", max_connections=8,
         ef_construction=32, ef=EF, device_beam=True), device="cpu")
     idx.add_batch(np.arange(400), _vectors(3, 400))
-    sub_b = idx._sub_batch()
-    assert sub_b == 64
-    for rows in (1, 64, 130):
-        before = tbeam.dispatch_count()
-        launches = tbeam.fused_search.launches
-        res = idx.search(_vectors(4, rows), 5)
-        assert tbeam.dispatch_count() - before == -(-rows // sub_b)
-        # on the CPU the wrapper runs the plain version: no kernel launch
-        assert tbeam.fused_search.launches == launches
-        assert res.ids.shape == (rows, 5) and (res.ids >= 0).all()
+    words = -(-idx.graph.capacity // 32)
+    assert idx._sub_batch() == thnsw._VISITED_BUDGET // (4 * words)
+    for budget in (thnsw._VISITED_BUDGET, 4 * words * 48):
+        monkeypatch.setattr(thnsw, "_VISITED_BUDGET", budget)
+        sub_b = idx._sub_batch()
+        for rows in (1, 64, 130):
+            before = tbeam.dispatch_count()
+            launches = tbeam.fused_search.launches
+            res = idx.search(_vectors(4, rows), 5)
+            assert tbeam.dispatch_count() - before == -(-rows // sub_b)
+            # on the CPU the wrapper runs the plain version: no kernel launch
+            assert tbeam.fused_search.launches == launches
+            assert res.ids.shape == (rows, 5) and (res.ids >= 0).all()
+    assert sub_b == 48
 
 
 def _tiny_walk_args(**over):
@@ -229,9 +337,35 @@ def _tiny_walk_args(**over):
     (dict(expand=2), "slice 5"),
     (dict(rerank=object(), rerank_k=4), "slice 7"),
 ])
-def test_fused_search_raises_for_later_slices(kw, where):
-    with pytest.raises(NotImplementedError, match=where):
-        tbeam.fused_search(**_tiny_walk_args(), **kw)
+def test_fused_search_raises_for_later_slices(jax_index, kw, where):
+    """The rerank stage (slice 7) raises. The filter arguments of slice 5
+    answer as JAX ``device_search`` does: each alone leaves the walk
+    unfiltered (no kept track without both ``allow`` and ``keep_k``)."""
+    if where != "slice 5":
+        with pytest.raises(NotImplementedError, match=where):
+            tbeam.fused_search(**_tiny_walk_args(), **kw)
+        return
+    import jax.numpy as jnp
+
+    g = jax_index.graph
+    corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
+    (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
+                                            tus) = _walk_inputs(g, corpus, False)
+    if "allow" in kw:
+        kw = dict(allow=_allow_mask(g.capacity, 0.5))
+    jout = jbeam.device_search(
+        jbeam.RawScorer("l2-squared", "fp32"), jq, (jc,), jadj, jpres, jeps,
+        ef=EF, max_steps=4 * EF + 64, upper_adj=jua, upper_slots=jus,
+        **{k: jnp.asarray(v) if k == "allow" else v for k, v in kw.items()})
+    tout = tbeam.fused_search(
+        tbeam.RawScorer("l2-squared", "fp32"), tq, (tc,), tadj, tpres, teps,
+        tua, tus, EF, 4 * EF + 64,
+        **{k: torch.from_numpy(v) if k == "allow" else v
+           for k, v in kw.items()})
+    assert len(jout) == len(tout) == 2
+    for ja, ta in zip(jout, tout):
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja),
+                                   rtol=FILTERED_TOL, atol=FILTERED_TOL)
 
 
 def test_fused_search_plain_on_cpu_returns_beam():
@@ -247,6 +381,13 @@ def test_fused_search_plain_on_cpu_returns_beam():
     (dict(queries=torch.zeros((2, 8))), "queries"),
     (dict(eps=torch.zeros(2, dtype=torch.int64)), "eps"),
     (dict(present=torch.ones(64, dtype=torch.uint8)), "present"),
+    (dict(allow=torch.ones(64, dtype=torch.uint8), keep_k=8), "allow"),
+    (dict(allow=torch.ones(64, dtype=torch.bool), keep_k=32), "keep_k"),
+    (dict(allow=torch.ones(64, dtype=torch.bool), keep_k=8, expand=9),
+     "frontier"),
+    (dict(adjacency=torch.full((64, 128), -1, dtype=torch.int32),
+          allow=torch.ones(64, dtype=torch.bool), keep_k=8, expand=5),
+     "frontier"),
 ])
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(over, match):
     a = _tiny_walk_args(**over)
@@ -254,6 +395,39 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(over, match):
         tbeam._check_kernel_args(
             a["scorer"], a["queries"], a["operands"][0], a["adjacency"],
             a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
-            a["ef"], a["max_steps"])
+            a["ef"], a["max_steps"], a.get("allow"), a.get("keep_k", 0),
+            a.get("expand", 0))
     with pytest.raises(NotImplementedError, match="slice 4"):
         tbeam._check_kernel_args(object(), *[None] * 9)
+
+
+def test_largest_admitted_walk_fits_a_blocks_shared_memory():
+    """Every shape the checks admit fits one query's state in a block: the
+    widest D, beam, kept track and frontier."""
+    m0 = tbeam.MAX_WIDTH
+    expand = tbeam.MAX_FRONTIER // m0 - 1
+    need = tbeam.warp_bytes(tbeam.MAX_DIMS, m0, tbeam.MAX_WIDTH,
+                            tbeam.MAX_EF, tbeam.MAX_EF, expand)
+    assert need <= tbeam.SMEM_PER_BLOCK
+    args = _tiny_walk_args(
+        queries=torch.zeros((2, tbeam.MAX_DIMS)),
+        operands=(torch.zeros((64, tbeam.MAX_DIMS)),),
+        adjacency=torch.full((64, m0), -1, dtype=torch.int32),
+        allow=torch.ones(64, dtype=torch.bool), ef=tbeam.MAX_EF,
+        keep_k=tbeam.MAX_EF, expand=expand)
+    tbeam._check_kernel_args(
+        args["scorer"], args["queries"], args["operands"][0],
+        args["adjacency"], args["present"], args["eps"], args["upper_adj"],
+        args["upper_slots"], args["ef"], args["max_steps"], args["allow"],
+        args["keep_k"], args["expand"])
+
+
+@pytest.mark.parametrize("name", [*probe.EDITS, "counters"])
+def test_probe_copies_apply_to_the_kernel_source(name):
+    # each copy of probe_device_beam.py replaces lines the kernel source
+    # holds exactly once, so a kernel edit that drops one fails here
+    edits = probe.COUNTERS if name == "counters" else probe.EDITS[name]
+    src = probe.SOURCE.read_text()
+    for old, _ in edits:
+        assert src.count(old) == 1, f"{name}: {old!r}"
+    assert (probe.edited(edits) == src) == (not edits)

@@ -16,6 +16,11 @@ build and the walk are tested apart:
   ef 64, recall@10 >= 0.95 against brute force).
 - Tombstones are traversed but never returned; ``cleanup_tombstones``
   rewires around them; ``DynamicIndex`` cuts over to HNSW.
+- Filtered search on the fused walk (the planner's ``PLAN_BEAM``): the
+  ``keep_k`` and the allow mask that reach ``device_search`` are the JAX
+  index's (padded to the capacity, a resident plane's device mirror), and
+  ``tests/test_filter_planner.py``'s off-mesh sweep, cut to 2,000 rows,
+  holds recall within 0.005 of the exact pre-filtered scan per plan.
 - An HNSW DB directory written by one package opens in the other with the
   same uuids, after a close and after a crash that leaves a commit log.
 """
@@ -313,6 +318,198 @@ def test_dynamic_index_cuts_over_to_hnsw(corpus):
     assert str(idx.inner.store.device) == "cpu"
     want = brute_force(vecs[:1000], queries, K)
     assert recall(idx.search(queries, K).ids, want) >= RECALL_GATE
+
+
+# -- filtered search on the fused walk ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def beam_pair(corpus, jax_built):
+    """The JAX index and the port's, both with the fused walk on, on the
+    JAX build's graph."""
+    vecs, _ = corpus
+    _, _, path = jax_built
+    jd = JaxHNSW(DIMS, _cfg(jconfig, device_beam=True), path=path)
+    jd.add_batch(np.arange(N), vecs)
+    td = HNSWIndex(DIMS, _cfg(config, device_beam=True), path=path,
+                   device="cpu")
+    td.add_batch(np.arange(N), vecs)
+    assert td.graph.capacity == jd.graph.capacity
+    return jd, td
+
+
+def _walk_call_args(monkeypatch, jd, td, queries, jallow, tallow):
+    """The arguments each index's filtered search hands ``device_search``,
+    and the two results."""
+    from weaviate_tpu.ops import device_beam as jbeam
+
+    seen = {}
+
+    def spy(mod, key):
+        real = mod.device_search
+
+        def wrapped(*a, **kw):
+            seen[key] = kw
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, "device_search", wrapped)
+
+    spy(jbeam, "jax")
+    spy(tbeam, "torch")
+    jr = jd.search(queries, K, allow_list=jallow)
+    tr = td.search(queries, K, allow_list=tallow)
+    return seen["jax"], seen["torch"], jr, tr
+
+
+def _same_result(jr, tr, allowed):
+    same = tr.ids == jr.ids
+    assert same.mean() >= MIN_ID_AGREEMENT, same.mean()
+    np.testing.assert_allclose(tr.dists[same], jr.dists[same], rtol=1e-5,
+                               atol=1e-5)
+    live = tr.ids[tr.ids >= 0]
+    assert len(live) and allowed[live].all()
+
+
+def test_kept_track_is_fetch_pad_wide_with_a_short_allow_list(
+        corpus, beam_pair, monkeypatch):
+    """Divergence 1 and 2 of an ad-hoc mask shorter than the capacity: the
+    kept track is ``fetch_pad`` wide (32 for k = 10, not fetch = 20) and
+    the mask reaches the walk zero-padded to the graph's capacity, as in
+    the JAX index."""
+    vecs, queries = corpus
+    jd, td = beam_pair
+    allow = np.arange(N) % 2 == 0
+    assert len(allow) < td.graph.capacity
+    jkw, tkw, jr, tr = _walk_call_args(monkeypatch, jd, td, queries, allow,
+                                       allow)
+    assert tkw["keep_k"] == jkw["keep_k"] == 32
+    assert tkw["expand"] == jkw["expand"]
+    ta, ja = np.asarray(tkw["allow"]), np.asarray(jkw["allow"])
+    assert ta.dtype == bool and len(ta) == td.graph.capacity
+    np.testing.assert_array_equal(ta, ja)
+    _same_result(jr, tr, allow)
+
+
+def test_resident_plane_reaches_the_walk_as_its_device_mask(
+        corpus, beam_pair, monkeypatch):
+    """Divergence 2 for a resident plane: the walk gets the plane's cached
+    device mirror at the graph's capacity (``plane.device_mask(cap)``), the
+    same bits as the JAX plane's."""
+    from weaviate_tpu.inverted.filters import Where as JWhere
+    from weaviate_tpu.query.planner import FilterPlane as JPlane
+    from weaviate_tpu_torch.inverted.filters import Where
+    from weaviate_tpu_torch.query.planner import FilterPlane
+
+    vecs, queries = corpus
+    jd, td = beam_pair
+    mask = np.arange(N) % 3 != 0
+    jplane, tplane = JPlane(JWhere.lt("n", 2)), FilterPlane(
+        Where.lt("n", 2), device="cpu")
+    jplane.rebuild(mask)
+    tplane.rebuild(mask)
+    jkw, tkw, jr, tr = _walk_call_args(monkeypatch, jd, td, queries, jplane,
+                                       tplane)
+    cap = td.graph.capacity
+    assert tkw["allow"] is tplane.device_mask(cap)
+    assert tkw["keep_k"] == jkw["keep_k"]
+    np.testing.assert_array_equal(tkw["allow"].numpy(),
+                                  np.asarray(jkw["allow"]))
+    _same_result(jr, tr, mask)
+
+
+# tests/test_filter_planner.py's off-mesh sweep, cut to 2,000 rows: 100
+# blobs of 20 docs, queries near their allowed blobs (the tenant-search
+# shape). ef 64 and M 8 keep the planner's cost race where the JAX test's
+# 6,000 rows put it: the beam from 1% to 50%.
+N_F, D_F, BLOB_F = 2_000, 16, 20
+
+
+@pytest.fixture(scope="module")
+def blob_index():
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((N_F // BLOB_F, D_F)).astype(np.float32)
+    grp = np.arange(N_F) % (N_F // BLOB_F)
+    vecs = (centers[grp]
+            + 0.15 * rng.standard_normal((N_F, D_F))).astype(np.float32)
+    idx = HNSWIndex(D_F, config.HNSWIndexConfig(
+        distance="l2-squared", precision="fp32", max_connections=8,
+        ef_construction=64, ef=64, flat_search_cutoff=15,
+        filter_flat_selectivity=0.002, device_beam=True), device="cpu")
+    idx.add_batch(np.arange(N_F), vecs)
+    return idx, vecs, grp, rng
+
+
+def _plan_case(idx, vecs, grp, rng, mask, blobs, want_plan, use_plane, tag,
+               expect_dispatch=None):
+    """One filtered batch: the plan taken, the dispatches, no disallowed id,
+    recall@10 within 0.005 of the exact pre-filtered scan."""
+    from weaviate_tpu_torch.inverted.filters import Where
+    from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
+    from weaviate_tpu_torch.query.planner import (
+        PLAN_BEAM, PLAN_EXACT, PLAN_OVERFETCH, PLAN_UNFILTERED, FilterPlane)
+
+    plans = (PLAN_UNFILTERED, PLAN_EXACT, PLAN_BEAM, PLAN_OVERFETCH)
+    rows = np.concatenate([np.nonzero(grp == b)[0] for b in blobs])
+    pick = rng.choice(rows, 16, replace=False)
+    q = (vecs[pick] + 0.05 * rng.standard_normal(
+        (16, D_F))).astype(np.float32)
+    allow = mask
+    if use_plane:
+        allow = FilterPlane(Where.eq("fixture", tag), device="cpu")
+        allow.rebuild(mask)
+    snap = {p: PLANNER_PLANS.value(plan=p) for p in plans}
+    d0 = tbeam.dispatch_count()
+    res = idx.search(q, K, allow_list=allow)
+    delta = {p: PLANNER_PLANS.value(plan=p) - snap[p] for p in plans
+             if PLANNER_PLANS.value(plan=p) > snap[p]}
+    assert delta == {want_plan: 1}, (tag, delta)
+    if expect_dispatch is not None:
+        assert tbeam.dispatch_count() - d0 == expect_dispatch, tag
+    live = res.ids[res.ids >= 0]
+    assert len(live) and mask[live].all(), (tag, "disallowed id leaked")
+    allowed = np.nonzero(mask)[0]
+    d2 = ((q[:, None, :] - vecs[allowed][None]) ** 2).sum(-1)
+    want = allowed[np.argsort(d2, axis=1, kind="stable")[:, :K]]
+    hit = sum(len(set(g[g >= 0].tolist()) & set(w.tolist()))
+              for g, w in zip(res.ids, want))
+    r = hit / (len(want) * min(K, len(allowed)))
+    assert r >= 1.0 - 0.005, (tag, r)
+
+
+def test_parity_sweep_off_mesh(blob_index):
+    """Port of ``tests/test_filter_planner.py::test_parity_sweep_off_mesh``:
+    each selectivity's plan reaches recall@10 within 0.005 of the exact
+    pre-filtered scan, plane and ad-hoc mask, per plan type."""
+    from weaviate_tpu_torch.query.planner import PLAN_BEAM, PLAN_EXACT
+
+    idx, vecs, grp, rng = blob_index
+    # 0.1%: 2 allowed docs <= k -> the exact guard
+    tiny = np.zeros(N_F, bool)
+    tiny[np.nonzero(grp == 7)[0][:2]] = True
+    _plan_case(idx, vecs, grp, rng, tiny, [7], PLAN_EXACT, False,
+               "sel=0.001", expect_dispatch=0)
+    # 1%: one blob; the cost race picks the filtered beam (expansion 2)
+    _plan_case(idx, vecs, grp, rng, grp == 7, [7], PLAN_BEAM, False,
+               "sel=0.01/mask")
+    _plan_case(idx, vecs, grp, rng, grp == 7, [7], PLAN_BEAM, True,
+               "sel=0.01/plane")
+    # 10% and 50%: the beam with and without residency
+    _plan_case(idx, vecs, grp, rng, grp < 10, range(10), PLAN_BEAM, True,
+               "sel=0.10/plane")
+    _plan_case(idx, vecs, grp, rng, grp < 50, range(50), PLAN_BEAM, True,
+               "sel=0.50/plane")
+    _plan_case(idx, vecs, grp, rng, grp < 50, range(50), PLAN_BEAM, False,
+               "sel=0.50/mask")
+
+
+def test_one_dispatch_at_one_percent_off_mesh(blob_index):
+    """Port of ``tests/test_filter_planner.py::
+    test_one_dispatch_at_one_percent_off_mesh``: 1% allowed, the filtered
+    beam, exactly one walk for the whole batch, recall within 0.005."""
+    from weaviate_tpu_torch.query.planner import PLAN_BEAM
+
+    idx, vecs, grp, rng = blob_index
+    _plan_case(idx, vecs, grp, rng, grp == 13, [13], PLAN_BEAM, True,
+               "one-dispatch", expect_dispatch=1)
 
 
 # -- the DB directory crosses ----------------------------------------------

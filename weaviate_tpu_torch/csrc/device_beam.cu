@@ -1,11 +1,12 @@
 // Fused HNSW walk of a query batch: greedy descent over the upper layers,
-// then the layer-0 best-first beam, one block per query, one launch per
+// then the layer-0 best-first beam, with the filtered walk's kept track and
+// two-hop widening. One warp a query, several queries a block, one launch a
 // batch.
 //
 // Replaces: the XLA program `_fused_search` of
-// weaviate_tpu/ops/device_beam.py:222 (with `_masked_scores` :138 and
-// `RawScorer` :70, launched by `device_search` :796). The semantics are
-// that program's, step for step:
+// weaviate_tpu/ops/device_beam.py:222 (with `_two_hop_widen` :180,
+// `_masked_scores` :138 and `RawScorer` :70, launched by `device_search`
+// :796). The semantics are that program's, step for step:
 //
 //   * Upper descent (:272-293), per level, top level first: read the
 //     current node's slot; gather its neighbours, drop the absent ones
@@ -15,37 +16,63 @@
 //   * Layer-0 beam (:319-364): expand the first unexpanded beam entry (the
 //     beam is kept sorted, so this is the JAX argmin with its first-index
 //     tie rule); drop neighbours that are visited or absent and mark the
-//     rest visited (all reads before any mark, as the JAX scatter does);
-//     score them; merge as the stable argsort of [beam | neighbours] does
-//     (beam entries first on equal distances, neighbours in adjacency
-//     order) and keep `ef` entries with their expanded flags. Stop at beam
-//     exhaustion or after `max_steps` expansions.
+//     rest visited (all reads of a hop before any of its marks, as the JAX
+//     scatter does); score them; merge as the stable argsort of
+//     [beam | new] does (beam entries first on equal distances, new ones in
+//     frontier order) and keep `ef` entries with their expanded flags. Stop
+//     at beam exhaustion or after `max_steps` expansions.
+//   * Filtered walk (`allow`, `keep_k` > 0; :303-308, :339-362): the walk
+//     is unchanged; each hop merges its allowed new entries into a kept
+//     track of `keep_k` by the same stable rule (the seed counts when it is
+//     allowed); kept slots left at the mask distance come out as -1. With
+//     `expand` > 0 (`_two_hop_widen`), after the one-hop marks, the
+//     `expand` closest blocked (disallowed) new entries (lower frontier
+//     index first on ties, as lax.top_k) open their adjacency rows; second-
+//     hop ids repeated inside the hop keep their first occurrence, visited
+//     or absent ones drop, the rest are marked, scored and appended to the
+//     hop's frontier, which then feeds both merges.
 //   * Scoring: the five metrics of `gather_distance`
 //     (weaviate_tpu/ops/distance.py:104-140). dot and cosine at bf16 round
 //     the query and the row to bfloat16 (round to nearest even) and sum the
 //     products in float32; l2-squared sums the float32 difference squared.
 //
 // Visited set: one bit a node and a query, [b, ceil(n/32)] uint32, zeroed
-// by the caller (the JAX program keeps a [B, N] uint8 array). It is exact,
-// so the same ids come out. Bits are read with ld.global.cg (L2), since the
-// marks of the step before were made with atomics.
+// by the caller (the JAX program keeps a [B, N] uint8 array); it is exact.
+// Only the query's own warp touches its words: marks are atomics (lanes
+// share words), read back with ld.global.cg (L2) after a __syncwarp.
 //
-// Bound on this card: the walk is a dependent chain of hops. Each hop reads
-// one adjacency row, then the rows it scores, then merges, and the next hop
-// cannot start before the merge ends. The least time for the work is the
-// bytes actually gathered over 3.35 TB/s: (scored rows x D x 4) + (adjacency
-// rows read x M0 x 4, upper rows x M x 4); the kernel reports both counts
-// per query when `stats` is given. At D = 25 that bound is far below the
-// chain's latency: this first kernel is right and simple, not fast.
+// Bound on this card: the dependent chain of hops, not bytes. A query's
+// hop cannot start before the previous hop's merge has picked its node,
+// and each hop waits on global loads; at D = 25 the bytes a walk moves
+// take a few percent of its time (the kernel counts them in `stats`).
+// `probe_device_beam.py` splits a hop at 1.2M nodes: about half the
+// gather's rounds, 40% the rank and merge, a serial chain of one warp's
+// instructions that no other warp hides at two warps an SM (B = 256).
+// What the design does about that:
 //
-// Design: one block of 256 threads a query. The query (bf16-rounded where
-// the metric asks) and a double-buffered beam of at most 512 entries live in
-// shared memory. Candidates are scored by groups of G lanes (G = 4..32 by D;
-// lanes stride over D, a shuffle sums the group), so 256/G candidates are
-// scored at once. Rows are D floats at any 4-byte offset (D = 25 rows are
-// 100 bytes): only scalar loads, no TMA, no vector loads. The merge ranks
-// every entry by counting (new entries: against the other new entries, and
-// a binary search in the sorted beam) and scatters into the other buffer.
+//   1. One launch a batch: up to thousands of independent walks in flight.
+//   2. One warp a query and several queries a block (the launch sizes
+//      blocks so the batch spreads over every SM). No hop crosses a
+//      __syncthreads: a warp syncs only itself, compacts its frontier with
+//      __ballot_sync and popc, and ranks its merges by counting. Each
+//      warp's query, beam (double-buffered), expanded flags, kept track and
+//      frontier live in its slice of shared memory.
+//   3. Two dependent global rounds a hop instead of four: the adjacency
+//      row; then, issued together, `present[nb]`, the visited word,
+//      `allow[nb]` and, for rows of up to 32 floats, the candidates' corpus
+//      rows (groups of 8 lanes a row, 32 bytes a load, every load of the
+//      hop's 32 rows in registers before the first is used). Scoring a row
+//      that turns out visited costs bytes, not latency; `stats` counts
+//      those rows. Wider rows are scored by groups of lanes after the
+//      visited test, where their bytes count. The widening adds one round
+//      for the parents' rows.
+//   4. While a hop merges, the adjacency row of its best new entry is read
+//      ahead: that entry is the next hop's node whenever it lands ahead of
+//      every unexpanded beam entry, and that hop then skips its first round.
+//   5. The merges take only the new entries that can land: once the beam
+//      (or the kept track) is full, an entry at or past its last one would
+//      land at ef (keep_k) or later, so a ballot drops it before the rank,
+//      and the serial rank and merge run over a few entries, not M0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,15 +80,28 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxEf = 512;
 constexpr int kMaxWidth = 128;  // M0 and M
 constexpr int kMaxD = 4096;
+constexpr int kMaxFrontier = 640;  // M0 * (1 + expand)
+constexpr int kMaxWarps = 8;
+constexpr int kSmemPerBlock = 232448;
+// Rows of at most kSpecD floats are scored before the visited test, by
+// groups of kSpecG lanes: a lane holds kSpecK floats of its row, and a chunk
+// of 32 candidates is kSpecRounds rounds of 32 / kSpecG rows.
+constexpr int kSpecD = 32;
+constexpr int kSpecG = 8;
+constexpr int kSpecK = kSpecD / kSpecG;
+constexpr int kSpecRounds = kSpecG;
 constexpr float kMask = 1e30f;  // MASK_DISTANCE of ops/distance.py
+constexpr float kInf = __builtin_huge_valf();
 constexpr int kNone = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Metric { kL2 = 0, kDot = 1, kCosine = 2, kManhattan = 3, kHamming = 4 };
+enum Mode { kUpper = 0, kHop = 1, kHop2 = 2 };
+enum Stat { kExpansions, kScored, kAdjRows, kUpperRows, kSpeculative,
+            kStats };
 
 // error codes of the C interface beside cudaError_t values (those are > 0)
 enum Refused {
@@ -70,30 +110,153 @@ enum Refused {
   kBadWidth = -3,
   kBadDims = -4,
   kBadMetric = -5,
+  kBadKeep = -6,
+  kBadFrontier = -7,
+  kBadSmem = -8,
 };
 
 struct Params {
   const float* queries;      // [b, d]
-  const float* corpus;       // [n, d]
+  const float* corpus;       // [rows, d]; every node id is a row
   const int* adj;            // [n, m0], -1 padded
   const uint8_t* present;    // [n]
+  const uint8_t* allow;      // [n] or null (no kept track)
   const int* eps;            // [b]
   const int* upper_adj;      // [levels, s, m], top level first
   const int* upper_slots;    // [levels, n], -1 = absent at that level
   uint32_t* visited;         // [b, words], zeroed
   int* out_ids;              // [b, ef]
   float* out_d;              // [b, ef]
-  int* stats;                // [b, 4] or null
-  int n, d, m0, levels, s, m, ef, max_steps, words, group;
+  int* kept_ids;             // [b, keep_k] or null
+  float* kept_d;             // [b, keep_k] or null
+  int* stats;                // [b, kStats] or null
+  int rows, n, d, m0, levels, s, m, ef, keep_k, expand, max_steps, words, group,
+      frontier;
+  int b, warp_bytes;
 };
+
+// One query's slice of shared memory.
+struct Warp {
+  float* q;        // [dpad] the query, bf16-rounded where the metric asks
+  int* bid;        // [2][ef] beam ids, double-buffered
+  float* bd;       // [2][ef] beam distances, ascending
+  int* kid;        // [2][keep_k] kept track ids
+  float* kd;       // [2][keep_k] kept track distances, ascending
+  int* fid;        // [F] the hop's raw frontier (adjacency rows)
+  float* fd;       // [F] lane-scored distances of the raw frontier
+  int* cid;        // [F] accepted entries, frontier order
+  float* cd;       // [F]
+  int* sid;        // [F] accepted entries sorted (also the hop's parents)
+  float* sd;       // [F]
+  int* aid;        // [F] accepted allowed entries sorted
+  float* ad;       // [F]
+  uint8_t* fal;    // [F] allow flags of the raw frontier
+  uint8_t* callow; // [F] allow flags of the accepted entries
+  uint8_t* bexp;   // [2][ef] expanded flags
+};
+
+__host__ __device__ inline int warp_bytes_for(int d, int m0, int m, int ef,
+                                              int keep_k, int expand) {
+  const int f = m0 * (1 + expand) > m ? m0 * (1 + expand) : m;
+  const int dpad = (d + 3) & ~3;
+  const int words = dpad + 4 * ef + 4 * keep_k + 8 * f;
+  return (4 * words + 2 * ef + 2 * f + 15) & ~15;
+}
+
+__device__ Warp carve(unsigned char* base, const Params& p) {
+  Warp w;
+  const int f = p.frontier;
+  float* x = reinterpret_cast<float*>(base);
+  w.q = x; x += (p.d + 3) & ~3;
+  w.bid = reinterpret_cast<int*>(x); x += 2 * p.ef;
+  w.bd = x; x += 2 * p.ef;
+  w.kid = reinterpret_cast<int*>(x); x += 2 * p.keep_k;
+  w.kd = x; x += 2 * p.keep_k;
+  w.fid = reinterpret_cast<int*>(x); x += f;
+  w.fd = x; x += f;
+  w.cid = reinterpret_cast<int*>(x); x += f;
+  w.cd = x; x += f;
+  w.sid = reinterpret_cast<int*>(x); x += f;
+  w.sd = x; x += f;
+  w.aid = reinterpret_cast<int*>(x); x += f;
+  w.ad = x; x += f;
+  uint8_t* u = reinterpret_cast<uint8_t*>(x);
+  w.fal = u; u += f;
+  w.callow = u; u += f;
+  w.bexp = u;
+  return w;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Distance of the shared query `q` to corpus row `row`, summed by a group of
-// G lanes (lane `gl` of the group strides over D). Every lane of the warp
-// must call it; a lane whose group has no row passes row < 0.
+template <int METRIC, bool ROUND>
+__device__ __forceinline__ float term(float acc, float y, float x) {
+  if (METRIC == kL2) {
+    const float t = y - x;
+    return acc + t * t;
+  } else if (METRIC == kDot || METRIC == kCosine) {
+    if (ROUND) x = bf16_round(x);
+    return acc + y * x;
+  } else if (METRIC == kManhattan) {
+    return acc + fabsf(y - x);
+  }
+  return acc + ((y != x) ? 1.f : 0.f);
+}
+
+template <int METRIC>
+__device__ __forceinline__ float finish(float acc) {
+  if (METRIC == kDot) return -acc;
+  if (METRIC == kCosine) return 1.f - acc;
+  return acc;
+}
+
+// Scores the candidates w.fid[base, min(base + 32, hi)) into w.fd: every
+// row's loads are issued (kSpecRounds x kSpecK a lane, kSpecG lanes a row,
+// 32 bytes of a row a load) before the first is used. `qv` holds the
+// lane's floats of the query. Every lane of the warp calls it; `loaded`
+// counts the rows a group leader scored.
+template <int METRIC, bool ROUND>
+__device__ __forceinline__ void score_chunk(const Params& p, const Warp& w,
+                                            const float (&qv)[kSpecK],
+                                            int base, int hi, int& loaded) {
+  const int lane = threadIdx.x & 31, gl = lane % kSpecG;
+  float x[kSpecRounds][kSpecK];
+  int rows[kSpecRounds];
+#pragma unroll
+  for (int r = 0; r < kSpecRounds; ++r) {
+    const int c = base + r * (32 / kSpecG) + lane / kSpecG;
+    int row = c < hi ? w.fid[c] : -1;
+    if (row >= p.rows) row = -1;
+    rows[r] = row;
+    const float* src = p.corpus + (size_t)(row < 0 ? 0 : row) * p.d;
+#pragma unroll
+    for (int t = 0; t < kSpecK; ++t) {
+      const int k = gl + kSpecG * t;
+      x[r][t] = row >= 0 && k < p.d ? __ldg(src + k) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSpecRounds; ++r) {
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < kSpecK; ++t)
+      if (gl + kSpecG * t < p.d) acc = term<METRIC, ROUND>(acc, qv[t], x[r][t]);
+#pragma unroll
+    for (int off = kSpecG / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(kFull, acc, off, kSpecG);
+    const int c = base + r * (32 / kSpecG) + lane / kSpecG;
+    if (gl == 0 && c < hi) {
+      w.fd[c] = rows[r] >= 0 ? finish<METRIC>(acc) : kMask;
+      loaded += rows[r] >= 0;
+    }
+  }
+}
+
+// Distance of the shared query to corpus row `row`, summed by a group of G
+// lanes (lane `gl` of the group strides over D). Every lane of the warp
+// calls it; a lane whose group has no row passes row < 0.
 template <int METRIC, bool ROUND>
 __device__ __forceinline__ float group_distance(const Params& p,
                                                 const float* q, int row,
@@ -101,269 +264,421 @@ __device__ __forceinline__ float group_distance(const Params& p,
   float acc = 0.f;
   if (row >= 0) {
     const float* c = p.corpus + (size_t)row * p.d;
-    for (int k = gl; k < p.d; k += G) {
-      float x = __ldg(c + k);
-      float y = q[k];
-      if (METRIC == kL2) {
-        float t = y - x;
-        acc += t * t;
-      } else if (METRIC == kDot || METRIC == kCosine) {
-        if (ROUND) x = bf16_round(x);
-        acc += y * x;
-      } else if (METRIC == kManhattan) {
-        acc += fabsf(y - x);
-      } else {
-        acc += (y != x) ? 1.f : 0.f;
-      }
-    }
+    for (int k = gl; k < p.d; k += G) acc = term<METRIC, ROUND>(acc, q[k],
+                                                                __ldg(c + k));
   }
   for (int off = G >> 1; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off, G);
-  if (METRIC == kDot) return -acc;
-  if (METRIC == kCosine) return 1.f - acc;
-  return acc;
+    acc += __shfl_xor_sync(kFull, acc, off, G);
+  return finish<METRIC>(acc);
 }
 
-// Scores ids[0..count) into out[0..count); every thread calls it.
-template <int METRIC, bool ROUND>
-__device__ void score_list(const Params& p, const float* q, const int* ids,
-                           float* out, int count) {
-  const int G = p.group;
-  const int groups = kThreads / G;
-  const int gid = threadIdx.x / G, gl = threadIdx.x % G;
-  for (int base = 0; base < count; base += groups) {
-    int c = base + gid;
-    int row = c < count ? ids[c] : -1;
-    float v = group_distance<METRIC, ROUND>(p, q, row, gl, G);
-    if (gl == 0 && c < count) out[c] = v;
+// The raw frontier w.fid[lo, hi) (-1 = no entry) -> the accepted entries,
+// appended in frontier order to w.cid/cd/callow from `count`; returns the
+// new count (the same in every lane). Accepted: present and, at layer 0,
+// not visited, and at the second hop also the first occurrence of its id
+// in [lo, hi); layer-0 entries are marked visited. Pass 1 issues every
+// lane's loads together; no mark is made before every read of the span.
+// `loaded` counts, per lane, the rows scored before the test (SPEC).
+template <int METRIC, bool ROUND, bool SPEC>
+__device__ int gather(const Params& p, const Warp& w,
+                      const float (&qv)[kSpecK], uint32_t* vis, int lo,
+                      int hi, int mode, bool track, int count, int& loaded) {
+  const int lane = threadIdx.x & 31;
+  for (int base = lo; base < hi; base += 32) {
+    const int j = base + lane;
+    const int nb = j < hi ? w.fid[j] : -1;
+    uint8_t pres = 0, al = 0;
+    uint32_t word = 0;
+    if (nb >= 0) {
+      pres = p.present[nb];
+      if (mode != kUpper) word = __ldcg(vis + (nb >> 5));
+      if (track) al = p.allow[nb];
+    }
+    if (SPEC) score_chunk<METRIC, ROUND>(p, w, qv, base, hi, loaded);
+    const bool ok = nb >= 0 && pres && !((word >> (nb & 31)) & 1u);
+    __syncwarp();  // the chunk's ids are read before they are overwritten
+    if (j < hi) {
+      w.fid[j] = ok ? nb : -1;
+      w.fal[j] = al;
+    }
   }
-  __syncthreads();
-}
-
-// Writes the ids of the threads with `ok` to out[], in thread order, and
-// returns their count to every thread.
-__device__ int compact(bool ok, int id, int* out, int* warp_count) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned bal = __ballot_sync(0xffffffffu, ok);
-  if (lane == 0) warp_count[warp] = __popc(bal);
-  __syncthreads();
-  int base = 0, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    int c = warp_count[w];
-    base += w < warp ? c : 0;
-    total += c;
+  __syncwarp();
+  const int start = count;
+  for (int base = lo; base < hi; base += 32) {
+    const int j = base + lane;
+    int nb = j < hi ? w.fid[j] : -1;
+    if (mode == kHop2 && nb >= 0) {
+      for (int i = lo; i < j; ++i) {
+        if (w.fid[i] == nb) {
+          nb = -1;
+          break;
+        }
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, nb >= 0);
+    if (nb >= 0) {
+      const int pos = count + __popc(bal & ((1u << lane) - 1u));
+      w.cid[pos] = nb;
+      w.cd[pos] = w.fd[j];
+      w.callow[pos] = w.fal[j];
+      if (mode != kUpper) atomicOr(vis + (nb >> 5), 1u << (nb & 31));
+    }
+    count += __popc(bal);
   }
-  if (ok) out[base + __popc(bal & ((1u << lane) - 1u))] = id;
-  __syncthreads();
-  return total;
+  __syncwarp();
+  if (!SPEC) {
+    const int G = p.group, per = 32 / G, gl = lane % G;
+    for (int base = start; base < count; base += per) {
+      const int c = base + lane / G;
+      const float v = group_distance<METRIC, ROUND>(
+          p, w.q, c < count ? w.cid[c] : -1, gl, G);
+      if (gl == 0 && c < count) w.cd[c] = v;
+    }
+    __syncwarp();
+  }
+  return count;
 }
 
-template <int METRIC, bool ROUND>
-__global__ void __launch_bounds__(kThreads)
-fused_search_kernel(Params p) {
+// Entries of the ascending d[0, n) with d <= v (count_le) or d < v
+// (count_lt).
+__device__ __forceinline__ int count_le(const float* d, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (d[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int count_lt(const float* d, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (d[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <int METRIC, bool ROUND, bool SPEC>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+walk_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dpad = (p.d + 3) & ~3;
-  float* q = reinterpret_cast<float*>(smem);
-  int* beam_id = reinterpret_cast<int*>(q + dpad);           // [2][ef]
-  float* beam_d = reinterpret_cast<float*>(beam_id + 2 * p.ef);
-  int* beam_exp = reinterpret_cast<int*>(beam_d + 2 * p.ef);
-  int* cand_id = beam_exp + 2 * p.ef;                          // [kMaxWidth]
-  float* cand_d = reinterpret_cast<float*>(cand_id + kMaxWidth);
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (qi >= p.b) return;  // whole warps only: nothing syncs the block
+  const Warp w = carve(smem + (size_t)(threadIdx.x >> 5) * p.warp_bytes, p);
+  const bool track = p.allow != nullptr && p.keep_k > 0;
+  const int ef = p.ef, kk = p.keep_k, m0 = p.m0;
 
-  __shared__ int warp_count[kWarps];
-  __shared__ int s_first, s_next, s_beam_n, s_cur;
-  __shared__ float s_cur_d;
-
-  const int qi = blockIdx.x;
-  const int tid = threadIdx.x;
   const float* qrow = p.queries + (size_t)qi * p.d;
-  for (int k = tid; k < p.d; k += kThreads) {
-    float v = qrow[k];
-    q[k] = ROUND ? bf16_round(v) : v;
+  for (int k = lane; k < p.d; k += 32) {
+    const float v = qrow[k];
+    w.q[k] = ROUND ? bf16_round(v) : v;
   }
   uint32_t* vis = p.visited + (size_t)qi * p.words;
-  int scored = 0, adj_rows = 0, upper_rows = 0, expansions = 0;  // tid 0
+  int loaded = 0;  // per lane: rows scored before the visited test
+  int accepted = 0, adj_rows = 0, upper_rows = 0, expansions = 0;
+  __syncwarp();
+  float qv[kSpecK];
+#pragma unroll
+  for (int t = 0; t < kSpecK; ++t) {
+    const int k = lane % kSpecG + kSpecG * t;
+    qv[t] = SPEC && k < p.d ? w.q[k] : 0.f;
+  }
 
   int cur = p.eps[qi];
   float cur_d = kMask;
-  if (tid == 0) cand_id[0] = cur;
-  __syncthreads();
-  if (cur >= 0) {
-    score_list<METRIC, ROUND>(p, q, cand_id, cand_d, 1);
-    cur_d = cand_d[0];
-    scored = 1;
-  }
+  if (cur >= 0)
+    cur_d = group_distance<METRIC, ROUND>(p, w.q, cur, lane, 32);
 
   // -- upper-layer greedy descent ---------------------------------------
-  if (cur >= 0) {
-    for (int li = 0; li < p.levels; ++li) {
-      const int* slots = p.upper_slots + (size_t)li * p.n;
-      const int* uadj = p.upper_adj + (size_t)li * p.s * p.m;
-      for (int step = 0; step < p.max_steps; ++step) {
-        const int slot = slots[cur];
-        if (slot < 0) break;  // absent at this level: every score masked
-        int nb = -1;
-        bool ok = false;
-        if (tid < p.m) {
-          nb = uadj[(size_t)slot * p.m + tid];
-          ok = nb >= 0 && p.present[nb];
-        }
-        const int count = compact(ok, nb, cand_id, warp_count);
-        score_list<METRIC, ROUND>(p, q, cand_id, cand_d, count);
-        if (tid < 32) {  // first index of the minimum
-          float best = kMask;
-          int bi = kNone;
-          for (int c = tid; c < count; c += 32) {
-            float v = cand_d[c];
-            if (v < best) { best = v; bi = c; }
-          }
-          for (int off = 16; off > 0; off >>= 1) {
-            float ov = __shfl_xor_sync(0xffffffffu, best, off);
-            int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-            if (ov < best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-          }
-          if (tid == 0) {
-            // all masked: the JAX argmin lands on a masked slot (1e30)
-            bool move = bi != kNone && best < cur_d;
-            s_cur = move ? cand_id[bi] : -1;
-            s_cur_d = best;
-            scored += count;
-            upper_rows += 1;
-          }
-        }
-        __syncthreads();
-        if (s_cur < 0) break;
-        cur = s_cur;
-        cur_d = s_cur_d;
-        __syncthreads();
+  for (int li = 0; cur >= 0 && li < p.levels; ++li) {
+    const int* slots = p.upper_slots + (size_t)li * p.n;
+    const int* uadj = p.upper_adj + (size_t)li * p.s * p.m;
+    for (int step = 0; step < p.max_steps; ++step) {
+      const int slot = slots[cur];
+      if (slot < 0) break;  // absent at this level: every score masked
+      for (int j = lane; j < p.m; j += 32)
+        w.fid[j] = __ldg(uadj + (size_t)slot * p.m + j);
+      __syncwarp();
+      const int cnt = gather<METRIC, ROUND, SPEC>(
+          p, w, qv, vis, 0, p.m, kUpper, false, 0, loaded);
+      float best = kMask;
+      int bi = kNone;
+      for (int c = lane; c < cnt; c += 32) {
+        const float v = w.cd[c];
+        if (v < best) { best = v; bi = c; }
       }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, best, off);
+        const int oi = __shfl_xor_sync(kFull, bi, off);
+        if (ov < best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+      }
+      accepted += cnt;
+      upper_rows += 1;
+      // all masked: the JAX argmin lands on a masked slot (1e30), no move
+      const bool move = bi != kNone && best < cur_d;
+      const int next = move ? w.cid[bi] : -1;
+      __syncwarp();  // every lane has read cid before the next step
+      if (!move) break;
+      cur = next;
+      cur_d = best;
     }
   }
 
   // -- layer-0 best-first beam ------------------------------------------
-  for (int i = tid; i < p.ef; i += kThreads) {
-    beam_id[i] = -1;
-    beam_d[i] = kMask;
-    beam_exp[i] = 0;
-  }
-  if (tid == 0) {
-    beam_id[0] = cur;
-    beam_d[0] = cur_d;
-    s_beam_n = cur >= 0 ? 1 : 0;
-    s_first = cur >= 0 ? 0 : kNone;
-    s_next = kNone;
+  int beam_n = cur >= 0 ? 1 : 0;
+  int first = cur >= 0 ? 0 : kNone;
+  int kept_n = 0;
+  if (lane == 0) {
+    w.bid[0] = cur;
+    w.bd[0] = cur_d;
+    w.bexp[0] = 0;
     if (cur >= 0) atomicOr(vis + (cur >> 5), 1u << (cur & 31));
   }
-  __syncthreads();
+  if (track && cur >= 0 && p.allow[cur]) {
+    if (lane == 0) {
+      w.kid[0] = cur;
+      w.kd[0] = cur_d;
+    }
+    kept_n = 1;
+  }
+  __syncwarp();
   int buf = 0;
-  for (int step = 0; step < p.max_steps; ++step) {
-    const int first = s_first, beam_n = s_beam_n;
-    if (first >= beam_n) break;  // nothing left to expand
-    int* src_id = beam_id + buf * p.ef;
-    float* src_d = beam_d + buf * p.ef;
-    int* src_exp = beam_exp + buf * p.ef;
-    int* dst_id = beam_id + (buf ^ 1) * p.ef;
-    float* dst_d = beam_d + (buf ^ 1) * p.ef;
-    int* dst_exp = beam_exp + (buf ^ 1) * p.ef;
+  // the adjacency row read ahead during the last merge, and its node
+  int pre_node = -1;
+  int pre[kMaxWidth / 32];
+  for (int step = 0; step < p.max_steps && first < beam_n; ++step) {
+    int* src_id = w.bid + buf * ef;
+    float* src_d = w.bd + buf * ef;
+    uint8_t* src_exp = w.bexp + buf * ef;
+    if (src_d[first] >= kMask) break;  // JAX: active = cd < INF
     const int node = src_id[first];
-    int nb = -1;
-    bool ok = false;
-    if (tid < p.m0) {
-      nb = p.adj[(size_t)node * p.m0 + tid];
-      if (nb >= 0 && p.present[nb])
-        ok = !((__ldcg(vis + (nb >> 5)) >> (nb & 31)) & 1u);
+    if (node == pre_node) {
+#pragma unroll
+      for (int t = 0; t < kMaxWidth / 32; ++t)
+        if (lane + 32 * t < m0) w.fid[lane + 32 * t] = pre[t];
+    } else {
+      for (int j = lane; j < m0; j += 32)
+        w.fid[j] = __ldg(p.adj + (size_t)node * m0 + j);
+      adj_rows += 1;
     }
-    __syncthreads();  // every read of the visited bits before any mark
-    if (tid == 0) src_exp[first] = 1;
-    if (ok) atomicOr(vis + (nb >> 5), 1u << (nb & 31));
-    const int nn = compact(ok, nb, cand_id, warp_count);
-    score_list<METRIC, ROUND>(p, q, cand_id, cand_d, nn);
+    if (lane == 0) src_exp[first] = 1;
+    __syncwarp();
+    int nn = gather<METRIC, ROUND, SPEC>(p, w, qv, vis, 0, m0, kHop, track,
+                                         0, loaded);
+    expansions += 1;
 
-    // merge: the stable order of [beam | new], first ef kept
-    if (tid < nn) {
-      const float dc = cand_d[tid];
-      int r = 0;
-      for (int k = 0; k < nn; ++k) {
-        float dk = cand_d[k];
-        r += (dk < dc) || (dk == dc && k < tid);
+    if (track && p.expand > 0) {
+      // parents: the `expand` closest blocked new entries, ranked by
+      // counting (frontier order on ties)
+      int blocked = 0;
+      for (int base = 0; base < nn; base += 32) {
+        const int c = base + lane;
+        const bool bl = c < nn && !w.callow[c] && w.cd[c] < kMask;
+        if (bl) {
+          const float dc = w.cd[c];
+          int r = 0;
+#pragma unroll 8
+          for (int k = 0; k < nn; ++k) {
+            const float dk = w.cd[k];
+            r += !w.callow[k] && dk < kMask && (dk < dc || (dk == dc && k < c));
+          }
+          if (r < p.expand) w.sid[r] = w.cid[c];
+        }
+        blocked += __popc(__ballot_sync(kFull, bl));
       }
-      int lo = 0, hi = beam_n;  // beam entries with d <= dc come first
-      while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (src_d[mid] <= dc) lo = mid + 1; else hi = mid;
+      const int np = blocked < p.expand ? blocked : p.expand;
+      __syncwarp();
+      const int e2 = p.expand * m0;
+      for (int e = lane; e < e2; e += 32) {
+        const int pi = e / m0;
+        w.fid[m0 + e] =
+            pi < np ? __ldg(p.adj + (size_t)w.sid[pi] * m0 + e % m0) : -1;
       }
-      const int pos = r + lo;
-      if (pos < p.ef) {
-        dst_id[pos] = cand_id[tid];
-        dst_d[pos] = dc;
+      adj_rows += np;
+      __syncwarp();
+      nn = gather<METRIC, ROUND, SPEC>(p, w, qv, vis, m0, m0 + e2, kHop2,
+                                       track, nn, loaded);
+    }
+    accepted += nn;
+
+    // a new entry at or past the last of a full beam lands at ef or later,
+    // and an allowed one at or past the last of a full kept track likewise:
+    // keep only the entries one of the merges takes (in frontier order)
+    const float bworst = beam_n == ef ? src_d[ef - 1] : kInf;
+    const float kworst = track && kept_n == kk ? w.kd[buf * kk + kk - 1]
+                                               : kInf;
+    int kept_new = 0;
+    for (int base = 0; base < nn; base += 32) {
+      const int c = base + lane;
+      int id = -1, al = 0;
+      float dc = kInf;
+      if (c < nn) {
+        id = w.cid[c];
+        dc = w.cd[c];
+        al = w.callow[c];
+      }
+      const bool keep = c < nn && (dc < bworst || (al && dc < kworst));
+      const unsigned bal = __ballot_sync(kFull, keep);
+      __syncwarp();  // the chunk is read before it is overwritten
+      if (keep) {
+        const int pos = kept_new + __popc(bal & ((1u << lane) - 1u));
+        w.cid[pos] = id;
+        w.cd[pos] = dc;
+        w.callow[pos] = al;
+      }
+      kept_new += __popc(bal);
+    }
+    nn = kept_new;
+    __syncwarp();
+
+    // rank the new entries among themselves (stable: frontier order on
+    // ties), all of them and the allowed ones
+    int nna = 0;
+    for (int base = 0; base < nn; base += 32) {
+      const int c = base + lane;
+      bool al = false;
+      if (c < nn) {
+        const float dc = w.cd[c];
+        al = track && w.callow[c];
+        int r = 0, ra = 0;
+#pragma unroll 8
+        for (int k = 0; k < nn; ++k) {
+          const float dk = w.cd[k];
+          const int less = (dk < dc) || (dk == dc && k < c);
+          r += less;
+          ra += less & w.callow[k];
+        }
+        w.sid[r] = w.cid[c];
+        w.sd[r] = dc;
+        if (al) {
+          w.aid[ra] = w.cid[c];
+          w.ad[ra] = dc;
+        }
+      }
+      nna += __popc(__ballot_sync(kFull, al));
+    }
+    __syncwarp();
+    // the best new entry is the next hop's node whenever it lands ahead of
+    // every unexpanded entry: read its adjacency row during the merge
+    pre_node = nn > 0 ? w.sid[0] : -1;
+#pragma unroll
+    for (int t = 0; t < kMaxWidth / 32; ++t)
+      pre[t] = pre_node >= 0 && lane + 32 * t < m0
+                   ? __ldg(p.adj + (size_t)pre_node * m0 + lane + 32 * t)
+                   : -1;
+    adj_rows += pre_node >= 0;
+
+    // merge into the other buffers: the stable order of [old | new], a new
+    // entry after the old ones at or below it, an old one after the new
+    // ones below it
+    int* dst_id = w.bid + (buf ^ 1) * ef;
+    float* dst_d = w.bd + (buf ^ 1) * ef;
+    uint8_t* dst_exp = w.bexp + (buf ^ 1) * ef;
+    int mine = kNone;
+    for (int s = lane; s < nn; s += 32) {
+      const float ds = w.sd[s];
+      const int pos = s + count_le(src_d, beam_n, ds);
+      if (pos < ef) {
+        dst_id[pos] = w.sid[s];
+        dst_d[pos] = ds;
         dst_exp[pos] = 0;
-        atomicMin(&s_next, pos);
+        mine = min(mine, pos);
       }
     }
-    for (int i = tid; i < beam_n; i += kThreads) {
+    for (int i = lane; i < beam_n; i += 32) {
       const float di = src_d[i];
-      int c = 0;
-      for (int k = 0; k < nn; ++k) c += cand_d[k] < di;
-      const int pos = i + c;
-      if (pos < p.ef) {
-        const int e = src_exp[i];
+      const int pos = i + count_lt(w.sd, nn, di);
+      if (pos < ef) {
+        const uint8_t e = src_exp[i];
         dst_id[pos] = src_id[i];
         dst_d[pos] = di;
         dst_exp[pos] = e;
-        if (!e) atomicMin(&s_next, pos);
+        if (!e) mine = min(mine, pos);
       }
     }
-    __syncthreads();
-    if (tid == 0) {
-      s_beam_n = min(p.ef, beam_n + nn);
-      s_first = s_next;
-      s_next = kNone;
-      scored += nn;
-      adj_rows += 1;
-      expansions += 1;
+    first = __reduce_min_sync(kFull, mine);
+    beam_n = min(ef, beam_n + nn);
+    if (track) {
+      const int* ksrc_id = w.kid + buf * kk;
+      const float* ksrc_d = w.kd + buf * kk;
+      int* kdst_id = w.kid + (buf ^ 1) * kk;
+      float* kdst_d = w.kd + (buf ^ 1) * kk;
+      for (int s = lane; s < nna; s += 32) {
+        const float ds = w.ad[s];
+        const int pos = s + count_le(ksrc_d, kept_n, ds);
+        if (pos < kk) {
+          kdst_id[pos] = w.aid[s];
+          kdst_d[pos] = ds;
+        }
+      }
+      for (int i = lane; i < kept_n; i += 32) {
+        const float di = ksrc_d[i];
+        const int pos = i + count_lt(w.ad, nna, di);
+        if (pos < kk) {
+          kdst_id[pos] = ksrc_id[i];
+          kdst_d[pos] = di;
+        }
+      }
+      kept_n = min(kk, kept_n + nna);
     }
     buf ^= 1;
-    __syncthreads();
+    __syncwarp();
   }
 
-  const int beam_n = s_beam_n;
-  const int* fin_id = beam_id + buf * p.ef;
-  const float* fin_d = beam_d + buf * p.ef;
-  for (int i = tid; i < p.ef; i += kThreads) {
-    p.out_ids[(size_t)qi * p.ef + i] = i < beam_n ? fin_id[i] : -1;
-    p.out_d[(size_t)qi * p.ef + i] = i < beam_n ? fin_d[i] : kMask;
+  const int* fin_id = w.bid + buf * ef;
+  const float* fin_d = w.bd + buf * ef;
+  for (int i = lane; i < ef; i += 32) {
+    p.out_ids[(size_t)qi * ef + i] = i < beam_n ? fin_id[i] : -1;
+    p.out_d[(size_t)qi * ef + i] = i < beam_n ? fin_d[i] : kMask;
   }
-  if (tid == 0 && p.stats != nullptr) {
-    int* st = p.stats + (size_t)qi * 4;
-    st[0] = expansions;
-    st[1] = scored;
-    st[2] = adj_rows;
-    st[3] = upper_rows;
+  if (track) {
+    const int* kfin_id = w.kid + buf * kk;
+    const float* kfin_d = w.kd + buf * kk;
+    for (int i = lane; i < kk; i += 32) {
+      const float v = i < kept_n ? kfin_d[i] : kMask;
+      p.kept_ids[(size_t)qi * kk + i] = v < kMask ? kfin_id[i] : -1;
+      p.kept_d[(size_t)qi * kk + i] = v;
+    }
+  }
+  const int spec = SPEC ? __reduce_add_sync(kFull, loaded) - accepted : 0;
+  if (lane == 0 && p.stats != nullptr) {
+    int* st = p.stats + (size_t)qi * kStats;
+    st[kExpansions] = expansions;
+    st[kScored] = accepted + (p.eps[qi] >= 0 ? 1 : 0);
+    st[kAdjRows] = adj_rows;
+    st[kUpperRows] = upper_rows;
+    st[kSpeculative] = spec;
   }
 }
 
 int group_for(int d) {
-  if (d <= 32) return 4;
   if (d <= 64) return 8;
   if (d <= 256) return 16;
   return 32;
 }
 
-size_t smem_bytes(int d, int ef) {
-  return (size_t)((d + 3) & ~3) * 4 + (size_t)ef * 2 * 12 +
-         (size_t)kMaxWidth * 8;
-}
-
 template <int METRIC, bool ROUND>
-cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
-  size_t smem = smem_bytes(p.d, p.ef);
-  auto kern = fused_search_kernel<METRIC, ROUND>;
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // spread the batch over every SM, then fit the block's shared memory
+  int wpb = (p.b + sms - 1) / sms;
+  wpb = wpb < 1 ? 1 : (wpb > kMaxWarps ? kMaxWarps : wpb);
+  while (wpb > 1 && (size_t)wpb * p.warp_bytes > (size_t)kSmemPerBlock) --wpb;
+  const size_t smem = (size_t)wpb * p.warp_bytes;
+  auto kern = p.d <= kSpecD ? walk_kernel<METRIC, ROUND, true>
+                            : walk_kernel<METRIC, ROUND, false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<b, kThreads, smem, stream>>>(p);
+  kern<<<(p.b + wpb - 1) / wpb, 32 * wpb, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -371,58 +686,90 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches the fused walk of `b` queries on `stream`. Returns 0, a
-// cudaError_t (> 0), or a negative code for arguments outside the kernel's
-// contract (see device_beam_error_string).
+// Shared-memory bytes of one query's state (the wrapper checks its own
+// mirror of this against the card's per-block budget).
+int device_beam_warp_bytes(int d, int m0, int m, int ef, int keep_k,
+                           int expand) {
+  return warp_bytes_for(d, m0, m, ef, keep_k, expand);
+}
+
+// Launches the fused walk of `b` queries on `stream`. `allow` null (or
+// keep_k 0) runs the unfiltered walk, and kept_ids/kept_d are not written.
+// Returns 0, a cudaError_t (> 0), or a negative code for arguments outside
+// the kernel's contract (see device_beam_error_string).
 int device_beam_search(const float* queries, const float* corpus,
-                       const int* adj, const uint8_t* present, const int* eps,
+                       const int* adj, const uint8_t* present,
+                       const uint8_t* allow, const int* eps,
                        const int* upper_adj, const int* upper_slots,
                        uint32_t* visited, int* out_ids, float* out_d,
-                       int* stats, int b, int n, int d, int m0, int levels,
-                       int s, int m, int ef, int max_steps, int metric,
-                       int bf16, void* stream) {
-  if (b < 1 || n < 1 || max_steps < 0 || levels < 0) return kBadShape;
+                       int* kept_ids, float* kept_d, int* stats, int b,
+                       int rows, int n, int d, int m0, int levels, int s,
+                       int m, int ef, int keep_k, int expand, int max_steps,
+                       int metric, int bf16, void* stream) {
+  if (b < 1 || rows < 1 || n < 1 || max_steps < 0 || levels < 0)
+    return kBadShape;
   if (ef < 1 || ef > kMaxEf) return kBadEf;
-  if (m0 < 1 || m0 > kMaxWidth || (levels > 0 && (m < 1 || m > kMaxWidth ||
-                                                  s < 1)))
+  if (m0 < 1 || m0 > kMaxWidth ||
+      (levels > 0 && (m < 1 || m > kMaxWidth || s < 1)))
     return kBadWidth;
   if (d < 1 || d > kMaxD) return kBadDims;
+  const bool track = allow != nullptr && keep_k > 0;
+  if (track && (keep_k > ef || kept_ids == nullptr || kept_d == nullptr))
+    return kBadKeep;
+  if (!track) {
+    keep_k = 0;
+    expand = 0;
+    allow = nullptr;
+  }
+  if (expand < 0 || expand > m0 || m0 * (1 + expand) > kMaxFrontier)
+    return kBadFrontier;
+  const int wb = warp_bytes_for(d, m0, levels > 0 ? m : 1, ef, keep_k,
+                                expand);
+  if (wb > kSmemPerBlock) return kBadSmem;
   Params p;
   p.queries = queries;
   p.corpus = corpus;
   p.adj = adj;
   p.present = present;
+  p.allow = allow;
   p.eps = eps;
   p.upper_adj = upper_adj;
   p.upper_slots = upper_slots;
   p.visited = visited;
   p.out_ids = out_ids;
   p.out_d = out_d;
+  p.kept_ids = kept_ids;
+  p.kept_d = kept_d;
   p.stats = stats;
+  p.rows = rows;
   p.n = n;
   p.d = d;
   p.m0 = m0;
   p.levels = levels;
   p.s = s;
-  p.m = m;
+  p.m = levels > 0 ? m : 1;
   p.ef = ef;
+  p.keep_k = keep_k;
+  p.expand = expand;
   p.max_steps = max_steps;
   p.words = (n + 31) / 32;
   p.group = group_for(d);
+  p.frontier = m0 * (1 + expand) > p.m ? m0 * (1 + expand) : p.m;
+  p.b = b;
+  p.warp_bytes = wb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   const bool round = bf16 != 0;
   switch (metric) {
-    case kL2: e = launch<kL2, false>(p, b, st); break;
+    case kL2: e = launch<kL2, false>(p, st); break;
     case kDot:
-      e = round ? launch<kDot, true>(p, b, st) : launch<kDot, false>(p, b, st);
+      e = round ? launch<kDot, true>(p, st) : launch<kDot, false>(p, st);
       break;
     case kCosine:
-      e = round ? launch<kCosine, true>(p, b, st)
-                : launch<kCosine, false>(p, b, st);
+      e = round ? launch<kCosine, true>(p, st) : launch<kCosine, false>(p, st);
       break;
-    case kManhattan: e = launch<kManhattan, false>(p, b, st); break;
-    case kHamming: e = launch<kHamming, false>(p, b, st); break;
+    case kManhattan: e = launch<kManhattan, false>(p, st); break;
+    case kHamming: e = launch<kHamming, false>(p, st); break;
     default: return kBadMetric;
   }
   return static_cast<int>(e);
@@ -430,11 +777,15 @@ int device_beam_search(const float* queries, const float* corpus,
 
 const char* device_beam_error_string(int code) {
   switch (code) {
-    case kBadShape: return "b, n >= 1, max_steps, levels >= 0 required";
+    case kBadShape: return "b, rows, n >= 1, max_steps, levels >= 0 required";
     case kBadEf: return "ef outside [1, 512]";
     case kBadWidth: return "adjacency width outside [1, 128]";
     case kBadDims: return "D outside [1, 4096]";
     case kBadMetric: return "unknown metric code";
+    case kBadKeep: return "keep_k above ef, or no kept outputs";
+    case kBadFrontier: return "expand outside [0, M0] or M0 * (1 + expand) "
+                              "above 640";
+    case kBadSmem: return "one query's state exceeds a block's shared memory";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

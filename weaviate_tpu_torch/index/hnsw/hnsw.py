@@ -14,17 +14,18 @@ upper levels on the host walk, layer 0 in the fused kernel when
 level at once from one padded ``[G, C, C]`` distance block.
 
 Serving: with ``device_beam`` on, a search batch is one launch of the fused
-walk (``ops/device_beam.py``) per ``sub_b`` rows; otherwise the host walk
+walk (``ops/device_beam.py``), filtered or not, for as many rows as their
+visited bitsets fit ``_VISITED_BUDGET``; otherwise the host walk
 (``_search_level``) pays one device call per hop. ``device_beam`` is read
 from the config only. A failed launch raises: there is no latch and no
 fallback to the host walk.
 
 Differences from the JAX index: the quantized backends (slice 4), the mesh
-graph and walk (slice 11), the fused rerank tier and the multi-target walk
-legs (slice 7) and the filtered device walk (slice 5; a filter the planner
-sends to the beam raises when ``device_beam`` is on, and runs on the host
-walk otherwise) are not ported. Device-time attribution waits for the
-serving slice; the ``device_execute_ms`` trace attribute stays.
+graph and walk (slice 11), and the fused rerank tier and the multi-target
+walk legs (slice 7) are not ported. The fused walk's rows per launch follow
+its bitset, not the JAX index's [B, capacity] scratch; the walks are
+independent, so the results are the same. Device-time attribution waits for
+the serving slice; the ``device_execute_ms`` trace attribute stays.
 """
 
 from __future__ import annotations
@@ -46,16 +47,19 @@ from weaviate_tpu_torch.schema.config import HNSWIndexConfig
 
 _INF = np.float32(np.inf)
 
-# cap on the [B, capacity] visited scratch (bool bytes); it also sets the
-# rows per fused-walk launch, so results match the JAX index's splits
+# cap on a walk's visited scratch: the host walk's [B, capacity] bool (the
+# JAX index's split), the fused walk's [B, capacity / 32] uint32 bitset
 _VISITED_BUDGET = 256 << 20
-
-# rows of one layer-0 construction walk launch
-_CONSTRUCTION_CHUNK = 256
 
 
 def _pow2_pad(n: int) -> int:
     return 1 << max(3, (n - 1).bit_length())
+
+
+def _walk_rows(capacity: int) -> int:
+    """Rows of one fused-walk launch: as many visited bitsets of
+    ``capacity`` bits as fit ``_VISITED_BUDGET``."""
+    return max(1, _VISITED_BUDGET // (4 * ((max(1, capacity) + 31) // 32)))
 
 
 def _ef_pad(ef: int) -> int:
@@ -426,8 +430,9 @@ class HNSWIndex(VectorIndex):
 
     def _construction_beam_level0(self, node_ids: np.ndarray,
                                   eps: np.ndarray, efc: int):
-        """Layer-0 ef_construction walks in the fused kernel: one launch a
-        chunk of 256 rows instead of one device call a hop. Query vectors
+        """Layer-0 ef_construction walks in the fused kernel: one launch
+        for as many rows as ``_walk_rows`` allows (the whole sub-batch below
+        about 500,000 nodes) instead of one device call a hop. Query vectors
         are gathered from the device corpus by id. Returns (res_ids, res_d)
         ascending, or None when no device beam is configured or the store
         is demoted (the host walk serves then)."""
@@ -442,17 +447,13 @@ class HNSWIndex(VectorIndex):
         adj, present = self._device_beam.sync()
         ef_pad = _ef_pad(efc)
         outs_i, outs_d = [], []
-        chunk = _CONSTRUCTION_CHUNK
+        # the walks are independent: the JAX index's fixed 256-row chunks
+        # (row 0 repeated into the tail) give the same rows
+        chunk = _walk_rows(adj.shape[0])
         for s in range(0, len(node_ids), chunk):
             sub = node_ids[s:s + chunk].astype(np.int64)
             q = self.backend.beam_queries_for_ids(sub)
             sub_eps = eps[s:s + chunk].astype(np.int32)
-            if len(sub) < chunk:
-                # pad the tail to the fixed chunk shape, as the JAX index
-                # does (row 0 repeats; its results are sliced off below)
-                pad = chunk - len(sub)
-                q = torch.cat([q, q[:1].expand(pad, -1)], dim=0)
-                sub_eps = np.concatenate([sub_eps, np.repeat(sub_eps[:1], pad)])
             ids_t, d_t = device_search(
                 scorer, q.contiguous(), operands, adj, present, sub_eps,
                 ef=ef_pad, max_steps=_max_steps(ef_pad))
@@ -877,8 +878,11 @@ class HNSWIndex(VectorIndex):
         return SearchResult(ids=ids, dists=d)
 
     def _sub_batch(self) -> int:
-        """Rows per walk: the JAX index bounds its [B, capacity] visited
-        scratch by this split, and results depend on it."""
+        """Rows per walk. The fused walk takes as many as their visited
+        bitsets fit (one launch a search up to ``_walk_rows``); the host
+        walk keeps the JAX index's split of its [B, capacity] scratch."""
+        if self._device_beam is not None:
+            return _walk_rows(self.graph.capacity)
         return max(8, min(64, _VISITED_BUDGET // max(1, self.graph.capacity)))
 
     def _run_search_batch(self, queries: np.ndarray, k: int, allow_list):
@@ -947,8 +951,9 @@ class HNSWIndex(VectorIndex):
         """The entrypoint -> layer-0 walk in one launch of the fused
         kernel, gather-scoring the device corpus. The host then drops
         tombstoned and deleted ids from the returned beam (sweeping
-        semantics) and truncates to k. A filtered walk (the allow track)
-        is slice 5 and raises."""
+        semantics) and truncates to k. With a filter the kernel also keeps
+        the best allowed nodes seen along the unchanged walk (the
+        ``PLAN_BEAM`` route), and that kept track is the result."""
         from weaviate_tpu_torch.monitoring import tracing
         from weaviate_tpu_torch.ops.device_beam import device_search
 
@@ -958,25 +963,34 @@ class HNSWIndex(VectorIndex):
         adj, present = self._device_beam.sync()
         upper_adj, upper_slots = self._device_beam.sync_upper()
         b = q.shape[0]
-        # ef and the batch are padded to powers of two as in the JAX index
-        # (padded rows repeat row 0 and are sliced off after the fetch)
+        # ef is padded to a power of two as in the JAX index; its batch
+        # padding (row 0 repeated, for fewer compiled shapes) would only add
+        # walks here, and the walks are independent
         ef_pad = _ef_pad(ef)
-        b_pad = 1 << max(3, (b - 1).bit_length())
-        if b_pad != b:
-            q = torch.cat([q, q[:1].expand(b_pad - b, -1)], dim=0)
-        allow = None
+        # the filter: padded or cut to the graph's capacity, a resident
+        # plane as its cached device mirror; the kept track is fetch wide,
+        # padded to a power of two within the beam
+        cap = int(adj.shape[0])
+        allow, keep_k = None, 0
         if allow_list is not None:
-            allow = self._allow_host(allow_list)
-        eps = np.full(b_pad, self.graph.entrypoint, np.int32)
+            if getattr(allow_list, "plane_id", None) is not None:
+                allow = allow_list.device_mask(cap)
+            else:
+                al = np.asarray(allow_list, bool)
+                if len(al) < cap:
+                    al = np.pad(al, (0, cap - len(al)))
+                allow = al[:cap]
+            keep_k = min(ef_pad, _pow2_pad(fetch))
+        eps = np.full(b, self.graph.entrypoint, np.int32)
         t_dev = time.perf_counter()
-        ids_t, d_t = device_search(
+        out = device_search(
             scorer, q.contiguous(), operands, adj, present, eps,
             ef=ef_pad, max_steps=_max_steps(ef_pad),
             upper_adj=upper_adj, upper_slots=upper_slots,
-            allow=allow, keep_k=fetch if allow is not None else 0,
-            expand=expand)
-        ids = ids_t[:b].cpu().numpy().astype(np.int64)
-        d = d_t[:b].cpu().numpy()
+            allow=allow, keep_k=keep_k, expand=expand)
+        ids_t, d_t = out[2:] if allow is not None else out
+        ids = ids_t.cpu().numpy().astype(np.int64)
+        d = d_t.cpu().numpy()
         # the copy above is the completion sync: the bracket is the launch
         # plus the walk
         tracing.annotate(

@@ -9,18 +9,21 @@ pays one launch and one fetch per batch instead of one round trip per hop.
 
 ``_fused_search`` is the plain PyTorch version of that kernel: a Python
 loop over the JAX program's steps (``argmin`` takes the first index on
-ties, the merge is a stable sort). ``fused_search`` takes it for tensors on
-the CPU, as the tests do; for tensors on the card it launches the kernel or
-raises, with no fallback. ``chip_smoke.py`` holds the kernel against the
-plain version on the card.
+ties, the merges are stable sorts). ``fused_search`` takes it for tensors
+on the CPU, as the tests do; for tensors on the card it launches the
+kernel or raises, with no fallback. ``chip_smoke.py`` holds the kernel
+against the plain version on the card.
 
 Semantics are the JAX program's: lockstep best-first expansion, an
 ef-bounded beam, a stop when no unexpanded entry is left (or after
 ``max_steps``). Tombstoned nodes stay traversable; results are filtered
-after the walk. Not ported yet, each raising ``NotImplementedError``: the
-filtered walk's ``allow``/``keep_k`` track and its two-hop widening
-(slice 5), the quantized scorers (slice 4), the fused rerank stage and the
-multi-target legs (slice 7), the mesh walk (slice 11).
+after the walk. A filtered walk passes ``allow``/``keep_k``: the walk
+itself is unchanged, and a second track keeps the best allowed nodes seen
+along it; with ``expand`` > 0 the closest blocked neighbours of a hop
+open their own adjacency rows in the same hop (two-hop widening). Not
+ported yet, each raising ``NotImplementedError``: the quantized scorers
+(slice 4), the fused rerank stage and the multi-target legs (slice 7), the
+mesh walk (slice 11).
 """
 
 from __future__ import annotations
@@ -38,10 +41,17 @@ from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_dista
 KERNEL = "device_beam"
 _INF = MASK_DISTANCE
 
-# what the kernel takes (its C side refuses the same)
+# what the kernel takes (its C side refuses the same): the beam, the
+# adjacency widths, D, the hop's frontier M0 * (1 + expand), and the
+# shared memory one query's state needs
 MAX_EF = 512
 MAX_WIDTH = 128
 MAX_DIMS = 4096
+MAX_FRONTIER = 640
+SMEM_PER_BLOCK = 232_448
+# per-query counters of ``stats``
+STATS = ("expansions", "scored", "adjacency_rows", "upper_rows",
+         "speculative_rows")
 
 # Test/ops hook: fused-walk dispatches made by this process (the
 # one-dispatch-per-batch contract is asserted against it).
@@ -88,15 +98,48 @@ def _empty_upper(device):
 # ---------------------------------------------------------------------------
 
 
+def _two_hop_widen(adjacency, present, allow, queries, operands, scorer,
+                   nbrs, nd, visited, rows, expand: int):
+    """ACORN-style two-hop widening (JAX ``_two_hop_widen``): the
+    ``expand`` closest blocked (disallowed) one-hop neighbours open their
+    own adjacency rows in the same hop. Second-hop ids repeated inside the
+    hop keep their first occurrence; visited or absent ones drop; the rest
+    are marked visited (in place) and scored. -> (nbrs, nd) with the
+    second hop appended."""
+    b, m0 = nbrs.shape[0], adjacency.shape[1]
+    blocked_d = torch.where((nbrs >= 0) & ~allow[nbrs.clamp(min=0)], nd, _INF)
+    # lax.top_k(-blocked_d, expand): the smallest, lower index first on ties
+    psel = torch.sort(blocked_d, dim=1, stable=True).indices[:, :expand]
+    pvalid = torch.gather(blocked_d, 1, psel) < _INF
+    parents = torch.where(pvalid, torch.gather(nbrs, 1, psel), -1)
+    hop2 = adjacency[parents.clamp(min=0)].long()
+    hop2 = torch.where(pvalid[:, :, None], hop2, -1).reshape(b, expand * m0)
+    eq = hop2[:, :, None] == hop2[:, None, :]
+    first = eq.to(torch.uint8).argmax(dim=2) == torch.arange(
+        expand * m0, device=hop2.device)
+    safe2 = hop2.clamp(min=0)
+    seen2 = torch.gather(visited, 1, safe2)
+    ok2 = (hop2 >= 0) & first & ~seen2 & present[safe2]
+    hop2 = torch.where(ok2, hop2, -1)
+    visited[rows[:, None].expand_as(hop2)[ok2], safe2[ok2]] = True
+    nd2 = _masked_scores(scorer, queries, hop2, operands)
+    return torch.cat([nbrs, hop2], dim=1), torch.cat([nd, nd2], dim=1)
+
+
 def _fused_search(scorer, queries, operands, adjacency, present, eps,
-                  upper_adj, upper_slots, ef: int, max_steps: int):
+                  upper_adj, upper_slots, ef: int, max_steps: int,
+                  allow=None, keep_k: int = 0, expand: int = 0):
     """The JAX program's walk as a Python loop over torch ops: ->
-    (ids [B, ef] int32, dists [B, ef] float32) ascending, -1/MASK padded."""
+    (ids [B, ef] int32, dists [B, ef] float32) ascending, -1/MASK padded.
+    With ``allow`` ([N] bool) and ``keep_k`` > 0 also (kept_ids [B,
+    keep_k] int32, kept_d): the best allowed nodes seen along the walk,
+    -1/MASK padded."""
     b = queries.shape[0]
     n = adjacency.shape[0]
     dev = adjacency.device
     rows = torch.arange(b, device=dev)
     eps = eps.to(torch.int64)
+    track = allow is not None and keep_k > 0
     d0 = _masked_scores(scorer, queries, eps[:, None], operands)[:, 0]
 
     # upper-layer greedy descent, index 0 = top level
@@ -127,6 +170,14 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
     expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
     visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
     visited[rows, eps.clamp(min=0)] = eps >= 0
+    if track:
+        allow = allow.to(device=dev, dtype=torch.bool)
+        seed_ok = (eps >= 0) & allow[eps.clamp(min=0)]
+        kept_ids = torch.full((b, keep_k), -1, dtype=torch.int64, device=dev)
+        kept_ids[:, 0] = torch.where(seed_ok, eps, -1)
+        kept_d = torch.full((b, keep_k), _INF, dtype=torch.float32,
+                            device=dev)
+        kept_d[:, 0] = torch.where(seed_ok, d0, _INF)
     step, alive = 0, True
     while step < max_steps and alive:
         cand_d = torch.where(expanded | (beam_ids < 0), _INF, beam_d)
@@ -144,15 +195,34 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
         rr = rows[:, None].expand_as(nbrs)
         visited[rr[ok], safe[ok]] = True
         nd = _masked_scores(scorer, queries, nbrs, operands)
+        if track and expand > 0:
+            nbrs, nd = _two_hop_widen(adjacency, present, allow, queries,
+                                      operands, scorer, nbrs, nd, visited,
+                                      rows, expand)
         all_ids = torch.cat([beam_ids, nbrs], dim=1)
         all_d = torch.cat([beam_d, nd], dim=1)
-        all_exp = torch.cat([expanded, torch.zeros_like(ok)], dim=1)
+        all_exp = torch.cat(
+            [expanded, torch.zeros_like(nbrs, dtype=torch.bool)], dim=1)
         order = torch.sort(all_d, dim=1, stable=True).indices[:, :ef]
         beam_ids = torch.gather(all_ids, 1, order)
         beam_d = torch.gather(all_d, 1, order)
         expanded = torch.gather(all_exp, 1, order)
+        if track:
+            # this hop's allowed neighbours join the kept track; the walk
+            # itself stays unfiltered
+            nd_k = torch.where((nbrs >= 0) & allow[nbrs.clamp(min=0)], nd,
+                               _INF)
+            ka = torch.cat([kept_ids, nbrs], dim=1)
+            kd = torch.cat([kept_d, nd_k], dim=1)
+            korder = torch.sort(kd, dim=1, stable=True).indices[:, :keep_k]
+            kept_ids = torch.gather(ka, 1, korder)
+            kept_d = torch.gather(kd, 1, korder)
         alive = bool(active.any())
         step += 1
+    if track:
+        kept_ids = torch.where(kept_d >= _INF, -1, kept_ids)
+        return (beam_ids.to(torch.int32), beam_d, kept_ids.to(torch.int32),
+                kept_d)
     return beam_ids.to(torch.int32), beam_d
 
 
@@ -161,8 +231,19 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
 # ---------------------------------------------------------------------------
 
 
+def warp_bytes(d: int, m0: int, m: int, ef: int, keep_k: int,
+               expand: int) -> int:
+    """Shared-memory bytes of one query's state in the kernel (its
+    ``warp_bytes_for``): the query, the double-buffered beam and kept
+    track, and the hop's frontier of max(M0 * (1 + expand), M) entries."""
+    f = max(m0 * (1 + expand), m)
+    words = ((d + 3) & ~3) + 4 * ef + 4 * keep_k + 8 * f
+    return (4 * words + 2 * ef + 2 * f + 15) & ~15
+
+
 def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
-                       upper_adj, upper_slots, ef: int, max_steps: int):
+                       upper_adj, upper_slots, ef: int, max_steps: int,
+                       allow=None, keep_k: int = 0, expand: int = 0):
     if not isinstance(scorer, RawScorer):
         raise NotImplementedError(
             f"{type(scorer).__name__}: the quantized scorers are not ported "
@@ -174,7 +255,7 @@ def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
     n = adjacency.shape[0]
     d = corpus.shape[1]
     b = queries.shape[0]
-    want = (
+    want = [
         ("queries", queries, torch.float32, (b, d)),
         ("corpus", corpus, torch.float32, (corpus.shape[0], d)),
         ("adjacency", adjacency, torch.int32, (n, adjacency.shape[1])),
@@ -184,7 +265,9 @@ def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
         ("upper_slots", upper_slots, torch.int32,
          (upper_adj.shape[0], n) if upper_adj.shape[0] else
          tuple(upper_slots.shape)),
-    )
+    ]
+    if allow is not None:
+        want.append(("allow", allow, torch.bool, (n,)))
     for name, t, dtype, shape in want:
         if t.dtype != dtype or tuple(t.shape) != shape or t.ndim != len(shape):
             raise ValueError(f"{name} must be {dtype} {shape}, got "
@@ -199,49 +282,73 @@ def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
         raise ValueError(f"ef {ef} outside the kernel's [1, {MAX_EF}]")
     if max_steps < 0:
         raise ValueError(f"max_steps {max_steps} < 0")
-    if not 1 <= adjacency.shape[1] <= MAX_WIDTH:
-        raise ValueError(f"layer-0 width {adjacency.shape[1]} outside "
-                         f"[1, {MAX_WIDTH}]")
-    if upper_adj.shape[0] and not 1 <= upper_adj.shape[2] <= MAX_WIDTH:
-        raise ValueError(f"upper width {upper_adj.shape[2]} outside "
-                         f"[1, {MAX_WIDTH}]")
+    m0 = adjacency.shape[1]
+    if not 1 <= m0 <= MAX_WIDTH:
+        raise ValueError(f"layer-0 width {m0} outside [1, {MAX_WIDTH}]")
+    m = upper_adj.shape[2] if upper_adj.shape[0] else 1
+    if upper_adj.shape[0] and not 1 <= m <= MAX_WIDTH:
+        raise ValueError(f"upper width {m} outside [1, {MAX_WIDTH}]")
     if not 1 <= d <= MAX_DIMS:
         raise ValueError(f"D={d} outside [1, {MAX_DIMS}]")
+    track = allow is not None and keep_k > 0
+    if not track:
+        keep_k = expand = 0
+    if not 0 <= keep_k <= ef:
+        raise ValueError(f"keep_k {keep_k} outside [0, ef={ef}]")
+    if not 0 <= expand <= m0 or m0 * (1 + expand) > MAX_FRONTIER:
+        raise ValueError(f"frontier M0 * (1 + expand) = {m0} * (1 + {expand}) "
+                         f"outside the kernel's {MAX_FRONTIER}")
+    need = warp_bytes(d, m0, m, ef, keep_k, expand)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(f"one query's state takes {need} bytes of shared "
+                         f"memory, more than a block's {SMEM_PER_BLOCK}")
 
 
 def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
                       upper_adj, upper_slots, ef: int, max_steps: int,
-                      stats: Optional[torch.Tensor] = None):
+                      allow: Optional[torch.Tensor] = None, keep_k: int = 0,
+                      expand: int = 0, stats: Optional[torch.Tensor] = None):
     """Launches the kernel on the current stream: same contract as
     ``_fused_search`` with ``operands = (corpus,)``. ``stats``, an int32
-    [B, 4] tensor, receives per query the layer-0 expansions, the rows
-    scored, the layer-0 adjacency rows read and the upper rows read.
-    Raises on arguments outside the kernel's contract or a refused
-    launch."""
+    [B, 5] tensor, receives per query the counters named in ``STATS``:
+    layer-0 expansions, rows scored and kept, layer-0 adjacency rows read
+    (the second hop's included), upper rows read, and rows scored before
+    the visited test and then dropped. Raises on arguments outside the
+    kernel's contract or a refused launch."""
     _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
-                       upper_adj, upper_slots, ef, max_steps)
+                       upper_adj, upper_slots, ef, max_steps, allow, keep_k,
+                       expand)
     n, d = adjacency.shape[0], corpus.shape[1]
     b = queries.shape[0]
     dev = corpus.device
+    track = allow is not None and keep_k > 0
     if stats is not None and (stats.dtype != torch.int32
-                              or tuple(stats.shape) != (b, 4)
+                              or tuple(stats.shape) != (b, len(STATS))
                               or stats.device != dev
                               or not stats.is_contiguous()):
-        raise ValueError(f"stats must be a contiguous int32 [{b}, 4] on {dev}")
+        raise ValueError(f"stats must be a contiguous int32 "
+                         f"[{b}, {len(STATS)}] on {dev}")
     levels = upper_adj.shape[0]
     s, m = (upper_adj.shape[1], upper_adj.shape[2]) if levels else (1, 1)
     visited = torch.zeros((b, (n + 31) // 32), dtype=torch.int32, device=dev)
     ids = torch.empty((b, ef), dtype=torch.int32, device=dev)
     dists = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    kept_ids = kept_d = None
+    if track:
+        kept_ids = torch.empty((b, keep_k), dtype=torch.int32, device=dev)
+        kept_d = torch.empty((b, keep_k), dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.device_beam_search(
             queries.data_ptr(), corpus.data_ptr(), adjacency.data_ptr(),
-            present.data_ptr(), eps.data_ptr(), upper_adj.data_ptr(),
-            upper_slots.data_ptr(), visited.data_ptr(), ids.data_ptr(),
-            dists.data_ptr(), stats.data_ptr() if stats is not None else None,
-            b, n, d, adjacency.shape[1], levels, s, m, ef, max_steps,
+            present.data_ptr(), ptr(allow) if track else None,
+            eps.data_ptr(), upper_adj.data_ptr(), upper_slots.data_ptr(),
+            visited.data_ptr(), ids.data_ptr(), dists.data_ptr(),
+            ptr(kept_ids), ptr(kept_d), ptr(stats),
+            b, corpus.shape[0], n, d, adjacency.shape[1], levels, s, m, ef,
+            keep_k if track else 0, expand if track else 0, max_steps,
             METRICS.index(scorer.metric), int(scorer.precision == "bf16"),
             stream)
     if err != 0:
@@ -249,6 +356,8 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
             f"device_beam_search launch failed: "
             f"{lib.device_beam_error_string(err).decode()} (code {err})")
     fused_search.launches += 1
+    if track:
+        return ids, dists, kept_ids, kept_d
     return ids, dists
 
 
@@ -256,8 +365,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.device_beam_search.argtypes = [p] * 11 + [i] * 11 + [p]
+    lib.device_beam_search.argtypes = [p] * 14 + [i] * 14 + [p]
     lib.device_beam_search.restype = i
+    lib.device_beam_warp_bytes.argtypes = [i] * 6
+    lib.device_beam_warp_bytes.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p
     return lib
@@ -277,13 +388,10 @@ def fused_search(scorer, queries, operands, adjacency, present, eps,
                  allow=None, keep_k: int = 0, expand: int = 0, rerank=None,
                  rerank_k: int = 0, **rerank_planes):
     """The fused walk of a batch: -> (ids [B, ef] int32, dists [B, ef]
-    float32) ascending, -1/MASK padded. CUDA tensors go to the kernel, CPU
-    tensors to the plain version. The ``launches`` attribute counts kernel
-    launches."""
-    if allow is not None or keep_k or expand:
-        raise NotImplementedError(
-            "filtered device walk (allow / keep_k / two-hop expand): not "
-            "ported yet (ROADMAP queue A, slice 5)")
+    float32) ascending, -1/MASK padded; with ``allow`` and ``keep_k`` > 0
+    also (kept_ids [B, keep_k], kept_d). CUDA tensors go to the kernel,
+    CPU tensors to the plain version. The ``launches`` attribute counts
+    kernel launches."""
     if rerank is not None or rerank_k or rerank_planes:
         raise NotImplementedError(
             "fused rerank stage: not ported yet (ROADMAP queue A, slice 7)")
@@ -291,10 +399,12 @@ def fused_search(scorer, queries, operands, adjacency, present, eps,
     if dev.type == "cuda":
         (corpus,) = operands
         return fused_search_cuda(scorer, queries, corpus, adjacency, present,
-                                 eps, upper_adj, upper_slots, ef, max_steps)
+                                 eps, upper_adj, upper_slots, ef, max_steps,
+                                 allow=allow, keep_k=keep_k, expand=expand)
     if dev.type == "cpu":
         return _fused_search(scorer, queries, operands, adjacency, present,
-                             eps, upper_adj, upper_slots, ef, max_steps)
+                             eps, upper_adj, upper_slots, ef, max_steps,
+                             allow=allow, keep_k=keep_k, expand=expand)
     raise ValueError(f"no fused walk for device {dev}")
 
 
@@ -320,14 +430,20 @@ def device_search(
     **rerank_planes,
 ):
     """Dispatch one fused walk (descent + layer-0 beam). Without upper
-    tables the walk starts at layer 0 (construction / flat graphs).
-    Increments the module dispatch counter."""
+    tables the walk starts at layer 0 (construction / flat graphs). With
+    ``allow`` ([N] bool, numpy or torch) and ``keep_k`` > 0 it also
+    returns the kept track of the best allowed nodes (see
+    ``_fused_search``). Increments the module dispatch counter."""
     global _dispatch_count
     if upper_adj is None or upper_adj.shape[0] == 0:
         upper_adj, upper_slots = _empty_upper(adjacency.device)
     if not torch.is_tensor(eps):
         eps = torch.from_numpy(np.ascontiguousarray(eps, np.int32))
     eps = eps.to(device=adjacency.device, dtype=torch.int32).contiguous()
+    if allow is not None:
+        if not torch.is_tensor(allow):
+            allow = torch.from_numpy(np.ascontiguousarray(allow, bool))
+        allow = allow.to(device=adjacency.device, dtype=torch.bool).contiguous()
     _dispatch_count += 1
     return fused_search(scorer, queries, operands, adjacency, present, eps,
                         upper_adj, upper_slots, ef=ef, max_steps=max_steps,
