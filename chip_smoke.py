@@ -395,7 +395,6 @@ def beam_kernel_grid(seed: int) -> dict:
     expansions (max_steps binds), filtered on every other graph."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 5)
-    lib = device_beam._library()
     cases, max_err, same, total, builds = 0, 0.0, 0, 0, 0.0
     seen = {"ef": set(), "b": set(), "metric": set(), "upper": set(),
             "absent": set(), "selectivity": set(), "keep_k": set(),
@@ -452,14 +451,6 @@ def beam_kernel_grid(seed: int) -> dict:
                 kw = dict(allow=torch.from_numpy(
                     rng.random(adj.shape[0]) < sel).to(dev), keep_k=keep,
                     expand=expand)
-                m = ua.shape[2] if upper else 1
-                if lib.device_beam_warp_bytes(
-                        corpus.shape[1], adj.shape[1], m, ef, keep,
-                        expand) != device_beam.warp_bytes(
-                            corpus.shape[1], adj.shape[1], m, ef, keep,
-                            expand):
-                    raise AssertionError("B2's shared-memory sizes differ "
-                                         "between the kernel and its wrapper")
             kernel = device_beam.fused_search_cuda(
                 scorer, q, corpus, adj, present, eps, *up, ef, max_steps,
                 **kw)
@@ -531,6 +522,28 @@ def beam_kernel_grid(seed: int) -> dict:
             raised += 1
     if raised != 3:
         raise AssertionError("B2 launched on arguments outside its contract")
+    # the widest walk the wrapper admits, the kernel takes: its shared
+    # memory (checked by the C side against the card's) fits a block
+    dm, wm, em = device_beam.MAX_DIMS, device_beam.MAX_WIDTH, device_beam.MAX_EF
+    wide = (device_beam.RawScorer("l2-squared", "fp32"),
+            torch.randn((2, dm), device=dev), torch.randn((64, dm), device=dev),
+            torch.cat([torch.rand((64, 64), device=dev).argsort(1)[:, :16],
+                       torch.full((64, wm - 16), -1, device=dev)],
+                      1).int().contiguous(),
+            torch.ones(64, dtype=torch.bool, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            *device_beam._empty_upper(dev), em, 4 * em + 64)
+    wkw = dict(allow=torch.arange(64, device=dev) % 2 == 0, keep_k=em,
+               expand=device_beam.MAX_FRONTIER // wm - 1)
+    kernel = device_beam.fused_search_cuda(*wide, **wkw)
+    plain = device_beam._fused_search(wide[0], wide[1], (wide[2],),
+                                      *wide[3:], **wkw)
+    torch.cuda.synchronize()
+    e, s_, t = compare_walks(kernel[:2], plain[:2], MIN_ID_AGREEMENT)
+    ek, sk, tk = check_kept(kernel[2:], plain[2:], wkw["allow"], wide[4],
+                            MIN_ID_AGREEMENT)
+    max_err, same, total = max(max_err, e, ek), same + s_ + sk, total + t + tk
+    cases += 1
     return {"cases": cases,
             "filtered_cases": fcase + len(B2_DIMS) * len(B2_M) // 2,
             "graphs": len(B2_DIMS) * len(B2_M),
@@ -983,10 +996,11 @@ def host_p(fn, n: int) -> list[float]:
 
 class LaunchSpy:
     """Wraps B2's wrapper while it is installed: CUDA events around every
-    launch (``ms()`` sums them), and the arguments of the last launch."""
+    launch (``ms()`` sums them), the arguments of the last launch, and
+    those of the widest (the latest of the most query rows)."""
 
     def __init__(self):
-        self.events, self.last = [], None
+        self.events, self.last, self.widest = [], None, None
 
     def __enter__(self):
         self.real = device_beam.fused_search_cuda
@@ -999,6 +1013,9 @@ class LaunchSpy:
             e1.record()
             self.events.append((e0, e1))
             self.last = (a, kw)
+            rows = a[1].shape[0]
+            if self.widest is None or rows >= self.widest[0][1].shape[0]:
+                self.widest = (a, kw)
             return out
 
         device_beam.fused_search_cuda = spy
@@ -1013,31 +1030,37 @@ class LaunchSpy:
 
 
 def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
-    """The least time of one B2 launch on this run's data: the bytes it
-    must move (query rows; every corpus row it read, with its presence and
-    allow bytes, the rows it scored before the visited test included; the
-    adjacency rows it read; the outputs) over the memory rate, against its
-    float32 operations (3 a scored element) over the float32 rate."""
+    """The least time of one B2 launch on this run's data: the bytes the
+    walk must move (query rows; each row it scored and kept, with its
+    presence and allow bytes; the adjacency rows of the hops it expanded
+    and of the second hop's parents; the upper rows; the outputs) over the
+    memory rate, against its float32 operations (3 a scored element) over
+    the float32 rate. What the kernel moves beyond that by its own design
+    is reported beside the bound, in ``overhead_bytes``: the rows it scored
+    before the visited test and dropped, and the adjacency rows it read
+    ahead for a node the next hop did not expand."""
     scorer, q, corpus, adj, present, eps, ua, us, ef, _ = args
     keep_k = kw.get("keep_k", 0) if kw.get("allow") is not None else 0
     st = stats.long().sum(0).tolist()
     d, m0 = corpus.shape[1], adj.shape[1]
     m = ua.shape[2] if ua.shape[0] else 0
     b = q.shape[0]
-    rows = st[1] + st[4]
-    nbytes = (b * d * 4 + rows * (d * 4 + 1 + (1 if keep_k else 0))
-              + st[2] * m0 * 4 + st[3] * m * 4 + b * (ef + keep_k) * 8)
-    flops = 3.0 * rows * d
+    row_bytes = d * 4 + 1 + (1 if keep_k else 0)
+    nbytes = (b * d * 4 + st[1] * row_bytes + st[2] * m0 * 4
+              + st[3] * m * 4 + b * (ef + keep_k) * 8)
+    flops = 3.0 * st[1] * d
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     per_q = stats.float()
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
             {"bytes": nbytes, "flops": flops,
-             "speculative_row_bytes": st[4] * (d * 4 + 1),
+             "overhead_bytes": {"speculative_rows": st[4] * row_bytes,
+                                "read_ahead_lost": st[5] * m0 * 4},
              "steps_mean": float(per_q[:, 0].mean()),
              "steps_max": int(stats[:, 0].max()),
              "scored_mean": float(per_q[:, 1].mean()),
              "speculative_rows_mean": float(per_q[:, 4].mean()),
+             "read_ahead_lost_mean": float(per_q[:, 5].mean()),
              "upper_rows_mean": float(per_q[:, 3].mean())})
 
 
@@ -1122,12 +1145,13 @@ def phase_hnsw(state: dict) -> dict:
     search_ms = host_p(lambda: idx.search(queries, K), 50)
 
     # B2 alone at the main path's shapes: the search's launch, and one
-    # construction launch (the build's last, ef_construction padded)
+    # construction launch (the build's widest: the rows of a sub-batch that
+    # fit the visited budget, ef_construction padded)
     with LaunchSpy() as spy:
         idx.search(queries, K)
     args, kw = spy.last
     walk = time_walk(args, kw, 30, 3)
-    cargs, ckw = build_spy.last
+    cargs, ckw = build_spy.widest
     cwalk = time_walk(cargs, ckw, 10, 1)
     del build_spy
 
@@ -1180,6 +1204,7 @@ def phase_hnsw(state: dict) -> dict:
         "launches_build": build_launches,
         "launches_per_search": search_launches,
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+        "overhead_bytes": walk["work"]["overhead_bytes"],
     }
     del idx, store_corpus, valid, valid_after, args, kw, cargs, ckw
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """Where the fused HNSW walk's (B2) time goes, on one card.
 
-    python3 probe_device_beam.py [--copies a,b] [--against FILE.cu]
-                                 [--rows 1200000] [--iters 10]
+    python3 probe_device_beam.py [--against FILE.cu] [--rows 1200000]
+                                 [--iters 10]
 
 On a graph of ``--rows`` nodes with 32 random neighbours each (seeded on
 the card; the walk's memory pattern at the scale of phase ``hnsw``, whose
@@ -9,27 +9,21 @@ HNSW ids are random too, without its four-minute build), unit 25-d rows,
 cosine at bf16, B = 256 queries (rows + noise), ef 64 and the search's
 ``max_steps``, it times ``fused_search_cuda`` (CUDA events around
 ``--iters`` launches back to back, so the host's part of a launch is
-hidden) for copies of ``weaviate_tpu_torch/csrc/device_beam.cu`` built with
-one setting changed (registers, queries a block, the read-ahead of the next
-hop's adjacency row, the rows scored after the visited test instead of
-before it, the rank loop's reads staged eight at a time, ``gather`` called
-instead of inlined at its three call sites) or one part
-switched off (the corpus rows, the atomic marks: such a copy walks another
-way and is only timed, per hop), and counts with clock64 how a warp's
-cycles split into the upper descent, a hop's adjacency round, its gather
-(flags, rows, compaction, marks), the rank of its new entries and the
-merge. Every copy that should be right is held against ``as_is``, and
-``as_is`` against the plain version (the share of equal ids). The filtered
-walk (45% allowed, a kept track of 32, expand 1) is checked and timed for
-``as_is``. ``--against FILE.cu`` also builds another version of the kernel
-source (a file with the same C interface, e.g. one unpacked from another
-commit into git-ignored ``_chipcheck/``) as the copy ``against``, held
-against ``as_is`` and timed in turns with it (as_is, against, against,
-as_is), since times of two calls (machines) are not comparable.
+hidden) for ``weaviate_tpu_torch/csrc/device_beam.cu`` as it is
+(``as_is``), held against the plain version (the share of equal ids),
+unfiltered and filtered (45% allowed, a kept track of 32, expand 1). A
+copy of it with clock64 counters (``counters``) splits a warp's cycles
+into the upper descent, a hop's adjacency round, its gather (flags, rows,
+compaction, marks), the rank of its new entries and the merge.
+``--against FILE.cu`` also builds another version of the kernel source (a
+file with the same C interface, e.g. one unpacked from another commit into
+git-ignored ``_chipcheck/``) as the copy ``against``, held against
+``as_is`` and timed in turns with it (as_is, against, against, as_is),
+since times of two calls (machines) are not comparable.
 
-A copy is made by replacing exact lines of the source; when the source no
-longer holds one, the probe stops and names it (the CPU tests apply every
-copy's edits). Builds go to ``weaviate_tpu_torch/_build/probe_beam/``.
+The counters copy is made by replacing exact lines of the source; when the
+source no longer holds one, the probe stops and names it (a CPU test
+applies the edits). Builds go to ``weaviate_tpu_torch/_build/probe_beam/``.
 Prints one JSON line per copy, then the card's name and power limit. Needs
 a CUDA card.
 """
@@ -51,54 +45,6 @@ OUT = ROOT / "weaviate_tpu_torch" / "_build" / "probe_beam"
 
 D, M0, B, EF = 25, 32, 256, 64
 
-WPB = "  int wpb = (p.b + sms - 1) / sms;\n"
-EDITS = {
-    "as_is": [],
-    "registers": [("__global__ void __launch_bounds__(32 * kMaxWarps)\n",
-                   "__global__ void __launch_bounds__(32 * kMaxWarps, 1)\n")],
-    "warps_1": [(WPB, "  int wpb = 1;\n")],
-    "warps_8": [(WPB, "  int wpb = kMaxWarps;\n")],
-    "no_prefetch": [("    pre_node = nn > 0 ? w.sid[0] : -1;\n",
-                     "    pre_node = -1;\n")],
-    "rank_staged": [(
-        "        int r = 0, ra = 0;\n"
-        "#pragma unroll 8\n"
-        "        for (int k = 0; k < nn; ++k) {\n"
-        "          const float dk = w.cd[k];\n"
-        "          const int less = (dk < dc) || (dk == dc && k < c);\n"
-        "          r += less;\n"
-        "          ra += less & w.callow[k];\n"
-        "        }\n",
-        "        int r = 0, ra = 0;\n"
-        "        for (int k0 = 0; k0 < nn; k0 += 8) {\n"
-        "          float dk[8];\n"
-        "          int ak[8];\n"
-        "#pragma unroll\n"
-        "          for (int u = 0; u < 8; ++u) {\n"
-        "            dk[u] = k0 + u < nn ? w.cd[k0 + u] : kMask;\n"
-        "            ak[u] = track && k0 + u < nn ? w.callow[k0 + u] : 0;\n"
-        "          }\n"
-        "#pragma unroll\n"
-        "          for (int u = 0; u < 8; ++u) {\n"
-        "            const int k = k0 + u;\n"
-        "            const int less = k < nn && ((dk[u] < dc) ||\n"
-        "                                        (dk[u] == dc && k < c));\n"
-        "            r += less;\n"
-        "            ra += less & ak[u];\n"
-        "          }\n"
-        "        }\n")],
-    "no_spec": [("  auto kern = p.d <= kSpecD ?", "  auto kern = false ?")],
-    "gather_call": [("__device__ int gather(", "__device__ __noinline__ int gather(")],
-    "no_rows": [(
-        "      x[r][t] = row >= 0 && k < p.d ? __ldg(src + k) : 0.f;\n",
-        "      x[r][t] = 0.01f * ((row >> t) & 7);\n")],
-    "plain_marks": [(
-        "      if (mode != kUpper) atomicOr(vis + (nb >> 5), 1u << (nb & 31));\n",
-        "      if (mode != kUpper) __stcg(vis + (nb >> 5),\n"
-        "          __ldcg(vis + (nb >> 5)) | (1u << (nb & 31)));\n")],
-}
-# copies that walk another way by design, so are only timed
-ABLATIONS = ("no_rows", "plain_marks")
 # clock64 counters, summed over warps: [0] upper descent, [1] adjacency
 # rounds, [2] gathers, [3] ranks of the new entries, [4] merges (the
 # read-ahead issued), [5] the whole walk, [6] hops
@@ -207,7 +153,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_200_000)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--copies", default=None)
     ap.add_argument("--against", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -216,10 +161,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from weaviate_tpu_torch.ops import device_beam as db
 
-    names = args.copies.split(",") if args.copies else [*EDITS, "counters"]
-    names = ["as_is", *[n for n in names if n != "as_is"]]
-    copies = {name: edited(COUNTERS if name == "counters" else EDITS[name])
-              for name in names}
+    copies = {"as_is": SOURCE.read_text(), "counters": edited(COUNTERS)}
     if args.against:
         copies["against"] = Path(args.against).read_text()
     libs = {name: db.declare(ctypes.CDLL(str(path)))
@@ -242,10 +184,11 @@ def main(argv=None) -> int:
                "launch_ms": ms, "hops_max": hops,
                "hops_mean": float(stats[:, 0].float().mean()),
                "us_per_hop": ms * 1e3 / max(1, hops),
-               "speculative_rows_mean": float(stats[:, 4].float().mean())}
+               "speculative_rows_mean": float(stats[:, 4].float().mean()),
+               "read_ahead_lost_mean": float(stats[:, 5].float().mean())}
         if ref is None:
             ref = ids
-        elif name not in ABLATIONS:
+        else:
             out["ids_equal_share"] = float((ids == ref).float().mean())
         if name == "as_is":
             # held against the plain version, unfiltered and filtered

@@ -19,7 +19,7 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   for a batch whose visited bitsets fit the budget.
 - The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
   argument checks refuse what it does not take; ``probe_device_beam.py``'s
-  copies still apply to the kernel source.
+  clock64 copy still applies to the kernel source.
 
 The JAX side compiles one program per shape and static arguments, so the
 cases share a few.
@@ -402,32 +402,74 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(over, match):
 
 
 def test_largest_admitted_walk_fits_a_blocks_shared_memory():
-    """Every shape the checks admit fits one query's state in a block: the
-    widest D, beam, kept track and frontier."""
+    """The widest walk the wrapper's checks admit (D, beam, kept track and
+    frontier at their limits) passes them, and its plain version walks it.
+    Whether one query's state fits a block's shared memory is the C side's
+    check against the card's; ``chip_smoke.py`` launches this walk there
+    and holds it against the plain version."""
     m0 = tbeam.MAX_WIDTH
     expand = tbeam.MAX_FRONTIER // m0 - 1
-    need = tbeam.warp_bytes(tbeam.MAX_DIMS, m0, tbeam.MAX_WIDTH,
-                            tbeam.MAX_EF, tbeam.MAX_EF, expand)
-    assert need <= tbeam.SMEM_PER_BLOCK
+    gen = torch.Generator().manual_seed(3)
+    corpus = torch.randn((64, tbeam.MAX_DIMS), generator=gen)
+    adj = torch.full((64, m0), -1, dtype=torch.int32)
+    adj[:, :16] = torch.rand((64, 64), generator=gen).argsort(1)[:, :16]
+    allow = torch.arange(64) % 2 == 0
     args = _tiny_walk_args(
-        queries=torch.zeros((2, tbeam.MAX_DIMS)),
-        operands=(torch.zeros((64, tbeam.MAX_DIMS)),),
-        adjacency=torch.full((64, m0), -1, dtype=torch.int32),
-        allow=torch.ones(64, dtype=torch.bool), ef=tbeam.MAX_EF,
-        keep_k=tbeam.MAX_EF, expand=expand)
+        queries=torch.randn((2, tbeam.MAX_DIMS), generator=gen),
+        operands=(corpus,), adjacency=adj, allow=allow, ef=tbeam.MAX_EF,
+        keep_k=tbeam.MAX_EF, expand=expand, max_steps=4 * tbeam.MAX_EF + 64)
     tbeam._check_kernel_args(
         args["scorer"], args["queries"], args["operands"][0],
         args["adjacency"], args["present"], args["eps"], args["upper_adj"],
         args["upper_slots"], args["ef"], args["max_steps"], args["allow"],
         args["keep_k"], args["expand"])
+    ids, d, kept, kept_d = tbeam.fused_search(**args)
+    assert ids.shape == d.shape == (2, tbeam.MAX_EF)
+    assert kept.shape == kept_d.shape == (2, tbeam.MAX_EF)
+    # every node is reached from the entrypoint, so the beam holds all 64
+    assert sorted(ids[0][ids[0] >= 0].tolist()) == list(range(64))
+    assert bool(allow[kept[kept >= 0].long()].all())
+    assert int((kept[0] >= 0).sum()) == 32
 
 
-@pytest.mark.parametrize("name", [*probe.EDITS, "counters"])
-def test_probe_copies_apply_to_the_kernel_source(name):
-    # each copy of probe_device_beam.py replaces lines the kernel source
+@pytest.mark.parametrize("old,new", probe.COUNTERS, ids=[
+    f"counters_{i}" for i in range(len(probe.COUNTERS))])
+def test_probe_copies_apply_to_the_kernel_source(old, new):
+    # probe_device_beam.py's clock64 copy replaces lines the kernel source
     # holds exactly once, so a kernel edit that drops one fails here
-    edits = probe.COUNTERS if name == "counters" else probe.EDITS[name]
     src = probe.SOURCE.read_text()
-    for old, _ in edits:
-        assert src.count(old) == 1, f"{name}: {old!r}"
-    assert (probe.edited(edits) == src) == (not edits)
+    assert src.count(old) == 1, repr(old)
+    assert probe.edited([(old, new)]) != src
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["beam", "kept"])
+def test_walk_bound_counts_only_the_walks_own_work(filtered):
+    """``chip_smoke.walk_bound``: B2's bound holds the rows the walk scored
+    and kept and the adjacency rows it expanded; the rows the kernel scored
+    before the visited test and the rows it read ahead for another node
+    move only ``overhead_bytes``."""
+    import chip_smoke
+
+    a = _tiny_walk_args()
+    args = (a["scorer"], a["queries"], a["operands"][0], a["adjacency"],
+            a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
+            a["ef"], a["max_steps"])
+    kw = dict(allow=torch.ones(64, dtype=torch.bool), keep_k=8) \
+        if filtered else {}
+    # per query: expansions, scored, adjacency rows, upper rows,
+    # speculative rows, read-ahead rows lost
+    stats = torch.tensor([[10, 200, 12, 0, 0, 0], [8, 150, 9, 0, 0, 0]],
+                         dtype=torch.int32)
+    ms, by, work = chip_smoke.walk_bound(args, kw, stats)
+    over = stats.clone()
+    over[:, 4:] = torch.tensor([[30, 4], [20, 3]])
+    ms2, by2, work2 = chip_smoke.walk_bound(args, kw, over)
+    assert (ms2, by2, work2["bytes"]) == (ms, by, work["bytes"])
+    row = DIMS * 4 + 1 + (1 if filtered else 0)
+    keep = 8 if filtered else 0
+    assert work["bytes"] == (2 * DIMS * 4 + 350 * row + 21 * 8 * 4
+                             + 2 * (a["ef"] + keep) * 8)
+    assert work["overhead_bytes"] == {"speculative_rows": 0,
+                                      "read_ahead_lost": 0}
+    assert work2["overhead_bytes"] == {"speculative_rows": 50 * row,
+                                       "read_ahead_lost": 7 * 8 * 4}

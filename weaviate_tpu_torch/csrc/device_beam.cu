@@ -69,6 +69,7 @@
 //   4. While a hop merges, the adjacency row of its best new entry is read
 //      ahead: that entry is the next hop's node whenever it lands ahead of
 //      every unexpanded beam entry, and that hop then skips its first round.
+//      A row read ahead for another node costs bytes; `stats` counts those.
 //   5. The merges take only the new entries that can land: once the beam
 //      (or the kept track) is full, an entry at or past its last one would
 //      land at ef (keep_k) or later, so a ballot drops it before the rank,
@@ -85,7 +86,6 @@ constexpr int kMaxWidth = 128;  // M0 and M
 constexpr int kMaxD = 4096;
 constexpr int kMaxFrontier = 640;  // M0 * (1 + expand)
 constexpr int kMaxWarps = 8;
-constexpr int kSmemPerBlock = 232448;
 // Rows of at most kSpecD floats are scored before the visited test, by
 // groups of kSpecG lanes: a lane holds kSpecK floats of its row, and a chunk
 // of 32 candidates is kSpecRounds rounds of 32 / kSpecG rows.
@@ -101,7 +101,7 @@ constexpr unsigned kFull = 0xffffffffu;
 enum Metric { kL2 = 0, kDot = 1, kCosine = 2, kManhattan = 3, kHamming = 4 };
 enum Mode { kUpper = 0, kHop = 1, kHop2 = 2 };
 enum Stat { kExpansions, kScored, kAdjRows, kUpperRows, kSpeculative,
-            kStats };
+            kAheadLost, kStats };
 
 // error codes of the C interface beside cudaError_t values (those are > 0)
 enum Refused {
@@ -133,6 +133,7 @@ struct Params {
   int rows, n, d, m0, levels, s, m, ef, keep_k, expand, max_steps, words, group,
       frontier;
   int b, warp_bytes;
+  int sms, smem_max;  // the card's SMs and opt-in shared memory a block
 };
 
 // One query's slice of shared memory.
@@ -155,8 +156,8 @@ struct Warp {
   uint8_t* bexp;   // [2][ef] expanded flags
 };
 
-__host__ __device__ inline int warp_bytes_for(int d, int m0, int m, int ef,
-                                              int keep_k, int expand) {
+inline int warp_bytes_for(int d, int m0, int m, int ef, int keep_k,
+                          int expand) {
   const int f = m0 * (1 + expand) > m ? m0 * (1 + expand) : m;
   const int dpad = (d + 3) & ~3;
   const int words = dpad + 4 * ef + 4 * keep_k + 8 * f;
@@ -378,6 +379,7 @@ walk_kernel(Params p) {
   uint32_t* vis = p.visited + (size_t)qi * p.words;
   int loaded = 0;  // per lane: rows scored before the visited test
   int accepted = 0, adj_rows = 0, upper_rows = 0, expansions = 0;
+  int ahead_lost = 0;  // rows read ahead that the next hop did not expand
   __syncwarp();
   float qv[kSpecK];
 #pragma unroll
@@ -461,8 +463,9 @@ walk_kernel(Params p) {
     } else {
       for (int j = lane; j < m0; j += 32)
         w.fid[j] = __ldg(p.adj + (size_t)node * m0 + j);
-      adj_rows += 1;
+      ahead_lost += pre_node >= 0;
     }
+    adj_rows += 1;
     if (lane == 0) src_exp[first] = 1;
     __syncwarp();
     int nn = gather<METRIC, ROUND, SPEC>(p, w, qv, vis, 0, m0, kHop, track,
@@ -568,7 +571,6 @@ walk_kernel(Params p) {
       pre[t] = pre_node >= 0 && lane + 32 * t < m0
                    ? __ldg(p.adj + (size_t)pre_node * m0 + lane + 32 * t)
                    : -1;
-    adj_rows += pre_node >= 0;
 
     // merge into the other buffers: the stable order of [old | new], a new
     // entry after the old ones at or below it, an old one after the new
@@ -626,6 +628,7 @@ walk_kernel(Params p) {
     buf ^= 1;
     __syncwarp();
   }
+  ahead_lost += pre_node >= 0;  // the walk ended after it was read
 
   const int* fin_id = w.bid + buf * ef;
   const float* fin_d = w.bd + buf * ef;
@@ -650,6 +653,7 @@ walk_kernel(Params p) {
     st[kAdjRows] = adj_rows;
     st[kUpperRows] = upper_rows;
     st[kSpeculative] = spec;
+    st[kAheadLost] = ahead_lost;
   }
 }
 
@@ -661,21 +665,16 @@ int group_for(int d) {
 
 template <int METRIC, bool ROUND>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
   // spread the batch over every SM, then fit the block's shared memory
-  int wpb = (p.b + sms - 1) / sms;
+  int wpb = (p.b + p.sms - 1) / p.sms;
   wpb = wpb < 1 ? 1 : (wpb > kMaxWarps ? kMaxWarps : wpb);
-  while (wpb > 1 && (size_t)wpb * p.warp_bytes > (size_t)kSmemPerBlock) --wpb;
+  while (wpb > 1 && (size_t)wpb * p.warp_bytes > (size_t)p.smem_max) --wpb;
   const size_t smem = (size_t)wpb * p.warp_bytes;
   auto kern = p.d <= kSpecD ? walk_kernel<METRIC, ROUND, true>
                             : walk_kernel<METRIC, ROUND, false>;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   kern<<<(p.b + wpb - 1) / wpb, 32 * wpb, smem, stream>>>(p);
@@ -685,13 +684,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" {
-
-// Shared-memory bytes of one query's state (the wrapper checks its own
-// mirror of this against the card's per-block budget).
-int device_beam_warp_bytes(int d, int m0, int m, int ef, int keep_k,
-                           int expand) {
-  return warp_bytes_for(d, m0, m, ef, keep_k, expand);
-}
 
 // Launches the fused walk of `b` queries on `stream`. `allow` null (or
 // keep_k 0) runs the unfiltered walk, and kept_ids/kept_d are not written.
@@ -725,7 +717,15 @@ int device_beam_search(const float* queries, const float* corpus,
     return kBadFrontier;
   const int wb = warp_bytes_for(d, m0, levels > 0 ? m : 1, ef, keep_k,
                                 expand);
-  if (wb > kSmemPerBlock) return kBadSmem;
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (wb > smem_max) return kBadSmem;
   Params p;
   p.queries = queries;
   p.corpus = corpus;
@@ -757,8 +757,9 @@ int device_beam_search(const float* queries, const float* corpus,
   p.frontier = m0 * (1 + expand) > p.m ? m0 * (1 + expand) : p.m;
   p.b = b;
   p.warp_bytes = wb;
+  p.sms = sms;
+  p.smem_max = smem_max;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   const bool round = bf16 != 0;
   switch (metric) {
     case kL2: e = launch<kL2, false>(p, st); break;
@@ -785,7 +786,8 @@ const char* device_beam_error_string(int code) {
     case kBadKeep: return "keep_k above ef, or no kept outputs";
     case kBadFrontier: return "expand outside [0, M0] or M0 * (1 + expand) "
                               "above 640";
-    case kBadSmem: return "one query's state exceeds a block's shared memory";
+    case kBadSmem: return "one query's state exceeds the card's shared "
+                          "memory a block";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -42,16 +42,15 @@ KERNEL = "device_beam"
 _INF = MASK_DISTANCE
 
 # what the kernel takes (its C side refuses the same): the beam, the
-# adjacency widths, D, the hop's frontier M0 * (1 + expand), and the
-# shared memory one query's state needs
+# adjacency widths, D and the hop's frontier M0 * (1 + expand). The C side
+# alone also refuses a query whose state passes the card's shared memory.
 MAX_EF = 512
 MAX_WIDTH = 128
 MAX_DIMS = 4096
 MAX_FRONTIER = 640
-SMEM_PER_BLOCK = 232_448
 # per-query counters of ``stats``
 STATS = ("expansions", "scored", "adjacency_rows", "upper_rows",
-         "speculative_rows")
+         "speculative_rows", "read_ahead_lost")
 
 # Test/ops hook: fused-walk dispatches made by this process (the
 # one-dispatch-per-batch contract is asserted against it).
@@ -231,16 +230,6 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
 # ---------------------------------------------------------------------------
 
 
-def warp_bytes(d: int, m0: int, m: int, ef: int, keep_k: int,
-               expand: int) -> int:
-    """Shared-memory bytes of one query's state in the kernel (its
-    ``warp_bytes_for``): the query, the double-buffered beam and kept
-    track, and the hop's frontier of max(M0 * (1 + expand), M) entries."""
-    f = max(m0 * (1 + expand), m)
-    words = ((d + 3) & ~3) + 4 * ef + 4 * keep_k + 8 * f
-    return (4 * words + 2 * ef + 2 * f + 15) & ~15
-
-
 def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
                        upper_adj, upper_slots, ef: int, max_steps: int,
                        allow=None, keep_k: int = 0, expand: int = 0):
@@ -298,10 +287,6 @@ def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
     if not 0 <= expand <= m0 or m0 * (1 + expand) > MAX_FRONTIER:
         raise ValueError(f"frontier M0 * (1 + expand) = {m0} * (1 + {expand}) "
                          f"outside the kernel's {MAX_FRONTIER}")
-    need = warp_bytes(d, m0, m, ef, keep_k, expand)
-    if need > SMEM_PER_BLOCK:
-        raise ValueError(f"one query's state takes {need} bytes of shared "
-                         f"memory, more than a block's {SMEM_PER_BLOCK}")
 
 
 def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
@@ -310,11 +295,13 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
                       expand: int = 0, stats: Optional[torch.Tensor] = None):
     """Launches the kernel on the current stream: same contract as
     ``_fused_search`` with ``operands = (corpus,)``. ``stats``, an int32
-    [B, 5] tensor, receives per query the counters named in ``STATS``:
-    layer-0 expansions, rows scored and kept, layer-0 adjacency rows read
-    (the second hop's included), upper rows read, and rows scored before
-    the visited test and then dropped. Raises on arguments outside the
-    kernel's contract or a refused launch."""
+    [B, 6] tensor, receives per query the counters named in ``STATS``:
+    layer-0 expansions, rows scored and kept, layer-0 adjacency rows the
+    walk expands (one a hop and the second hop's parents), upper rows read,
+    rows scored before the visited test and then dropped, and adjacency
+    rows read ahead for a node that the next hop did not expand. Raises
+    ``ValueError`` on arguments outside the kernel's contract (the C side's
+    refusals included) and ``RuntimeError`` on a failed launch."""
     _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
                        upper_adj, upper_slots, ef, max_steps, allow, keep_k,
                        expand)
@@ -351,7 +338,11 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
             keep_k if track else 0, expand if track else 0, max_steps,
             METRICS.index(scorer.metric), int(scorer.precision == "bf16"),
             stream)
-    if err != 0:
+    if err < 0:
+        raise ValueError(
+            f"device_beam_search refused its arguments: "
+            f"{lib.device_beam_error_string(err).decode()} (code {err})")
+    if err > 0:
         raise RuntimeError(
             f"device_beam_search launch failed: "
             f"{lib.device_beam_error_string(err).decode()} (code {err})")
@@ -367,8 +358,6 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.device_beam_search.argtypes = [p] * 14 + [i] * 14 + [p]
     lib.device_beam_search.restype = i
-    lib.device_beam_warp_bytes.argtypes = [i] * 6
-    lib.device_beam_warp_bytes.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p
     return lib
