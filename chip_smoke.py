@@ -15,7 +15,11 @@ non-zero without the final line:
              25/99/128/768, layer-0 widths M0 of 32/64, beams of 16 to 512,
              batches of 1 to 256, unfiltered and filtered (allow masks of
              1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
-             graphs the port builds on the card.
+             graphs the port builds on the card, with its BQ scorer (equal
+             to the plain walk) and its SQ scorer (l2/dot/cosine) on each;
+             the BQ scan (Q1, equal to its plain version) and the SQ scan
+             (Q2) over B of 1/16/256, D of 25/768/1536, fetch of
+             10/200/320/1024, 1% and 50% masked, fetch past the live rows.
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -46,6 +50,28 @@ non-zero without the final line:
              launch with the kept track), then close and reopen (graph.npz)
              and a crash and reopen (commit-log replay), each with the same
              uuids.
+8. quant   — the quantized flat index through ``make_flat``: BQ at
+             ``bench.py bench_bq``'s configuration (BQ_ROWS LAION-like
+             768-d rows made on the card, cosine, rescore_limit 320) and SQ
+             at ``bench_msmarco``'s per-tenant index (550,000 rows,
+             rescore_limit 200): recall@10 against the exact float32
+             answer, the scan kernel (Q1, Q2) beside its bound and its
+             plain version, its launches a search (one a chunk of queries
+             whose key block fits quantized.SCRATCH_BYTES) and the
+             selection's (five a chunk), the selection alone against its
+             plain version and ``torch.topk``, search p50/p99, the
+             rescore's share, device and host bytes.
+9. hnsw_quant — ``HNSWIndex`` + BQ at ``bench_hnsw_quant``'s bq
+             configuration (768-d, l2-squared, ef 96, M 16, rescore_limit
+             80, the fused walk) at HNSW_QUANT_ROWS rows: the build rate,
+             recall@10 of the device walk against the host walk on the
+             same index, one B2 launch a search, B2-BQ beside its bound
+             and its plain version.
+10. quant_db — 100,000 of those rows as objects in an HNSW + SQ
+             collection (cosine): unfiltered (B2-SQ), 1% (the exact plan:
+             Q2) and the resident 45% filter (the filtered beam) searches,
+             close and reopen (graph.npz + quantizer.msgpack, codes rebuilt
+             from the objects), a crash and reopen, each with the same uuids.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -68,21 +94,24 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch import _build, native
+from weaviate_tpu_torch.compression import BinaryQuantizer, ScalarQuantizer
 from weaviate_tpu_torch.core.db import DB
-from weaviate_tpu_torch.index.flat import FlatIndex
+from weaviate_tpu_torch.index.flat import FlatIndex, exact_rescore, make_flat
 from weaviate_tpu_torch.index.hnsw import HNSWIndex
 from weaviate_tpu_torch.index.hnsw.graph import HostGraph
 from weaviate_tpu_torch.inverted.filters import Where
 from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
-from weaviate_tpu_torch.ops import device_beam, fused_flat
+from weaviate_tpu_torch.ops import device_beam, fused_flat, quantized
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search, normalize
 from weaviate_tpu_torch.query.planner import PLAN_BEAM, PLAN_EXACT
 from weaviate_tpu_torch.schema.config import (
+    BQConfig,
     CollectionConfig,
     DataType,
     FlatIndexConfig,
     HNSWIndexConfig,
     Property,
+    SQConfig,
 )
 from weaviate_tpu_torch.storage.objects import StorageObject
 
@@ -91,6 +120,7 @@ from weaviate_tpu_torch.storage.objects import StorageObject
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 FP32_FLOP_S = 67e12
+INT8_OPS_S = 1979e12
 
 # kernel vs plain: float32 sums of the same bf16 products in another order
 ATOL, RTOL = 1e-2, 1e-4
@@ -203,7 +233,8 @@ def phase_env() -> dict:
     host = threading.Thread(target=lambda: host_err.extend(
         _native_build(lib) for lib in ("segment_merge", "bm25_wand")))
     host.start()
-    logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL)
+    logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL,
+                        quantized.KERNEL)
     host.join()
     errs = [e for e in host_err if e]
     if errs:
@@ -322,7 +353,102 @@ def phase_kernels(seed: int) -> dict:
             "raised_as_expected": raised, "max_abs_err": max_err,
             "id_agreement": agreement,
             "tolerance": {"atol": ATOL, "rtol": RTOL},
-            "b2": beam_kernel_grid(seed)}
+            "b2": beam_kernel_grid(seed),
+            "q1_q2": quant_kernel_grid(seed)}
+
+
+# Q1/Q2 grid: batches, widths, fetch widths, masked shares (1% and 50%);
+# every sixth case has fewer live rows than its fetch
+Q_BS = (1, 16, 256)
+Q_DIMS = (25, 768, 1536)
+Q_FETCH = (10, 200, 320, 1024)
+Q_MASKED = (0.01, 0.5)
+Q_ROWS, Q_FEW_ROWS = 50_001, 300  # neither a multiple of a kernel tile
+
+
+def sq_inputs(x: torch.Tensor, metric: str, fit_rows: int = 20_000):
+    """An SQ quantizer fitted on ``x`` (unit rows for dot and cosine) and
+    its device planes, encoded on the host as the index does."""
+    sq = ScalarQuantizer(x.shape[1], metric)
+    host = x.cpu().numpy()
+    sq.fit(host[:fit_rows])
+    enc = sq.encode(host)
+    return sq, (torch.from_numpy(enc["codes"]).to(x.device),
+                torch.from_numpy(enc["dec_sqnorm"]).to(x.device))
+
+
+def quant_kernel_grid(seed: int) -> dict:
+    """Q1 and Q2 against their plain versions over Q_BS x Q_DIMS x Q_FETCH,
+    the masked share alternating, SQ cycling its three metrics: Q1 equal in
+    every id and distance, Q2 as ``compare`` holds K1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dev = torch.device("cuda")
+    out = {"q1_cases": 0, "q2_cases": 0, "q2_max_abs_err": 0.0,
+           "q2_same": 0, "q2_total": 0, "fetch_over_live": 0,
+           "seen": {"b": set(), "d": set(), "fetch": set(), "masked": set(),
+                    "metric": set()}}
+    grid = [(b, d, f) for b in Q_BS for d in Q_DIMS for f in Q_FETCH]
+    for i, (b, d, fetch) in enumerate(grid):
+        n = Q_FEW_ROWS if i % 6 == 5 else Q_ROWS
+        masked = Q_MASKED[i % 2]
+        metric = quantized.SQ_METRICS[i % 3]
+        x = torch.randn(n, d, generator=gen, device=dev)
+        q = (x[torch.randint(0, n, (b,), generator=gen, device=dev)]
+             + 0.1 * torch.randn(b, d, generator=gen, device=dev))
+        mask = torch.rand(n, generator=gen, device=dev) >= masked
+        if int(mask.sum()) < fetch:
+            out["fetch_over_live"] += 1
+        # Q1: exact
+        bq = BinaryQuantizer(d, "l2-squared")
+        enc = bq.encode_device(x)
+        qp = bq.encode_device(q)["packed"].contiguous()
+        kd, ki = quantized.bq_search_cuda(qp, enc["packed"], enc["popcount"],
+                                          mask, d, fetch)
+        pd, pi = quantized._bq_search_plain(qp, enc["packed"],
+                                            enc["popcount"], mask, d, fetch)
+        torch.cuda.synchronize()
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            raise AssertionError(f"Q1 differs from its plain version: B={b} "
+                                 f"D={d} N={n} fetch={fetch}")
+        out["q1_cases"] += 1
+        # Q2: within the tolerance, ids equal outside near ties
+        if metric != "l2-squared":
+            x, q = normalize(x), normalize(q)
+        sq, (codes, dsq) = sq_inputs(x, metric)
+        q = q.contiguous()
+        kd, ki = quantized.sq_search_cuda(q, codes, dsq, sq.a, sq.s, mask,
+                                          metric, fetch)
+        pd, pi = quantized._sq_search_plain(q, codes, dsq, sq.a, sq.s, mask,
+                                            metric, fetch)
+        torch.cuda.synchronize()
+
+        def near(ids, q=q, codes=codes, dsq=dsq, sq=sq, mask=mask,
+                 metric=metric):
+            dist = quantized.sq_gather_distance(q, codes, ids.clamp(min=0),
+                                                dsq, sq.a, sq.s, metric)
+            dist = torch.where(mask[ids.clamp(min=0).long()], dist,
+                               MASK_DISTANCE)
+            return torch.where(ids < 0, float("inf"), dist)
+
+        e, same, total = compare(kd, ki, pd, pi, near)
+        out["q2_cases"] += 1
+        out["q2_max_abs_err"] = max(out["q2_max_abs_err"], e)
+        out["q2_same"] += same
+        out["q2_total"] += total
+        for key, v in (("b", b), ("d", d), ("fetch", fetch),
+                       ("masked", masked), ("metric", metric)):
+            out["seen"][key].add(v)
+    if (out["seen"]["b"] != set(Q_BS) or out["seen"]["d"] != set(Q_DIMS)
+            or out["seen"]["fetch"] != set(Q_FETCH)
+            or out["seen"]["masked"] != set(Q_MASKED)
+            or out["seen"]["metric"] != set(quantized.SQ_METRICS)
+            or not out["fetch_over_live"]):
+        raise AssertionError(f"the Q1/Q2 grid left a case out: {out}")
+    out["q2_id_agreement"] = out["q2_same"] / max(1, out["q2_total"])
+    if out["q2_id_agreement"] < MIN_ID_AGREEMENT:
+        raise AssertionError(f"Q2 id agreement {out['q2_id_agreement']}")
+    out["seen"] = {k: sorted(v) for k, v in out["seen"].items()}
+    return out
 
 
 # B2 grid: graphs the port builds on the card (rows, widths D, M = half of
@@ -342,6 +468,31 @@ B2_KEEP = (8, 32)
 B2_EXPAND = (0, 1, 2, 3, 4)
 B2_FILTERED_EFS = (64, 128, 512)
 B2_FILTERED_PER_GRAPH = 3
+# the SQ walks' metrics (a BQ walk has no metric: hamming over sign bits)
+B2_SQ_METRICS = ("l2-squared", "dot", "cosine")
+
+
+def quant_walk_inputs(kind: str, metric: str, rows: torch.Tensor,
+                      queries: torch.Tensor):
+    """(scorer, operands, query rep) of a BQ or SQ walk over ``rows``: BQ
+    packs the sign bits on the card; SQ fits and encodes on the host, as the
+    index does, with unit rows for dot and cosine."""
+    d = rows.shape[1]
+    if kind == "bq":
+        bq = BinaryQuantizer(d, "l2-squared")
+        enc = bq.encode_device(rows)
+        return (device_beam.BQScorer(d), (enc["packed"], enc["popcount"]),
+                bq.encode_device(queries)["packed"].contiguous())
+    if metric in ("dot", "cosine"):
+        rows, queries = normalize(rows), normalize(queries)
+    sq = ScalarQuantizer(d, metric)
+    host = rows.cpu().numpy()
+    sq.fit(host[:20_000])
+    enc = sq.encode(host)
+    operands = (torch.from_numpy(enc["codes"]).to(rows.device),
+                torch.from_numpy(enc["dec_sqnorm"]).to(rows.device), sq.a,
+                sq.s)
+    return device_beam.SQScorer(metric), operands, queries.contiguous()
 
 
 def b2_operands(metric: str, rows: torch.Tensor) -> torch.Tensor:
@@ -400,6 +551,12 @@ def beam_kernel_grid(seed: int) -> dict:
             "absent": set(), "selectivity": set(), "keep_k": set(),
             "expand": set(), "max_steps_binds": 0}
     case = fcase = 0
+    # the quantized walks draw from their own generator: the raw walks'
+    # graphs and masks stay those of the stream above
+    qrng = np.random.default_rng(seed + 6)
+    quant = {"bq_cases": 0, "bq_slots_equal": 0, "sq_cases": 0,
+             "sq_max_abs_err": 0.0, "sq_same": 0, "sq_total": 0,
+             "sq_metrics": set()}
     for gi, (d, m) in enumerate((d, m) for d in B2_DIMS for m in B2_M):
         rows = rng.standard_normal((B2_ROWS, d), dtype=np.float32)
         t0 = time.perf_counter()
@@ -452,7 +609,7 @@ def beam_kernel_grid(seed: int) -> dict:
                     rng.random(adj.shape[0]) < sel).to(dev), keep_k=keep,
                     expand=expand)
             kernel = device_beam.fused_search_cuda(
-                scorer, q, corpus, adj, present, eps, *up, ef, max_steps,
+                scorer, q, (corpus,), adj, present, eps, *up, ef, max_steps,
                 **kw)
             plain = device_beam._fused_search(
                 scorer, q, (corpus,), adj, present, eps, *up, ef, max_steps,
@@ -473,8 +630,8 @@ def beam_kernel_grid(seed: int) -> dict:
                 raise AssertionError("B2 returned an absent node")
             if steps:
                 full = device_beam.fused_search_cuda(
-                    scorer, q, corpus, adj, present, eps, *up, ef, 4 * ef + 64,
-                    **kw)
+                    scorer, q, (corpus,), adj, present, eps, *up, ef,
+                    4 * ef + 64, **kw)
                 if torch.equal(full[0], kernel[0]):
                     raise AssertionError("max_steps did not bind")
                 seen["max_steps_binds"] += 1
@@ -488,6 +645,48 @@ def beam_kernel_grid(seed: int) -> dict:
             seen["metric"].add(f"{metric}/{prec}")
             seen["upper"].add(upper)
             seen["absent"].add(absent)
+        # the quantized scorers on the same graph: BQ and SQ code planes of
+        # its rows, filtered on every other graph
+        for kind in ("bq", "sq"):
+            metric = B2_SQ_METRICS[gi % len(B2_SQ_METRICS)]
+            b = B2_BS[(gi + (kind == "sq")) % len(B2_BS)]
+            ef = B2_EFS[(gi + 2 * (kind == "sq")) % len(B2_EFS)]
+            scorer, operands, q = quant_walk_inputs(kind, metric, base,
+                                                    base[:b] + 0.1 * noise[:b])
+            eps = torch.full((b,), graph.entrypoint, dtype=torch.int32,
+                             device=dev)
+            kw = {}
+            if gi % 2:
+                kw = dict(allow=torch.from_numpy(
+                    qrng.random(adj.shape[0]) < 0.1).to(dev), keep_k=32,
+                    expand=1 + gi % 4)
+            kernel = device_beam.fused_search_cuda(
+                scorer, q, operands, adj, present, eps, ua, us, ef,
+                4 * ef + 64, **kw)
+            plain = device_beam._fused_search(
+                scorer, q, operands, adj, present, eps, ua, us, ef,
+                4 * ef + 64, **kw)
+            torch.cuda.synchronize()
+            if kind == "bq":
+                # integer distances: the walk is the plain version's exactly
+                for kt, pt in zip(kernel, plain):
+                    if not torch.equal(kt, pt):
+                        raise AssertionError("the BQ walk differs from its "
+                                             "plain version")
+                quant["bq_cases"] += 1
+                quant["bq_slots_equal"] += sum(t.numel() for t in kernel[::2])
+                continue
+            e, s_, t = compare_walks(kernel[:2], plain[:2],
+                                     MIN_ID_AGREEMENT_BF16)
+            if kw:
+                ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"],
+                                        present, MIN_ID_AGREEMENT_BF16)
+                e, s_, t = max(e, ek), s_ + sk, t + tk
+            quant["sq_cases"] += 1
+            quant["sq_max_abs_err"] = max(quant["sq_max_abs_err"], e)
+            quant["sq_same"] += s_
+            quant["sq_total"] += t
+            quant["sq_metrics"].add(metric)
         case += len(B2_METRICS)
         del idx, mirror, adj, present, ua, us, base, noise
         torch.cuda.empty_cache()
@@ -507,7 +706,7 @@ def beam_kernel_grid(seed: int) -> dict:
             dict(allow=torch.ones(64, dtype=torch.bool, device=dev),
                  keep_k=32)):
         args = dict(scorer=device_beam.RawScorer("l2-squared", "fp32"),
-                    queries=z[:2], corpus=z,
+                    queries=z[:2], operands=(z,),
                     adjacency=torch.full((64, 8), -1, dtype=torch.int32,
                                          device=dev),
                     present=torch.ones(64, dtype=torch.bool, device=dev),
@@ -526,7 +725,8 @@ def beam_kernel_grid(seed: int) -> dict:
     # memory (checked by the C side against the card's) fits a block
     dm, wm, em = device_beam.MAX_DIMS, device_beam.MAX_WIDTH, device_beam.MAX_EF
     wide = (device_beam.RawScorer("l2-squared", "fp32"),
-            torch.randn((2, dm), device=dev), torch.randn((64, dm), device=dev),
+            torch.randn((2, dm), device=dev),
+            (torch.randn((64, dm), device=dev),),
             torch.cat([torch.rand((64, 64), device=dev).argsort(1)[:, :16],
                        torch.full((64, wm - 16), -1, device=dev)],
                       1).int().contiguous(),
@@ -536,15 +736,19 @@ def beam_kernel_grid(seed: int) -> dict:
     wkw = dict(allow=torch.arange(64, device=dev) % 2 == 0, keep_k=em,
                expand=device_beam.MAX_FRONTIER // wm - 1)
     kernel = device_beam.fused_search_cuda(*wide, **wkw)
-    plain = device_beam._fused_search(wide[0], wide[1], (wide[2],),
-                                      *wide[3:], **wkw)
+    plain = device_beam._fused_search(*wide, **wkw)
     torch.cuda.synchronize()
     e, s_, t = compare_walks(kernel[:2], plain[:2], MIN_ID_AGREEMENT)
     ek, sk, tk = check_kept(kernel[2:], plain[2:], wkw["allow"], wide[4],
                             MIN_ID_AGREEMENT)
     max_err, same, total = max(max_err, e, ek), same + s_ + sk, total + t + tk
     cases += 1
+    if quant["sq_metrics"] != set(B2_SQ_METRICS):
+        raise AssertionError(f"the SQ walks left a metric out: {quant}")
+    quant["sq_id_agreement"] = quant["sq_same"] / max(1, quant["sq_total"])
+    quant["sq_metrics"] = sorted(quant["sq_metrics"])
     return {"cases": cases,
+            "quantized_walks": quant,
             "filtered_cases": fcase + len(B2_DIMS) * len(B2_M) // 2,
             "graphs": len(B2_DIMS) * len(B2_M),
             "graph_rows": B2_ROWS, "graph_build_s": builds,
@@ -1029,26 +1233,42 @@ class LaunchSpy:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+def scorer_row(scorer, operands) -> tuple[int, int]:
+    """(bytes, element operations) of one scored row of a B2 walk: a float32
+    row (3 operations an element), a BQ row of words and its popcount (AND,
+    popcount and add a word), or an SQ row of byte codes and its decoded
+    norm (a multiply-add a code)."""
+    if isinstance(scorer, device_beam.BQScorer):
+        w = operands[0].shape[1]
+        return w * 4 + 4, 3 * w
+    if isinstance(scorer, device_beam.SQScorer):
+        d = operands[0].shape[1]
+        return d + 4, 2 * d
+    d = operands[0].shape[1]
+    return d * 4, 3 * d
+
+
 def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
     """The least time of one B2 launch on this run's data: the bytes the
-    walk must move (query rows; each row it scored and kept, with its
-    presence and allow bytes; the adjacency rows of the hops it expanded
-    and of the second hop's parents; the upper rows; the outputs) over the
-    memory rate, against its float32 operations (3 a scored element) over
-    the float32 rate. What the kernel moves beyond that by its own design
-    is reported beside the bound, in ``overhead_bytes``: the rows it scored
-    before the visited test and dropped, and the adjacency rows it read
-    ahead for a node the next hop did not expand."""
-    scorer, q, corpus, adj, present, eps, ua, us, ef, _ = args
+    walk must move (query rows; each row it scored and kept, by its
+    scorer's row type, with its presence and allow bytes; the adjacency
+    rows of the hops it expanded and of the second hop's parents; the upper
+    rows; the outputs) over the memory rate, against its element operations
+    over the float32 rate. What the kernel moves beyond that by its own
+    design is reported beside the bound, in ``overhead_bytes``: the rows it
+    scored before the visited test and dropped, and the adjacency rows it
+    read ahead for a node the next hop did not expand."""
+    scorer, q, operands, adj, present, eps, ua, us, ef, _ = args
     keep_k = kw.get("keep_k", 0) if kw.get("allow") is not None else 0
     st = stats.long().sum(0).tolist()
-    d, m0 = corpus.shape[1], adj.shape[1]
+    m0 = adj.shape[1]
     m = ua.shape[2] if ua.shape[0] else 0
     b = q.shape[0]
-    row_bytes = d * 4 + 1 + (1 if keep_k else 0)
-    nbytes = (b * d * 4 + st[1] * row_bytes + st[2] * m0 * 4
-              + st[3] * m * 4 + b * (ef + keep_k) * 8)
-    flops = 3.0 * st[1] * d
+    row, ops = scorer_row(scorer, operands)
+    row_bytes = row + 1 + (1 if keep_k else 0)
+    nbytes = (q.numel() * q.element_size() + st[1] * row_bytes
+              + st[2] * m0 * 4 + st[3] * m * 4 + b * (ef + keep_k) * 8)
+    flops = float(st[1] * ops)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     per_q = stats.float()
     return (max(t_bytes, t_ops) * 1e3,
@@ -1072,13 +1292,19 @@ def time_walk(args, kw, iters: int, plain_iters: int) -> dict:
     stats = torch.zeros((q.shape[0], len(device_beam.STATS)),
                         dtype=torch.int32, device="cuda")
     kernel = device_beam.fused_search_cuda(*args, **kw, stats=stats)
-    plain = device_beam._fused_search(scorer, q, (c,), adj, present, eps,
-                                      ua, us, ef, max_steps, **kw)
+    plain = device_beam._fused_search(*args, **kw)
     torch.cuda.synchronize()
-    err, same, total = compare_walks(kernel[:2], plain[:2], MIN_ID_AGREEMENT)
+    if isinstance(scorer, device_beam.BQScorer):
+        # integer distances: the walk is the plain version's exactly
+        if not all(torch.equal(kt, pt) for kt, pt in zip(kernel, plain)):
+            raise AssertionError("the BQ walk differs from its plain version")
+    agreement = (MIN_ID_AGREEMENT_BF16
+                 if isinstance(scorer, device_beam.SQScorer)
+                 else MIN_ID_AGREEMENT)
+    err, same, total = compare_walks(kernel[:2], plain[:2], agreement)
     if len(kernel) == 4:
         ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"], present,
-                                MIN_ID_AGREEMENT)
+                                agreement)
         err, same, total = max(err, ek), same + sk, total + tk
     ms = cuda_ms(lambda: device_beam.fused_search_cuda(*args, **kw), iters, 3)
     # the same launches back to back: the device time without the host's
@@ -1090,9 +1316,8 @@ def time_walk(args, kw, iters: int, plain_iters: int) -> dict:
         device_beam.fused_search_cuda(*args, **kw)
     t1.record()
     t1.synchronize()
-    plain_ms = cuda_ms(lambda: device_beam._fused_search(
-        scorer, q, (c,), adj, present, eps, ua, us, ef, max_steps, **kw),
-        plain_iters, 1)
+    plain_ms = cuda_ms(lambda: device_beam._fused_search(*args, **kw),
+                       plain_iters, 1)
     bound_ms, bound_by, work = walk_bound(args, kw, stats)
     return {"rows": q.shape[0], "ef_pad": ef, "max_steps": max_steps,
             "ms_median": float(np.median(ms)), "ms_max": float(np.max(ms)),
@@ -1412,6 +1637,564 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "card": state["card"],
     }
 
+# phase quant: bench.py bench_bq's configuration (LAION-like BQ flat, 768-d:
+# 4,096 centres from seed 99, noise 0.45, unit rows; queries = the first
+# 256 rows + 0.05 noise) and bench_msmarco's per-tenant SQ index (2,048
+# centres, noise 0.4, unit rows, 8.8M / 16 tenants = 550,000 rows)
+QUANT_DIMS = 768
+BQ_ROWS, BQ_RESCORE = 10_000_000, 320
+SQ_ROWS, SQ_RESCORE = 550_000, 200
+QUANT_ADD_STEP = 500_000
+
+
+def clustered(n: int, d: int, centres: int, noise: float, seed: int,
+              unit: bool = True) -> torch.Tensor:
+    """Seeded clustered rows made on the card (bench.py's generators'
+    shapes; numpy would take minutes at 10M rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.randn(centres, d, generator=gen, device="cuda")
+    out = torch.empty((n, d), device="cuda")
+    for s in range(0, n, QUANT_ADD_STEP):
+        e = min(n, s + QUANT_ADD_STEP)
+        assign = torch.randint(0, centres, (e - s,), generator=gen,
+                               device="cuda")
+        out[s:e] = c[assign] + noise * torch.randn(e - s, d, generator=gen,
+                                                   device="cuda")
+    return normalize(out) if unit else out
+
+
+def exact_truth(corpus: torch.Tensor, queries: torch.Tensor, metric: str,
+                k: int = K) -> np.ndarray:
+    """Exact float32 top-k ids (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return flat_search(queries, corpus, k, metric, chunk_size=262144,
+                       precision="fp32")[1].cpu().numpy()
+
+
+def scan_bound(kind: str, b: int, n: int, d: int, fetch: int
+               ) -> tuple[float, str, dict]:
+    """The least time of a Q1/Q2 scan: its inputs read once (code planes,
+    per-row floats, the mask, the queries) and its outputs written once,
+    over the memory rate, against its 2*B*N*D products over the int8 (BQ
+    bit products) or bf16 (SQ) tensor-core rate."""
+    if kind == "bq":
+        w = (d + 31) // 32
+        nbytes = n * (w * 4 + 4 + 1) + b * w * 4 + b * fetch * 8
+        t_ops = 2.0 * b * n * d / INT8_OPS_S
+    else:
+        nbytes = n * (d + 4 + 1) + b * d * 4 + b * fetch * 8
+        t_ops = 2.0 * b * n * d / BF16_FLOP_S
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "ops": 2 * b * n * d})
+
+
+def select_bound(b: int, n: int, k: int) -> tuple[float, str, dict]:
+    """The least time of the selection: its [b, n] key block read once and
+    its [b, k] keys and columns written once, over the memory rate (its
+    comparisons are not a tensor-core rate's work)."""
+    nbytes = b * n * 4 + b * k * 8
+    return nbytes / HBM_BYTES_S * 1e3, "bytes", {"bytes": nbytes}
+
+
+def check_select(scan, b: int, n: int, k: int) -> dict:
+    """The selection alone (``select_topk``, five launches) on the key block
+    of the search's first chunk of queries, held exactly against its plain
+    version (a stable sort), timed beside it and beside ``torch.topk`` over
+    the same keys in signed order."""
+    bc = quantized.query_chunk(b, n)
+    keys = torch.empty((bc, n), dtype=torch.int32, device="cuda")
+    scan(0, bc, keys)
+    kk = min(k, n)
+    sk, sc = quantized.select_topk(keys, kk)
+    pk, pc = quantized.select_topk_plain(keys, kk)
+    torch.cuda.synchronize()
+    if not (torch.equal(sk, pk) and torch.equal(sc, pc)):
+        raise AssertionError("the selection differs from its plain version")
+    ms = cuda_ms(lambda: quantized.select_topk(keys, kk), 10, 2)
+    plain_ms = cuda_ms(lambda: quantized.select_topk_plain(keys, kk), 2, 1)
+    # the keys' unsigned order as int32's signed order: what topk sorts
+    signed = torch.bitwise_xor(keys, -(1 << 31))
+    lk = torch.topk(signed, kk, dim=1, largest=False, sorted=True).values
+    if not torch.equal(torch.bitwise_xor(lk, -(1 << 31)), sk):
+        raise AssertionError("torch.topk selects other keys")
+    library_ms = cuda_ms(lambda: torch.topk(signed, kk, dim=1, largest=False,
+                                            sorted=True), 10, 2)
+    bound_ms, bound_by, work = select_bound(bc, n, kk)
+    del keys, signed, pk, pc
+    torch.cuda.empty_cache()
+    return {"ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
+            "library_ms": float(np.median(library_ms)), "bound_ms": bound_ms,
+            "bound_by": bound_by, "work": work,
+            "shape": {"b": bc, "n": n, "k": kk}}
+
+
+def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
+               state: dict) -> dict:
+    """One quantized flat index through ``make_flat``: ingest from the
+    card's rows (``rows()`` makes them and the queries; the corpus is freed
+    after the ground truth), recall@10 against the exact float32 answer,
+    the scan kernel's launches a search (one a chunk of queries) and the
+    selection's, its time beside its bound and its plain version, the
+    selection alone, search p50/p99, the rescore's share, device and host
+    bytes."""
+    corpus, queries = rows()
+    d = corpus.shape[1]
+    idx = make_flat(d, cfg)
+    t0 = time.perf_counter()
+    for s in range(0, n, QUANT_ADD_STEP):
+        e = min(n, s + QUANT_ADD_STEP)
+        idx.add_batch(np.arange(s, e, dtype=np.int64), corpus[s:e].cpu().numpy())
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    gt = exact_truth(corpus, queries, "cosine")
+    del corpus
+    torch.cuda.empty_cache()
+    qn = queries.cpu().numpy()
+    backend = idx.backend
+    qrep = backend.prep_queries(qn)
+    planes, mask = backend.codes.snapshot()
+    nrows = int(mask.shape[0])
+    # the served path, launches counted from 0 for one search: one scan a
+    # chunk of queries, five selection launches a chunk
+    scan_fn = quantized.bq_search if kind == "bq" else quantized.sq_search
+    scan_fn.launches = 0
+    quantized.select_topk.launches = 0
+    res = idx.search(qn, K)
+    launches = scan_fn.launches
+    select_launches = quantized.select_topk.launches
+    want = quantized.scan_launches(len(qn), nrows)
+    if launches != want or \
+            select_launches != quantized.SELECT_LAUNCHES * want:
+        raise AssertionError(
+            f"{kind} flat search made {launches} scan and {select_launches} "
+            f"selection launches, not {want} and "
+            f"{quantized.SELECT_LAUNCHES * want}")
+    rec = recall(res.ids, gt)
+    search_ms = host_p(lambda: idx.search(qn, K), 20)
+    # the search's kernels alone, on the search's own inputs
+    fetch = max(4 * K, cfg.quantizer.rescore_limit, K)
+    if kind == "bq":
+        args = (qrep.code, planes["packed"], planes["popcount"], mask,
+                d, fetch)
+        kernel, plain = quantized.bq_search_cuda, quantized._bq_search_plain
+
+        def scan(lo, hi, keys):
+            quantized.bq_scan_cuda(qrep.code[lo:hi], planes["packed"],
+                                   planes["popcount"], mask, d, keys)
+    else:
+        args = (qrep.code, planes["codes"], planes["dec_sqnorm"],
+                backend.quantizer.a, backend.quantizer.s, mask, "cosine",
+                fetch)
+        kernel, plain = quantized.sq_search_cuda, quantized._sq_search_plain
+        qb, q_sum, q_sq = quantized.sq_query_terms(qrep.code)
+
+        def scan(lo, hi, keys):
+            quantized.sq_scan_cuda(qb[lo:hi], planes["codes"],
+                                   planes["dec_sqnorm"], mask, q_sum[lo:hi],
+                                   q_sq[lo:hi], backend.quantizer.a,
+                                   backend.quantizer.s, "cosine", keys)
+    kd, ki = kernel(*args)
+    pd, pi = plain(*args)
+    torch.cuda.synchronize()
+    if kind == "bq":
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            raise AssertionError("Q1 differs from its plain version")
+        err, agree = 0.0, 1.0
+    else:
+        def near(ids):
+            dist = quantized.sq_gather_distance(
+                qrep.code, planes["codes"], ids.clamp(min=0),
+                planes["dec_sqnorm"], backend.quantizer.a,
+                backend.quantizer.s, "cosine")
+            return torch.where(ids < 0, float("inf"), dist)
+
+        err, same, total = compare(kd, ki, pd, pi, near)
+        agree = same / max(1, total)
+    ms = cuda_ms(lambda: kernel(*args), 10, 2)
+    plain_ms = cuda_ms(lambda: plain(*args), 1, 0)
+    bound_ms, bound_by, work = scan_bound(kind, len(qn), nrows, d, fetch)
+    # the scans alone: every chunk's launch into one key block
+    bc = quantized.query_chunk(len(qn), nrows)
+    keys = torch.empty((bc, nrows), dtype=torch.int32, device="cuda")
+    scans_ms = cuda_ms(lambda: [scan(lo, min(len(qn), lo + bc),
+                                     keys[:min(len(qn), lo + bc) - lo])
+                                for lo in range(0, len(qn), bc)], 10, 2)
+    del keys
+    torch.cuda.empty_cache()
+    select = check_select(scan, len(qn), nrows, fetch)
+    # the host rescore of the scan's candidates, alone
+    cand = ki.cpu().numpy()
+    rescore_ms = host_p(lambda: exact_rescore(
+        qrep.host, cand, backend.originals, "cosine", K), 5)
+    p50 = float(np.percentile(search_ms, 50))
+    state[f"kernel_q{1 if kind == 'bq' else 2}"] = {
+        "name": f"{kind}_scan", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/quantized.cu",
+        "replaces": ("weaviate_tpu/ops/quantized.py:138" if kind == "bq"
+                     else "weaviate_tpu/ops/quantized.py:168"),
+        "launches": launches, "max_abs_err": err,
+        "ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "share_of_bound": bound_ms / float(np.median(ms)),
+        "ms_covers": f"one search: {launches} scan launches and their "
+                     "selections",
+        "scans_only_ms": float(np.median(scans_ms)),
+        "launches_per_search": launches,
+        "shape": {"b": len(qn), "n": nrows, "d": d, "fetch": fetch,
+                  "query_chunk": bc},
+    }
+    # the selection's entry: its times at the BQ search's shape (the
+    # larger), the SQ search's beside them
+    if kind == "bq":
+        state["kernel_select"] = {
+            "name": "topk_select", "route": "cuda",
+            "source": "weaviate_tpu_torch/csrc/quantized.cu",
+            "replaces": "weaviate_tpu/ops/quantized.py:68",
+            "launches": 0, "max_abs_err": 0.0, **select}
+    else:
+        state["kernel_select"]["at_sq_shape"] = select
+    state["kernel_select"]["launches"] += select_launches
+    state["kernel_select"][f"launches_{kind}_search"] = select_launches
+    out = {
+        "rows": n, "dims": d, "metric": "cosine",
+        "quantizer": kind, "rescore_limit": cfg.quantizer.rescore_limit,
+        "fetch": fetch, "batch": len(qn), "k": K,
+        "ingest_s": ingest_s, "vectors_per_s": n / ingest_s,
+        "recall_at_10": rec, "scan_launches_per_search": launches,
+        "select_launches_per_search": select_launches,
+        "search_p50_ms": p50,
+        "search_p99_ms": float(np.percentile(search_ms, 99)),
+        "qps": len(qn) / p50 * 1e3,
+        "scan_ms": float(np.median(ms)), "scan_bound_ms": bound_ms,
+        "scan_bound_by": bound_by, "scan_plain_ms": float(np.median(plain_ms)),
+        "scans_only_ms": float(np.median(scans_ms)), "select": select,
+        "scan_work": work, "scan_vs_plain_max_abs_err": err,
+        "scan_vs_plain_id_agreement": agree,
+        "rescore_p50_ms": float(np.percentile(rescore_ms, 50)),
+        "rescore_share_of_search": float(np.percentile(rescore_ms, 50)) / p50,
+        "device_bytes": backend.codes.nbytes,
+        "host_bytes": backend.originals.nbytes,
+    }
+    del idx, backend, qrep, planes, mask, args, kd, ki, pd, pi, scan
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant(state: dict) -> dict:
+    """The quantized flat indexes at bench_bq's and bench_msmarco's
+    configurations, each through ``make_flat`` and its scan kernel."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def bq_rows():
+        corpus = clustered(BQ_ROWS, QUANT_DIMS, 4096, 0.45, 99)
+        return corpus, normalize(corpus[:BATCH] + 0.05 * torch.randn(
+            BATCH, QUANT_DIMS, generator=gen, device="cuda"))
+
+    def sq_rows():
+        corpus = clustered(SQ_ROWS, QUANT_DIMS, 2048, 0.4, 1000)
+        pick = torch.randint(0, SQ_ROWS, (BATCH,), generator=gen,
+                             device="cuda")
+        return corpus, normalize(corpus[pick] + 0.05 * torch.randn(
+            BATCH, QUANT_DIMS, generator=gen, device="cuda"))
+
+    bq = quant_flat("bq", BQ_ROWS, FlatIndexConfig(
+        distance="cosine", initial_capacity=BQ_ROWS,
+        quantizer=BQConfig(rescore_limit=BQ_RESCORE)), bq_rows, state)
+    sq = quant_flat("sq", SQ_ROWS, FlatIndexConfig(
+        distance="cosine", initial_capacity=SQ_ROWS,
+        quantizer=SQConfig(rescore_limit=SQ_RESCORE)), sq_rows, state)
+    return {"bq": bq, "sq": sq,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "card": state["card"]}
+
+
+# phase hnsw_quant: bench.py bench_hnsw_quant's bq configuration (seed 29,
+# 1,024 centres, noise 0.35, l2-squared, 768-d; queries = the first 256 rows
+# + 0.1 noise), cut in depth from HNSW_QUANT_CONFIGURED to HNSW_QUANT_ROWS
+# for the time limit (the build is host-bound at about 1,500-1,800 rows/s);
+# a fixed depth, so B2-BQ's and the build's numbers compare across runs
+HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 262_144
+HNSW_QUANT_EF, HNSW_QUANT_RESCORE = 96, 80
+
+
+def hnsw_quant_data(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """bench_hnsw_quant's rows and queries, as float32 numpy."""
+    rng = np.random.default_rng(29)
+    centers = rng.standard_normal((1024, QUANT_DIMS)).astype(np.float32)
+    corpus = centers[rng.integers(0, 1024, n)] + 0.35 * rng.standard_normal(
+        (n, QUANT_DIMS)).astype(np.float32)
+    queries = corpus[:BATCH] + 0.1 * rng.standard_normal(
+        (BATCH, QUANT_DIMS)).astype(np.float32)
+    return corpus, queries
+
+
+def phase_hnsw_quant(state: dict) -> dict:
+    """HNSW + BQ with the fused walk: build, recall of the device walk
+    against the host walk on the same index, one B2 launch a search, B2-BQ
+    beside its bound and its plain version."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus, queries = hnsw_quant_data(HNSW_QUANT_ROWS)
+    state["hnsw_quant"] = (corpus, queries)
+    cfg = HNSWIndexConfig(
+        distance="l2-squared", ef=HNSW_QUANT_EF, ef_construction=96,
+        max_connections=16, insert_batch=4096, flat_search_cutoff=0,
+        device_beam=True, initial_capacity=HNSW_QUANT_ROWS,
+        quantizer=BQConfig(rescore_limit=HNSW_QUANT_RESCORE))
+    idx = HNSWIndex(QUANT_DIMS, cfg)
+    device_beam.fused_search.launches = 0
+    t0 = time.perf_counter()
+    rows = HNSW_QUANT_ROWS
+    with LaunchSpy() as build_spy:
+        for s in range(0, rows, 100_000):
+            e = min(rows, s + 100_000)
+            idx.add_batch(np.arange(s, e), corpus[s:e])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = device_beam.fused_search.launches
+    if build_launches < 1:
+        raise AssertionError("the BQ construction did not launch B2")
+    build_b2_ms = build_spy.ms()
+    gt = exact_truth(torch.from_numpy(corpus[:rows]).cuda(),
+                     torch.from_numpy(queries).cuda(), "l2-squared")
+
+    device_beam.fused_search.launches = 0
+    res = idx.search(queries, K)
+    search_launches = device_beam.fused_search.launches
+    if search_launches != 1:
+        raise AssertionError(f"HNSW+BQ search made {search_launches} B2 "
+                             "launches, not one")
+    rec = recall(res.ids, gt)
+    search_ms = host_p(lambda: idx.search(queries, K), 20)
+    with LaunchSpy() as spy:
+        idx.search(queries, K)
+    walk = time_walk(*spy.last, 20, 1)
+    beam = idx._device_beam
+    idx._device_beam = None
+    try:
+        host_res = idx.search(queries, K)
+        host_ms = host_p(lambda: idx.search(queries, K), 2)
+    finally:
+        idx._device_beam = beam
+    host_rec = recall(host_res.ids, gt)
+    if rec < host_rec - 0.005:
+        raise AssertionError(f"HNSW+BQ device-walk recall {rec} < host walk "
+                             f"{host_rec} - 0.005")
+    state["kernel_b2_bq"] = {
+        "name": "device_beam_search/bq", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/device_beam.cu",
+        "replaces": "weaviate_tpu/ops/device_beam.py:112",
+        "launches": build_launches + search_launches,
+        "max_abs_err": walk["vs_plain_max_abs_err"],
+        "ms": walk["ms_median"], "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
+        "library_ms": None, "launches_build": build_launches,
+        "launches_per_search": search_launches,
+        "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+    }
+    peak = torch.cuda.max_memory_allocated()
+    del idx, beam, spy, build_spy
+    torch.cuda.empty_cache()
+    return {
+        "rows": rows, "rows_configured": HNSW_QUANT_CONFIGURED,
+        "dims": QUANT_DIMS, "metric": "l2-squared", "quantizer": "bq",
+        "rescore_limit": HNSW_QUANT_RESCORE, "ef": HNSW_QUANT_EF,
+        "ef_construction": 96, "max_connections": 16, "insert_batch": 4096,
+        "batch": BATCH, "k": K,
+        "build_s": build_s, "vectors_per_s": rows / build_s,
+        "b2_launches_build": build_launches, "b2_build_ms": build_b2_ms,
+        "recall_at_10": rec, "host_walk_recall_at_10": host_rec,
+        "b2_launches_per_search": search_launches,
+        "search_p50_ms": float(np.percentile(search_ms, 50)),
+        "search_p99_ms": float(np.percentile(search_ms, 99)),
+        "host_walk_p50_ms": float(np.percentile(host_ms, 50)),
+        "b2_search_launch": walk,
+        "peak_device_bytes": peak, "card": state["card"],
+    }
+
+
+# phase quant_db: the first QUANT_DB_ROWS of phase hnsw_quant's rows as
+# objects in an HNSW + SQ collection (cosine), the scale of phase hnsw_db
+QUANT_DB_ROWS, QUANT_DB_EXTRA = 100_000, 2_000
+
+
+def phase_quant_db(seed: int, state: dict) -> dict:
+    """The quantized HNSW path through the user's entry point: ``DB`` ->
+    ``Collection`` -> ``Shard`` -> ``HNSWIndex`` + SQ -> B2-SQ and Q2."""
+    corpus, queries = state.pop("hnsw_quant")
+    rows = corpus[:QUANT_DB_ROWS + QUANT_DB_EXTRA]
+    rng = np.random.default_rng(seed + 3)
+    uuids = _uuids(rng, len(rows))
+    bucket = np.arange(len(rows)) % 100
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="chip_smoke_quant_db_")
+    try:
+        return _drive_quant_db(state, root, rows, queries, uuids,
+                               np.array(uuids), bucket)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
+    flt = Where.eq("bucket", FILTER_BUCKET)
+    beam_flt = Where.lt("bucket", BEAM_FILTER_BUCKETS)
+    n = QUANT_DB_ROWS
+
+    def put(db_col, lo, hi):
+        for s in range(lo, hi, DB_BATCH):
+            e = min(hi, s + DB_BATCH)
+            db_col.put_batch([StorageObject(
+                uuid=uuids[i], collection="Laion", vector=rows[i],
+                properties={"bucket": int(bucket[i])}) for i in range(s, e)])
+
+    db = DB(root)
+    col = db.create_collection(CollectionConfig(
+        name="Laion", properties=[Property("bucket", DataType.INT)],
+        vector_config=HNSWIndexConfig(
+            distance="cosine", ef=96, ef_construction=96, max_connections=16,
+            device_beam=True, quantizer=SQConfig(rescore_limit=200)),
+        resident_filters=[beam_flt.to_dict()]))
+    device_beam.fused_search.launches = 0
+    t0 = time.perf_counter()
+    put(col, 0, n)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_launches = device_beam.fused_search.launches
+    index = next(iter(col._shards.values())).vector_index()
+    if not isinstance(index, HNSWIndex) or not index.backend.quantized \
+            or index._device_beam is None:
+        raise AssertionError("the collection did not build a quantized "
+                             "fused-walk HNSW")
+    unit = normalize(torch.from_numpy(rows[:n]).cuda())
+    qt = normalize(torch.from_numpy(queries).cuda())
+    gt = exact_truth(unit, qt, "cosine")
+
+    device_beam.fused_search.launches = 0
+    got = uuid_rows(db_search(col, queries))
+    launches = device_beam.fused_search.launches
+    if launches < 1:
+        raise AssertionError("vector_search_batch did not launch B2-SQ")
+    rec = recall(got, uuid_arr[gt])
+    # the 1% filter: the planner's exact plan, the SQ scan (Q2)
+    plans = PLANNER_PLANS.value(plan=PLAN_EXACT)
+    quantized.sq_search.launches = 0
+    quantized.select_topk.launches = 0
+    rows_f = db_search(col, queries, flt)
+    q2_launches = quantized.sq_search.launches
+    q2_select_launches = quantized.select_topk.launches
+    if PLANNER_PLANS.value(plan=PLAN_EXACT) != plans + 1 or q2_launches < 1 \
+            or q2_select_launches != quantized.SELECT_LAUNCHES * q2_launches:
+        raise AssertionError("the 1% filter did not take the exact plan "
+                             "through the SQ scan and its selection")
+    if any(o.properties["bucket"] != FILTER_BUCKET
+           for r in rows_f for o, _ in r):
+        raise AssertionError("the filtered query returned a non-matching "
+                             "object")
+    got_f = uuid_rows(rows_f)
+    sel_f = np.flatnonzero(bucket[:n] == FILTER_BUCKET)
+    gt_f = sel_f[exact_truth(unit[torch.from_numpy(sel_f).cuda()], qt,
+                             "cosine")]
+    rec_f = recall(got_f, uuid_arr[gt_f])
+    # the resident 45% filter: the filtered beam, one B2-SQ launch with the
+    # kept track
+    plans = PLANNER_PLANS.value(plan=PLAN_BEAM)
+    device_beam.fused_search.launches = 0
+    with LaunchSpy() as spy:
+        rows_b = db_search(col, queries, beam_flt)
+    beam_launches = device_beam.fused_search.launches
+    if PLANNER_PLANS.value(plan=PLAN_BEAM) != plans + 1 or beam_launches != 1 \
+            or spy.last[1].get("allow") is None:
+        raise AssertionError("the 45% filter did not run as one filtered "
+                             "B2-SQ launch")
+    if any(o.properties["bucket"] >= BEAM_FILTER_BUCKETS
+           for r in rows_b for o, _ in r):
+        raise AssertionError("the filtered beam returned a non-matching "
+                             "object")
+    got_b = uuid_rows(rows_b)
+    sel_b = np.flatnonzero(bucket[:n] < BEAM_FILTER_BUCKETS)
+    gt_b = sel_b[exact_truth(unit[torch.from_numpy(sel_b).cuda()], qt,
+                             "cosine")]
+    rec_b = recall(got_b, uuid_arr[gt_b])
+    beam_walk = time_walk(*spy.last, 10, 1)
+    with LaunchSpy() as spy:
+        db_search(col, queries)
+    walk = time_walk(*spy.last, 10, 1)
+    search_ms = host_p(lambda: db_search(col, queries), 10)
+    filtered_ms = host_p(lambda: db_search(col, queries, flt), 5)
+    beam_ms = host_p(lambda: db_search(col, queries, beam_flt), 5)
+    state["kernel_b2_sq"] = {
+        "name": "device_beam_search/sq", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/device_beam.cu",
+        "replaces": "weaviate_tpu/ops/device_beam.py:85",
+        "launches": ingest_launches + launches + beam_launches,
+        "max_abs_err": walk["vs_plain_max_abs_err"],
+        "ms": walk["ms_median"], "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"], "bound_by": walk["bound_by"],
+        "library_ms": None, "launches_ingest": ingest_launches,
+        "launches_per_search": launches,
+        "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+    }
+    state["kernel_q2"]["launches"] += q2_launches
+    state["kernel_select"]["launches"] += q2_select_launches
+    state["kernel_select"]["launches_quant_db"] = q2_select_launches
+    del unit, qt, spy
+
+    t0 = time.perf_counter()
+    db.close()
+    db = DB(root)
+    col = db.get_collection("Laion")
+    reopen_s = time.perf_counter() - t0
+    if col.count() != n:
+        raise AssertionError(f"reopened count {col.count()} != {n}")
+    index = next(iter(col._shards.values())).vector_index()
+    if not index.backend.quantizer.fitted:
+        raise AssertionError("the reopened index lost its quantizer state")
+    if uuid_rows(db_search(col, queries)) != got \
+            or uuid_rows(db_search(col, queries, flt)) != got_f \
+            or uuid_rows(db_search(col, queries, beam_flt)) != got_b:
+        raise AssertionError("the reopened quantized collection answers "
+                             "differently")
+    db.flush()
+    put(col, n, n + QUANT_DB_EXTRA)
+    want = uuid_rows(db_search(col, queries))
+    pending = _crash_leaving_commit_logs(db)
+    t0 = time.perf_counter()
+    db = DB(root)
+    col = db.get_collection("Laion")
+    crash_reopen_s = time.perf_counter() - t0
+    if col.count() != n + QUANT_DB_EXTRA:
+        raise AssertionError("the crash-reopened collection lost objects")
+    if uuid_rows(db_search(col, queries)) != want:
+        raise AssertionError("the crash-reopened quantized collection "
+                             "answers differently")
+    db.close()
+    return {
+        "rows": n, "extra_rows_after_snapshot": QUANT_DB_EXTRA,
+        "quantizer": "sq", "rescore_limit": 200, "metric": "cosine",
+        "batch": BATCH, "k": K, "put_batch": DB_BATCH,
+        "ingest_s": ingest_s, "objects_per_s": n / ingest_s,
+        "b2_launches_ingest": ingest_launches,
+        "b2_launches_search": launches,
+        "recall_at_10": rec, "recall_at_10_filtered": rec_f,
+        "filtered_plan": PLAN_EXACT, "q2_launches_filtered": q2_launches,
+        "select_launches_filtered": q2_select_launches,
+        "recall_at_10_filtered_beam": rec_b, "filtered_beam_plan": PLAN_BEAM,
+        "b2_launches_filtered_beam": beam_launches,
+        "search_p50_ms": float(np.percentile(search_ms, 50)),
+        "search_p99_ms": float(np.percentile(search_ms, 99)),
+        "filtered_search_p50_ms": float(np.percentile(filtered_ms, 50)),
+        "filtered_beam_search_p50_ms": float(np.percentile(beam_ms, 50)),
+        "b2_search_launch": walk, "b2_filtered_beam_launch": beam_walk,
+        "reopen_s": reopen_s, "crash_reopen_s": crash_reopen_s,
+        "commit_log_bytes_replayed": pending,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "card": state["card"],
+    }
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1429,6 +2212,9 @@ def main(argv=None) -> int:
         ("db", lambda: phase_db(args.seed, state)),
         ("hnsw", lambda: phase_hnsw(state)),
         ("hnsw_db", lambda: phase_hnsw_db(args.seed, state)),
+        ("quant", lambda: phase_quant(state)),
+        ("hnsw_quant", lambda: phase_hnsw_quant(state)),
+        ("quant_db", lambda: phase_quant_db(args.seed, state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1436,7 +2222,9 @@ def main(argv=None) -> int:
         if name == "env":
             state["card"] = out["card"]
         emit({"phase": name, "seconds": time.perf_counter() - t0, **out})
-    emit({"kernels": [state["kernel"], state["kernel_b2"]]})
+    emit({"kernels": [state[k] for k in (
+        "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_q1",
+        "kernel_q2", "kernel_select")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

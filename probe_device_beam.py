@@ -175,10 +175,10 @@ def main(argv=None) -> int:
         db._library = lambda lib=lib: lib
         stats = torch.zeros((B, len(db.STATS)), dtype=torch.int32,
                             device="cuda")
-        ids, _ = db.fused_search_cuda(scorer, q, c, adj, present, eps, *up,
+        ids, _ = db.fused_search_cuda(scorer, q, (c,), adj, present, eps, *up,
                                       EF, steps, stats=stats)
         ms = launch_ms(lambda: db.fused_search_cuda(
-            scorer, q, c, adj, present, eps, *up, EF, steps), args.iters)
+            scorer, q, (c,), adj, present, eps, *up, EF, steps), args.iters)
         hops = int(stats[:, 0].max())
         out = {"copy": name, "rows": args.rows, "b": B, "ef": EF,
                "launch_ms": ms, "hops_max": hops,
@@ -194,7 +194,7 @@ def main(argv=None) -> int:
             # held against the plain version, unfiltered and filtered
             kw = dict(allow=allow, keep_k=32, expand=1)
             for tag, extra in (("", {}), ("filtered_", kw)):
-                got = db.fused_search_cuda(scorer, q, c, adj, present, eps,
+                got = db.fused_search_cuda(scorer, q, (c,), adj, present, eps,
                                            *up, EF, steps, **extra)
                 want = db._fused_search(scorer, q, (c,), adj, present, eps,
                                         *up, EF, steps, **extra)
@@ -202,14 +202,14 @@ def main(argv=None) -> int:
                     [(g == w_).float().flatten()
                      for g, w_ in zip(got[::2], want[::2])]).mean())
             out["filtered_launch_ms"] = launch_ms(lambda: db.fused_search_cuda(
-                scorer, q, c, adj, present, eps, *up, EF, steps, **kw),
+                scorer, q, (c,), adj, present, eps, *up, EF, steps, **kw),
                 args.iters)
         if name == "counters":
             lib.probe_counters.argtypes = [ctypes.c_void_p]
             cnt = (ctypes.c_ulonglong * 8)()
             torch.cuda.synchronize()
             lib.probe_counters(cnt)  # reset
-            db.fused_search_cuda(scorer, q, c, adj, present, eps, *up, EF,
+            db.fused_search_cuda(scorer, q, (c,), adj, present, eps, *up, EF,
                                  steps)
             torch.cuda.synchronize()
             lib.probe_counters(cnt)
@@ -222,7 +222,7 @@ def main(argv=None) -> int:
         for name in ("as_is", "against", "against", "as_is"):
             db._library = lambda lib=libs[name]: lib
             turns.append((name, launch_ms(lambda: db.fused_search_cuda(
-                scorer, q, c, adj, present, eps, *up, EF, steps),
+                scorer, q, (c,), adj, present, eps, *up, EF, steps),
                 args.iters)))
         print(json.dumps({"turns": turns}), flush=True)
     print(subprocess.run(

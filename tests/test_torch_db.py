@@ -408,9 +408,9 @@ UNPORTED = {
     "vectorizer": (lambda col, db: col.put_batch([StorageObject(
         uuid="", collection="Doc", properties={"bucket": 1})]), "slice 9"),
     "frozen_tenant": (lambda col, db: _freeze(db), "slice 9"),
-    "hnsw_index": (lambda col, db: build_vector_index(
-        DIMS, config.HNSWIndexConfig(quantizer=config.SQConfig()),
-        device="cpu"), "slice 4"),
+    "pq_hnsw_index": (lambda col, db: build_vector_index(
+        DIMS, config.HNSWIndexConfig(quantizer=config.PQConfig()),
+        device="cpu"), "slice 4b"),
     "multivector_index": (lambda col, db: build_vector_index(
         DIMS, config.MultiVectorIndexConfig(), device="cpu"), "slice 7"),
     "hfresh_index": (lambda col, db: build_vector_index(
@@ -418,9 +418,9 @@ UNPORTED = {
     "disk_raw_tier": (lambda col, db: build_vector_index(
         DIMS, config.FlatIndexConfig(raw_tier="disk16"), device="cpu"),
         "slice 9"),
-    "quantizer": (lambda col, db: build_vector_index(
-        DIMS, config.FlatIndexConfig(quantizer=config.SQConfig()),
-        device="cpu"), "slice 4"),
+    "rq_quantizer": (lambda col, db: build_vector_index(
+        DIMS, config.FlatIndexConfig(quantizer=config.RQConfig()),
+        device="cpu"), "slice 4b"),
     "rerank_module": (lambda col, db: config.RerankModuleConfig().validate(),
                       "slice 7"),
 }
@@ -465,10 +465,47 @@ def _dynamic_filtered_beam(col, db):
     assert allow[tr.ids].all()
 
 
+def _quantized_index(kind):
+    """A quantized index (slice 4a) from each package's
+    ``build_vector_index``: the same ids and distances as JAX, after a
+    delete and under a filter."""
+    from weaviate_tpu.core.shard import build_vector_index as jbuild
+
+    def route(col, db):
+        def cfg(mod):
+            quant = mod.SQConfig(rescore_limit=40)
+            if kind == "hnsw":
+                return mod.HNSWIndexConfig(
+                    distance="l2-squared", quantizer=quant, ef=32,
+                    ef_construction=48, max_connections=8,
+                    flat_search_cutoff=0, device_beam=True)
+            return mod.FlatIndexConfig(distance="l2-squared", quantizer=quant)
+
+        vecs = np.random.default_rng(2).standard_normal((600, DIMS)).astype(
+            np.float32)
+        jidx, tidx = jbuild(DIMS, cfg(jconfig)), build_vector_index(
+            DIMS, cfg(config), device="cpu")
+        allow = np.arange(600) % 4 != 0
+        for idx in (jidx, tidx):
+            idx.add_batch(np.arange(600), vecs)
+            idx.delete(np.arange(0, 600, 7))
+        assert tidx.backend.quantized and tidx.backend.quantizer.fitted
+        for al in (None, allow):
+            jr = jidx.search(vecs[:8] + 0.05, 5, allow_list=al)
+            tr = tidx.search(vecs[:8] + 0.05, 5, allow_list=al)
+            np.testing.assert_array_equal(tr.ids, jr.ids)
+            np.testing.assert_allclose(tr.dists, jr.dists, rtol=1e-5,
+                                       atol=1e-4)
+
+    return route
+
+
 # routes of this list's slices that are ported since: each answers as the
 # JAX package does
 PORTED = {
     "dynamic_index": _dynamic_filtered_beam,
+    "hnsw_index": _quantized_index("hnsw"),
+    "quantizer": _quantized_index("flat"),
 }
 
 
@@ -622,3 +659,44 @@ def test_dispatcher_propagates_errors_and_stays_usable():
     for _ in range(2):
         with pytest.raises(RuntimeError, match="boom"):
             disp.search(np.zeros((1, 4), np.float32), 3)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("kind", ["bq_flat", "sq_hnsw"])
+def test_quantized_collection_opens_in_the_other_package(dbs, writer, kind):
+    """A collection with a quantized vector index (codes not checkpointed:
+    rebuilt from the objects on open; an HNSW graph from graph.npz and the
+    quantizer from quantizer.msgpack) written by one package opens in the
+    other with the same uuids; deletes after the reopen never come back.
+    (Deletes before a close are left out: both packages rebuild codes for
+    live objects only, so a reopened quantized graph walks its tombstones
+    with empty codes and answers differently from before the close, in
+    either package; ROADMAP queue C.)"""
+    recs = _records(4, n=1200)
+    mod = jconfig if writer == "jax" else config
+    cfg = _cfg(mod)
+    if kind == "bq_flat":
+        cfg.vector_config = mod.FlatIndexConfig(
+            distance="cosine", quantizer=mod.BQConfig(rescore_limit=40))
+    else:
+        cfg.vector_config = mod.HNSWIndexConfig(
+            distance="cosine", quantizer=mod.SQConfig(rescore_limit=40),
+            ef=32, ef_construction=48, max_connections=8,
+            flat_search_cutoff=0, device_beam=True)
+    db = dbs(writer, "q")
+    col = db.create_collection(cfg)
+    _put(col, JaxObject if writer == "jax" else StorageObject, recs)
+    q = _queries(recs, b=6)
+    want = [_answers(col, q, f if writer == "torch" else _jflt(f))[0]
+            for f in (None, FILTERS[1])]
+    db.close()
+    reader = "torch" if writer == "jax" else "jax"
+    col2 = dbs(reader, "q").get_collection("Doc")
+    assert col2.count() == 1200
+    got = [_answers(col2, q, f if reader == "torch" else _jflt(f))[0]
+           for f in (None, FILTERS[1])]
+    assert got == want and any(want[0])
+    gone = [u for row in want[0] for u in row[:2]]
+    col2.delete(gone)
+    after = _answers(col2, q, None if reader == "torch" else _jflt(None))[0]
+    assert not set(gone) & {u for row in after for u in row}

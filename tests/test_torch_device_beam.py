@@ -15,6 +15,13 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   cosine bf16, ``expand`` 0/1/2/4, ``keep_k`` 8/32, allow masks at 1%,
   10% and 50%, tombstoned and absent nodes and a binding ``max_steps``.
   Beam and kept ids equal, distances within 1e-5.
+- The quantized scorers: the plain walk with ``BQScorer`` (packed sign
+  bits) equals JAX's exactly, ids and distances (integer distances, and
+  ties on nearly every hop at D = 16); with ``SQScorer`` (byte codes) for
+  l2-squared, dot and cosine the ids agree on >= 0.99 of the slots and
+  matched distances within 1e-5 (float32 sums of the same bf16 products in
+  another order). Filtered walks included. ``PQScorer``/``RQScorer``
+  raise (slice 4b).
 - ``dispatch_count()`` goes up by exactly one per launch of a search: one
   for a batch whose visited bitsets fit the budget.
 - The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
@@ -393,11 +400,11 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(over, match):
     a = _tiny_walk_args(**over)
     with pytest.raises(ValueError, match=match):
         tbeam._check_kernel_args(
-            a["scorer"], a["queries"], a["operands"][0], a["adjacency"],
+            a["scorer"], a["queries"], a["operands"], a["adjacency"],
             a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
             a["ef"], a["max_steps"], a.get("allow"), a.get("keep_k", 0),
             a.get("expand", 0))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(TypeError, match="scorer"):
         tbeam._check_kernel_args(object(), *[None] * 9)
 
 
@@ -419,7 +426,7 @@ def test_largest_admitted_walk_fits_a_blocks_shared_memory():
         operands=(corpus,), adjacency=adj, allow=allow, ef=tbeam.MAX_EF,
         keep_k=tbeam.MAX_EF, expand=expand, max_steps=4 * tbeam.MAX_EF + 64)
     tbeam._check_kernel_args(
-        args["scorer"], args["queries"], args["operands"][0],
+        args["scorer"], args["queries"], args["operands"],
         args["adjacency"], args["present"], args["eps"], args["upper_adj"],
         args["upper_slots"], args["ef"], args["max_steps"], args["allow"],
         args["keep_k"], args["expand"])
@@ -451,7 +458,7 @@ def test_walk_bound_counts_only_the_walks_own_work(filtered):
     import chip_smoke
 
     a = _tiny_walk_args()
-    args = (a["scorer"], a["queries"], a["operands"][0], a["adjacency"],
+    args = (a["scorer"], a["queries"], a["operands"], a["adjacency"],
             a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
             a["ef"], a["max_steps"])
     kw = dict(allow=torch.ones(64, dtype=torch.bool), keep_k=8) \
@@ -473,3 +480,151 @@ def test_walk_bound_counts_only_the_walks_own_work(filtered):
                                       "read_ahead_lost": 0}
     assert work2["overhead_bytes"] == {"speculative_rows": 50 * row,
                                        "read_ahead_lost": 7 * 8 * 4}
+
+
+# -- the quantized scorers ----------------------------------------------------
+
+QUANT_SQ_TOL = 1e-5
+
+
+def _quant_inputs(jax_index, kind, metric):
+    """Both packages' scorer, queries and operands for a BQ or SQ walk over
+    the JAX index's rows, encoded once by the JAX quantizer (host numpy)."""
+    import jax.numpy as jnp
+    from weaviate_tpu.compression import quantizers as jq
+
+    g = jax_index.graph
+    rows = np.asarray(jax_index.store.corpus)[: g.capacity]
+    q = _vectors(5, B)
+    if metric in ("dot", "cosine"):
+        rows = rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True),
+                                 1e-12)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    if kind == "bq":
+        quant = jq.BinaryQuantizer(DIMS, metric)
+        enc = quant.encode(rows)
+        qp = np.asarray(quant.prep(q))
+        j = (jbeam.BQScorer(DIMS), jnp.asarray(qp),
+             (jnp.asarray(enc["packed"]), jnp.asarray(enc["popcount"])))
+        t = (tbeam.BQScorer(DIMS), torch.from_numpy(qp.view(np.int32).copy()),
+             (torch.from_numpy(enc["packed"].view(np.int32)),
+              torch.from_numpy(enc["popcount"])))
+        return j, t
+    quant = jq.ScalarQuantizer(DIMS, metric)
+    quant.fit(rows)
+    enc = quant.encode(rows)
+    j = (jbeam.SQScorer(metric), jnp.asarray(q),
+         (jnp.asarray(enc["codes"]), jnp.asarray(enc["dec_sqnorm"]),
+          jnp.float32(quant.a), jnp.float32(quant.s)))
+    t = (tbeam.SQScorer(metric), torch.from_numpy(q),
+         (torch.from_numpy(enc["codes"]), torch.from_numpy(enc["dec_sqnorm"]),
+          quant.a, quant.s))
+    return j, t
+
+
+@pytest.mark.parametrize("kind,metric,flt", [
+    ("bq", "l2-squared", None), ("bq", "l2-squared", (0.1, 8, 1)),
+    ("bq", "cosine", (0.5, 32, 2)),
+    ("sq", "l2-squared", None), ("sq", "dot", (0.1, 8, 1)),
+    ("sq", "cosine", None), ("sq", "cosine", (0.5, 32, 4)),
+])
+def test_plain_quantized_walk_matches_jax(jax_index, kind, metric, flt):
+    """The plain walk over BQ and SQ code planes against JAX
+    ``device_search`` on the same graph, unfiltered and filtered: BQ equal
+    in every id and distance, SQ ids on >= 0.99 of the slots and matched
+    distances within 1e-5."""
+    import jax.numpy as jnp
+
+    g = jax_index.graph
+    (js, jq, jops), (ts, tq, tops) = _quant_inputs(jax_index, kind, metric)
+    jm = jbeam.DeviceAdjacency(g)
+    adj, present = jm.sync()
+    ua, us = jm.sync_upper()
+    eps = np.full(B, g.entrypoint, np.int32)
+    t_adj = tuple(torch.from_numpy(np.array(a)) for a in (adj, present, eps,
+                                                          ua, us))
+    kw_j, kw_t = {}, {}
+    if flt:
+        sel, keep, expand = flt
+        allow = _allow_mask(g.capacity, sel)
+        kw_j = dict(allow=jnp.asarray(allow), keep_k=keep, expand=expand)
+        kw_t = dict(allow=torch.from_numpy(allow), keep_k=keep, expand=expand)
+    jout = jbeam.device_search(js, jq, jops, adj, present, eps, ef=EF,
+                               max_steps=4 * EF + 64, upper_adj=ua,
+                               upper_slots=us, **kw_j)
+    tout = tbeam.fused_search(ts, tq, tops, *t_adj[:3], t_adj[3], t_adj[4],
+                              EF, 4 * EF + 64, **kw_t)
+    assert len(jout) == len(tout) == (4 if flt else 2)
+    for pair in range(len(tout) // 2):
+        ji, jd = (np.asarray(a) for a in jout[2 * pair:2 * pair + 2])
+        ti, td = (a.numpy() for a in tout[2 * pair:2 * pair + 2])
+        if kind == "bq":
+            np.testing.assert_array_equal(ti, ji)
+            np.testing.assert_array_equal(td, jd)
+            continue
+        same = ti == ji
+        assert same.mean() >= MIN_ID_AGREEMENT, same.mean()
+        live = same & (ji >= 0)
+        np.testing.assert_allclose(td[live], jd[live], rtol=QUANT_SQ_TOL,
+                                   atol=QUANT_SQ_TOL)
+    if flt:
+        ids = tout[2].numpy()
+        assert allow[ids[ids >= 0]].all()
+
+
+@pytest.mark.parametrize("kind", ["bq", "sq", "pq", "rq"])
+def test_quantized_scorers_reach_the_kernel_checks(jax_index, kind):
+    """BQ and SQ walks pass the kernel's argument checks with their own row
+    types (and the plain walk takes them); PQ and RQ raise, naming slice
+    4b."""
+    if kind in ("pq", "rq"):
+        scorer = (tbeam.PQScorer if kind == "pq" else tbeam.RQScorer)("l2-squared")
+        a = _tiny_walk_args(scorer=scorer)
+        with pytest.raises(NotImplementedError, match="slice 4b"):
+            tbeam._check_kernel_args(
+                a["scorer"], a["queries"], a["operands"], a["adjacency"],
+                a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
+                a["ef"], a["max_steps"])
+        with pytest.raises(NotImplementedError, match="slice 4b"):
+            tbeam.fused_search(**a)
+        return
+    _, (ts, tq, tops) = _quant_inputs(jax_index, kind, "l2-squared")
+    n = tops[0].shape[0]
+    a = _tiny_walk_args(scorer=ts, queries=tq[:2].contiguous(),
+                        operands=tops,
+                        adjacency=torch.full((n, 8), -1, dtype=torch.int32),
+                        present=torch.ones(n, dtype=torch.bool))
+    tbeam._check_kernel_args(
+        a["scorer"], a["queries"], a["operands"], a["adjacency"],
+        a["present"], a["eps"], a["upper_adj"], a["upper_slots"], a["ef"],
+        a["max_steps"])
+    ids, _ = tbeam.fused_search(**a)
+    assert ids[:, 0].tolist() == [0, 0]
+    bad = dict(a, queries=tq[:2].float() if kind == "bq"
+               else tq[:2, :4].contiguous())
+    with pytest.raises(ValueError, match="queries"):
+        tbeam._check_kernel_args(
+            bad["scorer"], bad["queries"], bad["operands"], bad["adjacency"],
+            bad["present"], bad["eps"], bad["upper_adj"], bad["upper_slots"],
+            bad["ef"], bad["max_steps"])
+
+
+@pytest.mark.parametrize("kind", ["bq", "sq"])
+def test_walk_bound_counts_the_scorers_row_bytes(jax_index, kind):
+    """``chip_smoke.walk_bound`` counts a BQ row as its words and popcount,
+    an SQ row as its codes and decoded norm."""
+    import chip_smoke
+
+    _, (ts, tq, tops) = _quant_inputs(jax_index, kind, "l2-squared")
+    a = _tiny_walk_args(scorer=ts, queries=tq[:2].contiguous(),
+                        operands=tops)
+    args = (a["scorer"], a["queries"], a["operands"], a["adjacency"],
+            a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
+            a["ef"], a["max_steps"])
+    stats = torch.tensor([[10, 200, 12, 0, 0, 0], [8, 150, 9, 0, 0, 0]],
+                         dtype=torch.int32)
+    _, _, work = chip_smoke.walk_bound(args, {}, stats)
+    row = (4 + 4) if kind == "bq" else (DIMS + 4)
+    assert work["bytes"] == (tq[:2].numel() * tq.element_size()
+                             + 350 * (row + 1) + 21 * 8 * 4
+                             + 2 * a["ef"] * 8)

@@ -184,12 +184,35 @@ def test_device_and_factory_rules():
 
 
 def test_make_flat_refuses_quantizer():
-    class Quantizer:
-        enabled = True
+    """make_flat refuses the quantizers of slice 4b (PQ, RQ) and builds the
+    BQ/SQ index of slice 4a, which answers as JAX's make_flat does."""
+    from weaviate_tpu.index.flat import make_flat as jmake_flat
+    from weaviate_tpu.schema import config as jconfig
+    from weaviate_tpu_torch.index.flat import QuantizedFlatIndex
+    from weaviate_tpu_torch.schema.config import (
+        BQConfig,
+        PQConfig,
+        RQConfig,
+        SQConfig,
+    )
 
     assert isinstance(make_flat(DIMS, device="cpu"), FlatIndex)
-    with pytest.raises(NotImplementedError, match="quantizer"):
-        make_flat(DIMS, FlatIndexConfig(quantizer=Quantizer()), device="cpu")
+    for quant in (PQConfig(), RQConfig()):
+        with pytest.raises(NotImplementedError, match="slice 4b"):
+            make_flat(DIMS, FlatIndexConfig(quantizer=quant), device="cpu")
+    vecs = np.random.default_rng(8).standard_normal((700, DIMS)).astype(
+        np.float32)
+    for tq, jq in ((BQConfig(), jconfig.BQConfig()),
+                   (SQConfig(), jconfig.SQConfig())):
+        t = make_flat(DIMS, FlatIndexConfig(distance="l2-squared",
+                                            quantizer=tq), device="cpu")
+        j = jmake_flat(DIMS, jconfig.FlatIndexConfig(distance="l2-squared",
+                                                     quantizer=jq))
+        assert isinstance(t, QuantizedFlatIndex)
+        for idx in (t, j):
+            idx.add_batch(np.arange(700), vecs)
+        np.testing.assert_array_equal(t.search(vecs[:5], 4).ids,
+                                      j.search(vecs[:5], 4).ids)
 
 
 def test_config_defaults_and_checks_match_jax():

@@ -592,3 +592,169 @@ def test_hnsw_db_directory_opens_in_the_other_package(tmp_path, writer, how):
         assert _uuids(col2, q) == want
     finally:
         db2.close()
+
+
+# -- quantized backends: HNSW + BQ / SQ (slice 4a) -----------------------------
+
+
+def _clustered(seed, n, d, clusters=32, spread=0.15):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, d)).astype(np.float32)
+    assign = rng.integers(0, clusters, size=n)
+    return (centers[assign] + spread * rng.standard_normal((n, d))).astype(
+        np.float32)
+
+
+def _qcfg(mod, kind, **kw):
+    quant = {"bq": mod.BQConfig(rescore_limit=60),
+             "sq": mod.SQConfig(rescore_limit=60)}[kind]
+    base = dict(distance="l2-squared", ef=32, ef_construction=48,
+                max_connections=8, insert_batch=400, flat_search_cutoff=0,
+                quantizer=quant)
+    return mod.HNSWIndexConfig(**{**base, **kw})
+
+
+def _recall(ids, gt):
+    k = gt.shape[1]
+    return float(np.mean([len(set(ids[i]) & set(gt[i])) / k
+                          for i in range(len(gt))]))
+
+
+@pytest.mark.parametrize("kind,metric,beam", [
+    ("bq", "l2-squared", True), ("bq", "cosine", False),
+    ("sq", "l2-squared", True), ("sq", "cosine", True),
+])
+def test_quantized_construction_builds_the_jax_graph(kind, metric, beam):
+    """HNSW + BQ/SQ builds the JAX index's graph edge for edge: the upper
+    levels on the host walk in code space, layer 0 in the fused walk's
+    plain version (when on), the selection heuristic over exact pairwise
+    distances of the originals (``pairwise_device``, float32 products of
+    the same rows). Through deletes, the searches return JAX's ids."""
+    vecs = _clustered(21, 1000, 32)
+    q = vecs[::50][:16] + 0.02
+    j = JaxHNSW(32, _qcfg(jconfig, kind, distance=metric, device_beam=beam))
+    t = HNSWIndex(32, _qcfg(config, kind, distance=metric, device_beam=beam),
+                  device="cpu")
+    for idx in (j, t):
+        idx.add_batch(np.arange(1000), vecs)
+    _arrays_equal(j.graph, t.graph)
+    assert t.store is None and t.backend.quantized
+    for idx in (j, t):
+        idx.delete(np.arange(0, 1000, 4))
+    jr, tr = j.search(q, 10), t.search(q, 10)
+    np.testing.assert_array_equal(tr.ids, jr.ids)
+    np.testing.assert_allclose(tr.dists, jr.dists, rtol=1e-5, atol=1e-5)
+    assert not np.isin(tr.ids, np.arange(0, 1000, 4)).any()
+    st = t.stats()
+    assert (st["quantizer"], st["fitted"]) == (kind, True)
+    assert st["codes_hbm_bytes"] == t.backend.codes.nbytes > 0
+    assert not t.save_vectors("unused") and t.load_vectors("unused") is None
+
+
+@pytest.mark.parametrize("kind,floor", [("sq", 0.90), ("bq", 0.80)])
+def test_quantized_search_is_one_dispatch_at_host_walk_recall(kind, floor):
+    """The contract of ``tests/test_device_beam_quantized.py``: the whole
+    walk of a batch in one dispatch, recall@10 within 0.005 of the host
+    walk on the same index; tombstones traversable, never returned; a
+    filtered walk keeps allowed ids only."""
+    from weaviate_tpu_torch.ops import device_beam as beam
+
+    corpus = _clustered(22, 1200, 32)
+    idx = HNSWIndex(32, _qcfg(config, kind, ef=64, ef_construction=96,
+                              max_connections=16, insert_batch=1024,
+                              device_beam=True), device="cpu")
+    idx.add_batch(np.arange(1200), corpus)
+    rng = np.random.default_rng(23)
+    q = (corpus[rng.choice(1200, 24, replace=False)]
+         + 0.02 * rng.standard_normal((24, 32))).astype(np.float32)
+    before = beam.dispatch_count()
+    dev = idx.search(q, 10)
+    assert beam.dispatch_count() - before == 1
+    gt = brute_force(corpus, q, 10)
+    saved = idx._device_beam
+    idx._device_beam = None
+    try:
+        host = idx.search(q, 10)
+    finally:
+        idx._device_beam = saved
+    assert _recall(dev.ids, gt) >= floor
+    assert _recall(dev.ids, gt) >= _recall(host.ids, gt) - 0.005
+
+    allow = np.zeros(idx.graph.capacity, bool)
+    allow[rng.choice(1200, 720, replace=False)] = True
+    idx.config.flat_search_cutoff = 10
+    idx.config.ef = 48
+    before = beam.dispatch_count()
+    res = idx.search(q, 10, allow_list=allow)
+    assert beam.dispatch_count() - before == 1
+    live = res.ids[res.ids >= 0]
+    assert len(live) and allow[live].all()
+
+    dead = np.arange(0, 1200, 3)
+    idx.delete(dead)
+    for al in (None, np.ones(idx.graph.capacity, bool)):
+        res = idx.search(q, 20, allow_list=al)
+        live = res.ids[res.ids >= 0]
+        assert len(live) and not np.isin(live, dead).any()
+
+
+def test_unfitted_or_demoted_codes_take_the_host_path():
+    """Lifecycle states, not fallbacks: before the SQ quantizer trains the
+    walk runs on the host over the originals, and the first search after
+    training takes the device walk; demoted codes are served on the warm
+    tier (host originals); neither launches the fused walk."""
+    from weaviate_tpu_torch.ops import device_beam as beam
+
+    corpus = _clustered(24, 1200, 32)
+    idx = HNSWIndex(32, _qcfg(config, "sq", device_beam=True), device="cpu")
+    idx.add_batch(np.arange(64), corpus[:64])
+    assert not idx.backend.quantizer.fitted
+    assert idx.backend.device_scorer() is None
+    before = beam.dispatch_count()
+    res = idx.search(corpus[:4], 5)
+    assert beam.dispatch_count() == before
+    np.testing.assert_array_equal(res.ids[:, 0], np.arange(4))
+    idx.add_batch(np.arange(64, 1200), corpus[64:])
+    assert idx.backend.quantizer.fitted
+    before = beam.dispatch_count()
+    res = idx.search(corpus[:4], 5)
+    assert beam.dispatch_count() - before == 1
+    np.testing.assert_array_equal(res.ids[:, 0], np.arange(4))
+    assert idx.demote_device() > 0 and not idx.device_resident
+    assert idx.backend.device_scorer() is None
+    before = beam.dispatch_count()
+    res = idx.search(corpus[:4], 5)
+    assert beam.dispatch_count() == before
+    np.testing.assert_array_equal(res.ids[:, 0], np.arange(4))
+    assert idx.promote_device() > 0
+    idx.search(corpus[:4], 5)
+    assert beam.dispatch_count() - before == 1
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_quantized_index_directory_opens_in_the_other_package(tmp_path,
+                                                               writer):
+    """``graph.npz`` + ``quantizer.msgpack`` written by one package open in
+    the other: the same graph and quantizer state, and, once the codes are
+    rebuilt from the vectors, the same answers."""
+    vecs = _clustered(25, 800, 32)
+    q = vecs[::40] + 0.02
+    path = str(tmp_path / "idx")
+    mods = {"jax": (JaxHNSW, jconfig), "torch": (HNSWIndex, config)}
+    cls, mod = mods[writer]
+    kw = {} if writer == "jax" else {"device": "cpu"}
+    w = cls(32, _qcfg(mod, "sq", distance="cosine"), path=path, **kw)
+    w.add_batch(np.arange(800), vecs)
+    want = w.search(q, 10)
+    w.close()
+    assert os.path.exists(os.path.join(path, "quantizer.msgpack"))
+    cls, mod = mods["torch" if writer == "jax" else "jax"]
+    kw = {"device": "cpu"} if writer == "jax" else {}
+    r = cls(32, _qcfg(mod, "sq", distance="cosine"), path=path, **kw)
+    _arrays_equal(r.graph, w.graph)
+    assert r.backend.quantizer.state_dict() == w.backend.quantizer.state_dict()
+    r.add_batch(np.arange(800), vecs)  # codes rebuild; nodes are present
+    _arrays_equal(r.graph, w.graph)
+    got = r.search(q, 10)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5, atol=1e-5)

@@ -5,8 +5,9 @@
 //
 // Replaces: the XLA program `_fused_search` of
 // weaviate_tpu/ops/device_beam.py:222 (with `_two_hop_widen` :180,
-// `_masked_scores` :138 and `RawScorer` :70, launched by `device_search`
-// :796). The semantics are that program's, step for step:
+// `_masked_scores` :138 and the scorers `RawScorer` :70, `SQScorer` :85 and
+// `BQScorer` :112, launched by `device_search` :796). The semantics are
+// that program's, step for step:
 //
 //   * Upper descent (:272-293), per level, top level first: read the
 //     current node's slot; gather its neighbours, drop the absent ones
@@ -31,10 +32,22 @@
 //     hop ids repeated inside the hop keep their first occurrence, visited
 //     or absent ones drop, the rest are marked, scored and appended to the
 //     hop's frontier, which then feeds both merges.
-//   * Scoring: the five metrics of `gather_distance`
-//     (weaviate_tpu/ops/distance.py:104-140). dot and cosine at bf16 round
+//   * Scoring, by the row type (a template parameter beside the metric):
+//     raw float32 rows with the five metrics of `gather_distance`
+//     (weaviate_tpu/ops/distance.py:104-140): dot and cosine at bf16 round
 //     the query and the row to bfloat16 (round to nearest even) and sum the
 //     products in float32; l2-squared sums the float32 difference squared.
+//     BQ rows (`bq_gather_distance`, ops/quantized.py:323): packed uint32
+//     words and a float32 popcount a row; the query is its packed words (the
+//     bits past `dims` cleared) and |q| is counted here; the distance
+//     (|q| + |x|) - 2 popc(q & x) is an exact integer in float32, so BQ walks
+//     equal the plain version's. The words of a row fit the speculative
+//     path's 32 four-byte slots up to 1,024 dimensions. SQ rows
+//     (`sq_gather_distance`, :279): uint8 codes and the decoded squared norm
+//     a row; the query is rounded to bf16, sum(q) and sum(q^2) come from
+//     the caller (float32, from the unrounded query); the epilogue is
+//     s * (q . c) + a * sum(q), then the metric (l2-squared clamped at 0,
+//     dot negated, cosine 1 - x).
 //
 // Visited set: one bit a node and a query, [b, ceil(n/32)] uint32, zeroed
 // by the caller (the JAX program keeps a [B, N] uint8 array); it is exact.
@@ -99,6 +112,7 @@ constexpr int kNone = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Metric { kL2 = 0, kDot = 1, kCosine = 2, kManhattan = 3, kHamming = 4 };
+enum Row { kRawRow = 0, kBqRow = 1, kSqRow = 2 };
 enum Mode { kUpper = 0, kHop = 1, kHop2 = 2 };
 enum Stat { kExpansions, kScored, kAdjRows, kUpperRows, kSpeculative,
             kAheadLost, kStats };
@@ -113,11 +127,17 @@ enum Refused {
   kBadKeep = -6,
   kBadFrontier = -7,
   kBadSmem = -8,
+  kBadRow = -9,
 };
 
 struct Params {
-  const float* queries;      // [b, d]
-  const float* corpus;       // [rows, d]; every node id is a row
+  const float* queries;      // [b, d] (BQ: [b, d] words as their bits)
+  const void* corpus;        // [rows, d] floats, BQ words or SQ codes;
+                             // every node id is a row
+  const float* row_aux;      // [rows]: BQ popcounts, SQ decoded sq. norms
+  const float* qaux;         // [b, 2]: SQ sum(q), sum(q^2)
+  float sq_a, sq_s;          // SQ offset and step
+  uint32_t last_word;        // BQ: the bits of a query's last word that count
   const int* adj;            // [n, m0], -1 padded
   const uint8_t* present;    // [n]
   const uint8_t* allow;      // [n] or null (no kept track)
@@ -192,9 +212,18 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int METRIC, bool ROUND>
+// A query's scalars beside its row: BQ |q|; SQ sum(q) and sum(q^2).
+struct QScal {
+  float a, b;
+};
+
+template <int METRIC, bool ROUND, int ROW>
 __device__ __forceinline__ float term(float acc, float y, float x) {
-  if (METRIC == kL2) {
+  if (ROW == kBqRow) {
+    // words carried as float bits: popc(q & x), exact in float32
+    return acc + static_cast<float>(__popc(__float_as_uint(y) &
+                                           __float_as_uint(x)));
+  } else if (METRIC == kL2) {
     const float t = y - x;
     return acc + t * t;
   } else if (METRIC == kDot || METRIC == kCosine) {
@@ -213,64 +242,108 @@ __device__ __forceinline__ float finish(float acc) {
   return acc;
 }
 
+// The distance from a row's summed terms and its `aux` (BQ popcount, SQ
+// decoded squared norm), in the plain version's order of operations.
+template <int METRIC, int ROW>
+__device__ __forceinline__ float finish_row(const Params& p, const QScal& qs,
+                                            float acc, float aux) {
+  if (ROW == kBqRow) return (qs.a + aux) - 2.f * acc;
+  if (ROW == kSqRow) {
+    const float qdd = p.sq_s * acc + p.sq_a * qs.a;
+    if (METRIC == kL2) return fmaxf(qs.b - 2.f * qdd + aux, 0.f);
+    if (METRIC == kDot) return -qdd;
+    return 1.f - qdd;
+  }
+  return finish<METRIC>(acc);
+}
+
 // Scores the candidates w.fid[base, min(base + 32, hi)) into w.fd: every
 // row's loads are issued (kSpecRounds x kSpecK a lane, kSpecG lanes a row,
-// 32 bytes of a row a load) before the first is used. `qv` holds the
-// lane's floats of the query. Every lane of the warp calls it; `loaded`
+// 32 bytes of a row a load, and the row's aux value) before the first is
+// used. `qv` holds the lane's four-byte slots of the query (floats, or BQ
+// words). Raw and BQ rows only. Every lane of the warp calls it; `loaded`
 // counts the rows a group leader scored.
-template <int METRIC, bool ROUND>
+template <int METRIC, bool ROUND, int ROW>
 __device__ __forceinline__ void score_chunk(const Params& p, const Warp& w,
                                             const float (&qv)[kSpecK],
-                                            int base, int hi, int& loaded) {
+                                            const QScal& qs, int base, int hi,
+                                            int& loaded) {
   const int lane = threadIdx.x & 31, gl = lane % kSpecG;
   float x[kSpecRounds][kSpecK];
+  float aux[kSpecRounds];
   int rows[kSpecRounds];
+  const float* corpus = static_cast<const float*>(p.corpus);
 #pragma unroll
   for (int r = 0; r < kSpecRounds; ++r) {
     const int c = base + r * (32 / kSpecG) + lane / kSpecG;
     int row = c < hi ? w.fid[c] : -1;
     if (row >= p.rows) row = -1;
     rows[r] = row;
-    const float* src = p.corpus + (size_t)(row < 0 ? 0 : row) * p.d;
+    const float* src = corpus + (size_t)(row < 0 ? 0 : row) * p.d;
 #pragma unroll
     for (int t = 0; t < kSpecK; ++t) {
       const int k = gl + kSpecG * t;
       x[r][t] = row >= 0 && k < p.d ? __ldg(src + k) : 0.f;
     }
+    aux[r] = ROW != kRawRow && row >= 0 ? __ldg(p.row_aux + row) : 0.f;
   }
 #pragma unroll
   for (int r = 0; r < kSpecRounds; ++r) {
     float acc = 0.f;
 #pragma unroll
     for (int t = 0; t < kSpecK; ++t)
-      if (gl + kSpecG * t < p.d) acc = term<METRIC, ROUND>(acc, qv[t], x[r][t]);
+      if (gl + kSpecG * t < p.d)
+        acc = term<METRIC, ROUND, ROW>(acc, qv[t], x[r][t]);
 #pragma unroll
     for (int off = kSpecG / 2; off > 0; off >>= 1)
       acc += __shfl_xor_sync(kFull, acc, off, kSpecG);
     const int c = base + r * (32 / kSpecG) + lane / kSpecG;
     if (gl == 0 && c < hi) {
-      w.fd[c] = rows[r] >= 0 ? finish<METRIC>(acc) : kMask;
+      w.fd[c] = rows[r] >= 0 ? finish_row<METRIC, ROW>(p, qs, acc, aux[r])
+                             : kMask;
       loaded += rows[r] >= 0;
     }
   }
 }
 
 // Distance of the shared query to corpus row `row`, summed by a group of G
-// lanes (lane `gl` of the group strides over D). Every lane of the warp
-// calls it; a lane whose group has no row passes row < 0.
-template <int METRIC, bool ROUND>
+// lanes (lane `gl` of the group strides over the row). Every lane of the
+// warp calls it; a lane whose group has no row passes row < 0.
+template <int METRIC, bool ROUND, int ROW>
 __device__ __forceinline__ float group_distance(const Params& p,
-                                                const float* q, int row,
+                                                const float* q,
+                                                const QScal& qs, int row,
                                                 int gl, int G) {
-  float acc = 0.f;
+  float acc = 0.f, aux = 0.f;
   if (row >= 0) {
-    const float* c = p.corpus + (size_t)row * p.d;
-    for (int k = gl; k < p.d; k += G) acc = term<METRIC, ROUND>(acc, q[k],
-                                                                __ldg(c + k));
+    if (ROW != kRawRow) aux = __ldg(p.row_aux + row);
+    if (ROW == kSqRow) {
+      const uint8_t* c =
+          static_cast<const uint8_t*>(p.corpus) + (size_t)row * p.d;
+      if ((p.d & 3) == 0) {  // four codes a load
+        const uint32_t* c4 = reinterpret_cast<const uint32_t*>(c);
+        for (int k = gl; 4 * k < p.d; k += G) {
+          const uint32_t v = __ldg(c4 + k);
+          const float* qk = q + 4 * k;
+          acc += qk[0] * static_cast<float>(v & 255u);
+          acc += qk[1] * static_cast<float>((v >> 8) & 255u);
+          acc += qk[2] * static_cast<float>((v >> 16) & 255u);
+          acc += qk[3] * static_cast<float>(v >> 24);
+        }
+      } else {
+        for (int k = gl; k < p.d; k += G)
+          acc += q[k] * static_cast<float>(__ldg(c + k));
+      }
+    } else {
+      const float* c =
+          static_cast<const float*>(p.corpus) + (size_t)row * p.d;
+      for (int k = gl; k < p.d; k += G)
+        acc = term<METRIC, ROUND, ROW>(acc, q[k], __ldg(c + k));
+    }
   }
   for (int off = G >> 1; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off, G);
-  return finish<METRIC>(acc);
+  return finish_row<METRIC, ROW>(p, qs, acc, aux);
 }
 
 // The raw frontier w.fid[lo, hi) (-1 = no entry) -> the accepted entries,
@@ -280,10 +353,11 @@ __device__ __forceinline__ float group_distance(const Params& p,
 // in [lo, hi); layer-0 entries are marked visited. Pass 1 issues every
 // lane's loads together; no mark is made before every read of the span.
 // `loaded` counts, per lane, the rows scored before the test (SPEC).
-template <int METRIC, bool ROUND, bool SPEC>
+template <int METRIC, bool ROUND, bool SPEC, int ROW>
 __device__ int gather(const Params& p, const Warp& w,
-                      const float (&qv)[kSpecK], uint32_t* vis, int lo,
-                      int hi, int mode, bool track, int count, int& loaded) {
+                      const float (&qv)[kSpecK], const QScal& qs,
+                      uint32_t* vis, int lo, int hi, int mode, bool track,
+                      int count, int& loaded) {
   const int lane = threadIdx.x & 31;
   for (int base = lo; base < hi; base += 32) {
     const int j = base + lane;
@@ -295,7 +369,8 @@ __device__ int gather(const Params& p, const Warp& w,
       if (mode != kUpper) word = __ldcg(vis + (nb >> 5));
       if (track) al = p.allow[nb];
     }
-    if (SPEC) score_chunk<METRIC, ROUND>(p, w, qv, base, hi, loaded);
+    if constexpr (SPEC)
+      score_chunk<METRIC, ROUND, ROW>(p, w, qv, qs, base, hi, loaded);
     const bool ok = nb >= 0 && pres && !((word >> (nb & 31)) & 1u);
     __syncwarp();  // the chunk's ids are read before they are overwritten
     if (j < hi) {
@@ -331,8 +406,8 @@ __device__ int gather(const Params& p, const Warp& w,
     const int G = p.group, per = 32 / G, gl = lane % G;
     for (int base = start; base < count; base += per) {
       const int c = base + lane / G;
-      const float v = group_distance<METRIC, ROUND>(
-          p, w.q, c < count ? w.cid[c] : -1, gl, G);
+      const float v = group_distance<METRIC, ROUND, ROW>(
+          p, w.q, qs, c < count ? w.cid[c] : -1, gl, G);
       if (gl == 0 && c < count) w.cd[c] = v;
     }
     __syncwarp();
@@ -360,7 +435,7 @@ __device__ __forceinline__ int count_lt(const float* d, int n, float v) {
   return lo;
 }
 
-template <int METRIC, bool ROUND, bool SPEC>
+template <int METRIC, bool ROUND, bool SPEC, int ROW>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 walk_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -372,9 +447,25 @@ walk_kernel(Params p) {
   const int ef = p.ef, kk = p.keep_k, m0 = p.m0;
 
   const float* qrow = p.queries + (size_t)qi * p.d;
+  int qbits = 0;  // BQ: |q|, summed by lanes
   for (int k = lane; k < p.d; k += 32) {
-    const float v = qrow[k];
+    float v = qrow[k];
+    if (ROW == kBqRow) {
+      uint32_t u = __float_as_uint(v);
+      if (k == p.d - 1) u &= p.last_word;  // bits past `dims` do not count
+      qbits += __popc(u);
+      v = __uint_as_float(u);
+    }
     w.q[k] = ROUND ? bf16_round(v) : v;
+  }
+  QScal qs = {0.f, 0.f};
+  if (ROW == kBqRow) {
+    for (int off = 16; off > 0; off >>= 1)
+      qbits += __shfl_xor_sync(kFull, qbits, off);
+    qs.a = static_cast<float>(qbits);
+  } else if (ROW == kSqRow) {
+    qs.a = p.qaux[(size_t)qi * 2];
+    qs.b = p.qaux[(size_t)qi * 2 + 1];
   }
   uint32_t* vis = p.visited + (size_t)qi * p.words;
   int loaded = 0;  // per lane: rows scored before the visited test
@@ -391,7 +482,7 @@ walk_kernel(Params p) {
   int cur = p.eps[qi];
   float cur_d = kMask;
   if (cur >= 0)
-    cur_d = group_distance<METRIC, ROUND>(p, w.q, cur, lane, 32);
+    cur_d = group_distance<METRIC, ROUND, ROW>(p, w.q, qs, cur, lane, 32);
 
   // -- upper-layer greedy descent ---------------------------------------
   for (int li = 0; cur >= 0 && li < p.levels; ++li) {
@@ -403,8 +494,8 @@ walk_kernel(Params p) {
       for (int j = lane; j < p.m; j += 32)
         w.fid[j] = __ldg(uadj + (size_t)slot * p.m + j);
       __syncwarp();
-      const int cnt = gather<METRIC, ROUND, SPEC>(
-          p, w, qv, vis, 0, p.m, kUpper, false, 0, loaded);
+      const int cnt = gather<METRIC, ROUND, SPEC, ROW>(
+          p, w, qv, qs, vis, 0, p.m, kUpper, false, 0, loaded);
       float best = kMask;
       int bi = kNone;
       for (int c = lane; c < cnt; c += 32) {
@@ -468,8 +559,8 @@ walk_kernel(Params p) {
     adj_rows += 1;
     if (lane == 0) src_exp[first] = 1;
     __syncwarp();
-    int nn = gather<METRIC, ROUND, SPEC>(p, w, qv, vis, 0, m0, kHop, track,
-                                         0, loaded);
+    int nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qs, vis, 0, m0,
+                                              kHop, track, 0, loaded);
     expansions += 1;
 
     if (track && p.expand > 0) {
@@ -501,8 +592,8 @@ walk_kernel(Params p) {
       }
       adj_rows += np;
       __syncwarp();
-      nn = gather<METRIC, ROUND, SPEC>(p, w, qv, vis, m0, m0 + e2, kHop2,
-                                       track, nn, loaded);
+      nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qs, vis, m0, m0 + e2,
+                                            kHop2, track, nn, loaded);
     }
     accepted += nn;
 
@@ -663,15 +754,18 @@ int group_for(int d) {
   return 32;
 }
 
-template <int METRIC, bool ROUND>
+template <int METRIC, bool ROUND, int ROW = kRawRow>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   // spread the batch over every SM, then fit the block's shared memory
   int wpb = (p.b + p.sms - 1) / p.sms;
   wpb = wpb < 1 ? 1 : (wpb > kMaxWarps ? kMaxWarps : wpb);
   while (wpb > 1 && (size_t)wpb * p.warp_bytes > (size_t)p.smem_max) --wpb;
   const size_t smem = (size_t)wpb * p.warp_bytes;
-  auto kern = p.d <= kSpecD ? walk_kernel<METRIC, ROUND, true>
-                            : walk_kernel<METRIC, ROUND, false>;
+  // raw and BQ rows of up to kSpecD four-byte slots take the speculative
+  // path; SQ rows (bytes) are scored after the visited test
+  auto kern = walk_kernel<METRIC, ROUND, false, ROW>;
+  if constexpr (ROW != kSqRow)
+    if (p.d <= kSpecD) kern = walk_kernel<METRIC, ROUND, true, ROW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -687,9 +781,15 @@ extern "C" {
 
 // Launches the fused walk of `b` queries on `stream`. `allow` null (or
 // keep_k 0) runs the unfiltered walk, and kept_ids/kept_d are not written.
+// `row_kind` 0 walks float32 rows [rows, d]; 1 BQ rows, `d` = ceil(dims /
+// 32) words a row and a query, `row_aux` the rows' popcounts; 2 SQ rows, d
+// uint8 codes a row, `row_aux` their decoded squared norms, `qaux` [b, 2]
+// the queries' sums and sums of squares, `sq_a`/`sq_s` the decode (metric
+// l2-squared, dot or cosine; queries rounded to bf16).
 // Returns 0, a cudaError_t (> 0), or a negative code for arguments outside
 // the kernel's contract (see device_beam_error_string).
-int device_beam_search(const float* queries, const float* corpus,
+int device_beam_search(const float* queries, const void* corpus,
+                       const float* row_aux, const float* qaux,
                        const int* adj, const uint8_t* present,
                        const uint8_t* allow, const int* eps,
                        const int* upper_adj, const int* upper_slots,
@@ -697,9 +797,15 @@ int device_beam_search(const float* queries, const float* corpus,
                        int* kept_ids, float* kept_d, int* stats, int b,
                        int rows, int n, int d, int m0, int levels, int s,
                        int m, int ef, int keep_k, int expand, int max_steps,
-                       int metric, int bf16, void* stream) {
+                       int metric, int bf16, int row_kind, int dims,
+                       float sq_a, float sq_s, void* stream) {
   if (b < 1 || rows < 1 || n < 1 || max_steps < 0 || levels < 0)
     return kBadShape;
+  if (row_kind < kRawRow || row_kind > kSqRow ||
+      (row_kind != kRawRow && row_aux == nullptr) ||
+      (row_kind == kSqRow && (qaux == nullptr || metric > kCosine)) ||
+      (row_kind == kBqRow && (dims < 1 || d != (dims + 31) / 32)))
+    return kBadRow;
   if (ef < 1 || ef > kMaxEf) return kBadEf;
   if (m0 < 1 || m0 > kMaxWidth ||
       (levels > 0 && (m < 1 || m > kMaxWidth || s < 1)))
@@ -729,6 +835,12 @@ int device_beam_search(const float* queries, const float* corpus,
   Params p;
   p.queries = queries;
   p.corpus = corpus;
+  p.row_aux = row_aux;
+  p.qaux = qaux;
+  p.sq_a = sq_a;
+  p.sq_s = sq_s;
+  p.last_word = row_kind == kBqRow && dims % 32 ? (1u << (dims % 32)) - 1u
+                                                : kFull;
   p.adj = adj;
   p.present = present;
   p.allow = allow;
@@ -761,6 +873,15 @@ int device_beam_search(const float* queries, const float* corpus,
   p.smem_max = smem_max;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool round = bf16 != 0;
+  if (row_kind == kBqRow) return static_cast<int>(launch<kL2, false, kBqRow>(p, st));
+  if (row_kind == kSqRow) {
+    switch (metric) {
+      case kL2: e = launch<kL2, true, kSqRow>(p, st); break;
+      case kDot: e = launch<kDot, true, kSqRow>(p, st); break;
+      default: e = launch<kCosine, true, kSqRow>(p, st); break;
+    }
+    return static_cast<int>(e);
+  }
   switch (metric) {
     case kL2: e = launch<kL2, false>(p, st); break;
     case kDot:
@@ -788,6 +909,9 @@ const char* device_beam_error_string(int code) {
                               "above 640";
     case kBadSmem: return "one query's state exceeds the card's shared "
                           "memory a block";
+    case kBadRow: return "row kind outside 0..2, a BQ row's words not "
+                         "ceil(dims / 32), an SQ metric other than "
+                         "l2-squared/dot/cosine, or a missing aux array";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

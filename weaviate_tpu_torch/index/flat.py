@@ -1,10 +1,13 @@
-"""Flat (brute-force) index (port of ``FlatIndex`` and ``make_flat`` from
-``weaviate_tpu/index/flat.py``).
+"""Flat (brute-force) index (port of ``FlatIndex``, ``QuantizedFlatIndex``,
+``make_flat`` and ``exact_rescore`` from ``weaviate_tpu/index/flat.py``).
 
 The whole corpus lives in device memory and a query batch is one masked
 product + top-k. For l2-squared at bf16 with approximate selection allowed
 and k <= 64, the scan runs in the fused kernel (``ops/fused_flat.py``);
-every other request takes ``ops/distance.py flat_search``.
+every other request takes ``ops/distance.py flat_search``. With a quantizer
+(BQ or SQ) the device holds the code planes instead, a search is one scan
+of them (kernels Q1/Q2, ``ops/quantized.py``) that over-fetches, and the
+host rescores the candidates exactly against the originals.
 """
 
 from __future__ import annotations
@@ -27,13 +30,13 @@ from weaviate_tpu_torch.schema.config import FlatIndexConfig
 
 def make_flat(dims: int, config: Optional[FlatIndexConfig] = None,
               device=None) -> VectorIndex:
-    """Flat-index factory: raw corpus in device memory. A quantized flat
-    index (code planes + rescore tier) comes with the quantizer slice."""
+    """Flat-index factory: raw corpus in device memory, or code planes +
+    the host rescore tier when a quantizer is configured (reference
+    ``flat/index.go:49`` + ``quantizer.go``). PQ and RQ raise (slice 4b),
+    the disk raw tiers too (slice 9)."""
     config = config or FlatIndexConfig()
-    if config.quantizer is not None and getattr(config.quantizer, "enabled", True):
-        raise NotImplementedError(
-            "quantized flat index: not ported yet (ROADMAP queue A, "
-            "slice 4: the quantizers)")
+    if config.quantizer is not None and config.quantizer.enabled:
+        return QuantizedFlatIndex(dims, config, device=device)
     return FlatIndex(dims, config, device=device)
 
 
@@ -217,3 +220,144 @@ def _pad_mask(mask: np.ndarray, capacity: int, device) -> torch.Tensor:
     if mask.shape[0] < capacity:
         mask = np.pad(mask, (0, capacity - mask.shape[0]))
     return torch.from_numpy(np.ascontiguousarray(mask[:capacity])).to(device)
+
+
+def exact_rescore(
+    queries: np.ndarray,
+    cand_ids: np.ndarray,
+    vectors,
+    metric: str,
+    k: int,
+) -> SearchResult:
+    """Re-rank approximate candidates with exact float32 distances on the
+    host (JAX ``exact_rescore``, unchanged: its ``np.argpartition`` decides
+    which of tied candidates survive at the k-th place, and BQ's integer
+    distances tie often).
+
+    Reference ``hnsw/search.go:184`` (shouldRescore): compressed search
+    over-fetches, then the top candidates are re-scored against the original
+    vectors. cand_ids: [B, k'] (-1 = empty); ``vectors`` a HostVectorStore.
+    """
+    cand_ids = np.asarray(cand_ids)
+    b, kp = cand_ids.shape
+    safe = np.clip(cand_ids, 0, None)
+    cand = vectors.get(safe.reshape(-1)).reshape(b, kp, -1)  # [B, k', D]
+    q = np.asarray(queries, np.float32)
+    if metric == "l2-squared":
+        diff = q[:, None, :] - cand
+        d = np.einsum("bkd,bkd->bk", diff, diff)
+    elif metric in ("dot", "cosine"):
+        ip = np.einsum("bd,bkd->bk", q, cand)
+        d = -ip if metric == "dot" else 1.0 - ip
+    elif metric == "manhattan":
+        d = np.abs(q[:, None, :] - cand).sum(axis=-1)
+    else:  # hamming over raw floats (reference hamming.go float variant)
+        d = (q[:, None, :] != cand).sum(axis=-1).astype(np.float32)
+    d = np.where(cand_ids < 0, np.float32(MASK_DISTANCE), d.astype(np.float32))
+    k = min(k, kp)
+    part = np.argpartition(d, k - 1, axis=1)[:, :k]
+    pd = np.take_along_axis(d, part, axis=1)
+    order = np.argsort(pd, axis=1, kind="stable")
+    sel = np.take_along_axis(part, order, axis=1)
+    out_d = np.take_along_axis(d, sel, axis=1)
+    out_i = np.take_along_axis(cand_ids, sel, axis=1)
+    out_i = np.where(out_d >= MASK_DISTANCE, -1, out_i)
+    return SearchResult(ids=out_i, dists=out_d)
+
+
+class QuantizedFlatIndex(VectorIndex):
+    """Flat index over device-resident code planes with host-side rescore.
+
+    Reference ``flat/index.go`` with BQ/SQ (``flat/quantizer.go``): codes
+    are device tensors and a search is one scan kernel
+    (``ops/quantized.py``). Storage, fit policy, code search and the rescore
+    tier all live in ``hnsw.backend.QuantizedBackend`` — this class is the
+    VectorIndex adapter over it (the same backend the HNSW walk uses)."""
+
+    def __init__(self, dims: int, config: FlatIndexConfig, device=None):
+        from weaviate_tpu_torch.index.hnsw.backend import QuantizedBackend
+
+        self.config = config
+        self.metric = config.distance
+        self.dims = dims
+        self.backend = QuantizedBackend(dims, config, device=device)
+
+    @property
+    def quantizer(self):
+        return self.backend.quantizer
+
+    # -- VectorIndex ------------------------------------------------------
+    def add_batch(self, doc_ids: np.ndarray, vectors: np.ndarray) -> None:
+        self.backend.put(np.asarray(doc_ids, np.int64), vectors)
+
+    def delete(self, doc_ids: np.ndarray) -> None:
+        self.backend.delete(doc_ids)
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int,
+        allow_list: Optional[np.ndarray] = None,
+        est_selectivity: Optional[float] = None,
+    ) -> SearchResult:
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        if queries.shape[-1] != self.dims:
+            raise ValueError(
+                f"query dims {queries.shape[-1]} != index dims {self.dims}"
+            )
+        d, ids = run_tier_stable(
+            lambda: self.backend.flat_topk(queries, k, allow_list))
+        return SearchResult(ids=ids, dists=d)
+
+    def search_by_distance(
+        self,
+        queries: np.ndarray,
+        max_distance: float,
+        allow_list: Optional[np.ndarray] = None,
+        limit: int = 1024,
+    ) -> SearchResult:
+        k = min(limit, max(1, self.count()))
+        res = self.search(queries, k, allow_list)
+        keep = res.dists <= max_distance
+        return SearchResult(
+            ids=np.where(keep, res.ids, -1),
+            dists=np.where(keep, res.dists, np.float32(MASK_DISTANCE)),
+        )
+
+    def count(self) -> int:
+        return self.backend.originals.live_count
+
+    @property
+    def capacity(self) -> int:
+        return self.backend.capacity
+
+    def contains(self, doc_id: int) -> bool:
+        return self.backend.contains(doc_id)
+
+    # -- tiered residency ---------------------------------------------------
+    @property
+    def device_resident(self) -> bool:
+        return self.backend.device_resident
+
+    def hbm_bytes(self) -> int:
+        return self.backend.hbm_bytes()
+
+    def host_tier_bytes(self) -> int:
+        return self.backend.host_tier_bytes()
+
+    def demote_device(self) -> int:
+        return self.backend.demote_device()
+
+    def promote_device(self) -> int:
+        return self.backend.promote_device()
+
+    def stats(self) -> dict:
+        return {
+            "type": "flat",
+            "quantizer": self.quantizer.kind,
+            "fitted": self.quantizer.fitted,
+            "count": self.count(),
+            "capacity": self.capacity,
+            "metric": self.metric,
+            "device_resident": self.backend.device_resident,
+        }

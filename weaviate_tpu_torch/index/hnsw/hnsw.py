@@ -20,9 +20,13 @@ visited bitsets fit ``_VISITED_BUDGET``; otherwise the host walk
 from the config only. A failed launch raises: there is no latch and no
 fallback to the host walk.
 
-Differences from the JAX index: the quantized backends (slice 4), the mesh
-graph and walk (slice 11), and the fused rerank tier and the multi-target
-walk legs (slice 7) are not ported. The fused walk's rows per launch follow
+A configured quantizer (BQ or SQ) swaps the whole distance tier to code
+space (``QuantizedBackend``): the walks score the device code planes, the
+host rescores exactly against the originals, and the trained quantizer
+state persists beside the graph (``quantizer.msgpack``). PQ and RQ come with
+slice 4b. Differences from the JAX index: the mesh graph and walk (slice
+11), and the fused rerank tier and the multi-target walk legs (slice 7) are
+not ported. The fused walk's rows per launch follow
 its bitset, not the JAX index's [B, capacity] scratch; the walks are
 independent, so the results are the same. Device-time attribution waits for
 the serving slice; the ``device_execute_ms`` trace attribute stays.
@@ -110,20 +114,23 @@ class HNSWIndex(VectorIndex):
         self.config = config or HNSWIndexConfig()
         self.metric = self.config.distance
         self.path = path
-        quant = self.config.quantizer
-        if store is None and quant is not None and getattr(quant, "enabled",
-                                                           True):
-            QuantizedBackend(dims, self.config)  # raises: slice 4
         rr_cfg = getattr(self.config, "rerank", None)
         if rr_cfg is not None and rr_cfg.enabled:
             raise NotImplementedError(
                 "fused device rerank tier: not ported yet (ROADMAP queue A, "
                 "slice 7)")
         # an existing store may be handed over (dynamic-index upgrade keeps
-        # the corpus in device memory and only builds the graph)
-        self.backend = RawBackend(dims, self.config, store=store, device=device)
-        self.store = self.backend.store
-        self.device = self.store.device
+        # the corpus in device memory and only builds the graph); a
+        # configured quantizer swaps the whole distance tier to code space
+        quant = self.config.quantizer
+        if store is None and quant is not None and quant.enabled:
+            self.backend = QuantizedBackend(dims, self.config, device=device)
+            self.store = None
+        else:
+            self.backend = RawBackend(dims, self.config, store=store,
+                                      device=device)
+            self.store = self.backend.store
+        self.device = self.backend.device
         self.dims = dims
         self.graph = HostGraph(m=self.config.max_connections)
         self._ml = 1.0 / math.log(max(2, self.config.max_connections))
@@ -169,6 +176,9 @@ class HNSWIndex(VectorIndex):
     def _snapshot_path(self) -> str:
         return os.path.join(self.path, "graph.npz")
 
+    def _quantizer_path(self) -> str:
+        return os.path.join(self.path, "quantizer.msgpack")
+
     def flush(self) -> None:
         if not self.path:
             return
@@ -179,6 +189,16 @@ class HNSWIndex(VectorIndex):
         if self._commitlog is not None:
             # the snapshot condenses everything logged so far
             self._commitlog.truncate_after_snapshot()
+        if self.backend.quantized and self.backend.quantizer.fitted:
+            # the trained quantizer state, so a reopen re-encodes with the
+            # same codes (the JAX package's format)
+            import msgpack
+
+            tmp = self._quantizer_path() + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(msgpack.packb(self.backend.quantizer.state_dict(),
+                                      use_bin_type=True))
+            os.replace(tmp, self._quantizer_path())
 
     def close(self) -> None:
         """Condense and release the commit log (a crash after this point
@@ -192,6 +212,12 @@ class HNSWIndex(VectorIndex):
     def _load_snapshot(self) -> None:
         with np.load(self._snapshot_path()) as z:
             self.graph = HostGraph.from_arrays({k: z[k] for k in z.files})
+        if self.backend.quantized and os.path.exists(self._quantizer_path()):
+            import msgpack
+
+            with open(self._quantizer_path(), "rb") as f:
+                self.backend.quantizer.load_state_dict(
+                    msgpack.unpackb(f.read(), raw=False))
 
     # ------------------------------------------------------------------
     # helpers
@@ -783,8 +809,13 @@ class HNSWIndex(VectorIndex):
     def _fetch_width(self, k: int, ef: int) -> int:
         """The over-fetch policy (reference hnsw/search.go:184
         shouldRescore): the candidate pool width the rescore tier promotes
-        from, one owner for the device walk and the host walk."""
-        return max(k, min(ef, 2 * k))
+        from, one owner for the device walk and the host walk. Code-space
+        walks promote from up to ``rescore_limit`` candidates."""
+        fetch = max(k, min(ef, 2 * k))
+        if self.backend.quantized:
+            rl = getattr(self.backend.quantizer.config, "rescore_limit", 0)
+            fetch = min(ef, max(fetch, rl, 2 * k))
+        return fetch
 
     def _search_tiered(
         self,
@@ -930,9 +961,12 @@ class HNSWIndex(VectorIndex):
             n_allowed = self._allow_popcount(allow_list)
             expand = expansion_budget(n_allowed / max(1, self.count()))
         if self._device_beam is not None and self.backend.device_resident:
-            # fused walk: greedy descent + layer-0 beam in one launch
-            return self._device_beam_search(queries, qdev, ef, k, allow_list,
-                                            expand=expand)
+            # fused walk: greedy descent + layer-0 beam in one launch; an
+            # unfitted quantizer walks on the host (a lifecycle stage)
+            out = self._device_beam_search(queries, qdev, ef, k, allow_list,
+                                           expand=expand)
+            if out is not None:
+                return out
         eps = np.full(b, self.graph.entrypoint, np.int64)
         all_active = np.ones(b, bool)
         for level in range(self.graph.max_level, 0, -1):
@@ -953,11 +987,16 @@ class HNSWIndex(VectorIndex):
         tombstoned and deleted ids from the returned beam (sweeping
         semantics) and truncates to k. With a filter the kernel also keeps
         the best allowed nodes seen along the unchanged walk (the
-        ``PLAN_BEAM`` route), and that kept track is the result."""
+        ``PLAN_BEAM`` route), and that kept track is the result. Returns
+        None while the backend has no device scorer (an unfitted
+        quantizer): the host walk serves then."""
         from weaviate_tpu_torch.monitoring import tracing
         from weaviate_tpu_torch.ops.device_beam import device_search
 
-        scorer, operands = self.backend.device_scorer()
+        scorer_pack = self.backend.device_scorer()
+        if scorer_pack is None:
+            return None
+        scorer, operands = scorer_pack
         q = self.backend.beam_queries(qdev)
         fetch = self._fetch_width(k, ef)
         adj, present = self._device_beam.sync()
@@ -1036,10 +1075,14 @@ class HNSWIndex(VectorIndex):
 
     # ------------------------------------------------------------------
     def save_vectors(self, path: str, meta: Optional[dict] = None) -> bool:
+        if self.store is None:  # quantized: codes rebuild from the objects
+            return False
         self.store.save(path, meta)
         return True
 
     def load_vectors(self, path: str) -> Optional[dict]:
+        if self.store is None:
+            return None
         return self.store.load(path)
 
     def count(self) -> int:
@@ -1097,7 +1140,12 @@ class HNSWIndex(VectorIndex):
         s["device_resident"] = self.backend.device_resident
         if not self.backend.device_resident:
             s["host_tier_bytes"] = self.backend.host_tier_bytes()
-        s["corpus_hbm_bytes"] = self.backend.store.nbytes
+        if self.backend.quantized:
+            s["quantizer"] = self.backend.quantizer.kind
+            s["fitted"] = self.backend.quantizer.fitted
+            s["codes_hbm_bytes"] = self.backend.codes.nbytes
+        else:
+            s["corpus_hbm_bytes"] = self.backend.store.nbytes
         if self._device_beam is not None:
             # the fused walk's extra device rent: mirrored layer-0 rows,
             # presence mask, and compact upper-layer tables

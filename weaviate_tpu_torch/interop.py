@@ -17,13 +17,25 @@ both directions.
 Below the database, a vector checkpoint file alone is read by either
 package, and ``store_from_numpy`` builds a port store from the JAX store's
 arrays handed over as numpy, so one state can feed both packages.
+
+Quantized state crosses the same way. A quantized HNSW index's directory
+(``graph.npz`` and ``quantizer.msgpack``, the quantizer's ``state_dict``)
+opens in either package; its codes are rebuilt from the objects.
+``quantizer_from_state`` turns a JAX quantizer's ``state_dict()`` into the
+port's quantizer, and ``array_set_from_numpy`` builds a port
+``DeviceArraySet`` from a JAX set's code planes, valid mask, watermark and
+live count as numpy.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
+from weaviate_tpu_torch.compression import DeviceArraySet, Quantizer
+from weaviate_tpu_torch.compression.store import to_tensor
 from weaviate_tpu_torch.index.store import _PAGE, DeviceVectorStore
 
 
@@ -61,3 +73,44 @@ def store_from_numpy(corpus: np.ndarray, valid: np.ndarray,
     store._watermark = int(watermark)
     store._live = int(live)
     return store
+
+
+def quantizer_from_state(state: dict, config=None) -> Quantizer:
+    """The port's quantizer holding a quantizer's ``state_dict()`` (the
+    JAX package's or the port's: kind, dims, metric, fitted and the
+    quantizer's own fields). ``config`` is its ``QuantizerConfig``
+    (defaults of the kind when None)."""
+    from weaviate_tpu_torch.compression import build_quantizer
+    from weaviate_tpu_torch.schema.config import quantizer_from_dict
+
+    cfg = config or quantizer_from_dict(
+        {"kind": state["kind"], "enabled": True})
+    if cfg is None:
+        raise ValueError(f"unknown quantizer kind {state.get('kind')!r}")
+    q = build_quantizer(cfg, int(state["dims"]), state["metric"])
+    q.load_state_dict(state)
+    return q
+
+
+def array_set_from_numpy(fields: dict, planes: dict, valid: np.ndarray,
+                         watermark: int, live: int,
+                         device: Optional[str] = None) -> DeviceArraySet:
+    """A port ``DeviceArraySet`` holding exactly the given state: ``planes``
+    name -> [cap, ...] numpy arrays in the ``fields`` dtypes (a JAX set's
+    ``snapshot()`` planes as numpy), ``valid`` [cap] bool, its
+    ``watermark`` and ``live`` count. ``cap`` must be a page multiple."""
+    cap = valid.shape[0]
+    if cap % _PAGE or set(planes) != set(fields) or any(
+            p.shape[0] != cap for p in planes.values()):
+        raise ValueError(
+            f"expected planes {sorted(fields)} of [k*{_PAGE}, ...] rows "
+            f"with valid [cap], got {sorted(planes)}, {valid.shape}")
+    out = DeviceArraySet(fields, capacity=cap, device=device)
+    out._state = ({name: to_tensor(planes[name], fields[name][1]).to(
+                       out.device) for name in fields},
+                  torch.from_numpy(np.asarray(valid, bool).copy()).to(
+                      out.device))
+    out._host_valid = np.asarray(valid, bool).copy()
+    out._watermark = int(watermark)
+    out._live = int(live)
+    return out

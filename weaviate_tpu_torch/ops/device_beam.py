@@ -20,10 +20,16 @@ ef-bounded beam, a stop when no unexpanded entry is left (or after
 after the walk. A filtered walk passes ``allow``/``keep_k``: the walk
 itself is unchanged, and a second track keeps the best allowed nodes seen
 along it; with ``expand`` > 0 the closest blocked neighbours of a hop
-open their own adjacency rows in the same hop (two-hop widening). Not
-ported yet, each raising ``NotImplementedError``: the quantized scorers
-(slice 4), the fused rerank stage and the multi-target legs (slice 7), the
-mesh walk (slice 11).
+open their own adjacency rows in the same hop (two-hop widening).
+
+Distance evaluation is pluggable, as in JAX: a scorer maps (queries,
+candidate ids, operands) to distances. ``RawScorer`` gather-scores the
+float32 corpus; ``BQScorer`` the packed bits and popcounts of a binary
+quantizer (exact integer distances, so a BQ walk equals the plain
+version's); ``SQScorer`` the byte codes of a scalar quantizer. The kernel
+takes the row type of each. Not ported yet, each raising
+``NotImplementedError``: ``PQScorer``/``RQScorer`` (slice 4b), the fused
+rerank stage and the multi-target legs (slice 7), the mesh walk (slice 11).
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_distance
+from weaviate_tpu_torch.ops.quantized import (
+    SQ_METRICS,
+    bq_gather_distance,
+    sq_gather_distance,
+)
 
 KERNEL = "device_beam"
 _INF = MASK_DISTANCE
@@ -72,6 +83,52 @@ class RawScorer:
         (corpus,) = operands
         return gather_distance(q, corpus, ids, self.metric,
                                precision=self.precision)
+
+
+@dataclasses.dataclass(frozen=True)
+class SQScorer:
+    """operands = (codes [N, D] uint8, dec_sqnorms [N], a, s); q is the
+    float32 query (normalized for cosine)."""
+
+    metric: str
+
+    def __call__(self, q, ids, operands):
+        codes, dsq, a, s = operands
+        return sq_gather_distance(q, codes, ids, dsq, a, s, self.metric)
+
+
+@dataclasses.dataclass(frozen=True)
+class BQScorer:
+    """operands = (packed [N, W] int32 words, popcounts [N]); q is packed
+    bits."""
+
+    dims: int
+
+    def __call__(self, q, ids, operands):
+        packed, popcounts = operands
+        return bq_gather_distance(q, packed, ids, popcounts, self.dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class PQScorer:
+    """Product-quantizer codes: slice 4b."""
+
+    metric: str
+
+    def __call__(self, q, ids, operands):
+        raise NotImplementedError(
+            "PQScorer: not ported yet (ROADMAP queue A, slice 4b)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RQScorer:
+    """Rotational-quantizer codes: slice 4b."""
+
+    metric: str
+
+    def __call__(self, q, ids, operands):
+        raise NotImplementedError(
+            "RQScorer: not ported yet (ROADMAP queue A, slice 4b)")
 
 
 def _masked_scores(scorer, q, ids, operands):
@@ -230,23 +287,57 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
+# the kernel's row types (its C side's ``row_kind``)
+_ROW_KINDS = {RawScorer: 0, BQScorer: 1, SQScorer: 2}
+
+
+def _row_operands(scorer, operands):
+    """(row tensor, the rows' aux tensor or None, the row width d, [(name,
+    tensor, dtype, shape)] to check, the query dtype) of a scorer's
+    operands."""
+    if isinstance(scorer, (PQScorer, RQScorer)):
+        raise NotImplementedError(
+            f"{type(scorer).__name__}: not ported yet (ROADMAP queue A, "
+            "slice 4b)")
+    if type(scorer) not in _ROW_KINDS:
+        raise TypeError(f"no kernel row type for scorer {scorer!r}")
+    if isinstance(scorer, RawScorer):
+        if scorer.metric not in METRICS:
+            raise ValueError(f"unknown metric {scorer.metric!r}")
+        (corpus,) = operands
+        d = corpus.shape[1]
+        return corpus, None, d, [
+            ("corpus", corpus, torch.float32, (corpus.shape[0], d))], \
+            torch.float32
+    if isinstance(scorer, BQScorer):
+        packed, pop = operands
+        w = packed.shape[1]
+        if w != (scorer.dims + 31) // 32:
+            raise ValueError(f"{w} words cannot hold {scorer.dims} bits")
+        rows = packed.shape[0]
+        return packed, pop, w, [
+            ("packed", packed, torch.int32, (rows, w)),
+            ("popcounts", pop, torch.float32, (rows,))], torch.int32
+    if scorer.metric not in SQ_METRICS:
+        raise ValueError(f"SQ walk has no metric {scorer.metric!r}")
+    codes, dsq = operands[0], operands[1]
+    rows, d = codes.shape
+    return codes, dsq, d, [
+        ("codes", codes, torch.uint8, (rows, d)),
+        ("dec_sqnorms", dsq, torch.float32, (rows,))], torch.float32
+
+
+def _check_kernel_args(scorer, queries, operands, adjacency, present, eps,
                        upper_adj, upper_slots, ef: int, max_steps: int,
                        allow=None, keep_k: int = 0, expand: int = 0):
-    if not isinstance(scorer, RawScorer):
-        raise NotImplementedError(
-            f"{type(scorer).__name__}: the quantized scorers are not ported "
-            "yet (ROADMAP queue A, slice 4)")
-    if scorer.metric not in METRICS:
-        raise ValueError(f"unknown metric {scorer.metric!r}")
+    corpus, _aux, d, rows_want, q_dtype = _row_operands(scorer, operands)
     # the graph's rows (adjacency, present, slots) and the corpus rows may
     # differ: each grows by its own rule, and every node id is a corpus row
     n = adjacency.shape[0]
-    d = corpus.shape[1]
     b = queries.shape[0]
     want = [
-        ("queries", queries, torch.float32, (b, d)),
-        ("corpus", corpus, torch.float32, (corpus.shape[0], d)),
+        ("queries", queries, q_dtype, (b, d)),
+        *rows_want,
         ("adjacency", adjacency, torch.int32, (n, adjacency.shape[1])),
         ("present", present, torch.bool, (n,)),
         ("eps", eps, torch.int32, (b,)),
@@ -289,12 +380,15 @@ def _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
                          f"outside the kernel's {MAX_FRONTIER}")
 
 
-def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
+def fused_search_cuda(scorer, queries, operands, adjacency, present, eps,
                       upper_adj, upper_slots, ef: int, max_steps: int,
                       allow: Optional[torch.Tensor] = None, keep_k: int = 0,
                       expand: int = 0, stats: Optional[torch.Tensor] = None):
-    """Launches the kernel on the current stream: same contract as
-    ``_fused_search`` with ``operands = (corpus,)``. ``stats``, an int32
+    """Launches the kernel on the current stream: the contract of
+    ``_fused_search`` (``operands`` the scorer's tuple: ``(corpus,)`` raw,
+    ``(packed, popcounts)`` BQ, ``(codes, dec_sqnorms, a, s)`` SQ; the SQ
+    queries' sums and sums of squares are taken here in float32, as the
+    plain version takes them). ``stats``, an int32
     [B, 6] tensor, receives per query the counters named in ``STATS``:
     layer-0 expansions, rows scored and kept, layer-0 adjacency rows the
     walk expands (one a hop and the second hop's parents), upper rows read,
@@ -302,10 +396,19 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
     rows read ahead for a node that the next hop did not expand. Raises
     ``ValueError`` on arguments outside the kernel's contract (the C side's
     refusals included) and ``RuntimeError`` on a failed launch."""
-    _check_kernel_args(scorer, queries, corpus, adjacency, present, eps,
+    _check_kernel_args(scorer, queries, operands, adjacency, present, eps,
                        upper_adj, upper_slots, ef, max_steps, allow, keep_k,
                        expand)
-    n, d = adjacency.shape[0], corpus.shape[1]
+    corpus, aux, d, _, _ = _row_operands(scorer, operands)
+    n = adjacency.shape[0]
+    row_kind = _ROW_KINDS[type(scorer)]
+    qaux, sq_a, sq_s = None, 0.0, 0.0
+    if row_kind == 2:
+        qaux = torch.stack([torch.sum(queries, dim=-1),
+                            torch.sum(queries * queries, dim=-1)],
+                           dim=1).contiguous()
+        sq_a, sq_s = float(operands[2]), float(operands[3])
+    metric = getattr(scorer, "metric", "l2-squared")
     b = queries.shape[0]
     dev = corpus.device
     track = allow is not None and keep_k > 0
@@ -329,15 +432,17 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.device_beam_search(
-            queries.data_ptr(), corpus.data_ptr(), adjacency.data_ptr(),
-            present.data_ptr(), ptr(allow) if track else None,
+            queries.data_ptr(), corpus.data_ptr(), ptr(aux), ptr(qaux),
+            adjacency.data_ptr(), present.data_ptr(),
+            ptr(allow) if track else None,
             eps.data_ptr(), upper_adj.data_ptr(), upper_slots.data_ptr(),
             visited.data_ptr(), ids.data_ptr(), dists.data_ptr(),
             ptr(kept_ids), ptr(kept_d), ptr(stats),
             b, corpus.shape[0], n, d, adjacency.shape[1], levels, s, m, ef,
             keep_k if track else 0, expand if track else 0, max_steps,
-            METRICS.index(scorer.metric), int(scorer.precision == "bf16"),
-            stream)
+            METRICS.index(metric),
+            int(getattr(scorer, "precision", "") == "bf16"), row_kind,
+            getattr(scorer, "dims", 0), sq_a, sq_s, stream)
     if err < 0:
         raise ValueError(
             f"device_beam_search refused its arguments: "
@@ -355,8 +460,8 @@ def fused_search_cuda(scorer, queries, corpus, adjacency, present, eps,
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.device_beam_search.argtypes = [p] * 14 + [i] * 14 + [p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.device_beam_search.argtypes = [p] * 16 + [i] * 16 + [f, f, p]
     lib.device_beam_search.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p
@@ -386,10 +491,10 @@ def fused_search(scorer, queries, operands, adjacency, present, eps,
             "fused rerank stage: not ported yet (ROADMAP queue A, slice 7)")
     dev = adjacency.device
     if dev.type == "cuda":
-        (corpus,) = operands
-        return fused_search_cuda(scorer, queries, corpus, adjacency, present,
-                                 eps, upper_adj, upper_slots, ef, max_steps,
-                                 allow=allow, keep_k=keep_k, expand=expand)
+        return fused_search_cuda(scorer, queries, operands, adjacency,
+                                 present, eps, upper_adj, upper_slots, ef,
+                                 max_steps, allow=allow, keep_k=keep_k,
+                                 expand=expand)
     if dev.type == "cpu":
         return _fused_search(scorer, queries, operands, adjacency, present,
                              eps, upper_adj, upper_slots, ef, max_steps,

@@ -268,11 +268,12 @@ class VectorIndexConfig:
     # (ops/fused_flat.py). The reference's flat scan is always exact.
     flat_approx_recall: float = -1.0
     # Quantized indexes keep raw originals host-side for the exact rescore
-    # tier (reference keeps them LSM-resident, flat/index.go:49): "ram16"
-    # halves fp32 RAM, "disk16" pages a float16 memmap from disk, "disk8"
-    # stores per-row affine int8. Quantizers come with ROADMAP queue A
-    # slice 4, the disk tiers with slice 9; the port's flat index keeps
-    # its raw corpus in device memory.
+    # tier (reference keeps them LSM-resident, flat/index.go:49): "ram"
+    # float32, "ram16" float16 (half the RAM), "disk16" a float16 memmap
+    # paged from disk, "disk8" per-row affine int8. The port has the BQ and
+    # SQ quantizers (PQ and RQ: ROADMAP queue A slice 4b) and the two RAM
+    # tiers; the disk tiers come with slice 9. Without a quantizer the
+    # raw corpus stays in device memory and this is not read.
     raw_tier: str = "ram"  # ram | ram16 | disk16 | disk8
     raw_path: Optional[str] = None
 
