@@ -17,9 +17,12 @@ non-zero without the final line:
              1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
              graphs the port builds on the card, with its BQ scorer (equal
              to the plain walk) and its SQ scorer (l2/dot/cosine) on each;
-             the BQ scan (Q1, equal to its plain version) and the SQ scan
-             (Q2) over B of 1/16/256, D of 25/768/1536, fetch of
-             10/200/320/1024, 1% and 50% masked, fetch past the live rows.
+             the BQ scan (Q1, equal to its plain version) and the SQ
+             scan (Q2) over B of 1/16/256, D of
+             25/768/1536, fetch of 10/200/320/1024, 1% and 50% masked,
+             fetch past the live rows, and the selection's edges (fetch =
+             MAX_K, N below fetch and below one split, a wholly masked
+             split, B of 53 and 257, 16-d bits).
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -55,12 +58,13 @@ non-zero without the final line:
              768-d rows made on the card, cosine, rescore_limit 320) and SQ
              at ``bench_msmarco``'s per-tenant index (550,000 rows,
              rescore_limit 200): recall@10 against the exact float32
-             answer, the scan kernel (Q1, Q2) beside its bound and its
-             plain version, its launches a search (one a chunk of queries
-             whose key block fits quantized.SCRATCH_BYTES) and the
-             selection's (five a chunk), the selection alone against its
-             plain version and ``torch.topk``, search p50/p99, the
-             rescore's share, device and host bytes.
+             answer, the search's kernels (Q1 or Q2, then the merge)
+             beside their bound and their plain version, its launches (one
+             scan, one merge), the scan alone and the merge alone
+             against its plain version and
+             ``torch.topk``, Q2 beside ``torch.matmul`` of the product
+             alone, search p50/p99, the rescore's share, device and host
+             bytes.
 9. hnsw_quant — ``HNSWIndex`` + BQ at ``bench_hnsw_quant``'s bq
              configuration (768-d, l2-squared, ef 96, M 16, rescore_limit
              80, the fused walk) at HNSW_QUANT_ROWS rows: the build rate,
@@ -128,6 +132,13 @@ MIN_ID_AGREEMENT = 0.999
 # B2 with bf16 products: a pair of candidates within a bf16-rounded sum's
 # error can swap, and the walk then diverges from there
 MIN_ID_AGREEMENT_BF16 = 0.99
+# Q2 at the selection's edges (Q_EDGES), whose fetch of up to MAX_K and
+# 16-d codes reach deep into near ties. On an H100 (probe_quantized.py
+# --agreement) sound Q2s read 0.99733 (the kernel) and 0.99858 (the
+# product summed in float64); a Q2 that gives ties to the higher row reads
+# 0.99299, which compare's tolerance lets through; queries rounded to one
+# mantissa bit fewer, or cut to bf16, compare refuses
+MIN_ID_AGREEMENT_Q2_EDGES = 0.995
 
 ROWS, DIMS, BATCH, K = 1_000_000, 768, 256, 10
 # the kernel variant the main path's shapes take
@@ -364,6 +375,17 @@ Q_DIMS = (25, 768, 1536)
 Q_FETCH = (10, 200, 320, 1024)
 Q_MASKED = (0.01, 0.5)
 Q_ROWS, Q_FEW_ROWS = 50_001, 300  # neither a multiple of a kernel tile
+# and the edges of the epilogue selection: (name, B, N, D, fetch, masked);
+# "split1" masks every row of the scan's second split
+Q_EDGES = (
+    ("max_k", 256, Q_ROWS, 768, quantized.MAX_K, 0.01),
+    ("n_below_k", 16, 1_000, 768, 2_000, 0.01),
+    ("n_below_a_split", 7, 50, 99, 20, 0.01),
+    ("masked_split", 64, Q_ROWS, 768, 320, "split1"),
+    ("b53", 53, Q_ROWS, 768, 320, 0.01),
+    ("b257", 257, Q_ROWS, 768, 200, 0.01),
+    ("ties_d16", 256, Q_ROWS, 16, 1024, 0.01),
+)
 
 
 def sq_inputs(x: torch.Tensor, metric: str, fit_rows: int = 20_000):
@@ -377,77 +399,112 @@ def sq_inputs(x: torch.Tensor, metric: str, fit_rows: int = 20_000):
                 torch.from_numpy(enc["dec_sqnorm"]).to(x.device))
 
 
+def quant_case(gen, out: dict, b: int, n: int, d: int, fetch: int, masked,
+               metric: str, tally: str = "q2") -> None:
+    """One Q1/Q2 case on seeded rows: Q1 equal to its plain version in
+    every id and distance, Q2 as ``compare`` holds K1
+    (ATOL + RTOL * |plain|, ids equal outside near ties), its equal ids
+    counted under ``tally``."""
+    dev = torch.device("cuda")
+    x = torch.randn(n, d, generator=gen, device=dev)
+    q = (x[torch.randint(0, n, (b,), generator=gen, device=dev)]
+         + 0.1 * torch.randn(b, d, generator=gen, device=dev))
+    if masked == "split1":
+        mask = torch.rand(n, generator=gen, device=dev) >= 0.01
+        for kind in ("bq", "sq"):  # the second split of either scan
+            plan = quantized.device_plan(kind, b, n, fetch, dev)
+            if plan.splits < 2:
+                raise AssertionError(f"{kind} plan {plan} has one split")
+            mask[plan.split_rows:2 * plan.split_rows] = False
+    else:
+        mask = torch.rand(n, generator=gen, device=dev) >= masked
+    if int(mask.sum()) < fetch:
+        out["fetch_over_live"] += 1
+    # Q1: exact
+    bq = BinaryQuantizer(d, "l2-squared")
+    enc = bq.encode_device(x)
+    qp = bq.encode_device(q)["packed"].contiguous()
+    pd, pi = quantized._bq_search_plain(qp, enc["packed"], enc["popcount"],
+                                        mask, d, fetch)
+    kd, ki = quantized.bq_search_cuda(qp, enc["packed"], enc["popcount"],
+                                      mask, d, fetch)
+    torch.cuda.synchronize()
+    if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+        raise AssertionError(
+            f"Q1 differs from its plain version: B={b} D={d} N={n} "
+            f"fetch={fetch} masked={masked}")
+    out["q1_cases"] += 1
+    # Q2: within the tolerance, ids equal outside near ties
+    if metric != "l2-squared":
+        x, q = normalize(x), normalize(q)
+    sq, (codes, dsq) = sq_inputs(x, metric)
+    q = q.contiguous()
+    kd, ki = quantized.sq_search_cuda(q, codes, dsq, sq.a, sq.s, mask,
+                                      metric, fetch)
+    pd, pi = quantized._sq_search_plain(q, codes, dsq, sq.a, sq.s, mask,
+                                        metric, fetch)
+    torch.cuda.synchronize()
+
+    def near(ids):
+        dist = quantized.sq_gather_distance(q, codes, ids.clamp(min=0),
+                                            dsq, sq.a, sq.s, metric)
+        dist = torch.where(mask[ids.clamp(min=0).long()], dist,
+                           MASK_DISTANCE)
+        return torch.where(ids < 0, float("inf"), dist)
+
+    e, same, total = compare(kd, ki, pd, pi, near)
+    out["q2_cases"] += 1
+    out["q2_max_abs_err"] = max(out["q2_max_abs_err"], e)
+    out[f"{tally}_same"] += same
+    out[f"{tally}_total"] += total
+
+
 def quant_kernel_grid(seed: int) -> dict:
     """Q1 and Q2 against their plain versions over Q_BS x Q_DIMS x Q_FETCH,
-    the masked share alternating, SQ cycling its three metrics: Q1 equal in
-    every id and distance, Q2 as ``compare`` holds K1."""
+    the masked share alternating, SQ cycling its three metrics, then the
+    selection's edges (Q_EDGES): Q1 equal in every id and distance, Q2 as
+    ``compare`` holds K1. Q2's ids agree on MIN_ID_AGREEMENT of the
+    grid's slots and on MIN_ID_AGREEMENT_Q2_EDGES of the edges', every
+    differing id a near tie in both."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
-    dev = torch.device("cuda")
     out = {"q1_cases": 0, "q2_cases": 0, "q2_max_abs_err": 0.0,
-           "q2_same": 0, "q2_total": 0, "fetch_over_live": 0,
+           "q2_same": 0, "q2_total": 0, "q2_edge_same": 0,
+           "q2_edge_total": 0, "fetch_over_live": 0,
+           "q2_tolerance": {"atol": ATOL, "rtol": RTOL,
+                            "min_id_agreement": MIN_ID_AGREEMENT,
+                            "edges_min_id_agreement":
+                                MIN_ID_AGREEMENT_Q2_EDGES},
            "seen": {"b": set(), "d": set(), "fetch": set(), "masked": set(),
-                    "metric": set()}}
+                    "metric": set(), "edge": set()}}
     grid = [(b, d, f) for b in Q_BS for d in Q_DIMS for f in Q_FETCH]
     for i, (b, d, fetch) in enumerate(grid):
         n = Q_FEW_ROWS if i % 6 == 5 else Q_ROWS
         masked = Q_MASKED[i % 2]
         metric = quantized.SQ_METRICS[i % 3]
-        x = torch.randn(n, d, generator=gen, device=dev)
-        q = (x[torch.randint(0, n, (b,), generator=gen, device=dev)]
-             + 0.1 * torch.randn(b, d, generator=gen, device=dev))
-        mask = torch.rand(n, generator=gen, device=dev) >= masked
-        if int(mask.sum()) < fetch:
-            out["fetch_over_live"] += 1
-        # Q1: exact
-        bq = BinaryQuantizer(d, "l2-squared")
-        enc = bq.encode_device(x)
-        qp = bq.encode_device(q)["packed"].contiguous()
-        kd, ki = quantized.bq_search_cuda(qp, enc["packed"], enc["popcount"],
-                                          mask, d, fetch)
-        pd, pi = quantized._bq_search_plain(qp, enc["packed"],
-                                            enc["popcount"], mask, d, fetch)
-        torch.cuda.synchronize()
-        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
-            raise AssertionError(f"Q1 differs from its plain version: B={b} "
-                                 f"D={d} N={n} fetch={fetch}")
-        out["q1_cases"] += 1
-        # Q2: within the tolerance, ids equal outside near ties
-        if metric != "l2-squared":
-            x, q = normalize(x), normalize(q)
-        sq, (codes, dsq) = sq_inputs(x, metric)
-        q = q.contiguous()
-        kd, ki = quantized.sq_search_cuda(q, codes, dsq, sq.a, sq.s, mask,
-                                          metric, fetch)
-        pd, pi = quantized._sq_search_plain(q, codes, dsq, sq.a, sq.s, mask,
-                                            metric, fetch)
-        torch.cuda.synchronize()
-
-        def near(ids, q=q, codes=codes, dsq=dsq, sq=sq, mask=mask,
-                 metric=metric):
-            dist = quantized.sq_gather_distance(q, codes, ids.clamp(min=0),
-                                                dsq, sq.a, sq.s, metric)
-            dist = torch.where(mask[ids.clamp(min=0).long()], dist,
-                               MASK_DISTANCE)
-            return torch.where(ids < 0, float("inf"), dist)
-
-        e, same, total = compare(kd, ki, pd, pi, near)
-        out["q2_cases"] += 1
-        out["q2_max_abs_err"] = max(out["q2_max_abs_err"], e)
-        out["q2_same"] += same
-        out["q2_total"] += total
+        quant_case(gen, out, b, n, d, fetch, masked, metric)
         for key, v in (("b", b), ("d", d), ("fetch", fetch),
                        ("masked", masked), ("metric", metric)):
             out["seen"][key].add(v)
+    for i, (name, b, n, d, fetch, masked) in enumerate(Q_EDGES):
+        quant_case(gen, out, b, n, d, fetch, masked,
+                   quantized.SQ_METRICS[i % 3], "q2_edge")
+        out["seen"]["edge"].add(name)
     if (out["seen"]["b"] != set(Q_BS) or out["seen"]["d"] != set(Q_DIMS)
             or out["seen"]["fetch"] != set(Q_FETCH)
             or out["seen"]["masked"] != set(Q_MASKED)
             or out["seen"]["metric"] != set(quantized.SQ_METRICS)
+            or out["seen"]["edge"] != {e[0] for e in Q_EDGES}
             or not out["fetch_over_live"]):
         raise AssertionError(f"the Q1/Q2 grid left a case out: {out}")
     out["q2_id_agreement"] = out["q2_same"] / max(1, out["q2_total"])
-    if out["q2_id_agreement"] < MIN_ID_AGREEMENT:
-        raise AssertionError(f"Q2 id agreement {out['q2_id_agreement']}")
-    out["seen"] = {k: sorted(v) for k, v in out["seen"].items()}
+    out["q2_edge_id_agreement"] = (out["q2_edge_same"]
+                                   / max(1, out["q2_edge_total"]))
+    if out["q2_id_agreement"] < MIN_ID_AGREEMENT or \
+            out["q2_edge_id_agreement"] < MIN_ID_AGREEMENT_Q2_EDGES:
+        raise AssertionError(
+            f"Q2 id agreement {out['q2_id_agreement']} (grid), "
+            f"{out['q2_edge_id_agreement']} (edges)")
+    out["seen"] = {k: sorted(map(str, v)) for k, v in out["seen"].items()}
     return out
 
 
@@ -1690,44 +1747,44 @@ def scan_bound(kind: str, b: int, n: int, d: int, fetch: int
             {"bytes": nbytes, "ops": 2 * b * n * d})
 
 
-def select_bound(b: int, n: int, k: int) -> tuple[float, str, dict]:
-    """The least time of the selection: its [b, n] key block read once and
-    its [b, k] keys and columns written once, over the memory rate (its
-    comparisons are not a tensor-core rate's work)."""
-    nbytes = b * n * 4 + b * k * 8
+def merge_bound(splits: int, b: int, k: int) -> tuple[float, str, dict]:
+    """The least time of the merge: its [splits, b, k] keys and rows read
+    once and its [b, k] distances and ids written once, over the memory
+    rate (its comparisons are not a tensor-core rate's work)."""
+    nbytes = splits * b * k * 8 + b * k * 8
     return nbytes / HBM_BYTES_S * 1e3, "bytes", {"bytes": nbytes}
 
 
-def check_select(scan, b: int, n: int, k: int) -> dict:
-    """The selection alone (``select_topk``, five launches) on the key block
-    of the search's first chunk of queries, held exactly against its plain
-    version (a stable sort), timed beside it and beside ``torch.topk`` over
-    the same keys in signed order."""
-    bc = quantized.query_chunk(b, n)
-    keys = torch.empty((bc, n), dtype=torch.int32, device="cuda")
-    scan(0, bc, keys)
-    kk = min(k, n)
-    sk, sc = quantized.select_topk(keys, kk)
-    pk, pc = quantized.select_topk_plain(keys, kk)
+def check_merge(cand_keys, cand_rows, k: int) -> dict:
+    """The merge alone on a scan's real lists: equal to its plain version
+    (a stable sort), timed beside it and beside ``torch.topk`` over the same
+    keys in signed order (it returns the same keys; its order among ties is
+    not promised)."""
+    splits, b, _ = cand_keys.shape
+    kd, ki = quantized.merge_partials(cand_keys, cand_rows, k)
+    pd, pi = quantized.merge_partials_plain(cand_keys, cand_rows, k)
     torch.cuda.synchronize()
-    if not (torch.equal(sk, pk) and torch.equal(sc, pc)):
-        raise AssertionError("the selection differs from its plain version")
-    ms = cuda_ms(lambda: quantized.select_topk(keys, kk), 10, 2)
-    plain_ms = cuda_ms(lambda: quantized.select_topk_plain(keys, kk), 2, 1)
+    if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+        raise AssertionError("the merge differs from its plain version")
+    ms = cuda_ms(lambda: quantized.merge_partials(cand_keys, cand_rows, k),
+                 10, 2)
+    plain_ms = cuda_ms(lambda: quantized.merge_partials_plain(
+        cand_keys, cand_rows, k), 3, 1)
     # the keys' unsigned order as int32's signed order: what topk sorts
-    signed = torch.bitwise_xor(keys, -(1 << 31))
-    lk = torch.topk(signed, kk, dim=1, largest=False, sorted=True).values
-    if not torch.equal(torch.bitwise_xor(lk, -(1 << 31)), sk):
-        raise AssertionError("torch.topk selects other keys")
-    library_ms = cuda_ms(lambda: torch.topk(signed, kk, dim=1, largest=False,
+    flat = cand_keys[..., :k].permute(1, 0, 2).reshape(b, splits * k)
+    signed = torch.bitwise_xor(flat, -(1 << 31))
+    lk = torch.topk(signed, k, dim=1, largest=False, sorted=True).values
+    want = torch.sort(quantized._key_order(flat), dim=1).values[:, :k]
+    if not torch.equal(quantized._key_order(
+            torch.bitwise_xor(lk, -(1 << 31))), want):
+        raise AssertionError("torch.topk takes other keys")
+    library_ms = cuda_ms(lambda: torch.topk(signed, k, dim=1, largest=False,
                                             sorted=True), 10, 2)
-    bound_ms, bound_by, work = select_bound(bc, n, kk)
-    del keys, signed, pk, pc
-    torch.cuda.empty_cache()
+    bound_ms, bound_by, work = merge_bound(splits, b, k)
     return {"ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
             "library_ms": float(np.median(library_ms)), "bound_ms": bound_ms,
             "bound_by": bound_by, "work": work,
-            "shape": {"b": bc, "n": n, "k": kk}}
+            "shape": {"splits": splits, "b": b, "k": k}}
 
 
 def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
@@ -1735,10 +1792,9 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     """One quantized flat index through ``make_flat``: ingest from the
     card's rows (``rows()`` makes them and the queries; the corpus is freed
     after the ground truth), recall@10 against the exact float32 answer,
-    the scan kernel's launches a search (one a chunk of queries) and the
-    selection's, its time beside its bound and its plain version, the
-    selection alone, search p50/p99, the rescore's share, device and host
-    bytes."""
+    the search's launches (one scan, one merge), the search on the kernels
+    beside its bound and its plain version, the scan alone and the merge
+    alone, search p50/p99, the rescore's share, device and host bytes."""
     corpus, queries = rows()
     d = corpus.shape[1]
     idx = make_flat(d, cfg)
@@ -1756,33 +1812,29 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     qrep = backend.prep_queries(qn)
     planes, mask = backend.codes.snapshot()
     nrows = int(mask.shape[0])
-    # the served path, launches counted from 0 for one search: one scan a
-    # chunk of queries, five selection launches a chunk
+    fetch = max(4 * K, cfg.quantizer.rescore_limit, K)
+    # the served path, launches counted from 0 for one search: one scan
+    # over every query, one merge
     scan_fn = quantized.bq_search if kind == "bq" else quantized.sq_search
     scan_fn.launches = 0
-    quantized.select_topk.launches = 0
+    quantized.merge_partials.launches = 0
     res = idx.search(qn, K)
-    launches = scan_fn.launches
-    select_launches = quantized.select_topk.launches
-    want = quantized.scan_launches(len(qn), nrows)
-    if launches != want or \
-            select_launches != quantized.SELECT_LAUNCHES * want:
-        raise AssertionError(
-            f"{kind} flat search made {launches} scan and {select_launches} "
-            f"selection launches, not {want} and "
-            f"{quantized.SELECT_LAUNCHES * want}")
+    launches = {"scan": scan_fn.launches,
+                "merge": quantized.merge_partials.launches}
+    if launches != quantized.search_launches():
+        raise AssertionError(f"{kind} flat search made {launches} launches")
     rec = recall(res.ids, gt)
     search_ms = host_p(lambda: idx.search(qn, K), 20)
     # the search's kernels alone, on the search's own inputs
-    fetch = max(4 * K, cfg.quantizer.rescore_limit, K)
+    plan = quantized.device_plan(kind, len(qn), nrows, fetch, "cuda")
+    cand = quantized._lists(plan, len(qn), "cuda")
     if kind == "bq":
         args = (qrep.code, planes["packed"], planes["popcount"], mask,
                 d, fetch)
         kernel, plain = quantized.bq_search_cuda, quantized._bq_search_plain
 
-        def scan(lo, hi, keys):
-            quantized.bq_scan_cuda(qrep.code[lo:hi], planes["packed"],
-                                   planes["popcount"], mask, d, keys)
+        def scan():
+            quantized.bq_scan_cuda(*args, plan, *cand)
     else:
         args = (qrep.code, planes["codes"], planes["dec_sqnorm"],
                 backend.quantizer.a, backend.quantizer.s, mask, "cosine",
@@ -1790,11 +1842,11 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
         kernel, plain = quantized.sq_search_cuda, quantized._sq_search_plain
         qb, q_sum, q_sq = quantized.sq_query_terms(qrep.code)
 
-        def scan(lo, hi, keys):
-            quantized.sq_scan_cuda(qb[lo:hi], planes["codes"],
-                                   planes["dec_sqnorm"], mask, q_sum[lo:hi],
-                                   q_sq[lo:hi], backend.quantizer.a,
-                                   backend.quantizer.s, "cosine", keys)
+        def scan():
+            quantized.sq_scan_cuda(qb, planes["codes"], planes["dec_sqnorm"],
+                                   mask, q_sum, q_sq, backend.quantizer.a,
+                                   backend.quantizer.s, "cosine", fetch,
+                                   plan, *cand)
     kd, ki = kernel(*args)
     pd, pi = plain(*args)
     torch.cuda.synchronize()
@@ -1815,63 +1867,77 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     ms = cuda_ms(lambda: kernel(*args), 10, 2)
     plain_ms = cuda_ms(lambda: plain(*args), 1, 0)
     bound_ms, bound_by, work = scan_bound(kind, len(qn), nrows, d, fetch)
-    # the scans alone: every chunk's launch into one key block
-    bc = quantized.query_chunk(len(qn), nrows)
-    keys = torch.empty((bc, nrows), dtype=torch.int32, device="cuda")
-    scans_ms = cuda_ms(lambda: [scan(lo, min(len(qn), lo + bc),
-                                     keys[:min(len(qn), lo + bc) - lo])
-                                for lo in range(0, len(qn), bc)], 10, 2)
-    del keys
+    # the scan alone, then the merge alone on the scan's lists
+    scan_ms = float(np.median(cuda_ms(scan, 10, 2)))
+    scan()
+    merge = check_merge(*cand, fetch)
+    yardstick = None
+    if kind == "sq":
+        # the bf16 product alone, on codes widened once outside the timing
+        wide = planes["codes"].to(torch.bfloat16)
+        qb16 = qrep.code.to(torch.bfloat16)
+        yardstick = float(np.median(cuda_ms(
+            lambda: torch.matmul(qb16, wide.T), 10, 2)))
+        del wide, qb16
+    del cand
     torch.cuda.empty_cache()
-    select = check_select(scan, len(qn), nrows, fetch)
     # the host rescore of the scan's candidates, alone
-    cand = ki.cpu().numpy()
+    cand_ids = ki.cpu().numpy()
     rescore_ms = host_p(lambda: exact_rescore(
-        qrep.host, cand, backend.originals, "cosine", K), 5)
+        qrep.host, cand_ids, backend.originals, "cosine", K), 5)
     p50 = float(np.percentile(search_ms, 50))
-    state[f"kernel_q{1 if kind == 'bq' else 2}"] = {
+    entry = {
         "name": f"{kind}_scan", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/quantized.cu",
         "replaces": ("weaviate_tpu/ops/quantized.py:138" if kind == "bq"
                      else "weaviate_tpu/ops/quantized.py:168"),
-        "launches": launches, "max_abs_err": err,
+        "launches": launches["scan"], "max_abs_err": err,
         "ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "share_of_bound": bound_ms / float(np.median(ms)),
-        "ms_covers": f"one search: {launches} scan launches and their "
-                     "selections",
-        "scans_only_ms": float(np.median(scans_ms)),
+        "ms_covers": "one search: one scan launch and one merge launch",
+        "scan_ms": scan_ms,
+        "product": ("1-bit mma.m16n8k256 and.popc" if kind == "bq"
+                    else "bf16 mma.m16n8k16"),
+        "merge_ms": merge["ms"],
         "launches_per_search": launches,
         "shape": {"b": len(qn), "n": nrows, "d": d, "fetch": fetch,
-                  "query_chunk": bc},
+                  "splits": plan.splits, "split_rows": plan.split_rows,
+                  "list_cap": plan.cap},
     }
-    # the selection's entry: its times at the BQ search's shape (the
-    # larger), the SQ search's beside them
+    if yardstick is not None:
+        entry["matmul_ms"] = yardstick
+        entry["matmul_covers"] = ("the bf16 product only: torch.matmul of "
+                                  "the bf16 queries against the codes "
+                                  "widened to bf16 once, outside the timing")
+    state[f"kernel_q{1 if kind == 'bq' else 2}"] = entry
+    # the merge's entry: its times at the BQ search's shape (the larger),
+    # the SQ search's beside them
     if kind == "bq":
-        state["kernel_select"] = {
-            "name": "topk_select", "route": "cuda",
+        state["kernel_merge"] = {
+            "name": "topk_merge", "route": "cuda",
             "source": "weaviate_tpu_torch/csrc/quantized.cu",
             "replaces": "weaviate_tpu/ops/quantized.py:68",
-            "launches": 0, "max_abs_err": 0.0, **select}
+            "launches": 0, "max_abs_err": 0.0, **merge}
     else:
-        state["kernel_select"]["at_sq_shape"] = select
-    state["kernel_select"]["launches"] += select_launches
-    state["kernel_select"][f"launches_{kind}_search"] = select_launches
+        state["kernel_merge"]["at_sq_shape"] = merge
+    state["kernel_merge"]["launches"] += launches["merge"]
+    state["kernel_merge"][f"launches_{kind}_search"] = launches["merge"]
     out = {
         "rows": n, "dims": d, "metric": "cosine",
         "quantizer": kind, "rescore_limit": cfg.quantizer.rescore_limit,
         "fetch": fetch, "batch": len(qn), "k": K,
         "ingest_s": ingest_s, "vectors_per_s": n / ingest_s,
-        "recall_at_10": rec, "scan_launches_per_search": launches,
-        "select_launches_per_search": select_launches,
+        "recall_at_10": rec, "launches_per_search": launches,
         "search_p50_ms": p50,
         "search_p99_ms": float(np.percentile(search_ms, 99)),
         "qps": len(qn) / p50 * 1e3,
-        "scan_ms": float(np.median(ms)), "scan_bound_ms": bound_ms,
-        "scan_bound_by": bound_by, "scan_plain_ms": float(np.median(plain_ms)),
-        "scans_only_ms": float(np.median(scans_ms)), "select": select,
-        "scan_work": work, "scan_vs_plain_max_abs_err": err,
-        "scan_vs_plain_id_agreement": agree,
+        "kernel_search_ms": float(np.median(ms)), "scan_ms": scan_ms,
+        "merge": merge, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": float(np.median(plain_ms)), "matmul_ms": yardstick,
+        "scan_work": work, "plan": plan._asdict(),
+        "kernel_vs_plain_max_abs_err": err,
+        "kernel_vs_plain_id_agreement": agree,
         "rescore_p50_ms": float(np.percentile(rescore_ms, 50)),
         "rescore_share_of_search": float(np.percentile(rescore_ms, 50)) / p50,
         "device_bytes": backend.codes.nbytes,
@@ -2082,14 +2148,15 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     # the 1% filter: the planner's exact plan, the SQ scan (Q2)
     plans = PLANNER_PLANS.value(plan=PLAN_EXACT)
     quantized.sq_search.launches = 0
-    quantized.select_topk.launches = 0
+    quantized.merge_partials.launches = 0
     rows_f = db_search(col, queries, flt)
     q2_launches = quantized.sq_search.launches
-    q2_select_launches = quantized.select_topk.launches
-    if PLANNER_PLANS.value(plan=PLAN_EXACT) != plans + 1 or q2_launches < 1 \
-            or q2_select_launches != quantized.SELECT_LAUNCHES * q2_launches:
+    q2_merge_launches = quantized.merge_partials.launches
+    if PLANNER_PLANS.value(plan=PLAN_EXACT) != plans + 1 or \
+            {"scan": q2_launches, "merge": q2_merge_launches} != \
+            quantized.search_launches():
         raise AssertionError("the 1% filter did not take the exact plan "
-                             "through the SQ scan and its selection")
+                             "through one SQ scan and one merge")
     if any(o.properties["bucket"] != FILTER_BUCKET
            for r in rows_f for o, _ in r):
         raise AssertionError("the filtered query returned a non-matching "
@@ -2139,8 +2206,8 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
     }
     state["kernel_q2"]["launches"] += q2_launches
-    state["kernel_select"]["launches"] += q2_select_launches
-    state["kernel_select"]["launches_quant_db"] = q2_select_launches
+    state["kernel_merge"]["launches"] += q2_merge_launches
+    state["kernel_merge"]["launches_quant_db"] = q2_merge_launches
     del unit, qt, spy
 
     t0 = time.perf_counter()
@@ -2181,7 +2248,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "b2_launches_search": launches,
         "recall_at_10": rec, "recall_at_10_filtered": rec_f,
         "filtered_plan": PLAN_EXACT, "q2_launches_filtered": q2_launches,
-        "select_launches_filtered": q2_select_launches,
+        "merge_launches_filtered": q2_merge_launches,
         "recall_at_10_filtered_beam": rec_b, "filtered_beam_plan": PLAN_BEAM,
         "b2_launches_filtered_beam": beam_launches,
         "search_p50_ms": float(np.percentile(search_ms, 50)),
@@ -2224,7 +2291,7 @@ def main(argv=None) -> int:
         emit({"phase": name, "seconds": time.perf_counter() - t0, **out})
     emit({"kernels": [state[k] for k in (
         "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_q1",
-        "kernel_q2", "kernel_select")]})
+        "kernel_q2", "kernel_merge")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -96,26 +96,47 @@ def _records(seed=0, n=N):
     return out
 
 
-def _build(tmp_path):
-    """Both indexes over the same writes: N adds, 10% deleted, 5% updated
+def _fill(tmp_path, name, Inv, Obj, St, cfg):
+    """One package's index over the writes: N adds, 10% deleted, 5% updated
     (delete + re-add under a new doc id, as the shard does)."""
-    inv = {}
-    for name, Inv, Obj, St, cfg in (
-            ("jax", JaxInverted, JaxObject, JaxStore, _cfg(jconfig)),
-            ("torch", InvertedIndex, StorageObject, Store, _cfg(config))):
-        ix = Inv(cfg, St(str(tmp_path / name)))
-        objs = [Obj(**r) for r in _records()]
-        for o in objs:
-            ix.add_object(o)
-        for o in objs[::10]:
-            ix.delete_object(o)
-        for i, o in enumerate(objs[1::20]):
-            ix.delete_object(o)
-            o.doc_id = N + i
-            o.properties["views"] = 42
-            ix.add_object(o)
-        inv[name] = ix
-    return inv["jax"], inv["torch"]
+    ix = Inv(cfg, St(str(tmp_path / name)))
+    objs = [Obj(**r) for r in _records()]
+    for o in objs:
+        ix.add_object(o)
+    for o in objs[::10]:
+        ix.delete_object(o)
+    for i, o in enumerate(objs[1::20]):
+        ix.delete_object(o)
+        o.doc_id = N + i
+        o.properties["views"] = 42
+        ix.add_object(o)
+    return ix
+
+
+def _engine(ix) -> str:
+    return "native" if ix.native is not None else "dense"
+
+
+def _build(tmp_path):
+    """Both indexes over the same writes, on the same BM25 engine. Each
+    package's native WAND engine and its dense path may order a near tie
+    differently, so when one package's native engine did not come up, the
+    other's index is built on its dense path too
+    (``WEAVIATE_TPU_NATIVE_BM25=off``)."""
+    j = _fill(tmp_path, "jax", JaxInverted, JaxObject, JaxStore,
+              _cfg(jconfig))
+    with pytest.MonkeyPatch.context() as mp:
+        if j.native is None:
+            mp.setenv("WEAVIATE_TPU_NATIVE_BM25", "off")
+        t = _fill(tmp_path, "torch", InvertedIndex, StorageObject, Store,
+                  _cfg(config))
+    if j.native is not None and t.native is None:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("WEAVIATE_TPU_NATIVE_BM25", "off")
+            j = _fill(tmp_path, "jax-dense", JaxInverted, JaxObject,
+                      JaxStore, _cfg(jconfig))
+    assert _engine(j) == _engine(t)
+    return j, t
 
 
 @pytest.fixture(scope="module")
@@ -138,23 +159,52 @@ def test_allow_masks_identical(pair, name):
         j.estimate_selectivity(jf), rel=1e-12)
 
 
-@pytest.mark.parametrize("query", ["gamma delta", "the beta", "zeta",
-                                   "kappa lambda mu", "nomatch"])
-def test_bm25_pages_agree(pair, query):
-    j, t = pair
+BM25_QUERIES = ["gamma delta", "the beta", "zeta", "kappa lambda mu",
+                "nomatch"]
+
+
+def _pages_agree(j, t, query):
     allow = np.zeros(N + 200, bool)
     allow[::3] = True
+    engines = f"engines: jax {_engine(j)}, torch {_engine(t)}"
     for kw in ({}, {"allow_list": allow}, {"properties": ["title^2"]},
                {"operator": "And"}):
         jid, jsc = j.bm25_search(query, 10, **kw)
         tid, tsc = t.bm25_search(query, 10, **kw)
-        np.testing.assert_array_equal(tid, jid)
-        np.testing.assert_allclose(tsc, jsc, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(tid, jid, err_msg=f"{kw} {engines}")
+        np.testing.assert_allclose(tsc, jsc, rtol=1e-6, atol=1e-6,
+                                   err_msg=f"{kw} {engines}")
 
 
-def test_native_engine_on_the_write_path(pair):
-    _, t = pair
+@pytest.mark.parametrize("query", BM25_QUERIES)
+def test_bm25_pages_agree(pair, query):
+    _pages_agree(*pair, query)
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_bm25_pair_follows_an_engine_that_did_not_come_up(tmp_path,
+                                                          monkeypatch, side):
+    """One package's native engine forced off: the pair is built on the
+    dense path on both sides and agrees page for page."""
+    from weaviate_tpu.inverted import native_bm25 as jnative
+    from weaviate_tpu_torch.inverted import native_bm25 as tnative
+
+    monkeypatch.setattr(jnative if side == "jax" else tnative,
+                        "try_native_bm25", lambda k1, b: None)
+    j, t = _build(tmp_path)
+    assert j.native is None and t.native is None
+    for query in BM25_QUERIES:
+        _pages_agree(j, t, query)
+
+
+def test_native_engine_on_the_write_path(tmp_path):
+    """The port's native engine builds and takes an index's writes."""
+    t = InvertedIndex(_cfg(config), Store(str(tmp_path / "t")))
     assert t.native is not None, "the port's BM25 engine did not build"
+    for r in _records(n=50):
+        t.add_object(StorageObject(**r))
+    ids, _ = t.bm25_search("gamma", 5)
+    assert len(ids) > 0
 
 
 def test_snapshot_bytes_identical_and_cross_load(pair, tmp_path):

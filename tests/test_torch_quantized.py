@@ -11,15 +11,20 @@ JAX package's, on the CPU.
   on >= 0.99 of the slots, every other id a near tie.
 - The frontier gathers: BQ equal, SQ within the same tolerance.
 - The kernels' order keys: ``keys_to_dists`` inverts the float -> key
-  transform of ``csrc/quantized.cu`` (written here in numpy), and the
-  selection's plain version over those keys gives JAX ``bq_search``'s
-  answer exactly.
+  transform of ``csrc/quantized.cu`` (written here in numpy).
+- The merge (``merge_partials``, the half of a search after the scan; CPU
+  tensors take its plain version) over per-split partials as the scan
+  leaves them (``split_partials_plain``) gives JAX ``bq_search``'s ids and
+  distances exactly: ties, ``k`` = N, splits shorter than ``k``, a wholly
+  masked split, one split, ``k`` = ``MAX_K``.
 - ``QuantizedFlatIndex`` (``make_flat`` with BQ or SQ): the same ids as the
   JAX index, distances within 1e-5, before the quantizer is fitted (exact
   host route), after it, after deletes and under a filter, for cosine with
   scaled queries, and padded to k (the cases of
   ``tests/test_compression.py``).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +38,8 @@ from weaviate_tpu_torch.index.flat import QuantizedFlatIndex, make_flat
 from weaviate_tpu_torch.ops import quantized as tq
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE
 from weaviate_tpu_torch.schema import config
+
+import probe_quantized as probe
 
 # float32 sums of the same bf16 products in another order; l2-squared adds
 # the cancellation of q.q - 2 q.x + x.x at |q|^2 of about 50 (a few ulps)
@@ -168,7 +175,8 @@ def test_order_keys_invert_to_the_distances():
 
 def test_scan_wrappers_check_their_inputs_on_the_cpu():
     """CPU tensors take the plain versions, whose launch counters stay; the
-    kernels' argument checks refuse what they do not take."""
+    kernels' argument checks refuse what they do not take; a search is one
+    scan launch and one merge launch at any shape."""
     q, packed, pop = _bq_planes(50, 40, 2)
     qt = torch.from_numpy(q.view(np.int32).copy())
     pt = torch.from_numpy(packed.view(np.int32).copy())
@@ -180,14 +188,52 @@ def test_scan_wrappers_check_their_inputs_on_the_cpu():
     with pytest.raises(ValueError, match="metric"):
         tq.sq_search(torch.zeros(2, 8), torch.zeros((5, 8), dtype=torch.uint8),
                      torch.zeros(5), 0.0, 1.0, None, "manhattan", 3)
-    with pytest.raises(ValueError, match="keys"):
-        tq.bq_scan_cuda(qt, pt, torch.from_numpy(pop), None, 40,
-                        torch.empty((3, 50), dtype=torch.int32))
-    assert tq.query_chunk(256, 10_000_000) == 53
-    assert tq.query_chunk(7, 100) == 7
-    # a search's scan launches: one a chunk of queries
-    assert tq.scan_launches(256, 10_002_432) == 5
-    assert tq.scan_launches(256, 552_960) == 1
+    plan = tq.scan_plan("bq", 2, 50, 5)
+    lists = tq._lists(plan, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="cand_keys"):
+        tq.bq_scan_cuda(qt, pt, torch.from_numpy(pop), None, 40, 5, plan,
+                        torch.empty((1, 3, plan.cap), dtype=torch.int32),
+                        lists[1])
+    # the phase-quant searches: every query in one scan launch
+    assert tq.scan_plan("bq", 256, 10_002_432, 320) == (132, 75_776, 704)
+    assert tq.scan_plan("sq", 256, 552_960, 200) == (66, 8_448, 544)
+    # k = MAX_K: fewer splits keep the lists under LIST_BYTES
+    big = tq.scan_plan("bq", 256, 10_002_432, tq.MAX_K)
+    assert big.splits * 256 * big.cap * 8 <= tq.LIST_BYTES
+    assert tq.search_launches() == {"scan": 1, "merge": 1}
+    for kind, b, n, k in (("bq", 256, 10_002_432, 320),
+                          ("sq", 256, 552_960, 200), ("bq", 257, 300, 4096),
+                          ("sq", 53, 100_000, 10)):
+        p = tq.scan_plan(kind, b, n, k)
+        assert p.split_rows % tq.ROWS_TILE[kind] == 0
+        assert (p.splits - 1) * p.split_rows < n <= p.splits * p.split_rows
+        assert p.cap >= k + tq.ROWS_TILE[kind]
+
+
+@pytest.mark.parametrize("b,n,k", [(0, 50, 5), (2, 0, 5), (2, 50, 0),
+                                   (2, 50, tq.MAX_K + 1)],
+                         ids=["no_queries", "no_rows", "k0", "k_over_max"])
+def test_scan_plan_refuses_what_no_kernel_takes(b, n, k):
+    # the plan is the first step of a search on the card: it refuses an
+    # empty scan or a k outside [1, MAX_K] before anything is allocated
+    for kind in ("bq", "sq"):
+        with pytest.raises(ValueError, match="empty scan|k="):
+            tq.scan_plan(kind, b, n, k)
+
+
+def test_plan_reads_the_kernels_tiles_from_their_source():
+    # the tiles and occupancy the plan uses are those csrc/quantized.cu
+    # launches with: one definition each in the source
+    src = (Path(tq.__file__).resolve().parents[1] / "csrc"
+           / "quantized.cu").read_text()
+    for name, value in (("kQT", tq.QUERY_TILE),
+                        ("kBqR", tq.ROWS_TILE["bq"]),
+                        ("kSqR", tq.ROWS_TILE["sq"]),
+                        ("kBqCtasPerSm", tq.CTAS_PER_SM["bq"]),
+                        ("kSqCtasPerSm", tq.CTAS_PER_SM["sq"])):
+        assert src.count(f"constexpr int {name} = {value};") == 1, name
+    assert "__launch_bounds__(kThreads, kBqCtasPerSm)" in src
+    assert "__launch_bounds__(kThreads, kSqCtasPerSm)" in src
 
 
 def _order_keys(f: np.ndarray) -> np.ndarray:
@@ -199,32 +245,81 @@ def _order_keys(f: np.ndarray) -> np.ndarray:
     return key.view(np.int32)
 
 
-@pytest.mark.parametrize("n,d,k,masked", [
-    (1000, 16, 50, 0.5),   # 16 bits: ties on nearly every slot
-    (200, 25, 200, 0.3),   # k = N, the tail masked
-])
-def test_selection_plain_version_gives_jax_bq_search(n, d, k, masked):
-    """The selection the scans feed (``select_topk``; CPU tensors take its
-    plain version, a stable sort by unsigned key) over the order keys of
-    exact hamming distances gives JAX ``bq_search``'s ids and distances:
-    ties keep the lower row."""
-    import jax.numpy as jnp
-
-    q, packed, pop = _bq_planes(n, d, 8)
-    mask = np.random.default_rng(5).random(n) >= masked
-    jd, ji = jq.bq_search(jnp.asarray(q), jnp.asarray(packed),
-                          jnp.asarray(pop), jnp.asarray(mask), d, k, 0)
+def _bq_keys(q, packed, mask, d):
+    """Order keys [B, N] of the exact hamming distances, NONE_KEY where
+    masked."""
     bits = lambda w: ((w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
                       ).reshape(len(w), -1)[:, :d]  # noqa: E731
     ham = (bits(q)[:, None, :] != bits(packed)[None, :, :]).sum(-1)
-    dist = np.where(mask[None, :], ham.astype(np.float32), MASK_DISTANCE)
-    keys = torch.from_numpy(_order_keys(dist))
-    before = tq.select_topk.launches
-    sk, sc = tq.select_topk(keys, k)
-    assert tq.select_topk.launches == before
-    td, ti = tq._finish(sk, sc, k, len(q), torch.device("cpu"))
+    keys = _order_keys(ham.astype(np.float32))
+    return torch.from_numpy(np.where(mask[None, :], keys, tq.NONE_KEY))
+
+
+def _plan(kind, b, n, k, splits=None, split_rows=None, sms=None):
+    if sms is not None:
+        return tq.scan_plan(kind, b, n, k, sms)
+    return tq.ScanPlan(splits, split_rows, k + tq.ROWS_TILE[kind])
+
+
+@pytest.mark.parametrize("n,d,k,masked,plan", [
+    # 16 bits: ties on nearly every slot, 8 splits
+    (1000, 16, 50, 0.5, dict(sms=4)),
+    # k = N, the tail masked; 4 splits of 64 rows
+    (200, 25, 200, 0.3, dict(sms=2)),
+    # every split shorter than k
+    (700, 64, 100, 0.0, dict(splits=11, split_rows=64)),
+    # split 1 wholly masked
+    (1024, 40, 30, "split1", dict(splits=4, split_rows=256)),
+    # one split
+    (900, 70, 40, 0.2, dict(splits=1, split_rows=960)),
+    # k = MAX_K over N > MAX_K
+    (5000, 25, 4096, 0.1, dict(sms=8)),
+], ids=["ties16", "k_eq_n", "splits_short_of_k", "masked_split",
+        "one_split", "max_k"])
+def test_merge_of_split_partials_gives_jax_bq_search(n, d, k, masked, plan):
+    """The half of a search that follows the scan: each split's k smallest
+    (order key, row) in row order, as the scan leaves them, merged
+    (``merge_partials``; CPU tensors take its plain version) give JAX
+    ``bq_search``'s ids and distances: ties keep the lower row."""
+    import jax.numpy as jnp
+
+    q, packed, pop = _bq_planes(n, d, 8)
+    rng = np.random.default_rng(5)
+    if masked == "split1":
+        mask = rng.random(n) >= 0.2
+        mask[256:512] = False
+    else:
+        mask = rng.random(n) >= masked
+    jd, ji = jq.bq_search(jnp.asarray(q), jnp.asarray(packed),
+                          jnp.asarray(pop), jnp.asarray(mask), d, k, 0)
+    sp = _plan("bq", len(q), n, k, **plan)
+    assert sp.splits * sp.split_rows >= n > (sp.splits - 1) * sp.split_rows
+    keys = _bq_keys(q, packed, mask, d)
+    ck, cr = tq.split_partials_plain(keys, k, sp)
+    assert ck.shape == (sp.splits, len(q), k)
+    # each partial: taken keys first, in row order, then padding
+    taken = ck != tq.NONE_KEY
+    assert (cr[taken] >= 0).all() and (cr[~taken] == -1).all()
+    assert (taken[..., :-1] | ~taken[..., 1:]).all()
+    if masked == "split1":
+        assert not taken[1].any()
+    before = tq.merge_partials.launches
+    td, ti = tq.merge_partials(ck, cr, k)
+    assert tq.merge_partials.launches == before
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("old,new", [
+    e for name in probe.COPIES for e in probe.COPIES[name]], ids=[
+        f"{name}{i}" for name in probe.COPIES
+        for i in range(len(probe.COPIES[name]))])
+def test_probe_copies_apply_to_the_kernel_source(old, new):
+    # probe_quantized.py's copies replace text the kernel source holds
+    # exactly once, so a kernel edit that drops one fails here
+    src = probe.SOURCE.read_text()
+    assert src.count(old) == 1, repr(old)
+    assert probe.edited([(old, new)]) != src
 
 
 # -- the quantized flat index -------------------------------------------------

@@ -1,52 +1,67 @@
-// Quantized scans with exact top-k: Q1 (BQ, packed hamming) and Q2 (SQ,
-// float query x byte codes), and the selection passes they share.
+// Quantized scans with an exact top-k in their epilogue: Q1 (BQ, packed
+// hamming on the tensor cores) and Q2 (SQ, bf16 queries x byte codes on the
+// tensor cores), and the merge of their per-split partials.
 //
 // Replaces the XLA programs of weaviate_tpu/ops/quantized.py:
 //
 //   * Q1 `bq_search` (:138, with `_chunked_topk` :68 and `unpack_bits`
 //     :55): hamming(q, x) = |q| + |x| - 2 q.x over the sign bits of the
 //     first `dims` dimensions. The JAX program unpacks the bits to bf16 and
-//     multiplies on the matrix unit; here each thread counts one row's
-//     words against a tile of 16 queries held in shared memory
-//     (`__popc(q & x)`). The distances are exact integers held as float32,
-//     so this route and the plain one agree bit for bit.
+//     multiplies on the matrix unit. Here the packed words are the operands
+//     of a 1-bit tensor-core product, `mma.m16n8k256 .b1 .and.popc`. Its sum
+//     is an exact integer, so the distances equal the plain version's bit
+//     for bit.
 //   * Q2 `sq_search` (:168, with `_bf16_ip` :122): q . decode(c) =
-//     s * (bf16(q) . c) + a * sum(q). A block computes a 64-query x
-//     128-row tile with warp matrix products (`wmma`, bf16 in, float32
-//     sums): the queries come rounded to bf16 (round to nearest even, as
-//     `_bf16_ip` casts them), code tiles are widened from uint8 to bf16 in
-//     shared memory (exact: codes <= 255), and the epilogue applies the
-//     affine decode with sum(q) and sum(q^2) taken in float32 from the
-//     unrounded queries; l2-squared is clamped at 0, dot negated, cosine
-//     1 - x.
+//     s * (bf16(q) . c) + a * sum(q). `mma.m16n8k16` bf16 products with
+//     float32 sums: the queries come rounded to bf16 (round to nearest
+//     even, as `_bf16_ip` casts them), the code tiles arrive as bytes and
+//     are widened to bf16 in shared memory (exact: codes <= 255), and the
+//     epilogue applies the affine decode with sum(q) and sum(q^2) taken in
+//     float32 from the unrounded queries; l2-squared is clamped at 0, dot
+//     negated, cosine 1 - x.
 //   * The selection (`_chunked_topk` and `merge_topk`, ops/topk.py:17): the
 //     exact `k` smallest by (distance, row), lower row first on ties, as
-//     the chunked `lax.top_k` + stable merges give. The scans write one
-//     32-bit order key a (query, row) into a [B, N] block: the float bits,
-//     sign-flipped so unsigned order is float order (-0 as +0); masked rows
-//     get the key of MASK_DISTANCE. Three radix-histogram passes
-//     (11/11/10 bits, the host picks each digit from the histogram's
-//     prefix sums) find each query's k-th key T and how many of the keys
-//     equal to T to take. A counting pass counts, per segment of a row,
-//     the keys below T and equal to T; a collecting pass then writes, in
-//     row order, the keys below T and the first `need` keys equal to T at
-//     their exact positions. The host sorts those k entries stably by key.
+//     the chunked `lax.top_k` + stable merges give.
 //
-// Bound on this card. Q1 at 10,000,000 x 768 bits and B = 256: 1.01 GB of
-// words, popcounts and mask (0.30 ms at 3.35 TB/s) against 3.93e12 bit
-// operations (1.99 ms at the int8 tensor-core rate): operations. `__popc`
-// runs 16 a clock on an SM, so this first kernel is held by the popcount
-// pipe (about 15 ms); int8 or b1 `mma` is a later design. Q2 at 550,000 x
-// 768 and B = 256: 216 GFLOP, 0.219 ms at the bf16 tensor-core rate, over
-// 0.126 ms of bytes: operations; this first kernel stages tiles through
-// registers without a pipeline. The selection moves the [B, N] key block
-// five times (three histograms, count, collect), which at Q1's shape is as
-// much time again as the scan: the key block is what a later design
-// removes.
+// What bounds each on this card at phase `quant`'s shapes. Q1, 10,002,432
+// x 768 bits and B = 256: 3.93e12 bit operations, 1.99 ms at the int8
+// tensor-core rate, over 1.01 GB of words, popcounts and mask (0.30 ms at
+// 3.35 TB/s): operations. Q2, 552,960 x 768 and B = 256: 217 GFLOP, 0.220
+// ms at the bf16 rate, over 0.43 GB (0.126 ms): operations, with bytes
+// close behind.
+//
+// What the design does about it. The products run on the tensor cores, and
+// nothing of size [B, N] reaches device memory: a CTA owns a tile of 128
+// queries and a split (a contiguous range of rows, walked in increasing
+// order in tiles through a cp.async ring) and keeps each query's exact
+// top-k of the split in its epilogue. A tile's products land in shared
+// memory as keys (Q1: the 16-bit distances; Q2: 32-bit order keys, the
+// float bits sign-flipped so unsigned order is float order); a row masked
+// or past the split gets a key that is never taken. Each query has a
+// threshold and a candidate list in device memory, [splits, B, cap]: a row
+// enters only if its key is below the threshold, so a later row that ties
+// it loses the tie, and the list stays in row order. When a tile's takers
+// would overflow the list, the query's warp compacts it to its k smallest
+// by (key, row): four 8-bit radix passes find the k-th key, a stable pass
+// keeps the keys below it and the first of those equal to it, and the k-th
+// key becomes the threshold. At the end of its split a list is compacted
+// to k and padded. The merge, one CTA a query, takes the [splits, k]
+// partials to k the same way and sorts them by (key, row). A search is one
+// scan launch and one merge launch, for any B.
+//
+// Q1's product route: the 1-bit product measured faster than an int8 one
+// (`mma.m16n8k32 .u8`) on the bits widened to {0,1} bytes in registers,
+// 10.76 ms a scan against 19.43 ms on phase `quant`'s rows and 10.94
+// against 19.70 on random codes at the same shapes (NVIDIA H100 80GB HBM3
+// at 700 W; probe_quantized.py keeps the int8 product as its `int8`
+// copy): widening bits to bytes costs more integer work than the int8
+// rate wins, so only the 1-bit product is kept. Neither scan is held by
+// its product: with the selection switched off Q1 takes 2.6 ms and Q2
+// 1.4 ms, so the epilogue selection is most of their time (PERF.md
+// section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -54,30 +69,33 @@ namespace {
 constexpr float kMask = 1e30f;  // MASK_DISTANCE of ops/distance.py
 constexpr int kMaxD = 4096;
 constexpr int kMaxK = 4096;
-constexpr int kBins = 2048;
+constexpr uint32_t kNone = 0xffffffffu;  // never below a threshold
 constexpr unsigned kFull = 0xffffffffu;
 
-// Q1: queries a block, threads a block (one row a thread)
-constexpr int kBqQ = 16;
-constexpr int kBqThreads = 256;
-// Q2: a block's tile of queries x rows, the depth of a step, the tiles'
-// leading dimension (padded), threads a block (2 x 4 warps of 32 x 32)
-constexpr int kSqM = 64;
-constexpr int kSqN = 128;
-constexpr int kSqK = 32;
+// both scans: threads a CTA (8 warps: 2 over the queries x 4 over the
+// rows), queries a CTA, radix digit bins
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kQT = 128;
+constexpr int kBins = 256;
+// Q1: rows a tile (a ring stage), ring stages, CTAs an SM holds
+constexpr int kBqR = 64;
+constexpr int kBqStages = 3;
+constexpr int kBqCtasPerSm = 2;
+// Q2: rows a tile, depth of a ring step, ring stages, the bf16 tiles'
+// leading dimension (144 bytes: ldmatrix rows fall in distinct banks)
+constexpr int kSqR = 128;
+constexpr int kSqK = 64;
+constexpr int kSqStages = 4;
 constexpr int kSqLd = kSqK + 8;
-constexpr int kSqCLd = kSqN + 4;
-constexpr int kSqThreads = 256;
-// selection passes: threads a block, keys a thread a collecting step
-constexpr int kSelThreads = 512;
-constexpr int kItems = 4;
+constexpr int kSqCtasPerSm = 1;
 
 enum Refused {
   kBadShape = -1,
   kBadDims = -2,
   kBadK = -3,
   kBadMetric = -4,
-  kBadBits = -5,
+  kBadPlan = -5,
 };
 
 __device__ __forceinline__ uint32_t order_key(float f) {
@@ -86,439 +104,947 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// -- Q1 --------------------------------------------------------------------
+__device__ __forceinline__ float key_to_float(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
 
-template <bool VEC>
-__global__ void __launch_bounds__(kBqThreads)
-bq_scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
-               const float* __restrict__ pop, const uint8_t* __restrict__ mask,
-               uint32_t* __restrict__ keys, int b, int n, int w,
-               uint32_t last) {
-  extern __shared__ __align__(16) uint32_t sq[];  // [kBqQ][wpad]
-  __shared__ float qpop[kBqQ];
-  const int wpad = (w + 7) & ~7;
-  const int q0 = blockIdx.y * kBqQ;
-  for (int i = threadIdx.x; i < kBqQ * wpad; i += blockDim.x) {
-    const int qi = i / wpad, j = i % wpad;
-    uint32_t v = 0u;
-    if (q0 + qi < b && j < w) {
-      v = q[(size_t)(q0 + qi) * w + j];
-      if (j == w - 1) v &= last;  // bits past `dims` do not count
-    }
-    sq[i] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kBqQ) {
-    int c = 0;
-    for (int j = 0; j < wpad; ++j) c += __popc(sq[threadIdx.x * wpad + j]);
-    qpop[threadIdx.x] = static_cast<float>(c);
-  }
-  __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  int acc[kBqQ];
-#pragma unroll
-  for (int i = 0; i < kBqQ; ++i) acc[i] = 0;
-  const uint32_t* xr = x + (size_t)row * w;
-  for (int j0 = 0; j0 < wpad; j0 += 8) {
-    uint32_t xv[8];
-    if (VEC) {  // w % 4 == 0: rows are 16-byte aligned
-      const uint4* p4 = reinterpret_cast<const uint4*>(xr + j0);
-      const uint4 lo = __ldg(p4);
-      const uint4 hi = j0 + 4 < w ? __ldg(p4 + 1) : make_uint4(0, 0, 0, 0);
-      xv[0] = lo.x; xv[1] = lo.y; xv[2] = lo.z; xv[3] = lo.w;
-      xv[4] = hi.x; xv[5] = hi.y; xv[6] = hi.z; xv[7] = hi.w;
-    } else {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) xv[t] = j0 + t < w ? __ldg(xr + j0 + t) : 0u;
-    }
-#pragma unroll
-    for (int i = 0; i < kBqQ; ++i) {
-      const uint4* s4 = reinterpret_cast<const uint4*>(sq + i * wpad + j0);
-      const uint4 s0 = s4[0], s1 = s4[1];
-      acc[i] += __popc(xv[0] & s0.x) + __popc(xv[1] & s0.y) +
-                __popc(xv[2] & s0.z) + __popc(xv[3] & s0.w) +
-                __popc(xv[4] & s1.x) + __popc(xv[5] & s1.y) +
-                __popc(xv[6] & s1.z) + __popc(xv[7] & s1.w);
-    }
-  }
-  const float p = __ldg(pop + row);
-  const bool live = mask == nullptr || mask[row] != 0;
-#pragma unroll
-  for (int i = 0; i < kBqQ; ++i) {
-    if (q0 + i >= b) break;
-    // (|q| + |x|) - 2 q.x: every term an exact integer in float32
-    const float d = live ? (qpop[i] + p) - 2.0f * static_cast<float>(acc[i])
-                         : kMask;
-    keys[(size_t)(q0 + i) * n + row] = order_key(d);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared, zero-filled when !ok (src unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The mask bytes of rows r .. r + 3 (r a multiple of 4) into shared memory:
+// one 4-byte copy, or byte by byte where the corpus ends
+__device__ __forceinline__ void load_mask4(uint8_t* dst, const uint8_t* mask,
+                                           int r, int n) {
+  if (r + 3 < n) {
+    cp_async4(dst, mask + r, true);
+  } else {
+    for (int j = 0; j < 4; ++j) dst[j] = r + j < n ? mask[r + j] : 0;
   }
 }
 
-// -- Q2 --------------------------------------------------------------------
+// the oldest of a ring's stages in flight has landed
+template <int STAGES>
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+}
+
+// -- the epilogue selection --------------------------------------------------
+
+// queries a warp owns in a CTA: query tile rows warp, warp + 8, ...
+constexpr int kQW = kQT / kWarps;
+
+// Loads a batch of kBatch keys a lane (entries base + j * 32 + lane) before
+// using any: the loads overlap instead of waiting one by one
+constexpr int kBatch = 8;
+
+// The digit (key >> shift) & 255 of a key equal to `prefix` above it,
+// counted into hist[256]
+__device__ __forceinline__ void count_digit(uint32_t key, bool ok,
+                                            uint32_t prefix, uint32_t high,
+                                            int shift, int* hist) {
+  if (ok && (key & high) == prefix) atomicAdd(&hist[(key >> shift) & 255], 1);
+}
+
+// The digit holding the need-th key of hist[256] (warp-wide; lane l reads
+// bins 8l..8l+7): returns it, and subtracts the keys below it from need.
+__device__ __forceinline__ int pick_digit(const int* hist, int& need) {
+  const int lane = threadIdx.x & 31;
+  int c[8], sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = hist[lane * 8 + j];
+    sum += c[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int run = incl - sum, digit = -1, below = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (digit < 0 && run + c[j] >= need) {
+      digit = lane * 8 + j;
+      below = run;
+    }
+    run += c[j];
+  }
+  const int src = __ffs(__ballot_sync(kFull, digit >= 0)) - 1;
+  need -= __shfl_sync(kFull, below, src);
+  return __shfl_sync(kFull, digit, src);
+}
+
+// Radix select within one warp: the need-th smallest (1-based) of the n
+// keys at `keys`, by four 8-bit digits. Returns that key; `need` becomes
+// how many keys equal to it are among the need smallest. The list was
+// written by this warp: after the first pass it is read from L1.
+__device__ uint32_t warp_kth_key(const uint32_t* keys, int n, int& need,
+                                 int* hist) {
+  const int lane = threadIdx.x & 31;
+  uint32_t prefix = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = lane; i < kBins; i += 32) hist[i] = 0;
+    __syncwarp();
+    const uint32_t high = shift == 24 ? 0u : (kFull << (shift + 8));
+    for (int base = 0; base < n; base += 32 * kBatch) {
+      uint32_t v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = base + j * 32 + lane;
+        v[j] = i < n ? keys[i] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        count_digit(v[j], base + j * 32 + lane < n, prefix, high, shift,
+                    hist);
+    }
+    __syncwarp();
+    prefix |= static_cast<uint32_t>(pick_digit(hist, need)) << shift;
+    __syncwarp();  // the bins are read before the next pass clears them
+  }
+  return prefix;
+}
+
+// Compacts a query's list (n > k entries in row order) in place to its k
+// smallest by (key, row), still in row order; returns the k-th key, the
+// new threshold.
+__device__ __noinline__ uint32_t warp_compact(uint32_t* lk, int* lr, int n,
+                                              int k, int* hist) {
+  const int lane = threadIdx.x & 31;
+  const unsigned before = (1u << lane) - 1u;
+  int need = k;
+  const uint32_t t = warp_kth_key(lk, n, need, hist);
+  int w = 0, eq_seen = 0;
+  for (int base = 0; base < n; base += 32 * kBatch) {
+    // a batch is read whole before any of it is written; writes land at
+    // or before an entry's own slot, so no unread entry is overwritten
+    uint32_t key[kBatch];
+    int row[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + j * 32 + lane;
+      key[j] = i < n ? lk[i] : kNone;
+      row[j] = i < n ? lr[i] : -1;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const bool in = base + j * 32 + lane < n;
+      const bool eq = in && key[j] == t;
+      const unsigned em = __ballot_sync(kFull, eq);
+      const bool keep = (in && key[j] < t) ||
+                        (eq && eq_seen + __popc(em & before) < need);
+      const unsigned km = __ballot_sync(kFull, keep);
+      if (keep) {
+        const int p = w + __popc(km & before);
+        lk[p] = key[j];
+        lr[p] = row[j];
+      }
+      w += __popc(km);
+      eq_seen += __popc(em);
+    }
+    __syncwarp();
+  }
+  return t;
+}
+
+// A tile's keys as the scans write them. Q2's are the order keys the
+// lists hold. Q1's are the hamming distances themselves, 16 bits (at most
+// kMaxD; 0xffff for a row never taken): the list key of one is the order
+// key of the distance as a float, and a list's threshold (an order key)
+// is a distance again as a tile's threshold.
+struct OrderKeys {
+  using T = uint32_t;
+  static constexpr uint32_t kAll = kNone;
+  __device__ static uint32_t to_list(uint32_t key) { return key; }
+  __device__ static uint32_t from_list(uint32_t t) { return t; }
+};
+
+struct HammingKeys {
+  using T = uint16_t;
+  static constexpr uint32_t kAll = 0xffffu;
+  __device__ static uint32_t to_list(uint32_t d) {
+    return order_key(static_cast<float>(d));
+  }
+  __device__ static uint32_t from_list(uint32_t t) {
+    return static_cast<uint32_t>(key_to_float(t));
+  }
+};
+
+// A warp's lists: lane i < kQW holds the threshold (in the tile's key
+// domain) and the count of its query i (tile row warp + 8 i); a candidate
+// enters if its key is below the threshold. A query past the batch gets
+// threshold 0: nothing enters.
+struct Lists {
+  uint32_t thresh;
+  int count;
+};
+
+template <typename K>
+__device__ __forceinline__ Lists init_lists(int q0, int b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return {q0 + warp + kWarps * lane < b ? K::kAll : 0u, 0};
+}
+
+// The candidates of one tile: keys tk [kQT][ld] of rows r0.. (R of them).
+// For each of the warp's queries, unrolled so their loads and ballots
+// overlap: count the takers (keys below the threshold); if they would
+// overflow the list (rare), compact it and apply the new threshold; append
+// the takers in row order.
+template <int R, typename K>
+__device__ void select_tile(Lists& st, const typename K::T* tk, int ld,
+                            uint32_t* lk, int* lr, int q0, int b, int split,
+                            int cap, int k, int r0, int* hist) {
+  constexpr int kC = R / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned before = (1u << lane) - 1u;
+  const size_t base0 = ((size_t)split * b + q0 + warp) * cap;
+  const size_t step = (size_t)kWarps * cap;  // from query i to i + 1
+  const Lists in = st;  // read from here, written to st: no chain
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) {
+    uint32_t t = __shfl_sync(kFull, in.thresh, i);
+    int cnt = __shfl_sync(kFull, in.count, i);
+    const typename K::T* row = tk + (warp + kWarps * i) * ld + lane;
+    uint32_t* qk = lk + base0 + i * step;
+    int* qr = lr + base0 + i * step;
+    uint32_t key[kC];
+    unsigned m[kC];
+    int takers = 0;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      key[c] = row[c * 32];
+      m[c] = __ballot_sync(kFull, key[c] < t);
+      takers += __popc(m[c]);
+    }
+    if (cnt + takers > cap) {
+      t = K::from_list(warp_compact(qk, qr, cnt, k, hist));
+      cnt = k;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) m[c] = __ballot_sync(kFull, key[c] < t);
+      st.thresh = lane == i ? t : st.thresh;
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (key[c] < t) {
+        const int p = cnt + __popc(m[c] & before);
+        qk[p] = K::to_list(key[c]);
+        qr[p] = r0 + c * 32 + lane;
+      }
+      cnt += __popc(m[c]);
+    }
+    st.count = lane == i ? cnt : st.count;
+  }
+  __syncwarp();
+}
+
+// The end of a split: each list compacted to k entries and padded to k.
+__device__ void finish_split(const Lists& st, uint32_t* lk, int* lr, int q0,
+                             int b, int split, int cap, int k, int* hist) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = 0; i < kQW; ++i) {
+    const int ql = warp + kWarps * i;
+    int cnt = __shfl_sync(kFull, st.count, i);
+    if (q0 + ql >= b) break;
+    const size_t base = ((size_t)split * b + q0 + ql) * cap;
+    if (cnt > k) {
+      warp_compact(lk + base, lr + base, cnt, k, hist);
+      cnt = k;
+    }
+    for (int j = cnt + lane; j < k; j += 32) {
+      lk[base + j] = kNone;
+      lr[base + j] = -1;
+    }
+  }
+}
+
+// -- Q1 ----------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_b1(int* c, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A stage of Q1's ring, in words: a tile's rows [kBqR][ws], their
+// popcounts [kBqR] and mask bytes [kBqR]; ws = words a row, padded.
+__host__ __device__ constexpr int bq_stage(int ws) {
+  return kBqR * ws + kBqR + kBqR / 4;
+}
+
+// Q1's key tiles: two (one is selected from while the next is made) of
+// [kQT][kBqTk] 16-bit distances
+constexpr int kBqTk = kBqR + 16;
+
+// Dynamic shared memory of Q1: the query tile's words, the ring, the two
+// key tiles.
+__host__ __device__ constexpr size_t bq_smem(int ws) {
+  return ((size_t)kQT * ws + (size_t)kBqStages * bq_stage(ws)) * 4 +
+         (size_t)2 * kQT * kBqTk * 2;
+}
 
 template <bool VEC>
-__global__ void __launch_bounds__(kSqThreads)
+__global__ void __launch_bounds__(kThreads, kBqCtasPerSm)
+bq_scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
+               const float* __restrict__ pop, const uint8_t* __restrict__ mask,
+               uint32_t* lk, int* lr, int b, int n, int w, uint32_t last,
+               int k, int split_rows, int cap) {
+  extern __shared__ __align__(16) uint32_t bq_dyn[];
+  __shared__ float qpop[kQT];
+  __shared__ int hist[kWarps][kBins];
+  const int wpad = (w + 7) & ~7;  // whole 256-bit blocks
+  const int ws = wpad + 4;        // 8 rows x 4 words hit 32 banks
+  uint32_t* qs = bq_dyn;                         // [kQT][ws]
+  uint32_t* ring = qs + kQT * ws;                // [kBqStages][stage]
+  const int stage = bq_stage(ws);
+  uint16_t* tk =  // [2][kQT][kBqTk]
+      reinterpret_cast<uint16_t*>(ring + kBqStages * stage);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int q0 = blockIdx.x * kQT, split = blockIdx.y;
+  const int row_begin = split * split_rows;
+  const int row_end = min(n, row_begin + split_rows);
+  const int tiles = (row_end - row_begin + kBqR - 1) / kBqR;
+
+  for (int i = tid; i < kQT * ws; i += kThreads) {
+    const int ql = i / ws, j = i % ws;
+    uint32_t v = 0u;
+    if (q0 + ql < b && j < w) {
+      v = q[(size_t)(q0 + ql) * w + j];
+      if (j == w - 1) v &= last;  // bits past `dims` do not count
+    }
+    qs[i] = v;
+  }
+  Lists st = init_lists<HammingKeys>(q0, b);
+  __syncthreads();
+  if (tid < kQT) {
+    int c = 0;
+    for (int j = 0; j < w; ++j) c += __popc(qs[tid * ws + j]);
+    qpop[tid] = static_cast<float>(c);
+  }
+
+  auto load_tile = [&](int t) {
+    uint32_t* dst = ring + (t % kBqStages) * stage;
+    const int r0 = row_begin + t * kBqR;
+    // the rows' popcounts and mask bytes ride with them
+    if (tid < kBqR) {
+      const bool ok = r0 + tid < row_end;
+      cp_async4(dst + kBqR * ws + tid, ok ? pop + r0 + tid : pop, ok);
+    } else if (mask != nullptr && tid < kBqR + kBqR / 4) {
+      const int c = tid - kBqR;
+      load_mask4(reinterpret_cast<uint8_t*>(dst + kBqR * ws + kBqR + c),
+                 mask, r0 + 4 * c, n);
+    }
+    if (VEC) {  // w % 4 == 0: 16-byte pieces
+      const int per_row = w >> 2;
+      for (int c = tid; c < kBqR * per_row; c += kThreads) {
+        const int r = c / per_row, j = (c % per_row) * 4;
+        const bool ok = r0 + r < row_end;
+        cp_async16(dst + r * ws + j, ok ? x + (size_t)(r0 + r) * w + j : x,
+                   ok);
+      }
+    } else {
+      for (int c = tid; c < kBqR * w; c += kThreads) {
+        const int r = c / w, j = c % w;
+        const bool ok = r0 + r < row_end;
+        cp_async4(dst + r * ws + j, ok ? x + (size_t)(r0 + r) * w + j : x,
+                  ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kBqStages - 1; ++t) {
+    if (t < tiles) load_tile(t);
+    cp_commit();
+  }
+  // A tile's products, then the previous tile's selection, then this
+  // tile's keys (into the other key tile): one barrier a tile.
+  for (int t = 0; t <= tiles; ++t) {
+    if (t < tiles) cp_wait_ring<kBqStages>();
+    // tile t landed; tile t - 1's keys are written; tile t - 2's are
+    // selected, so its key tile and ring stage are free
+    __syncthreads();
+    if (t + kBqStages - 1 < tiles) load_tile(t + kBqStages - 1);
+    cp_commit();
+    const uint32_t* xs = ring + (t % kBqStages) * stage;
+    int acc[4][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+    if (t < tiles) {
+      // a 256-bit block is 8 words: thread (gid, tig) holds word tig and
+      // word 4 + tig of its rows, the same slots of A and of B
+      for (int kb = 0; kb < wpad; kb += 8) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const uint32_t* qa = qs + (wm * 64 + mt * 16 + gid) * ws + kb + tig;
+          a[mt][0] = qa[0];
+          a[mt][1] = qa[8 * ws];
+          a[mt][2] = qa[4];
+          a[mt][3] = qa[8 * ws + 4];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t* xb = xs + (wn * 16 + nt * 8 + gid) * ws + kb + tig;
+          const uint32_t b0 = xb[0], b1 = xb[4];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) mma_b1(acc[mt][nt], a[mt], b0, b1);
+        }
+      }
+    }
+    if (t > 0)
+      select_tile<kBqR, HammingKeys>(
+          st, tk + ((t - 1) & 1) * kQT * kBqTk, kBqTk, lk, lr, q0, b, split,
+          cap, k, row_begin + (t - 1) * kBqR, hist[warp]);
+    if (t == tiles) break;
+    // the keys of this warp's 64 queries x 16 rows
+    const int r0 = row_begin + t * kBqR;
+    const float* xpop = reinterpret_cast<const float*>(xs + kBqR * ws);
+    const uint8_t* xmask =
+        reinterpret_cast<const uint8_t*>(xs + kBqR * ws + kBqR);
+    uint16_t* tkt = tk + (t & 1) * kQT * kBqTk;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int rl = wn * 16 + nt * 8 + tig * 2;
+      bool ok[2];
+      float xp[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ok[e] = r0 + rl + e < row_end &&
+                (mask == nullptr || xmask[rl + e] != 0);
+        xp[e] = xpop[rl + e];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ql = wm * 64 + mt * 16 + gid + 8 * h;
+          const float qp = qpop[ql];
+          // (|q| + |x|) - 2 q.x: an exact integer in [0, dims]
+          uint32_t d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            d[e] = ok[e] ? static_cast<uint32_t>(
+                               (qp + xp[e]) - 2.0f * static_cast<float>(
+                                                  acc[mt][nt][2 * h + e]))
+                         : HammingKeys::kAll;
+          *reinterpret_cast<uint32_t*>(tkt + ql * kBqTk + rl) =
+              d[0] | (d[1] << 16);
+        }
+      }
+    }
+  }
+  finish_split(st, lk, lr, q0, b, split, cap, k, hist[warp]);
+}
+
+// -- Q2 ----------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// two codes (bytes lo and lo + 1 of w) as a bf16 pair, exactly: a byte
+// under the exponent of 2^23 is 2^23 + byte
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int lo) {
+  const float f0 =
+      __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7540 | lo)) - 8388608.0f;
+  const float f1 =
+      __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7540 | (lo + 1))) -
+      8388608.0f;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(f0, f1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr int kSqTk = kSqR + 8;
+// A stage of Q2's code ring: a step's codes [kSqR][kSqK], then the tile's
+// decoded norms [kSqR] and mask bytes [kSqR] (every step carries them, so
+// the last step of a tile holds them for its epilogue).
+constexpr int kSqStage = kSqR * kSqK + kSqR * 4 + kSqR;
+// Dynamic shared memory of Q2: the query and code rings, the widened code
+// tile (two: one step is widened while the other feeds the products), the
+// key tile.
+constexpr size_t kSqSmem = (size_t)kSqStages * kQT * kSqLd * 2 +
+                           (size_t)kSqStages * kSqStage +
+                           (size_t)2 * kSqR * kSqLd * 2 +
+                           (size_t)kQT * kSqTk * 4;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, kSqCtasPerSm)
 sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
                const uint8_t* __restrict__ codes,
                const float* __restrict__ dsq, const uint8_t* __restrict__ mask,
                const float* __restrict__ qsum, const float* __restrict__ qsq,
-               float a, float s, int metric, uint32_t* __restrict__ keys,
-               int b, int n, int d) {
-  using namespace nvcuda;
-  // the A/B tiles during the products, the float32 tile after them
-  __shared__ __align__(128) unsigned char smem[kSqM * kSqCLd * 4];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [kSqM][kSqLd]
-  __nv_bfloat16* bs = as + kSqM * kSqLd;                       // [kSqN][kSqLd]
-  float* cs = reinterpret_cast<float*>(smem);                  // [kSqM][kSqCLd]
-  const int tid = threadIdx.x, warp = tid >> 5;
+               float a, float s, int metric, uint32_t* lk, int* lr, int b,
+               int n, int d, int dp, int k, int split_rows, int cap) {
+  extern __shared__ __align__(16) unsigned char sq_dyn[];
+  __shared__ float sqsum[kQT], sqsq[kQT];
+  __shared__ int hist[kWarps][kBins];
+  __nv_bfloat16* aring = reinterpret_cast<__nv_bfloat16*>(sq_dyn);
+  uint8_t* braw = sq_dyn + (size_t)kSqStages * kQT * kSqLd * 2;
+  __nv_bfloat16* bw =  // [2][kSqR][kSqLd]
+      reinterpret_cast<__nv_bfloat16*>(braw + kSqStages * kSqStage);
+  uint32_t* tk = reinterpret_cast<uint32_t*>(bw + 2 * kSqR * kSqLd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  const int q0 = blockIdx.y * kSqM, r0 = blockIdx.x * kSqN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int k0 = 0; k0 < d; k0 += kSqK) {
-    {  // queries: 64 x 32, 8 a thread
-      const int r = tid >> 2, c = (tid & 3) * 8, qi = q0 + r;
-      __nv_bfloat16* dst = as + r * kSqLd + c;
-      if (VEC && qi < b && k0 + c + 8 <= d) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(q + (size_t)qi * d + k0 + c);
-      } else {
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          dst[t] = qi < b && k0 + c + t < d ? q[(size_t)qi * d + k0 + c + t]
-                                            : zero;
-      }
-    }
-    {  // codes: 128 x 32, 16 a thread, widened to bf16
-      const int r = tid >> 1, c = (tid & 1) * 16, row = r0 + r;
-      __nv_bfloat16* dst = bs + r * kSqLd + c;
-      uint8_t v[16];
-      if (VEC && row < n && k0 + c + 16 <= d) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            codes + (size_t)row * d + k0 + c));
-        const uint8_t* pu = reinterpret_cast<const uint8_t*>(&u);
-#pragma unroll
-        for (int t = 0; t < 16; ++t) v[t] = pu[t];
-      } else {
-#pragma unroll
-        for (int t = 0; t < 16; ++t)
-          v[t] = row < n && k0 + c + t < d ? codes[(size_t)row * d + k0 + c + t]
-                                           : 0;
-      }
-#pragma unroll
-      for (int t = 0; t < 16; ++t)
-        dst[t] = __float2bfloat16(static_cast<float>(v[t]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSqK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * kSqLd + kk,
-                               kSqLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + (wn * 32 + j * 16) * kSqLd + kk,
-                               kSqLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  const int q0 = blockIdx.x * kQT, split = blockIdx.y;
+  const int row_begin = split * split_rows;
+  const int row_end = min(n, row_begin + split_rows);
+  const int tiles = (row_end - row_begin + kSqR - 1) / kSqR;
+  const int chunks = dp / kSqK;
+  const int steps = tiles * chunks;
+
+  for (int i = tid; i < kQT; i += kThreads) {
+    const bool ok = q0 + i < b;
+    sqsum[i] = ok ? qsum[q0 + i] : 0.0f;
+    sqsq[i] = ok ? qsq[q0 + i] : 0.0f;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kSqCLd + wn * 32 + j * 16,
-                              acc[i][j], kSqCLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kSqM * kSqN; e += kSqThreads) {
-    const int qi = e / kSqN, r = e % kSqN;
-    const int qg = q0 + qi, row = r0 + r;
-    if (qg >= b || row >= n) continue;
-    const float ip = cs[qi * kSqCLd + r];
-    const float qdd = s * ip + a * qsum[qg];
-    float dist;
-    if (metric == 0) {
-      dist = fmaxf(qsq[qg] - 2.0f * qdd + dsq[row], 0.0f);
-    } else if (metric == 1) {
-      dist = -qdd;
+  Lists st = init_lists<OrderKeys>(q0, b);
+
+  auto load_step = [&](int step) {
+    const int t = step / chunks, k0 = (step % chunks) * kSqK;
+    const int stage = step % kSqStages;
+    __nv_bfloat16* ad = aring + stage * kQT * kSqLd;
+    // queries: 128 rows x 128 bytes, zero past b (the padded width dp
+    // holds zeros past d)
+    for (int c = tid; c < kQT * 8; c += kThreads) {
+      const int r = c >> 3, j = (c & 7) * 8;
+      const bool ok = q0 + r < b;
+      cp_async16(ad + r * kSqLd + j,
+                 ok ? q + (size_t)(q0 + r) * dp + k0 + j : q, ok);
+    }
+    uint8_t* bd = braw + stage * kSqStage;
+    const int r0 = row_begin + t * kSqR;
+    if (tid < kSqR) {  // the tile's decoded norms, 4 bytes a row
+      const bool ok = r0 + tid < row_end;
+      cp_async4(bd + kSqR * kSqK + tid * 4, ok ? dsq + r0 + tid : dsq, ok);
+    } else if (mask != nullptr && tid < kSqR + kSqR / 4) {
+      const int c = tid - kSqR;
+      load_mask4(bd + kSqR * kSqK + kSqR * 4 + 4 * c, mask, r0 + 4 * c, n);
+    }
+    if (VEC) {  // 16-byte pieces, zero past the row or d
+      for (int c = tid; c < kSqR * 4; c += kThreads) {
+        const int r = c >> 2, j = (c & 3) * 16;
+        const bool ok = r0 + r < row_end && k0 + j < d;
+        cp_async16(bd + r * kSqK + j,
+                   ok ? codes + (size_t)(r0 + r) * d + k0 + j : codes, ok);
+      }
     } else {
-      dist = 1.0f - qdd;
+      for (int c = tid; c < kSqR * kSqK; c += kThreads) {
+        const int r = c / kSqK, j = c % kSqK;
+        bd[c] = r0 + r < row_end && k0 + j < d
+                    ? codes[(size_t)(r0 + r) * d + k0 + j]
+                    : 0;
+      }
     }
-    if (mask != nullptr && !mask[row]) dist = kMask;
-    keys[(size_t)qg * n + row] = order_key(dist);
-  }
-}
-
-// -- selection -------------------------------------------------------------
-
-// Histogram of the digit (key >> shift) & (2^bits - 1) over the keys of row
-// blockIdx.y, segment blockIdx.x, whose bits above shift + bits equal the
-// row's prefix. Lanes with the same digit add once (__match_any_sync): the
-// keys of a query crowd a few digits.
-__global__ void __launch_bounds__(kSelThreads)
-radix_hist_kernel(const uint32_t* __restrict__ keys,
-                  const uint32_t* __restrict__ prefix, int* __restrict__ hist,
-                  int n, int seg_len, int shift, int bits) {
-  __shared__ int sh[kBins];
-  const int nb = 1 << bits, hi = shift + bits;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  const int qi = blockIdx.y, lane = threadIdx.x & 31;
-  const uint32_t pre = prefix[qi];
-  const uint32_t* row = keys + (size_t)qi * n;
-  const int lo = blockIdx.x * seg_len;
-  const int end = min(n, lo + seg_len);
-  for (int i0 = lo; i0 < end; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    int bin = -1;
-    if (i < end) {
-      const uint32_t key = row[i];
-      if (hi >= 32 || (key >> hi) == (pre >> hi))
-        bin = static_cast<int>((key >> shift) & (nb - 1));
+  };
+  // a step's codes widened to bf16 into buffer step % 2: 32 bytes a thread
+  auto widen_step = [&](int step) {
+    const int r = tid >> 1, j = (tid & 1) * 32;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        braw + (step % kSqStages) * kSqStage + r * kSqK + j);
+    uint4* dst = reinterpret_cast<uint4*>(bw + (step & 1) * kSqR * kSqLd +
+                                          r * kSqLd + j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 u = src[h];
+      dst[2 * h] = make_uint4(widen2(u.x, 0), widen2(u.x, 2), widen2(u.y, 0),
+                              widen2(u.y, 2));
+      dst[2 * h + 1] = make_uint4(widen2(u.z, 0), widen2(u.z, 2),
+                                  widen2(u.w, 0), widen2(u.w, 2));
     }
-    const unsigned peers = __match_any_sync(kFull, bin);
-    if (bin >= 0 && __ffs(peers) - 1 == lane) atomicAdd(&sh[bin], __popc(peers));
+  };
+
+  // steps 0 .. kSqStages - 2 in flight; step 0 widened before the loop
+#pragma unroll
+  for (int step = 0; step < kSqStages - 1; ++step) {
+    if (step < steps) load_step(step);
+    cp_commit();
   }
+  cp_wait_ring<kSqStages>();
   __syncthreads();
-  for (int i = threadIdx.x; i < nb; i += blockDim.x)
-    if (sh[i]) atomicAdd(hist + (size_t)qi * kBins + i, sh[i]);
+  widen_step(0);
+  float acc[4][4][4];
+  for (int step = 0; step < steps; ++step) {
+    const int t = step / chunks, kc = step % chunks;
+    // step + 1 has landed; every warp has widened `step` and finished the
+    // products of step - 1, whose stage and widened buffer are free
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSqStages - 3));
+    __syncthreads();
+    if (step + kSqStages - 1 < steps) load_step(step + kSqStages - 1);
+    cp_commit();
+    if (step + 1 < steps) widen_step(step + 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+    const __nv_bfloat16* as = aring + (step % kSqStages) * kQT * kSqLd;
+    const __nv_bfloat16* bs = bw + (step & 1) * kSqR * kSqLd;
+#pragma unroll
+    for (int ks = 0; ks < kSqK; ks += 16) {
+      uint32_t fa[4][4], fb[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(fa[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * kSqLd +
+                                ks + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, bs + (wn * 32 + np * 16 + (lane >> 4) * 8 +
+                              (lane & 7)) * kSqLd +
+                            ks + ((lane >> 3) & 1) * 8);
+        fb[2 * np][0] = r4[0];
+        fb[2 * np][1] = r4[1];
+        fb[2 * np + 1][0] = r4[2];
+        fb[2 * np + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], fa[mt], fb[nt][0], fb[nt][1]);
+    }
+    if (kc != chunks - 1) continue;
+    // the tile's keys: this warp's 64 queries x 32 rows
+    const int r0 = row_begin + t * kSqR;
+    const uint8_t* held = braw + (step % kSqStages) * kSqStage + kSqR * kSqK;
+    const float* xdsq = reinterpret_cast<const float*>(held);
+    const uint8_t* xmask = held + kSqR * 4;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int rl = wn * 32 + nt * 8 + tig * 2;
+      bool ok[2];
+      float xs[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ok[e] = r0 + rl + e < row_end &&
+                (mask == nullptr || xmask[rl + e] != 0);
+        xs[e] = xdsq[rl + e];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ql = wm * 64 + mt * 16 + gid + 8 * h;
+          uint32_t key[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float qdd = s * acc[mt][nt][2 * h + e] + a * sqsum[ql];
+            float dist;
+            if (metric == 0) {
+              dist = fmaxf(sqsq[ql] - 2.0f * qdd + xs[e], 0.0f);
+            } else if (metric == 1) {
+              dist = -qdd;
+            } else {
+              dist = 1.0f - qdd;
+            }
+            key[e] = ok[e] ? order_key(dist) : kNone;
+          }
+          *reinterpret_cast<uint2*>(tk + ql * kSqTk + rl) =
+              make_uint2(key[0], key[1]);
+        }
+      }
+    }
+    __syncthreads();
+    select_tile<kSqR, OrderKeys>(st, tk, kSqTk, lk, lr, q0, b, split, cap,
+                                 k, r0, hist[warp]);
+    // the next step's barrier orders these reads of tk before its writes
+  }
+  finish_split(st, lk, lr, q0, b, split, cap, k, hist[warp]);
 }
 
-// Keys below and equal to the row's threshold in each segment:
-// counts[row][seg] = {below, equal}.
-__global__ void __launch_bounds__(kSelThreads)
-count_kernel(const uint32_t* __restrict__ keys,
-             const uint32_t* __restrict__ thresh, int* __restrict__ counts,
-             int n, int seg_len, int segs) {
-  __shared__ int sh[2];
-  if (threadIdx.x < 2) sh[threadIdx.x] = 0;
-  __syncthreads();
-  const int qi = blockIdx.y;
-  const uint32_t t = thresh[qi];
-  const uint32_t* row = keys + (size_t)qi * n;
-  const int lo = blockIdx.x * seg_len;
-  const int end = min(n, lo + seg_len);
-  int lt = 0, eq = 0;
-  for (int i = lo + threadIdx.x; i < end; i += blockDim.x) {
-    const uint32_t key = row[i];
-    lt += key < t;
-    eq += key == t;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lt += __shfl_xor_sync(kFull, lt, off);
-    eq += __shfl_xor_sync(kFull, eq, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&sh[0], lt);
-    atomicAdd(&sh[1], eq);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* c = counts + ((size_t)qi * segs + blockIdx.x) * 2;
-    c[0] = sh[0];
-    c[1] = sh[1];
-  }
-}
+// -- the merge ---------------------------------------------------------------
 
-// Exclusive block-wide prefix sum of v in thread order; `total` gets the
-// block's sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* ws,
-                                                    int& total) {
+// Exclusive prefix sum of v over the CTA in thread order; `total` gets the
+// CTA's sum.
+__device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
   int x = v;
+#pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
-  if (lane == 31) ws[warp] = x;
+  if (lane == 31) wsum[warp] = x;
   __syncthreads();
-  if (warp == 0) {
-    int s = lane < nw ? ws[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    ws[lane] = s;
+  int before = 0, all = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const int c = wsum[i];
+    before += i < warp ? c : 0;
+    all += c;
   }
-  __syncthreads();
-  const int before = warp > 0 ? ws[warp - 1] : 0;
-  total = ws[nw - 1];
-  __syncthreads();  // ws is read before the next scan writes it
+  __syncthreads();  // wsum is read before the next scan writes it
+  total = all;
   return before + x - v;
 }
 
-// Writes, in row order, the keys of segment blockIdx.x of row blockIdx.y
-// below the threshold and the first `need` equal to it across the row, at
-// their positions among the row's taken keys: the keys below it and the
-// taken equal ones before them. offsets[row][seg] = {below, equal} before
-// the segment.
-__global__ void __launch_bounds__(kSelThreads)
-collect_kernel(const uint32_t* __restrict__ keys,
-               const uint32_t* __restrict__ thresh,
-               const int* __restrict__ need,
-               const int* __restrict__ offsets, uint32_t* __restrict__ out_keys,
-               int* __restrict__ out_cols, int n, int seg_len, int segs,
-               int k) {
-  __shared__ int ws[32];
-  const int qi = blockIdx.y;
-  const uint32_t t = thresh[qi];
-  const int nd = need[qi];
-  const uint32_t* row = keys + (size_t)qi * n;
-  const int* off = offsets + ((size_t)qi * segs + blockIdx.x) * 2;
-  int lt_base = off[0], eq_base = off[1];
-  const int lo = blockIdx.x * seg_len;
-  const int end = min(n, lo + seg_len);
-  uint32_t* ok = out_keys + (size_t)qi * k;
-  int* oc = out_cols + (size_t)qi * k;
-  for (int i0 = lo; i0 < end; i0 += blockDim.x * kItems) {
-    const int first = i0 + threadIdx.x * kItems;
-    uint32_t v[kItems];
-    int lt = 0, eq = 0;
+// entries a thread collects at once in the merge
+constexpr int kItems = 8;
+
+// One CTA a query: the k smallest (key, row) of its splits x k partials
+// (each split's in row order, splits in row order), sorted, as distances
+// and ids (MASK_DISTANCE and -1 where nothing was taken). Entry e of a
+// query is slot e % k of split e / k.
+__global__ void __launch_bounds__(kThreads)
+merge_kernel(const uint32_t* __restrict__ lk, const int* __restrict__ lr,
+             float* __restrict__ out_d, int* __restrict__ out_i, int splits,
+             int b, int cap, int k, int p) {
+  extern __shared__ unsigned long long sorted[];  // [p], (key << 32) | row
+  __shared__ int hist[kBins];
+  __shared__ int wsum[kWarps];
+  __shared__ int pick[2];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int qg = blockIdx.x;
+  const int total = splits * k;
+  auto at = [&](int e) {
+    const int sp = e / k;
+    return ((size_t)sp * b + qg) * cap + (e - sp * k);
+  };
+  uint32_t prefix = 0;
+  int need = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    const uint32_t high = shift == 24 ? 0u : (kFull << (shift + 8));
+    for (int base = 0; base < total; base += kThreads * kBatch) {
+      uint32_t v[kBatch];
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = first + j;
-      v[j] = i < end ? row[i] : 0xffffffffu;
-      lt += i < end && v[j] < t;
-      eq += i < end && v[j] == t;
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = base + j * kThreads + tid;
+        v[j] = e < total ? lk[at(e)] : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        count_digit(v[j], base + j * kThreads + tid < total, prefix, high,
+                    shift, hist);
     }
-    int total;
-    // both counts in one scan: a block's step holds at most 2048 keys
-    const int ex = block_exclusive_scan(lt | (eq << 16), ws, total);
-    int lt_before = lt_base + (ex & 0xffff);
-    int eq_before = eq_base + (ex >> 16);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int i = first + j;
-      if (i >= end) break;
-      if (v[j] < t) {
-        const int pos = lt_before + min(eq_before, nd);
-        ok[pos] = v[j];
-        oc[pos] = i;
-        ++lt_before;
-      } else if (v[j] == t) {
-        if (eq_before < nd) {
-          const int pos = lt_before + eq_before;
-          ok[pos] = v[j];
-          oc[pos] = i;
-        }
-        ++eq_before;
+    __syncthreads();
+    if (warp == 0) {
+      int nd = need;
+      const int digit = pick_digit(hist, nd);
+      if (tid == 0) {
+        pick[0] = digit;
+        pick[1] = nd;
       }
     }
-    lt_base += total & 0xffff;
-    eq_base += total >> 16;
+    __syncthreads();
+    prefix |= static_cast<uint32_t>(pick[0]) << shift;
+    need = pick[1];
+    __syncthreads();  // pick is read before the next pass writes it
+  }
+  // keys below the k-th, and the first `need` equal to it, in row order
+  int w = 0, eq_seen = 0;
+  for (int base = 0; base < total; base += kThreads * kItems) {
+    const int e0 = base + tid * kItems;
+    uint32_t key[kItems];
+    int row[kItems], eq = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool in = e0 + j < total;
+      key[j] = in ? lk[at(e0 + j)] : kNone;
+      row[j] = in ? lr[at(e0 + j)] : -1;
+      eq += in && key[j] == prefix;
+    }
+    int eq_total;
+    int eq_rank = eq_seen + block_scan(eq, wsum, eq_total);
+    bool keep[kItems];
+    int kept = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool in = e0 + j < total;
+      keep[j] = in && key[j] < prefix;
+      if (in && key[j] == prefix) keep[j] = eq_rank++ < need;
+      kept += keep[j];
+    }
+    int kept_total;
+    int pos = w + block_scan(kept, wsum, kept_total);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      if (keep[j])
+        sorted[pos++] = (static_cast<unsigned long long>(key[j]) << 32) |
+                        static_cast<uint32_t>(row[j]);
+    w += kept_total;
+    eq_seen += eq_total;
+  }
+  for (int i = k + tid; i < p; i += kThreads) sorted[i] = ~0ull;
+  __syncthreads();
+  // bitonic sort by (key, row)
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < p / 2; i += kThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long x = sorted[lo], y = sorted[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          sorted[lo] = y;
+          sorted[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < k; i += kThreads) {
+    const unsigned long long v = sorted[i];
+    const uint32_t key = static_cast<uint32_t>(v >> 32);
+    const float dist = key == kNone ? kMask : key_to_float(key);
+    out_d[(size_t)qg * k + i] = dist;
+    out_i[(size_t)qg * k + i] =
+        dist >= kMask ? -1 : static_cast<int>(static_cast<uint32_t>(v));
   }
 }
 
-int seg_len_of(int n, int segs) { return (n + segs - 1) / segs; }
+int check_plan(int b, int n, int k, int splits, int split_rows, int cap,
+               int rows_tile) {
+  if (b < 1 || n < 1) return kBadShape;
+  if (k < 1 || k > kMaxK) return kBadK;
+  if (splits < 1 || splits > 65535 || split_rows < rows_tile ||
+      split_rows % rows_tile != 0 || (long long)splits * split_rows < n ||
+      (long long)(splits - 1) * split_rows >= n || cap < k + rows_tile)
+    return kBadPlan;
+  return 0;
+}
+
+// lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB)
+template <typename F>
+int allow_smem(F kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
 
 }  // namespace
 
 extern "C" {
 
-// Q1: order keys [b, n] of the hamming distances of the packed queries
-// [b, w] to the packed rows [n, w] (int32 words, bits past `dims` ignored),
-// with the rows' popcounts [n]; mask [n] (null = every row live).
+// Q1: each query's k smallest (order key, row) of each split of the packed
+// rows [n, w] (int32 words, bits past `dims` ignored) against the packed
+// queries [b, w], with the rows' popcounts [n] and mask [n] (null = every
+// row live), into lists lk/lr [splits, b, cap] (the first k of each list:
+// the split's partial, in row order, padded with key 0xffffffff / row -1).
 int bq_scan(const uint32_t* q, const uint32_t* x, const float* pop,
-            const uint8_t* mask, uint32_t* keys, int b, int n, int w,
-            int dims, void* stream) {
-  if (b < 1 || n < 1 || w < 1) return kBadShape;
+            const uint8_t* mask, uint32_t* lk, int* lr, int b, int n, int w,
+            int dims, int k, int splits, int split_rows, int cap,
+            void* stream) {
+  if (w < 1) return kBadShape;
   if (dims < 1 || dims > kMaxD || w != (dims + 31) / 32) return kBadDims;
+  const int bad = check_plan(b, n, k, splits, split_rows, cap, kBqR);
+  if (bad) return bad;
   const uint32_t last = dims % 32 ? (1u << (dims % 32)) - 1u : kFull;
-  const dim3 grid((n + kBqThreads - 1) / kBqThreads, (b + kBqQ - 1) / kBqQ);
-  const size_t smem = (size_t)kBqQ * ((w + 7) & ~7) * 4;
+  const size_t smem = bq_smem(((w + 7) & ~7) + 4);
+  const dim3 grid((b + kQT - 1) / kQT, splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w % 4 == 0)
-    bq_scan_kernel<true><<<grid, kBqThreads, smem, st>>>(q, x, pop, mask, keys,
-                                                        b, n, w, last);
-  else
-    bq_scan_kernel<false><<<grid, kBqThreads, smem, st>>>(q, x, pop, mask,
-                                                         keys, b, n, w, last);
-  return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto kernel) {
+    const int e = allow_smem(kernel, smem);
+    if (e) return e;
+    kernel<<<grid, kThreads, smem, st>>>(q, x, pop, mask, lk, lr, b, n, w,
+                                         last, k, split_rows, cap);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return vec ? go(bq_scan_kernel<true>) : go(bq_scan_kernel<false>);
 }
 
-// Q2: order keys [b, n] of the SQ distances of the bf16 queries [b, d] to
-// the codes [n, d] (metric 0 l2-squared, 1 dot, 2 cosine), with the
-// queries' float32 sums and sums of squares [b] and the rows' decoded
-// squared norms [n].
+// Q2: as bq_scan for the SQ distances of the bf16 queries [b, dp] (zero
+// past d; dp a multiple of 64) to the codes [n, d] (metric 0 l2-squared, 1
+// dot, 2 cosine), with the queries' float32 sums and sums of squares [b]
+// and the rows' decoded squared norms [n].
 int sq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
             const uint8_t* mask, const float* qsum, const float* qsq, float a,
-            float s, int metric, uint32_t* keys, int b, int n, int d,
+            float s, int metric, uint32_t* lk, int* lr, int b, int n, int d,
+            int dp, int k, int splits, int split_rows, int cap,
             void* stream) {
-  if (b < 1 || n < 1) return kBadShape;
-  if (d < 1 || d > kMaxD) return kBadDims;
+  if (d < 1 || d > kMaxD || dp % kSqK != 0 || dp < d || dp - d >= kSqK)
+    return kBadDims;
   if (metric < 0 || metric > 2) return kBadMetric;
-  const dim3 grid((n + kSqN - 1) / kSqN, (b + kSqM - 1) / kSqM);
+  const int bad = check_plan(b, n, k, splits, split_rows, cap, kSqR);
+  if (bad) return bad;
+  const dim3 grid((b + kQT - 1) / kQT, splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d % 16 == 0)
-    sq_scan_kernel<true><<<grid, kSqThreads, 0, st>>>(
-        q, codes, dsq, mask, qsum, qsq, a, s, metric, keys, b, n, d);
-  else
-    sq_scan_kernel<false><<<grid, kSqThreads, 0, st>>>(
-        q, codes, dsq, mask, qsum, qsq, a, s, metric, keys, b, n, d);
-  return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto kernel) {
+    const int e = allow_smem(kernel, kSqSmem);
+    if (e) return e;
+    kernel<<<grid, kThreads, kSqSmem, st>>>(q, codes, dsq, mask, qsum, qsq, a,
+                                            s, metric, lk, lr, b, n, d, dp, k,
+                                            split_rows, cap);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const bool vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  return vec ? go(sq_scan_kernel<true>) : go(sq_scan_kernel<false>);
 }
 
-// One radix-select pass over keys [b, n]: hist [b, 2048] (zeroed) gets the
-// counts of digit (key >> shift) & (2^bits - 1) among the keys whose bits
-// above shift + bits equal prefix[row].
-int topk_radix_hist(const uint32_t* keys, const uint32_t* prefix, int* hist,
-                    int b, int n, int segs, int shift, int bits,
-                    void* stream) {
-  if (b < 1 || n < 1 || segs < 1) return kBadShape;
-  if (bits < 1 || bits > 11 || shift < 0 || shift + bits > 32) return kBadBits;
-  const dim3 grid(segs, b);
-  radix_hist_kernel<<<grid, kSelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, prefix, hist, n, seg_len_of(n, segs), shift, bits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// counts [b, segs, 2]: per segment of each row, the keys below thresh[row]
-// and those equal to it.
-int topk_count(const uint32_t* keys, const uint32_t* thresh, int* counts,
-               int b, int n, int segs, void* stream) {
-  if (b < 1 || n < 1 || segs < 1) return kBadShape;
-  const dim3 grid(segs, b);
-  count_kernel<<<grid, kSelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, thresh, counts, n, seg_len_of(n, segs), segs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The k smallest keys of each row in row order: those below thresh[row] and
-// the first need[row] equal to it (out_keys, out_cols [b, k]); offsets
-// [b, segs, 2] are the exclusive prefix sums of topk_count's counts.
-int topk_collect(const uint32_t* keys, const uint32_t* thresh, const int* need,
-                 const int* offsets, uint32_t* out_keys, int* out_cols, int b,
-                 int n, int segs, int k, void* stream) {
-  if (b < 1 || n < 1 || segs < 1) return kBadShape;
-  if (k < 1 || k > kMaxK || k > n) return kBadK;
-  const dim3 grid(segs, b);
-  collect_kernel<<<grid, kSelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, thresh, need, offsets, out_keys, out_cols, n, seg_len_of(n, segs),
-      segs, k);
+// The merge: out_d / out_i [b, k], each query's k smallest (key, row) over
+// the first k entries of its lists lk/lr [splits, b, cap], ascending by
+// (distance, row), as distances and ids.
+int topk_merge(const uint32_t* lk, const int* lr, float* out_d, int* out_i,
+               int splits, int b, int cap, int k, void* stream) {
+  if (b < 1 || splits < 1 || cap < k) return kBadShape;
+  if (k < 1 || k > kMaxK) return kBadK;
+  int p = 1;
+  while (p < k) p <<= 1;
+  merge_kernel<<<b, kThreads, (size_t)p * 8,
+                 static_cast<cudaStream_t>(stream)>>>(lk, lr, out_d, out_i,
+                                                      splits, b, cap, k, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* quantized_error_string(int code) {
   switch (code) {
-    case kBadShape: return "b, n, w and segments must be >= 1";
-    case kBadDims: return "dims outside [1, 4096] or words != ceil(dims/32)";
-    case kBadK: return "k outside [1, min(4096, n)]";
+    case kBadShape: return "b, n, w and splits must be >= 1 and cap >= k";
+    case kBadDims:
+      return "dims outside [1, 4096], words != ceil(dims/32), or the padded "
+             "query width not the next multiple of 64";
+    case kBadK: return "k outside [1, 4096]";
     case kBadMetric: return "SQ metric code outside 0..2";
-    case kBadBits: return "radix digit outside 1..11 bits below bit 32";
+    case kBadPlan:
+      return "split plan does not cover the rows in whole tiles, or the "
+             "lists cannot hold k plus a tile";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

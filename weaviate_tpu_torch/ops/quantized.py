@@ -7,19 +7,22 @@
   so q.decode(c) = s*(q.c) + a*sum(q), one product + an affine epilogue.
 
 Two scans have hand-written CUDA kernels (``csrc/quantized.cu``): Q1, the
-BQ scan (``bq_search``), and Q2, the SQ scan (``sq_search``). Each writes a
-[queries, rows] block of order keys, one launch a chunk of queries, and the
-selection (``select_topk``: three radix histograms, a count, a collect; five
-launches a chunk) takes its top-``k``. Each search returns
+BQ scan (``bq_search``), and Q2, the SQ scan (``sq_search``), both on the
+tensor cores. Each keeps an exact top-``k`` in its epilogue: a CTA walks a
+split of the rows for a tile of queries and leaves each query's ``k``
+smallest (order key, row) of the split in a list, [splits, B, cap]
+(``scan_plan``); the merge (``merge_partials``) takes the [splits, k]
+partials of each query down to ``k``. A search is one scan launch and one
+merge launch, whatever its B (``search_launches``). Each search returns
 the exact top-``k`` of its distances by (distance, id), the order the JAX
 package's chunked ``lax.top_k`` + ``merge_topk`` gives: lower id first on
 ties, masked rows at ``MASK_DISTANCE`` with id -1, and rows past the corpus
 padded the same way. The plain PyTorch versions (``_bq_search_plain``,
 ``_sq_search_plain``) are the JAX programs step for step; each wrapper takes
 its plain version for CPU tensors only, and on the card launches the kernel
-or raises. BQ distances are exact integers in float32 on both routes: the
+or raises. BQ distances are exact integers in float32 on both sides: the
 plain version unpacks the bits and multiplies, as JAX does (torch has no
-popcount), the kernel counts with ``__popc``. The frontier gathers stay
+popcount), the kernel multiplies the packed bits. The frontier gathers stay
 torch ops: they serve the host walk, the fallback tier of the HNSW index.
 
 PQ and RQ come with slice 4b and raise.
@@ -29,7 +32,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional
+import re
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,9 +47,6 @@ SQ_METRICS = ("l2-squared", "dot", "cosine")
 # the widest rows and the largest k the kernels take
 MAX_DIMS = 4096
 MAX_K = 4096
-# the kernels stage a [queries, rows] key block in device memory; queries go
-# through in chunks that keep it under this many bytes
-SCRATCH_BYTES = 1 << 31
 _SLICE_4B = ("{}: not ported yet (ROADMAP queue A, slice 4b: PQ and RQ)")
 
 
@@ -157,9 +159,8 @@ def bq_search(q_packed, packed, popcounts, mask, dims: int, k: int,
     ids [B, k] int32), ascending by (distance, id), -1/MASK padded. CUDA
     tensors go to kernel Q1, CPU tensors to the plain version; ``chunk``
     bounds the plain version's working set (the kernel's result does not
-    depend on it). The ``launches`` attribute counts Q1's launches: one a
-    chunk of ``query_chunk`` queries (``select_topk.launches`` counts the
-    selection's, SELECT_LAUNCHES a chunk)."""
+    depend on it). The ``launches`` attribute counts Q1's launches, one a
+    search (``merge_partials.launches`` counts the merge's)."""
     dev = packed.device
     if dev.type == "cuda":
         return bq_search_cuda(q_packed, packed, popcounts, mask, dims, k)
@@ -212,8 +213,8 @@ def sq_search(queries, codes, dec_sqnorms, a, s, mask, metric: str, k: int,
     (distance, id), -1/MASK padded. ``queries`` [B, D] float32 (normalized
     already for cosine), ``codes`` [N, D] uint8, ``a``/``s`` the quantizer's
     offset and step. CUDA tensors go to kernel Q2, CPU tensors to the plain
-    version. The ``launches`` attribute counts Q2's launches, one a chunk
-    of queries, as ``bq_search``'s."""
+    version. The ``launches`` attribute counts Q2's launches, one a
+    search, as ``bq_search``'s."""
     if metric not in SQ_METRICS:
         raise ValueError(f"SQ scan has no metric {metric!r}")
     dev = codes.device
@@ -324,99 +325,71 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def query_chunk(b: int, n: int) -> int:
-    """Queries a kernel scans at once: the [chunk, N] int32 key block stays
-    under ``SCRATCH_BYTES``."""
-    return max(1, min(b, SCRATCH_BYTES // (4 * n)))
+
+def _source_ints(path: Path) -> dict:
+    """The ``constexpr int`` constants that a kernel source defines."""
+    return {name: int(v) for name, v in re.findall(
+        r"^constexpr int (k\w+) = (\d+);", path.read_text(), re.M)}
 
 
-def select_topk(keys: torch.Tensor, k: int):
-    """Exact top-``k`` of each row of ``keys`` [B, N] (int32 holding the
-    kernels' uint32 order keys), lower column first on ties: (keys [B, k],
-    columns [B, k]) ascending. Three radix-histogram passes find each row's
-    k-th key, one counting pass and one collecting pass take the keys below
-    it and the first of those equal to it in column order; ``k`` <= N. Five
-    launches on the current stream, each counted in ``launches``; CPU
-    tensors take the plain version."""
-    if keys.device.type == "cpu":
-        return select_topk_plain(keys, k)
-    b, n = keys.shape
-    dev = keys.device
-    _check("keys", keys, torch.int32, (b, n), dev)
-    lib = _library()
-    segs = _segments(n)
-    prefix = torch.zeros(b, dtype=torch.int64, device=dev)
-    need = torch.full((b,), k, dtype=torch.int64, device=dev)
-    hist = torch.empty((b, 1 << 11), dtype=torch.int32, device=dev)
-    # every tensor a launch reads stays bound to a local until the launch is
-    # enqueued: a temporary freed earlier could go to another search's
-    # allocation on the same stream
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for shift, bits in ((21, 11), (10, 11), (0, 10)):
-            hist.zero_()
-            prefix32 = _as_u32(prefix)
-            err = lib.topk_radix_hist(
-                keys.data_ptr(), prefix32.data_ptr(), hist.data_ptr(),
-                b, n, segs, shift, bits, stream)
-            _raise_on(lib, err, "topk_radix_hist")
-            select_topk.launches += 1
-            cum = hist[:, :1 << bits].long().cumsum(1)
-            digit = (cum < need[:, None]).sum(1)
-            below = torch.where(
-                digit > 0,
-                cum.gather(1, (digit - 1).clamp(min=0)[:, None])[:, 0], 0)
-            need = need - below
-            prefix = prefix | (digit << shift)
-        thresh = _as_u32(prefix)
-        counts = torch.empty((b, segs, 2), dtype=torch.int32, device=dev)
-        err = lib.topk_count(keys.data_ptr(), thresh.data_ptr(),
-                             counts.data_ptr(), b, n, segs, stream)
-        _raise_on(lib, err, "topk_count")
-        select_topk.launches += 1
-        offsets = (counts.long().cumsum(1) - counts.long()).to(torch.int32)
-        need32 = need.to(torch.int32)
-        out_keys = torch.empty((b, k), dtype=torch.int32, device=dev)
-        out_cols = torch.empty((b, k), dtype=torch.int32, device=dev)
-        err = lib.topk_collect(keys.data_ptr(), thresh.data_ptr(),
-                               need32.data_ptr(), offsets.data_ptr(),
-                               out_keys.data_ptr(), out_cols.data_ptr(), b, n,
-                               segs, k, stream)
-        _raise_on(lib, err, "topk_collect")
-        select_topk.launches += 1
-    # the collected entries are in column order: a stable sort by key gives
-    # the (key, column) order
-    order = torch.sort(_key_order(out_keys), dim=1, stable=True).indices
-    return (torch.gather(out_keys, 1, order), torch.gather(out_cols, 1, order))
+# the kernels' tiles and occupancy, read from their source so the plan
+# follows it: queries a CTA, rows a tile, CTAs an SM holds
+_TILES = _source_ints(Path(__file__).resolve().parents[1] / "csrc"
+                      / f"{KERNEL}.cu")
+QUERY_TILE = _TILES["kQT"]
+ROWS_TILE = {"bq": _TILES["kBqR"], "sq": _TILES["kSqR"]}
+CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"], "sq": _TILES["kSqCtasPerSm"]}
+# the candidate lists of a search stay under this many bytes, by taking
+# fewer splits (never fewer than one)
+LIST_BYTES = 1 << 29
+# the key of a row that is never taken (masked, past the corpus) and of a
+# list's padding, as int32
+NONE_KEY = -1
 
 
-select_topk.launches = 0
-# launches of the selection a scan's chunk of queries takes
-SELECT_LAUNCHES = 5
+class ScanPlan(NamedTuple):
+    """How a scan cuts its rows: ``splits`` contiguous ranges of
+    ``split_rows`` rows (whole tiles), each query's candidate list of
+    ``cap`` entries a split."""
+    splits: int
+    split_rows: int
+    cap: int
 
 
-def select_topk_plain(keys: torch.Tensor, k: int):
-    """The plain version of ``select_topk``: a stable sort of each row by
-    its unsigned key, its first ``k`` entries."""
-    order = torch.sort(_key_order(keys), dim=1, stable=True).indices[:, :k]
-    return torch.gather(keys, 1, order), order.to(torch.int32)
+def scan_plan(kind: str, b: int, n: int, k: int, sms: int = 132) -> ScanPlan:
+    """The splits of a Q1 (``kind`` "bq") or Q2 ("sq") scan of ``b``
+    queries over ``n`` rows keeping ``k``: enough CTAs to fill ``sms`` SMs
+    (splits x query tiles), fewer when the lists [splits, b, cap] would pass
+    ``LIST_BYTES``, at most one a tile of rows. A list holds 2k (rounded to
+    32) plus a tile, so a compaction frees room for at least k more.
+    Raises ``ValueError`` on a shape or ``k`` no kernel takes."""
+    if b < 1 or n < 1:
+        raise ValueError(f"empty scan: B={b}, N={n}")
+    _check_k(k)
+    rows = ROWS_TILE[kind]
+    cap = -(-2 * k // 32) * 32 + rows
+    tiles = -(-n // rows)
+    want = max(1, -(-sms * CTAS_PER_SM[kind] // -(-b // QUERY_TILE)))
+    fit = max(1, LIST_BYTES // (b * cap * 8))
+    per_split = -(-tiles // min(want, fit, tiles))
+    return ScanPlan(-(-tiles // per_split), per_split * rows, cap)
 
 
-def _segments(n: int) -> int:
-    """Column segments a row is split into for the count and collect passes
-    (each a block's work)."""
-    return max(1, min(256, n // 16384))
-
-
-def _as_u32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) as int32 tensors with the same low bits."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+def search_launches() -> dict:
+    """Kernel launches one search makes, whatever its shape: one scan over
+    every query and every split of ``scan_plan``, and one merge."""
+    return {"scan": 1, "merge": 1}
 
 
 def _key_order(keys: torch.Tensor) -> torch.Tensor:
     """int64 values ordering int32-held uint32 keys as unsigned."""
     k = keys.long()
     return torch.where(k < 0, k + (1 << 32), k)
+
+
+def _as_u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 tensors with the same low bits."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
 def keys_to_dists(keys: torch.Tensor) -> torch.Tensor:
@@ -428,27 +401,101 @@ def keys_to_dists(keys: torch.Tensor) -> torch.Tensor:
     return _as_u32(bits).view(torch.float32)
 
 
-def _finish(keys, cols, k: int, b: int, dev):
-    """Selected (keys, columns) [B, kk] -> (dists [B, k], ids [B, k]) with
-    masked entries and the tail past the corpus at MASK / -1."""
-    d = keys_to_dists(keys)
-    out_d = torch.full((b, k), MASK_DISTANCE, device=dev)
-    out_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
-    kk = keys.shape[1]
-    out_d[:, :kk] = d
-    out_i[:, :kk] = torch.where(d >= MASK_DISTANCE, -1, cols)
+def split_partials_plain(keys: torch.Tensor, k: int, plan: ScanPlan):
+    """What a scan leaves in its lists, from the order keys [B, N] of every
+    (query, row) (``NONE_KEY`` for a row never taken): (keys, rows) [splits,
+    B, k], each split's k smallest by (key, row) in row order, padded with
+    ``NONE_KEY`` / -1."""
+    b, n = keys.shape
+    out_k = torch.full((plan.splits, b, k), NONE_KEY, dtype=torch.int32,
+                       device=keys.device)
+    out_r = torch.full_like(out_k, -1)
+    for sp in range(plan.splits):
+        lo = sp * plan.split_rows
+        part = keys[:, lo:lo + plan.split_rows]
+        order = torch.sort(_key_order(part), dim=1, stable=True).indices
+        taken = torch.gather(part, 1, order[:, :k]) != NONE_KEY
+        rows = torch.where(taken, order[:, :k], part.shape[1])
+        rows = torch.sort(rows, dim=1).values  # back to row order
+        kk = rows.shape[1]
+        live = rows < part.shape[1]
+        safe = rows.clamp(max=part.shape[1] - 1)
+        out_k[sp, :, :kk] = torch.where(live, torch.gather(part, 1, safe),
+                                        NONE_KEY)
+        out_r[sp, :, :kk] = torch.where(live, safe + lo, -1).to(torch.int32)
+    return out_k, out_r
+
+
+def merge_partials_plain(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
+                         k: int):
+    """The plain version of the merge: a stable sort by unsigned key of each
+    query's [splits x k] partials (split order is row order), its first
+    ``k`` as (dists [B, k], ids [B, k]); nothing taken gives
+    MASK_DISTANCE / -1."""
+    s, b, _ = cand_keys.shape
+    keys = cand_keys[..., :k].permute(1, 0, 2).reshape(b, s * k)
+    rows = cand_rows[..., :k].permute(1, 0, 2).reshape(b, s * k)
+    order = torch.sort(_key_order(keys), dim=1, stable=True).indices[:, :k]
+    sk = torch.gather(keys, 1, order)
+    d = torch.where(sk == NONE_KEY, MASK_DISTANCE, keys_to_dists(sk))
+    ids = torch.where(d >= MASK_DISTANCE, -1, torch.gather(rows, 1, order))
+    return d, ids.to(torch.int32)
+
+
+def merge_partials(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
+                   k: int):
+    """Each query's ``k`` smallest (distance, row) over the first ``k``
+    entries of its lists [splits, B, cap] (int32; keys are the kernels'
+    uint32 order keys): (dists [B, k] float32, ids [B, k] int32), ascending,
+    MASK_DISTANCE / -1 where nothing was taken. CUDA tensors go to the merge
+    kernel, one launch counted in ``launches``; CPU tensors to the plain
+    version."""
+    if cand_keys.device.type == "cpu":
+        return merge_partials_plain(cand_keys, cand_rows, k)
+    s, b, cap = cand_keys.shape
+    dev = cand_keys.device
+    _check("cand_keys", cand_keys, torch.int32, (s, b, cap), dev)
+    _check("cand_rows", cand_rows, torch.int32, (s, b, cap), dev)
+    _check_k(k)
+    lib = _library()
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.topk_merge(cand_keys.data_ptr(), cand_rows.data_ptr(),
+                             out_d.data_ptr(), out_i.data_ptr(), s, b, cap,
+                             k, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "topk_merge")
+    merge_partials.launches += 1
     return out_d, out_i
 
 
-def bq_scan_cuda(q_packed, packed, popcounts, mask, dims: int,
-                 keys: torch.Tensor) -> None:
-    """Kernel Q1's scan on the current stream, one launch: the order key of
-    every (query, row) hamming distance into ``keys`` [B, N] int32 (masked
-    rows at MASK_DISTANCE's key; ``keys_to_dists`` inverts the keys).
-    ``q_packed`` [B, W] and ``packed`` [N, W] int32 words, ``popcounts``
-    [N] float32, ``mask`` [N] bool or None. Raises ``ValueError`` on
-    arguments outside the kernel's contract and ``RuntimeError`` on a
-    failed launch; each launch adds one to ``bq_search.launches``."""
+merge_partials.launches = 0
+
+
+def _lists(plan: ScanPlan, b: int, dev):
+    """Empty candidate lists (keys, rows) [splits, b, cap] of a scan."""
+    shape = (plan.splits, b, plan.cap)
+    return (torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def _check_lists(plan: ScanPlan, b: int, cand_keys, cand_rows, dev):
+    shape = (plan.splits, b, plan.cap)
+    _check("cand_keys", cand_keys, torch.int32, shape, dev)
+    _check("cand_rows", cand_rows, torch.int32, shape, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(kind: str, b: int, n: int, k: int, dev) -> ScanPlan:
+    """``scan_plan`` for the card holding ``dev``."""
+    return scan_plan(kind, b, n, k, _sm_count(torch.device(dev).index or 0))
+
+
+def _check_bq(q_packed, packed, popcounts, mask, dims: int, k: int):
     dev = packed.device
     b, w = q_packed.shape
     n = packed.shape[0]
@@ -459,127 +506,138 @@ def bq_scan_cuda(q_packed, packed, popcounts, mask, dims: int,
     _check("popcounts", popcounts, torch.float32, (n,), dev)
     if mask is not None:
         _check("mask", mask, torch.bool, (n,), dev)
-    _check("keys", keys, torch.int32, (b, n), dev)
     _check_scan(b, n, dims)
+    _check_k(k)
+
+
+def bq_scan_cuda(q_packed, packed, popcounts, mask, dims: int, k: int,
+                 plan: ScanPlan, cand_keys: torch.Tensor,
+                 cand_rows: torch.Tensor) -> None:
+    """Kernel Q1 on the current stream, one launch: each query's ``k``
+    smallest (order key, row) of each split of ``plan`` into the first
+    ``k`` entries of its list (``cand_keys``/``cand_rows`` [splits, B, cap]
+    int32, in row order, padded with ``NONE_KEY`` / -1). ``q_packed`` [B, W]
+    and ``packed`` [N, W] int32 words, ``popcounts`` [N] float32, ``mask``
+    [N] bool or None. Raises ``ValueError`` on arguments outside the
+    kernel's contract and ``RuntimeError`` on a failed launch; each launch
+    adds one to ``bq_search.launches``."""
+    _check_bq(q_packed, packed, popcounts, mask, dims, k)
+    _check_lists(plan, q_packed.shape[0], cand_keys, cand_rows, packed.device)
+    _bq_launch(q_packed, packed, popcounts, mask, dims, k, plan, cand_keys,
+               cand_rows)
+
+
+def _bq_launch(q_packed, packed, popcounts, mask, dims: int, k: int,
+               plan: ScanPlan, cand_keys, cand_rows) -> None:
+    """``bq_scan_cuda`` on arguments already checked."""
+    dev = packed.device
+    b, w = q_packed.shape
+    n = packed.shape[0]
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.bq_scan(q_packed.data_ptr(), packed.data_ptr(),
-                          popcounts.data_ptr(), _ptr(mask), keys.data_ptr(),
-                          b, n, w, dims,
+                          popcounts.data_ptr(), _ptr(mask),
+                          cand_keys.data_ptr(), cand_rows.data_ptr(), b, n,
+                          w, dims, k, plan.splits, plan.split_rows, plan.cap,
                           torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "bq_scan")
     bq_search.launches += 1
 
 
 def sq_scan_cuda(qb, codes, dec_sqnorms, mask, q_sum, q_sq, a: float,
-                 s: float, metric: str, keys: torch.Tensor) -> None:
-    """Kernel Q2's scan on the current stream, one launch: the order key of
-    every (query, row) SQ distance into ``keys`` [B, N] int32. ``qb`` [B, D]
-    the bf16-rounded queries, ``q_sum``/``q_sq`` [B] float32 the unrounded
-    queries' sums and sums of squares, ``codes`` [N, D] uint8. Raises as
-    ``bq_scan_cuda``; each launch adds one to ``sq_search.launches``."""
+                 s: float, metric: str, k: int, plan: ScanPlan,
+                 cand_keys: torch.Tensor, cand_rows: torch.Tensor) -> None:
+    """Kernel Q2 on the current stream, one launch, into the lists as
+    ``bq_scan_cuda``. ``qb`` [B, Dp] the bf16-rounded queries zero-padded to
+    the next multiple of 64 (``sq_query_terms``), ``q_sum``/``q_sq`` [B]
+    float32 the unrounded queries' sums and sums of squares, ``codes``
+    [N, D] uint8. Raises as ``bq_scan_cuda``; each launch adds one to
+    ``sq_search.launches``."""
     dev = codes.device
-    b, d = qb.shape
-    n = codes.shape[0]
-    _check("queries", qb, torch.bfloat16, (b, d), dev)
+    n, d = codes.shape
+    b = qb.shape[0]
+    _check("queries", qb, torch.bfloat16, (b, _padded(d)), dev)
     _check("codes", codes, torch.uint8, (n, d), dev)
     _check("dec_sqnorms", dec_sqnorms, torch.float32, (n,), dev)
     if mask is not None:
         _check("mask", mask, torch.bool, (n,), dev)
     _check("q_sum", q_sum, torch.float32, (b,), dev)
     _check("q_sq", q_sq, torch.float32, (b,), dev)
-    _check("keys", keys, torch.int32, (b, n), dev)
     if metric not in SQ_METRICS:
         raise ValueError(f"SQ scan has no metric {metric!r}")
     _check_scan(b, n, d)
+    _check_k(k)
+    _check_lists(plan, b, cand_keys, cand_rows, dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sq_scan(qb.data_ptr(), codes.data_ptr(),
                           dec_sqnorms.data_ptr(), _ptr(mask), q_sum.data_ptr(),
                           q_sq.data_ptr(), a, s, SQ_METRICS.index(metric),
-                          keys.data_ptr(), b, n, d,
-                          torch.cuda.current_stream().cuda_stream)
+                          cand_keys.data_ptr(), cand_rows.data_ptr(), b, n, d,
+                          _padded(d), k, plan.splits, plan.split_rows,
+                          plan.cap, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "sq_scan")
     sq_search.launches += 1
 
 
+def _padded(d: int) -> int:
+    """Q2's query width: ``d`` rounded up to the ring's step of 64."""
+    return -(-d // 64) * 64
+
+
 def sq_query_terms(queries: torch.Tensor):
-    """Q2's query operands: (the queries rounded to bf16, their float32 sums
-    and sums of squares taken from the unrounded queries)."""
-    return (queries.to(torch.bfloat16).contiguous(),
-            torch.sum(queries, dim=-1).contiguous(),
+    """Q2's query operands: (the queries rounded to bf16 and zero-padded to
+    ``_padded(D)`` columns, their float32 sums and sums of squares taken
+    from the unrounded queries)."""
+    b, d = queries.shape
+    qb = torch.zeros((b, _padded(d)), dtype=torch.bfloat16,
+                     device=queries.device)
+    qb[:, :d] = queries
+    return (qb, torch.sum(queries, dim=-1).contiguous(),
             torch.sum(queries * queries, dim=-1).contiguous())
 
 
-def scan_launches(b: int, n: int) -> int:
-    """Scan launches one search of ``b`` queries over ``n`` rows makes (one
-    a chunk of queries; each chunk's selection makes SELECT_LAUNCHES)."""
-    return -(-b // query_chunk(b, n))
-
-
 def bq_search_cuda(q_packed, packed, popcounts, mask, dims: int, k: int):
-    """Kernels Q1 and the selection on the current stream: the contract of
-    ``bq_search``, the queries in chunks of ``query_chunk``, each chunk one
-    ``bq_scan_cuda`` and one ``select_topk``."""
+    """Kernels Q1 and the merge on the current stream: the contract of
+    ``bq_search``, one ``bq_scan_cuda`` over every query and one
+    ``merge_partials``."""
     dev = packed.device
     b = q_packed.shape[0]
-    n = packed.shape[0]
-    _check_scan(b, n, dims)
-    _check_k(k)
-    kk = min(k, n)
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    bc = query_chunk(b, n)
-    keys = torch.empty((bc, n), dtype=torch.int32, device=dev)
-    for s in range(0, b, bc):
-        nb = min(bc, b - s)
-        bq_scan_cuda(q_packed[s:s + nb], packed, popcounts, mask, dims,
-                     keys[:nb])
-        sk, sc = select_topk(keys[:nb], kk)
-        out_d[s:s + nb], out_i[s:s + nb] = _finish(sk, sc, k, nb, dev)
-    return out_d, out_i
+    _check_bq(q_packed, packed, popcounts, mask, dims, k)
+    plan = device_plan("bq", b, packed.shape[0], k, dev)
+    cand_keys, cand_rows = _lists(plan, b, dev)
+    _bq_launch(q_packed, packed, popcounts, mask, dims, k, plan, cand_keys,
+               cand_rows)
+    return merge_partials(cand_keys, cand_rows, k)
 
 
 def sq_search_cuda(queries, codes, dec_sqnorms, a: float, s: float, mask,
                    metric: str, k: int):
-    """Kernels Q2 and the selection on the current stream: the contract of
-    ``sq_search``, in chunks as ``bq_search_cuda``. The queries are rounded
-    to bf16 here (as ``_bf16_ip`` rounds them); their sums and sums of
-    squares are taken in float32 from the unrounded queries, as the plain
-    version takes them (``sq_query_terms``)."""
+    """Kernels Q2 and the merge on the current stream: the contract of
+    ``sq_search``, as ``bq_search_cuda``. The queries are rounded to bf16
+    here (as ``_bf16_ip`` rounds them); their sums and sums of squares are
+    taken in float32 from the unrounded queries, as the plain version
+    takes them (``sq_query_terms``)."""
     dev = codes.device
     b, d = queries.shape
     n = codes.shape[0]
     _check("queries", queries, torch.float32, (b, d), dev)
-    _check_scan(b, n, d)
-    _check_k(k)
-    kk = min(k, n)
     qb, q_sum, q_sq = sq_query_terms(queries)
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    bc = query_chunk(b, n)
-    keys = torch.empty((bc, n), dtype=torch.int32, device=dev)
-    for s0 in range(0, b, bc):
-        nb = min(bc, b - s0)
-        sq_scan_cuda(qb[s0:s0 + nb], codes, dec_sqnorms, mask,
-                     q_sum[s0:s0 + nb], q_sq[s0:s0 + nb], a, s, metric,
-                     keys[:nb])
-        sk, sc = select_topk(keys[:nb], kk)
-        out_d[s0:s0 + nb], out_i[s0:s0 + nb] = _finish(sk, sc, k, nb, dev)
-    return out_d, out_i
+    plan = device_plan("sq", b, n, k, dev)
+    cand_keys, cand_rows = _lists(plan, b, dev)
+    sq_scan_cuda(qb, codes, dec_sqnorms, mask, q_sum, q_sq, a, s, metric, k,
+                 plan, cand_keys, cand_rows)
+    return merge_partials(cand_keys, cand_rows, k)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bq_scan.argtypes = [p] * 5 + [i] * 4 + [p]
-    lib.sq_scan.argtypes = [p] * 6 + [f, f, i, p, i, i, i, p]
-    lib.topk_radix_hist.argtypes = [p] * 3 + [i] * 5 + [p]
-    lib.topk_count.argtypes = [p] * 3 + [i] * 3 + [p]
-    lib.topk_collect.argtypes = [p] * 6 + [i] * 4 + [p]
-    for fn in (lib.bq_scan, lib.sq_scan, lib.topk_radix_hist,
-               lib.topk_count, lib.topk_collect):
+    lib.bq_scan.argtypes = [p] * 6 + [i] * 8 + [p]
+    lib.sq_scan.argtypes = [p] * 6 + [f, f, i, p, p] + [i] * 8 + [p]
+    lib.topk_merge.argtypes = [p] * 4 + [i] * 4 + [p]
+    for fn in (lib.bq_scan, lib.sq_scan, lib.topk_merge):
         fn.restype = i
     lib.quantized_error_string.argtypes = [i]
     lib.quantized_error_string.restype = ctypes.c_char_p
