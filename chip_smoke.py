@@ -16,13 +16,16 @@ non-zero without the final line:
              batches of 1 to 256, unfiltered and filtered (allow masks of
              1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
              graphs the port builds on the card, with its BQ scorer (equal
-             to the plain walk) and its SQ scorer (l2/dot/cosine) on each;
-             the BQ scan (Q1, equal to its plain version) and the SQ
-             scan (Q2) over B of 1/16/256, D of
-             25/768/1536, fetch of 10/200/320/1024, 1% and 50% masked,
+             to the plain walk) and its SQ, PQ and RQ scorers
+             (l2/dot/cosine, unfiltered and filtered) on each;
+             the BQ scan (Q1, equal to its plain version), the SQ scan
+             (Q2), the PQ scan (Q3, segments of 8, 96 and D/4 and
+             sub-widths of 3 and 6) and the RQ scan (Q4) over B of
+             1/16/256, D of 25/768/1536, fetch of 10/200/320/1024, 1% and
+             50% masked,
              fetch past the live rows, and the selection's edges (fetch =
              MAX_K, N below fetch and below one split, a wholly masked
-             split, B of 53 and 257, 16-d bits).
+             split, B of 53 and 257, 16-d bits, fetch 40 at 64-d).
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -55,16 +58,17 @@ non-zero without the final line:
              uuids.
 8. quant   — the quantized flat index through ``make_flat``: BQ at
              ``bench.py bench_bq``'s configuration (BQ_ROWS LAION-like
-             768-d rows made on the card, cosine, rescore_limit 320) and SQ
+             768-d rows made on the card, cosine, rescore_limit 320), SQ
              at ``bench_msmarco``'s per-tenant index (550,000 rows,
-             rescore_limit 200): recall@10 against the exact float32
-             answer, the search's kernels (Q1 or Q2, then the merge)
-             beside their bound and their plain version, its launches (one
-             scan, one merge), the scan alone and the merge alone
-             against its plain version and
-             ``torch.topk``, Q2 beside ``torch.matmul`` of the product
-             alone, search p50/p99, the rescore's share, device and host
-             bytes.
+             rescore_limit 200) and RQ in SQ's place on the same rows:
+             recall@10 against the exact float32 answer, the search's
+             kernels (Q1, Q2 or Q4, then the merge) beside their bound and
+             their plain version, its launches (one scan, one merge), the
+             scan alone and the merge alone against its plain version and
+             ``torch.topk``, Q2 and Q4 beside ``torch.matmul`` of the
+             product alone, search p50/p99, the rescore's share, device
+             and host bytes; then HNSW + RQ over the tenant's first
+             RQ_HNSW_ROWS rows (B2-RQ in its build and search).
 9. hnsw_quant — ``HNSWIndex`` + BQ at ``bench_hnsw_quant``'s bq
              configuration (768-d, l2-squared, ef 96, M 16, rescore_limit
              80, the fused walk) at HNSW_QUANT_ROWS rows: the build rate,
@@ -76,6 +80,20 @@ non-zero without the final line:
              Q2) and the resident 45% filter (the filtered beam) searches,
              close and reopen (graph.npz + quantizer.msgpack, codes rebuilt
              from the objects), a crash and reopen, each with the same uuids.
+11. pq     — BASELINE.json config 3 (DBpedia-OpenAI 1M 1536-d, PQ with 96
+             segments) as ``bench.py bench_pq`` runs it, not cut: 1,000,000
+             clustered 1536-d rows made on the card, l2-squared,
+             ``PQConfig(segments=96, rescore_limit=40)`` through
+             ``make_flat``, added in steps of 200,000 (the k-means fit runs
+             on the card): fit seconds and encode vectors/s, recall@10,
+             Q3 and the merge (one launch each a search) beside the bound,
+             the plain version and ``torch.matmul`` of the product alone,
+             search p50/p99, the rescore's share, device and host bytes.
+12. hnsw_pq — config 3 as a graph (``bench_hnsw_quant``'s pq
+             configuration: ef 96, M 16, PQ 96 segments, rescore 40) at
+             HNSW_PQ_ROWS rows: the build, recall@10 of the device walk
+             and the host walk, one B2 launch a search, B2-PQ beside its
+             bound and its plain version.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -98,7 +116,14 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch import _build, native
-from weaviate_tpu_torch.compression import BinaryQuantizer, ScalarQuantizer
+from weaviate_tpu_torch.compression import (
+    BinaryQuantizer,
+    ProductQuantizer,
+    RotationalQuantizer,
+    ScalarQuantizer,
+    build_quantizer,
+)
+from weaviate_tpu_torch.compression.kmeans import _assign_chunked
 from weaviate_tpu_torch.core.db import DB
 from weaviate_tpu_torch.index.flat import FlatIndex, exact_rescore, make_flat
 from weaviate_tpu_torch.index.hnsw import HNSWIndex
@@ -114,7 +139,9 @@ from weaviate_tpu_torch.schema.config import (
     DataType,
     FlatIndexConfig,
     HNSWIndexConfig,
+    PQConfig,
     Property,
+    RQConfig,
     SQConfig,
 )
 from weaviate_tpu_torch.storage.objects import StorageObject
@@ -385,7 +412,16 @@ Q_EDGES = (
     ("b53", 53, Q_ROWS, 768, 320, 0.01),
     ("b257", 257, Q_ROWS, 768, 200, 0.01),
     ("ties_d16", 256, Q_ROWS, 16, 1024, 0.01),
+    ("fetch40_d64", 256, Q_ROWS, 64, 40, 0.01),
 )
+# Q3's segments: cycled over the grid (8, 96 and D/4, each shrunk to a
+# divisor of D as ProductQuantizer shrinks it: sub-dimensions of 192, 96,
+# 16, 8, 5, 4 and 1), 16 on the edges ("fetch40_d64": 4 sub-dimensions),
+# and Q3's own edges with their segments: sub-dimensions of 3 and 6, which
+# the decode gathers a value and two values a copy
+Q3_SEGMENTS = (8, 96, 0)
+Q3_EDGES = (("dsub3", 256, Q_ROWS, 768, 200, 0.01, 256),
+            ("dsub6", 64, Q_ROWS, 768, 100, 0.5, 128))
 
 
 def sq_inputs(x: torch.Tensor, metric: str, fit_rows: int = 20_000):
@@ -399,12 +435,86 @@ def sq_inputs(x: torch.Tensor, metric: str, fit_rows: int = 20_000):
                 torch.from_numpy(enc["dec_sqnorm"]).to(x.device))
 
 
+def pq_segments(d: int, m: int) -> int:
+    """``m`` segments (0: D/4) shrunk to a divisor of ``d``, as
+    ProductQuantizer takes them."""
+    m = m or max(1, d // 4)
+    while d % m:
+        m -= 1
+    return m
+
+
+def pq_inputs(gen, x: torch.Tensor, m: int):
+    """PQ planes of the rows ``x`` [n, d] made on the card: 256 centroids a
+    segment drawn from the rows' own segments, each row's nearest codes,
+    and the decoded rows' squared norms. -> (codes [n, m] uint8, codebooks
+    [m, 256, d/m] bf16, dec_sqnorms [n])."""
+    n, d = x.shape
+    segs = x.view(n, m, d // m).transpose(0, 1).contiguous()
+    picks = torch.randint(0, n, (256,), generator=gen, device=x.device)
+    cb = segs[:, picks].to(torch.bfloat16).float()
+    codes = _assign_chunked(segs, cb, max(256, (1 << 26) // (m * 256)))
+    codes = codes.T.to(torch.uint8).contiguous()
+    dec = quantized._pq_decode(codes, cb, d)
+    return codes, cb.to(torch.bfloat16).contiguous(), (dec * dec).sum(1)
+
+
+_ROTATIONS: dict = {}
+
+
+def rq_inputs(x: torch.Tensor, q: torch.Tensor):
+    """RQ planes of the rows ``x`` [n, d] and the rotated queries: the
+    quantizer's seeded rotation (``RotationalQuantizer.fit``), the rows
+    rotated and encoded on the card with its per-row affine rule. ->
+    (q_rot, (codes, lower, step, dec_sqnorms))."""
+    d = x.shape[1]
+    if d not in _ROTATIONS:
+        rq = RotationalQuantizer(d, "l2-squared")
+        rq.fit(None)
+        _ROTATIONS[d] = torch.from_numpy(rq.rotation).to(x.device)
+    rot = _ROTATIONS[d]
+    pad = rot.shape[0] - d
+    r = torch.nn.functional.pad(x, (0, pad)) @ rot
+    lo, hi = r.min(1).values, r.max(1).values
+    st = torch.clamp(hi - lo, min=1e-12) / 255.0
+    c = torch.clamp(torch.round((r - lo[:, None]) / st[:, None]), 0, 255)
+    dec = lo[:, None] + st[:, None] * c
+    return ((torch.nn.functional.pad(q, (0, pad)) @ rot).contiguous(),
+            (c.to(torch.uint8).contiguous(), lo.contiguous(), st.contiguous(),
+             (dec * dec).sum(1)))
+
+
+def code_case(out: dict, tag: str, tally: str, kernel, plain, near) -> None:
+    """A Q2/Q3/Q4 search against its plain version: ``compare``'s tolerance,
+    its equal ids counted under ``tally``."""
+    kd, ki = kernel()
+    pd, pi = plain()
+    torch.cuda.synchronize()
+    e, same, total = compare(kd, ki, pd, pi, near)
+    out[f"{tag}_cases"] += 1
+    out[f"{tag}_max_abs_err"] = max(out[f"{tag}_max_abs_err"], e)
+    out[f"{tally}_same"] += same
+    out[f"{tally}_total"] += total
+
+
+def masked_near(dist_fn, mask):
+    """``near`` for ``compare``: the plain distance of each returned id,
+    MASK_DISTANCE for a masked row, inf for id -1."""
+    def near(ids):
+        safe = ids.clamp(min=0)
+        dist = torch.where(mask[safe.long()], dist_fn(safe), MASK_DISTANCE)
+        return torch.where(ids < 0, float("inf"), dist)
+
+    return near
+
+
 def quant_case(gen, out: dict, b: int, n: int, d: int, fetch: int, masked,
-               metric: str, tally: str = "q2") -> None:
-    """One Q1/Q2 case on seeded rows: Q1 equal to its plain version in
-    every id and distance, Q2 as ``compare`` holds K1
-    (ATOL + RTOL * |plain|, ids equal outside near ties), its equal ids
-    counted under ``tally``."""
+               metric: str, tally: str = "q2", segments: int = 8) -> None:
+    """One Q1-Q4 case on seeded rows: Q1 equal to its plain version in
+    every id and distance, Q2, Q3 (``segments`` as ``pq_segments`` takes
+    them) and Q4 as ``compare`` holds K1 (ATOL + RTOL * |plain|, ids equal
+    outside near ties), their equal ids counted under ``tally`` with
+    "q2" swapped for "q3" and "q4"."""
     dev = torch.device("cuda")
     x = torch.randn(n, d, generator=gen, device=dev)
     q = (x[torch.randint(0, n, (b,), generator=gen, device=dev)]
@@ -439,71 +549,88 @@ def quant_case(gen, out: dict, b: int, n: int, d: int, fetch: int, masked,
         x, q = normalize(x), normalize(q)
     sq, (codes, dsq) = sq_inputs(x, metric)
     q = q.contiguous()
-    kd, ki = quantized.sq_search_cuda(q, codes, dsq, sq.a, sq.s, mask,
-                                      metric, fetch)
-    pd, pi = quantized._sq_search_plain(q, codes, dsq, sq.a, sq.s, mask,
-                                        metric, fetch)
-    torch.cuda.synchronize()
-
-    def near(ids):
-        dist = quantized.sq_gather_distance(q, codes, ids.clamp(min=0),
-                                            dsq, sq.a, sq.s, metric)
-        dist = torch.where(mask[ids.clamp(min=0).long()], dist,
-                           MASK_DISTANCE)
-        return torch.where(ids < 0, float("inf"), dist)
-
-    e, same, total = compare(kd, ki, pd, pi, near)
-    out["q2_cases"] += 1
-    out["q2_max_abs_err"] = max(out["q2_max_abs_err"], e)
-    out[f"{tally}_same"] += same
-    out[f"{tally}_total"] += total
+    code_case(out, "q2", tally, lambda: quantized.sq_search_cuda(
+        q, codes, dsq, sq.a, sq.s, mask, metric, fetch),
+        lambda: quantized._sq_search_plain(q, codes, dsq, sq.a, sq.s, mask,
+                                           metric, fetch),
+        masked_near(lambda ids: quantized.sq_gather_distance(
+            q, codes, ids, dsq, sq.a, sq.s, metric), mask))
+    # Q3 on the same rows and queries
+    m = pq_segments(d, segments)
+    pcodes, cb, pdsq = pq_inputs(gen, x, m)
+    code_case(out, "q3", tally.replace("q2", "q3"),
+              lambda: quantized.pq_search_cuda(q, pcodes, cb, pdsq, mask,
+                                               metric, fetch),
+              lambda: quantized._pq_search_plain(q, pcodes, cb, pdsq, mask,
+                                                 metric, fetch),
+              masked_near(lambda ids: quantized.pq_gather_distance(
+                  q, pcodes, cb, ids, pdsq, metric), mask))
+    out["seen"]["dsub"].add(d // m)
+    del pcodes, cb, pdsq
+    # Q4 on the same rows, rotated
+    q_rot, (rcodes, lo, st, rdsq) = rq_inputs(x, q)
+    code_case(out, "q4", tally.replace("q2", "q4"),
+              lambda: quantized.rq_search_cuda(q_rot, rcodes, lo, st, rdsq,
+                                               mask, metric, fetch),
+              lambda: quantized._rq_search_plain(q_rot, rcodes, lo, st, rdsq,
+                                                 mask, metric, fetch),
+              masked_near(lambda ids: quantized.rq_gather_distance(
+                  q_rot, rcodes, ids, lo, st, rdsq, metric), mask))
 
 
 def quant_kernel_grid(seed: int) -> dict:
-    """Q1 and Q2 against their plain versions over Q_BS x Q_DIMS x Q_FETCH,
-    the masked share alternating, SQ cycling its three metrics, then the
-    selection's edges (Q_EDGES): Q1 equal in every id and distance, Q2 as
-    ``compare`` holds K1. Q2's ids agree on MIN_ID_AGREEMENT of the
-    grid's slots and on MIN_ID_AGREEMENT_Q2_EDGES of the edges', every
-    differing id a near tie in both."""
+    """Q1-Q4 against their plain versions over Q_BS x Q_DIMS x Q_FETCH,
+    the masked share alternating, the code scans cycling their three
+    metrics and Q3 its segments, then the selection's edges (Q_EDGES, and
+    Q3_EDGES): Q1 equal in every id and distance, Q2, Q3 and Q4 as
+    ``compare`` holds K1. Their ids agree on MIN_ID_AGREEMENT of the grid's
+    slots and on MIN_ID_AGREEMENT_Q2_EDGES of the edges' (the three share
+    Q2's bf16 product), every differing id a near tie in both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
-    out = {"q1_cases": 0, "q2_cases": 0, "q2_max_abs_err": 0.0,
-           "q2_same": 0, "q2_total": 0, "q2_edge_same": 0,
-           "q2_edge_total": 0, "fetch_over_live": 0,
+    out = {"q1_cases": 0, "fetch_over_live": 0,
            "q2_tolerance": {"atol": ATOL, "rtol": RTOL,
                             "min_id_agreement": MIN_ID_AGREEMENT,
                             "edges_min_id_agreement":
                                 MIN_ID_AGREEMENT_Q2_EDGES},
            "seen": {"b": set(), "d": set(), "fetch": set(), "masked": set(),
-                    "metric": set(), "edge": set()}}
+                    "metric": set(), "edge": set(), "dsub": set()}}
+    for tag in ("q2", "q3", "q4"):
+        out.update({f"{tag}_cases": 0, f"{tag}_max_abs_err": 0.0,
+                    f"{tag}_same": 0, f"{tag}_total": 0,
+                    f"{tag}_edge_same": 0, f"{tag}_edge_total": 0})
     grid = [(b, d, f) for b in Q_BS for d in Q_DIMS for f in Q_FETCH]
     for i, (b, d, fetch) in enumerate(grid):
         n = Q_FEW_ROWS if i % 6 == 5 else Q_ROWS
         masked = Q_MASKED[i % 2]
         metric = quantized.SQ_METRICS[i % 3]
-        quant_case(gen, out, b, n, d, fetch, masked, metric)
+        quant_case(gen, out, b, n, d, fetch, masked, metric,
+                   segments=Q3_SEGMENTS[(i // 4 + i // 12) % 3])
         for key, v in (("b", b), ("d", d), ("fetch", fetch),
                        ("masked", masked), ("metric", metric)):
             out["seen"][key].add(v)
-    for i, (name, b, n, d, fetch, masked) in enumerate(Q_EDGES):
+    edges = [e + (16,) for e in Q_EDGES] + list(Q3_EDGES)
+    for i, (name, b, n, d, fetch, masked, segments) in enumerate(edges):
         quant_case(gen, out, b, n, d, fetch, masked,
-                   quantized.SQ_METRICS[i % 3], "q2_edge")
+                   quantized.SQ_METRICS[i % 3], "q2_edge", segments=segments)
         out["seen"]["edge"].add(name)
     if (out["seen"]["b"] != set(Q_BS) or out["seen"]["d"] != set(Q_DIMS)
             or out["seen"]["fetch"] != set(Q_FETCH)
             or out["seen"]["masked"] != set(Q_MASKED)
             or out["seen"]["metric"] != set(quantized.SQ_METRICS)
-            or out["seen"]["edge"] != {e[0] for e in Q_EDGES}
+            or out["seen"]["edge"] != {e[0] for e in edges}
+            or not {3, 4, 6, 16}.issubset(out["seen"]["dsub"])
             or not out["fetch_over_live"]):
-        raise AssertionError(f"the Q1/Q2 grid left a case out: {out}")
-    out["q2_id_agreement"] = out["q2_same"] / max(1, out["q2_total"])
-    out["q2_edge_id_agreement"] = (out["q2_edge_same"]
-                                   / max(1, out["q2_edge_total"]))
-    if out["q2_id_agreement"] < MIN_ID_AGREEMENT or \
-            out["q2_edge_id_agreement"] < MIN_ID_AGREEMENT_Q2_EDGES:
-        raise AssertionError(
-            f"Q2 id agreement {out['q2_id_agreement']} (grid), "
-            f"{out['q2_edge_id_agreement']} (edges)")
+        raise AssertionError(f"the Q1-Q4 grid left a case out: {out}")
+    for tag in ("q2", "q3", "q4"):
+        grid_a = out[f"{tag}_same"] / max(1, out[f"{tag}_total"])
+        edge_a = out[f"{tag}_edge_same"] / max(1, out[f"{tag}_edge_total"])
+        out[f"{tag}_id_agreement"] = grid_a
+        out[f"{tag}_edge_id_agreement"] = edge_a
+        if grid_a < MIN_ID_AGREEMENT or edge_a < MIN_ID_AGREEMENT_Q2_EDGES:
+            raise AssertionError(
+                f"{tag.upper()} id agreement {grid_a} (grid), {edge_a} "
+                "(edges)")
     out["seen"] = {k: sorted(map(str, v)) for k, v in out["seen"].items()}
     return out
 
@@ -525,16 +652,20 @@ B2_KEEP = (8, 32)
 B2_EXPAND = (0, 1, 2, 3, 4)
 B2_FILTERED_EFS = (64, 128, 512)
 B2_FILTERED_PER_GRAPH = 3
-# the SQ walks' metrics (a BQ walk has no metric: hamming over sign bits)
+# the code walks' metrics (a BQ walk has no metric: hamming over sign bits)
 B2_SQ_METRICS = ("l2-squared", "dot", "cosine")
+B2_QUANT_KINDS = ("bq", "sq", "pq", "rq")
 
 
 def quant_walk_inputs(kind: str, metric: str, rows: torch.Tensor,
-                      queries: torch.Tensor):
-    """(scorer, operands, query rep) of a BQ or SQ walk over ``rows``: BQ
-    packs the sign bits on the card; SQ fits and encodes on the host, as the
-    index does, with unit rows for dot and cosine."""
+                      queries: torch.Tensor, segments: int = 0):
+    """(scorer, operands, query rep) of a BQ, SQ, PQ or RQ walk over
+    ``rows``: BQ packs the sign bits on the card; SQ and RQ fit and encode
+    on the host, PQ trains and assigns on the card, as the index does
+    (``segments`` its segments, 0 for D/4), with unit rows for dot and
+    cosine."""
     d = rows.shape[1]
+    dev = rows.device
     if kind == "bq":
         bq = BinaryQuantizer(d, "l2-squared")
         enc = bq.encode_device(rows)
@@ -542,13 +673,28 @@ def quant_walk_inputs(kind: str, metric: str, rows: torch.Tensor,
                 bq.encode_device(queries)["packed"].contiguous())
     if metric in ("dot", "cosine"):
         rows, queries = normalize(rows), normalize(queries)
-    sq = ScalarQuantizer(d, metric)
     host = rows.cpu().numpy()
+    if kind == "pq":
+        pq = ProductQuantizer(d, metric, PQConfig(segments=segments),
+                              device=dev)
+        pq.fit(host[:20_000])
+        enc = pq.encode(host)
+        return device_beam.PQScorer(metric), (
+            torch.from_numpy(enc["codes"]).to(dev), pq.device_codebooks(dev),
+            torch.from_numpy(enc["dec_sqnorm"]).to(dev)), queries.contiguous()
+    if kind == "rq":
+        rq = RotationalQuantizer(d, metric)
+        rq.fit(host[:20_000])
+        enc = rq.encode(host)
+        return device_beam.RQScorer(metric), tuple(
+            torch.from_numpy(enc[f]).to(dev)
+            for f in ("codes", "lower", "step", "dec_sqnorm")), rq.prep(
+                queries.cpu().numpy(), dev).contiguous()
+    sq = ScalarQuantizer(d, metric)
     sq.fit(host[:20_000])
     enc = sq.encode(host)
-    operands = (torch.from_numpy(enc["codes"]).to(rows.device),
-                torch.from_numpy(enc["dec_sqnorm"]).to(rows.device), sq.a,
-                sq.s)
+    operands = (torch.from_numpy(enc["codes"]).to(dev),
+                torch.from_numpy(enc["dec_sqnorm"]).to(dev), sq.a, sq.s)
     return device_beam.SQScorer(metric), operands, queries.contiguous()
 
 
@@ -611,9 +757,12 @@ def beam_kernel_grid(seed: int) -> dict:
     # the quantized walks draw from their own generator: the raw walks'
     # graphs and masks stay those of the stream above
     qrng = np.random.default_rng(seed + 6)
-    quant = {"bq_cases": 0, "bq_slots_equal": 0, "sq_cases": 0,
-             "sq_max_abs_err": 0.0, "sq_same": 0, "sq_total": 0,
-             "sq_metrics": set()}
+    crng = np.random.default_rng(seed + 7)  # PQ and RQ walks
+    quant = {"bq_cases": 0, "bq_slots_equal": 0}
+    for kind in B2_QUANT_KINDS[1:]:
+        quant.update({f"{kind}_cases": 0, f"{kind}_max_abs_err": 0.0,
+                      f"{kind}_same": 0, f"{kind}_total": 0,
+                      f"{kind}_metrics": set(), f"{kind}_filtered": 0})
     for gi, (d, m) in enumerate((d, m) for d in B2_DIMS for m in B2_M):
         rows = rng.standard_normal((B2_ROWS, d), dtype=np.float32)
         t0 = time.perf_counter()
@@ -702,21 +851,23 @@ def beam_kernel_grid(seed: int) -> dict:
             seen["metric"].add(f"{metric}/{prec}")
             seen["upper"].add(upper)
             seen["absent"].add(absent)
-        # the quantized scorers on the same graph: BQ and SQ code planes of
-        # its rows, filtered on every other graph
-        for kind in ("bq", "sq"):
-            metric = B2_SQ_METRICS[gi % len(B2_SQ_METRICS)]
-            b = B2_BS[(gi + (kind == "sq")) % len(B2_BS)]
-            ef = B2_EFS[(gi + 2 * (kind == "sq")) % len(B2_EFS)]
-            scorer, operands, q = quant_walk_inputs(kind, metric, base,
-                                                    base[:b] + 0.1 * noise[:b])
+        # the quantized scorers on the same graph: BQ, SQ, PQ and RQ code
+        # planes of its rows, filtered on every other graph; PQ with D/4
+        # segments on even graphs, D/16 on odd ones
+        for ki, kind in enumerate(B2_QUANT_KINDS):
+            metric = B2_SQ_METRICS[(gi + ki // 2) % len(B2_SQ_METRICS)]
+            b = B2_BS[(gi + ki) % len(B2_BS)]
+            ef = B2_EFS[(gi + 2 * ki) % len(B2_EFS)]
+            scorer, operands, q = quant_walk_inputs(
+                kind, metric, base, base[:b] + 0.1 * noise[:b],
+                0 if gi % 2 == 0 else max(1, d // 16))
             eps = torch.full((b,), graph.entrypoint, dtype=torch.int32,
                              device=dev)
             kw = {}
             if gi % 2:
                 kw = dict(allow=torch.from_numpy(
-                    qrng.random(adj.shape[0]) < 0.1).to(dev), keep_k=32,
-                    expand=1 + gi % 4)
+                    (qrng if ki < 2 else crng).random(adj.shape[0]) < 0.1).to(
+                        dev), keep_k=32, expand=1 + gi % 4)
             kernel = device_beam.fused_search_cuda(
                 scorer, q, operands, adj, present, eps, ua, us, ef,
                 4 * ef + 64, **kw)
@@ -739,11 +890,13 @@ def beam_kernel_grid(seed: int) -> dict:
                 ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"],
                                         present, MIN_ID_AGREEMENT_BF16)
                 e, s_, t = max(e, ek), s_ + sk, t + tk
-            quant["sq_cases"] += 1
-            quant["sq_max_abs_err"] = max(quant["sq_max_abs_err"], e)
-            quant["sq_same"] += s_
-            quant["sq_total"] += t
-            quant["sq_metrics"].add(metric)
+                quant[f"{kind}_filtered"] += 1
+            quant[f"{kind}_cases"] += 1
+            quant[f"{kind}_max_abs_err"] = max(quant[f"{kind}_max_abs_err"],
+                                               e)
+            quant[f"{kind}_same"] += s_
+            quant[f"{kind}_total"] += t
+            quant[f"{kind}_metrics"].add(metric)
         case += len(B2_METRICS)
         del idx, mirror, adj, present, ua, us, base, noise
         torch.cuda.empty_cache()
@@ -800,10 +953,14 @@ def beam_kernel_grid(seed: int) -> dict:
                             MIN_ID_AGREEMENT)
     max_err, same, total = max(max_err, e, ek), same + s_ + sk, total + t + tk
     cases += 1
-    if quant["sq_metrics"] != set(B2_SQ_METRICS):
-        raise AssertionError(f"the SQ walks left a metric out: {quant}")
-    quant["sq_id_agreement"] = quant["sq_same"] / max(1, quant["sq_total"])
-    quant["sq_metrics"] = sorted(quant["sq_metrics"])
+    for kind in B2_QUANT_KINDS[1:]:
+        if quant[f"{kind}_metrics"] != set(B2_SQ_METRICS) \
+                or not quant[f"{kind}_filtered"]:
+            raise AssertionError(f"the {kind} walks left a metric or the "
+                                 f"filtered walk out: {quant}")
+        quant[f"{kind}_id_agreement"] = (quant[f"{kind}_same"]
+                                         / max(1, quant[f"{kind}_total"]))
+        quant[f"{kind}_metrics"] = sorted(quant[f"{kind}_metrics"])
     return {"cases": cases,
             "quantized_walks": quant,
             "filtered_cases": fcase + len(B2_DIMS) * len(B2_M) // 2,
@@ -1290,19 +1447,31 @@ class LaunchSpy:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def scorer_row(scorer, operands) -> tuple[int, int]:
-    """(bytes, element operations) of one scored row of a B2 walk: a float32
-    row (3 operations an element), a BQ row of words and its popcount (AND,
-    popcount and add a word), or an SQ row of byte codes and its decoded
-    norm (a multiply-add a code)."""
+def scorer_row(scorer, operands) -> tuple[int, int, float]:
+    """(bytes, element operations, the peak rate of their type) of one
+    scored row of a B2 walk: a float32 row (3 float32 operations an
+    element), a BQ row of words and its popcount (AND, popcount and add a
+    word, at the float32 rate), an SQ row of byte codes and its decoded
+    norm (a multiply-add a code), an RQ row of codes with its norm, lower
+    and step, or a PQ row of M codes and its norm (a multiply-add a decoded
+    dimension; the codebooks the codes index are read once a walk,
+    counted by ``walk_bound``). A code row's products are bf16(q) times a
+    value bf16 holds exactly (a byte code, a bf16 centroid) with float32
+    sums, so they count at the bf16 rate, as Q2-Q4's do."""
     if isinstance(scorer, device_beam.BQScorer):
         w = operands[0].shape[1]
-        return w * 4 + 4, 3 * w
+        return w * 4 + 4, 3 * w, FP32_FLOP_S
     if isinstance(scorer, device_beam.SQScorer):
         d = operands[0].shape[1]
-        return d + 4, 2 * d
+        return d + 4, 2 * d, BF16_FLOP_S
+    if isinstance(scorer, device_beam.RQScorer):
+        d = operands[0].shape[1]
+        return d + 12, 2 * d, BF16_FLOP_S
+    if isinstance(scorer, device_beam.PQScorer):
+        m, _, dsub = operands[1].shape
+        return m + 4, 2 * m * dsub, BF16_FLOP_S
     d = operands[0].shape[1]
-    return d * 4, 3 * d
+    return d * 4, 3 * d, FP32_FLOP_S
 
 
 def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
@@ -1311,7 +1480,7 @@ def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
     scorer's row type, with its presence and allow bytes; the adjacency
     rows of the hops it expanded and of the second hop's parents; the upper
     rows; the outputs) over the memory rate, against its element operations
-    over the float32 rate. What the kernel moves beyond that by its own
+    over the peak rate of their type (``scorer_row``). What the kernel moves beyond that by its own
     design is reported beside the bound, in ``overhead_bytes``: the rows it
     scored before the visited test and dropped, and the adjacency rows it
     read ahead for a node the next hop did not expand."""
@@ -1321,16 +1490,25 @@ def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
     m0 = adj.shape[1]
     m = ua.shape[2] if ua.shape[0] else 0
     b = q.shape[0]
-    row, ops = scorer_row(scorer, operands)
+    row, ops, rate = scorer_row(scorer, operands)
     row_bytes = row + 1 + (1 if keep_k else 0)
     nbytes = (q.numel() * q.element_size() + st[1] * row_bytes
               + st[2] * m0 * 4 + st[3] * m * 4 + b * (ef + keep_k) * 8)
+    extra = {}
+    if isinstance(scorer, device_beam.PQScorer):
+        # the bf16 codebooks, read once; each scored row gathers its
+        # centroids (D bf16 values) from them, in L2
+        cb = operands[1]
+        nbytes += cb.numel() * 2
+        extra = {"codebook_bytes": cb.numel() * 2,
+                 "centroid_bytes_gathered": st[1] * cb.shape[0]
+                 * cb.shape[2] * 2}
     flops = float(st[1] * ops)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
     per_q = stats.float()
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            {"bytes": nbytes, "flops": flops,
+            {"bytes": nbytes, "flops": flops, **extra,
              "overhead_bytes": {"speculative_rows": st[4] * row_bytes,
                                 "read_ahead_lost": st[5] * m0 * 4},
              "steps_mean": float(per_q[:, 0].mean()),
@@ -1356,7 +1534,9 @@ def time_walk(args, kw, iters: int, plain_iters: int) -> dict:
         if not all(torch.equal(kt, pt) for kt, pt in zip(kernel, plain)):
             raise AssertionError("the BQ walk differs from its plain version")
     agreement = (MIN_ID_AGREEMENT_BF16
-                 if isinstance(scorer, device_beam.SQScorer)
+                 if isinstance(scorer, (device_beam.SQScorer,
+                                        device_beam.PQScorer,
+                                        device_beam.RQScorer))
                  else MIN_ID_AGREEMENT)
     err, same, total = compare_walks(kernel[:2], plain[:2], agreement)
     if len(kernel) == 4:
@@ -1697,9 +1877,11 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
 # phase quant: bench.py bench_bq's configuration (LAION-like BQ flat, 768-d:
 # 4,096 centres from seed 99, noise 0.45, unit rows; queries = the first
 # 256 rows + 0.05 noise) and bench_msmarco's per-tenant SQ index (2,048
-# centres, noise 0.4, unit rows, 8.8M / 16 tenants = 550,000 rows)
+# centres, noise 0.4, unit rows, 8.8M / 16 tenants = 550,000 rows). Cut 6:
+# BQ_ROWS of bench_bq's 10,000,000 rows, for the time limit (the BQ ingest
+# is host-bound: 76.6 s of the script's time at 10M on an H100)
 QUANT_DIMS = 768
-BQ_ROWS, BQ_RESCORE = 10_000_000, 320
+BQ_CONFIGURED, BQ_ROWS, BQ_RESCORE = 10_000_000, 4_194_304, 320
 SQ_ROWS, SQ_RESCORE = 550_000, 200
 QUANT_ADD_STEP = 500_000
 
@@ -1728,23 +1910,27 @@ def exact_truth(corpus: torch.Tensor, queries: torch.Tensor, metric: str,
                        precision="fp32")[1].cpu().numpy()
 
 
-def scan_bound(kind: str, b: int, n: int, d: int, fetch: int
-               ) -> tuple[float, str, dict]:
-    """The least time of a Q1/Q2 scan: its inputs read once (code planes,
-    per-row floats, the mask, the queries) and its outputs written once,
-    over the memory rate, against its 2*B*N*D products over the int8 (BQ
-    bit products) or bf16 (SQ) tensor-core rate."""
-    if kind == "bq":
-        w = (d + 31) // 32
-        nbytes = n * (w * 4 + 4 + 1) + b * w * 4 + b * fetch * 8
-        t_ops = 2.0 * b * n * d / INT8_OPS_S
-    else:
-        nbytes = n * (d + 4 + 1) + b * d * 4 + b * fetch * 8
-        t_ops = 2.0 * b * n * d / BF16_FLOP_S
+def scan_bound(kind: str, b: int, n: int, d: int, fetch: int,
+               planes: dict, qbytes: int) -> tuple[float, str, dict]:
+    """The least time of a Q1-Q4 search: its inputs read once (the code
+    planes as they lie in device memory, Q3's codebooks, the mask, the
+    queries' ``qbytes``) and its outputs written once, over the memory
+    rate, against its 2*B*N*D products (D the width the products run over:
+    bits for BQ, codes for SQ and RQ, decoded dimensions for PQ) over the
+    int8 (BQ bit products) or bf16 tensor-core rate."""
+    nbytes = (sum(t[:n].numel() * t.element_size() for t in planes.values())
+              + n + qbytes + b * fetch * 8)
+    width = d
+    if kind in ("sq", "rq"):
+        width = planes["codes"].shape[1]
+    if kind == "pq":
+        nbytes += 256 * d * 2  # the bf16 codebooks: centroids x D
+    rate = INT8_OPS_S if kind == "bq" else BF16_FLOP_S
+    t_ops = 2.0 * b * n * width / rate
     t_bytes = nbytes / HBM_BYTES_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            {"bytes": nbytes, "ops": 2 * b * n * d})
+            {"bytes": nbytes, "ops": 2 * b * n * width})
 
 
 def merge_bound(splits: int, b: int, k: int) -> tuple[float, str, dict]:
@@ -1787,35 +1973,168 @@ def check_merge(cand_keys, cand_rows, k: int) -> dict:
             "shape": {"splits": splits, "b": b, "k": k}}
 
 
+# the scans of the quantized flat indexes: (wrapper, its kernel's number,
+# the JAX program it replaces, the product it runs)
+SCANS = {
+    "bq": (quantized.bq_search, 1, "weaviate_tpu/ops/quantized.py:138",
+           "1-bit mma.m16n8k256 and.popc"),
+    "sq": (quantized.sq_search, 2, "weaviate_tpu/ops/quantized.py:168",
+           "bf16 mma.m16n8k16"),
+    "pq": (quantized.pq_search, 3, "weaviate_tpu/ops/quantized.py:204",
+           "bf16 mma.m16n8k16 on rows decoded through the bf16 codebooks"),
+    "rq": (quantized.rq_search, 4, "weaviate_tpu/ops/quantized.py:241",
+           "bf16 mma.m16n8k16"),
+}
+
+
+def scan_operands(kind: str, backend, qrep, planes, mask, metric: str,
+                  fetch: int, plan, cand):
+    """A search's kernel and plain version with their arguments, its scan
+    alone (one launch into ``cand``), the plain distance of returned ids
+    (``compare``'s ``near``) and the rows the product reads, decoded to
+    bf16 (None for BQ): the yardstick ``torch.matmul`` multiplies."""
+    qz = backend.quantizer
+    if kind == "bq":
+        args = (qrep.code, planes["packed"], planes["popcount"], mask,
+                qz.dims, fetch)
+        return (quantized.bq_search_cuda, quantized._bq_search_plain, args,
+                lambda: quantized.bq_scan_cuda(*args, plan, *cand), None,
+                None)
+    qb, q_sum, q_sq = quantized.sq_query_terms(qrep.code)
+    codes, dsq = planes["codes"], planes["dec_sqnorm"]
+    if kind == "sq":
+        args = (qrep.code, codes, dsq, qz.a, qz.s, mask, metric, fetch)
+        return (quantized.sq_search_cuda, quantized._sq_search_plain, args,
+                lambda: quantized.sq_scan_cuda(
+                    qb, codes, dsq, mask, q_sum, q_sq, qz.a, qz.s, metric,
+                    fetch, plan, *cand),
+                lambda ids: quantized.sq_gather_distance(
+                    qrep.code, codes, ids, dsq, qz.a, qz.s, metric),
+                lambda: codes.to(torch.bfloat16))
+    if kind == "rq":
+        lo, st = planes["lower"], planes["step"]
+        args = (qrep.code, codes, lo, st, dsq, mask, metric, fetch)
+        return (quantized.rq_search_cuda, quantized._rq_search_plain, args,
+                lambda: quantized.rq_scan_cuda(
+                    qb, codes, lo, st, dsq, mask, q_sum, q_sq, metric, fetch,
+                    plan, *cand),
+                lambda ids: quantized.rq_gather_distance(
+                    qrep.code, codes, ids, lo, st, dsq, metric),
+                lambda: codes.to(torch.bfloat16))
+    cb = qz.device_codebooks(codes.device)
+    args = (qrep.code, codes, cb, dsq, mask, metric, fetch)
+
+    def decoded():
+        return torch.cat([quantized._pq_decode(codes[s:s + QUANT_ADD_STEP],
+                                               cb, qz.dims)
+                          for s in range(0, codes.shape[0], QUANT_ADD_STEP)])
+
+    return (quantized.pq_search_cuda, quantized._pq_search_plain, args,
+            lambda: quantized.pq_scan_cuda(qb, codes, cb, dsq, mask, q_sq,
+                                           metric, fetch, plan, *cand),
+            lambda ids: quantized.pq_gather_distance(
+                qrep.code, codes, cb, ids, dsq, metric),
+            decoded)
+
+
+# rows of one encode timed alone in ``quant_flat``
+ENCODE_ROWS = 100_000
+
+
+def pq_encode_split(qz: ProductQuantizer, v: np.ndarray,
+                    want: np.ndarray) -> dict:
+    """``ProductQuantizer.encode`` of the prepped rows ``v``, step by step
+    and each step timed: the host copy of the segments, their upload, the
+    nearest-centroid assignment on the card, the codes' download and
+    transpose, the host decode and the host sum of the decoded norms. The
+    codes must be ``want``, the encode's own."""
+    out = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = now - t
+        t = now
+
+    seg = np.ascontiguousarray(qz._segments(v))
+    lap("segments_host_s")
+    x = torch.from_numpy(seg).to("cuda")
+    lap("upload_s")
+    a = _assign_chunked(x, qz.device_codebooks("cuda", False),
+                        min(16384, max(256, x.shape[1])))
+    lap("assign_s")
+    codes = np.ascontiguousarray(a.to(torch.uint8).cpu().numpy().T)
+    lap("download_s")
+    dec = qz.decode(codes)
+    lap("decode_host_s")
+    np.sum(dec * dec, axis=1)
+    lap("norms_host_s")
+    if not np.array_equal(codes, want):
+        raise AssertionError("the timed PQ encode steps differ from encode")
+    out["total_s"] = sum(out.values())
+    return out
+
+
 def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
-               state: dict) -> dict:
+               state: dict, add_step: int = QUANT_ADD_STEP) -> dict:
     """One quantized flat index through ``make_flat``: ingest from the
-    card's rows (``rows()`` makes them and the queries; the corpus is freed
-    after the ground truth), recall@10 against the exact float32 answer,
-    the search's launches (one scan, one merge), the search on the kernels
-    beside its bound and its plain version, the scan alone and the merge
-    alone, search p50/p99, the rescore's share, device and host bytes."""
+    card's rows in steps of ``add_step`` (``rows()`` makes them and the
+    queries; the corpus is freed after the ground truth), each step timed;
+    the fit and one encode, each timed alone (PQ's encode also step by
+    step, ``pq_encode_split``); recall@10
+    against the exact float32 answer, the search's launches (one scan, one
+    merge), the search on the kernels beside its bound and its plain
+    version, the scan alone and the merge alone, the product alone in
+    ``torch.matmul`` (code scans: rows decoded to bf16 once, outside the
+    timing), search p50/p99, the rescore's share, device and host bytes."""
     corpus, queries = rows()
     d = corpus.shape[1]
+    metric = cfg.distance
     idx = make_flat(d, cfg)
+    backend = idx.backend
+    step_s = []
     t0 = time.perf_counter()
-    for s in range(0, n, QUANT_ADD_STEP):
-        e = min(n, s + QUANT_ADD_STEP)
+    for s in range(0, n, add_step):
+        e = min(n, s + add_step)
+        t1 = time.perf_counter()
         idx.add_batch(np.arange(s, e, dtype=np.int64), corpus[s:e].cpu().numpy())
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
     ingest_s = time.perf_counter() - t0
-    gt = exact_truth(corpus, queries, "cosine")
+    # the fit and the encode, each timed alone: a fresh quantizer of the
+    # same configuration fits a sample of the training limit's size; the
+    # index's own encode takes ENCODE_ROWS of the rows it ingested
+    limit = getattr(cfg.quantizer, "training_limit", 100_000)
+    sample = backend.originals.sample(limit)
+    fresh = build_quantizer(cfg.quantizer, d, metric, device="cuda")
+    t1 = time.perf_counter()
+    fresh.fit(sample)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_rows = len(sample)
+    del fresh
+    enc_rows = backend._prep_vectors(
+        corpus[:min(n, ENCODE_ROWS)].cpu().numpy())
+    t1 = time.perf_counter()
+    enc = backend._encode(enc_rows)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t1
+    enc_split = (pq_encode_split(backend.quantizer, enc_rows, enc["codes"])
+                 if kind == "pq" else None)
+    del sample, enc, enc_rows
+    gt = exact_truth(corpus, queries, metric)
     del corpus
     torch.cuda.empty_cache()
     qn = queries.cpu().numpy()
-    backend = idx.backend
     qrep = backend.prep_queries(qn)
     planes, mask = backend.codes.snapshot()
     nrows = int(mask.shape[0])
     fetch = max(4 * K, cfg.quantizer.rescore_limit, K)
     # the served path, launches counted from 0 for one search: one scan
     # over every query, one merge
-    scan_fn = quantized.bq_search if kind == "bq" else quantized.sq_search
+    scan_fn, number, replaces, product = SCANS[kind]
     scan_fn.launches = 0
     quantized.merge_partials.launches = 0
     res = idx.search(qn, K)
@@ -1828,25 +2147,8 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     # the search's kernels alone, on the search's own inputs
     plan = quantized.device_plan(kind, len(qn), nrows, fetch, "cuda")
     cand = quantized._lists(plan, len(qn), "cuda")
-    if kind == "bq":
-        args = (qrep.code, planes["packed"], planes["popcount"], mask,
-                d, fetch)
-        kernel, plain = quantized.bq_search_cuda, quantized._bq_search_plain
-
-        def scan():
-            quantized.bq_scan_cuda(*args, plan, *cand)
-    else:
-        args = (qrep.code, planes["codes"], planes["dec_sqnorm"],
-                backend.quantizer.a, backend.quantizer.s, mask, "cosine",
-                fetch)
-        kernel, plain = quantized.sq_search_cuda, quantized._sq_search_plain
-        qb, q_sum, q_sq = quantized.sq_query_terms(qrep.code)
-
-        def scan():
-            quantized.sq_scan_cuda(qb, planes["codes"], planes["dec_sqnorm"],
-                                   mask, q_sum, q_sq, backend.quantizer.a,
-                                   backend.quantizer.s, "cosine", fetch,
-                                   plan, *cand)
+    kernel, plain, args, scan, near, decoded = scan_operands(
+        kind, backend, qrep, planes, mask, metric, fetch, plan, cand)
     kd, ki = kernel(*args)
     pd, pi = plain(*args)
     torch.cuda.synchronize()
@@ -1855,26 +2157,21 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
             raise AssertionError("Q1 differs from its plain version")
         err, agree = 0.0, 1.0
     else:
-        def near(ids):
-            dist = quantized.sq_gather_distance(
-                qrep.code, planes["codes"], ids.clamp(min=0),
-                planes["dec_sqnorm"], backend.quantizer.a,
-                backend.quantizer.s, "cosine")
-            return torch.where(ids < 0, float("inf"), dist)
-
-        err, same, total = compare(kd, ki, pd, pi, near)
+        err, same, total = compare(kd, ki, pd, pi, masked_near(near, mask))
         agree = same / max(1, total)
     ms = cuda_ms(lambda: kernel(*args), 10, 2)
     plain_ms = cuda_ms(lambda: plain(*args), 1, 0)
-    bound_ms, bound_by, work = scan_bound(kind, len(qn), nrows, d, fetch)
+    bound_ms, bound_by, work = scan_bound(
+        kind, len(qn), nrows, d, fetch, planes,
+        qrep.code.numel() * qrep.code.element_size())
     # the scan alone, then the merge alone on the scan's lists
     scan_ms = float(np.median(cuda_ms(scan, 10, 2)))
     scan()
     merge = check_merge(*cand, fetch)
     yardstick = None
-    if kind == "sq":
-        # the bf16 product alone, on codes widened once outside the timing
-        wide = planes["codes"].to(torch.bfloat16)
+    if decoded is not None:
+        # the bf16 product alone, on rows decoded once outside the timing
+        wide = decoded()
         qb16 = qrep.code.to(torch.bfloat16)
         yardstick = float(np.median(cuda_ms(
             lambda: torch.matmul(qb16, wide.T), 10, 2)))
@@ -1884,21 +2181,18 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     # the host rescore of the scan's candidates, alone
     cand_ids = ki.cpu().numpy()
     rescore_ms = host_p(lambda: exact_rescore(
-        qrep.host, cand_ids, backend.originals, "cosine", K), 5)
+        qrep.host, cand_ids, backend.originals, metric, K), 5)
     p50 = float(np.percentile(search_ms, 50))
     entry = {
         "name": f"{kind}_scan", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/quantized.cu",
-        "replaces": ("weaviate_tpu/ops/quantized.py:138" if kind == "bq"
-                     else "weaviate_tpu/ops/quantized.py:168"),
+        "replaces": replaces,
         "launches": launches["scan"], "max_abs_err": err,
         "ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "share_of_bound": bound_ms / float(np.median(ms)),
         "ms_covers": "one search: one scan launch and one merge launch",
-        "scan_ms": scan_ms,
-        "product": ("1-bit mma.m16n8k256 and.popc" if kind == "bq"
-                    else "bf16 mma.m16n8k16"),
+        "scan_ms": scan_ms, "product": product,
         "merge_ms": merge["ms"],
         "launches_per_search": launches,
         "shape": {"b": len(qn), "n": nrows, "d": d, "fetch": fetch,
@@ -1908,11 +2202,11 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
     if yardstick is not None:
         entry["matmul_ms"] = yardstick
         entry["matmul_covers"] = ("the bf16 product only: torch.matmul of "
-                                  "the bf16 queries against the codes "
-                                  "widened to bf16 once, outside the timing")
-    state[f"kernel_q{1 if kind == 'bq' else 2}"] = entry
+                                  "the bf16 queries against the rows "
+                                  "decoded to bf16 once, outside the timing")
+    state[f"kernel_q{number}"] = entry
     # the merge's entry: its times at the BQ search's shape (the larger),
-    # the SQ search's beside them
+    # the other searches' beside them
     if kind == "bq":
         state["kernel_merge"] = {
             "name": "topk_merge", "route": "cuda",
@@ -1920,14 +2214,22 @@ def quant_flat(kind: str, n: int, cfg: FlatIndexConfig, rows,
             "replaces": "weaviate_tpu/ops/quantized.py:68",
             "launches": 0, "max_abs_err": 0.0, **merge}
     else:
-        state["kernel_merge"]["at_sq_shape"] = merge
+        state["kernel_merge"][f"at_{kind}_shape"] = merge
     state["kernel_merge"]["launches"] += launches["merge"]
     state["kernel_merge"][f"launches_{kind}_search"] = launches["merge"]
     out = {
-        "rows": n, "dims": d, "metric": "cosine",
+        "rows": n, "dims": d, "metric": metric,
         "quantizer": kind, "rescore_limit": cfg.quantizer.rescore_limit,
         "fetch": fetch, "batch": len(qn), "k": K,
         "ingest_s": ingest_s, "vectors_per_s": n / ingest_s,
+        "first_add_s": step_s[0], "first_add_rows": min(n, add_step),
+        "first_add_covers": "the first step's add_batch: the fit, then the "
+                            "encode of every row it added",
+        "add_step_s": step_s,
+        "fit_s": fit_s, "fit_sample_rows": fit_rows,
+        "encode_s": enc_s, "encode_rows": min(n, ENCODE_ROWS),
+        "encode_vectors_per_s": min(n, ENCODE_ROWS) / max(enc_s, 1e-9),
+        "encode_split": enc_split,
         "recall_at_10": rec, "launches_per_search": launches,
         "search_p50_ms": p50,
         "search_p99_ms": float(np.percentile(search_ms, 99)),
@@ -1960,22 +2262,60 @@ def phase_quant(state: dict) -> dict:
         return corpus, normalize(corpus[:BATCH] + 0.05 * torch.randn(
             BATCH, QUANT_DIMS, generator=gen, device="cuda"))
 
+    sq_queries = []
+
     def sq_rows():
+        # RQ takes the SQ tenant's rows and queries
         corpus = clustered(SQ_ROWS, QUANT_DIMS, 2048, 0.4, 1000)
-        pick = torch.randint(0, SQ_ROWS, (BATCH,), generator=gen,
-                             device="cuda")
-        return corpus, normalize(corpus[pick] + 0.05 * torch.randn(
-            BATCH, QUANT_DIMS, generator=gen, device="cuda"))
+        if not sq_queries:
+            pick = torch.randint(0, SQ_ROWS, (BATCH,), generator=gen,
+                                 device="cuda")
+            sq_queries.append(normalize(corpus[pick] + 0.05 * torch.randn(
+                BATCH, QUANT_DIMS, generator=gen, device="cuda")))
+        return corpus, sq_queries[0]
 
     bq = quant_flat("bq", BQ_ROWS, FlatIndexConfig(
         distance="cosine", initial_capacity=BQ_ROWS,
         quantizer=BQConfig(rescore_limit=BQ_RESCORE)), bq_rows, state)
+    bq["rows_configured"] = BQ_CONFIGURED
     sq = quant_flat("sq", SQ_ROWS, FlatIndexConfig(
         distance="cosine", initial_capacity=SQ_ROWS,
         quantizer=SQConfig(rescore_limit=SQ_RESCORE)), sq_rows, state)
-    return {"bq": bq, "sq": sq,
+    # RQ in the SQ tenant's place: the same rows and queries
+    rq = quant_flat("rq", SQ_ROWS, FlatIndexConfig(
+        distance="cosine", initial_capacity=SQ_ROWS,
+        quantizer=RQConfig(rescore_limit=SQ_RESCORE)), sq_rows, state)
+    rq_hnsw = hnsw_rq(state)
+    return {"bq": bq, "sq": sq, "rq": rq, "rq_hnsw": rq_hnsw,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "card": state["card"]}
+
+
+# phase quant's HNSW + RQ: the first RQ_HNSW_ROWS of the SQ tenant's rows
+# (cut from 550,000 for the time limit; the quantized build is host-bound)
+# in an HNSW index at quant_db's graph settings, RQ with the tenant's
+# rescore limit: B2-RQ in construction and search
+RQ_HNSW_ROWS = 32_768
+
+
+def hnsw_rq(state: dict) -> dict:
+    """HNSW + RQ with the fused walk over the SQ tenant's first rows: the
+    build, recall@10 of the device walk and the host walk, one B2 launch a
+    search, B2-RQ beside its bound and its plain version."""
+    corpus = clustered(SQ_ROWS, QUANT_DIMS, 2048, 0.4, 1000)[:RQ_HNSW_ROWS]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    pick = torch.randint(0, RQ_HNSW_ROWS, (BATCH,), generator=gen,
+                         device="cuda")
+    queries = normalize(corpus[pick] + 0.05 * torch.randn(
+        BATCH, QUANT_DIMS, generator=gen, device="cuda"))
+    out = hnsw_quantized(
+        "rq", corpus.cpu().numpy(), queries.cpu().numpy(), HNSWIndexConfig(
+            distance="cosine", ef=96, ef_construction=96, max_connections=16,
+            insert_batch=4096, flat_search_cutoff=0, device_beam=True,
+            initial_capacity=RQ_HNSW_ROWS,
+            quantizer=RQConfig(rescore_limit=SQ_RESCORE)), state)
+    out["rows_configured"] = SQ_ROWS
+    return out
 
 
 # phase hnsw_quant: bench.py bench_hnsw_quant's bq configuration (seed 29,
@@ -1987,52 +2327,56 @@ HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 262_144
 HNSW_QUANT_EF, HNSW_QUANT_RESCORE = 96, 80
 
 
-def hnsw_quant_data(n: int) -> tuple[np.ndarray, np.ndarray]:
-    """bench_hnsw_quant's rows and queries, as float32 numpy."""
+def hnsw_quant_data(n: int, dims: int = QUANT_DIMS
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """bench_hnsw_quant's rows and queries at ``dims``, as float32 numpy."""
     rng = np.random.default_rng(29)
-    centers = rng.standard_normal((1024, QUANT_DIMS)).astype(np.float32)
+    centers = rng.standard_normal((1024, dims)).astype(np.float32)
     corpus = centers[rng.integers(0, 1024, n)] + 0.35 * rng.standard_normal(
-        (n, QUANT_DIMS)).astype(np.float32)
+        (n, dims)).astype(np.float32)
     queries = corpus[:BATCH] + 0.1 * rng.standard_normal(
-        (BATCH, QUANT_DIMS)).astype(np.float32)
+        (BATCH, dims)).astype(np.float32)
     return corpus, queries
 
 
-def phase_hnsw_quant(state: dict) -> dict:
-    """HNSW + BQ with the fused walk: build, recall of the device walk
-    against the host walk on the same index, one B2 launch a search, B2-BQ
-    beside its bound and its plain version."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    corpus, queries = hnsw_quant_data(HNSW_QUANT_ROWS)
-    state["hnsw_quant"] = (corpus, queries)
-    cfg = HNSWIndexConfig(
-        distance="l2-squared", ef=HNSW_QUANT_EF, ef_construction=96,
-        max_connections=16, insert_batch=4096, flat_search_cutoff=0,
-        device_beam=True, initial_capacity=HNSW_QUANT_ROWS,
-        quantizer=BQConfig(rescore_limit=HNSW_QUANT_RESCORE))
-    idx = HNSWIndex(QUANT_DIMS, cfg)
+# the scorers the quantized HNSW phases walk: the JAX program each row type
+# replaces
+B2_REPLACES = {"bq": "weaviate_tpu/ops/device_beam.py:112",
+               "sq": "weaviate_tpu/ops/device_beam.py:85",
+               "pq": "weaviate_tpu/ops/device_beam.py:98",
+               "rq": "weaviate_tpu/ops/device_beam.py:125"}
+
+
+def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
+                   cfg: HNSWIndexConfig, state: dict,
+                   add_step: int = 100_000) -> dict:
+    """HNSW + a quantizer with the fused walk: the build (B2 launches and
+    their summed time), recall@10 of the device walk against the exact
+    float32 answer and against the host walk on the same index, one B2
+    launch a search, B2 beside its bound and its plain version; its
+    ``kernels`` entry in ``state["kernel_b2_<kind>"]``."""
+    rows, d = corpus.shape
+    idx = HNSWIndex(d, cfg)
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
-    rows = HNSW_QUANT_ROWS
     with LaunchSpy() as build_spy:
-        for s in range(0, rows, 100_000):
-            e = min(rows, s + 100_000)
+        for s in range(0, rows, add_step):
+            e = min(rows, s + add_step)
             idx.add_batch(np.arange(s, e), corpus[s:e])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = device_beam.fused_search.launches
     if build_launches < 1:
-        raise AssertionError("the BQ construction did not launch B2")
+        raise AssertionError(f"the {kind} construction did not launch B2")
     build_b2_ms = build_spy.ms()
-    gt = exact_truth(torch.from_numpy(corpus[:rows]).cuda(),
-                     torch.from_numpy(queries).cuda(), "l2-squared")
+    gt = exact_truth(torch.from_numpy(corpus).cuda(),
+                     torch.from_numpy(queries).cuda(), cfg.distance)
 
     device_beam.fused_search.launches = 0
     res = idx.search(queries, K)
     search_launches = device_beam.fused_search.launches
     if search_launches != 1:
-        raise AssertionError(f"HNSW+BQ search made {search_launches} B2 "
+        raise AssertionError(f"HNSW+{kind} search made {search_launches} B2 "
                              "launches, not one")
     rec = recall(res.ids, gt)
     search_ms = host_p(lambda: idx.search(queries, K), 20)
@@ -2048,12 +2392,12 @@ def phase_hnsw_quant(state: dict) -> dict:
         idx._device_beam = beam
     host_rec = recall(host_res.ids, gt)
     if rec < host_rec - 0.005:
-        raise AssertionError(f"HNSW+BQ device-walk recall {rec} < host walk "
-                             f"{host_rec} - 0.005")
-    state["kernel_b2_bq"] = {
-        "name": "device_beam_search/bq", "route": "cuda",
+        raise AssertionError(f"HNSW+{kind} device-walk recall {rec} < host "
+                             f"walk {host_rec} - 0.005")
+    state[f"kernel_b2_{kind}"] = {
+        "name": f"device_beam_search/{kind}", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/device_beam.cu",
-        "replaces": "weaviate_tpu/ops/device_beam.py:112",
+        "replaces": B2_REPLACES[kind],
         "launches": build_launches + search_launches,
         "max_abs_err": walk["vs_plain_max_abs_err"],
         "ms": walk["ms_median"], "plain_ms": walk["plain_ms"],
@@ -2066,11 +2410,11 @@ def phase_hnsw_quant(state: dict) -> dict:
     del idx, beam, spy, build_spy
     torch.cuda.empty_cache()
     return {
-        "rows": rows, "rows_configured": HNSW_QUANT_CONFIGURED,
-        "dims": QUANT_DIMS, "metric": "l2-squared", "quantizer": "bq",
-        "rescore_limit": HNSW_QUANT_RESCORE, "ef": HNSW_QUANT_EF,
-        "ef_construction": 96, "max_connections": 16, "insert_batch": 4096,
-        "batch": BATCH, "k": K,
+        "rows": rows, "dims": d, "metric": cfg.distance, "quantizer": kind,
+        "rescore_limit": cfg.quantizer.rescore_limit, "ef": cfg.ef,
+        "ef_construction": cfg.ef_construction,
+        "max_connections": cfg.max_connections,
+        "insert_batch": cfg.insert_batch, "batch": len(queries), "k": K,
         "build_s": build_s, "vectors_per_s": rows / build_s,
         "b2_launches_build": build_launches, "b2_build_ms": build_b2_ms,
         "recall_at_10": rec, "host_walk_recall_at_10": host_rec,
@@ -2081,6 +2425,78 @@ def phase_hnsw_quant(state: dict) -> dict:
         "b2_search_launch": walk,
         "peak_device_bytes": peak, "card": state["card"],
     }
+
+
+def phase_hnsw_quant(state: dict) -> dict:
+    """HNSW + BQ with the fused walk: build, recall of the device walk
+    against the host walk on the same index, one B2 launch a search, B2-BQ
+    beside its bound and its plain version."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus, queries = hnsw_quant_data(HNSW_QUANT_ROWS)
+    state["hnsw_quant"] = (corpus, queries)
+    out = hnsw_quantized("bq", corpus, queries, HNSWIndexConfig(
+        distance="l2-squared", ef=HNSW_QUANT_EF, ef_construction=96,
+        max_connections=16, insert_batch=4096, flat_search_cutoff=0,
+        device_beam=True, initial_capacity=HNSW_QUANT_ROWS,
+        quantizer=BQConfig(rescore_limit=HNSW_QUANT_RESCORE)), state)
+    out["rows_configured"] = HNSW_QUANT_CONFIGURED
+    return out
+
+
+# phase pq: BASELINE.json config 3 (DBpedia-OpenAI 1M 1536-d, PQ with 96
+# segments) as bench.py bench_pq runs it, not cut: 1,000,000 rows of
+# 1,024 centres with noise 0.35, made on the card from a seed, l2-squared,
+# queries = the first 256 rows + 0.1 noise, added in steps of 200,000 (the
+# fit takes a 100,000-row sample of the first step)
+PQ_ROWS, PQ_DIMS, PQ_SEGMENTS, PQ_RESCORE = 1_000_000, 1536, 96, 40
+PQ_ADD_STEP = 200_000
+
+
+def phase_pq(state: dict) -> dict:
+    """Config 3 as a flat index over PQ codes through ``make_flat``: the
+    fit and encode on the card, Q3 and the merge, the host rescore."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def rows():
+        corpus = clustered(PQ_ROWS, PQ_DIMS, 1024, 0.35, 11, unit=False)
+        return corpus, (corpus[:BATCH] + 0.1 * torch.randn(
+            BATCH, PQ_DIMS, generator=gen, device="cuda")).contiguous()
+
+    out = quant_flat("pq", PQ_ROWS, FlatIndexConfig(
+        distance="l2-squared", initial_capacity=PQ_ROWS,
+        quantizer=PQConfig(segments=PQ_SEGMENTS, rescore_limit=PQ_RESCORE)),
+        rows, state, add_step=PQ_ADD_STEP)
+    out.update(segments=PQ_SEGMENTS,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               card=state["card"])
+    return out
+
+
+# phase hnsw_pq: config 3 as a graph, bench_hnsw_quant's pq configuration
+# (seed 29, 1,024 centres, noise 0.35, 1536-d, l2-squared, ef 96,
+# ef_construction 96, M 16, insert_batch 4096, PQ 96 segments, rescore 40);
+# cut 4: HNSW_PQ_ROWS of 1,000,000 rows (the quantized build is host-bound,
+# and the script's time limit), a fixed depth so runs compare
+HNSW_PQ_ROWS = 32_768
+
+
+def phase_hnsw_pq(state: dict) -> dict:
+    """HNSW + PQ with the fused walk (B2-PQ) at config 3's widths."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    corpus, queries = hnsw_quant_data(HNSW_PQ_ROWS, PQ_DIMS)
+    out = hnsw_quantized("pq", corpus, queries, HNSWIndexConfig(
+        distance="l2-squared", ef=HNSW_QUANT_EF, ef_construction=96,
+        max_connections=16, insert_batch=4096, flat_search_cutoff=0,
+        device_beam=True, initial_capacity=HNSW_PQ_ROWS,
+        quantizer=PQConfig(segments=PQ_SEGMENTS, rescore_limit=PQ_RESCORE)),
+        state)
+    out["rows_configured"] = PQ_ROWS
+    out["segments"] = PQ_SEGMENTS
+    return out
 
 
 # phase quant_db: the first QUANT_DB_ROWS of phase hnsw_quant's rows as
@@ -2282,6 +2698,8 @@ def main(argv=None) -> int:
         ("quant", lambda: phase_quant(state)),
         ("hnsw_quant", lambda: phase_hnsw_quant(state)),
         ("quant_db", lambda: phase_quant_db(args.seed, state)),
+        ("pq", lambda: phase_pq(state)),
+        ("hnsw_pq", lambda: phase_hnsw_pq(state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -2290,8 +2708,9 @@ def main(argv=None) -> int:
             state["card"] = out["card"]
         emit({"phase": name, "seconds": time.perf_counter() - t0, **out})
     emit({"kernels": [state[k] for k in (
-        "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_q1",
-        "kernel_q2", "kernel_merge")]})
+        "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_b2_pq",
+        "kernel_b2_rq", "kernel_q1", "kernel_q2", "kernel_q3", "kernel_q4",
+        "kernel_merge")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

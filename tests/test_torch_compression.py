@@ -8,8 +8,10 @@ against the JAX package's, on the CPU.
   the same planes, valid mask, watermark, live count and capacity as the
   JAX set; ``HostVectorStore`` at the ``ram`` and ``ram16`` tiers the same
   originals.
-- The disk tiers raise naming slice 9, PQ and RQ naming slice 4b; the
-  metric checks of ``build_quantizer`` are JAX's.
+- The disk tiers raise naming slice 9; PQ and RQ build through
+  ``build_quantizer`` and ``make_flat`` and search as JAX's do (their
+  parity in depth: ``tests/test_torch_pq_rq.py``); the metric checks of
+  ``build_quantizer`` are JAX's.
 - State carried across (``interop.py``): a JAX quantizer's ``state_dict``
   and a JAX code set's arrays build the port's equivalents.
 """
@@ -190,25 +192,42 @@ def test_disk_tiers_raise_naming_slice_9(tier):
 @pytest.mark.parametrize("qcfg", [config.PQConfig(), config.RQConfig()],
                          ids=["pq", "rq"])
 def test_pq_and_rq_raise_naming_slice_4b(qcfg):
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        build_quantizer(qcfg, 16, "l2-squared")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        make_flat(16, config.FlatIndexConfig(quantizer=qcfg), device="cpu")
+    """Once the routes that raised until slice 4b: PQ and RQ now build
+    through ``build_quantizer`` (JAX's quantizer, fields and state) and
+    ``make_flat``, whose index answers as JAX's ``make_flat`` does, and
+    the scans and gathers exist."""
+    jcfg = {"pq": jconfig.PQConfig, "rq": jconfig.RQConfig}[qcfg.kind]()
+    t = build_quantizer(qcfg, 16, "l2-squared", device="cpu")
+    j = jq.build_quantizer(jcfg, 16, "l2-squared")
+    assert type(t).__name__ == type(j).__name__
+    assert t.fields() == j.fields() and t.state_dict() == j.state_dict()
+    v = _vectors(12, 600, 16)
+    tidx = make_flat(16, config.FlatIndexConfig(
+        distance="l2-squared", quantizer=qcfg), device="cpu")
+    from weaviate_tpu.index.flat import make_flat as jmake_flat
+    jidx = jmake_flat(16, jconfig.FlatIndexConfig(distance="l2-squared",
+                                                  quantizer=jcfg))
+    for idx in (tidx, jidx):
+        idx.add_batch(np.arange(600), v)
+    tr, jr = tidx.search(v[:6], 5), jidx.search(v[:6], 5)
+    np.testing.assert_array_equal(tr.ids, jr.ids)
+    np.testing.assert_allclose(tr.dists, jr.dists, rtol=1e-5, atol=1e-4)
     for fn in (qops.pq_search, qops.rq_search, qops.pq_gather_distance,
                qops.rq_gather_distance):
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            fn()
+        assert callable(fn)
 
 
 @pytest.mark.parametrize("kind,metric", [
     ("sq", "manhattan"), ("sq", "hamming"), ("bq", "hamming"),
     ("bq", "manhattan"), ("sq", "cosine"), ("pq", "hamming"),
+    ("pq", "manhattan"), ("pq", "dot"), ("rq", "manhattan"),
+    ("rq", "hamming"), ("rq", "cosine"),
 ])
 def test_quantizer_metric_checks_match_jax(kind, metric):
     jc = {"bq": jconfig.BQConfig, "sq": jconfig.SQConfig,
-          "pq": jconfig.PQConfig}[kind]()
+          "pq": jconfig.PQConfig, "rq": jconfig.RQConfig}[kind]()
     tc = {"bq": config.BQConfig, "sq": config.SQConfig,
-          "pq": config.PQConfig}[kind]()
+          "pq": config.PQConfig, "rq": config.RQConfig}[kind]()
     try:
         want = type(jq.build_quantizer(jc, 16, metric)).__name__
     except ValueError:
@@ -235,7 +254,12 @@ def test_interop_builds_the_ports_quantizer_and_code_set():
     with pytest.raises(ValueError, match="kind"):
         interop.quantizer_from_state({"kind": "zz", "dims": 3,
                                       "metric": "dot"})
-    for quant in (jbq, jsq):
+    # PQ's and RQ's planes (codes; lower, step; decoded norms) cross too
+    jpq = jq.ProductQuantizer(33, "l2-squared", jconfig.PQConfig(segments=11))
+    jpq.fit(v[:1000])
+    jrq = jq.RotationalQuantizer(33, "dot")
+    jrq.fit(v)
+    for quant in (jbq, jsq, jpq, jrq):
         j = jstore.DeviceArraySet(quant.fields(), capacity=5000)
         j.put(np.arange(5000), quant.encode(v))
         j.delete(np.arange(0, 5000, 9))

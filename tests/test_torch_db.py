@@ -408,9 +408,6 @@ UNPORTED = {
     "vectorizer": (lambda col, db: col.put_batch([StorageObject(
         uuid="", collection="Doc", properties={"bucket": 1})]), "slice 9"),
     "frozen_tenant": (lambda col, db: _freeze(db), "slice 9"),
-    "pq_hnsw_index": (lambda col, db: build_vector_index(
-        DIMS, config.HNSWIndexConfig(quantizer=config.PQConfig()),
-        device="cpu"), "slice 4b"),
     "multivector_index": (lambda col, db: build_vector_index(
         DIMS, config.MultiVectorIndexConfig(), device="cpu"), "slice 7"),
     "hfresh_index": (lambda col, db: build_vector_index(
@@ -418,9 +415,6 @@ UNPORTED = {
     "disk_raw_tier": (lambda col, db: build_vector_index(
         DIMS, config.FlatIndexConfig(raw_tier="disk16"), device="cpu"),
         "slice 9"),
-    "rq_quantizer": (lambda col, db: build_vector_index(
-        DIMS, config.FlatIndexConfig(quantizer=config.RQConfig()),
-        device="cpu"), "slice 4b"),
     "rerank_module": (lambda col, db: config.RerankModuleConfig().validate(),
                       "slice 7"),
 }
@@ -465,15 +459,16 @@ def _dynamic_filtered_beam(col, db):
     assert allow[tr.ids].all()
 
 
-def _quantized_index(kind):
-    """A quantized index (slice 4a) from each package's
-    ``build_vector_index``: the same ids and distances as JAX, after a
-    delete and under a filter."""
+def _quantized_index(kind, quantizer="sq"):
+    """A quantized index (slice 4a: SQ; slice 4b: PQ, RQ) from each
+    package's ``build_vector_index``: the same ids and distances as JAX,
+    after a delete and under a filter."""
     from weaviate_tpu.core.shard import build_vector_index as jbuild
 
     def route(col, db):
         def cfg(mod):
-            quant = mod.SQConfig(rescore_limit=40)
+            quant = {"sq": mod.SQConfig, "pq": mod.PQConfig,
+                     "rq": mod.RQConfig}[quantizer](rescore_limit=40)
             if kind == "hnsw":
                 return mod.HNSWIndexConfig(
                     distance="l2-squared", quantizer=quant, ef=32,
@@ -506,6 +501,8 @@ PORTED = {
     "dynamic_index": _dynamic_filtered_beam,
     "hnsw_index": _quantized_index("hnsw"),
     "quantizer": _quantized_index("flat"),
+    "pq_hnsw_index": _quantized_index("hnsw", "pq"),
+    "rq_quantizer": _quantized_index("flat", "rq"),
 }
 
 
@@ -662,7 +659,7 @@ def test_dispatcher_propagates_errors_and_stays_usable():
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-@pytest.mark.parametrize("kind", ["bq_flat", "sq_hnsw"])
+@pytest.mark.parametrize("kind", ["bq_flat", "sq_hnsw", "pq_hnsw", "rq_flat"])
 def test_quantized_collection_opens_in_the_other_package(dbs, writer, kind):
     """A collection with a quantized vector index (codes not checkpointed:
     rebuilt from the objects on open; an HNSW graph from graph.npz and the
@@ -675,12 +672,16 @@ def test_quantized_collection_opens_in_the_other_package(dbs, writer, kind):
     recs = _records(4, n=1200)
     mod = jconfig if writer == "jax" else config
     cfg = _cfg(mod)
-    if kind == "bq_flat":
-        cfg.vector_config = mod.FlatIndexConfig(
-            distance="cosine", quantizer=mod.BQConfig(rescore_limit=40))
+    if kind.endswith("_flat"):
+        quant = (mod.BQConfig if kind == "bq_flat" else mod.RQConfig)(
+            rescore_limit=40)
+        cfg.vector_config = mod.FlatIndexConfig(distance="cosine",
+                                                quantizer=quant)
     else:
+        quant = (mod.SQConfig if kind == "sq_hnsw" else mod.PQConfig)(
+            rescore_limit=40)
         cfg.vector_config = mod.HNSWIndexConfig(
-            distance="cosine", quantizer=mod.SQConfig(rescore_limit=40),
+            distance="cosine", quantizer=quant,
             ef=32, ef_construction=48, max_connections=8,
             flat_search_cutoff=0, device_beam=True)
     db = dbs(writer, "q")

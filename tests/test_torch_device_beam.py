@@ -20,8 +20,10 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   ties on nearly every hop at D = 16); with ``SQScorer`` (byte codes) for
   l2-squared, dot and cosine the ids agree on >= 0.99 of the slots and
   matched distances within 1e-5 (float32 sums of the same bf16 products in
-  another order). Filtered walks included. ``PQScorer``/``RQScorer``
-  raise (slice 4b).
+  another order); so with ``PQScorer`` (codes through JAX-trained
+  codebooks) and ``RQScorer`` (rotated queries against per-row affine
+  codes). Filtered walks included. All four row types pass the kernel's
+  argument checks.
 - ``dispatch_count()`` goes up by exactly one per launch of a search: one
   for a batch whose visited bitsets fit the budget.
 - The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
@@ -488,8 +490,9 @@ QUANT_SQ_TOL = 1e-5
 
 
 def _quant_inputs(jax_index, kind, metric):
-    """Both packages' scorer, queries and operands for a BQ or SQ walk over
-    the JAX index's rows, encoded once by the JAX quantizer (host numpy)."""
+    """Both packages' scorer, queries and operands for a BQ, SQ, PQ or RQ
+    walk over the JAX index's rows, encoded once by the JAX quantizer (PQ:
+    its codebooks trained by the JAX k-means)."""
     import jax.numpy as jnp
     from weaviate_tpu.compression import quantizers as jq
 
@@ -510,6 +513,29 @@ def _quant_inputs(jax_index, kind, metric):
              (torch.from_numpy(enc["packed"].view(np.int32)),
               torch.from_numpy(enc["popcount"])))
         return j, t
+    if kind == "pq":
+        quant = jq.ProductQuantizer(DIMS, metric, jconfig.PQConfig(segments=4))
+        quant.fit(rows)
+        enc = quant.encode(rows)
+        j = (jbeam.PQScorer(metric), jnp.asarray(q),
+             (jnp.asarray(enc["codes"]), jnp.asarray(quant.codebooks),
+              jnp.asarray(enc["dec_sqnorm"])))
+        t = (tbeam.PQScorer(metric), torch.from_numpy(q),
+             (torch.from_numpy(np.ascontiguousarray(enc["codes"])),
+              torch.from_numpy(quant.codebooks.copy()),
+              torch.from_numpy(enc["dec_sqnorm"])))
+        return j, t
+    if kind == "rq":
+        quant = jq.RotationalQuantizer(DIMS, metric)
+        quant.fit(rows)
+        enc = quant.encode(rows)
+        planes = [enc[f] for f in ("codes", "lower", "step", "dec_sqnorm")]
+        q_rot = quant.rotate(q)
+        j = (jbeam.RQScorer(metric), jnp.asarray(q_rot),
+             tuple(jnp.asarray(a) for a in planes))
+        t = (tbeam.RQScorer(metric), torch.from_numpy(q_rot),
+             tuple(torch.from_numpy(a) for a in planes))
+        return j, t
     quant = jq.ScalarQuantizer(DIMS, metric)
     quant.fit(rows)
     enc = quant.encode(rows)
@@ -527,12 +553,16 @@ def _quant_inputs(jax_index, kind, metric):
     ("bq", "cosine", (0.5, 32, 2)),
     ("sq", "l2-squared", None), ("sq", "dot", (0.1, 8, 1)),
     ("sq", "cosine", None), ("sq", "cosine", (0.5, 32, 4)),
+    ("pq", "l2-squared", None), ("pq", "dot", (0.1, 8, 1)),
+    ("pq", "cosine", (0.5, 32, 2)),
+    ("rq", "l2-squared", (0.1, 8, 1)), ("rq", "dot", None),
+    ("rq", "cosine", None),
 ])
 def test_plain_quantized_walk_matches_jax(jax_index, kind, metric, flt):
-    """The plain walk over BQ and SQ code planes against JAX
+    """The plain walk over BQ, SQ, PQ and RQ code planes against JAX
     ``device_search`` on the same graph, unfiltered and filtered: BQ equal
-    in every id and distance, SQ ids on >= 0.99 of the slots and matched
-    distances within 1e-5."""
+    in every id and distance, SQ, PQ and RQ ids on >= 0.99 of the slots and
+    matched distances within 1e-5."""
     import jax.numpy as jnp
 
     g = jax_index.graph
@@ -574,20 +604,9 @@ def test_plain_quantized_walk_matches_jax(jax_index, kind, metric, flt):
 
 @pytest.mark.parametrize("kind", ["bq", "sq", "pq", "rq"])
 def test_quantized_scorers_reach_the_kernel_checks(jax_index, kind):
-    """BQ and SQ walks pass the kernel's argument checks with their own row
-    types (and the plain walk takes them); PQ and RQ raise, naming slice
-    4b."""
-    if kind in ("pq", "rq"):
-        scorer = (tbeam.PQScorer if kind == "pq" else tbeam.RQScorer)("l2-squared")
-        a = _tiny_walk_args(scorer=scorer)
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            tbeam._check_kernel_args(
-                a["scorer"], a["queries"], a["operands"], a["adjacency"],
-                a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
-                a["ef"], a["max_steps"])
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            tbeam.fused_search(**a)
-        return
+    """BQ, SQ, PQ and RQ walks pass the kernel's argument checks with their
+    own row types (and the plain walk takes them); a query of the wrong
+    width or type is refused."""
     _, (ts, tq, tops) = _quant_inputs(jax_index, kind, "l2-squared")
     n = tops[0].shape[0]
     a = _tiny_walk_args(scorer=ts, queries=tq[:2].contiguous(),
@@ -607,6 +626,46 @@ def test_quantized_scorers_reach_the_kernel_checks(jax_index, kind):
             bad["scorer"], bad["queries"], bad["operands"], bad["adjacency"],
             bad["present"], bad["eps"], bad["upper_adj"], bad["upper_slots"],
             bad["ef"], bad["max_steps"])
+
+
+@pytest.mark.parametrize("kind", ["raw", "sq", "rq", "pq"])
+def test_walk_bound_counts_operations_at_their_types_rate(kind):
+    """``chip_smoke.walk_bound`` turns a float32 row's operations into time
+    at the float32 rate and a code row's bf16 products (SQ, RQ, PQ) at the
+    bf16 rate: PQ at config 3's widths (96 segments of 16) is then bound by
+    its bytes."""
+    import chip_smoke
+
+    n, d, m = 64, 1536, 96
+    codes = torch.zeros((n, d), dtype=torch.uint8)
+    norms = torch.zeros(n)
+    scorer, operands, rate = {
+        "raw": (tbeam.RawScorer("l2-squared", "fp32"),
+                (torch.zeros((n, d)),), chip_smoke.FP32_FLOP_S),
+        "sq": (tbeam.SQScorer("l2-squared"), (codes, norms, 0.0, 1.0),
+               chip_smoke.BF16_FLOP_S),
+        "rq": (tbeam.RQScorer("l2-squared"), (codes, norms, norms, norms),
+               chip_smoke.BF16_FLOP_S),
+        "pq": (tbeam.PQScorer("l2-squared"),
+               (codes[:, :m].contiguous(),
+                torch.zeros((m, 256, d // m), dtype=torch.bfloat16), norms),
+               chip_smoke.BF16_FLOP_S),
+    }[kind]
+    a = _tiny_walk_args(scorer=scorer, queries=torch.zeros((2, d)),
+                        operands=operands)
+    args = (a["scorer"], a["queries"], a["operands"], a["adjacency"],
+            a["present"], a["eps"], a["upper_adj"], a["upper_slots"],
+            a["ef"], a["max_steps"])
+    stats = torch.tensor([[10, 2000, 12, 0, 0, 0], [8, 1500, 9, 0, 0, 0]],
+                         dtype=torch.int32)
+    ms, by, work = chip_smoke.walk_bound(args, {}, stats)
+    assert work["flops"] == 3500 * (3 if kind == "raw" else 2) * d
+    t_bytes = work["bytes"] / chip_smoke.HBM_BYTES_S
+    t_ops = work["flops"] / rate
+    assert ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
+    if kind == "pq":
+        assert by == "bytes"
 
 
 @pytest.mark.parametrize("kind", ["bq", "sq"])

@@ -184,8 +184,9 @@ def test_device_and_factory_rules():
 
 
 def test_make_flat_refuses_quantizer():
-    """make_flat refuses the quantizers of slice 4b (PQ, RQ) and builds the
-    BQ/SQ index of slice 4a, which answers as JAX's make_flat does."""
+    """make_flat builds the quantized flat index for every quantizer: BQ
+    and SQ (slice 4a), PQ and RQ (slice 4b, once refused), each answering
+    as JAX's make_flat does."""
     from weaviate_tpu.index.flat import make_flat as jmake_flat
     from weaviate_tpu.schema import config as jconfig
     from weaviate_tpu_torch.index.flat import QuantizedFlatIndex
@@ -197,13 +198,12 @@ def test_make_flat_refuses_quantizer():
     )
 
     assert isinstance(make_flat(DIMS, device="cpu"), FlatIndex)
-    for quant in (PQConfig(), RQConfig()):
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            make_flat(DIMS, FlatIndexConfig(quantizer=quant), device="cpu")
     vecs = np.random.default_rng(8).standard_normal((700, DIMS)).astype(
         np.float32)
     for tq, jq in ((BQConfig(), jconfig.BQConfig()),
-                   (SQConfig(), jconfig.SQConfig())):
+                   (SQConfig(), jconfig.SQConfig()),
+                   (PQConfig(), jconfig.PQConfig()),
+                   (RQConfig(), jconfig.RQConfig())):
         t = make_flat(DIMS, FlatIndexConfig(distance="l2-squared",
                                             quantizer=tq), device="cpu")
         j = jmake_flat(DIMS, jconfig.FlatIndexConfig(distance="l2-squared",

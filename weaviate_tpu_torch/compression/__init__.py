@@ -1,6 +1,7 @@
-"""Vector compression: quantizers and code stores (port of
-``weaviate_tpu/compression``; PQ, RQ and k-means come with slice 4b)."""
+"""Vector compression: quantizers, segmented k-means and code stores (port
+of ``weaviate_tpu/compression``)."""
 
+from weaviate_tpu_torch.compression.kmeans import assign_codes, segmented_kmeans
 from weaviate_tpu_torch.compression.quantizers import (
     BinaryQuantizer,
     ProductQuantizer,
@@ -19,5 +20,7 @@ __all__ = [
     "Quantizer",
     "RotationalQuantizer",
     "ScalarQuantizer",
+    "assign_codes",
     "build_quantizer",
+    "segmented_kmeans",
 ]

@@ -79,7 +79,7 @@ def build_vector_index(
         raise NotImplementedError(
             f"raw_tier {tier!r} (disk-paged originals): not ported yet "
             "(ROADMAP queue A, slice 9)")
-    # a quantized target (BQ/SQ) keeps its codes on the device and its
+    # a quantized target keeps its codes on the device and its
     # originals on the host; it checkpoints no raw vectors, so a reopen
     # rebuilds it from the objects (``_rebuild_vector_targets``)
     return make_flat(dims, cfg, device=device)

@@ -5,8 +5,9 @@
 //
 // Replaces: the XLA program `_fused_search` of
 // weaviate_tpu/ops/device_beam.py:222 (with `_two_hop_widen` :180,
-// `_masked_scores` :138 and the scorers `RawScorer` :70, `SQScorer` :85 and
-// `BQScorer` :112, launched by `device_search` :796). The semantics are
+// `_masked_scores` :138 and the scorers `RawScorer` :70, `SQScorer` :85,
+// `PQScorer` :98, `BQScorer` :112 and `RQScorer` :125, launched by
+// `device_search` :796). The semantics are
 // that program's, step for step:
 //
 //   * Upper descent (:272-293), per level, top level first: read the
@@ -47,7 +48,13 @@
 //     a row; the query is rounded to bf16, sum(q) and sum(q^2) come from
 //     the caller (float32, from the unrounded query); the epilogue is
 //     s * (q . c) + a * sum(q), then the metric (l2-squared clamped at 0,
-//     dot negated, cosine 1 - x).
+//     dot negated, cosine 1 - x). RQ rows (`rq_gather_distance`, :337): SQ's
+//     row with the row's own lower and step, step_x * (q . c) + sum(q) *
+//     lower_x. PQ rows (`pq_gather_distance`, :300): M code bytes and the
+//     decoded squared norm a row; a lane takes whole segments, reads the
+//     segment's code and then its centroid (dsub bf16 values, 16 bytes a load
+//     where dsub allows) from the bf16 codebooks, which stay in L2, and sums
+//     bf16(q) x centroid in float32; the epilogue is the metric of that sum.
 //
 // Visited set: one bit a node and a query, [b, ceil(n/32)] uint32, zeroed
 // by the caller (the JAX program keeps a [B, N] uint8 array); it is exact.
@@ -92,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxEf = 512;
@@ -112,7 +121,7 @@ constexpr int kNone = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Metric { kL2 = 0, kDot = 1, kCosine = 2, kManhattan = 3, kHamming = 4 };
-enum Row { kRawRow = 0, kBqRow = 1, kSqRow = 2 };
+enum Row { kRawRow = 0, kBqRow = 1, kSqRow = 2, kRqRow = 3, kPqRow = 4 };
 enum Mode { kUpper = 0, kHop = 1, kHop2 = 2 };
 enum Stat { kExpansions, kScored, kAdjRows, kUpperRows, kSpeculative,
             kAheadLost, kStats };
@@ -128,15 +137,21 @@ enum Refused {
   kBadFrontier = -7,
   kBadSmem = -8,
   kBadRow = -9,
+  kBadAlign = -10,
 };
 
 struct Params {
   const float* queries;      // [b, d] (BQ: [b, d] words as their bits)
   const void* corpus;        // [rows, d] floats, BQ words or SQ codes;
                              // every node id is a row
-  const float* row_aux;      // [rows]: BQ popcounts, SQ decoded sq. norms
-  const float* qaux;         // [b, 2]: SQ sum(q), sum(q^2)
+  const float* row_aux;      // [rows]: BQ popcounts, SQ/RQ/PQ decoded
+                             // squared norms
+  const float* row_lo;       // RQ: [rows] per-row offsets
+  const float* row_step;     // RQ: [rows] per-row steps
+  const __nv_bfloat16* cb;   // PQ: [segs, centroids, dsub] bf16 codebooks
+  const float* qaux;         // [b, 2]: SQ/RQ/PQ sum(q), sum(q^2)
   float sq_a, sq_s;          // SQ offset and step
+  int segs, dsub, centroids; // PQ: a row is `segs` codes
   uint32_t last_word;        // BQ: the bits of a query's last word that count
   const int* adj;            // [n, m0], -1 padded
   const uint8_t* present;    // [n]
@@ -212,9 +227,15 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// A query's scalars beside its row: BQ |q|; SQ sum(q) and sum(q^2).
+// A query's scalars beside its row: BQ |q|; SQ, RQ, PQ sum(q) and sum(q^2).
 struct QScal {
   float a, b;
+};
+
+// A row's floats beside its codes: `aux` (BQ popcount; SQ, RQ, PQ decoded
+// squared norm) and RQ's lower and step.
+struct RowAux {
+  float aux, lo, st;
 };
 
 template <int METRIC, bool ROUND, int ROW>
@@ -242,15 +263,19 @@ __device__ __forceinline__ float finish(float acc) {
   return acc;
 }
 
-// The distance from a row's summed terms and its `aux` (BQ popcount, SQ
-// decoded squared norm), in the plain version's order of operations.
+// The distance from a row's summed terms and its floats, in the plain
+// version's order of operations: q . decode(x) is s * (q . c) + a * sum(q)
+// (SQ), step_x * (q . c) + sum(q) * lower_x (RQ) or the sum itself (PQ),
+// then the metric.
 template <int METRIC, int ROW>
 __device__ __forceinline__ float finish_row(const Params& p, const QScal& qs,
-                                            float acc, float aux) {
-  if (ROW == kBqRow) return (qs.a + aux) - 2.f * acc;
-  if (ROW == kSqRow) {
-    const float qdd = p.sq_s * acc + p.sq_a * qs.a;
-    if (METRIC == kL2) return fmaxf(qs.b - 2.f * qdd + aux, 0.f);
+                                            float acc, const RowAux& ra) {
+  if (ROW == kBqRow) return (qs.a + ra.aux) - 2.f * acc;
+  if (ROW == kSqRow || ROW == kRqRow || ROW == kPqRow) {
+    float qdd = acc;
+    if (ROW == kSqRow) qdd = p.sq_s * acc + p.sq_a * qs.a;
+    if (ROW == kRqRow) qdd = ra.st * acc + qs.a * ra.lo;
+    if (METRIC == kL2) return fmaxf(qs.b - 2.f * qdd + ra.aux, 0.f);
     if (METRIC == kDot) return -qdd;
     return 1.f - qdd;
   }
@@ -299,8 +324,9 @@ __device__ __forceinline__ void score_chunk(const Params& p, const Warp& w,
       acc += __shfl_xor_sync(kFull, acc, off, kSpecG);
     const int c = base + r * (32 / kSpecG) + lane / kSpecG;
     if (gl == 0 && c < hi) {
-      w.fd[c] = rows[r] >= 0 ? finish_row<METRIC, ROW>(p, qs, acc, aux[r])
-                             : kMask;
+      w.fd[c] = rows[r] >= 0
+                    ? finish_row<METRIC, ROW>(p, qs, acc, {aux[r], 0.f, 0.f})
+                    : kMask;
       loaded += rows[r] >= 0;
     }
   }
@@ -314,10 +340,42 @@ __device__ __forceinline__ float group_distance(const Params& p,
                                                 const float* q,
                                                 const QScal& qs, int row,
                                                 int gl, int G) {
-  float acc = 0.f, aux = 0.f;
+  float acc = 0.f;
+  RowAux ra = {0.f, 0.f, 0.f};
   if (row >= 0) {
-    if (ROW != kRawRow) aux = __ldg(p.row_aux + row);
-    if (ROW == kSqRow) {
+    if (ROW != kRawRow) ra.aux = __ldg(p.row_aux + row);
+    if (ROW == kRqRow) {
+      ra.lo = __ldg(p.row_lo + row);
+      ra.st = __ldg(p.row_step + row);
+    }
+    if (ROW == kPqRow) {
+      // each segment's code, then its centroid (bf16, 16 bytes a load
+      // where dsub allows) against the query's piece
+      const uint8_t* c =
+          static_cast<const uint8_t*>(p.corpus) + (size_t)row * p.segs;
+      for (int sg = gl; sg < p.segs; sg += G) {
+        const int code = __ldg(c + sg);
+        const __nv_bfloat16* e =
+            p.cb + ((size_t)sg * p.centroids + code) * p.dsub;
+        const float* qk = q + sg * p.dsub;
+        if ((p.dsub & 7) == 0) {
+          for (int t = 0; t < p.dsub; t += 8) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(e + t));
+            const __nv_bfloat162* h =
+                reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float2 f = __bfloat1622float2(h[u]);
+              acc += qk[t + 2 * u] * f.x;
+              acc += qk[t + 2 * u + 1] * f.y;
+            }
+          }
+        } else {
+          for (int t = 0; t < p.dsub; ++t)
+            acc += qk[t] * __bfloat162float(e[t]);
+        }
+      }
+    } else if (ROW == kSqRow || ROW == kRqRow) {  // byte codes
       const uint8_t* c =
           static_cast<const uint8_t*>(p.corpus) + (size_t)row * p.d;
       if ((p.d & 3) == 0) {  // four codes a load
@@ -343,7 +401,7 @@ __device__ __forceinline__ float group_distance(const Params& p,
   }
   for (int off = G >> 1; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off, G);
-  return finish_row<METRIC, ROW>(p, qs, acc, aux);
+  return finish_row<METRIC, ROW>(p, qs, acc, ra);
 }
 
 // The raw frontier w.fid[lo, hi) (-1 = no entry) -> the accepted entries,
@@ -463,7 +521,7 @@ walk_kernel(Params p) {
     for (int off = 16; off > 0; off >>= 1)
       qbits += __shfl_xor_sync(kFull, qbits, off);
     qs.a = static_cast<float>(qbits);
-  } else if (ROW == kSqRow) {
+  } else if (ROW != kRawRow) {
     qs.a = p.qaux[(size_t)qi * 2];
     qs.b = p.qaux[(size_t)qi * 2 + 1];
   }
@@ -762,9 +820,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   while (wpb > 1 && (size_t)wpb * p.warp_bytes > (size_t)p.smem_max) --wpb;
   const size_t smem = (size_t)wpb * p.warp_bytes;
   // raw and BQ rows of up to kSpecD four-byte slots take the speculative
-  // path; SQ rows (bytes) are scored after the visited test
+  // path; code rows (SQ, RQ and PQ bytes) are scored after the visited test
   auto kern = walk_kernel<METRIC, ROUND, false, ROW>;
-  if constexpr (ROW != kSqRow)
+  if constexpr (ROW == kRawRow || ROW == kBqRow)
     if (p.d <= kSpecD) kern = walk_kernel<METRIC, ROUND, true, ROW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -785,7 +843,10 @@ extern "C" {
 // 32) words a row and a query, `row_aux` the rows' popcounts; 2 SQ rows, d
 // uint8 codes a row, `row_aux` their decoded squared norms, `qaux` [b, 2]
 // the queries' sums and sums of squares, `sq_a`/`sq_s` the decode (metric
-// l2-squared, dot or cosine; queries rounded to bf16).
+// l2-squared, dot or cosine; queries rounded to bf16); 3 RQ rows, as SQ
+// rows with each row's own `row_lo`/`row_step` [rows]; 4 PQ rows, `segs`
+// codes a row into the bf16 codebooks `cb` [segs, centroids, dsub] (16-byte
+// aligned; d = segs * dsub, the query's width), `row_aux` and `qaux` as SQ.
 // Returns 0, a cudaError_t (> 0), or a negative code for arguments outside
 // the kernel's contract (see device_beam_error_string).
 int device_beam_search(const float* queries, const void* corpus,
@@ -798,14 +859,24 @@ int device_beam_search(const float* queries, const void* corpus,
                        int rows, int n, int d, int m0, int levels, int s,
                        int m, int ef, int keep_k, int expand, int max_steps,
                        int metric, int bf16, int row_kind, int dims,
-                       float sq_a, float sq_s, void* stream) {
+                       float sq_a, float sq_s, const float* row_lo,
+                       const float* row_step, const void* cb, int segs,
+                       int dsub, int centroids, void* stream) {
   if (b < 1 || rows < 1 || n < 1 || max_steps < 0 || levels < 0)
     return kBadShape;
-  if (row_kind < kRawRow || row_kind > kSqRow ||
+  const bool coded = row_kind == kSqRow || row_kind == kRqRow ||
+                     row_kind == kPqRow;
+  if (row_kind < kRawRow || row_kind > kPqRow ||
       (row_kind != kRawRow && row_aux == nullptr) ||
-      (row_kind == kSqRow && (qaux == nullptr || metric > kCosine)) ||
+      (coded && (qaux == nullptr || metric > kCosine)) ||
+      (row_kind == kRqRow && (row_lo == nullptr || row_step == nullptr)) ||
+      (row_kind == kPqRow &&
+       (cb == nullptr || segs < 1 || dsub < 1 || centroids < 1 ||
+        centroids > 256 || (long long)segs * dsub != d)) ||
       (row_kind == kBqRow && (dims < 1 || d != (dims + 31) / 32)))
     return kBadRow;
+  if (row_kind == kPqRow && reinterpret_cast<uintptr_t>(cb) % 16)
+    return kBadAlign;
   if (ef < 1 || ef > kMaxEf) return kBadEf;
   if (m0 < 1 || m0 > kMaxWidth ||
       (levels > 0 && (m < 1 || m > kMaxWidth || s < 1)))
@@ -839,6 +910,12 @@ int device_beam_search(const float* queries, const void* corpus,
   p.qaux = qaux;
   p.sq_a = sq_a;
   p.sq_s = sq_s;
+  p.row_lo = row_lo;
+  p.row_step = row_step;
+  p.cb = static_cast<const __nv_bfloat16*>(cb);
+  p.segs = segs;
+  p.dsub = dsub;
+  p.centroids = centroids;
   p.last_word = row_kind == kBqRow && dims % 32 ? (1u << (dims % 32)) - 1u
                                                 : kFull;
   p.adj = adj;
@@ -874,12 +951,18 @@ int device_beam_search(const float* queries, const void* corpus,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool round = bf16 != 0;
   if (row_kind == kBqRow) return static_cast<int>(launch<kL2, false, kBqRow>(p, st));
-  if (row_kind == kSqRow) {
-    switch (metric) {
-      case kL2: e = launch<kL2, true, kSqRow>(p, st); break;
-      case kDot: e = launch<kDot, true, kSqRow>(p, st); break;
-      default: e = launch<kCosine, true, kSqRow>(p, st); break;
-    }
+  if (coded) {
+    auto go = [&](auto row) {
+      constexpr int kRow = decltype(row)::value;
+      switch (metric) {
+        case kL2: return launch<kL2, true, kRow>(p, st);
+        case kDot: return launch<kDot, true, kRow>(p, st);
+        default: return launch<kCosine, true, kRow>(p, st);
+      }
+    };
+    if (row_kind == kSqRow) e = go(std::integral_constant<int, kSqRow>{});
+    else if (row_kind == kRqRow) e = go(std::integral_constant<int, kRqRow>{});
+    else e = go(std::integral_constant<int, kPqRow>{});
     return static_cast<int>(e);
   }
   switch (metric) {
@@ -909,9 +992,12 @@ const char* device_beam_error_string(int code) {
                               "above 640";
     case kBadSmem: return "one query's state exceeds the card's shared "
                           "memory a block";
-    case kBadRow: return "row kind outside 0..2, a BQ row's words not "
-                         "ceil(dims / 32), an SQ metric other than "
-                         "l2-squared/dot/cosine, or a missing aux array";
+    case kBadRow: return "row kind outside 0..4, a BQ row's words not "
+                         "ceil(dims / 32), a code row's metric other than "
+                         "l2-squared/dot/cosine, a missing aux array, or "
+                         "PQ segments x sub-dimensions != d or centroids "
+                         "outside [1, 256]";
+    case kBadAlign: return "PQ codebooks not 16-byte aligned";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -1,6 +1,8 @@
 // Quantized scans with an exact top-k in their epilogue: Q1 (BQ, packed
-// hamming on the tensor cores) and Q2 (SQ, bf16 queries x byte codes on the
-// tensor cores), and the merge of their per-split partials.
+// hamming on the tensor cores), Q2 (SQ, bf16 queries x byte codes on the
+// tensor cores), Q3 (PQ, bf16 queries x rows decoded through the codebooks)
+// and Q4 (RQ, Q2 with a per-row decode), and the merge of their per-split
+// partials.
 //
 // Replaces the XLA programs of weaviate_tpu/ops/quantized.py:
 //
@@ -19,6 +21,11 @@
 //     epilogue applies the affine decode with sum(q) and sum(q^2) taken in
 //     float32 from the unrounded queries; l2-squared is clamped at 0, dot
 //     negated, cosine 1 - x.
+//   * Q3 `pq_search` (:204): bf16(q) . bf16(decode(c)), decode(c) the
+//     concatenated centroids of the row's codes, with float32 sums; the
+//     epilogue is the metric of that product alone (l2-squared with the
+//     decoded row's squared norm). Q4 `rq_search` (:241): step_x * (bf16(q)
+//     . c) + sum(q) * lower_x, each row's own affine decode.
 //   * The selection (`_chunked_topk` and `merge_topk`, ops/topk.py:17): the
 //     exact `k` smallest by (distance, row), lower row first on ties, as
 //     the chunked `lax.top_k` + stable merges give.
@@ -28,7 +35,10 @@
 // tensor-core rate, over 1.01 GB of words, popcounts and mask (0.30 ms at
 // 3.35 TB/s): operations. Q2, 552,960 x 768 and B = 256: 217 GFLOP, 0.220
 // ms at the bf16 rate, over 0.43 GB (0.126 ms): operations, with bytes
-// close behind.
+// close behind. Q4 at the same shape: the same products, 4.4 MB more of
+// per-row floats. Q3 at config 3 (1,000,000 x 1536, 96 segments, B = 256):
+// 7.9e11 products, 0.80 ms at the bf16 rate, over 0.1 GB of codes and
+// norms: operations.
 //
 // What the design does about it. The products run on the tensor cores, and
 // nothing of size [B, N] reaches device memory: a CTA owns a tile of 128
@@ -49,6 +59,20 @@
 // partials to k the same way and sorts them by (key, row). A search is one
 // scan launch and one merge launch, for any B.
 //
+// Q2, Q3 and Q4 are one template (`code_scan_kernel`): the same query ring,
+// product tiles, epilogue and selection, with the row type's loader. Q3's
+// rows do not fit the ring as bytes to widen: each ring step carries each
+// row's code window (the words holding its codes of the segments the
+// step's 64 dimensions touch, any sub-width dsub), and one step ahead of
+// the products the CTA gathers every (row, piece) of the step from the bf16
+// codebooks (the centroid of the row's code of that segment, the widest
+// piece dsub allows: 8 values a copy, a constant of its own instance, or
+// 4, 2 or 1, chosen at launch) with cp.async, straight
+// into the product's bf16 tile; the gathers of step s + 1 are their own
+// commit group, in flight while step s multiplies. The codebooks (786 KB at
+// config 3) stay in L2: a gather moves no device-memory bytes after the
+// first, and a per-query lookup table (96 KB a query) would not fit a CTA.
+//
 // Q1's product route: the 1-bit product measured faster than an int8 one
 // (`mma.m16n8k32 .u8`) on the bits widened to {0,1} bytes in registers,
 // 10.76 ms a scan against 19.43 ms on phase `quant`'s rows and 10.94
@@ -63,6 +87,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -96,6 +121,8 @@ enum Refused {
   kBadK = -3,
   kBadMetric = -4,
   kBadPlan = -5,
+  kBadCodebook = -6,
+  kBadAlign = -7,
 };
 
 __device__ __forceinline__ uint32_t order_key(float f) {
@@ -598,33 +625,106 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, int lo) {
 }
 
 constexpr int kSqTk = kSqR + 8;
-// A stage of Q2's code ring: a step's codes [kSqR][kSqK], then the tile's
-// decoded norms [kSqR] and mask bytes [kSqR] (every step carries them, so
-// the last step of a tile holds them for its epilogue).
-constexpr int kSqStage = kSqR * kSqK + kSqR * 4 + kSqR;
-// Dynamic shared memory of Q2: the query and code rings, the widened code
-// tile (two: one step is widened while the other feeds the products), the
-// key tile.
-constexpr size_t kSqSmem = (size_t)kSqStages * kQT * kSqLd * 2 +
-                           (size_t)kSqStages * kSqStage +
-                           (size_t)2 * kSqR * kSqLd * 2 +
-                           (size_t)kQT * kSqTk * 4;
 
-template <bool VEC>
+// The code scans' row types: Q2's global-affine SQ codes, Q4's per-row
+// affine RQ codes, Q3's PQ codes decoded through the codebooks.
+enum Rows { kSqRows = 0, kRqRows = 1, kPqRows = 2 };
+// Q3: a step's codes, each row's 4-byte words holding its codes of the
+// segments the step's 64 dimensions touch (at most 65 of them, from 0-3
+// bytes into the first word): kPqWords words a row
+constexpr int kPqWords = 17;
+constexpr int kPqWin = 4 * kPqWords;
+
+// A stage of a code scan's ring: a step's codes (Q2, Q4: [kSqR][kSqK]
+// bytes; Q3: [kSqR][kPqWin] bytes, the rows' code windows), then the tile's
+// per-row floats [floats][kSqR] (decoded norms; Q4 also lower and step) and
+// mask bytes [kSqR] (every step carries them, so the last step of a tile
+// holds them for its epilogue).
+template <int ROWS>
+__host__ __device__ constexpr int code_bytes() {
+  return ROWS == kPqRows ? kSqR * kPqWin : kSqR * kSqK;
+}
+template <int ROWS>
+__host__ __device__ constexpr int row_floats() {
+  return ROWS == kRqRows ? 3 : 1;
+}
+template <int ROWS>
+__host__ __device__ constexpr int scan_stage() {
+  return code_bytes<ROWS>() + kSqR * 4 * row_floats<ROWS>() + kSqR;
+}
+// Dynamic shared memory of a code scan: the query and code rings, the bf16
+// code tile (two: one step is widened or decoded while the other feeds the
+// products), the key tile.
+template <int ROWS>
+__host__ __device__ constexpr size_t scan_smem() {
+  return (size_t)kSqStages * kQT * kSqLd * 2 +
+         (size_t)kSqStages * scan_stage<ROWS>() +
+         (size_t)2 * kSqR * kSqLd * 2 + (size_t)kQT * kSqTk * 4;
+}
+
+// A piece of p bf16 values (2p bytes) from global to shared memory through
+// cp.async (p = 2, 4, 8), zero-filled when !ok; p = 1 is a plain load and
+// store. p is the same in every thread of a launch.
+__device__ __forceinline__ void copy_piece(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, bool ok,
+                                           int p) {
+  const uint32_t d = smem_addr(dst);
+  switch (p) {
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                   "l"(src), "r"(ok ? 16 : 0));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                   "l"(src), "r"(ok ? 8 : 0));
+      break;
+    case 2:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                   "l"(src), "r"(ok ? 4 : 0));
+      break;
+    default:
+      *dst = ok ? src[0] : __float2bfloat16_rn(0.0f);
+  }
+}
+
+// The operands of a code scan beside its queries and lists.
+struct CodeRows {
+  const uint8_t* codes;      // [n, w] (Q3: w = m segments)
+  const float* dsq;          // [n] decoded squared norms
+  const float* lower;        // Q4: [n] per-row offsets
+  const float* step;         // Q4: [n] per-row steps
+  const __nv_bfloat16* cb;   // Q3: [m, centroids, dsub] bf16 codebooks
+  float a, s;                // Q2: the offset and step
+  int m, dsub, centroids;    // Q3
+  int piece;                 // Q3: values a gather copies, a divisor of dsub
+};
+
+// Q2, Q3 and Q4: the queries rounded to bf16 [b, dp] (zero past d) times
+// the rows' decoded codes on the tensor cores, a tile's keys from the
+// metric of q . decode(x), and the exact top-k of each split. ROWS picks the
+// loader and the decode: Q2 widens the byte codes to bf16 and decodes
+// a + s * (q . c); Q4 the same with the row's own lower and step; Q3
+// gathers each code's centroid piece (x.piece values a copy) from the bf16
+// codebooks, which stay in L2, into the product's tile. VEC: the codes
+// load 16 bytes a copy (Q2, Q4), or Q3's pieces are 8 values (16 bytes),
+// a constant.
+template <int ROWS, bool VEC>
 __global__ void __launch_bounds__(kThreads, kSqCtasPerSm)
-sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
-               const uint8_t* __restrict__ codes,
-               const float* __restrict__ dsq, const uint8_t* __restrict__ mask,
-               const float* __restrict__ qsum, const float* __restrict__ qsq,
-               float a, float s, int metric, uint32_t* lk, int* lr, int b,
-               int n, int d, int dp, int k, int split_rows, int cap) {
+code_scan_kernel(const __nv_bfloat16* __restrict__ q, CodeRows x,
+                 const uint8_t* __restrict__ mask,
+                 const float* __restrict__ qsum, const float* __restrict__ qsq,
+                 int metric, uint32_t* lk, int* lr, int b, int n, int d,
+                 int dp, int k, int split_rows, int cap) {
+  constexpr int kStage = scan_stage<ROWS>();
+  constexpr int kCodes = code_bytes<ROWS>();
+  constexpr int kFloats = row_floats<ROWS>();
   extern __shared__ __align__(16) unsigned char sq_dyn[];
   __shared__ float sqsum[kQT], sqsq[kQT];
   __shared__ int hist[kWarps][kBins];
   __nv_bfloat16* aring = reinterpret_cast<__nv_bfloat16*>(sq_dyn);
   uint8_t* braw = sq_dyn + (size_t)kSqStages * kQT * kSqLd * 2;
   __nv_bfloat16* bw =  // [2][kSqR][kSqLd]
-      reinterpret_cast<__nv_bfloat16*>(braw + kSqStages * kSqStage);
+      reinterpret_cast<__nv_bfloat16*>(braw + kSqStages * kStage);
   uint32_t* tk = reinterpret_cast<uint32_t*>(bw + 2 * kSqR * kSqLd);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -635,6 +735,7 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
   const int tiles = (row_end - row_begin + kSqR - 1) / kSqR;
   const int chunks = dp / kSqK;
   const int steps = tiles * chunks;
+  const uint8_t* __restrict__ codes = x.codes;
 
   for (int i = tid; i < kQT; i += kThreads) {
     const bool ok = q0 + i < b;
@@ -655,16 +756,40 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(ad + r * kSqLd + j,
                  ok ? q + (size_t)(q0 + r) * dp + k0 + j : q, ok);
     }
-    uint8_t* bd = braw + stage * kSqStage;
+    uint8_t* bd = braw + stage * kStage;
     const int r0 = row_begin + t * kSqR;
     if (tid < kSqR) {  // the tile's decoded norms, 4 bytes a row
       const bool ok = r0 + tid < row_end;
-      cp_async4(bd + kSqR * kSqK + tid * 4, ok ? dsq + r0 + tid : dsq, ok);
+      cp_async4(bd + kCodes + tid * 4, ok ? x.dsq + r0 + tid : x.dsq, ok);
     } else if (mask != nullptr && tid < kSqR + kSqR / 4) {
       const int c = tid - kSqR;
-      load_mask4(bd + kSqR * kSqK + kSqR * 4 + 4 * c, mask, r0 + 4 * c, n);
+      load_mask4(bd + kCodes + kFloats * kSqR * 4 + 4 * c, mask, r0 + 4 * c,
+                 n);
     }
-    if (VEC) {  // 16-byte pieces, zero past the row or d
+    if constexpr (ROWS == kRqRows) {  // the rows' lower and step
+      for (int c = tid; c < 2 * kSqR; c += kThreads) {
+        const int r = c % kSqR;
+        const float* src = c < kSqR ? x.lower : x.step;
+        const bool ok = r0 + r < row_end;
+        cp_async4(bd + kCodes + (kSqR + c) * 4, ok ? src + r0 + r : src, ok);
+      }
+    }
+    if constexpr (ROWS == kPqRows) {
+      // each row's code window: the words from the one holding segment
+      // k0 / dsub, bytes past the codes zero-filled
+      const long long total = (long long)n * x.m;
+      const int seg_lo = k0 / x.dsub;
+      for (int c = tid; c < kSqR * kPqWords; c += kThreads) {
+        const int r = c / kPqWords, wd = c % kPqWords;
+        const long long at =
+            (((long long)(r0 + r) * x.m + seg_lo) & ~3LL) + 4 * wd;
+        long long nb = r0 + r < row_end ? total - at : 0;
+        nb = nb < 0 ? 0 : (nb > 4 ? 4 : nb);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_addr(bd + r * kPqWin + 4 * wd)),
+                     "l"(nb ? codes + at : codes), "r"((int)nb));
+      }
+    } else if (VEC) {  // 16-byte pieces, zero past the row or d
       for (int c = tid; c < kSqR * 4; c += kThreads) {
         const int r = c >> 2, j = (c & 3) * 16;
         const bool ok = r0 + r < row_end && k0 + j < d;
@@ -681,23 +806,54 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
   // a step's codes widened to bf16 into buffer step % 2: 32 bytes a thread
+  // (Q2, Q4)
   auto widen_step = [&](int step) {
-    const int r = tid >> 1, j = (tid & 1) * 32;
-    const uint4* src = reinterpret_cast<const uint4*>(
-        braw + (step % kSqStages) * kSqStage + r * kSqK + j);
-    uint4* dst = reinterpret_cast<uint4*>(bw + (step & 1) * kSqR * kSqLd +
-                                          r * kSqLd + j);
+    if constexpr (ROWS != kPqRows) {
+      const int r = tid >> 1, j = (tid & 1) * 32;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          braw + (step % kSqStages) * kStage + r * kSqK + j);
+      uint4* dst = reinterpret_cast<uint4*>(bw + (step & 1) * kSqR * kSqLd +
+                                            r * kSqLd + j);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 u = src[h];
-      dst[2 * h] = make_uint4(widen2(u.x, 0), widen2(u.x, 2), widen2(u.y, 0),
-                              widen2(u.y, 2));
-      dst[2 * h + 1] = make_uint4(widen2(u.z, 0), widen2(u.z, 2),
-                                  widen2(u.w, 0), widen2(u.w, 2));
+      for (int h = 0; h < 2; ++h) {
+        const uint4 u = src[h];
+        dst[2 * h] = make_uint4(widen2(u.x, 0), widen2(u.x, 2),
+                                widen2(u.y, 0), widen2(u.y, 2));
+        dst[2 * h + 1] = make_uint4(widen2(u.z, 0), widen2(u.z, 2),
+                                    widen2(u.w, 0), widen2(u.w, 2));
+      }
+    }
+  };
+  // Q3: a step's rows decoded into buffer step % 2, piece by piece: the
+  // centroid of the row's code of the piece's segment (past d: zeros)
+  auto decode_step = [&](int step) {
+    if constexpr (ROWS == kPqRows) {
+      const int t = step / chunks, k0 = (step % chunks) * kSqK;
+      const uint8_t* win = braw + (step % kSqStages) * kStage;
+      __nv_bfloat16* dst = bw + (step & 1) * kSqR * kSqLd;
+      const int r0 = row_begin + t * kSqR;
+      const int seg_lo = k0 / x.dsub;
+      const int piece = VEC ? 8 : x.piece;
+      const int per = kSqK / piece;  // pieces a row
+      for (int c = tid; c < kSqR * per; c += kThreads) {
+        const int r = c / per, j = (c % per) * piece;
+        const int dim = k0 + j;
+        const int off = (int)(((long long)(r0 + r) * x.m + seg_lo) & 3);
+        const bool ok = dim < d;
+        const __nv_bfloat16* src = x.cb;
+        if (ok) {
+          const int seg = dim / x.dsub;
+          const int code = win[r * kPqWin + off + seg - seg_lo];
+          src += ((size_t)seg * x.centroids + code) * x.dsub +
+                 (dim - seg * x.dsub);
+        }
+        copy_piece(dst + r * kSqLd + j, src, ok, piece);
+      }
     }
   };
 
-  // steps 0 .. kSqStages - 2 in flight; step 0 widened before the loop
+  // steps 0 .. kSqStages - 2 in flight; step 0 widened (decoded) before the
+  // loop
 #pragma unroll
   for (int step = 0; step < kSqStages - 1; ++step) {
     if (step < steps) load_step(step);
@@ -705,14 +861,27 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_wait_ring<kSqStages>();
   __syncthreads();
-  widen_step(0);
+  if constexpr (ROWS == kPqRows) {
+    decode_step(0);
+    cp_commit();
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  } else {
+    widen_step(0);
+  }
   float acc[4][4][4];
   for (int step = 0; step < steps; ++step) {
     const int t = step / chunks, kc = step % chunks;
     // step + 1 has landed; every warp has widened `step` and finished the
-    // products of step - 1, whose stage and widened buffer are free
+    // products of step - 1, whose stage and bf16 buffer are free (Q3: the
+    // pieces of `step` have landed)
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kSqStages - 3));
     __syncthreads();
+    if constexpr (ROWS == kPqRows) {
+      // its own group, ahead of the ring's: the next barrier's wait
+      // leaves only the ring's newest group in flight
+      if (step + 1 < steps) decode_step(step + 1);
+      cp_commit();
+    }
     if (step + kSqStages - 1 < steps) load_step(step + kSqStages - 1);
     cp_commit();
     if (step + 1 < steps) widen_step(step + 1);
@@ -753,19 +922,23 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
     if (kc != chunks - 1) continue;
     // the tile's keys: this warp's 64 queries x 32 rows
     const int r0 = row_begin + t * kSqR;
-    const uint8_t* held = braw + (step % kSqStages) * kSqStage + kSqR * kSqK;
+    const uint8_t* held = braw + (step % kSqStages) * kStage + kCodes;
     const float* xdsq = reinterpret_cast<const float*>(held);
-    const uint8_t* xmask = held + kSqR * 4;
+    const float* xlo = xdsq + kSqR;  // Q4
+    const float* xst = xdsq + 2 * kSqR;
+    const uint8_t* xmask = held + kFloats * kSqR * 4;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int rl = wn * 32 + nt * 8 + tig * 2;
       bool ok[2];
-      float xs[2];
+      float xs[2], rlo[2], rst[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         ok[e] = r0 + rl + e < row_end &&
                 (mask == nullptr || xmask[rl + e] != 0);
         xs[e] = xdsq[rl + e];
+        rlo[e] = ROWS == kRqRows ? xlo[rl + e] : 0.0f;
+        rst[e] = ROWS == kRqRows ? xst[rl + e] : 0.0f;
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
@@ -775,7 +948,14 @@ sq_scan_kernel(const __nv_bfloat16* __restrict__ q,
           uint32_t key[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float qdd = s * acc[mt][nt][2 * h + e] + a * sqsum[ql];
+            // q . decode(x): Q3 the product itself; Q4 step_x * (q . c) +
+            // sum(q) * lower_x; Q2 s * (q . c) + a * sum(q)
+            float qdd = acc[mt][nt][2 * h + e];
+            if (ROWS == kRqRows) {
+              qdd = rst[e] * qdd + sqsum[ql] * rlo[e];
+            } else if (ROWS == kSqRows) {
+              qdd = x.s * qdd + x.a * sqsum[ql];
+            }
             float dist;
             if (metric == 0) {
               dist = fmaxf(sqsq[ql] - 2.0f * qdd + xs[e], 0.0f);
@@ -959,6 +1139,31 @@ int allow_smem(F kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// The launch of a code scan on arguments already checked.
+template <int ROWS, bool VEC>
+int launch_code_scan(const __nv_bfloat16* q, const CodeRows& x,
+                     const uint8_t* mask, const float* qsum, const float* qsq,
+                     int metric, uint32_t* lk, int* lr, int b, int n, int d,
+                     int dp, int k, int splits, int split_rows, int cap,
+                     void* stream) {
+  constexpr size_t smem = scan_smem<ROWS>();
+  auto kernel = code_scan_kernel<ROWS, VEC>;
+  const int e = allow_smem(kernel, smem);
+  if (e) return e;
+  const dim3 grid((b + kQT - 1) / kQT, splits);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k, split_rows, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_code_scan(int b, int n, int d, int dp, int metric, int k,
+                    int splits, int split_rows, int cap) {
+  if (d < 1 || d > kMaxD || dp % kSqK != 0 || dp < d || dp - d >= kSqK)
+    return kBadDims;
+  if (metric < 0 || metric > 2) return kBadMetric;
+  return check_plan(b, n, k, splits, split_rows, cap, kSqR);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1000,23 +1205,81 @@ int sq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
             float s, int metric, uint32_t* lk, int* lr, int b, int n, int d,
             int dp, int k, int splits, int split_rows, int cap,
             void* stream) {
-  if (d < 1 || d > kMaxD || dp % kSqK != 0 || dp < d || dp - d >= kSqK)
-    return kBadDims;
-  if (metric < 0 || metric > 2) return kBadMetric;
-  const int bad = check_plan(b, n, k, splits, split_rows, cap, kSqR);
+  const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
+                                  cap);
   if (bad) return bad;
-  const dim3 grid((b + kQT - 1) / kQT, splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto kernel) {
-    const int e = allow_smem(kernel, kSqSmem);
-    if (e) return e;
-    kernel<<<grid, kThreads, kSqSmem, st>>>(q, codes, dsq, mask, qsum, qsq, a,
-                                            s, metric, lk, lr, b, n, d, dp, k,
-                                            split_rows, cap);
-    return static_cast<int>(cudaGetLastError());
-  };
+  CodeRows x = {};
+  x.codes = codes;
+  x.dsq = dsq;
+  x.a = a;
+  x.s = s;
   const bool vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  return vec ? go(sq_scan_kernel<true>) : go(sq_scan_kernel<false>);
+  return vec ? launch_code_scan<kSqRows, true>(
+                   q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k,
+                   splits, split_rows, cap, stream)
+             : launch_code_scan<kSqRows, false>(
+                   q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k,
+                   splits, split_rows, cap, stream);
+}
+
+// Q4: as sq_scan for the RQ distances to the rotated codes [n, d] (d a
+// multiple of 64, the codes 16-byte aligned), each row decoded with its own
+// lower [n] and step [n].
+int rq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
+            const float* lower, const float* step, const uint8_t* mask,
+            const float* qsum, const float* qsq, int metric, uint32_t* lk,
+            int* lr, int b, int n, int d, int dp, int k, int splits,
+            int split_rows, int cap, void* stream) {
+  const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
+                                  cap);
+  if (bad) return bad;
+  CodeRows x = {};
+  x.codes = codes;
+  x.dsq = dsq;
+  x.lower = lower;
+  x.step = step;
+  // rotated rows are whole ring steps: 16-byte loads only
+  if (d % kSqK != 0) return kBadDims;
+  if (reinterpret_cast<uintptr_t>(codes) % 16) return kBadAlign;
+  return launch_code_scan<kRqRows, true>(q, x, mask, qsum, qsq, metric, lk,
+                                         lr, b, n, d, dp, k, splits,
+                                         split_rows, cap, stream);
+}
+
+// Q3: as sq_scan for the PQ distances to the rows whose codes [n, m] index
+// the bf16 codebooks cb [m, centroids, dsub] (d = m * dsub), with the
+// queries' float32 sums of squares [b] (qsum is not read).
+int pq_scan(const __nv_bfloat16* q, const uint8_t* codes,
+            const __nv_bfloat16* cb, const float* dsq, const uint8_t* mask,
+            const float* qsq, int metric, uint32_t* lk, int* lr, int b, int n,
+            int d, int dp, int m, int dsub, int centroids, int k, int splits,
+            int split_rows, int cap, void* stream) {
+  const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
+                                  cap);
+  if (bad) return bad;
+  if (m < 1 || dsub < 1 || (long long)m * dsub != d || centroids < 1 ||
+      centroids > 256)
+    return kBadCodebook;
+  if (reinterpret_cast<uintptr_t>(cb) % 16 ||
+      reinterpret_cast<uintptr_t>(codes) % 4)
+    return kBadAlign;
+  CodeRows x = {};
+  x.codes = codes;
+  x.dsq = dsq;
+  x.cb = cb;
+  x.m = m;
+  x.dsub = dsub;
+  x.centroids = centroids;
+  // the widest piece of a centroid one copy takes: a divisor of dsub
+  x.piece = dsub % 8 == 0 ? 8 : (dsub % 4 == 0 ? 4 : (dsub % 2 == 0 ? 2 : 1));
+  return x.piece == 8
+             ? launch_code_scan<kPqRows, true>(q, x, mask, qsq, qsq, metric,
+                                               lk, lr, b, n, d, dp, k, splits,
+                                               split_rows, cap, stream)
+             : launch_code_scan<kPqRows, false>(q, x, mask, qsq, qsq, metric,
+                                                lk, lr, b, n, d, dp, k,
+                                                splits, split_rows, cap,
+                                                stream);
 }
 
 // The merge: out_d / out_i [b, k], each query's k smallest (key, row) over
@@ -1041,7 +1304,13 @@ const char* quantized_error_string(int code) {
       return "dims outside [1, 4096], words != ceil(dims/32), or the padded "
              "query width not the next multiple of 64";
     case kBadK: return "k outside [1, 4096]";
-    case kBadMetric: return "SQ metric code outside 0..2";
+    case kBadMetric: return "metric code outside 0..2";
+    case kBadCodebook:
+      return "PQ segments x sub-dimensions != d, or centroids outside "
+             "[1, 256]";
+    case kBadAlign:
+      return "PQ codebooks not 16-byte aligned or codes not 4-byte "
+             "aligned, or RQ codes not 16-byte aligned";
     case kBadPlan:
       return "split plan does not cover the rows in whole tiles, or the "
              "lists cannot hold k plus a tile";

@@ -5,9 +5,9 @@ The whole corpus lives in device memory and a query batch is one masked
 product + top-k. For l2-squared at bf16 with approximate selection allowed
 and k <= 64, the scan runs in the fused kernel (``ops/fused_flat.py``);
 every other request takes ``ops/distance.py flat_search``. With a quantizer
-(BQ or SQ) the device holds the code planes instead, a search is one scan
-of them (kernels Q1/Q2, ``ops/quantized.py``) that over-fetches, and the
-host rescores the candidates exactly against the originals.
+(BQ, SQ, PQ or RQ) the device holds the code planes instead, a search is
+one scan of them (kernels Q1-Q4, ``ops/quantized.py``) that over-fetches,
+and the host rescores the candidates exactly against the originals.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def make_flat(dims: int, config: Optional[FlatIndexConfig] = None,
               device=None) -> VectorIndex:
     """Flat-index factory: raw corpus in device memory, or code planes +
     the host rescore tier when a quantizer is configured (reference
-    ``flat/index.go:49`` + ``quantizer.go``). PQ and RQ raise (slice 4b),
-    the disk raw tiers too (slice 9)."""
+    ``flat/index.go:49`` + ``quantizer.go``). The disk raw tiers raise
+    (slice 9)."""
     config = config or FlatIndexConfig()
     if config.quantizer is not None and config.quantizer.enabled:
         return QuantizedFlatIndex(dims, config, device=device)
@@ -268,7 +268,7 @@ def exact_rescore(
 class QuantizedFlatIndex(VectorIndex):
     """Flat index over device-resident code planes with host-side rescore.
 
-    Reference ``flat/index.go`` with BQ/SQ (``flat/quantizer.go``): codes
+    Reference ``flat/index.go`` with a quantizer (``flat/quantizer.go``): codes
     are device tensors and a search is one scan kernel
     (``ops/quantized.py``). Storage, fit policy, code search and the rescore
     tier all live in ``hnsw.backend.QuantizedBackend`` — this class is the

@@ -5,7 +5,8 @@ over a detached store's host corpus (port of
 The graph walk is the same for every backend; only the batched distance
 calls differ. ``RawBackend`` keeps the full-precision corpus in device
 memory (``DeviceVectorStore``) and scores with ``ops/distance.py``.
-``QuantizedBackend`` keeps BQ or SQ code planes in device memory
+``QuantizedBackend`` keeps a quantizer's code planes (BQ, SQ, PQ or RQ)
+in device memory
 (``DeviceArraySet``), the originals in host RAM (``HostVectorStore``), and
 rescores exactly on the host. The port's stores are single-device, so the
 JAX backend's mesh branches have no counterpart here (multi-GPU: slice 11).
@@ -18,7 +19,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from weaviate_tpu_torch.index.store import DeviceVectorStore
+from weaviate_tpu_torch.index.store import DeviceVectorStore, resolve_device
 from weaviate_tpu_torch.ops.distance import (
     candidate_pairwise,
     flat_search,
@@ -333,7 +334,8 @@ class QueryRep(NamedTuple):
 
 
 class QuantizedBackend:
-    """Code-space distances + exact host rescore (HNSW or flat + BQ/SQ)."""
+    """Code-space distances + exact host rescore (HNSW or flat + a
+    quantizer)."""
 
     quantized = True
 
@@ -349,7 +351,10 @@ class QuantizedBackend:
         self.metric = config.distance
         self.dims = dims
         dtype = raw_tier_dtype(getattr(config, "raw_tier", "ram"))
-        self.quantizer = build_quantizer(config.quantizer, dims, self.metric)
+        device = resolve_device(device)
+        # a product quantizer fits and encodes on the codes' device
+        self.quantizer = build_quantizer(config.quantizer, dims, self.metric,
+                                         device=device)
         self.originals = HostVectorStore(
             dims, capacity=config.initial_capacity, dtype=dtype)
         self.codes = DeviceArraySet(

@@ -20,11 +20,11 @@ visited bitsets fit ``_VISITED_BUDGET``; otherwise the host walk
 from the config only. A failed launch raises: there is no latch and no
 fallback to the host walk.
 
-A configured quantizer (BQ or SQ) swaps the whole distance tier to code
-space (``QuantizedBackend``): the walks score the device code planes, the
-host rescores exactly against the originals, and the trained quantizer
-state persists beside the graph (``quantizer.msgpack``). PQ and RQ come with
-slice 4b. Differences from the JAX index: the mesh graph and walk (slice
+A configured quantizer (BQ, SQ, PQ or RQ) swaps the whole distance tier to
+code space (``QuantizedBackend``): the walks score the device code planes,
+the host rescores exactly against the originals, and the trained quantizer
+state (PQ's codebooks and RQ's rotation included) persists beside the graph
+(``quantizer.msgpack``). Differences from the JAX index: the mesh graph and walk (slice
 11), and the fused rerank tier and the multi-target walk legs (slice 7) are
 not ported. The fused walk's rows per launch follow
 its bitset, not the JAX index's [B, capacity] scratch; the walks are

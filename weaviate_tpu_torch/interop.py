@@ -21,8 +21,8 @@ arrays handed over as numpy, so one state can feed both packages.
 Quantized state crosses the same way. A quantized HNSW index's directory
 (``graph.npz`` and ``quantizer.msgpack``, the quantizer's ``state_dict``)
 opens in either package; its codes are rebuilt from the objects.
-``quantizer_from_state`` turns a JAX quantizer's ``state_dict()`` into the
-port's quantizer, and ``array_set_from_numpy`` builds a port
+``quantizer_from_state`` turns a JAX quantizer's ``state_dict()`` (BQ, SQ,
+PQ's codebooks, RQ's rotation) into the port's quantizer, and ``array_set_from_numpy`` builds a port
 ``DeviceArraySet`` from a JAX set's code planes, valid mask, watermark and
 live count as numpy.
 """
@@ -75,11 +75,15 @@ def store_from_numpy(corpus: np.ndarray, valid: np.ndarray,
     return store
 
 
-def quantizer_from_state(state: dict, config=None) -> Quantizer:
+def quantizer_from_state(state: dict, config=None,
+                         device=None) -> Quantizer:
     """The port's quantizer holding a quantizer's ``state_dict()`` (the
     JAX package's or the port's: kind, dims, metric, fitted and the
-    quantizer's own fields). ``config`` is its ``QuantizerConfig``
-    (defaults of the kind when None)."""
+    quantizer's own fields: SQ's offset and step, PQ's segments, centroid
+    count and codebooks, RQ's bits, padded width and rotation).
+    ``config`` is its ``QuantizerConfig`` (defaults of the kind when None);
+    ``device`` is where a product quantizer encodes (the card unless
+    named)."""
     from weaviate_tpu_torch.compression import build_quantizer
     from weaviate_tpu_torch.schema.config import quantizer_from_dict
 
@@ -87,7 +91,8 @@ def quantizer_from_state(state: dict, config=None) -> Quantizer:
         {"kind": state["kind"], "enabled": True})
     if cfg is None:
         raise ValueError(f"unknown quantizer kind {state.get('kind')!r}")
-    q = build_quantizer(cfg, int(state["dims"]), state["metric"])
+    q = build_quantizer(cfg, int(state["dims"]), state["metric"],
+                        device=device)
     q.load_state_dict(state)
     return q
 

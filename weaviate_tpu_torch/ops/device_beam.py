@@ -26,10 +26,12 @@ Distance evaluation is pluggable, as in JAX: a scorer maps (queries,
 candidate ids, operands) to distances. ``RawScorer`` gather-scores the
 float32 corpus; ``BQScorer`` the packed bits and popcounts of a binary
 quantizer (exact integer distances, so a BQ walk equals the plain
-version's); ``SQScorer`` the byte codes of a scalar quantizer. The kernel
+version's); ``SQScorer`` the byte codes of a scalar quantizer; ``RQScorer``
+a rotational quantizer's byte codes with each row's lower and step;
+``PQScorer`` a product quantizer's codes through its codebooks. The kernel
 takes the row type of each. Not ported yet, each raising
-``NotImplementedError``: ``PQScorer``/``RQScorer`` (slice 4b), the fused
-rerank stage and the multi-target legs (slice 7), the mesh walk (slice 11).
+``NotImplementedError``: the fused rerank stage and the multi-target legs
+(slice 7), the mesh walk (slice 11).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_dista
 from weaviate_tpu_torch.ops.quantized import (
     SQ_METRICS,
     bq_gather_distance,
+    pq_gather_distance,
+    rq_gather_distance,
     sq_gather_distance,
 )
 
@@ -111,24 +115,28 @@ class BQScorer:
 
 @dataclasses.dataclass(frozen=True)
 class PQScorer:
-    """Product-quantizer codes: slice 4b."""
+    """operands = (codes [N, M] uint8, codebooks [M, C, dsub] float32 or
+    their bfloat16 copy, dec_sqnorms [N]); q is the float32 query
+    (normalized for cosine)."""
 
     metric: str
 
     def __call__(self, q, ids, operands):
-        raise NotImplementedError(
-            "PQScorer: not ported yet (ROADMAP queue A, slice 4b)")
+        codes, codebooks, dsq = operands
+        return pq_gather_distance(q, codes, codebooks, ids, dsq, self.metric)
 
 
 @dataclasses.dataclass(frozen=True)
 class RQScorer:
-    """Rotational-quantizer codes: slice 4b."""
+    """operands = (codes [N, D'] uint8, lower [N], step [N], dec_sqnorms
+    [N]); q is the rotated float32 query [B, D']."""
 
     metric: str
 
     def __call__(self, q, ids, operands):
-        raise NotImplementedError(
-            "RQScorer: not ported yet (ROADMAP queue A, slice 4b)")
+        codes, lower, step, dsq = operands
+        return rq_gather_distance(q, codes, ids, lower, step, dsq,
+                                  self.metric)
 
 
 def _masked_scores(scorer, q, ids, operands):
@@ -288,17 +296,14 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
 
 
 # the kernel's row types (its C side's ``row_kind``)
-_ROW_KINDS = {RawScorer: 0, BQScorer: 1, SQScorer: 2}
+_ROW_KINDS = {RawScorer: 0, BQScorer: 1, SQScorer: 2, RQScorer: 3,
+              PQScorer: 4}
 
 
 def _row_operands(scorer, operands):
-    """(row tensor, the rows' aux tensor or None, the row width d, [(name,
+    """(row tensor, the rows' aux tensor or None, the query width d, [(name,
     tensor, dtype, shape)] to check, the query dtype) of a scorer's
     operands."""
-    if isinstance(scorer, (PQScorer, RQScorer)):
-        raise NotImplementedError(
-            f"{type(scorer).__name__}: not ported yet (ROADMAP queue A, "
-            "slice 4b)")
     if type(scorer) not in _ROW_KINDS:
         raise TypeError(f"no kernel row type for scorer {scorer!r}")
     if isinstance(scorer, RawScorer):
@@ -319,12 +324,27 @@ def _row_operands(scorer, operands):
             ("packed", packed, torch.int32, (rows, w)),
             ("popcounts", pop, torch.float32, (rows,))], torch.int32
     if scorer.metric not in SQ_METRICS:
-        raise ValueError(f"SQ walk has no metric {scorer.metric!r}")
-    codes, dsq = operands[0], operands[1]
-    rows, d = codes.shape
-    return codes, dsq, d, [
-        ("codes", codes, torch.uint8, (rows, d)),
-        ("dec_sqnorms", dsq, torch.float32, (rows,))], torch.float32
+        raise ValueError(f"{type(scorer).__name__} walk has no metric "
+                         f"{scorer.metric!r}")
+    codes = operands[0]
+    dsq = operands[{SQScorer: 1, RQScorer: 3, PQScorer: 2}[type(scorer)]]
+    rows, w = codes.shape
+    want = [("codes", codes, torch.uint8, (rows, w)),
+            ("dec_sqnorms", dsq, torch.float32, (rows,))]
+    if isinstance(scorer, PQScorer):
+        cb = operands[1]
+        if cb.ndim != 3 or cb.shape[0] != w or not 1 <= cb.shape[1] <= 256:
+            raise ValueError(f"codebooks must be [{w}, <=256, dsub], got "
+                             f"{tuple(cb.shape)}")
+        if cb.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"codebooks must be float32 or bfloat16, got "
+                             f"{cb.dtype}")
+        want.append(("codebooks", cb, cb.dtype, tuple(cb.shape)))
+        return codes, dsq, w * cb.shape[2], want, torch.float32
+    if isinstance(scorer, RQScorer):
+        want += [("lower", operands[1], torch.float32, (rows,)),
+                 ("step", operands[2], torch.float32, (rows,))]
+    return codes, dsq, w, want, torch.float32
 
 
 def _check_kernel_args(scorer, queries, operands, adjacency, present, eps,
@@ -386,9 +406,12 @@ def fused_search_cuda(scorer, queries, operands, adjacency, present, eps,
                       expand: int = 0, stats: Optional[torch.Tensor] = None):
     """Launches the kernel on the current stream: the contract of
     ``_fused_search`` (``operands`` the scorer's tuple: ``(corpus,)`` raw,
-    ``(packed, popcounts)`` BQ, ``(codes, dec_sqnorms, a, s)`` SQ; the SQ
-    queries' sums and sums of squares are taken here in float32, as the
-    plain version takes them). ``stats``, an int32
+    ``(packed, popcounts)`` BQ, ``(codes, dec_sqnorms, a, s)`` SQ,
+    ``(codes, lower, step, dec_sqnorms)`` RQ, ``(codes, codebooks,
+    dec_sqnorms)`` PQ, whose float32 codebooks are rounded to the bfloat16
+    copy the kernel reads (the quantizer hands that copy over); the code
+    rows' queries' sums and sums of squares are taken here in float32, as
+    the plain version takes them). ``stats``, an int32
     [B, 6] tensor, receives per query the counters named in ``STATS``:
     layer-0 expansions, rows scored and kept, layer-0 adjacency rows the
     walk expands (one a hop and the second hop's parents), upper rows read,
@@ -403,11 +426,21 @@ def fused_search_cuda(scorer, queries, operands, adjacency, present, eps,
     n = adjacency.shape[0]
     row_kind = _ROW_KINDS[type(scorer)]
     qaux, sq_a, sq_s = None, 0.0, 0.0
-    if row_kind == 2:
+    row_lo = row_step = cb = None
+    segs = dsub = centroids = 0
+    if row_kind >= 2:
         qaux = torch.stack([torch.sum(queries, dim=-1),
                             torch.sum(queries * queries, dim=-1)],
                            dim=1).contiguous()
+    if row_kind == 2:
         sq_a, sq_s = float(operands[2]), float(operands[3])
+    elif row_kind == 3:
+        row_lo, row_step = operands[1], operands[2]
+    elif row_kind == 4:
+        cb = operands[1]
+        if cb.dtype != torch.bfloat16:
+            cb = cb.to(torch.bfloat16)
+        segs, centroids, dsub = cb.shape
     metric = getattr(scorer, "metric", "l2-squared")
     b = queries.shape[0]
     dev = corpus.device
@@ -442,7 +475,8 @@ def fused_search_cuda(scorer, queries, operands, adjacency, present, eps,
             keep_k if track else 0, expand if track else 0, max_steps,
             METRICS.index(metric),
             int(getattr(scorer, "precision", "") == "bf16"), row_kind,
-            getattr(scorer, "dims", 0), sq_a, sq_s, stream)
+            getattr(scorer, "dims", 0), sq_a, sq_s, ptr(row_lo),
+            ptr(row_step), ptr(cb), segs, dsub, centroids, stream)
     if err < 0:
         raise ValueError(
             f"device_beam_search refused its arguments: "
@@ -461,7 +495,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.device_beam_search.argtypes = [p] * 16 + [i] * 16 + [f, f, p]
+    lib.device_beam_search.argtypes = ([p] * 16 + [i] * 16 + [f, f]
+                                       + [p] * 3 + [i] * 3 + [p])
     lib.device_beam_search.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p

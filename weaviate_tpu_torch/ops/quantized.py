@@ -1,14 +1,19 @@
-"""Quantized (compressed) vector search (port of the BQ and SQ half of
+"""Quantized (compressed) vector search (port of
 ``weaviate_tpu/ops/quantized.py``).
 
 - **BQ**: hamming(q, x) = |q| + |x| - 2 q.x over {0,1} bit planes; corpus
   bits stay packed (uint32 words, held as int32 tensors) in device memory.
 - **SQ**: asymmetric float-query x byte-code distance: decode(c) = a + s*c,
   so q.decode(c) = s*(q.c) + a*sum(q), one product + an affine epilogue.
+- **PQ**: the codes are decoded through the codebooks and multiplied:
+  bf16(q) . bf16(decode(c)) with float32 sums.
+- **RQ**: rotated query x per-row affine byte codes: q.decode(c) =
+  step_x*(q.c) + lower_x*sum(q).
 
-Two scans have hand-written CUDA kernels (``csrc/quantized.cu``): Q1, the
-BQ scan (``bq_search``), and Q2, the SQ scan (``sq_search``), both on the
-tensor cores. Each keeps an exact top-``k`` in its epilogue: a CTA walks a
+Every scan has a hand-written CUDA kernel (``csrc/quantized.cu``) on the
+tensor cores: Q1, the BQ scan (``bq_search``), Q2, the SQ scan
+(``sq_search``), Q3, the PQ scan (``pq_search``), and Q4, the RQ scan
+(``rq_search``). Each keeps an exact top-``k`` in its epilogue: a CTA walks a
 split of the rows for a tile of queries and leaves each query's ``k``
 smallest (order key, row) of the split in a list, [splits, B, cap]
 (``scan_plan``); the merge (``merge_partials``) takes the [splits, k]
@@ -18,14 +23,13 @@ the exact top-``k`` of its distances by (distance, id), the order the JAX
 package's chunked ``lax.top_k`` + ``merge_topk`` gives: lower id first on
 ties, masked rows at ``MASK_DISTANCE`` with id -1, and rows past the corpus
 padded the same way. The plain PyTorch versions (``_bq_search_plain``,
-``_sq_search_plain``) are the JAX programs step for step; each wrapper takes
+``_sq_search_plain``, ``_pq_search_plain``, ``_rq_search_plain``) are the
+JAX programs step for step; each wrapper takes
 its plain version for CPU tensors only, and on the card launches the kernel
 or raises. BQ distances are exact integers in float32 on both sides: the
 plain version unpacks the bits and multiplies, as JAX does (torch has no
 popcount), the kernel multiplies the packed bits. The frontier gathers stay
 torch ops: they serve the host walk, the fallback tier of the HNSW index.
-
-PQ and RQ come with slice 4b and raise.
 """
 
 from __future__ import annotations
@@ -43,11 +47,11 @@ from weaviate_tpu_torch.ops.distance import MASK_DISTANCE
 from weaviate_tpu_torch.ops.topk import merge_topk, smallest_k
 
 KERNEL = "quantized"
+# the metrics of the SQ, PQ and RQ scans
 SQ_METRICS = ("l2-squared", "dot", "cosine")
 # the widest rows and the largest k the kernels take
 MAX_DIMS = 4096
 MAX_K = 4096
-_SLICE_4B = ("{}: not ported yet (ROADMAP queue A, slice 4b: PQ and RQ)")
 
 
 # ---------------------------------------------------------------------------
@@ -178,14 +182,20 @@ bq_search.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _sq_epilogue(ip_codes, q_sum, q_sq, dsq, a, s, metric: str):
-    """Distances from q.codes ([B, C]): the JAX programs' affine epilogue."""
-    q_dot_dec = s * ip_codes + (a * q_sum)[:, None]
+def _metric_distance(q_dot_dec, q_sq, dsq, metric: str):
+    """Distances from q.decode(x) ([B, C]): l2-squared clamped at 0, dot
+    negated, cosine 1 - x (stored vectors were normalized)."""
     if metric == "l2-squared":
         return torch.clamp(q_sq[:, None] - 2.0 * q_dot_dec + dsq, min=0.0)
     if metric == "dot":
         return -q_dot_dec
-    return 1.0 - q_dot_dec  # cosine (stored vectors were normalized)
+    return 1.0 - q_dot_dec
+
+
+def _sq_epilogue(ip_codes, q_sum, q_sq, dsq, a, s, metric: str):
+    """Distances from q.codes ([B, C]): the JAX programs' affine epilogue."""
+    return _metric_distance(s * ip_codes + (a * q_sum)[:, None], q_sq, dsq,
+                            metric)
 
 
 def _sq_search_plain(queries, codes, dec_sqnorms, a, s, mask, metric: str,
@@ -231,24 +241,110 @@ sq_search.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# PQ / RQ: slice 4b
+# PQ: decode-and-multiply
 # ---------------------------------------------------------------------------
 
 
-def pq_search(*args, **kwargs):
-    raise NotImplementedError(_SLICE_4B.format("PQ scan"))
+def _pq_decode(codes, codebooks, d: int):
+    """[..., M] codes -> [..., d] rows of their centroids (the codebooks'
+    dtype)."""
+    m = codebooks.shape[0]
+    seg = torch.arange(m, device=codes.device)
+    decoded = codebooks[seg, codes.long()]  # [..., M, dsub]
+    return decoded.reshape(*codes.shape[:-1], -1)[..., :d]
 
 
-def rq_search(*args, **kwargs):
-    raise NotImplementedError(_SLICE_4B.format("RQ scan"))
+def _pq_search_plain(queries, codes, codebooks, dec_sqnorms, mask,
+                     metric: str, k: int, chunk: int = 32768):
+    """Exact distance to PQ-decoded rows: a chunk decoded (a codebook
+    gather), then one product (JAX ``pq_search``)."""
+    n, b = codes.shape[0], queries.shape[0]
+    q_sq = torch.sum(queries * queries, dim=-1)
+
+    def score(start, size):
+        decoded = _pq_decode(codes[start:start + size], codebooks,
+                             queries.shape[1])
+        ip = _bf16_ip(queries, decoded)
+        return _metric_distance(ip, q_sq,
+                                dec_sqnorms[start:start + size][None, :],
+                                metric)
+
+    return _chunked_topk(score, n, b, k, chunk, mask, codes.device)
 
 
-def pq_gather_distance(*args, **kwargs):
-    raise NotImplementedError(_SLICE_4B.format("PQ frontier gather"))
+def pq_search(queries, codes, codebooks, dec_sqnorms, mask, metric: str,
+              k: int, chunk: int = 32768):
+    """Exact PQ top-``k``: (dists [B, k], ids [B, k] int32) ascending by
+    (distance, id), -1/MASK padded. ``queries`` [B, D] float32 (normalized
+    already for cosine), ``codes`` [N, M] uint8, ``codebooks`` [M, C,
+    D/M] float32 or their bfloat16 copy (the products round the decoded
+    rows to bf16 either way, so both give the same distances). CUDA
+    tensors go to kernel Q3, CPU tensors to the plain version. The
+    ``launches`` attribute counts Q3's launches, one a search."""
+    if metric not in SQ_METRICS:
+        raise ValueError(f"PQ scan has no metric {metric!r}")
+    dev = codes.device
+    if dev.type == "cuda":
+        return pq_search_cuda(queries, codes, codebooks, dec_sqnorms, mask,
+                              metric, k)
+    if dev.type == "cpu":
+        return _pq_search_plain(queries, codes, codebooks, dec_sqnorms, mask,
+                                metric, k, chunk)
+    raise ValueError(f"no PQ scan for device {dev}")
 
 
-def rq_gather_distance(*args, **kwargs):
-    raise NotImplementedError(_SLICE_4B.format("RQ frontier gather"))
+pq_search.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# RQ: rotated query x per-row affine byte codes
+# ---------------------------------------------------------------------------
+
+
+def _rq_epilogue(ip_codes, q_sum, q_sq, lo, st, dsq, metric: str):
+    """Distances from q.codes ([B, C]) with each row's lower and step."""
+    return _metric_distance(st * ip_codes + q_sum[:, None] * lo, q_sq, dsq,
+                            metric)
+
+
+def _rq_search_plain(q_rot, codes, lower, step, dec_sqnorms, mask,
+                     metric: str, k: int, chunk: int = 131072):
+    """decode_x(c) = lower_x + step_x*c; q.decoded = step_x*(q.c) +
+    lower_x*sum(q) (JAX ``rq_search``)."""
+    n, b = codes.shape[0], q_rot.shape[0]
+    q_sum = torch.sum(q_rot, dim=-1)
+    q_sq = torch.sum(q_rot * q_rot, dim=-1)
+
+    def score(start, size):
+        ip_codes = _bf16_ip(q_rot, codes[start:start + size])
+        sl = slice(start, start + size)
+        return _rq_epilogue(ip_codes, q_sum, q_sq, lower[sl][None, :],
+                            step[sl][None, :], dec_sqnorms[sl][None, :],
+                            metric)
+
+    return _chunked_topk(score, n, b, k, chunk, mask, codes.device)
+
+
+def rq_search(q_rot, codes, lower, step, dec_sqnorms, mask, metric: str,
+              k: int, chunk: int = 131072):
+    """Exact RQ top-``k``, as ``sq_search``: ``q_rot`` [B, D'] float32
+    (rotated, normalized for cosine), ``codes`` [N, D'] uint8, ``lower``,
+    ``step``, ``dec_sqnorms`` [N] float32. CUDA tensors go to kernel Q4,
+    CPU tensors to the plain version. The ``launches`` attribute counts
+    Q4's launches, one a search."""
+    if metric not in SQ_METRICS:
+        raise ValueError(f"RQ scan has no metric {metric!r}")
+    dev = codes.device
+    if dev.type == "cuda":
+        return rq_search_cuda(q_rot, codes, lower, step, dec_sqnorms, mask,
+                              metric, k)
+    if dev.type == "cpu":
+        return _rq_search_plain(q_rot, codes, lower, step, dec_sqnorms, mask,
+                                metric, k, chunk)
+    raise ValueError(f"no RQ scan for device {dev}")
+
+
+rq_search.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +366,30 @@ def sq_gather_distance(queries, codes, candidate_ids, dec_sqnorms, a, s,
     q_sq = torch.sum(queries * queries, dim=-1) if metric == "l2-squared" \
         else None
     return _sq_epilogue(ip, q_sum, q_sq, dsq, a, s, metric)
+
+
+def pq_gather_distance(queries, codes, codebooks, candidate_ids, dec_sqnorms,
+                       metric: str):
+    """Per-query candidate distances in PQ code space. ids [B, C] -> [B, C]."""
+    ids = candidate_ids.long()
+    decoded = _pq_decode(codes[ids], codebooks, queries.shape[1])
+    dsq = dec_sqnorms[ids]
+    ip = torch.einsum("bd,bcd->bc", queries.to(torch.bfloat16).float(),
+                      decoded.to(torch.bfloat16).float())
+    q_sq = torch.sum(queries * queries, dim=-1)
+    return _metric_distance(ip, q_sq, dsq, metric)
+
+
+def rq_gather_distance(q_rot, codes, candidate_ids, lower, step, dec_sqnorms,
+                       metric: str):
+    """Per-query candidate distances in RQ code space. ids [B, C] -> [B, C]."""
+    ids = candidate_ids.long()
+    ip = torch.einsum("bd,bcd->bc", q_rot.to(torch.bfloat16).float(),
+                      codes[ids].to(torch.bfloat16).float())
+    q_sum = torch.sum(q_rot, dim=-1)
+    q_sq = torch.sum(q_rot * q_rot, dim=-1)
+    return _rq_epilogue(ip, q_sum, q_sq, lower[ids], step[ids],
+                        dec_sqnorms[ids], metric)
 
 
 def bq_gather_distance(q_packed, packed, candidate_ids, popcounts, dims: int):
@@ -337,8 +457,11 @@ def _source_ints(path: Path) -> dict:
 _TILES = _source_ints(Path(__file__).resolve().parents[1] / "csrc"
                       / f"{KERNEL}.cu")
 QUERY_TILE = _TILES["kQT"]
-ROWS_TILE = {"bq": _TILES["kBqR"], "sq": _TILES["kSqR"]}
-CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"], "sq": _TILES["kSqCtasPerSm"]}
+# Q2, Q3 and Q4 are one kernel template: they share Q2's tiles
+ROWS_TILE = {"bq": _TILES["kBqR"], "sq": _TILES["kSqR"], "pq": _TILES["kSqR"],
+             "rq": _TILES["kSqR"]}
+CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"], "sq": _TILES["kSqCtasPerSm"],
+               "pq": _TILES["kSqCtasPerSm"], "rq": _TILES["kSqCtasPerSm"]}
 # the candidate lists of a search stay under this many bytes, by taking
 # fewer splits (never fewer than one)
 LIST_BYTES = 1 << 29
@@ -357,8 +480,8 @@ class ScanPlan(NamedTuple):
 
 
 def scan_plan(kind: str, b: int, n: int, k: int, sms: int = 132) -> ScanPlan:
-    """The splits of a Q1 (``kind`` "bq") or Q2 ("sq") scan of ``b``
-    queries over ``n`` rows keeping ``k``: enough CTAs to fill ``sms`` SMs
+    """The splits of a Q1 (``kind`` "bq"), Q2 ("sq"), Q3 ("pq") or Q4
+    ("rq") scan of ``b`` queries over ``n`` rows keeping ``k``: enough CTAs to fill ``sms`` SMs
     (splits x query tiles), fewer when the lists [splits, b, cap] would pass
     ``LIST_BYTES``, at most one a tile of rows. A list holds 2k (rounded to
     32) plus a tile, so a compaction frees room for at least k more.
@@ -556,18 +679,10 @@ def sq_scan_cuda(qb, codes, dec_sqnorms, mask, q_sum, q_sq, a: float,
     dev = codes.device
     n, d = codes.shape
     b = qb.shape[0]
-    _check("queries", qb, torch.bfloat16, (b, _padded(d)), dev)
-    _check("codes", codes, torch.uint8, (n, d), dev)
-    _check("dec_sqnorms", dec_sqnorms, torch.float32, (n,), dev)
-    if mask is not None:
-        _check("mask", mask, torch.bool, (n,), dev)
+    _check_code_scan("SQ", qb, codes, dec_sqnorms, mask, d, metric, k, plan,
+                     cand_keys, cand_rows)
     _check("q_sum", q_sum, torch.float32, (b,), dev)
     _check("q_sq", q_sq, torch.float32, (b,), dev)
-    if metric not in SQ_METRICS:
-        raise ValueError(f"SQ scan has no metric {metric!r}")
-    _check_scan(b, n, d)
-    _check_k(k)
-    _check_lists(plan, b, cand_keys, cand_rows, dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.sq_scan(qb.data_ptr(), codes.data_ptr(),
@@ -630,14 +745,134 @@ def sq_search_cuda(queries, codes, dec_sqnorms, a: float, s: float, mask,
     return merge_partials(cand_keys, cand_rows, k)
 
 
+def _check_code_scan(name, qb, codes, dec_sqnorms, mask, d: int, metric: str,
+                     k: int, plan: ScanPlan, cand_keys, cand_rows):
+    """The checks Q2, Q3 and Q4 share: queries [B, _padded(d)] bf16, codes
+    [N, w] uint8, norms [N], mask, metric, k and the lists."""
+    dev = codes.device
+    n, w = codes.shape
+    b = qb.shape[0]
+    _check("queries", qb, torch.bfloat16, (b, _padded(d)), dev)
+    _check("codes", codes, torch.uint8, (n, w), dev)
+    _check("dec_sqnorms", dec_sqnorms, torch.float32, (n,), dev)
+    if mask is not None:
+        _check("mask", mask, torch.bool, (n,), dev)
+    if metric not in SQ_METRICS:
+        raise ValueError(f"{name} scan has no metric {metric!r}")
+    _check_scan(b, n, d)
+    _check_k(k)
+    _check_lists(plan, b, cand_keys, cand_rows, dev)
+
+
+def pq_scan_cuda(qb, codes, codebooks, dec_sqnorms, mask, q_sq, metric: str,
+                 k: int, plan: ScanPlan, cand_keys: torch.Tensor,
+                 cand_rows: torch.Tensor) -> None:
+    """Kernel Q3 on the current stream, one launch, into the lists as
+    ``bq_scan_cuda``. ``qb`` [B, Dp] the bf16-rounded queries zero-padded
+    (``sq_query_terms``), ``q_sq`` [B] float32 their unrounded sums of
+    squares, ``codes`` [N, M] uint8, ``codebooks`` [M, C, D/M] the bfloat16
+    copy (16-byte aligned, as torch allocates). Raises as ``bq_scan_cuda``;
+    each launch adds one to ``pq_search.launches``."""
+    dev = codes.device
+    m, c, dsub = codebooks.shape
+    d = m * dsub
+    b = qb.shape[0]
+    if codes.shape[1] != m:
+        raise ValueError(f"codes have {codes.shape[1]} segments, the "
+                         f"codebooks {m}")
+    _check_code_scan("PQ", qb, codes, dec_sqnorms, mask, d, metric, k, plan,
+                     cand_keys, cand_rows)
+    _check("codebooks", codebooks, torch.bfloat16, (m, c, dsub), dev)
+    _check("q_sq", q_sq, torch.float32, (b,), dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.pq_scan(qb.data_ptr(), codes.data_ptr(),
+                          codebooks.data_ptr(), dec_sqnorms.data_ptr(),
+                          _ptr(mask), q_sq.data_ptr(),
+                          SQ_METRICS.index(metric), cand_keys.data_ptr(),
+                          cand_rows.data_ptr(), b, codes.shape[0], d,
+                          _padded(d), m, dsub, c, k, plan.splits,
+                          plan.split_rows, plan.cap,
+                          torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "pq_scan")
+    pq_search.launches += 1
+
+
+def rq_scan_cuda(qb, codes, lower, step, dec_sqnorms, mask, q_sum, q_sq,
+                 metric: str, k: int, plan: ScanPlan,
+                 cand_keys: torch.Tensor, cand_rows: torch.Tensor) -> None:
+    """Kernel Q4 on the current stream, one launch, into the lists as
+    ``bq_scan_cuda``: ``sq_scan_cuda``'s operands with each row's
+    ``lower`` and ``step`` [N] float32 in place of ``a`` and ``s``; the
+    rotated codes [N, D'] have D' a multiple of 64 and start on 16 bytes.
+    Each launch adds one to ``rq_search.launches``."""
+    dev = codes.device
+    n, d = codes.shape
+    b = qb.shape[0]
+    _check_code_scan("RQ", qb, codes, dec_sqnorms, mask, d, metric, k, plan,
+                     cand_keys, cand_rows)
+    _check("lower", lower, torch.float32, (n,), dev)
+    _check("step", step, torch.float32, (n,), dev)
+    _check("q_sum", q_sum, torch.float32, (b,), dev)
+    _check("q_sq", q_sq, torch.float32, (b,), dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.rq_scan(qb.data_ptr(), codes.data_ptr(),
+                          dec_sqnorms.data_ptr(), lower.data_ptr(),
+                          step.data_ptr(), _ptr(mask), q_sum.data_ptr(),
+                          q_sq.data_ptr(), SQ_METRICS.index(metric),
+                          cand_keys.data_ptr(), cand_rows.data_ptr(), b, n, d,
+                          _padded(d), k, plan.splits, plan.split_rows,
+                          plan.cap, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "rq_scan")
+    rq_search.launches += 1
+
+
+def pq_search_cuda(queries, codes, codebooks, dec_sqnorms, mask, metric: str,
+                   k: int):
+    """Kernels Q3 and the merge on the current stream: the contract of
+    ``pq_search``, one ``pq_scan_cuda`` over every query and one
+    ``merge_partials``. Float32 codebooks are rounded to bf16 here (the
+    quantizer hands over its bf16 copy, made once per fit)."""
+    dev = codes.device
+    b, d = queries.shape
+    _check("queries", queries, torch.float32, (b, d), dev)
+    if codebooks.dtype != torch.bfloat16:
+        codebooks = codebooks.to(torch.bfloat16).contiguous()
+    qb, _, q_sq = sq_query_terms(queries)
+    plan = device_plan("pq", b, codes.shape[0], k, dev)
+    cand_keys, cand_rows = _lists(plan, b, dev)
+    pq_scan_cuda(qb, codes, codebooks, dec_sqnorms, mask, q_sq, metric, k,
+                 plan, cand_keys, cand_rows)
+    return merge_partials(cand_keys, cand_rows, k)
+
+
+def rq_search_cuda(q_rot, codes, lower, step, dec_sqnorms, mask, metric: str,
+                   k: int):
+    """Kernels Q4 and the merge on the current stream: the contract of
+    ``rq_search``, as ``sq_search_cuda``."""
+    dev = codes.device
+    b, d = q_rot.shape
+    _check("queries", q_rot, torch.float32, (b, d), dev)
+    qb, q_sum, q_sq = sq_query_terms(q_rot)
+    plan = device_plan("rq", b, codes.shape[0], k, dev)
+    cand_keys, cand_rows = _lists(plan, b, dev)
+    rq_scan_cuda(qb, codes, lower, step, dec_sqnorms, mask, q_sum, q_sq,
+                 metric, k, plan, cand_keys, cand_rows)
+    return merge_partials(cand_keys, cand_rows, k)
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bq_scan.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.sq_scan.argtypes = [p] * 6 + [f, f, i, p, p] + [i] * 8 + [p]
+    lib.rq_scan.argtypes = [p] * 8 + [i] + [p] * 2 + [i] * 8 + [p]
+    lib.pq_scan.argtypes = [p] * 6 + [i] + [p] * 2 + [i] * 11 + [p]
     lib.topk_merge.argtypes = [p] * 4 + [i] * 4 + [p]
-    for fn in (lib.bq_scan, lib.sq_scan, lib.topk_merge):
+    for fn in (lib.bq_scan, lib.sq_scan, lib.rq_scan, lib.pq_scan,
+               lib.topk_merge):
         fn.restype = i
     lib.quantized_error_string.argtypes = [i]
     lib.quantized_error_string.restype = ctypes.c_char_p

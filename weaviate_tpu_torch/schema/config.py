@@ -270,9 +270,9 @@ class VectorIndexConfig:
     # Quantized indexes keep raw originals host-side for the exact rescore
     # tier (reference keeps them LSM-resident, flat/index.go:49): "ram"
     # float32, "ram16" float16 (half the RAM), "disk16" a float16 memmap
-    # paged from disk, "disk8" per-row affine int8. The port has the BQ and
-    # SQ quantizers (PQ and RQ: ROADMAP queue A slice 4b) and the two RAM
-    # tiers; the disk tiers come with slice 9. Without a quantizer the
+    # paged from disk, "disk8" per-row affine int8. The port has the four
+    # quantizers (BQ, SQ, PQ, RQ) and the two RAM tiers; the disk tiers
+    # come with slice 9. Without a quantizer the
     # raw corpus stays in device memory and this is not read.
     raw_tier: str = "ram"  # ram | ram16 | disk16 | disk8
     raw_path: Optional[str] = None
