@@ -17,7 +17,11 @@ non-zero without the final line:
              1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
              graphs the port builds on the card, with its BQ scorer (equal
              to the plain walk) and its SQ, PQ and RQ scorers
-             (l2/dot/cosine, unfiltered and filtered) on each;
+             (l2/dot/cosine, unfiltered and filtered) on each, then the
+             code rows at the edges the kernel's staged paths branch on
+             (``code_edge_walks``: the widest SQ walk admitted, PQ at
+             config 3's 96 x 16 through its ADC table, PQ whose table does
+             not fit through the chunked centroid gather);
              the BQ scan (Q1, equal to its plain version), the SQ scan
              (Q2), the PQ scan (Q3, segments of 8, 96 and D/4 and
              sub-widths of 3 and 6) and the RQ scan (Q4) over B of
@@ -47,8 +51,9 @@ non-zero without the final line:
              launches and B2's summed time in the build, recall@10 against
              the exact float32 answer, search p50/p99 and one launch per
              search, B2's time on the search's launch and on a construction
-             launch beside its bound and its plain version, the host walk on
-             the same index, an ef sweep, a 1% delete, device memory.
+             launch beside its bound and its plain version (and µs a hop),
+             the host walk on the same index, an ef sweep, a 1% delete,
+             device memory.
 7. hnsw_db — the same rows (the first HNSW_DB_ROWS) as objects through
              ``DB`` -> ``Collection`` with an HNSW index: search unfiltered,
              under a 1% filter (the planner's exact plan) and under the
@@ -79,7 +84,9 @@ non-zero without the final line:
              collection (cosine): unfiltered (B2-SQ), 1% (the exact plan:
              Q2) and the resident 45% filter (the filtered beam) searches,
              close and reopen (graph.npz + quantizer.msgpack, codes rebuilt
-             from the objects), a crash and reopen, each with the same uuids.
+             from the objects), a crash and reopen, each with the same
+             uuids; B2-SQ's widest ingest launch timed as a construction
+             launch.
 11. pq     — BASELINE.json config 3 (DBpedia-OpenAI 1M 1536-d, PQ with 96
              segments) as ``bench.py bench_pq`` runs it, not cut: 1,000,000
              clustered 1536-d rows made on the card, l2-squared,
@@ -93,7 +100,9 @@ non-zero without the final line:
              configuration: ef 96, M 16, PQ 96 segments, rescore 40) at
              HNSW_PQ_ROWS rows: the build, recall@10 of the device walk
              and the host walk, one B2 launch a search, B2-PQ beside its
-             bound and its plain version.
+             bound and its plain version on the search's launch and on
+             the build's widest launch (so in phases ``quant`` for B2-RQ
+             and ``hnsw_quant`` for B2-BQ).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -737,6 +746,71 @@ def check_kept(kernel, plain, allow, present, agreement_min):
     return out
 
 
+# code rows at the edges of the kernel's staged paths: (name, row type,
+# metric, rows, D, PQ segments, M0, batch, ef, (allowed, keep_k, expand))
+CODE_EDGES = (
+    # the widest SQ walk the wrapper admits: 4,096 codes a row, a frontier
+    # of 640 and a kept track of 512, many staging chunks a hop
+    ("sq_widest", "sq", "l2-squared", 2_048, 4096, 0, 128, 2, 512,
+     (0.5, 512, 4)),
+    # config 3's widths: 96 codes into 16-d centroids, the ADC table
+    ("pq_96x16", "pq", "l2-squared", 4_096, 1536, 96, 32, 256, 128, None),
+    ("pq_96x16_kept", "pq", "dot", 4_096, 1536, 96, 32, 64, 128,
+     (0.45, 32, 1)),
+    # 384 x 256 float32 is past a block's shared memory: no table, the
+    # chunk's centroid pieces gathered
+    ("pq_384x4_gather", "pq", "l2-squared", 4_096, 1536, 384, 32, 64, 64,
+     (0.1, 8, 2)),
+)
+
+
+def code_edge_walks(seed: int) -> dict:
+    """B2's code rows at ``CODE_EDGES`` against the plain walk, on seeded
+    random graphs made on the card (every node present, no upper layers),
+    the rows encoded by the port's quantizers, at MIN_ID_AGREEMENT_BF16 and
+    ATOL/RTOL (beam and kept track)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    out = {}
+    for name, kind, metric, n, d, segs, m0, b, ef, flt in CODE_EDGES:
+        rows = torch.randn(n, d, device=dev, generator=gen)
+        scorer, ops, q = quant_walk_inputs(
+            kind, metric, rows,
+            rows[:b] + 0.1 * torch.randn(b, d, device=dev, generator=gen),
+            segs)
+        adj = torch.randint(0, n, (n, m0), device=dev, generator=gen,
+                            dtype=torch.int32)
+        present = torch.ones(n, dtype=torch.bool, device=dev)
+        eps = torch.randint(0, n, (b,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        kw = {}
+        if flt:
+            kw = dict(allow=torch.rand(n, device=dev, generator=gen) < flt[0],
+                      keep_k=flt[1], expand=flt[2])
+        args = (scorer, q, ops, adj, present, eps,
+                *device_beam._empty_upper(dev), ef, 4 * ef + 64)
+        stats = torch.zeros((b, len(device_beam.STATS)), dtype=torch.int32,
+                            device=dev)
+        kernel = device_beam.fused_search_cuda(*args, **kw, stats=stats)
+        plain = device_beam._fused_search(*args, **kw)
+        torch.cuda.synchronize()
+        err, same, total = compare_walks(kernel[:2], plain[:2],
+                                         MIN_ID_AGREEMENT_BF16)
+        if flt:
+            ek, sk, tk = check_kept(kernel[2:], plain[2:], kw["allow"],
+                                    present, MIN_ID_AGREEMENT_BF16)
+            err, same, total = max(err, ek), same + sk, total + tk
+        out[name] = {"rows": n, "dims": d, "segments": segs, "m0": m0,
+                     "frontier": m0 * (1 + (flt[2] if flt else 0)),
+                     "b": b, "ef": ef, "keep_k": flt[1] if flt else 0,
+                     "max_abs_err": err, "id_agreement": same / total,
+                     "steps_max": int(stats[:, 0].max()),
+                     "scored_mean": float(stats[:, 1].float().mean())}
+        del rows, ops, adj, kernel, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def beam_kernel_grid(seed: int) -> dict:
     """B2 against its plain version on the card. One graph per (D, M) from
     the port's own build (``HNSWIndex`` with the fused walk, 2% deleted:
@@ -963,6 +1037,7 @@ def beam_kernel_grid(seed: int) -> dict:
         quant[f"{kind}_metrics"] = sorted(quant[f"{kind}_metrics"])
     return {"cases": cases,
             "quantized_walks": quant,
+            "code_row_edges": code_edge_walks(seed),
             "filtered_cases": fcase + len(B2_DIMS) * len(B2_M) // 2,
             "graphs": len(B2_DIMS) * len(B2_M),
             "graph_rows": B2_ROWS, "graph_build_s": builds,
@@ -1496,12 +1571,15 @@ def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
               + st[2] * m0 * 4 + st[3] * m * 4 + b * (ef + keep_k) * 8)
     extra = {}
     if isinstance(scorer, device_beam.PQScorer):
-        # the bf16 codebooks, read once; each scored row gathers its
-        # centroids (D bf16 values) from them, in L2
+        # the bf16 codebooks, read once; beside the bound, what the kernel
+        # reads of them from L2: each query's ADC table reads them whole,
+        # or, where the table does not fit, each scored row gathers its
+        # centroids (D bf16 values)
         cb = operands[1]
         nbytes += cb.numel() * 2
         extra = {"codebook_bytes": cb.numel() * 2,
-                 "centroid_bytes_gathered": st[1] * cb.shape[0]
+                 "table_build_bytes": b * cb.numel() * 2,
+                 "centroid_bytes_gathered_without_table": st[1] * cb.shape[0]
                  * cb.shape[2] * 2}
     flops = float(st[1] * ops)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
@@ -1512,6 +1590,7 @@ def walk_bound(args, kw, stats: torch.Tensor) -> tuple[float, str, dict]:
              "overhead_bytes": {"speculative_rows": st[4] * row_bytes,
                                 "read_ahead_lost": st[5] * m0 * 4},
              "steps_mean": float(per_q[:, 0].mean()),
+             "steps_median": float(per_q[:, 0].median()),
              "steps_max": int(stats[:, 0].max()),
              "scored_mean": float(per_q[:, 1].mean()),
              "speculative_rows_mean": float(per_q[:, 4].mean()),
@@ -1560,6 +1639,8 @@ def time_walk(args, kw, iters: int, plain_iters: int) -> dict:
             "ms_median": float(np.median(ms)), "ms_max": float(np.max(ms)),
             "ms_back_to_back": t0.elapsed_time(t1) / iters,
             "ms_per_hop": float(np.median(ms)) / max(1, work["steps_max"]),
+            "us_per_hop": float(np.median(ms)) * 1e3
+            / max(1.0, work["steps_median"]),
             "plain_ms": float(np.median(plain_ms)), "bound_ms": bound_ms,
             "bound_by": bound_by, "work": work, "vs_plain_max_abs_err": err,
             "vs_plain_id_agreement": same / max(1, total)}
@@ -1666,6 +1747,8 @@ def phase_hnsw(state: dict) -> dict:
         "launches_build": build_launches,
         "launches_per_search": search_launches,
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+        "us_per_hop": walk["us_per_hop"],
+        "construction_launch_ms": cwalk["ms_median"],
         "overhead_bytes": walk["work"]["overhead_bytes"],
     }
     del idx, store_corpus, valid, valid_after, args, kw, cargs, ckw
@@ -2383,6 +2466,9 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
     with LaunchSpy() as spy:
         idx.search(queries, K)
     walk = time_walk(*spy.last, 20, 1)
+    # the build's widest launch: the rows of a sub-batch that fit the
+    # visited budget, ef_construction padded
+    cwalk = time_walk(*build_spy.widest, 5, 1)
     beam = idx._device_beam
     idx._device_beam = None
     try:
@@ -2405,6 +2491,8 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
         "library_ms": None, "launches_build": build_launches,
         "launches_per_search": search_launches,
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+        "us_per_hop": walk["us_per_hop"],
+        "construction_launch_ms": cwalk["ms_median"],
     }
     peak = torch.cuda.max_memory_allocated()
     del idx, beam, spy, build_spy
@@ -2422,7 +2510,7 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
         "search_p50_ms": float(np.percentile(search_ms, 50)),
         "search_p99_ms": float(np.percentile(search_ms, 99)),
         "host_walk_p50_ms": float(np.percentile(host_ms, 50)),
-        "b2_search_launch": walk,
+        "b2_search_launch": walk, "b2_construction_launch": cwalk,
         "peak_device_bytes": peak, "card": state["card"],
     }
 
@@ -2542,7 +2630,8 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         resident_filters=[beam_flt.to_dict()]))
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
-    put(col, 0, n)
+    with LaunchSpy() as build_spy:
+        put(col, 0, n)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     ingest_launches = device_beam.fused_search.launches
@@ -2606,6 +2695,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     with LaunchSpy() as spy:
         db_search(col, queries)
     walk = time_walk(*spy.last, 10, 1)
+    cwalk = time_walk(*build_spy.widest, 5, 1)
     search_ms = host_p(lambda: db_search(col, queries), 10)
     filtered_ms = host_p(lambda: db_search(col, queries, flt), 5)
     beam_ms = host_p(lambda: db_search(col, queries, beam_flt), 5)
@@ -2620,11 +2710,13 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "library_ms": None, "launches_ingest": ingest_launches,
         "launches_per_search": launches,
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
+        "us_per_hop": walk["us_per_hop"],
+        "construction_launch_ms": cwalk["ms_median"],
     }
     state["kernel_q2"]["launches"] += q2_launches
     state["kernel_merge"]["launches"] += q2_merge_launches
     state["kernel_merge"]["launches_quant_db"] = q2_merge_launches
-    del unit, qt, spy
+    del unit, qt, spy, build_spy
 
     t0 = time.perf_counter()
     db.close()
@@ -2672,6 +2764,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "filtered_search_p50_ms": float(np.percentile(filtered_ms, 50)),
         "filtered_beam_search_p50_ms": float(np.percentile(beam_ms, 50)),
         "b2_search_launch": walk, "b2_filtered_beam_launch": beam_walk,
+        "b2_construction_launch": cwalk,
         "reopen_s": reopen_s, "crash_reopen_s": crash_reopen_s,
         "commit_log_bytes_replayed": pending,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),

@@ -1,20 +1,38 @@
 """Where the fused HNSW walk's (B2) time goes, on one card.
 
-    python3 probe_device_beam.py [--against FILE.cu] [--rows 1200000]
-                                 [--iters 10]
+    python3 probe_device_beam.py [--row raw|sq|pq|rq] [--against FILE.cu]
+                                 [--copies a,b] [--rows N] [--iters 10]
 
 On a graph of ``--rows`` nodes with 32 random neighbours each (seeded on
-the card; the walk's memory pattern at the scale of phase ``hnsw``, whose
-HNSW ids are random too, without its four-minute build), unit 25-d rows,
-cosine at bf16, B = 256 queries (rows + noise), ef 64 and the search's
+the card; the walk's memory pattern at the scale of a cell, whose HNSW ids
+are random too, without its build), B = 256 queries and the search's
 ``max_steps``, it times ``fused_search_cuda`` (CUDA events around
 ``--iters`` launches back to back, so the host's part of a launch is
 hidden) for ``weaviate_tpu_torch/csrc/device_beam.cu`` as it is
 (``as_is``), held against the plain version (the share of equal ids),
-unfiltered and filtered (45% allowed, a kept track of 32, expand 1). A
-copy of it with clock64 counters (``counters``) splits a warp's cycles
-into the upper descent, a hop's adjacency round, its gather (flags, rows,
-compaction, marks), the rank of its new entries and the merge.
+unfiltered and filtered (45% allowed, a kept track of 32, expand 1). The
+rows, by ``--row``, at their cells' widths (random rows and codes made on
+the card from a seed):
+
+- ``raw`` (phase ``hnsw``): 1,200,000 unit 25-d float32 rows, cosine at
+  bf16, ef 64;
+- ``sq`` (phase ``quant_db``): 100,000 rows of 768 SQ codes, cosine, ef
+  128 (the index pads ef 96 to 128);
+- ``pq`` (phase ``hnsw_pq``, config 3): 32,768 rows of 96 PQ codes into
+  96 x 256 bf16 centroids of 16 dimensions, l2-squared, ef 128;
+- ``rq`` (phase ``quant``'s HNSW + RQ): 32,768 rows of 768 RQ codes with
+  their lower and step, cosine, ef 128.
+
+A copy with clock64 counters (``counters``) splits a warp's cycles into
+the upper descent (the PQ table's build and the entry point included), a
+hop's adjacency round, its gather (flags, compaction, marks and, for code
+rows, the staged rows' copies and scoring), the rank of its new entries
+and the merge; for code rows also the cycles of the row copies (issue to
+wait) and of the scoring from shared memory, each summed over every call
+(the upper descent's few included) and divided by the hops, and the PQ
+table's build a walk. ``--copies`` also builds copies with one constant
+changed (``COPIES``: the lanes a staged code row is scored by), each timed
+and held against ``as_is``.
 ``--against FILE.cu`` also builds another version of the kernel source (a
 file with the same C interface, e.g. one unpacked from another commit into
 git-ignored ``_chipcheck/``) as the copy ``against``, held against
@@ -43,13 +61,25 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "weaviate_tpu_torch" / "csrc" / "device_beam.cu"
 OUT = ROOT / "weaviate_tpu_torch" / "_build" / "probe_beam"
 
-D, M0, B, EF = 25, 32, 256, 64
+M0, B = 32, 256
+# --row: (rows, D, ef) at the cell's widths
+ROWS = {"raw": (1_200_000, 25, 64), "sq": (100_000, 768, 128),
+        "pq": (32_768, 1536, 128), "rq": (32_768, 768, 128)}
+PQ_SEGMENTS, PQ_CENTROIDS = 96, 256
 
 # clock64 counters, summed over warps: [0] upper descent, [1] adjacency
 # rounds, [2] gathers, [3] ranks of the new entries, [4] merges (the
-# read-ahead issued), [5] the whole walk, [6] hops
+# read-ahead issued), [5] the whole walk, [6] hops; code rows: [7] the row
+# copies (issue to wait), [8] the scoring from shared memory, [9] the PQ
+# table's build
+NCOUNT = 10
 COUNTERS = [
-    ("namespace {\n", "__device__ unsigned long long g_probe[8];\nnamespace {\n"),
+    ("namespace {\n",
+     "__device__ unsigned long long g_probe[10];\n"
+     "__device__ __forceinline__ void probe_add(int i, long long v) {\n"
+     "  if ((threadIdx.x & 31) == 0)\n"
+     "    atomicAdd(&g_probe[i], (unsigned long long)v);\n}\n"
+     "namespace {\n"),
     ("  const int ef = p.ef, kk = p.keep_k, m0 = p.m0;\n",
      "  const int ef = p.ef, kk = p.keep_k, m0 = p.m0;\n"
      "  const long long tk0 = clock64();\n"
@@ -79,13 +109,32 @@ COUNTERS = [
      "  const int spec = SPEC ?"),
     ("const char* device_beam_error_string(int code) {",
      "int probe_counters(unsigned long long* out) {\n"
-     "  unsigned long long zero[8] = {};\n"
+     "  unsigned long long zero[10] = {};\n"
      "  cudaMemcpyFromSymbol(out, g_probe, sizeof(zero));\n"
      "  return int(cudaMemcpyToSymbol(g_probe, zero, sizeof(zero)));\n}\n"
      "const char* device_beam_error_string(int code) {"),
+    ("    const int nr = min(p.stage_rows, count - base);\n",
+     "    const int nr = min(p.stage_rows, count - base);\n"
+     "    long long tc = clock64();\n"),
+    ("    __syncwarp();  // every staged row has landed\n",
+     "    __syncwarp();  // every staged row has landed\n"
+     "    probe_add(7, clock64() - tc);\n    tc = clock64();\n"),
+    ("    __syncwarp();  // the chunk is scored before the stage is reused\n",
+     "    __syncwarp();  // the chunk is scored before the stage is reused\n"
+     "    probe_add(8, clock64() - tc);\n"),
+    ("  if (ROW == kPqRow && p.table) build_table(p, w);\n",
+     "  if (ROW == kPqRow && p.table) {\n"
+     "    const long long tb = clock64();\n    build_table(p, w);\n"
+     "    probe_add(9, clock64() - tb);\n  }\n"),
 ]
+# copies with one constant changed
+COPIES = {
+    "code_g2": [("constexpr int kCodeG = 4;", "constexpr int kCodeG = 2;")],
+    "code_g8": [("constexpr int kCodeG = 4;", "constexpr int kCodeG = 8;")],
+}
 PARTS = ("upper_descent", "adjacency_round", "gather", "rank", "merge",
          "walk")
+CODE_PARTS = {7: "row_copies", 8: "scoring"}
 
 
 def edited(edits) -> str:
@@ -118,21 +167,52 @@ def build(copies: dict[str, str]) -> dict[str, Path]:
     return libs
 
 
-def inputs(rows: int):
-    """(queries, corpus, adjacency, present, eps, allow) on the card."""
+def inputs(row: str, rows: int):
+    """(scorer, queries, operands, adjacency, present, eps, allow) on the
+    card, the rows of type ``row``."""
+    from weaviate_tpu_torch.ops import device_beam as db
     from weaviate_tpu_torch.ops.distance import normalize
 
+    _, d, _ = ROWS[row]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    c = normalize(torch.randn(rows, D, device="cuda", generator=gen))
+    c = normalize(torch.randn(rows, d, device="cuda", generator=gen))
     adj = torch.randint(0, rows, (rows, M0), device="cuda", generator=gen,
                         dtype=torch.int32)
     present = torch.ones(rows, dtype=torch.bool, device="cuda")
-    q = normalize(c[:B] + 0.08 * torch.randn(B, D, device="cuda",
+    q = normalize(c[:B] + 0.08 * torch.randn(B, d, device="cuda",
                                              generator=gen)).contiguous()
     eps = torch.randint(0, rows, (B,), device="cuda", generator=gen,
                         dtype=torch.int32)
     allow = torch.rand(rows, device="cuda", generator=gen) < 0.45
-    return q, c.contiguous(), adj, present, eps, allow
+    if row == "raw":
+        scorer, operands = db.RawScorer("cosine", "bf16"), (c.contiguous(),)
+    elif row == "pq":
+        # codes and codebooks drawn at random: a walk's bytes and rounds do
+        # not depend on what the centroids hold
+        m = PQ_SEGMENTS
+        codes = torch.randint(0, PQ_CENTROIDS, (rows, m), device="cuda",
+                              generator=gen, dtype=torch.uint8)
+        cb = (0.25 * torch.randn(m, PQ_CENTROIDS, d // m, device="cuda",
+                                 generator=gen)).to(torch.bfloat16)
+        norms = (cb.float() ** 2).sum(-1)  # [m, centroids]
+        dsq = norms.gather(1, codes.long().t()).sum(0).contiguous()
+        scorer, operands = db.PQScorer("l2-squared"), (codes, cb, dsq)
+    else:
+        # codes of the unit rows on a fixed grid of [-1, 1], the SQ decode
+        # and RQ's per-row lower and step
+        step = 2.0 / 255.0
+        codes = ((c + 1.0) / step).round().clamp(0, 255).to(torch.uint8)
+        dec = codes.float() * step - 1.0
+        dsq = (dec * dec).sum(1).contiguous()
+        if row == "sq":
+            scorer = db.SQScorer("cosine")
+            operands = (codes.contiguous(), dsq, -1.0, step)
+        else:
+            lower = torch.full((rows,), -1.0, device="cuda")
+            steps = torch.full((rows,), step, device="cuda")
+            scorer = db.RQScorer("cosine")
+            operands = (codes.contiguous(), lower, steps, dsq)
+    return scorer, q, operands, adj, present, eps, allow
 
 
 def launch_ms(fn, iters: int) -> float:
@@ -151,9 +231,12 @@ def launch_ms(fn, iters: int) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=1_200_000)
+    ap.add_argument("--row", choices=tuple(ROWS), default="raw")
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--copies", default="",
+                    help=f"comma-separated, of {sorted(COPIES)}")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -161,29 +244,37 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from weaviate_tpu_torch.ops import device_beam as db
 
+    rows = args.rows or ROWS[args.row][0]
+    ef = ROWS[args.row][2]
     copies = {"as_is": SOURCE.read_text(), "counters": edited(COUNTERS)}
+    for name in filter(None, args.copies.split(",")):
+        copies[name] = edited(COPIES[name])
     if args.against:
         copies["against"] = Path(args.against).read_text()
     libs = {name: db.declare(ctypes.CDLL(str(path)))
             for name, path in build(copies).items()}
-    q, c, adj, present, eps, allow = inputs(args.rows)
+    scorer, q, ops, adj, present, eps, allow = inputs(args.row, rows)
     up = db._empty_upper("cuda")
-    scorer = db.RawScorer("cosine", "bf16")
-    steps = 4 * EF + 64
+    steps = 4 * ef + 64
+    walk = (scorer, q, ops, adj, present, eps, *up, ef, steps)
+    kw = dict(allow=allow, keep_k=32, expand=1)
     ref = None
     for name, lib in libs.items():
         db._library = lambda lib=lib: lib
         stats = torch.zeros((B, len(db.STATS)), dtype=torch.int32,
                             device="cuda")
-        ids, _ = db.fused_search_cuda(scorer, q, (c,), adj, present, eps, *up,
-                                      EF, steps, stats=stats)
-        ms = launch_ms(lambda: db.fused_search_cuda(
-            scorer, q, (c,), adj, present, eps, *up, EF, steps), args.iters)
+        ids, _ = db.fused_search_cuda(*walk, stats=stats)
+        ms = launch_ms(lambda: db.fused_search_cuda(*walk), args.iters)
         hops = int(stats[:, 0].max())
-        out = {"copy": name, "rows": args.rows, "b": B, "ef": EF,
+        hops_median = float(stats[:, 0].float().median())
+        out = {"copy": name, "row": args.row, "rows": rows,
+               "dims": q.shape[1], "b": B, "ef": ef,
                "launch_ms": ms, "hops_max": hops,
                "hops_mean": float(stats[:, 0].float().mean()),
+               "hops_median": hops_median,
                "us_per_hop": ms * 1e3 / max(1, hops),
+               "us_per_hop_median": ms * 1e3 / max(1.0, hops_median),
+               "scored_mean": float(stats[:, 1].float().mean()),
                "speculative_rows_mean": float(stats[:, 4].float().mean()),
                "read_ahead_lost_mean": float(stats[:, 5].float().mean())}
         if ref is None:
@@ -192,38 +283,40 @@ def main(argv=None) -> int:
             out["ids_equal_share"] = float((ids == ref).float().mean())
         if name == "as_is":
             # held against the plain version, unfiltered and filtered
-            kw = dict(allow=allow, keep_k=32, expand=1)
             for tag, extra in (("", {}), ("filtered_", kw)):
-                got = db.fused_search_cuda(scorer, q, (c,), adj, present, eps,
-                                           *up, EF, steps, **extra)
-                want = db._fused_search(scorer, q, (c,), adj, present, eps,
-                                        *up, EF, steps, **extra)
+                got = db.fused_search_cuda(*walk, **extra)
+                want = db._fused_search(*walk, **extra)
                 out[f"{tag}ids_equal_plain_share"] = float(torch.cat(
                     [(g == w_).float().flatten()
                      for g, w_ in zip(got[::2], want[::2])]).mean())
-            out["filtered_launch_ms"] = launch_ms(lambda: db.fused_search_cuda(
-                scorer, q, (c,), adj, present, eps, *up, EF, steps, **kw),
-                args.iters)
+                live = (got[0] == want[0]) & (want[0] >= 0)
+                out[f"{tag}max_abs_err_plain"] = float(
+                    (got[1] - want[1]).abs()[live].max()) if bool(
+                        live.any()) else 0.0
+            out["filtered_launch_ms"] = launch_ms(
+                lambda: db.fused_search_cuda(*walk, **kw), args.iters)
         if name == "counters":
             lib.probe_counters.argtypes = [ctypes.c_void_p]
-            cnt = (ctypes.c_ulonglong * 8)()
+            cnt = (ctypes.c_ulonglong * NCOUNT)()
             torch.cuda.synchronize()
             lib.probe_counters(cnt)  # reset
-            db.fused_search_cuda(scorer, q, (c,), adj, present, eps, *up, EF,
-                                 steps)
+            db.fused_search_cuda(*walk)
             torch.cuda.synchronize()
             lib.probe_counters(cnt)
-            out["cycles_per_hop"] = {
-                part: cnt[i] / max(1, cnt[6]) for i, part in enumerate(PARTS)}
+            per_hop = {part: cnt[i] / max(1, cnt[6])
+                       for i, part in enumerate(PARTS)}
+            per_hop.update({part: cnt[i] / max(1, cnt[6])
+                            for i, part in CODE_PARTS.items()})
+            out["cycles_per_hop"] = per_hop
+            out["table_cycles_per_walk"] = cnt[9] / B
             out["hops_counted"] = cnt[6]
         print(json.dumps(out), flush=True)
     if args.against:
         turns = []
         for name in ("as_is", "against", "against", "as_is"):
             db._library = lambda lib=libs[name]: lib
-            turns.append((name, launch_ms(lambda: db.fused_search_cuda(
-                scorer, q, (c,), adj, present, eps, *up, EF, steps),
-                args.iters)))
+            turns.append((name, launch_ms(
+                lambda: db.fused_search_cuda(*walk), args.iters)))
         print(json.dumps({"turns": turns}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",

@@ -22,8 +22,11 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   matched distances within 1e-5 (float32 sums of the same bf16 products in
   another order); so with ``PQScorer`` (codes through JAX-trained
   codebooks) and ``RQScorer`` (rotated queries against per-row affine
-  codes). Filtered walks included. All four row types pass the kernel's
-  argument checks.
+  codes). Filtered walks included, and the widths the kernel's code-row
+  paths branch on: PQ at config 3's 96 segments of 16, an SQ row of 99
+  bytes (not a multiple of 16), and a filtered SQ walk whose frontier is
+  160 (M0 32, expand 4). All four row types pass the kernel's argument
+  checks.
 - ``dispatch_count()`` goes up by exactly one per launch of a search: one
   for a batch whose visited bitsets fit the budget.
 - The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
@@ -441,11 +444,15 @@ def test_largest_admitted_walk_fits_a_blocks_shared_memory():
     assert int((kept[0] >= 0).sum()) == 32
 
 
-@pytest.mark.parametrize("old,new", probe.COUNTERS, ids=[
-    f"counters_{i}" for i in range(len(probe.COUNTERS))])
+@pytest.mark.parametrize("old,new", probe.COUNTERS + [
+    edit for edits in probe.COPIES.values() for edit in edits], ids=[
+    f"counters_{i}" for i in range(len(probe.COUNTERS))] + [
+    f"copy_{name}_{i}" for name, edits in probe.COPIES.items()
+    for i in range(len(edits))])
 def test_probe_copies_apply_to_the_kernel_source(old, new):
-    # probe_device_beam.py's clock64 copy replaces lines the kernel source
-    # holds exactly once, so a kernel edit that drops one fails here
+    # probe_device_beam.py's clock64 copy and its copies with one constant
+    # changed replace lines the kernel source holds exactly once, so a
+    # kernel edit that drops one fails here
     src = probe.SOURCE.read_text()
     assert src.count(old) == 1, repr(old)
     assert probe.edited([(old, new)]) != src
@@ -489,16 +496,19 @@ def test_walk_bound_counts_only_the_walks_own_work(filtered):
 QUANT_SQ_TOL = 1e-5
 
 
-def _quant_inputs(jax_index, kind, metric):
+def _quant_inputs(jax_index, kind, metric, dims=DIMS, segments=4):
     """Both packages' scorer, queries and operands for a BQ, SQ, PQ or RQ
-    walk over the JAX index's rows, encoded once by the JAX quantizer (PQ:
-    its codebooks trained by the JAX k-means)."""
+    walk over the JAX index's rows (or, at another width, seeded rows of
+    ``dims``), encoded once by the JAX quantizer (PQ: its ``segments``
+    codebooks trained by the JAX k-means)."""
     import jax.numpy as jnp
     from weaviate_tpu.compression import quantizers as jq
 
     g = jax_index.graph
     rows = np.asarray(jax_index.store.corpus)[: g.capacity]
     q = _vectors(5, B)
+    if dims != DIMS:
+        rows, q = _vectors(11, g.capacity, dims), _vectors(5, B, dims)
     if metric in ("dot", "cosine"):
         rows = rows / np.maximum(np.linalg.norm(rows, axis=1, keepdims=True),
                                  1e-12)
@@ -514,7 +524,8 @@ def _quant_inputs(jax_index, kind, metric):
               torch.from_numpy(enc["popcount"])))
         return j, t
     if kind == "pq":
-        quant = jq.ProductQuantizer(DIMS, metric, jconfig.PQConfig(segments=4))
+        quant = jq.ProductQuantizer(dims, metric,
+                                    jconfig.PQConfig(segments=segments))
         quant.fit(rows)
         enc = quant.encode(rows)
         j = (jbeam.PQScorer(metric), jnp.asarray(q),
@@ -526,7 +537,7 @@ def _quant_inputs(jax_index, kind, metric):
               torch.from_numpy(enc["dec_sqnorm"])))
         return j, t
     if kind == "rq":
-        quant = jq.RotationalQuantizer(DIMS, metric)
+        quant = jq.RotationalQuantizer(dims, metric)
         quant.fit(rows)
         enc = quant.encode(rows)
         planes = [enc[f] for f in ("codes", "lower", "step", "dec_sqnorm")]
@@ -536,7 +547,7 @@ def _quant_inputs(jax_index, kind, metric):
         t = (tbeam.RQScorer(metric), torch.from_numpy(q_rot),
              tuple(torch.from_numpy(a) for a in planes))
         return j, t
-    quant = jq.ScalarQuantizer(DIMS, metric)
+    quant = jq.ScalarQuantizer(dims, metric)
     quant.fit(rows)
     enc = quant.encode(rows)
     j = (jbeam.SQScorer(metric), jnp.asarray(q),
@@ -548,6 +559,13 @@ def _quant_inputs(jax_index, kind, metric):
     return j, t
 
 
+# the widths the kernel's code-row paths branch on: kind -> (row type,
+# dims, PQ segments, a graph of M0 32)
+WIDE_CODES = {"pq_96x16": ("pq", 1536, 96, False),
+              "sq_99": ("sq", 99, 4, False),
+              "sq_m32": ("sq", DIMS, 4, True)}
+
+
 @pytest.mark.parametrize("kind,metric,flt", [
     ("bq", "l2-squared", None), ("bq", "l2-squared", (0.1, 8, 1)),
     ("bq", "cosine", (0.5, 32, 2)),
@@ -557,22 +575,35 @@ def _quant_inputs(jax_index, kind, metric):
     ("pq", "cosine", (0.5, 32, 2)),
     ("rq", "l2-squared", (0.1, 8, 1)), ("rq", "dot", None),
     ("rq", "cosine", None),
+    ("pq_96x16", "l2-squared", None), ("sq_99", "dot", (0.1, 8, 1)),
+    ("sq_m32", "l2-squared", (0.5, 32, 4)),
 ])
 def test_plain_quantized_walk_matches_jax(jax_index, kind, metric, flt):
     """The plain walk over BQ, SQ, PQ and RQ code planes against JAX
     ``device_search`` on the same graph, unfiltered and filtered: BQ equal
     in every id and distance, SQ, PQ and RQ ids on >= 0.99 of the slots and
-    matched distances within 1e-5."""
+    matched distances within 1e-5. ``WIDE_CODES`` holds the yardstick at
+    the widths the kernel branches on: PQ rows of 96 codes into 16-d
+    centroids (1536-d), SQ rows of 99 bytes, and a frontier of 160 (a
+    seeded random graph of M0 32, no upper layers, expand 4)."""
     import jax.numpy as jnp
 
     g = jax_index.graph
-    (js, jq, jops), (ts, tq, tops) = _quant_inputs(jax_index, kind, metric)
+    kind, dims, segments, m32 = WIDE_CODES.get(kind, (kind, DIMS, 4, False))
+    (js, jq, jops), (ts, tq, tops) = _quant_inputs(jax_index, kind, metric,
+                                                   dims, segments)
     jm = jbeam.DeviceAdjacency(g)
     adj, present = jm.sync()
     ua, us = jm.sync_upper()
     eps = np.full(B, g.entrypoint, np.int32)
-    t_adj = tuple(torch.from_numpy(np.array(a)) for a in (adj, present, eps,
-                                                          ua, us))
+    if m32:
+        rng = np.random.default_rng(13)
+        adj = rng.integers(0, g.capacity, (g.capacity, 32)).astype(np.int32)
+        present = np.ones(g.capacity, bool)
+        ua, us = None, None
+    t_adj = tuple(torch.from_numpy(np.array(a)) for a in (adj, present, eps))
+    t_adj += tbeam._empty_upper("cpu") if m32 else tuple(
+        torch.from_numpy(np.array(a)) for a in (ua, us))
     kw_j, kw_t = {}, {}
     if flt:
         sel, keep, expand = flt

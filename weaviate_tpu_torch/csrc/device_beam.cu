@@ -33,7 +33,9 @@
 //     hop ids repeated inside the hop keep their first occurrence, visited
 //     or absent ones drop, the rest are marked, scored and appended to the
 //     hop's frontier, which then feeds both merges.
-//   * Scoring, by the row type (a template parameter beside the metric):
+//   * Scoring, by the row type (a template parameter, as the metric is for
+//     float32 rows; a code row's metric is a run-time value, one kernel a
+//     code row type):
 //     raw float32 rows with the five metrics of `gather_distance`
 //     (weaviate_tpu/ops/distance.py:104-140): dot and cosine at bf16 round
 //     the query and the row to bfloat16 (round to nearest even) and sum the
@@ -51,10 +53,9 @@
 //     dot negated, cosine 1 - x). RQ rows (`rq_gather_distance`, :337): SQ's
 //     row with the row's own lower and step, step_x * (q . c) + sum(q) *
 //     lower_x. PQ rows (`pq_gather_distance`, :300): M code bytes and the
-//     decoded squared norm a row; a lane takes whole segments, reads the
-//     segment's code and then its centroid (dsub bf16 values, 16 bytes a load
-//     where dsub allows) from the bf16 codebooks, which stay in L2, and sums
-//     bf16(q) x centroid in float32; the epilogue is the metric of that sum.
+//     decoded squared norm a row; q . decode(x) sums bf16(q) x the bf16
+//     centroid of each segment's code in float32; the epilogue is the metric
+//     of that sum.
 //
 // Visited set: one bit a node and a query, [b, ceil(n/32)] uint32, zeroed
 // by the caller (the JAX program keeps a [B, N] uint8 array); it is exact.
@@ -83,9 +84,30 @@
 //      rows (groups of 8 lanes a row, 32 bytes a load, every load of the
 //      hop's 32 rows in registers before the first is used). Scoring a row
 //      that turns out visited costs bytes, not latency; `stats` counts
-//      those rows. Wider rows are scored by groups of lanes after the
-//      visited test, where their bytes count. The widening adds one round
-//      for the parents' rows.
+//      those rows. Wider float32 and BQ rows are scored by groups of lanes
+//      after the visited test, where their bytes count. The widening adds
+//      one round for the parents' rows.
+//   3b. Code rows (SQ, RQ, PQ bytes) are staged, not loaded a row at a
+//      time: after the visited test and the compaction, each lane issues
+//      one bulk copy (the TMA) of an accepted row, the 16-byte aligned span
+//      that holds it (so any row width and offset), into the query's slice
+//      of shared memory, completing on the warp's mbarrier, and a 4-byte
+//      cp.async of each of the row's floats, all before the first wait;
+//      then groups of kCodeG lanes score the rows from shared memory, 32 /
+//      kCodeG rows side by side (an odd row pitch in 16-byte pieces keeps
+//      the groups on other banks). A hop's rows are one round, in chunks of
+//      `stage_rows` that the launch sizes from the shared memory a query can
+//      have at this batch. The entry point and the upper descent take the
+//      same path.
+//   3c. PQ has no code -> centroid round a segment: where the query's ADC
+//      table (segments x centroids float32 inner products of its bf16 piece
+//      with each bf16 centroid, built once at the walk's start from the
+//      codebooks in L2) fits beside its state, a row is `segs` shared-memory
+//      lookups of its staged codes. Where it does not, a chunk's codes land
+//      first, then one pass issues every (row, segment) centroid piece of
+//      the chunk together (16-byte cp.async of the aligned span) and the
+//      groups sum them: two rounds a chunk, whatever the row's width. With
+//      the table a lane scores a whole row (its lookups are independent).
 //   4. While a hop merges, the adjacency row of its best new entry is read
 //      ahead: that entry is the next hop's node whenever it lands ahead of
 //      every unexpanded beam entry, and that hop then skips its first round.
@@ -98,8 +120,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -115,6 +135,10 @@ constexpr int kSpecD = 32;
 constexpr int kSpecG = 8;
 constexpr int kSpecK = kSpecD / kSpecG;
 constexpr int kSpecRounds = kSpecG;
+// Code rows: kCodeG lanes a staged row; a chunk holds at least kMinStage
+// rows (or the whole frontier) whatever the batch.
+constexpr int kCodeG = 4;
+constexpr int kMinStage = 8;
 constexpr float kMask = 1e30f;  // MASK_DISTANCE of ops/distance.py
 constexpr float kInf = __builtin_huge_valf();
 constexpr int kNone = 0x7fffffff;
@@ -152,6 +176,7 @@ struct Params {
   const float* qaux;         // [b, 2]: SQ/RQ/PQ sum(q), sum(q^2)
   float sq_a, sq_s;          // SQ offset and step
   int segs, dsub, centroids; // PQ: a row is `segs` codes
+  int metric;                // code rows: l2-squared, dot or cosine
   uint32_t last_word;        // BQ: the bits of a query's last word that count
   const int* adj;            // [n, m0], -1 padded
   const uint8_t* present;    // [n]
@@ -169,6 +194,26 @@ struct Params {
       frontier;
   int b, warp_bytes;
   int sms, smem_max;  // the card's SMs and opt-in shared memory a block
+  // code rows (see CodeLayout)
+  int stage_rows, stage_pitch, piece_slot, table;
+};
+
+// One query's shared memory beside the walk's state, for code rows: the
+// staged rows of a chunk, their floats and, for PQ, the ADC table or the
+// chunk's staged centroid pieces.
+struct CodeLayout {
+  int rows = 0;        // rows a chunk
+  int pitch = 0;       // bytes a staged row: the 16-byte pieces of its
+                       // aligned span, an odd count (banks)
+  int piece_slot = 0;  // PQ without the table: bytes a staged centroid
+  bool table = false;  // PQ: the [segs, centroids] float32 table
+  int table_bytes = 0; // the table's, when it is taken
+  int segs = 0;
+
+  long long bytes(int r) const {  // with the copies' mbarrier
+    const long long pq = table ? table_bytes : (long long)r * segs * piece_slot;
+    return 16 + pq + (long long)r * pitch + ((12 * r + 15) & ~15);
+  }
 };
 
 // One query's slice of shared memory.
@@ -189,6 +234,15 @@ struct Warp {
   uint8_t* fal;    // [F] allow flags of the raw frontier
   uint8_t* callow; // [F] allow flags of the accepted entries
   uint8_t* bexp;   // [2][ef] expanded flags
+  // code rows, first in the slice (16-byte aligned)
+  uint64_t* bar;   // the mbarrier the row copies complete on
+  unsigned* phase; // its phase parity
+  float* table;    // PQ: [segs, centroids] ADC table, or null
+  unsigned char* stage;  // [stage_rows, stage_pitch] staged rows
+  unsigned char* piece;  // PQ without the table: [stage_rows, segs, slot]
+  float* saux;     // [stage_rows] the staged rows' aux, lower and step
+  float* slo;
+  float* sst;
 };
 
 inline int warp_bytes_for(int d, int m0, int m, int ef, int keep_k,
@@ -202,6 +256,29 @@ inline int warp_bytes_for(int d, int m0, int m, int ef, int keep_k,
 __device__ Warp carve(unsigned char* base, const Params& p) {
   Warp w;
   const int f = p.frontier;
+  w.table = w.saux = w.slo = w.sst = nullptr;
+  w.stage = w.piece = nullptr;
+  w.bar = nullptr;
+  w.phase = nullptr;
+  if (p.stage_rows > 0) {  // the code rows' part, as CodeLayout counts it
+    w.bar = reinterpret_cast<uint64_t*>(base);
+    w.phase = reinterpret_cast<unsigned*>(base + 8);
+    base += 16;
+    if (p.table) {
+      w.table = reinterpret_cast<float*>(base);
+      base += (p.segs * p.centroids * 4 + 15) & ~15;
+    }
+    w.stage = base;
+    base += p.stage_rows * p.stage_pitch;
+    if (!p.table && p.piece_slot > 0) {
+      w.piece = base;
+      base += p.stage_rows * p.segs * p.piece_slot;
+    }
+    w.saux = reinterpret_cast<float*>(base);
+    w.slo = w.saux + p.stage_rows;
+    w.sst = w.slo + p.stage_rows;
+    base += (12 * p.stage_rows + 15) & ~15;
+  }
   float* x = reinterpret_cast<float*>(base);
   w.q = x; x += (p.d + 3) & ~3;
   w.bid = reinterpret_cast<int*>(x); x += 2 * p.ef;
@@ -266,7 +343,7 @@ __device__ __forceinline__ float finish(float acc) {
 // The distance from a row's summed terms and its floats, in the plain
 // version's order of operations: q . decode(x) is s * (q . c) + a * sum(q)
 // (SQ), step_x * (q . c) + sum(q) * lower_x (RQ) or the sum itself (PQ),
-// then the metric.
+// then the metric (p.metric for code rows).
 template <int METRIC, int ROW>
 __device__ __forceinline__ float finish_row(const Params& p, const QScal& qs,
                                             float acc, const RowAux& ra) {
@@ -275,8 +352,8 @@ __device__ __forceinline__ float finish_row(const Params& p, const QScal& qs,
     float qdd = acc;
     if (ROW == kSqRow) qdd = p.sq_s * acc + p.sq_a * qs.a;
     if (ROW == kRqRow) qdd = ra.st * acc + qs.a * ra.lo;
-    if (METRIC == kL2) return fmaxf(qs.b - 2.f * qdd + ra.aux, 0.f);
-    if (METRIC == kDot) return -qdd;
+    if (p.metric == kL2) return fmaxf(qs.b - 2.f * qdd + ra.aux, 0.f);
+    if (p.metric == kDot) return -qdd;
     return 1.f - qdd;
   }
   return finish<METRIC>(acc);
@@ -332,76 +409,401 @@ __device__ __forceinline__ void score_chunk(const Params& p, const Warp& w,
   }
 }
 
-// Distance of the shared query to corpus row `row`, summed by a group of G
-// lanes (lane `gl` of the group strides over the row). Every lane of the
-// warp calls it; a lane whose group has no row passes row < 0.
+// Distance of the shared query to float32 or BQ row `row` (wider than the
+// speculative path's), summed by a group of G lanes (lane `gl` of the group
+// strides over the row). Every lane of the warp calls it; a lane whose
+// group has no row passes row < 0.
 template <int METRIC, bool ROUND, int ROW>
 __device__ __forceinline__ float group_distance(const Params& p,
                                                 const float* q,
                                                 const QScal& qs, int row,
                                                 int gl, int G) {
+  static_assert(ROW == kRawRow || ROW == kBqRow, "code rows are staged");
   float acc = 0.f;
   RowAux ra = {0.f, 0.f, 0.f};
   if (row >= 0) {
     if (ROW != kRawRow) ra.aux = __ldg(p.row_aux + row);
-    if (ROW == kRqRow) {
-      ra.lo = __ldg(p.row_lo + row);
-      ra.st = __ldg(p.row_step + row);
-    }
-    if (ROW == kPqRow) {
-      // each segment's code, then its centroid (bf16, 16 bytes a load
-      // where dsub allows) against the query's piece
-      const uint8_t* c =
-          static_cast<const uint8_t*>(p.corpus) + (size_t)row * p.segs;
-      for (int sg = gl; sg < p.segs; sg += G) {
-        const int code = __ldg(c + sg);
-        const __nv_bfloat16* e =
-            p.cb + ((size_t)sg * p.centroids + code) * p.dsub;
-        const float* qk = q + sg * p.dsub;
-        if ((p.dsub & 7) == 0) {
-          for (int t = 0; t < p.dsub; t += 8) {
-            const uint4 v = __ldg(reinterpret_cast<const uint4*>(e + t));
-            const __nv_bfloat162* h =
-                reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const float2 f = __bfloat1622float2(h[u]);
-              acc += qk[t + 2 * u] * f.x;
-              acc += qk[t + 2 * u + 1] * f.y;
-            }
-          }
-        } else {
-          for (int t = 0; t < p.dsub; ++t)
-            acc += qk[t] * __bfloat162float(e[t]);
-        }
-      }
-    } else if (ROW == kSqRow || ROW == kRqRow) {  // byte codes
-      const uint8_t* c =
-          static_cast<const uint8_t*>(p.corpus) + (size_t)row * p.d;
-      if ((p.d & 3) == 0) {  // four codes a load
-        const uint32_t* c4 = reinterpret_cast<const uint32_t*>(c);
-        for (int k = gl; 4 * k < p.d; k += G) {
-          const uint32_t v = __ldg(c4 + k);
-          const float* qk = q + 4 * k;
-          acc += qk[0] * static_cast<float>(v & 255u);
-          acc += qk[1] * static_cast<float>((v >> 8) & 255u);
-          acc += qk[2] * static_cast<float>((v >> 16) & 255u);
-          acc += qk[3] * static_cast<float>(v >> 24);
-        }
-      } else {
-        for (int k = gl; k < p.d; k += G)
-          acc += q[k] * static_cast<float>(__ldg(c + k));
-      }
-    } else {
-      const float* c =
-          static_cast<const float*>(p.corpus) + (size_t)row * p.d;
-      for (int k = gl; k < p.d; k += G)
-        acc = term<METRIC, ROUND, ROW>(acc, q[k], __ldg(c + k));
-    }
+    const float* c = static_cast<const float*>(p.corpus) + (size_t)row * p.d;
+    for (int k = gl; k < p.d; k += G)
+      acc = term<METRIC, ROUND, ROW>(acc, q[k], __ldg(c + k));
   }
   for (int off = G >> 1; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFull, acc, off, G);
   return finish_row<METRIC, ROW>(p, qs, acc, ra);
+}
+
+// -- code rows ---------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+
+// Waits for this lane's copies; a __syncwarp after it shows every lane's.
+// (The copies themselves carry no memory clobber, so the loads that feed
+// their addresses are issued ahead; the stage is read only after the wait
+// and written only after a __syncwarp that ends the previous reads.)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Code byte i of word v as a float: 2^23 + byte, less 2^23, both exact.
+__device__ __forceinline__ float code_f(uint32_t v, int i) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 | i)) -
+         8388608.f;
+}
+
+// The bytes [a, a + len) of global memory sit at the returned offset in
+// the 16-byte pieces of their aligned span. A piece that holds one byte of
+// an allocation lies in its mapped pages, so the span's ends are safe to
+// copy whatever the row's width and offset.
+__device__ __forceinline__ unsigned span_offset(uintptr_t a) {
+  return static_cast<unsigned>(a & 15u);
+}
+
+// The row copies: one bulk copy (the TMA) of each row's aligned span,
+// completing on the warp's mbarrier; its phase parity sits in the word
+// after it.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+      smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(phase) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, uintptr_t src,
+                                          unsigned bytes, uint64_t* bar) {
+  // the stage's earlier reads (generic proxy) before the copy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void stage_span(unsigned char* dst, uintptr_t a,
+                                           int len) {
+  const uintptr_t a0 = a & ~uintptr_t(15);
+  for (uintptr_t g = a0; g < a + len; g += 16, dst += 16) cp_async16(dst, g);
+}
+
+// Issues the copies of the accepted rows w.cid[base, base + nr): a lane a
+// row, one bulk copy of the row's aligned span (the mbarrier expects the
+// bytes of every 32 rows before the copies; lane 0 arrives after the last)
+// and a 4-byte copy of each of its floats. Nothing waits here.
+template <int ROW>
+__device__ __forceinline__ void stage_rows(const Params& p, const Warp& w,
+                                           int len, int base, int nr) {
+  const int lane = threadIdx.x & 31;
+  const uintptr_t corpus = reinterpret_cast<uintptr_t>(p.corpus);
+  for (int r0 = 0; r0 < nr; r0 += 32) {
+    const int r = r0 + lane;
+    const bool mine = r < nr;
+    const int row = mine ? w.cid[base + r] : 0;
+    const uintptr_t a = corpus + (size_t)row * len;
+    const uintptr_t a0 = a & ~uintptr_t(15);
+    const unsigned bytes =
+        mine ? static_cast<unsigned>(((a + len + 15) & ~uintptr_t(15)) - a0)
+             : 0u;
+    const unsigned total = __reduce_add_sync(kFull, bytes);
+    if (lane == 0) bar_expect(w.bar, total);
+    __syncwarp();  // the bytes are expected before any copy completes
+    if (mine) {
+      bulk_copy(w.stage + r * p.stage_pitch, a0, bytes, w.bar);
+      cp_async4(w.saux + r, p.row_aux + row);
+      if (ROW == kRqRow) {
+        cp_async4(w.slo + r, p.row_lo + row);
+        cp_async4(w.sst + r, p.row_step + row);
+      }
+    }
+  }
+  if (lane == 0) bar_arrive(w.bar);
+}
+
+// PQ without the table, once the chunk's codes have landed: issues every
+// (row, segment) centroid piece of the chunk, lanes over the pairs.
+__device__ __forceinline__ void stage_pieces(const Params& p, const Warp& w,
+                                             int base, int nr) {
+  const int lane = threadIdx.x & 31;
+  const uintptr_t corpus = reinterpret_cast<uintptr_t>(p.corpus);
+  const uintptr_t cb = reinterpret_cast<uintptr_t>(p.cb);
+  const int segs = p.segs, bytes = 2 * p.dsub;
+  for (int e = lane; e < nr * segs; e += 32) {
+    const int r = e / segs, sg = e - r * segs;
+    const unsigned off = span_offset(corpus + (size_t)w.cid[base + r] * segs);
+    const int code = w.stage[r * p.stage_pitch + off + sg];
+    stage_span(w.piece + (size_t)e * p.piece_slot,
+               cb + ((size_t)sg * p.centroids + code) * bytes, bytes);
+  }
+}
+
+// Word k of a staged code row at byte offset `off` of its slot, bytes past
+// `len` zero.
+__device__ __forceinline__ uint32_t staged_word(const unsigned char* src,
+                                                unsigned off, int k, int len) {
+  if ((off & 3u) == 0)
+    return reinterpret_cast<const uint32_t*>(src + off)[k];
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * k + i < len) v |= static_cast<uint32_t>(src[off + 4 * k + i]) << (8 * i);
+  return v;
+}
+
+// Lane `gl`'s part of q . decode(row) for the staged row r of the chunk,
+// the row's codes at `src` + `off`: SQ and RQ a word of four codes against
+// four query floats a step; PQ without the table the staged centroid pieces
+// against the query's piece.
+template <int ROW>
+__device__ __forceinline__ float staged_sum(const Params& p, const Warp& w,
+                                            const unsigned char* src,
+                                            unsigned off, int r, int gl,
+                                            int len) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  const int words = (len + 3) >> 2;
+  if (ROW == kSqRow || ROW == kRqRow) {
+    // the query is zero past d, so a word's bytes past the row add nothing
+    const float4* q4 = reinterpret_cast<const float4*>(w.q);
+    auto word = [&](uint32_t v, int k) {
+      const float4 q = q4[k];
+      a0 = fmaf(q.x, code_f(v, 0), a0);
+      a1 = fmaf(q.y, code_f(v, 1), a1);
+      a2 = fmaf(q.z, code_f(v, 2), a2);
+      a3 = fmaf(q.w, code_f(v, 3), a3);
+    };
+    if ((off & 3u) == 0) {  // aligned words: loads a few steps ahead
+      const uint32_t* s4 = reinterpret_cast<const uint32_t*>(src + off);
+#pragma unroll 4
+      for (int k = gl; k < words; k += kCodeG) word(s4[k], k);
+    } else {
+      for (int k = gl; k < words; k += kCodeG)
+        word(staged_word(src, off, k, len), k);
+    }
+  } else {
+    const uintptr_t cb = reinterpret_cast<uintptr_t>(p.cb);
+    const int dsub = p.dsub;
+    for (int sg = gl; sg < len; sg += kCodeG) {
+      const int code = src[off + sg];
+      const unsigned po = span_offset(
+          cb + ((size_t)sg * p.centroids + code) * 2 * dsub);
+      const unsigned char* pc =
+          w.piece + ((size_t)r * len + sg) * p.piece_slot + po;
+      const float* qk = w.q + sg * dsub;
+      if ((dsub & 7) == 0 && po == 0) {
+        for (int t = 0; t < dsub; t += 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(pc + 2 * t);
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+          const float2 f0 = __bfloat1622float2(h[0]);
+          const float2 f1 = __bfloat1622float2(h[1]);
+          const float2 f2 = __bfloat1622float2(h[2]);
+          const float2 f3 = __bfloat1622float2(h[3]);
+          a0 = fmaf(qk[t], f0.x, fmaf(qk[t + 1], f0.y, a0));
+          a1 = fmaf(qk[t + 2], f1.x, fmaf(qk[t + 3], f1.y, a1));
+          a2 = fmaf(qk[t + 4], f2.x, fmaf(qk[t + 5], f2.y, a2));
+          a3 = fmaf(qk[t + 6], f3.x, fmaf(qk[t + 7], f3.y, a3));
+        }
+      } else {
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(pc);
+        for (int t = 0; t < dsub; ++t)
+          a0 = fmaf(qk[t], __bfloat162float(h[t]), a0);
+      }
+    }
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// PQ with the table: q . decode(row) of the row staged at `src` + `off`,
+// summed by one lane, a table lookup a segment (16 codes a load where the
+// row's span is aligned; the odd pitch keeps 8 lanes' loads on other banks).
+__device__ __forceinline__ float table_sum(const Params& p, const Warp& w,
+                                           const unsigned char* src,
+                                           unsigned off, int len) {
+  const int c = p.centroids;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  if ((off & 15u) == 0 && (len & 15) == 0) {
+    const uint4* s16 = reinterpret_cast<const uint4*>(src + off);
+#pragma unroll 2
+    for (int k = 0; k < len / 16; ++k) {
+      const uint4 v = s16[k];
+      const float* t = w.table + 16 * k * c;
+      const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i, t += 4 * c) {
+        a0 += t[u[i] & 255u];
+        a1 += t[c + ((u[i] >> 8) & 255u)];
+        a2 += t[2 * c + ((u[i] >> 16) & 255u)];
+        a3 += t[3 * c + (u[i] >> 24)];
+      }
+    }
+  } else {
+    for (int k = 0; 4 * k < len; ++k) {
+      const uint32_t v = staged_word(src, off, k, len);
+      const float* t = w.table + 4 * k * c;
+      a0 += t[v & 255u];
+      if (4 * k + 1 < len) a1 += t[c + ((v >> 8) & 255u)];
+      if (4 * k + 2 < len) a2 += t[2 * c + ((v >> 16) & 255u)];
+      if (4 * k + 3 < len) a3 += t[3 * c + (v >> 24)];
+    }
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// Scores the accepted code rows w.cid[start, count) into w.cd, a chunk of
+// p.stage_rows rows at a time: every copy of the chunk is issued before the
+// first wait (PQ without the table: the codes, then every centroid piece),
+// then groups of kCodeG lanes sum kCodeG-wide strides of a staged row and
+// reduce by shuffles (PQ with the table: a lane a row). Every lane of the
+// warp calls it.
+template <int METRIC, int ROW>
+__device__ void score_rows(const Params& p, const Warp& w, const QScal& qs,
+                           int start, int count) {
+  const int lane = threadIdx.x & 31, gl = lane % kCodeG;
+  const int len = ROW == kPqRow ? p.segs : p.d;
+  const uintptr_t corpus = reinterpret_cast<uintptr_t>(p.corpus);
+  for (int base = start; base < count; base += p.stage_rows) {
+    const int nr = min(p.stage_rows, count - base);
+    const unsigned phase = *w.phase;
+    stage_rows<ROW>(p, w, len, base, nr);
+    cp_async_wait_all();
+    bar_wait(w.bar, phase);
+    if (ROW == kPqRow && !p.table) {
+      __syncwarp();  // the chunk's codes have landed
+      stage_pieces(p, w, base, nr);
+      cp_async_wait_all();
+    }
+    __syncwarp();  // every staged row has landed
+    if (lane == 0) *w.phase = phase ^ 1u;
+    if (ROW == kPqRow && p.table) {
+      for (int r = lane; r < nr; r += 32) {
+        const int row = w.cid[base + r];
+        const unsigned off = span_offset(corpus + (size_t)row * len);
+        const float acc = table_sum(p, w, w.stage + r * p.stage_pitch, off,
+                                    len);
+        w.cd[base + r] = finish_row<METRIC, ROW>(p, qs, acc,
+                                                 {w.saux[r], 0.f, 0.f});
+      }
+    } else {
+      for (int r0 = 0; r0 < nr; r0 += 32 / kCodeG) {
+        const int r = r0 + lane / kCodeG;
+        float acc = 0.f;
+        if (r < nr) {
+          const unsigned off =
+              span_offset(corpus + (size_t)w.cid[base + r] * len);
+          acc = staged_sum<ROW>(p, w, w.stage + r * p.stage_pitch, off, r,
+                                gl, len);
+        }
+#pragma unroll
+        for (int o = kCodeG / 2; o > 0; o >>= 1)
+          acc += __shfl_xor_sync(kFull, acc, o, kCodeG);
+        if (gl == 0 && r < nr) {
+          const RowAux ra = {w.saux[r], ROW == kRqRow ? w.slo[r] : 0.f,
+                             ROW == kRqRow ? w.sst[r] : 0.f};
+          w.cd[base + r] = finish_row<METRIC, ROW>(p, qs, acc, ra);
+        }
+      }
+    }
+    __syncwarp();  // the chunk is scored before the stage is reused
+  }
+}
+
+// PQ: the query's ADC table, table[s, c] = bf16(q)[s] . centroid[s, c] in
+// float32, a segment at a time: the lanes take kTableU centroids each, every
+// one's loads (16 bf16 a round) in flight before the first is used, against
+// the segment's query piece read once a round (the codebooks stay in L2:
+// every query reads them).
+constexpr int kTableU = 8;
+
+__device__ void build_table(const Params& p, const Warp& w) {
+  const int lane = threadIdx.x & 31;
+  const int c = p.centroids, dsub = p.dsub;
+  for (int sg = 0; sg < p.segs; ++sg) {
+    const __nv_bfloat16* cbs = p.cb + (size_t)sg * c * dsub;
+    const float* qs = w.q + sg * dsub;
+    for (int c0 = lane; c0 < c; c0 += 32 * kTableU) {
+      float acc[kTableU];
+#pragma unroll
+      for (int u = 0; u < kTableU; ++u) acc[u] = 0.f;
+      if ((dsub & 7) == 0) {
+        for (int t = 0; t < dsub; t += 16) {
+          const bool two = t + 8 < dsub;
+          uint4 v[kTableU][2];
+#pragma unroll
+          for (int u = 0; u < kTableU; ++u) {
+            const int e = c0 + 32 * u;
+            const uint4* src =
+                reinterpret_cast<const uint4*>(cbs + (size_t)e * dsub + t);
+            const uint4 z = make_uint4(0, 0, 0, 0);
+            v[u][0] = e < c ? __ldg(src) : z;
+            v[u][1] = e < c && two ? __ldg(src + 1) : z;
+          }
+          float q[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) q[i] = i < 8 || two ? qs[t + i] : 0.f;
+#pragma unroll
+          for (int u = 0; u < kTableU; ++u) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const __nv_bfloat162* b =
+                  reinterpret_cast<const __nv_bfloat162*>(&v[u][h]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float2 f = __bfloat1622float2(b[i]);
+                acc[u] = fmaf(q[8 * h + 2 * i], f.x, acc[u]);
+                acc[u] = fmaf(q[8 * h + 2 * i + 1], f.y, acc[u]);
+              }
+            }
+          }
+        }
+      } else {
+        for (int t = 0; t < dsub; ++t) {
+          float v[kTableU];
+#pragma unroll
+          for (int u = 0; u < kTableU; ++u) {
+            const int e = c0 + 32 * u;
+            v[u] = e < c ? __bfloat162float(cbs[(size_t)e * dsub + t]) : 0.f;
+          }
+          const float q = qs[t];
+#pragma unroll
+          for (int u = 0; u < kTableU; ++u) acc[u] = fmaf(q, v[u], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTableU; ++u)
+        if (c0 + 32 * u < c) w.table[sg * c + c0 + 32 * u] = acc[u];
+    }
+  }
+  __syncwarp();
 }
 
 // The raw frontier w.fid[lo, hi) (-1 = no entry) -> the accepted entries,
@@ -410,7 +812,9 @@ __device__ __forceinline__ float group_distance(const Params& p,
 // not visited, and at the second hop also the first occurrence of its id
 // in [lo, hi); layer-0 entries are marked visited. Pass 1 issues every
 // lane's loads together; no mark is made before every read of the span.
-// `loaded` counts, per lane, the rows scored before the test (SPEC).
+// `loaded` counts, per lane, the rows scored before the test (SPEC). Code
+// rows are scored by `score_rows`, raw and BQ rows wider than the
+// speculative path's by groups of lanes.
 template <int METRIC, bool ROUND, bool SPEC, int ROW>
 __device__ int gather(const Params& p, const Warp& w,
                       const float (&qv)[kSpecK], const QScal& qs,
@@ -460,7 +864,9 @@ __device__ int gather(const Params& p, const Warp& w,
     count += __popc(bal);
   }
   __syncwarp();
-  if (!SPEC) {
+  if constexpr (ROW == kSqRow || ROW == kRqRow || ROW == kPqRow) {
+    score_rows<METRIC, ROW>(p, w, qs, start, count);
+  } else if (!SPEC) {
     const int G = p.group, per = 32 / G, gl = lane % G;
     for (int base = start; base < count; base += per) {
       const int c = base + lane / G;
@@ -516,6 +922,7 @@ walk_kernel(Params p) {
     }
     w.q[k] = ROUND ? bf16_round(v) : v;
   }
+  for (int k = p.d + lane; k < ((p.d + 3) & ~3); k += 32) w.q[k] = 0.f;
   QScal qs = {0.f, 0.f};
   if (ROW == kBqRow) {
     for (int off = 16; off > 0; off >>= 1)
@@ -537,10 +944,27 @@ walk_kernel(Params p) {
     qv[t] = SPEC && k < p.d ? w.q[k] : 0.f;
   }
 
+  constexpr bool kCoded = ROW == kSqRow || ROW == kRqRow || ROW == kPqRow;
+  if (kCoded && lane == 0) {
+    bar_init(w.bar);
+    *w.phase = 0u;
+  }
+  __syncwarp();
+  if (ROW == kPqRow && p.table) build_table(p, w);
+
   int cur = p.eps[qi];
   float cur_d = kMask;
-  if (cur >= 0)
-    cur_d = group_distance<METRIC, ROUND, ROW>(p, w.q, qs, cur, lane, 32);
+  if (cur >= 0) {
+    if constexpr (kCoded) {
+      if (lane == 0) w.cid[0] = cur;
+      __syncwarp();
+      score_rows<METRIC, ROW>(p, w, qs, 0, 1);
+      cur_d = w.cd[0];
+      __syncwarp();
+    } else {
+      cur_d = group_distance<METRIC, ROUND, ROW>(p, w.q, qs, cur, lane, 32);
+    }
+  }
 
   // -- upper-layer greedy descent ---------------------------------------
   for (int li = 0; cur >= 0 && li < p.levels; ++li) {
@@ -806,6 +1230,41 @@ walk_kernel(Params p) {
   }
 }
 
+// The code rows' part of a query's shared memory: a chunk of `len`-byte rows
+// (SQ, RQ: d codes; PQ: segs codes), sized so the batch's queries share an
+// SM's shared memory (`per_sm` queries an SM wanted), between kMinStage
+// rows (or the frontier) and the frontier, as far as a block's limit
+// allows; PQ takes the table where it fits beside `state` and the smallest
+// chunk. False when even one row does not fit.
+bool code_layout(int len, bool pq, int segs, int dsub, int centroids,
+                 int frontier, int state, int per_sm, int smem_sm,
+                 int smem_max, CodeLayout* out) {
+  CodeLayout c;
+  // the pieces of an unaligned span at most, an odd count: the kCodeG-lane
+  // groups' words of 8 rows, and 8 lanes' 16-byte loads of a row each (the
+  // table path), fall on other banks
+  c.pitch = 16 * (((len + 15) / 16 + 1) | 1);
+  c.segs = segs;
+  const int rmin = frontier < kMinStage ? frontier : kMinStage;
+  if (pq) {
+    // a centroid's 2 * dsub bytes start at a multiple of `align`
+    const int bytes = 2 * dsub;
+    const int align = (bytes & -bytes) < 16 ? (bytes & -bytes) : 16;
+    c.piece_slot = 16 * ((16 - align + bytes + 15) / 16);
+    c.table_bytes = (segs * centroids * 4 + 15) & ~15;
+    c.table = true;
+    if (state + c.bytes(rmin) > smem_max) c.table = false;
+  }
+  const long long share = smem_sm / (per_sm < 1 ? 1 : per_sm);
+  int r = frontier;
+  while (r > rmin && state + c.bytes(r) > share) --r;
+  while (r > 1 && state + c.bytes(r) > smem_max) --r;
+  if (state + c.bytes(r) > smem_max) return false;
+  c.rows = r;
+  *out = c;
+  return true;
+}
+
 int group_for(int d) {
   if (d <= 64) return 8;
   if (d <= 256) return 16;
@@ -892,16 +1351,28 @@ int device_beam_search(const float* queries, const void* corpus,
   }
   if (expand < 0 || expand > m0 || m0 * (1 + expand) > kMaxFrontier)
     return kBadFrontier;
-  const int wb = warp_bytes_for(d, m0, levels > 0 ? m : 1, ef, keep_k,
-                                expand);
-  int dev = 0, sms = 0, smem_max = 0;
+  const int state = warp_bytes_for(d, m0, levels > 0 ? m : 1, ef, keep_k,
+                                   expand);
+  int dev = 0, sms = 0, smem_max = 0, smem_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int frontier = m0 * (1 + expand) > (levels > 0 ? m : 1)
+                           ? m0 * (1 + expand) : (levels > 0 ? m : 1);
+  CodeLayout code;
+  if (coded && !code_layout(row_kind == kPqRow ? segs : d, row_kind == kPqRow,
+                            segs, dsub, centroids, frontier, state,
+                            (b + sms - 1) / sms, smem_sm, smem_max, &code))
+    return kBadSmem;
+  const long long wb = state + (coded ? code.bytes(code.rows) : 0);
   if (wb > smem_max) return kBadSmem;
   Params p;
   p.queries = queries;
@@ -916,6 +1387,7 @@ int device_beam_search(const float* queries, const void* corpus,
   p.segs = segs;
   p.dsub = dsub;
   p.centroids = centroids;
+  p.metric = metric;
   p.last_word = row_kind == kBqRow && dims % 32 ? (1u << (dims % 32)) - 1u
                                                 : kFull;
   p.adj = adj;
@@ -943,28 +1415,21 @@ int device_beam_search(const float* queries, const void* corpus,
   p.max_steps = max_steps;
   p.words = (n + 31) / 32;
   p.group = group_for(d);
-  p.frontier = m0 * (1 + expand) > p.m ? m0 * (1 + expand) : p.m;
+  p.frontier = frontier;
   p.b = b;
-  p.warp_bytes = wb;
+  p.warp_bytes = static_cast<int>(wb);
+  p.stage_rows = code.rows;
+  p.stage_pitch = code.pitch;
+  p.piece_slot = code.piece_slot;
+  p.table = code.table ? 1 : 0;
   p.sms = sms;
   p.smem_max = smem_max;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool round = bf16 != 0;
   if (row_kind == kBqRow) return static_cast<int>(launch<kL2, false, kBqRow>(p, st));
-  if (coded) {
-    auto go = [&](auto row) {
-      constexpr int kRow = decltype(row)::value;
-      switch (metric) {
-        case kL2: return launch<kL2, true, kRow>(p, st);
-        case kDot: return launch<kDot, true, kRow>(p, st);
-        default: return launch<kCosine, true, kRow>(p, st);
-      }
-    };
-    if (row_kind == kSqRow) e = go(std::integral_constant<int, kSqRow>{});
-    else if (row_kind == kRqRow) e = go(std::integral_constant<int, kRqRow>{});
-    else e = go(std::integral_constant<int, kPqRow>{});
-    return static_cast<int>(e);
-  }
+  if (row_kind == kSqRow) return static_cast<int>(launch<kL2, true, kSqRow>(p, st));
+  if (row_kind == kRqRow) return static_cast<int>(launch<kL2, true, kRqRow>(p, st));
+  if (row_kind == kPqRow) return static_cast<int>(launch<kL2, true, kPqRow>(p, st));
   switch (metric) {
     case kL2: e = launch<kL2, false>(p, st); break;
     case kDot:
