@@ -2062,11 +2062,12 @@ SCANS = {
     "bq": (quantized.bq_search, 1, "weaviate_tpu/ops/quantized.py:138",
            "1-bit mma.m16n8k256 and.popc"),
     "sq": (quantized.sq_search, 2, "weaviate_tpu/ops/quantized.py:168",
-           "bf16 mma.m16n8k16"),
+           "bf16 wgmma.m64n256k16, warp-specialized (wg_scan_kernel)"),
     "pq": (quantized.pq_search, 3, "weaviate_tpu/ops/quantized.py:204",
-           "bf16 mma.m16n8k16 on rows decoded through the bf16 codebooks"),
+           "bf16 wgmma.m64n256k16 on rows decoded through the bf16 "
+           "codebooks, warp-specialized (wg_scan_kernel)"),
     "rq": (quantized.rq_search, 4, "weaviate_tpu/ops/quantized.py:241",
-           "bf16 mma.m16n8k16"),
+           "bf16 wgmma.m64n256k16, warp-specialized (wg_scan_kernel)"),
 }
 
 

@@ -194,16 +194,20 @@ def test_scan_wrappers_check_their_inputs_on_the_cpu():
         tq.bq_scan_cuda(qt, pt, torch.from_numpy(pop), None, 40, 5, plan,
                         torch.empty((1, 3, plan.cap), dtype=torch.int32),
                         lists[1])
-    # the phase-quant searches: every query in one scan launch
+    # the phase-quant and phase-pq searches: every query in one scan
+    # launch; the code scans' CTAs hold all 256 queries
     assert tq.scan_plan("bq", 256, 10_002_432, 320) == (132, 75_776, 704)
-    assert tq.scan_plan("sq", 256, 552_960, 200) == (66, 8_448, 544)
+    assert tq.scan_plan("sq", 256, 552_960, 200) == (131, 4_224, 544)
+    assert tq.scan_plan("rq", 256, 550_000, 200) == (131, 4_224, 544)
+    assert tq.scan_plan("pq", 256, 1_000_000, 40) == (131, 7_680, 384)
     # k = MAX_K: fewer splits keep the lists under LIST_BYTES
     big = tq.scan_plan("bq", 256, 10_002_432, tq.MAX_K)
     assert big.splits * 256 * big.cap * 8 <= tq.LIST_BYTES
     assert tq.search_launches() == {"scan": 1, "merge": 1}
     for kind, b, n, k in (("bq", 256, 10_002_432, 320),
                           ("sq", 256, 552_960, 200), ("bq", 257, 300, 4096),
-                          ("sq", 53, 100_000, 10)):
+                          ("sq", 53, 100_000, 10), ("pq", 257, 50_001, 4096),
+                          ("rq", 1, 300, 10)):
         p = tq.scan_plan(kind, b, n, k)
         assert p.split_rows % tq.ROWS_TILE[kind] == 0
         assert (p.splits - 1) * p.split_rows < n <= p.splits * p.split_rows
@@ -216,7 +220,7 @@ def test_scan_wrappers_check_their_inputs_on_the_cpu():
 def test_scan_plan_refuses_what_no_kernel_takes(b, n, k):
     # the plan is the first step of a search on the card: it refuses an
     # empty scan or a k outside [1, MAX_K] before anything is allocated
-    for kind in ("bq", "sq"):
+    for kind in ("bq", "sq", "pq", "rq"):
         with pytest.raises(ValueError, match="empty scan|k="):
             tq.scan_plan(kind, b, n, k)
 
@@ -226,14 +230,20 @@ def test_plan_reads_the_kernels_tiles_from_their_source():
     # launches with: one definition each in the source
     src = (Path(tq.__file__).resolve().parents[1] / "csrc"
            / "quantized.cu").read_text()
-    for name, value in (("kQT", tq.QUERY_TILE),
+    for name, value in (("kQT", tq.QUERY_TILE["bq"]),
                         ("kBqR", tq.ROWS_TILE["bq"]),
-                        ("kSqR", tq.ROWS_TILE["sq"]),
                         ("kBqCtasPerSm", tq.CTAS_PER_SM["bq"]),
-                        ("kSqCtasPerSm", tq.CTAS_PER_SM["sq"])):
+                        ("kWgQT", tq.QUERY_TILE["sq"]),
+                        ("kWgR", tq.ROWS_TILE["sq"]),
+                        ("kWgCtasPerSm", tq.CTAS_PER_SM["sq"])):
         assert src.count(f"constexpr int {name} = {value};") == 1, name
+    # Q2, Q3 and Q4 share the warp-specialized template's tiles
+    for kind in ("pq", "rq"):
+        assert tq.QUERY_TILE[kind] == tq.QUERY_TILE["sq"]
+        assert tq.ROWS_TILE[kind] == tq.ROWS_TILE["sq"]
+        assert tq.CTAS_PER_SM[kind] == tq.CTAS_PER_SM["sq"]
     assert "__launch_bounds__(kThreads, kBqCtasPerSm)" in src
-    assert "__launch_bounds__(kThreads, kSqCtasPerSm)" in src
+    assert "__launch_bounds__(kWgThreads, kWgCtasPerSm)" in src
 
 
 def _order_keys(f: np.ndarray) -> np.ndarray:

@@ -14,13 +14,13 @@
 //     is an exact integer, so the distances equal the plain version's bit
 //     for bit.
 //   * Q2 `sq_search` (:168, with `_bf16_ip` :122): q . decode(c) =
-//     s * (bf16(q) . c) + a * sum(q). `mma.m16n8k16` bf16 products with
-//     float32 sums: the queries come rounded to bf16 (round to nearest
-//     even, as `_bf16_ip` casts them), the code tiles arrive as bytes and
-//     are widened to bf16 in shared memory (exact: codes <= 255), and the
-//     epilogue applies the affine decode with sum(q) and sum(q^2) taken in
-//     float32 from the unrounded queries; l2-squared is clamped at 0, dot
-//     negated, cosine 1 - x.
+//     s * (bf16(q) . c) + a * sum(q). bf16 products with float32 sums
+//     (`wgmma`): the queries come rounded to bf16 (round to nearest even,
+//     as `_bf16_ip` casts them), the codes arrive as bytes and are widened
+//     to bf16 in shared memory (exact: codes <= 255), and the epilogue
+//     applies the affine decode with sum(q) and sum(q^2) taken in float32
+//     from the unrounded queries; l2-squared is clamped at 0, dot negated,
+//     cosine 1 - x.
 //   * Q3 `pq_search` (:204): bf16(q) . bf16(decode(c)), decode(c) the
 //     concatenated centroids of the row's codes, with float32 sums; the
 //     epilogue is the metric of that product alone (l2-squared with the
@@ -41,37 +41,25 @@
 // norms: operations.
 //
 // What the design does about it. The products run on the tensor cores, and
-// nothing of size [B, N] reaches device memory: a CTA owns a tile of 128
+// nothing of size [B, N] reaches device memory: a CTA owns a tile of
 // queries and a split (a contiguous range of rows, walked in increasing
-// order in tiles through a cp.async ring) and keeps each query's exact
-// top-k of the split in its epilogue. A tile's products land in shared
-// memory as keys (Q1: the 16-bit distances; Q2: 32-bit order keys, the
-// float bits sign-flipped so unsigned order is float order); a row masked
-// or past the split gets a key that is never taken. Each query has a
-// threshold and a candidate list in device memory, [splits, B, cap]: a row
-// enters only if its key is below the threshold, so a later row that ties
-// it loses the tie, and the list stays in row order. When a tile's takers
-// would overflow the list, the query's warp compacts it to its k smallest
-// by (key, row): four 8-bit radix passes find the k-th key, a stable pass
-// keeps the keys below it and the first of those equal to it, and the k-th
-// key becomes the threshold. At the end of its split a list is compacted
-// to k and padded. The merge, one CTA a query, takes the [splits, k]
-// partials to k the same way and sorts them by (key, row). A search is one
-// scan launch and one merge launch, for any B.
+// order in tiles) and keeps each query's exact top-k of the split in its
+// epilogue. Each query has a threshold and a candidate list in device
+// memory, [splits, B, cap]: a row enters only if its key (an order key:
+// the float bits sign-flipped, so unsigned order is float order) is below
+// the threshold, so a later row that ties it loses the tie, and the list
+// stays in row order; a row masked or past the split gets a key that is
+// never taken. A full list is compacted to its k smallest by (key, row),
+// and the k-th key becomes the threshold. At the end of its split a list
+// is compacted to k and padded. The merge, one CTA a query, takes the
+// [splits, k] partials to k (a radix select, then a sort by (key, row)).
+// A search is one scan launch and one merge launch, for any B.
 //
-// Q2, Q3 and Q4 are one template (`code_scan_kernel`): the same query ring,
-// product tiles, epilogue and selection, with the row type's loader. Q3's
-// rows do not fit the ring as bytes to widen: each ring step carries each
-// row's code window (the words holding its codes of the segments the
-// step's 64 dimensions touch, any sub-width dsub), and one step ahead of
-// the products the CTA gathers every (row, piece) of the step from the bf16
-// codebooks (the centroid of the row's code of that segment, the widest
-// piece dsub allows: 8 values a copy, a constant of its own instance, or
-// 4, 2 or 1, chosen at launch) with cp.async, straight
-// into the product's bf16 tile; the gathers of step s + 1 are their own
-// commit group, in flight while step s multiplies. The codebooks (786 KB at
-// config 3) stay in L2: a gather moves no device-memory bytes after the
-// first, and a per-query lookup table (96 KB a query) would not fit a CTA.
+// Q1 (`bq_scan_kernel`): 128 queries a CTA, tiles of 64 rows through a
+// cp.async ring; a tile's 16-bit distances land in shared memory, and each
+// warp selects its queries' takers, compacting a list with four 8-bit
+// radix passes (`warp_compact`). Q2, Q3 and Q4 are one warp-specialized
+// template for Hopper (`wg_scan_kernel`, its own section below).
 //
 // Q1's product route: the 1-bit product measured faster than an int8 one
 // (`mma.m16n8k32 .u8`) on the bits widened to {0,1} bytes in registers,
@@ -79,10 +67,9 @@
 // against 19.70 on random codes at the same shapes (NVIDIA H100 80GB HBM3
 // at 700 W; probe_quantized.py keeps the int8 product as its `int8`
 // copy): widening bits to bytes costs more integer work than the int8
-// rate wins, so only the 1-bit product is kept. Neither scan is held by
-// its product: with the selection switched off Q1 takes 2.6 ms and Q2
-// 1.4 ms, so the epilogue selection is most of their time (PERF.md
-// section 6).
+// rate wins, so only the 1-bit product is kept. Q1 is not held by its
+// product: with the selection switched off it takes 2.6 ms of 10.9, so the
+// epilogue selection is most of its time (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,8 +84,8 @@ constexpr int kMaxK = 4096;
 constexpr uint32_t kNone = 0xffffffffu;  // never below a threshold
 constexpr unsigned kFull = 0xffffffffu;
 
-// both scans: threads a CTA (8 warps: 2 over the queries x 4 over the
-// rows), queries a CTA, radix digit bins
+// Q1 and the merge: threads a CTA (Q1: 8 warps, 2 over the queries x 4
+// over the rows), Q1's queries a CTA, radix digit bins
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQT = 128;
@@ -107,13 +94,8 @@ constexpr int kBins = 256;
 constexpr int kBqR = 64;
 constexpr int kBqStages = 3;
 constexpr int kBqCtasPerSm = 2;
-// Q2: rows a tile, depth of a ring step, ring stages, the bf16 tiles'
-// leading dimension (144 bytes: ldmatrix rows fall in distinct banks)
-constexpr int kSqR = 128;
+// Q2-Q4: dimensions a step of the products
 constexpr int kSqK = 64;
-constexpr int kSqStages = 4;
-constexpr int kSqLd = kSqK + 8;
-constexpr int kSqCtasPerSm = 1;
 
 enum Refused {
   kBadShape = -1,
@@ -296,18 +278,10 @@ __device__ __noinline__ uint32_t warp_compact(uint32_t* lk, int* lr, int n,
   return t;
 }
 
-// A tile's keys as the scans write them. Q2's are the order keys the
-// lists hold. Q1's are the hamming distances themselves, 16 bits (at most
-// kMaxD; 0xffff for a row never taken): the list key of one is the order
-// key of the distance as a float, and a list's threshold (an order key)
-// is a distance again as a tile's threshold.
-struct OrderKeys {
-  using T = uint32_t;
-  static constexpr uint32_t kAll = kNone;
-  __device__ static uint32_t to_list(uint32_t key) { return key; }
-  __device__ static uint32_t from_list(uint32_t t) { return t; }
-};
-
+// Q1's tile keys: the hamming distances themselves, 16 bits (at most
+// kMaxD; 0xffff for a row never taken). The list key of one is the order
+// key of the distance as a float, and a list's threshold (an order key) is
+// a distance again as a tile's threshold.
 struct HammingKeys {
   using T = uint16_t;
   static constexpr uint32_t kAll = 0xffffu;
@@ -594,23 +568,7 @@ bq_scan_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
   finish_split(st, lk, lr, q0, b, split, cap, k, hist[warp]);
 }
 
-// -- Q2 ----------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+// -- Q2, Q3 and Q4: the code rows -------------------------------------------
 
 // two codes (bytes lo and lo + 1 of w) as a bf16 pair, exactly: a byte
 // under the exponent of 2^23 is 2^23 + byte
@@ -624,44 +582,9 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, int lo) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-constexpr int kSqTk = kSqR + 8;
-
 // The code scans' row types: Q2's global-affine SQ codes, Q4's per-row
 // affine RQ codes, Q3's PQ codes decoded through the codebooks.
 enum Rows { kSqRows = 0, kRqRows = 1, kPqRows = 2 };
-// Q3: a step's codes, each row's 4-byte words holding its codes of the
-// segments the step's 64 dimensions touch (at most 65 of them, from 0-3
-// bytes into the first word): kPqWords words a row
-constexpr int kPqWords = 17;
-constexpr int kPqWin = 4 * kPqWords;
-
-// A stage of a code scan's ring: a step's codes (Q2, Q4: [kSqR][kSqK]
-// bytes; Q3: [kSqR][kPqWin] bytes, the rows' code windows), then the tile's
-// per-row floats [floats][kSqR] (decoded norms; Q4 also lower and step) and
-// mask bytes [kSqR] (every step carries them, so the last step of a tile
-// holds them for its epilogue).
-template <int ROWS>
-__host__ __device__ constexpr int code_bytes() {
-  return ROWS == kPqRows ? kSqR * kPqWin : kSqR * kSqK;
-}
-template <int ROWS>
-__host__ __device__ constexpr int row_floats() {
-  return ROWS == kRqRows ? 3 : 1;
-}
-template <int ROWS>
-__host__ __device__ constexpr int scan_stage() {
-  return code_bytes<ROWS>() + kSqR * 4 * row_floats<ROWS>() + kSqR;
-}
-// Dynamic shared memory of a code scan: the query and code rings, the bf16
-// code tile (two: one step is widened or decoded while the other feeds the
-// products), the key tile.
-template <int ROWS>
-__host__ __device__ constexpr size_t scan_smem() {
-  return (size_t)kSqStages * kQT * kSqLd * 2 +
-         (size_t)kSqStages * scan_stage<ROWS>() +
-         (size_t)2 * kSqR * kSqLd * 2 + (size_t)kQT * kSqTk * 4;
-}
-
 // A piece of p bf16 values (2p bytes) from global to shared memory through
 // cp.async (p = 2, 4, 8), zero-filled when !ok; p = 1 is a plain load and
 // store. p is the same in every thread of a launch.
@@ -696,287 +619,812 @@ struct CodeRows {
   const __nv_bfloat16* cb;   // Q3: [m, centroids, dsub] bf16 codebooks
   float a, s;                // Q2: the offset and step
   int m, dsub, centroids;    // Q3
-  int piece;                 // Q3: values a gather copies, a divisor of dsub
+  int piece;  // Q3: values a gather copies, a divisor of dsub; Q2, Q4: the
+              // bytes a code copy moves (16, or 1 for codes off 16 bytes)
 };
 
-// Q2, Q3 and Q4: the queries rounded to bf16 [b, dp] (zero past d) times
-// the rows' decoded codes on the tensor cores, a tile's keys from the
-// metric of q . decode(x), and the exact top-k of each split. ROWS picks the
-// loader and the decode: Q2 widens the byte codes to bf16 and decodes
-// a + s * (q . c); Q4 the same with the row's own lower and step; Q3
-// gathers each code's centroid piece (x.piece values a copy) from the bf16
-// codebooks, which stay in L2, into the product's tile. VEC: the codes
-// load 16 bytes a copy (Q2, Q4), or Q3's pieces are 8 values (16 bytes),
-// a constant.
+// -- Q2, Q3 and Q4 on Hopper: the warp-specialized scan ----------------------
+//
+// `wg_scan_kernel` replaced the earlier `code_scan_kernel` (commit
+// 202d8c9). What the probe of that template found (probe_quantized.py, PERF.md section 6): Q3 spent
+// its time on the loads (a 17-word code window a row a step and centroid
+// gathers issued one step ahead of the products: 9.48 ms, 5.73 with them
+// off) and on its tile ends (5.54 ms with the keys and the selection off),
+// Q4 on its tile ends (2.85 ms, 0.74 with them off: the keys, a CTA-wide
+// barrier and the selection's compactions held every warp's products).
+//
+// The design. A CTA holds 256 queries (the products' N) and a split of the
+// rows, walked in tiles of 128 rows in steps of 64 dimensions, so each row
+// is decoded once a search at B <= 256. Twelve warps:
+//   * warp 0, the producer: one bulk copy (TMA) a step of the step's 32 KB
+//     query block into a ring of two (the wrapper lays the queries out so
+//     that a step's block is contiguous and each 8 x 16-byte piece is a
+//     core matrix of `wgmma`'s operand), and for Q3 one bulk copy a row of
+//     the codes a span of steps needs (a tile's 96 codes at config 3);
+//   * warps 1-3, the helpers: at each tile's end they publish the split's
+//     least pairs taken, compact the lists the tile filled while the
+//     consumers multiply the next tile, and now and then read the bound
+//     the splits share;
+//   * warps 4-11, two consumer warpgroups of 64 rows each: `wgmma`
+//     m64n256k16 (A the decoded rows, B the queries, both from shared
+//     memory; 128 float32 sums a thread), with each thread staging its own
+//     row's operand kWgAhead steps ahead: Q3 gathers the rows' centroid
+//     pieces from the bf16 codebooks (L2) with cp.async straight into the A
+//     ring, Q2 and Q4 copy the code bytes and widen them to bf16 a step
+//     ahead, while the tensor cores run the current step.
+// At a tile's end the consumers turn their sums into keys; a ballot a
+// (query pair, row half) marks each warp's takers, and the takers are
+// appended in row order to their query's list in device memory, [splits,
+// B, cap]. A taker is below the list's threshold and, as a (key, row)
+// pair, below the bound the splits share: each warpgroup of each split
+// (a sub-stream of rows) publishes the least pair it has taken, and a
+// query's bound is the largest of those, valid once 2 x splits >= k (so
+// many distinct pairs lie at or below it). At config 3 and the tenant's
+// shape it leaves few compactions or none. A list that could not take
+// another tile is queued, and the helpers (and the consumers, if the queue
+// is not empty when they reach the next tile's end) compact it to its k
+// smallest by (key, row), the k-th key found by bisecting the key range
+// with warp-wide counts. At the split's end every warp compacts and pads
+// the lists. Registers (`setmaxnreg`): the producer and helpers 56 a
+// thread, the consumers 224, which hands out the launch's 168 x 384
+// exactly; no call may sit in the consumers' code (a call defeats their
+// budget), so the compaction is inlined and holds few registers.
+
+constexpr int kWgQT = 256;
+constexpr int kWgR = 128;
+constexpr int kWgThreads = 384;
+constexpr int kWgCtasPerSm = 1;
+// query ring stages; steps the consumers' loads run ahead of the products
+constexpr int kWgQStages = 2;
+constexpr int kWgAhead = 3;
+// Q3: bytes of a row's staged code span (at most 114 segments, from 0-15
+// bytes into its first 16-byte piece)
+constexpr int kWgSpan = 144;
+constexpr int kWgSpanSegs = 112;
+// a query stage, a warpgroup's A stage, a warpgroup's code-byte stage (rows
+// of 80 bytes: 16-byte pieces of 8 rows fall in distinct banks)
+constexpr int kWgQBytes = kWgQT * kSqK * 2;
+constexpr int kWgABytes = 64 * kSqK * 2;
+constexpr int kWgRawPitch = kSqK + 16;
+constexpr int kWgRawBytes = 64 * kWgRawPitch;
+
+template <int ROWS>
+__host__ __device__ constexpr int wg_astages() {
+  return ROWS == kPqRows ? kWgAhead + 1 : 2;
+}
+template <int ROWS>
+__host__ __device__ constexpr int wg_rawstages() {
+  return ROWS == kPqRows ? 0 : kWgAhead + 1;
+}
+// Dynamic shared memory of the scan: the query ring, each warpgroup's A
+// ring, and its code-byte ring (Q2, Q4) or two code spans (Q3).
+template <int ROWS>
+__host__ __device__ constexpr size_t wg_smem() {
+  return (size_t)kWgQStages * kWgQBytes +
+         (size_t)2 * wg_astages<ROWS>() * kWgABytes +
+         (size_t)2 * wg_rawstages<ROWS>() * kWgRawBytes +
+         (ROWS == kPqRows ? (size_t)2 * kWgR * kWgSpan : 0);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+// Waits until the barrier's phase of the given parity has completed; a wait
+// that never ends (a broken protocol) traps after about 4 s rather than
+// hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) break;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the TMA,
+// completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+// this thread's shared-memory writes before the async proxy (wgmma) reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// A no-swizzle K-major operand: 8 x 16-byte core matrices, `lbo` bytes
+// apart along K and `sbo` bytes apart along M (N)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// D (64 rows x 256 queries, 128 floats a thread) += A (64 x 16, bf16) x
+// B (256 x 16, bf16), both read from shared memory by descriptor; `acc`
+// 0 ignores D (the first product of a tile). Asynchronous: the caller
+// fences, commits and waits.
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins the sums: the compiler moves none of them across this point, so
+// none is read or copied while a product is in flight
+__device__ __forceinline__ void pin_sums(float* d) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Compacts a query's list (n > k entries in row order) in place to its k
+// smallest by (key, row), still in row order; returns the k-th key, the new
+// threshold. The k-th key is the least t with at least k keys <= t, found
+// by bisecting [min, max] with warp-wide counts; each count reads the list
+// again (from L1: a list is a few KB), so the warp holds a handful of
+// registers whatever n is, and the consumers can run it beside their sums.
+__device__ __forceinline__ uint32_t wg_compact(uint32_t* lk, int* lr, int n,
+                                               int k) {
+  const int lane = threadIdx.x & 31;
+  const unsigned before = (1u << lane) - 1u;
+  uint32_t lo = kNone, hi = 0u;
+#pragma unroll 8
+  for (int i = lane; i < n; i += 32) {
+    const uint32_t key = lk[i];
+    lo = min(lo, key);
+    hi = max(hi, key);
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  while (lo < hi) {
+    const uint32_t mid = lo + ((hi - lo) >> 1);
+    unsigned c = 0;
+#pragma unroll 4
+    for (int i = lane; i < n; i += 32) c += lk[i] <= mid;
+    if ((int)__reduce_add_sync(kFull, c) >= k) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  const uint32_t t = lo;
+  unsigned below = 0;
+#pragma unroll 8
+  for (int i = lane; i < n; i += 32) below += lk[i] < t;
+  const int need = k - (int)__reduce_add_sync(kFull, below);
+  // stable: an entry moves to its own place or before it, so four batches
+  // of 32 are read before any of them is written
+  constexpr int kB = 4;
+  int w = 0, eq_seen = 0;
+  for (int base = 0; base < n; base += 32 * kB) {
+    uint32_t key[kB];
+    int row[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int i = base + 32 * j + lane;
+      key[j] = i < n ? lk[i] : kNone;
+      row[j] = i < n ? lr[i] : -1;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const bool in = base + 32 * j + lane < n;
+      const bool eq = in && key[j] == t;
+      const unsigned em = __ballot_sync(kFull, eq);
+      const bool keep = (in && key[j] < t) ||
+                        (eq && eq_seen + __popc(em & before) < need);
+      const unsigned km = __ballot_sync(kFull, keep);
+      if (keep) {
+        const int p = w + __popc(km & before);
+        lk[p] = key[j];
+        lr[p] = row[j];
+      }
+      w += __popc(km);
+      eq_seen += __popc(em);
+    }
+    __syncwarp();
+  }
+  return t;
+}
+
+// The scan's small shared state. The compaction queue's counters only
+// grow: `tail` counts the queued lists, `claimed` those a warp took,
+// `done` those compacted; `fin` hands out the split's last compactions.
+struct WgState {
+  uint64_t full[kWgQStages], empty[kWgQStages];  // the query ring
+  uint64_t span_full[2], span_empty[2];          // Q3's code spans
+  uint64_t ep_done, sel_done;  // a tile's lists written; its queue taken
+  uint32_t thr[kWgQT];         // a key enters a query's list below this
+  int cnt[kWgQT];              // entries in a query's list
+  uint32_t bal[kWgQT / 4][8][2];  // a tile's takers: (query pair, warp, half)
+  int place[kWgQT][8];            // where a warp's takers of a query go
+  // the shared bound: each warpgroup's least (key, row) taken of each
+  // query, and the bound the helpers last read, a (key, row) pair
+  unsigned long long smin[2][kWgQT], bound[kWgQT];
+  float qsum[kWgQT], qsq[kWgQT];
+  int queue[kWgQT];
+  int tail, claimed, done, fin;
+};
+
+__device__ __forceinline__ int ld_volatile(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+// A shared-memory word loaded where it is written: the compiler can neither
+// hoist nor merge it, so a long unrolled loop holds few values at once.
+__device__ __forceinline__ uint32_t lds_u32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(smem_addr(p)));
+  return v;
+}
+__device__ __forceinline__ unsigned long long lds_u64(const void* p) {
+  unsigned long long v;
+  asm volatile("ld.shared.u64 %0, [%1];\n" : "=l"(v) : "r"(smem_addr(p)));
+  return v;
+}
+// `v` recomputed where it is used, for the same reason
+__device__ __forceinline__ int pinned(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// Warp-wide: claims the next queued list below `lim` (-1: none left).
+__device__ __forceinline__ int wg_claim(WgState& s, int lim) {
+  int got = -1;
+  if ((threadIdx.x & 31) == 0) {
+    int c = ld_volatile(&s.claimed);
+    while (c < lim) {
+      const int prev = atomicCAS(&s.claimed, c, c + 1);
+      if (prev == c) {
+        got = c;
+        break;
+      }
+      c = prev;
+    }
+  }
+  return __shfl_sync(kFull, got, 0);
+}
+
+// Warp-wide: compacts queued lists below `lim` until none is left to claim.
+__device__ __forceinline__ void wg_drain(WgState& s, int lim, uint32_t* lk,
+                                         int* lr, size_t base0, int cap,
+                                         int k) {
+  for (int i; (i = wg_claim(s, lim)) >= 0;) {
+    const int ql = s.queue[i % kWgQT];
+    const size_t base = base0 + (size_t)ql * cap;
+    const uint32_t t = wg_compact(lk + base, lr + base, s.cnt[ql], k);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      s.thr[ql] = t;
+      s.cnt[ql] = k;
+      __threadfence_block();
+      atomicAdd(&s.done, 1);
+    }
+  }
+}
+
+__device__ __forceinline__ void wg_wait_done(WgState& s, int lim) {
+  for (uint32_t spins = 0; ld_volatile(&s.done) < lim; ++spins) {
+    if (spins == (1u << 24)) __trap();
+    __nanosleep(256);
+  }
+}
+
+// Warp-wide, at the split's end: each list compacted to k and padded.
+__device__ __forceinline__ void wg_finish(WgState& s, uint32_t* lk, int* lr,
+                                          size_t base0, int q0, int b,
+                                          int cap, int k) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int ql = 0;
+    if (lane == 0) ql = atomicAdd(&s.fin, 1);
+    ql = __shfl_sync(kFull, ql, 0);
+    if (ql >= kWgQT || q0 + ql >= b) break;
+    const size_t base = base0 + (size_t)ql * cap;
+    int n = s.cnt[ql];
+    if (n > k) {
+      wg_compact(lk + base, lr + base, n, k);
+      n = k;
+    }
+    for (int j = n + lane; j < k; j += 32) {
+      lk[base + j] = kNone;
+      lr[base + j] = -1;
+    }
+  }
+}
+
+// Q2, Q3 and Q4 (`ROWS`): each split's k smallest (order key, row) of
+// each query into the lists lk/lr [splits, b, cap] (the first k entries,
+// in row order, padded with kNone / -1), for the queries laid out by the
+// wrapper, [ceil(b / 256)][dp / 8][256][8] bf16 (zero past b and d). VEC
+// (Q3): the pieces are 8 values, a constant (else x.piece).
 template <int ROWS, bool VEC>
-__global__ void __launch_bounds__(kThreads, kSqCtasPerSm)
-code_scan_kernel(const __nv_bfloat16* __restrict__ q, CodeRows x,
-                 const uint8_t* __restrict__ mask,
-                 const float* __restrict__ qsum, const float* __restrict__ qsq,
-                 int metric, uint32_t* lk, int* lr, int b, int n, int d,
-                 int dp, int k, int split_rows, int cap) {
-  constexpr int kStage = scan_stage<ROWS>();
-  constexpr int kCodes = code_bytes<ROWS>();
-  constexpr int kFloats = row_floats<ROWS>();
-  extern __shared__ __align__(16) unsigned char sq_dyn[];
-  __shared__ float sqsum[kQT], sqsq[kQT];
-  __shared__ int hist[kWarps][kBins];
-  __nv_bfloat16* aring = reinterpret_cast<__nv_bfloat16*>(sq_dyn);
-  uint8_t* braw = sq_dyn + (size_t)kSqStages * kQT * kSqLd * 2;
-  __nv_bfloat16* bw =  // [2][kSqR][kSqLd]
-      reinterpret_cast<__nv_bfloat16*>(braw + kSqStages * kStage);
-  uint32_t* tk = reinterpret_cast<uint32_t*>(bw + 2 * kSqR * kSqLd);
+__global__ void __launch_bounds__(kWgThreads, kWgCtasPerSm)
+wg_scan_kernel(const __nv_bfloat16* __restrict__ q, CodeRows x,
+               const uint8_t* __restrict__ mask,
+               const float* __restrict__ qsum, const float* __restrict__ qsq,
+               int metric, uint32_t* lk, int* lr, unsigned long long* pub,
+               int b, int n, int d, int dp, int k, int split_rows, int cap) {
+  constexpr int kAS = wg_astages<ROWS>();
+  constexpr int kRS = wg_rawstages<ROWS>();
+  extern __shared__ __align__(128) unsigned char wg_dyn[];
+  __shared__ WgState s;
+  unsigned char* qring = wg_dyn;
+  unsigned char* aring = qring + kWgQStages * kWgQBytes;
+  unsigned char* raw = aring + 2 * kAS * kWgABytes;
+  unsigned char* spans = raw + 2 * kRS * kWgRawBytes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int q0 = blockIdx.x * kQT, split = blockIdx.y;
+  const int q0 = blockIdx.x * kWgQT, split = blockIdx.y;
   const int row_begin = split * split_rows;
   const int row_end = min(n, row_begin + split_rows);
-  const int tiles = (row_end - row_begin + kSqR - 1) / kSqR;
+  const int tiles = (row_end - row_begin + kWgR - 1) / kWgR;
   const int chunks = dp / kSqK;
   const int steps = tiles * chunks;
-  const uint8_t* __restrict__ codes = x.codes;
+  const size_t base0 = ((size_t)split * b + q0) * cap;
+  // the shared bound's sub-streams (a warpgroup's rows of a split): it
+  // bounds the k-th only if there are k of them
+  const int nsub = 2 * gridDim.y;
+  const bool shared_bound = nsub >= k;
+  // Q3: steps a code span covers (at most kWgSpanSegs + 1 segments), spans
+  // a tile
+  const int span_steps =
+      ROWS == kPqRows ? max(1, min(chunks, kWgSpanSegs * x.dsub / kSqK)) : 1;
+  const int spt = (chunks + span_steps - 1) / span_steps;
 
-  for (int i = tid; i < kQT; i += kThreads) {
+  for (int i = tid; i < kWgQT; i += kWgThreads) {
     const bool ok = q0 + i < b;
-    sqsum[i] = ok ? qsum[q0 + i] : 0.0f;
-    sqsq[i] = ok ? qsq[q0 + i] : 0.0f;
+    s.thr[i] = ok ? kNone : 0u;  // a query past the batch takes nothing
+    s.cnt[i] = 0;
+    s.qsum[i] = ok ? qsum[q0 + i] : 0.0f;
+    s.qsq[i] = ok ? qsq[q0 + i] : 0.0f;
+    s.smin[0][i] = s.smin[1][i] = s.bound[i] = ~0ull;
   }
-  Lists st = init_lists<OrderKeys>(q0, b);
+  if (tid == 0) {
+    for (int i = 0; i < kWgQStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], 8);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&s.span_full[i], 1);
+      mbar_init(&s.span_empty[i], 8);
+    }
+    mbar_init(&s.ep_done, 8);
+    mbar_init(&s.sel_done, 3);
+    s.tail = s.claimed = s.done = s.fin = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto load_step = [&](int step) {
-    const int t = step / chunks, k0 = (step % chunks) * kSqK;
-    const int stage = step % kSqStages;
-    __nv_bfloat16* ad = aring + stage * kQT * kSqLd;
-    // queries: 128 rows x 128 bytes, zero past b (the padded width dp
-    // holds zeros past d)
-    for (int c = tid; c < kQT * 8; c += kThreads) {
-      const int r = c >> 3, j = (c & 7) * 8;
-      const bool ok = q0 + r < b;
-      cp_async16(ad + r * kSqLd + j,
-                 ok ? q + (size_t)(q0 + r) * dp + k0 + j : q, ok);
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 0) {
+      // the producer. Q3: a span is staged before the query block of the
+      // step kWgAhead ahead of its first step (the consumers gather that
+      // far ahead)
+      auto stage_span = [&](int i) {
+        const int t = i / spt, sp = i % spt, buf = i & 1;
+        if (i >= 2) mbar_wait(&s.span_empty[buf], ((i >> 1) - 1) & 1);
+        const int dim_lo = sp * span_steps * kSqK;
+        const int dim_hi = min(d, (sp + 1) * span_steps * kSqK) - 1;
+        const int seg_lo = dim_lo / x.dsub, seg_hi = dim_hi / x.dsub;
+        const int r0 = row_begin + t * kWgR;
+        uintptr_t src[kWgR / 32];
+        unsigned bytes[kWgR / 32], total = 0;
+#pragma unroll
+        for (int j = 0; j < kWgR / 32; ++j) {
+          const int row = r0 + lane + 32 * j;
+          bytes[j] = 0;
+          src[j] = 0;
+          if (row < row_end) {
+            const uintptr_t a = reinterpret_cast<uintptr_t>(x.codes) +
+                                (size_t)row * x.m;
+            src[j] = (a + seg_lo) & ~uintptr_t(15);
+            bytes[j] = static_cast<unsigned>(
+                ((a + seg_hi + 1 + 15) & ~uintptr_t(15)) - src[j]);
+          }
+          total += bytes[j];
+        }
+        total = __reduce_add_sync(kFull, total);
+        if (lane == 0) mbar_expect_tx(&s.span_full[buf], total);
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < kWgR / 32; ++j)
+          if (bytes[j])
+            bulk_load(spans + (buf * kWgR + lane + 32 * j) * kWgSpan,
+                      reinterpret_cast<const void*>(src[j]), bytes[j],
+                      &s.span_full[buf]);
+      };
+      int span_next = 0;
+      const int spans_total = tiles * spt;
+      for (int st = 0; st < steps; ++st) {
+        if constexpr (ROWS == kPqRows) {
+          while (span_next < spans_total &&
+                 (span_next / spt) * chunks +
+                         (span_next % spt) * span_steps <=
+                     st + kWgAhead) {
+            stage_span(span_next);
+            ++span_next;
+          }
+        }
+        const int stage = st % kWgQStages, use = st / kWgQStages;
+        if (use > 0) mbar_wait(&s.empty[stage], (use - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&s.full[stage], kWgQBytes);
+          bulk_load(qring + stage * kWgQBytes,
+                    q + ((size_t)blockIdx.x * (dp / 8) + 8 * (st % chunks)) *
+                            kWgQT * 8,
+                    kWgQBytes, &s.full[stage]);
+        }
+        __syncwarp();
+      }
+      return;
     }
-    uint8_t* bd = braw + stage * kStage;
-    const int r0 = row_begin + t * kSqR;
-    if (tid < kSqR) {  // the tile's decoded norms, 4 bytes a row
-      const bool ok = r0 + tid < row_end;
-      cp_async4(bd + kCodes + tid * 4, ok ? x.dsq + r0 + tid : x.dsq, ok);
-    } else if (mask != nullptr && tid < kSqR + kSqR / 4) {
-      const int c = tid - kSqR;
-      load_mask4(bd + kCodes + kFloats * kSqR * 4 + 4 * c, mask, r0 + 4 * c,
-                 n);
-    }
-    if constexpr (ROWS == kRqRows) {  // the rows' lower and step
-      for (int c = tid; c < 2 * kSqR; c += kThreads) {
-        const int r = c % kSqR;
-        const float* src = c < kSqR ? x.lower : x.step;
-        const bool ok = r0 + r < row_end;
-        cp_async4(bd + kCodes + (kSqR + c) * 4, ok ? src + r0 + r : src, ok);
+    // the helpers: each tile's end, this split's least pairs published,
+    // the queued lists compacted while the consumers multiply on, and
+    // after tiles 1, 2, 4, 8, ... the shared bound read
+    const int hl = (warp - 1) * 32 + lane;  // 0 .. 95
+    for (int t = 0; t < tiles; ++t) {
+      mbar_wait(&s.ep_done, t & 1);
+      if (shared_bound) {
+        for (int i = hl; i < 2 * kWgQT; i += 96) {
+          const int ql = i >> 1;
+          if (q0 + ql < b)
+            pub[(size_t)(q0 + ql) * nsub + 2 * split + (i & 1)] =
+                s.smin[i & 1][ql];
+        }
+      }
+      wg_drain(s, ld_volatile(&s.tail), lk, lr, base0, cap, k);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.sel_done);
+      if (shared_bound && (t & (t + 1)) == 0) {
+        // the bound: the largest of the sub-streams' least pairs (one that
+        // has taken nothing is all ones: no bound yet). At least nsub >= k
+        // distinct pairs are <= it, so a pair above it is not among the k
+        // smallest. A reading of values not yet published is looser, and
+        // as valid.
+        for (int ql = warp - 1; ql < kWgQT && q0 + ql < b; ql += 3) {
+          unsigned long long m = 0ull;
+          for (int sid = lane; sid < nsub; sid += 32)
+            m = max(m, __ldcg(pub + (size_t)(q0 + ql) * nsub + sid));
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            m = max(m, __shfl_xor_sync(kFull, m, o));
+          if (lane == 0)
+            *reinterpret_cast<volatile unsigned long long*>(&s.bound[ql]) =
+                m;
+        }
       }
     }
+    wg_wait_done(s, ld_volatile(&s.tail));
+    wg_finish(s, lk, lr, base0, q0, b, cap, k);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  // the consumers: warpgroup c holds rows 64c .. 64c + 63 of each tile
+  const int c = (warp - 4) >> 2, wt = tid - 128 * (1 + c), wi = wt >> 5;
+  const int ct = tid - 128;  // 0 .. 255 over both warpgroups
+  // the row of the warpgroup's 64 whose operand this thread stages, and
+  // which half of a step's 64 dimensions
+  const int prow = wt & 63, half = wt >> 6;
+  unsigned char* my_a = aring + c * kAS * kWgABytes;
+  unsigned char* my_raw = raw + c * kRS * kWgRawBytes;
+  int span_off = 0;  // Q3: the staged span's offset of this thread's row
+
+  // stages step st's operand rows: Q3 gathers them into A stage st % kAS,
+  // Q2 and Q4 copy their code bytes into byte stage st % kRS
+  auto prep = [&](int st) {
+    const int t = st / chunks, kc = st % chunks, k0 = kc * kSqK;
+    const int row = row_begin + t * kWgR + c * 64 + prow;
+    const bool okr = row < row_end;
     if constexpr (ROWS == kPqRows) {
-      // each row's code window: the words from the one holding segment
-      // k0 / dsub, bytes past the codes zero-filled
-      const long long total = (long long)n * x.m;
-      const int seg_lo = k0 / x.dsub;
-      for (int c = tid; c < kSqR * kPqWords; c += kThreads) {
-        const int r = c / kPqWords, wd = c % kPqWords;
-        const long long at =
-            (((long long)(r0 + r) * x.m + seg_lo) & ~3LL) + 4 * wd;
-        long long nb = r0 + r < row_end ? total - at : 0;
-        nb = nb < 0 ? 0 : (nb > 4 ? 4 : nb);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                         smem_addr(bd + r * kPqWin + 4 * wd)),
-                     "l"(nb ? codes + at : codes), "r"((int)nb));
+      const int sp = kc / span_steps, i = t * spt + sp, buf = i & 1;
+      const int seg_lo = (sp * span_steps * kSqK) / x.dsub;
+      if (kc % span_steps == 0) {
+        mbar_wait(&s.span_full[buf], (i >> 1) & 1);
+        span_off = okr ? static_cast<int>(
+                             (reinterpret_cast<uintptr_t>(x.codes) +
+                              (size_t)row * x.m + seg_lo) & 15)
+                       : 0;
       }
-    } else if (VEC) {  // 16-byte pieces, zero past the row or d
-      for (int c = tid; c < kSqR * 4; c += kThreads) {
-        const int r = c >> 2, j = (c & 3) * 16;
-        const bool ok = r0 + r < row_end && k0 + j < d;
-        cp_async16(bd + r * kSqK + j,
-                   ok ? codes + (size_t)(r0 + r) * d + k0 + j : codes, ok);
+      // the code of segment g sits at cs[g]
+      const unsigned char* cs =
+          spans + (buf * kWgR + c * 64 + prow) * kWgSpan + span_off - seg_lo;
+      __nv_bfloat16* a =
+          reinterpret_cast<__nv_bfloat16*>(my_a + (st % kAS) * kWgABytes) +
+          (prow >> 3) * 512 + (prow & 7) * 8;
+      const int piece = VEC ? 8 : x.piece;
+      const int dim0 = k0 + 32 * half;
+      int seg = dim0 / x.dsub, off = dim0 - seg * x.dsub;
+#pragma unroll 4
+      for (int j = 0; j < 32; j += piece) {
+        const bool ok = okr && dim0 + j < d;
+        const __nv_bfloat16* src = x.cb;
+        if (ok)
+          src += ((size_t)seg * x.centroids + cs[seg]) * x.dsub + off;
+        const int kk = 32 * half + j;  // the dimension in the step
+        copy_piece(a + (kk >> 3) * 64 + (kk & 7), src, ok, piece);
+        off += piece;
+        if (off == x.dsub) {
+          off = 0;
+          ++seg;
+        }
+      }
+      if (kc % span_steps == span_steps - 1 || kc == chunks - 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&s.span_empty[buf]);
       }
     } else {
-      for (int c = tid; c < kSqR * kSqK; c += kThreads) {
-        const int r = c / kSqK, j = c % kSqK;
-        bd[c] = r0 + r < row_end && k0 + j < d
-                    ? codes[(size_t)(r0 + r) * d + k0 + j]
-                    : 0;
+      unsigned char* dst =
+          my_raw + (st % kRS) * kWgRawBytes + prow * kWgRawPitch + 32 * half;
+      const int j0 = k0 + 32 * half;
+      if (x.piece == 16) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool ok = okr && j0 + 16 * i < d;
+          cp_async16(dst + 16 * i,
+                     ok ? x.codes + (size_t)row * d + j0 + 16 * i : x.codes,
+                     ok);
+        }
+      } else {
+        for (int i = 0; i < 32; ++i)
+          dst[i] = okr && j0 + i < d ? x.codes[(size_t)row * d + j0 + i] : 0;
       }
     }
   };
-  // a step's codes widened to bf16 into buffer step % 2: 32 bytes a thread
-  // (Q2, Q4)
-  auto widen_step = [&](int step) {
+  // Q2, Q4: this thread's 32 code bytes of step st widened to bf16 into A
+  // stage st % kAS (exact: codes <= 255)
+  auto widen = [&](int st) {
     if constexpr (ROWS != kPqRows) {
-      const int r = tid >> 1, j = (tid & 1) * 32;
       const uint4* src = reinterpret_cast<const uint4*>(
-          braw + (step % kSqStages) * kStage + r * kSqK + j);
-      uint4* dst = reinterpret_cast<uint4*>(bw + (step & 1) * kSqR * kSqLd +
-                                            r * kSqLd + j);
+          my_raw + (st % kRS) * kWgRawBytes + prow * kWgRawPitch + 32 * half);
+      __nv_bfloat16* a =
+          reinterpret_cast<__nv_bfloat16*>(my_a + (st % kAS) * kWgABytes) +
+          (prow >> 3) * 512 + (prow & 7) * 8;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint4 u = src[h];
-        dst[2 * h] = make_uint4(widen2(u.x, 0), widen2(u.x, 2),
-                                widen2(u.y, 0), widen2(u.y, 2));
-        dst[2 * h + 1] = make_uint4(widen2(u.z, 0), widen2(u.z, 2),
-                                    widen2(u.w, 0), widen2(u.w, 2));
-      }
-    }
-  };
-  // Q3: a step's rows decoded into buffer step % 2, piece by piece: the
-  // centroid of the row's code of the piece's segment (past d: zeros)
-  auto decode_step = [&](int step) {
-    if constexpr (ROWS == kPqRows) {
-      const int t = step / chunks, k0 = (step % chunks) * kSqK;
-      const uint8_t* win = braw + (step % kSqStages) * kStage;
-      __nv_bfloat16* dst = bw + (step & 1) * kSqR * kSqLd;
-      const int r0 = row_begin + t * kSqR;
-      const int seg_lo = k0 / x.dsub;
-      const int piece = VEC ? 8 : x.piece;
-      const int per = kSqK / piece;  // pieces a row
-      for (int c = tid; c < kSqR * per; c += kThreads) {
-        const int r = c / per, j = (c % per) * piece;
-        const int dim = k0 + j;
-        const int off = (int)(((long long)(r0 + r) * x.m + seg_lo) & 3);
-        const bool ok = dim < d;
-        const __nv_bfloat16* src = x.cb;
-        if (ok) {
-          const int seg = dim / x.dsub;
-          const int code = win[r * kPqWin + off + seg - seg_lo];
-          src += ((size_t)seg * x.centroids + code) * x.dsub +
-                 (dim - seg * x.dsub);
-        }
-        copy_piece(dst + r * kSqLd + j, src, ok, piece);
+        const int kg = 4 * half + 2 * h;  // the 8-dimension group
+        *reinterpret_cast<uint4*>(a + kg * 64) =
+            make_uint4(widen2(u.x, 0), widen2(u.x, 2), widen2(u.y, 0),
+                       widen2(u.y, 2));
+        *reinterpret_cast<uint4*>(a + (kg + 1) * 64) =
+            make_uint4(widen2(u.z, 0), widen2(u.z, 2), widen2(u.w, 0),
+                       widen2(u.w, 2));
       }
     }
   };
 
-  // steps 0 .. kSqStages - 2 in flight; step 0 widened (decoded) before the
-  // loop
+  // the epilogue's rows: this thread's sums hold rows er and er + 8 of
+  // the tile and queries 8j + 2 (lane & 3) + {0, 1}
+  const int er = c * 64 + 16 * wi + (lane >> 2);
+  float acc[128];
+  float rdsq[2], rlo[2], rst[2];
+  bool rok[2];
+
 #pragma unroll
-  for (int step = 0; step < kSqStages - 1; ++step) {
-    if (step < steps) load_step(step);
+  for (int st = 0; st < kWgAhead; ++st) {
+    if (st < steps) prep(st);
     cp_commit();
   }
-  cp_wait_ring<kSqStages>();
-  __syncthreads();
-  if constexpr (ROWS == kPqRows) {
-    decode_step(0);
-    cp_commit();
-    asm volatile("cp.async.wait_group 0;\n" ::);
-  } else {
-    widen_step(0);
-  }
-  float acc[4][4][4];
-  for (int step = 0; step < steps; ++step) {
-    const int t = step / chunks, kc = step % chunks;
-    // step + 1 has landed; every warp has widened `step` and finished the
-    // products of step - 1, whose stage and bf16 buffer are free (Q3: the
-    // pieces of `step` have landed)
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSqStages - 3));
-    __syncthreads();
-    if constexpr (ROWS == kPqRows) {
-      // its own group, ahead of the ring's: the next barrier's wait
-      // leaves only the ring's newest group in flight
-      if (step + 1 < steps) decode_step(step + 1);
-      cp_commit();
-    }
-    if (step + kSqStages - 1 < steps) load_step(step + kSqStages - 1);
-    cp_commit();
-    if (step + 1 < steps) widen_step(step + 1);
-    if (kc == 0) {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kWgAhead - 1));
+  widen(0);
+  fence_async_smem();
+  named_bar(1 + c, 128);
+  for (int st = 0; st < steps; ++st) {
+    const int t = st / chunks, kc = st % chunks;
+    const int r0 = row_begin + t * kWgR;
+    if (kc == 0) {  // the tile's per-row terms, used at its end
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-    }
-    const __nv_bfloat16* as = aring + (step % kSqStages) * kQT * kSqLd;
-    const __nv_bfloat16* bs = bw + (step & 1) * kSqR * kSqLd;
-#pragma unroll
-    for (int ks = 0; ks < kSqK; ks += 16) {
-      uint32_t fa[4][4], fb[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(fa[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * kSqLd +
-                                ks + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r4[4];
-        ldmatrix_x4(r4, bs + (wn * 32 + np * 16 + (lane >> 4) * 8 +
-                              (lane & 7)) * kSqLd +
-                            ks + ((lane >> 3) & 1) * 8);
-        fb[2 * np][0] = r4[0];
-        fb[2 * np][1] = r4[1];
-        fb[2 * np + 1][0] = r4[2];
-        fb[2 * np + 1][1] = r4[3];
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + er + 8 * h;
+        const bool okr = row < row_end;
+        rdsq[h] = okr ? x.dsq[row] : 0.0f;
+        rok[h] = okr && (mask == nullptr || mask[row] != 0);
+        // Q2's global offset and step as every row's
+        rlo[h] = ROWS == kRqRows ? (okr ? x.lower[row] : 0.0f) : x.a;
+        rst[h] = ROWS == kRqRows ? (okr ? x.step[row] : 0.0f) : x.s;
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], fa[mt], fb[nt][0], fb[nt][1]);
     }
-    if (kc != chunks - 1) continue;
-    // the tile's keys: this warp's 64 queries x 32 rows
-    const int r0 = row_begin + t * kSqR;
-    const uint8_t* held = braw + (step % kSqStages) * kStage + kCodes;
-    const float* xdsq = reinterpret_cast<const float*>(held);
-    const float* xlo = xdsq + kSqR;  // Q4
-    const float* xst = xdsq + 2 * kSqR;
-    const uint8_t* xmask = held + kFloats * kSqR * 4;
+    const int stage = st % kWgQStages;
+    mbar_wait(&s.full[stage], (st / kWgQStages) & 1);
+    const uint32_t abase = smem_addr(my_a + (st % kAS) * kWgABytes);
+    const uint32_t bbase = smem_addr(qring + stage * kWgQBytes);
+    pin_sums(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int rl = wn * 32 + nt * 8 + tig * 2;
-      bool ok[2];
-      float xs[2], rlo[2], rst[2];
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n256k16(acc, wg_desc(abase + ks * 256, 128, 1024),
+                       wg_desc(bbase + ks * 8192, 4096, 128),
+                       (kc > 0 || ks > 0) ? 1 : 0);
+    wgmma_commit();
+    if (st + kWgAhead < steps) prep(st + kWgAhead);
+    cp_commit();
+    if (st + 1 < steps) {
+      // step st + 1's rows have landed (this thread's); Q2/Q4 widen them
+      // into the A stage that step st - 1 read
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kWgAhead - 1));
+      widen(st + 1);
+      fence_async_smem();
+    }
+    wgmma_wait0();
+    pin_sums(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[stage]);
+    named_bar(1 + c, 128);
+    if (kc != chunks - 1) continue;
+
+    // -- the tile's end --------------------------------------------------
+    // the lists the last tile's end queued: claim what the helpers have
+    // not, wait for the rest (inlined code only: a call here would defeat
+    // the consumers' register budget)
+    if (t > 0) {
+      const int lim = ld_volatile(&s.tail);
+      wg_drain(s, lim, lk, lr, base0, cap, k);
+      wg_wait_done(s, lim);
+      mbar_wait(&s.sel_done, (t - 1) & 1);
+    }
+    // keys, and each warp's takers: a ballot a (query pair, row half), kept
+    // by lane 0. Lane 4g + quad holds queries 8j + 2 quad + e of rows
+    // 16 wq + g and 16 wq + g + 8 of the tile. The metric without branches:
+    // l2-squared max((|q|^2 - 2 q.x) + |x|^2, 0), dot -q.x + 0, cosine
+    // -q.x + 1 (each as the plain version rounds it).
+    const int quad = lane & 3, wq = warp - 4;
+    const float cq = metric == 0 ? 2.0f : 1.0f;
+    const float lo = metric == 0 ? 0.0f : __int_as_float(0xff800000);
+    float add[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      add[h] = metric == 0 ? rdsq[h] : (metric == 2 ? 1.0f : 0.0f);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        ok[e] = r0 + rl + e < row_end &&
-                (mask == nullptr || xmask[rl + e] != 0);
-        xs[e] = xdsq[rl + e];
-        rlo[e] = ROWS == kRqRows ? xlo[rl + e] : 0.0f;
-        rst[e] = ROWS == kRqRows ? xst[rl + e] : 0.0f;
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+        const int ql = 8 * j + 2 * quad + e;
+        const uint32_t th = lds_u32(&s.thr[ql]);
+        const float qs = __uint_as_float(lds_u32(&s.qsum[ql]));
+        const float qq =
+            metric == 0 ? __uint_as_float(lds_u32(&s.qsq[ql])) : 0.0f;
+        const unsigned long long g = lds_u64(&s.bound[ql]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int ql = wm * 64 + mt * 16 + gid + 8 * h;
-          uint32_t key[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // q . decode(x): Q3 the product itself; Q4 step_x * (q . c) +
-            // sum(q) * lower_x; Q2 s * (q . c) + a * sum(q)
-            float qdd = acc[mt][nt][2 * h + e];
-            if (ROWS == kRqRows) {
-              qdd = rst[e] * qdd + sqsum[ql] * rlo[e];
-            } else if (ROWS == kSqRows) {
-              qdd = x.s * qdd + x.a * sqsum[ql];
-            }
-            float dist;
-            if (metric == 0) {
-              dist = fmaxf(sqsq[ql] - 2.0f * qdd + xs[e], 0.0f);
-            } else if (metric == 1) {
-              dist = -qdd;
-            } else {
-              dist = 1.0f - qdd;
-            }
-            key[e] = ok[e] ? order_key(dist) : kNone;
-          }
-          *reinterpret_cast<uint2*>(tk + ql * kSqTk + rl) =
-              make_uint2(key[0], key[1]);
+          // q . decode(x): Q3 the product itself; Q4 step_x * (q . c) +
+          // sum(q) * lower_x; Q2 the same with s and a
+          float qdd = acc[j * 4 + h * 2 + e];
+          if (ROWS != kPqRows) qdd = rst[h] * qdd + qs * rlo[h];
+          const float dist = fmaxf(fmaf(-cq, qdd, qq) + add[h], lo);
+          const uint32_t key = rok[h] ? order_key(dist) : kNone;
+          acc[j * 4 + h * 2 + e] = __uint_as_float(key);
+          // below the list's threshold and, as a (key, row) pair, below
+          // the shared bound
+          const unsigned m = __ballot_sync(
+              kFull, key < th && (static_cast<unsigned long long>(key) << 32 |
+                                  static_cast<uint32_t>(r0 + er + 8 * h)) < g);
+          if (lane == 0) s.bal[j * 2 + e][wq][h] = m;
         }
       }
     }
-    __syncthreads();
-    select_tile<kSqR, OrderKeys>(st, tk, kSqTk, lk, lr, q0, b, split, cap,
-                                 k, r0, hist[warp]);
-    // the next step's barrier orders these reads of tk before its writes
+    named_bar(3, 256);
+    {  // a query a thread: where each warp's takers go in its list (its
+       // count and the takers of the warps before), and its new count; a
+       // list that cannot take another tile is queued
+      const uint32_t* bw = &s.bal[(ct >> 3) * 2 + (ct & 1)][0][0];
+      const unsigned selq = 0x11111111u << ((ct >> 1) & 3);
+      int at = s.cnt[ct];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        s.place[ct][w] = at;
+        at += __popc(lds_u32(bw + 2 * w) & selq) +
+              __popc(lds_u32(bw + 2 * w + 1) & selq);
+      }
+      s.cnt[ct] = at;
+      if (at > cap - kWgR) s.queue[atomicAdd(&s.tail, 1) % kWgQT] = ct;
+    }
+    named_bar(3, 256);
+    // the takers appended in row order: a row's place is its warp's place
+    // and the takers before it in its warp (its rows in the order half 0,
+    // then half 1)
+    const unsigned sel = 0x11111111u << quad, before = (1u << lane) - 1u;
+    const int row = r0 + er;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = 8 * j + 2 * quad + e;
+        const uint32_t* bw = &s.bal[j * 2 + e][wq][0];
+        const unsigned b0 = lds_u32(bw) & sel;
+        const unsigned b1 = lds_u32(bw + 1) & sel;
+        if ((b0 | b1) & (1u << lane)) {
+          const uint32_t k0 = __float_as_uint(acc[j * 4 + e]);
+          const uint32_t k1 = __float_as_uint(acc[j * 4 + 2 + e]);
+          const size_t at =
+              base0 + (size_t)ql * pinned(cap) + lds_u32(&s.place[ql][wq]);
+          if (b0 & (1u << lane)) {
+            const size_t p = at + __popc(b0 & before);
+            lk[p] = k0;
+            lr[p] = row;
+            atomicMin(&s.smin[c][ql],
+                      static_cast<unsigned long long>(k0) << 32 | row);
+          }
+          if (b1 & (1u << lane)) {
+            const size_t p = at + __popc(b0) + __popc(b1 & before);
+            lk[p] = k1;
+            lr[p] = row + 8;
+            atomicMin(&s.smin[c][ql],
+                      static_cast<unsigned long long>(k1) << 32 | (row + 8));
+          }
+        }
+      }
+    }
+    __threadfence_block();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.ep_done);
+    named_bar(3, 256);
   }
-  finish_split(st, lk, lr, q0, b, split, cap, k, hist[warp]);
+  mbar_wait(&s.sel_done, (tiles - 1) & 1);
+  wg_finish(s, lk, lr, base0, q0, b, cap, k);
 }
 
 // -- the merge ---------------------------------------------------------------
@@ -1141,18 +1589,20 @@ int allow_smem(F kernel, size_t smem) {
 
 // The launch of a code scan on arguments already checked.
 template <int ROWS, bool VEC>
-int launch_code_scan(const __nv_bfloat16* q, const CodeRows& x,
-                     const uint8_t* mask, const float* qsum, const float* qsq,
-                     int metric, uint32_t* lk, int* lr, int b, int n, int d,
-                     int dp, int k, int splits, int split_rows, int cap,
-                     void* stream) {
-  constexpr size_t smem = scan_smem<ROWS>();
-  auto kernel = code_scan_kernel<ROWS, VEC>;
+int launch_wg_scan(const __nv_bfloat16* q, const CodeRows& x,
+                   const uint8_t* mask, const float* qsum, const float* qsq,
+                   int metric, uint32_t* lk, int* lr,
+                   unsigned long long* pub, int b, int n, int d, int dp,
+                   int k, int splits, int split_rows, int cap,
+                   void* stream) {
+  constexpr size_t smem = wg_smem<ROWS>();
+  auto kernel = wg_scan_kernel<ROWS, VEC>;
   const int e = allow_smem(kernel, smem);
   if (e) return e;
-  const dim3 grid((b + kQT - 1) / kQT, splits);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k, split_rows, cap);
+  const dim3 grid((b + kWgQT - 1) / kWgQT, splits);
+  kernel<<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, x, mask, qsum, qsq, metric, lk, lr, pub, b, n, d, dp, k, split_rows,
+      cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1161,7 +1611,7 @@ int check_code_scan(int b, int n, int d, int dp, int metric, int k,
   if (d < 1 || d > kMaxD || dp % kSqK != 0 || dp < d || dp - d >= kSqK)
     return kBadDims;
   if (metric < 0 || metric > 2) return kBadMetric;
-  return check_plan(b, n, k, splits, split_rows, cap, kSqR);
+  return check_plan(b, n, k, splits, split_rows, cap, kWgR);
 }
 
 }  // namespace
@@ -1196,15 +1646,17 @@ int bq_scan(const uint32_t* q, const uint32_t* x, const float* pop,
   return vec ? go(bq_scan_kernel<true>) : go(bq_scan_kernel<false>);
 }
 
-// Q2: as bq_scan for the SQ distances of the bf16 queries [b, dp] (zero
-// past d; dp a multiple of 64) to the codes [n, d] (metric 0 l2-squared, 1
-// dot, 2 cosine), with the queries' float32 sums and sums of squares [b]
-// and the rows' decoded squared norms [n].
+// Q2: as bq_scan for the SQ distances of the bf16 queries, laid out
+// [ceil(b / 256)][dp / 8][256][8] (zero past b and d; dp a multiple of 64),
+// to the codes [n, d] (metric 0 l2-squared, 1 dot, 2 cosine), with the
+// queries' float32 sums and sums of squares [b] and the rows' decoded
+// squared norms [n]. pub [b, 2 splits] (all ones before the launch) is the
+// splits' exchange for the shared bound.
 int sq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
             const uint8_t* mask, const float* qsum, const float* qsq, float a,
-            float s, int metric, uint32_t* lk, int* lr, int b, int n, int d,
-            int dp, int k, int splits, int split_rows, int cap,
-            void* stream) {
+            float s, int metric, uint32_t* lk, int* lr,
+            unsigned long long* pub, int b, int n, int d, int dp, int k,
+            int splits, int split_rows, int cap, void* stream) {
   const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
                                   cap);
   if (bad) return bad;
@@ -1213,13 +1665,11 @@ int sq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
   x.dsq = dsq;
   x.a = a;
   x.s = s;
-  const bool vec = d % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  return vec ? launch_code_scan<kSqRows, true>(
-                   q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k,
-                   splits, split_rows, cap, stream)
-             : launch_code_scan<kSqRows, false>(
-                   q, x, mask, qsum, qsq, metric, lk, lr, b, n, d, dp, k,
-                   splits, split_rows, cap, stream);
+  x.piece =
+      d % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 ? 16 : 1;
+  return launch_wg_scan<kSqRows, true>(q, x, mask, qsum, qsq, metric, lk, lr,
+                                       pub, b, n, d, dp, k, splits,
+                                       split_rows, cap, stream);
 }
 
 // Q4: as sq_scan for the RQ distances to the rotated codes [n, d] (d a
@@ -1228,8 +1678,8 @@ int sq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
 int rq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
             const float* lower, const float* step, const uint8_t* mask,
             const float* qsum, const float* qsq, int metric, uint32_t* lk,
-            int* lr, int b, int n, int d, int dp, int k, int splits,
-            int split_rows, int cap, void* stream) {
+            int* lr, unsigned long long* pub, int b, int n, int d, int dp,
+            int k, int splits, int split_rows, int cap, void* stream) {
   const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
                                   cap);
   if (bad) return bad;
@@ -1241,9 +1691,10 @@ int rq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
   // rotated rows are whole ring steps: 16-byte loads only
   if (d % kSqK != 0) return kBadDims;
   if (reinterpret_cast<uintptr_t>(codes) % 16) return kBadAlign;
-  return launch_code_scan<kRqRows, true>(q, x, mask, qsum, qsq, metric, lk,
-                                         lr, b, n, d, dp, k, splits,
-                                         split_rows, cap, stream);
+  x.piece = 16;
+  return launch_wg_scan<kRqRows, true>(q, x, mask, qsum, qsq, metric, lk,
+                                       lr, pub, b, n, d, dp, k, splits,
+                                       split_rows, cap, stream);
 }
 
 // Q3: as sq_scan for the PQ distances to the rows whose codes [n, m] index
@@ -1251,18 +1702,17 @@ int rq_scan(const __nv_bfloat16* q, const uint8_t* codes, const float* dsq,
 // queries' float32 sums of squares [b] (qsum is not read).
 int pq_scan(const __nv_bfloat16* q, const uint8_t* codes,
             const __nv_bfloat16* cb, const float* dsq, const uint8_t* mask,
-            const float* qsq, int metric, uint32_t* lk, int* lr, int b, int n,
-            int d, int dp, int m, int dsub, int centroids, int k, int splits,
-            int split_rows, int cap, void* stream) {
+            const float* qsq, int metric, uint32_t* lk, int* lr,
+            unsigned long long* pub, int b, int n, int d, int dp, int m,
+            int dsub, int centroids, int k, int splits, int split_rows,
+            int cap, void* stream) {
   const int bad = check_code_scan(b, n, d, dp, metric, k, splits, split_rows,
                                   cap);
   if (bad) return bad;
   if (m < 1 || dsub < 1 || (long long)m * dsub != d || centroids < 1 ||
       centroids > 256)
     return kBadCodebook;
-  if (reinterpret_cast<uintptr_t>(cb) % 16 ||
-      reinterpret_cast<uintptr_t>(codes) % 4)
-    return kBadAlign;
+  if (reinterpret_cast<uintptr_t>(cb) % 16) return kBadAlign;
   CodeRows x = {};
   x.codes = codes;
   x.dsq = dsq;
@@ -1273,13 +1723,13 @@ int pq_scan(const __nv_bfloat16* q, const uint8_t* codes,
   // the widest piece of a centroid one copy takes: a divisor of dsub
   x.piece = dsub % 8 == 0 ? 8 : (dsub % 4 == 0 ? 4 : (dsub % 2 == 0 ? 2 : 1));
   return x.piece == 8
-             ? launch_code_scan<kPqRows, true>(q, x, mask, qsq, qsq, metric,
-                                               lk, lr, b, n, d, dp, k, splits,
-                                               split_rows, cap, stream)
-             : launch_code_scan<kPqRows, false>(q, x, mask, qsq, qsq, metric,
-                                                lk, lr, b, n, d, dp, k,
-                                                splits, split_rows, cap,
-                                                stream);
+             ? launch_wg_scan<kPqRows, true>(q, x, mask, qsq, qsq, metric, lk,
+                                             lr, pub, b, n, d, dp, k, splits,
+                                             split_rows, cap, stream)
+             : launch_wg_scan<kPqRows, false>(q, x, mask, qsq, qsq, metric,
+                                              lk, lr, pub, b, n, d, dp, k,
+                                              splits, split_rows, cap,
+                                              stream);
 }
 
 // The merge: out_d / out_i [b, k], each query's k smallest (key, row) over
@@ -1309,8 +1759,7 @@ const char* quantized_error_string(int code) {
       return "PQ segments x sub-dimensions != d, or centroids outside "
              "[1, 256]";
     case kBadAlign:
-      return "PQ codebooks not 16-byte aligned or codes not 4-byte "
-             "aligned, or RQ codes not 16-byte aligned";
+      return "PQ codebooks or RQ codes not 16-byte aligned";
     case kBadPlan:
       return "split plan does not cover the rows in whole tiles, or the "
              "lists cannot hold k plus a tile";

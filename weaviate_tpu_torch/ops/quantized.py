@@ -13,11 +13,14 @@
 Every scan has a hand-written CUDA kernel (``csrc/quantized.cu``) on the
 tensor cores: Q1, the BQ scan (``bq_search``), Q2, the SQ scan
 (``sq_search``), Q3, the PQ scan (``pq_search``), and Q4, the RQ scan
-(``rq_search``). Each keeps an exact top-``k`` in its epilogue: a CTA walks a
-split of the rows for a tile of queries and leaves each query's ``k``
-smallest (order key, row) of the split in a list, [splits, B, cap]
-(``scan_plan``); the merge (``merge_partials``) takes the [splits, k]
-partials of each query down to ``k``. A search is one scan launch and one
+(``rq_search``); Q2-Q4 are one warp-specialized ``wgmma`` template that
+holds 256 queries a CTA. Each keeps an exact top-``k`` in its epilogue: a
+CTA walks a split of the rows for a tile of queries and leaves each
+query's ``k`` smallest (order key, row) of the split in a list, [splits,
+B, cap] (``scan_plan``; Q2-Q4 take only rows below a bound the splits
+share, which drops no row of the answer: ``split_partials_bounded_plain``
+models it); the merge (``merge_partials``) takes the [splits, k] partials
+of each query down to ``k``. A search is one scan launch and one
 merge launch, whatever its B (``search_launches``). Each search returns
 the exact top-``k`` of its distances by (distance, id), the order the JAX
 package's chunked ``lax.top_k`` + ``merge_topk`` gives: lower id first on
@@ -453,15 +456,16 @@ def _source_ints(path: Path) -> dict:
 
 
 # the kernels' tiles and occupancy, read from their source so the plan
-# follows it: queries a CTA, rows a tile, CTAs an SM holds
+# follows it: queries a CTA, rows a tile, CTAs an SM holds. Q2, Q3 and Q4
+# are one kernel template (`wg_scan_kernel`): they share its tiles
 _TILES = _source_ints(Path(__file__).resolve().parents[1] / "csrc"
                       / f"{KERNEL}.cu")
-QUERY_TILE = _TILES["kQT"]
-# Q2, Q3 and Q4 are one kernel template: they share Q2's tiles
-ROWS_TILE = {"bq": _TILES["kBqR"], "sq": _TILES["kSqR"], "pq": _TILES["kSqR"],
-             "rq": _TILES["kSqR"]}
-CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"], "sq": _TILES["kSqCtasPerSm"],
-               "pq": _TILES["kSqCtasPerSm"], "rq": _TILES["kSqCtasPerSm"]}
+QUERY_TILE = {"bq": _TILES["kQT"], **dict.fromkeys(("sq", "pq", "rq"),
+                                                   _TILES["kWgQT"])}
+ROWS_TILE = {"bq": _TILES["kBqR"], **dict.fromkeys(("sq", "pq", "rq"),
+                                                   _TILES["kWgR"])}
+CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"],
+               **dict.fromkeys(("sq", "pq", "rq"), _TILES["kWgCtasPerSm"])}
 # the candidate lists of a search stay under this many bytes, by taking
 # fewer splits (never fewer than one)
 LIST_BYTES = 1 << 29
@@ -484,15 +488,16 @@ def scan_plan(kind: str, b: int, n: int, k: int, sms: int = 132) -> ScanPlan:
     ("rq") scan of ``b`` queries over ``n`` rows keeping ``k``: enough CTAs to fill ``sms`` SMs
     (splits x query tiles), fewer when the lists [splits, b, cap] would pass
     ``LIST_BYTES``, at most one a tile of rows. A list holds 2k (rounded to
-    32) plus a tile, so a compaction frees room for at least k more.
-    Raises ``ValueError`` on a shape or ``k`` no kernel takes."""
+    32) plus a tile, so a compaction frees room for at least k more; a code
+    scan's list at least three tiles, so a split's first tile never fills
+    it. Raises ``ValueError`` on a shape or ``k`` no kernel takes."""
     if b < 1 or n < 1:
         raise ValueError(f"empty scan: B={b}, N={n}")
     _check_k(k)
     rows = ROWS_TILE[kind]
-    cap = -(-2 * k // 32) * 32 + rows
+    cap = max(-(-2 * k // 32) * 32, 0 if kind == "bq" else 2 * rows) + rows
     tiles = -(-n // rows)
-    want = max(1, -(-sms * CTAS_PER_SM[kind] // -(-b // QUERY_TILE)))
+    want = max(1, -(-sms * CTAS_PER_SM[kind] // -(-b // QUERY_TILE[kind])))
     fit = max(1, LIST_BYTES // (b * cap * 8))
     per_split = -(-tiles // min(want, fit, tiles))
     return ScanPlan(-(-tiles // per_split), per_split * rows, cap)
@@ -549,6 +554,73 @@ def split_partials_plain(keys: torch.Tensor, k: int, plan: ScanPlan):
     return out_k, out_r
 
 
+def split_partials_bounded_plain(keys: torch.Tensor, k: int, plan: ScanPlan,
+                                 rows_tile: int = 128):
+    """``split_partials_plain`` under the bound the code scans' splits share
+    (``wg_scan_kernel``): the splits walk their rows in tiles of
+    ``rows_tile`` together; each half of a split's tiles (a warpgroup's
+    rows) is a sub-stream that publishes the least (key, row) pair it has
+    taken, and after tiles 1, 2, 4, 8, ... a query's bound becomes the
+    largest published pair (none while a sub-stream has taken nothing).
+    A row is taken only if its key is below its split's threshold (the
+    k-th key it has taken, once it has k) and its (key, row) pair below the
+    bound; with fewer than k sub-streams there is no bound. Each split's
+    partial: the k smallest (key, row) it took, in row order, padded. The
+    kernel reads the bound whenever its helpers get to it; any reading is
+    valid, so the merged answer is the same."""
+    b, n = keys.shape
+    order = _key_order(keys)  # int64, the uint32 key's order
+    rows = torch.arange(n, device=keys.device).expand(b, n)
+    none = 1 << 32  # a key above every key: no pair taken, no bound
+    half = rows_tile // 2
+    subs = 2 * plan.splits
+    # pairs as (key, row) in two int64 tensors, compared in that order
+    smin_k = torch.full((subs, b), none, dtype=torch.int64)
+    smin_r = torch.zeros((subs, b), dtype=torch.int64)
+    bound_k = torch.full((b,), none, dtype=torch.int64)
+    bound_r = torch.zeros((b,), dtype=torch.int64)
+    taken = torch.zeros((b, n), dtype=torch.bool, device=keys.device)
+    thr = torch.full((plan.splits, b), none, dtype=torch.int64)
+    for t in range(-(-plan.split_rows // rows_tile)):
+        for sp in range(plan.splits):
+            start = sp * plan.split_rows
+            lo, hi = start + t * rows_tile, min(n, start + plan.split_rows,
+                                                start + (t + 1) * rows_tile)
+            if lo >= hi:
+                continue
+            key, row = order[:, lo:hi], rows[:, lo:hi]
+            below = (key < bound_k[:, None]) | (
+                (key == bound_k[:, None]) & (row < bound_r[:, None]))
+            taken[:, lo:hi] = (key < thr[sp][:, None]) & below & (
+                keys[:, lo:hi] != NONE_KEY)
+            for c in range(2):
+                part = slice(lo + c * half, min(hi, lo + (c + 1) * half))
+                if part.start >= part.stop:
+                    continue
+                got = torch.where(taken[:, part], order[:, part], none)
+                # the least pair: the least key, then its least row
+                least = got.min(1).values
+                at = torch.where(got == least[:, None], rows[:, part], n)
+                least_r = at.min(1).values
+                sid = 2 * sp + c
+                better = (least < smin_k[sid]) | (
+                    (least == smin_k[sid]) & (least_r < smin_r[sid]))
+                smin_k[sid] = torch.where(better, least, smin_k[sid])
+                smin_r[sid] = torch.where(better, least_r, smin_r[sid])
+            mine = torch.where(taken[:, start:start + plan.split_rows],
+                               order[:, start:start + plan.split_rows], none)
+            if mine.shape[1] >= k:
+                thr[sp] = torch.kthvalue(mine, k, dim=1).values
+        if subs >= k and t & (t + 1) == 0:
+            # the largest pair: the largest key, then its largest row
+            top = smin_k.max(0).values
+            bound_r = torch.where(smin_k == top[None, :], smin_r,
+                                  -1).max(0).values
+            bound_k = top
+    bounded = torch.where(taken, keys, NONE_KEY)
+    return split_partials_plain(bounded, k, plan)
+
+
 def merge_partials_plain(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
                          k: int):
     """The plain version of the merge: a stable sort by unsigned key of each
@@ -600,6 +672,14 @@ def _lists(plan: ScanPlan, b: int, dev):
     shape = (plan.splits, b, plan.cap)
     return (torch.empty(shape, dtype=torch.int32, device=dev),
             torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def _bound_exchange(plan: ScanPlan, b: int, dev) -> torch.Tensor:
+    """A code scan's exchange for the bound its splits share: each
+    warpgroup's least (key, row) taken of each query, [b, 2 splits], all
+    ones (nothing taken yet)."""
+    return torch.full((b, 2 * plan.splits), -1, dtype=torch.int64,
+                      device=dev)
 
 
 def _check_lists(plan: ScanPlan, b: int, cand_keys, cand_rows, dev):
@@ -683,12 +763,15 @@ def sq_scan_cuda(qb, codes, dec_sqnorms, mask, q_sum, q_sq, a: float,
                      cand_keys, cand_rows)
     _check("q_sum", q_sum, torch.float32, (b,), dev)
     _check("q_sq", q_sq, torch.float32, (b,), dev)
+    blocks = code_query_blocks(qb)
+    pub = _bound_exchange(plan, b, dev)
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.sq_scan(qb.data_ptr(), codes.data_ptr(),
+        err = lib.sq_scan(blocks.data_ptr(), codes.data_ptr(),
                           dec_sqnorms.data_ptr(), _ptr(mask), q_sum.data_ptr(),
                           q_sq.data_ptr(), a, s, SQ_METRICS.index(metric),
-                          cand_keys.data_ptr(), cand_rows.data_ptr(), b, n, d,
+                          cand_keys.data_ptr(), cand_rows.data_ptr(),
+                          pub.data_ptr(), b, n, d,
                           _padded(d), k, plan.splits, plan.split_rows,
                           plan.cap, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "sq_scan")
@@ -710,6 +793,20 @@ def sq_query_terms(queries: torch.Tensor):
     qb[:, :d] = queries
     return (qb, torch.sum(queries, dim=-1).contiguous(),
             torch.sum(queries * queries, dim=-1).contiguous())
+
+
+def code_query_blocks(qb: torch.Tensor) -> torch.Tensor:
+    """The code scans' query operand: the bf16 queries [B, Dp] laid out as
+    [ceil(B / 256)][Dp / 8][256][8] (zero past B), so that a CTA's 64
+    dimensions of a step are one contiguous 32 KB block whose 8 x 8 pieces
+    are the core matrices of the tensor-core product."""
+    b, dp = qb.shape
+    tile = QUERY_TILE["sq"]
+    tiles = -(-b // tile)
+    out = torch.zeros((tiles * tile, dp), dtype=torch.bfloat16,
+                      device=qb.device)
+    out[:b] = qb
+    return out.view(tiles, tile, dp // 8, 8).transpose(1, 2).contiguous()
 
 
 def bq_search_cuda(q_packed, packed, popcounts, mask, dims: int, k: int):
@@ -784,13 +881,16 @@ def pq_scan_cuda(qb, codes, codebooks, dec_sqnorms, mask, q_sq, metric: str,
                      cand_keys, cand_rows)
     _check("codebooks", codebooks, torch.bfloat16, (m, c, dsub), dev)
     _check("q_sq", q_sq, torch.float32, (b,), dev)
+    blocks = code_query_blocks(qb)
+    pub = _bound_exchange(plan, b, dev)
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.pq_scan(qb.data_ptr(), codes.data_ptr(),
+        err = lib.pq_scan(blocks.data_ptr(), codes.data_ptr(),
                           codebooks.data_ptr(), dec_sqnorms.data_ptr(),
                           _ptr(mask), q_sq.data_ptr(),
                           SQ_METRICS.index(metric), cand_keys.data_ptr(),
-                          cand_rows.data_ptr(), b, codes.shape[0], d,
+                          cand_rows.data_ptr(), pub.data_ptr(), b,
+                          codes.shape[0], d,
                           _padded(d), m, dsub, c, k, plan.splits,
                           plan.split_rows, plan.cap,
                           torch.cuda.current_stream().cuda_stream)
@@ -815,13 +915,16 @@ def rq_scan_cuda(qb, codes, lower, step, dec_sqnorms, mask, q_sum, q_sq,
     _check("step", step, torch.float32, (n,), dev)
     _check("q_sum", q_sum, torch.float32, (b,), dev)
     _check("q_sq", q_sq, torch.float32, (b,), dev)
+    blocks = code_query_blocks(qb)
+    pub = _bound_exchange(plan, b, dev)
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.rq_scan(qb.data_ptr(), codes.data_ptr(),
+        err = lib.rq_scan(blocks.data_ptr(), codes.data_ptr(),
                           dec_sqnorms.data_ptr(), lower.data_ptr(),
                           step.data_ptr(), _ptr(mask), q_sum.data_ptr(),
                           q_sq.data_ptr(), SQ_METRICS.index(metric),
-                          cand_keys.data_ptr(), cand_rows.data_ptr(), b, n, d,
+                          cand_keys.data_ptr(), cand_rows.data_ptr(),
+                          pub.data_ptr(), b, n, d,
                           _padded(d), k, plan.splits, plan.split_rows,
                           plan.cap, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "rq_scan")
@@ -867,9 +970,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bq_scan.argtypes = [p] * 6 + [i] * 8 + [p]
-    lib.sq_scan.argtypes = [p] * 6 + [f, f, i, p, p] + [i] * 8 + [p]
-    lib.rq_scan.argtypes = [p] * 8 + [i] + [p] * 2 + [i] * 8 + [p]
-    lib.pq_scan.argtypes = [p] * 6 + [i] + [p] * 2 + [i] * 11 + [p]
+    lib.sq_scan.argtypes = [p] * 6 + [f, f, i, p, p, p] + [i] * 8 + [p]
+    lib.rq_scan.argtypes = [p] * 8 + [i] + [p] * 3 + [i] * 8 + [p]
+    lib.pq_scan.argtypes = [p] * 6 + [i] + [p] * 3 + [i] * 11 + [p]
     lib.topk_merge.argtypes = [p] * 4 + [i] * 4 + [p]
     for fn in (lib.bq_scan, lib.sq_scan, lib.rq_scan, lib.pq_scan,
                lib.topk_merge):
