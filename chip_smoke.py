@@ -16,7 +16,8 @@ non-zero without the final line:
              batches of 1 to 256, unfiltered and filtered (allow masks of
              1%/10%/50%, kept tracks of 8/32, two-hop budgets of 0-4), on
              graphs the port builds on the card, with its BQ scorer (equal
-             to the plain walk) and its SQ, PQ and RQ scorers
+             to the plain walk; on two graphs at every beam of 16 to 512,
+             unfiltered and filtered) and its SQ, PQ and RQ scorers
              (l2/dot/cosine, unfiltered and filtered) on each, then the
              code rows at the edges the kernel's staged paths branch on
              (``code_edge_walks``: the widest SQ walk admitted, PQ at
@@ -29,7 +30,12 @@ non-zero without the final line:
              50% masked,
              fetch past the live rows, and the selection's edges (fetch =
              MAX_K, N below fetch and below one split, a wholly masked
-             split, B of 53 and 257, 16-d bits, fetch 40 at 64-d).
+             split, B of 53 and 257, 16-d bits, fetch 40 at 64-d); the
+             merge alone, bit for bit, on made lists at its edges
+             (``merge_edges``: every split full or empty, ties at the
+             k-th across splits, k = 1, the largest k whose full lists it
+             stages in shared memory and one more, unaligned lists, B of
+             1 and 257, MAX_K).
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -70,7 +76,9 @@ non-zero without the final line:
              kernels (Q1, Q2 or Q4, then the merge) beside their bound and
              their plain version, its launches (one scan, one merge), the
              scan alone and the merge alone against its plain version and
-             ``torch.topk``, Q2 and Q4 beside ``torch.matmul`` of the
+             ``torch.topk`` on the scan's lists (their fill, each list's
+             taken entries before its padding), Q2 and Q4 beside
+             ``torch.matmul`` of the
              product alone, search p50/p99, the rescore's share, device
              and host bytes; then HNSW + RQ over the tenant's first
              RQ_HNSW_ROWS rows (B2-RQ in its build and search).
@@ -401,7 +409,8 @@ def phase_kernels(seed: int) -> dict:
             "id_agreement": agreement,
             "tolerance": {"atol": ATOL, "rtol": RTOL},
             "b2": beam_kernel_grid(seed),
-            "q1_q2": quant_kernel_grid(seed)}
+            "q1_q2": quant_kernel_grid(seed),
+            "merge": merge_edges(seed)}
 
 
 # Q1/Q2 grid: batches, widths, fetch widths, masked shares (1% and 50%);
@@ -664,6 +673,11 @@ B2_FILTERED_PER_GRAPH = 3
 # the code walks' metrics (a BQ walk has no metric: hamming over sign bits)
 B2_SQ_METRICS = ("l2-squared", "dot", "cosine")
 B2_QUANT_KINDS = ("bq", "sq", "pq", "rq")
+# B2-BQ at every beam pad, unfiltered and filtered (10% allowed, a kept
+# track of up to 32, expand 1), on the graphs of these (D, M): M0 64 (the
+# frontier past a warp) and the cell's 768-d at M0 32
+B2_BQ_PADS = tuple((ef, f) for ef in (16, 64, 128, 512) for f in (0, 1))
+B2_BQ_PAD_GRAPHS = ((25, 32), (768, 16))
 
 
 def quant_walk_inputs(kind: str, metric: str, rows: torch.Tensor,
@@ -832,7 +846,7 @@ def beam_kernel_grid(seed: int) -> dict:
     # graphs and masks stay those of the stream above
     qrng = np.random.default_rng(seed + 6)
     crng = np.random.default_rng(seed + 7)  # PQ and RQ walks
-    quant = {"bq_cases": 0, "bq_slots_equal": 0}
+    quant = {"bq_cases": 0, "bq_slots_equal": 0, "bq_pads": set()}
     for kind in B2_QUANT_KINDS[1:]:
         quant.update({f"{kind}_cases": 0, f"{kind}_max_abs_err": 0.0,
                       f"{kind}_same": 0, f"{kind}_total": 0,
@@ -971,6 +985,30 @@ def beam_kernel_grid(seed: int) -> dict:
             quant[f"{kind}_same"] += s_
             quant[f"{kind}_total"] += t
             quant[f"{kind}_metrics"].add(metric)
+        if (d, m) in B2_BQ_PAD_GRAPHS:
+            scorer, operands, q = quant_walk_inputs(
+                "bq", "l2-squared", base, base[:64] + 0.1 * noise[:64])
+            eps = torch.full((64,), graph.entrypoint, dtype=torch.int32,
+                             device=dev)
+            for ef, filtered in B2_BQ_PADS:
+                kw = dict(allow=torch.from_numpy(
+                    qrng.random(adj.shape[0]) < 0.1).to(dev),
+                    keep_k=min(32, ef), expand=1) if filtered else {}
+                kernel = device_beam.fused_search_cuda(
+                    scorer, q, operands, adj, present, eps, ua, us, ef,
+                    4 * ef + 64, **kw)
+                plain = device_beam._fused_search(
+                    scorer, q, operands, adj, present, eps, ua, us, ef,
+                    4 * ef + 64, **kw)
+                torch.cuda.synchronize()
+                for kt, pt in zip(kernel, plain):
+                    if not torch.equal(kt, pt):
+                        raise AssertionError(
+                            f"the BQ walk differs from its plain version at "
+                            f"ef {ef}, filtered {bool(filtered)}, D {d}, M {m}")
+                quant["bq_cases"] += 1
+                quant["bq_slots_equal"] += sum(t.numel() for t in kernel[::2])
+                quant["bq_pads"].add((ef, filtered))
         case += len(B2_METRICS)
         del idx, mirror, adj, present, ua, us, base, noise
         torch.cuda.empty_cache()
@@ -1027,6 +1065,9 @@ def beam_kernel_grid(seed: int) -> dict:
                             MIN_ID_AGREEMENT)
     max_err, same, total = max(max_err, e, ek), same + s_ + sk, total + t + tk
     cases += 1
+    if quant["bq_pads"] != set(B2_BQ_PADS):
+        raise AssertionError(f"the BQ walks left a pad out: {quant}")
+    quant["bq_pads"] = sorted(quant["bq_pads"])
     for kind in B2_QUANT_KINDS[1:]:
         if quant[f"{kind}_metrics"] != set(B2_SQ_METRICS) \
                 or not quant[f"{kind}_filtered"]:
@@ -1749,6 +1790,9 @@ def phase_hnsw(state: dict) -> dict:
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
         "us_per_hop": walk["us_per_hop"],
         "construction_launch_ms": cwalk["ms_median"],
+        "construction_bound_ms": cwalk["bound_ms"],
+        "construction_bound_by": cwalk["bound_by"],
+        "construction_us_per_hop": cwalk["us_per_hop"],
         "overhead_bytes": walk["work"]["overhead_bytes"],
     }
     del idx, store_corpus, valid, valid_after, args, kw, cargs, ckw
@@ -2016,20 +2060,46 @@ def scan_bound(kind: str, b: int, n: int, d: int, fetch: int,
             {"bytes": nbytes, "ops": 2 * b * n * width})
 
 
-def merge_bound(splits: int, b: int, k: int) -> tuple[float, str, dict]:
-    """The least time of the merge: its [splits, b, k] keys and rows read
-    once and its [b, k] distances and ids written once, over the memory
-    rate (its comparisons are not a tensor-core rate's work)."""
-    nbytes = splits * b * k * 8 + b * k * 8
-    return nbytes / HBM_BYTES_S * 1e3, "bytes", {"bytes": nbytes}
+def merge_bound(cand_keys, k: int) -> tuple[float, str, dict]:
+    """The least time of the merge on these lists: each query's taken keys
+    and the rows of its k survivors read once and its [b, k] distances and
+    ids written once, over the memory rate (its comparisons are not a
+    tensor-core rate's work). ``bytes_all_slots`` counts every slot of the
+    [splits, b, k] lists instead, the bound before the merge skipped its
+    padding."""
+    splits, b, _ = cand_keys.shape
+    taken = int((cand_keys[..., :k] != quantized.NONE_KEY).sum())
+    kept = int((cand_keys[..., :k] != quantized.NONE_KEY).sum(-1).sum(0)
+               .clamp(max=k).sum())
+    nbytes = taken * 4 + kept * 4 + b * k * 8
+    all_slots = splits * b * k * 8 + b * k * 8
+    return nbytes / HBM_BYTES_S * 1e3, "bytes", {
+        "bytes": nbytes, "bytes_all_slots": all_slots,
+        "bound_ms_all_slots": all_slots / HBM_BYTES_S * 1e3}
+
+
+def list_fill(cand_keys, k: int) -> dict:
+    """Taken entries of the lists' first ``k`` slots: a split's and a
+    query's mean and largest; raises if a taken entry follows padding (the
+    merge reads each list's taken prefix only)."""
+    taken = cand_keys[..., :k] != quantized.NONE_KEY
+    if not bool((taken[..., :-1] | ~taken[..., 1:]).all()):
+        raise AssertionError("a list holds a taken entry after padding")
+    split = taken.sum(-1).float()
+    query = split.sum(0)
+    return {"split_mean": float(split.mean()), "split_max": int(split.max()),
+            "query_mean": float(query.mean()), "query_max": int(query.max()),
+            "slots_a_query": taken.shape[0] * k}
 
 
 def check_merge(cand_keys, cand_rows, k: int) -> dict:
-    """The merge alone on a scan's real lists: equal to its plain version
-    (a stable sort), timed beside it and beside ``torch.topk`` over the same
-    keys in signed order (it returns the same keys; its order among ties is
-    not promised)."""
+    """The merge alone on a scan's real lists: laid out as it reads them
+    (taken entries, then padding), equal to its plain version (a stable
+    sort), timed beside it and beside ``torch.topk`` over the same keys in
+    signed order (it returns the same keys; its order among ties is not
+    promised)."""
     splits, b, _ = cand_keys.shape
+    fill = list_fill(cand_keys, k)
     kd, ki = quantized.merge_partials(cand_keys, cand_rows, k)
     pd, pi = quantized.merge_partials_plain(cand_keys, cand_rows, k)
     torch.cuda.synchronize()
@@ -2049,11 +2119,112 @@ def check_merge(cand_keys, cand_rows, k: int) -> dict:
         raise AssertionError("torch.topk takes other keys")
     library_ms = cuda_ms(lambda: torch.topk(signed, k, dim=1, largest=False,
                                             sorted=True), 10, 2)
-    bound_ms, bound_by, work = merge_bound(splits, b, k)
+    bound_ms, bound_by, work = merge_bound(cand_keys, k)
     return {"ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
             "library_ms": float(np.median(library_ms)), "bound_ms": bound_ms,
-            "bound_by": bound_by, "work": work,
+            "bound_by": bound_by, "work": work, "fill": fill,
             "shape": {"splits": splits, "b": b, "k": k}}
+
+
+def merge_lists(gen, splits: int, b: int, k: int, fill, keys: int,
+                aligned: bool = True):
+    """Lists [splits, b, cap] as the scans leave them (``aligned``: cap a
+    multiple of 32, as ``scan_plan`` gives it; else not a multiple of 4):
+    each
+    (split, query) list's taken entries first, ``fill`` of them ("full":
+    k; "empty": none; else random in [0, k]), keys drawn from ``keys``
+    values (order keys of positive floats; few values make ties across
+    splits), rows ascending in split order, then ``NONE_KEY`` / -1 padding;
+    the slots past k hold junk the merge must not read."""
+    dev = torch.device("cuda")
+    cap = (-(-k // 32) * 32 + 32 if aligned
+           else k + 7 if (k + 7) % 4 else k + 5)
+    if fill == "full":
+        n = torch.full((splits, b, 1), k, device=dev)
+    elif fill == "empty":
+        n = torch.zeros((splits, b, 1), device=dev, dtype=torch.long)
+    else:
+        n = torch.randint(0, k + 1, (splits, b, 1), device=dev,
+                          generator=gen)
+    slot = torch.arange(cap, device=dev)
+    taken = slot < n
+    key = (1 << 31) + 0x3F000000 + torch.randint(
+        0, keys, (splits, b, cap), device=dev, generator=gen)
+    key = torch.where(taken, key - (1 << 32), torch.full_like(key, -1))
+    row = (torch.arange(splits, device=dev)[:, None, None] * 4 * cap
+           + 3 * slot)
+    row = torch.where(taken, row, -1)
+    junk = slot >= k
+    key = torch.where(junk, torch.randint(-(1 << 31), (1 << 31) - 1,
+                                          key.shape, device=dev,
+                                          generator=gen), key)
+    row = torch.where(junk, 7, row)
+    return key.to(torch.int32).contiguous(), row.to(torch.int32).contiguous()
+
+
+# the merge's edges: (name, splits, B, k, fill, distinct keys, lists
+# aligned); "fit" and "stream" take the largest k whose full lists the
+# kernel stages in shared memory at 132 splits, and one more (its streaming
+# path); lists not aligned take 4-byte copies into the stage
+MERGE_EDGES = (
+    ("full", 131, 256, 200, "full", 1 << 20, True),
+    ("empty", 131, 256, 200, "empty", 1 << 20, True),
+    ("ties_at_kth", 131, 256, 200, "random", 3, True),
+    ("ties_full", 132, 64, 320, "full", 2, True),
+    ("k1", 131, 256, 1, "random", 1 << 20, True),
+    ("k1_full_ties", 131, 16, 1, "full", 1, True),
+    ("fit", 132, 64, "fit", "full", 1 << 20, True),
+    ("stream", 132, 64, "stream", "full", 1 << 20, True),
+    ("stream_ties", 132, 16, "stream", "full", 5, True),
+    ("stream_unaligned", 132, 16, "stream", "full", 1 << 20, False),
+    ("b1", 132, 1, 320, "random", 1 << 20, True),
+    ("b257", 131, 257, 200, "random", 1 << 20, True),
+    ("unaligned", 131, 64, 201, "random", 7, False),
+    ("max_k", 8, 4, quantized.MAX_K, "random", 1 << 20, True),
+    ("max_k_full", 8, 4, quantized.MAX_K, "full", 1 << 20, True),
+    ("pq_shape", 131, 256, 40, "random", 1 << 20, True),
+)
+
+
+def merge_edges(seed: int) -> dict:
+    """The merge against its plain version, ids and distances bit for bit,
+    on made lists at each of MERGE_EDGES; the stage capacity the wrapper
+    computes equals the kernel's."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    lib = quantized._library()
+    splits = 132
+    fit = max(k for k in range(1, quantized.MAX_K + 1)
+              if quantized.merge_places([k] * splits)
+              <= quantized.merge_stage_cap(splits, k))
+    out = {"cases": 0, "fit_k": fit, "paths": {"staged": 0, "streaming": 0}}
+    for s, k in ((splits, fit), (splits, fit + 1), (131, 200), (132, 320),
+                 (8, quantized.MAX_K), (1, 1)):
+        if lib.topk_merge_stage_cap(s, k) != quantized.merge_stage_cap(s, k):
+            raise AssertionError(f"the merge's stage capacity at {s} x {k}: "
+                                 f"{lib.topk_merge_stage_cap(s, k)} in the "
+                                 f"kernel, {quantized.merge_stage_cap(s, k)}"
+                                 " in the wrapper")
+    for name, s, b, k, fill, keys, aligned in MERGE_EDGES:
+        k = {"fit": fit, "stream": fit + 1}.get(k, k)
+        ck, cr = merge_lists(gen, s, b, k, fill, keys, aligned)
+        kd, ki = quantized.merge_partials(ck, cr, k)
+        pd, pi = quantized.merge_partials_plain(ck, cr, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            bad = int((ki != pi).sum() + (kd != pd).sum())
+            raise AssertionError(f"the merge differs from its plain version "
+                                 f"at edge {name} ({s} x {b} x {k}, {fill}): "
+                                 f"{bad} slots")
+        counts = (ck[..., :k] != quantized.NONE_KEY).sum(-1)  # [s, b]
+        most = int(((counts + 3) // 4 * 4).sum(0).max())
+        path = ("staged" if most <= quantized.merge_stage_cap(s, k)
+                else "streaming")
+        out["paths"][path] += 1
+        out[name] = {"splits": s, "b": b, "k": k, "path_of_fullest": path}
+        out["cases"] += 1
+    if not all(out["paths"].values()):
+        raise AssertionError(f"a merge path went untested: {out['paths']}")
+    return out
 
 
 # the scans of the quantized flat indexes: (wrapper, its kernel's number,
@@ -2494,6 +2665,9 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
         "us_per_hop": walk["us_per_hop"],
         "construction_launch_ms": cwalk["ms_median"],
+        "construction_bound_ms": cwalk["bound_ms"],
+        "construction_bound_by": cwalk["bound_by"],
+        "construction_us_per_hop": cwalk["us_per_hop"],
     }
     peak = torch.cuda.max_memory_allocated()
     del idx, beam, spy, build_spy
@@ -2713,6 +2887,9 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         "share_of_bound": walk["bound_ms"] / walk["ms_median"],
         "us_per_hop": walk["us_per_hop"],
         "construction_launch_ms": cwalk["ms_median"],
+        "construction_bound_ms": cwalk["bound_ms"],
+        "construction_bound_by": cwalk["bound_by"],
+        "construction_us_per_hop": cwalk["us_per_hop"],
     }
     state["kernel_q2"]["launches"] += q2_launches
     state["kernel_merge"]["launches"] += q2_merge_launches

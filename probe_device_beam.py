@@ -1,7 +1,8 @@
 """Where the fused HNSW walk's (B2) time goes, on one card.
 
-    python3 probe_device_beam.py [--row raw|sq|pq|rq] [--against FILE.cu]
-                                 [--copies a,b] [--rows N] [--iters 10]
+    python3 probe_device_beam.py [--row raw|bq|sq|pq|rq] [--ef EF]
+                                 [--against FILE.cu] [--copies a,b]
+                                 [--rows N] [--iters 10]
 
 On a graph of ``--rows`` nodes with 32 random neighbours each (seeded on
 the card; the walk's memory pattern at the scale of a cell, whose HNSW ids
@@ -16,6 +17,8 @@ the card from a seed):
 
 - ``raw`` (phase ``hnsw``): 1,200,000 unit 25-d float32 rows, cosine at
   bf16, ef 64;
+- ``bq`` (phase ``hnsw_quant``): 262,144 rows of 768 sign bits (24 packed
+  words and a popcount a row), ef 128 (the index pads ef 96 to 128);
 - ``sq`` (phase ``quant_db``): 100,000 rows of 768 SQ codes, cosine, ef
   128 (the index pads ef 96 to 128);
 - ``pq`` (phase ``hnsw_pq``, config 3): 32,768 rows of 96 PQ codes into
@@ -23,7 +26,8 @@ the card from a seed):
 - ``rq`` (phase ``quant``'s HNSW + RQ): 32,768 rows of 768 RQ codes with
   their lower and step, cosine, ef 128.
 
-A copy with clock64 counters (``counters``) splits a warp's cycles into
+``--ef`` walks at another beam width than the cell's (``--row raw --ef
+128`` separates the beam's pad from the row type). A copy with clock64 counters (``counters``) splits a warp's cycles into
 the upper descent (the PQ table's build and the entry point included), a
 hop's adjacency round, its gather (flags, compaction, marks and, for code
 rows, the staged rows' copies and scoring), the rank of its new entries
@@ -63,7 +67,8 @@ OUT = ROOT / "weaviate_tpu_torch" / "_build" / "probe_beam"
 
 M0, B = 32, 256
 # --row: (rows, D, ef) at the cell's widths
-ROWS = {"raw": (1_200_000, 25, 64), "sq": (100_000, 768, 128),
+ROWS = {"raw": (1_200_000, 25, 64), "bq": (262_144, 768, 128),
+        "sq": (100_000, 768, 128),
         "pq": (32_768, 1536, 128), "rq": (32_768, 768, 128)}
 PQ_SEGMENTS, PQ_CENTROIDS = 96, 256
 
@@ -71,11 +76,18 @@ PQ_SEGMENTS, PQ_CENTROIDS = 96, 256
 # rounds, [2] gathers, [3] ranks of the new entries, [4] merges (the
 # read-ahead issued), [5] the whole walk, [6] hops; code rows: [7] the row
 # copies (issue to wait), [8] the scoring from shared memory, [9] the PQ
-# table's build
-NCOUNT = 10
+# table's build; a layer-0 hop's parts, summed over warps: [10] the
+# gather's loads and speculative scoring, [11] its compaction and marks,
+# [12] the rank's widening, cumulative from the rank's end: [13] the
+# read-ahead issued, [15] the beam merged;
+# within a hop's gather: [16] the ids read and the flags' loads issued,
+# [17] the speculative scoring (its rows' loads and sums), [18] the flags'
+# wait and the accepted test; [19] BQ hops with at most kFewNew landing
+# entries
+NCOUNT = 20
 COUNTERS = [
     ("namespace {\n",
-     "__device__ unsigned long long g_probe[10];\n"
+     "__device__ unsigned long long g_probe[20];\n"
      "__device__ __forceinline__ void probe_add(int i, long long v) {\n"
      "  if ((threadIdx.x & 31) == 0)\n"
      "    atomicAdd(&g_probe[i], (unsigned long long)v);\n}\n"
@@ -94,9 +106,10 @@ COUNTERS = [
     ("    expansions += 1;\n\n    if (track && p.expand > 0) {",
      "    expansions += 1;\n    tpr[2] += clock64() - tq; tq = clock64();\n"
      "\n    if (track && p.expand > 0) {"),
-    ("      nna += __popc(__ballot_sync(kFull, al));\n    }\n    __syncwarp();\n",
-     "      nna += __popc(__ballot_sync(kFull, al));\n    }\n    __syncwarp();\n"
-     "    tpr[3] += clock64() - tq; tq = clock64();\n"),
+    ("      }\n    }\n    __syncwarp();\n    // the best new entry is the next",
+     "      }\n    }\n    __syncwarp();\n"
+     "    tpr[3] += clock64() - tq; tq = clock64();\n"
+     "    // the best new entry is the next"),
     ("    buf ^= 1;\n    __syncwarp();\n  }\n",
      "    buf ^= 1;\n    __syncwarp();\n    tpr[4] += clock64() - tq;\n  }\n"),
     ("  const int spec = SPEC ?",
@@ -109,7 +122,7 @@ COUNTERS = [
      "  const int spec = SPEC ?"),
     ("const char* device_beam_error_string(int code) {",
      "int probe_counters(unsigned long long* out) {\n"
-     "  unsigned long long zero[10] = {};\n"
+     "  unsigned long long zero[20] = {};\n"
      "  cudaMemcpyFromSymbol(out, g_probe, sizeof(zero));\n"
      "  return int(cudaMemcpyToSymbol(g_probe, zero, sizeof(zero)));\n}\n"
      "const char* device_beam_error_string(int code) {"),
@@ -126,6 +139,38 @@ COUNTERS = [
      "  if (ROW == kPqRow && p.table) {\n"
      "    const long long tb = clock64();\n    build_table(p, w);\n"
      "    probe_add(9, clock64() - tb);\n  }\n"),
+    ("                      int count, int& loaded) {\n"
+     "  const int lane = threadIdx.x & 31;\n",
+     "                      int count, int& loaded) {\n"
+     "  const int lane = threadIdx.x & 31;\n"
+     "  long long tg0 = clock64();\n"),
+    ("  __syncwarp();\n  const int start = count;\n",
+     "  __syncwarp();\n  if (mode == kHop) probe_add(10, clock64() - tg0);\n"
+     "  tg0 = clock64();\n  const int start = count;\n"),
+    ("  __syncwarp();\n  if constexpr (ROW == kSqRow || ROW == kRqRow || "
+     "ROW == kPqRow) {\n",
+     "  __syncwarp();\n  if (mode == kHop) probe_add(11, clock64() - tg0);\n"
+     "  if constexpr (ROW == kSqRow || ROW == kRqRow || ROW == kPqRow) {\n"),
+    ("    if constexpr (SPEC && ROW == kBqRow)\n      score_bq_lane(",
+     "    long long ts = clock64();\n"
+     "    if (mode == kHop) probe_add(16, ts - tg0);\n"
+     "    if constexpr (SPEC && ROW == kBqRow)\n      score_bq_lane("),
+    ("    const bool ok = nb >= 0 && pres && !((word >> (nb & 31)) & 1u);\n",
+     "    if (mode == kHop) probe_add(17, clock64() - ts);\n"
+     "    ts = clock64();\n"
+     "    const bool ok = nb >= 0 && pres && !((word >> (nb & 31)) & 1u);\n"
+     "    if (mode == kHop) probe_add(18, (ok ? 1 : 0) + clock64() - ts);\n"),
+    ("    int nna = 0;\n    if (ROW == kBqRow && nn <= 32) {\n",
+     "    probe_add(12, clock64() - tq);\n"
+     "    int nna = 0;\n    if (ROW == kBqRow && nn <= 32) {\n"),
+    ("    // merge into the other buffers: the stable order of [old | new], a new",
+     "    probe_add(13, clock64() - tq);\n"
+     "    // merge into the other buffers: the stable order of [old | new], a new"),
+    ("    if (ROW == kBqRow && nn <= kFewNew) {\n",
+     "    if (ROW == kBqRow && nn <= kFewNew) {\n      probe_add(19, 1);\n"),
+    ("    beam_n = min(ef, beam_n + nn);\n    if (track) {",
+     "    probe_add(15, clock64() - tq);\n"
+     "    beam_n = min(ef, beam_n + nn);\n    if (track) {"),
 ]
 # copies with one constant changed
 COPIES = {
@@ -134,7 +179,11 @@ COPIES = {
 }
 PARTS = ("upper_descent", "adjacency_round", "gather", "rank", "merge",
          "walk")
-CODE_PARTS = {7: "row_copies", 8: "scoring"}
+CODE_PARTS = {7: "row_copies", 8: "scoring", 10: "gather_loads",
+              11: "gather_compaction", 12: "rank_widening",
+              13: "merge_read_ahead", 15: "merge_beam", 16: "gather_ids_flags",
+              17: "gather_spec_scoring", 18: "gather_flags_wait",
+              19: "few_landing_share"}
 
 
 def edited(edits) -> str:
@@ -175,6 +224,25 @@ def inputs(row: str, rows: int):
 
     _, d, _ = ROWS[row]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if row == "bq":
+        # random packed sign bits; the queries are the first rows with the
+        # low 12 bits of each word flipped at random
+        w = (d + 31) // 32
+        packed = torch.randint(-2**31, 2**31 - 1, (rows, w), device="cuda",
+                               generator=gen, dtype=torch.int32)
+        pop = torch.zeros(rows, device="cuda")
+        for i in range(32):
+            pop += ((packed >> i) & 1).sum(1).float()
+        q = (packed[:B] ^ torch.randint(0, 1 << 12, (B, w), device="cuda",
+                                        generator=gen, dtype=torch.int32))
+        adj = torch.randint(0, rows, (rows, M0), device="cuda",
+                            generator=gen, dtype=torch.int32)
+        present = torch.ones(rows, dtype=torch.bool, device="cuda")
+        eps = torch.randint(0, rows, (B,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        allow = torch.rand(rows, device="cuda", generator=gen) < 0.45
+        return (db.BQScorer(d), q.contiguous(), (packed, pop), adj, present,
+                eps, allow)
     c = normalize(torch.randn(rows, d, device="cuda", generator=gen))
     adj = torch.randint(0, rows, (rows, M0), device="cuda", generator=gen,
                         dtype=torch.int32)
@@ -233,6 +301,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--row", choices=tuple(ROWS), default="raw")
     ap.add_argument("--rows", type=int, default=None)
+    ap.add_argument("--ef", type=int, default=None,
+                    help="the beam width (default: the cell's)")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--against", default=None)
     ap.add_argument("--copies", default="",
@@ -245,7 +315,7 @@ def main(argv=None) -> int:
     from weaviate_tpu_torch.ops import device_beam as db
 
     rows = args.rows or ROWS[args.row][0]
-    ef = ROWS[args.row][2]
+    ef = args.ef or ROWS[args.row][2]
     copies = {"as_is": SOURCE.read_text(), "counters": edited(COUNTERS)}
     for name in filter(None, args.copies.split(",")):
         copies[name] = edited(COPIES[name])
@@ -268,7 +338,7 @@ def main(argv=None) -> int:
         hops = int(stats[:, 0].max())
         hops_median = float(stats[:, 0].float().median())
         out = {"copy": name, "row": args.row, "rows": rows,
-               "dims": q.shape[1], "b": B, "ef": ef,
+               "dims": ROWS[args.row][1], "b": B, "ef": ef,
                "launch_ms": ms, "hops_max": hops,
                "hops_mean": float(stats[:, 0].float().mean()),
                "hops_median": hops_median,

@@ -4,6 +4,7 @@ or a faulty Q2 gives the plain version's ids, on one card.
     python3 probe_quantized.py [--iters 5] [--scans bq,sq,pq,rq]
                                [--copies as_is,no_select,...]
                                [--against DIR]
+    python3 probe_quantized.py --merge [--scans ...] [--against DIR]
     python3 probe_quantized.py --agreement
 
 At phase ``quant``'s and ``pq``'s shapes (B = 256; Q1 over 10,002,432 x
@@ -54,6 +55,17 @@ id agreement of the two merged answers; for the copies asked for, it also
 times the earlier template ``code_scan_kernel`` with the same part
 switched off (``CODE_SCAN_COPIES``, for a checkout of commit 202d8c9:
 ``git archive 202d8c9 | tar -x -C _chipcheck/parent``).
+
+``--merge`` times the merge alone (``merge_partials``, one launch) at the
+four scans' shapes (the lists ``scan_plan`` gives each scan above: [splits,
+256, fetch]) on the lists a scan launch of the source as it is leaves on
+those operands: each split's taken entries first, in row order, then
+padding. It prints the lists' fill (entries taken a split and a query,
+whether any taken entry follows padding), the merge's time for the source
+as it is and for copies with one part switched off (``MERGE_COPIES``),
+``torch.topk`` over the same keys, and with ``--against`` the other
+checkout's merge in turns with this one's and its copies
+(``AGAINST_MERGE_COPIES``, for the merge of commit 33d8133).
 
 ``--agreement`` runs ``chip_smoke.py``'s Q1/Q2 grid (``quant_kernel_grid``,
 same seed, so the same rows and queries) once for each of these Q2s, with
@@ -176,6 +188,91 @@ CODE_SCAN_COPIES = {
     "no_window": [("      for (int c = tid; c < kSqR * kPqWords; "
                    "c += kThreads) {",
                    "      for (int c = tid; c < 0; c += kThreads) {")],
+}
+
+# the merge's parts switched off (``--merge``); each copy gives wrong
+# answers by design, and reads no list entry out of place
+MERGE_COPIES = {
+    # no radix passes: the first taken places (at most k) survive
+    "no_hist": [("  if (total > k) {\n    uint32_t todo = 0;",
+                 "  if (false) {\n    uint32_t todo = 0;"),
+                ("      if (key[u] != kNone && take)\n",
+                 "      if (key[u] != kNone && take && place < k)\n"),
+                ("  const int n = min(total, k);\n",
+                 "  const int n = min(n_surv, k);\n")],
+    # no collect: the survivors are the first k places, key 0
+    "no_collect": [("  __syncthreads();  // n_surv is zeroed\n"
+                    "  for (int g = tid; g < groups; g += kMThreads) {",
+                    "  __syncthreads();  // n_surv is zeroed\n"
+                    "  for (int i = tid; i < k; i += kMThreads)\n"
+                    "    surv[i] = i < 4 * groups ? i : 0;\n"
+                    "  for (int g = tid; g < 0; g += kMThreads) {")],
+    # no sort: the survivors written in the order they were collected
+    "no_sort": [("    rank[m] = 0;\n", "    rank[m] = e;\n"),
+                ("rank[m] += (v.x < mine[m]) + (v.y < mine[m]);",
+                 "rank[m] += 0 * ((v.x < mine[m]) + (v.y < mine[m]));"),
+                ("    for (int m = 0; m < E; ++m) rank[m] += v < mine[m];",
+                 "    for (int m = 0; m < E; ++m) rank[m] += 0 * (v < mine[m]);")],
+}
+# clock64 counters of the merge, summed over CTAs (thread 0's cycles):
+# [0] the taken counts and places, [1] the staging, [2] the keys' AND and
+# OR, [3] the select's passes, [4] the select (its passes and the
+# collect), [5] the rank and the writes, [6] passes, [7] CTAs
+MERGE_PARTS = ("counts", "staging", "and_or", "passes", "select",
+               "rank_write")
+MERGE_COUNTERS = [
+    ("namespace {\n",
+     "__device__ unsigned long long g_merge[8];\nnamespace {\n"),
+    ("  // each split's taken count, then its first place (a multiple of 4)\n",
+     "  long long t0 = clock64(), t1;\n"
+     "  // each split's taken count, then its first place (a multiple of 4)\n"),
+    ("  const int groups = places / 4;\n",
+     "  t1 = clock64();\n  if (tid == 0) atomicAdd(&g_merge[0], t1 - t0);\n"
+     "  t0 = t1;\n  const int groups = places / 4;\n"),
+    ("  // the bits every taken key holds (AND) and any holds (OR)\n",
+     "  t1 = clock64();\n  if (tid == 0) atomicAdd(&g_merge[1], t1 - t0);\n"
+     "  t0 = t1;\n  // the bits every taken key holds (AND) and any holds (OR)\n"),
+    ("  if (staged)\n    select_survivors<true>(L, groups,",
+     "  t1 = clock64();\n  if (tid == 0) atomicAdd(&g_merge[2], t1 - t0);\n"
+     "  t0 = t1;\n  if (staged)\n    select_survivors<true>(L, groups,"),
+    ("  if (tid == 0) *n_surv = 0;\n",
+     "  if (tid == 0) *n_surv = 0;\n  long long ts0 = clock64();\n"),
+    ("      if (whole || shift == 0) {  // at shift 0 every bin is one value",
+     "      if (tid == 0) atomicAdd(&g_merge[6], 1ull);\n"
+     "      if (whole || shift == 0) {  // at shift 0 every bin is one value"),
+    ("  __syncthreads();  // n_surv is zeroed\n",
+     "  if (tid == 0) atomicAdd(&g_merge[3], clock64() - ts0);\n"
+     "  ts0 = clock64();\n  __syncthreads();  // n_surv is zeroed\n"),
+    ("  const int n = min(total, k);\n",
+     "  t1 = clock64();\n"
+     "  if (tid == 0) atomicAdd(&g_merge[4], t1 - t0);\n"
+     "  t0 = t1;\n  const int n = min(total, k);\n"),
+    ("    rank_write<kMaxK / kMThreads>(surv, n, L, out_d, out_i, k);\n}\n",
+     "    rank_write<kMaxK / kMThreads>(surv, n, L, out_d, out_i, k);\n"
+     "  if (tid == 0) atomicAdd(&g_merge[5], clock64() - t0);\n"
+     "  if (tid == 0) atomicAdd(&g_merge[7], 1ull);\n}\n"),
+    ('const char* quantized_error_string(int code) {',
+     "int merge_counters(unsigned long long* out) {\n"
+     "  unsigned long long zero[8] = {};\n"
+     "  cudaMemcpyFromSymbol(out, g_merge, sizeof(zero));\n"
+     "  return int(cudaMemcpyToSymbol(g_merge, zero, sizeof(zero)));\n}\n"
+     'const char* quantized_error_string(int code) {'),
+]
+
+# the same parts of the merge of commit 33d8133, a radix select over every
+# slot (``--merge --against`` a checkout of that commit)
+AGAINST_MERGE_COPIES = {
+    # no radix passes: the k-th key stays 0, so the collect keeps nothing
+    "no_hist": [("  for (int shift = 24; shift >= 0; shift -= 8) {\n"
+                 "    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;",
+                 "  for (int shift = 24; shift >= 32; shift -= 8) {\n"
+                 "    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;")],
+    "no_collect": [("  for (int base = 0; base < total; "
+                    "base += kThreads * kItems) {",
+                    "  for (int base = 0; base < 0; "
+                    "base += kThreads * kItems) {")],
+    "no_sort": [("  for (int size = 2; size <= p; size <<= 1) {",
+                 "  for (int size = 2; size <= 1; size <<= 1) {")],
 }
 
 # counters of the code scans' selection, written by each CTA into the tail
@@ -546,11 +643,142 @@ def other_checkout(root: Path, lib: Path):
     return mod
 
 
+def list_fill(lists, k: int) -> dict:
+    """Entries taken in the first ``k`` of each list [splits, B, cap]: a
+    split's mean and largest, a query's mean and largest over its splits,
+    and whether every list holds its taken entries before its padding."""
+    from weaviate_tpu_torch.ops import quantized
+
+    taken = lists[0][..., :k] != quantized.NONE_KEY
+    split = taken.sum(-1).float()
+    query = split.sum(0)
+    return {"split_mean": float(split.mean()), "split_max": int(split.max()),
+            "query_mean": float(query.mean()), "query_max": int(query.max()),
+            "slots_a_query": taken.shape[0] * k,
+            "taken_then_padding": bool(
+                (taken[..., :-1] | ~taken[..., 1:]).all())}
+
+
+def back_to_back(fn, iters: int = 50) -> float:
+    """Device ms a call of ``fn`` with ``iters`` calls between two events:
+    the host's part of a call is hidden where the device is slower."""
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def launch_only(lib, lists, k: int):
+    """The merge's C entry point alone on preallocated outputs (no
+    wrapper): what the kernel takes where the host keeps ahead."""
+    splits, b, cap = lists[0].shape
+    out_d = torch.empty((b, k), dtype=torch.float32, device="cuda")
+    out_i = torch.empty((b, k), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (lists[0].data_ptr(), lists[1].data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr())
+    return lambda: lib.topk_merge(*ptrs, splits, b, cap, k, stream)
+
+
+def merge_probe(args, timed) -> None:
+    """``--merge``: the merge alone on the lists of each scan, its copies,
+    ``torch.topk``, and the other checkout's merge in turns."""
+    from weaviate_tpu_torch.ops import quantized
+
+    sources = {"as_is": SOURCE.read_text(),
+               "merge_counters": edited(MERGE_COUNTERS)}
+    sources.update({name: edited(edits)
+                    for name, edits in MERGE_COPIES.items()})
+    if args.against is not None:
+        other_src = (args.against / "weaviate_tpu_torch" / "csrc"
+                     / "quantized.cu")
+        sources[AGAINST] = other_src.read_text()
+        for name, edits in AGAINST_MERGE_COPIES.items():
+            sources[f"{AGAINST}_{name}"] = edited(edits, other_src)
+    libs = build(sources)
+    other = (other_checkout(args.against, libs[AGAINST])
+             if args.against is not None else None)
+    if other is not None:
+        for name in AGAINST_MERGE_COPIES:
+            libs[f"{AGAINST}_{name}"] = other.declare(
+                ctypes.CDLL(str(libs[f"{AGAINST}_{name}"])))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    own = libs["as_is"]
+    for kind in args.scans.split(","):
+        k = FETCH[kind]
+        quantized._library = lambda: own
+        data = SCAN_DATA[kind](gen, dev)
+        lists = [t.clone() for t in scan_launch(kind, quantized, data)()]
+        del data
+        torch.cuda.empty_cache()
+        want = quantized.merge_partials_plain(*lists, k)
+        got = quantized.merge_partials(*lists, k)
+        if not all(map(torch.equal, got, want)):
+            raise SystemExit(f"probe: the merge differs from its plain "
+                             f"version at {kind}'s lists")
+        run = lambda: quantized.merge_partials(*lists, k)  # noqa: E731
+        row = {"merge": kind, "shape": list(lists[0].shape[:2]) + [k],
+               "fill": list_fill(lists, k), "as_is_ms": timed(run),
+               "back_to_back_ms": back_to_back(run),
+               "launch_only_ms": back_to_back(launch_only(own, lists, k))}
+        for name in MERGE_COPIES:
+            quantized._library = lambda lib=libs[name]: lib
+            row[f"{name}_ms"] = timed(run)
+        # the counters copy: one launch, each part's cycles a CTA
+        lib = libs["merge_counters"]
+        lib.merge_counters.argtypes = [ctypes.c_void_p]
+        cnt = (ctypes.c_ulonglong * 8)()
+        quantized._library = lambda: lib
+        torch.cuda.synchronize()
+        lib.merge_counters(cnt)  # reset
+        run()
+        torch.cuda.synchronize()
+        lib.merge_counters(cnt)
+        ctas = max(1, cnt[7])
+        row["cycles_a_cta"] = {part: cnt[i] / ctas
+                               for i, part in enumerate(MERGE_PARTS)}
+        row["passes_a_cta"] = cnt[6] / ctas
+        quantized._library = lambda: own
+        splits, b = lists[0].shape[:2]
+        flat = lists[0][..., :k].permute(1, 0, 2).reshape(b, splits * k)
+        signed = torch.bitwise_xor(flat, -(1 << 31))
+        row["torch_topk_ms"] = timed(lambda: torch.topk(
+            signed, k, dim=1, largest=False, sorted=True))
+        if other is not None:
+            theirs = lambda: other.merge_partials(*lists, k)  # noqa: E731
+            if not all(map(torch.equal, theirs(), want)):
+                raise SystemExit(f"probe: the other checkout's merge differs "
+                                 f"from the plain version at {kind}'s lists")
+            row["turns_ms"] = [("as_is", timed(run)),
+                               (AGAINST, timed(theirs)),
+                               (AGAINST, timed(theirs)),
+                               ("as_is", timed(run))]
+            row["against_launch_only_ms"] = back_to_back(launch_only(
+                other._library(), lists, k))
+            base_lib = other._library
+            for name in AGAINST_MERGE_COPIES:
+                other._library = lambda lib=libs[f"{AGAINST}_{name}"]: lib
+                row[f"{AGAINST}_{name}_ms"] = timed(theirs)
+            other._library = base_lib
+        print(json.dumps(row), flush=True)
+        del lists, flat, signed, want, got
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--agreement", action="store_true",
                     help="read Q2's id agreement, sound and faulty")
+    ap.add_argument("--merge", action="store_true",
+                    help="time the merge alone on the scans' lists")
     ap.add_argument("--seed", type=int, default=0,
                     help="chip_smoke.py's --seed, for --agreement")
     ap.add_argument("--scans", default="bq,sq,pq,rq",
@@ -570,6 +798,11 @@ def main(argv=None) -> int:
 
     if args.agreement:
         agreement(args.seed)
+        print(chip_smoke.card(), flush=True)
+        return 0
+    if args.merge:
+        merge_probe(args, lambda fn: float(np.median(
+            chip_smoke.cuda_ms(fn, max(args.iters, 20), 3))))
         print(chip_smoke.card(), flush=True)
         return 0
     scans = args.scans.split(",")

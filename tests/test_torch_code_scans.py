@@ -212,3 +212,67 @@ def test_split_partials_under_the_shared_bound_give_jax(kind, metric, case):
     td, ti = tq.merge_partials_plain(*bounded, k)
     np.testing.assert_array_equal(ti.numpy(), ji)
     np.testing.assert_array_equal(td.numpy(), jd)
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["plain", "bounded"])
+@pytest.mark.parametrize("kind", ["pq", "rq", "sq"])
+def test_split_partials_hold_taken_entries_then_padding(kind, bounded):
+    """The layout the merge kernel reads (``merge_partials``): each split's
+    list holds its taken entries first, in row order and inside its split,
+    then only ``NONE_KEY`` / -1 padding, so the taken count is the first
+    padding slot."""
+    k = 12
+    _, dist = _planes(kind, "l2-squared", seed=21)
+    mask = np.random.default_rng(9).random(N) >= 0.3
+    mask[512:768] = False  # split 2 has no live row
+    keys = torch.where(torch.from_numpy(mask)[None, :], _order_keys(dist),
+                       tq.NONE_KEY)
+    sp = _plan(kind, k, splits=6, split_rows=256)
+    ck, cr = (tq.split_partials_bounded_plain(keys, k, sp) if bounded
+              else tq.split_partials_plain(keys, k, sp))
+    taken = ck != tq.NONE_KEY
+    assert (taken[..., :-1] | ~taken[..., 1:]).all()
+    assert ((cr >= 0) == taken).all()
+    assert not taken[2].any()
+    for s in range(sp.splits):
+        rows = cr[s]
+        inside = (rows >= s * sp.split_rows) & (rows < (s + 1) * sp.split_rows)
+        assert (inside == taken[s]).all()
+        step = rows[:, 1:] - rows[:, :-1]
+        assert ((step > 0) | ~taken[s, :, 1:]).all()  # row order
+    if not bounded:
+        # a split with k live rows fills its list
+        assert taken[0].all()
+
+
+@pytest.mark.parametrize("case", ["every_split_full",
+                                  "ties_at_kth_across_splits"])
+def test_merge_of_full_and_tied_partials_gives_jax_sq_search(case):
+    """The merge's plain version on lists the kernel reads at their
+    extremes: every split's list full (k taken entries, no padding), and
+    the k-th distance tied across splits (twin rows in several splits, only
+    some of them kept): JAX ``sq_search``'s ids and distances exactly."""
+    metric = "dot"
+    k = 40 if case == "every_split_full" else 30
+    jargs, dist = _planes("sq", metric, seed=31)
+    mask = np.ones(N, bool) if case == "every_split_full" else (
+        np.random.default_rng(4).random(N) >= 0.2)
+    jd, ji = _jax_search("sq", jargs, mask, metric, k)
+    keys = torch.where(torch.from_numpy(mask)[None, :], _order_keys(dist),
+                       tq.NONE_KEY)
+    sp = _plan("sq", k, splits=6, split_rows=256)
+    ck, cr = tq.split_partials_plain(keys, k, sp)
+    taken = ck != tq.NONE_KEY
+    if case == "every_split_full":
+        assert taken.all()
+    else:
+        # the k-th key sits in more splits' lists than it is kept from
+        jdt = torch.from_numpy(jd.copy())
+        kth = _order_keys(jdt)[:, k - 1]
+        at_kth = ck == kth[None, :, None]
+        splits_with = at_kth.any(-1).sum(0)
+        kept = (jdt == jdt[:, k - 1:k]).sum(1)
+        assert ((splits_with >= 2) & (at_kth.sum((0, 2)) > kept)).any()
+    td, ti = tq.merge_partials(ck, cr, k)
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    np.testing.assert_array_equal(td.numpy(), jd)

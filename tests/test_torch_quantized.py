@@ -284,8 +284,13 @@ def _plan(kind, b, n, k, splits=None, split_rows=None, sms=None):
     (900, 70, 40, 0.2, dict(splits=1, split_rows=960)),
     # k = MAX_K over N > MAX_K
     (5000, 25, 4096, 0.1, dict(sms=8)),
+    # every split's list full: k taken entries, no padding
+    (1024, 64, 60, 0.0, dict(splits=4, split_rows=256)),
+    # 6 bits: the k-th distance tied across every split, few of them kept
+    (1024, 6, 45, 0.1, dict(splits=4, split_rows=256)),
 ], ids=["ties16", "k_eq_n", "splits_short_of_k", "masked_split",
-        "one_split", "max_k"])
+        "one_split", "max_k", "every_split_full",
+        "ties_at_kth_across_splits"])
 def test_merge_of_split_partials_gives_jax_bq_search(n, d, k, masked, plan):
     """The half of a search that follows the scan: each split's k smallest
     (order key, row) in row order, as the scan leaves them, merged
@@ -313,6 +318,16 @@ def test_merge_of_split_partials_gives_jax_bq_search(n, d, k, masked, plan):
     assert (taken[..., :-1] | ~taken[..., 1:]).all()
     if masked == "split1":
         assert not taken[1].any()
+    if masked == 0.0 and sp.split_rows >= k:
+        assert taken.all()  # every split full
+    if d == 6:
+        # the k-th key sits in every split's list, kept from fewer
+        jdn = np.array(jd)
+        at_kth = ck == torch.from_numpy(_order_keys(jdn[:, k - 1]))[
+            None, :, None]
+        assert at_kth.any(-1).all()
+        kept = (jdn == jdn[:, k - 1:k]).sum(1)
+        assert (at_kth.sum((0, 2)).numpy() > kept).all()
     before = tq.merge_partials.launches
     td, ti = tq.merge_partials(ck, cr, k)
     assert tq.merge_partials.launches == before
@@ -330,6 +345,24 @@ def test_probe_copies_apply_to_the_kernel_source(old, new):
     src = probe.SOURCE.read_text()
     assert src.count(old) == 1, repr(old)
     assert probe.edited([(old, new)]) != src
+
+
+@pytest.mark.parametrize("old,new", [
+    e for name in probe.MERGE_COPIES for e in probe.MERGE_COPIES[name]]
+    + probe.MERGE_COUNTERS, ids=[
+        f"{name}{i}" for name in probe.MERGE_COPIES
+        for i in range(len(probe.MERGE_COPIES[name]))] + [
+        f"merge_counters{i}" for i in range(len(probe.MERGE_COUNTERS))])
+def test_probe_merge_copies_apply_to_the_kernel_source(old, new):
+    # ``probe_quantized.py --merge``: its copies of the merge with a part
+    # switched off and its clock64 copy replace text the kernel source holds
+    # exactly once
+    src = probe.SOURCE.read_text()
+    assert src.count(old) == 1, repr(old)
+    assert probe.edited([(old, new)]) != src
+    # each copy's edits apply together
+    for edits in [*probe.MERGE_COPIES.values(), probe.MERGE_COUNTERS]:
+        probe.edited(edits)
 
 
 # -- the quantized flat index -------------------------------------------------
@@ -452,3 +485,28 @@ def test_quantized_flat_warm_tier_serves_from_the_host_originals():
     assert isinstance(BinaryQuantizer(8, "dot").encode_device(
         torch.zeros(1, 8))["packed"], torch.Tensor)
     assert ScalarQuantizer(8, "dot").min_training == 256
+
+
+@pytest.mark.parametrize("kind,n,k", [("bq", 4_194_304, 320),
+                                      ("sq", 550_000, 200),
+                                      ("rq", 550_000, 200),
+                                      ("pq", 1_000_000, 40)])
+def test_merge_stages_the_phases_fullest_lists(kind, n, k):
+    """The merge kernel stages a query's taken keys in shared memory
+    (``merge_stage_cap``, from ``kMergeSmem`` of the source) whenever they
+    fit: at the four scans' plans of phase ``quant``'s and ``pq``'s shapes
+    (B = 256, 132 SMs) even lists with every split full fit, so the search
+    never takes the streaming path; past the fit the capacity is the
+    shared memory's."""
+    src = (Path(tq.__file__).resolve().parents[1] / "csrc"
+           / "quantized.cu").read_text()
+    assert src.count(f"constexpr int kMergeSmem = {tq.MERGE_SMEM};") == 1
+    plan = tq.scan_plan(kind, 256, n, k, 132)
+    assert plan.splits <= tq.MERGE_MAX_SPLITS
+    full = tq.merge_places([k] * plan.splits)
+    assert full == plan.splits * (-(-k // 4) * 4)
+    assert full <= tq.merge_stage_cap(plan.splits, k)
+    # a split's places start at multiples of 4
+    assert tq.merge_places([1, 2, 3, 4, 5]) == 4 + 4 + 4 + 4 + 8
+    big = tq.merge_stage_cap(plan.splits, tq.MAX_K)
+    assert big < plan.splits * tq.MAX_K and big % 4 == 0

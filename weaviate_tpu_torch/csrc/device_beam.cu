@@ -87,6 +87,17 @@
 //      those rows. Wider float32 and BQ rows are scored by groups of lanes
 //      after the visited test, where their bytes count. The widening adds
 //      one round for the parents' rows.
+//   3a. BQ rows on that path are scored a lane a row (`score_bq_lane`):
+//      the row's words arrive in 16-byte loads and the lane sums its
+//      popcounts alone, with the query's words in its registers, where
+//      the 8-lane groups spent eight rounds of shuffles on 32 rows. On an
+//      H100, `probe_device_beam.py --row bq` split a BQ hop at 262,144
+//      rows into 3.7k cycles of that scoring (the same with the rows hot
+//      in L1: not memory), 1.2k of rank and 2.3k of merge; the lane a row
+//      took the scoring to 2.1k.
+//      The rank of a BQ hop's landing entries (up to 32) is a lane an
+//      entry with the counts over the kept lanes by shuffles, not a
+//      compaction through shared memory and a counting loop over it.
 //   3b. Code rows (SQ, RQ, PQ bytes) are staged, not loaded a row at a
 //      time: after the visited test and the compaction, each lane issues
 //      one bulk copy (the TMA) of an accepted row, the 16-byte aligned span
@@ -135,6 +146,9 @@ constexpr int kSpecD = 32;
 constexpr int kSpecG = 8;
 constexpr int kSpecK = kSpecD / kSpecG;
 constexpr int kSpecRounds = kSpecG;
+// BQ's merge: landing entries a hop counted against each old entry in
+// registers (more take the search)
+constexpr int kFewNew = 8;
 // Code rows: kCodeG lanes a staged row; a chunk holds at least kMinStage
 // rows (or the whole frontier) whatever the batch.
 constexpr int kCodeG = 4;
@@ -406,6 +420,49 @@ __device__ __forceinline__ void score_chunk(const Params& p, const Warp& w,
                     : kMask;
       loaded += rows[r] >= 0;
     }
+  }
+}
+
+// BQ rows of the speculative path, a lane a row: lane j scores candidate
+// w.fid[base + j] (j < hi - base) alone, its row's words (16-byte loads
+// where the rows are 16-byte aligned) and popcount loaded together, against
+// the query's words `qw` held in every lane; no shuffle, one round. The sum
+// of popcounts is an exact integer, as the groups' float sums are.
+__device__ __forceinline__ void score_bq_lane(const Params& p, const Warp& w,
+                                              const uint32_t (&qw)[kSpecD],
+                                              const QScal& qs, int base,
+                                              int hi, int& loaded) {
+  const int c = base + (threadIdx.x & 31);
+  int row = c < hi ? w.fid[c] : -1;
+  if (row >= p.rows) row = -1;
+  const uint32_t* src = static_cast<const uint32_t*>(p.corpus) +
+                        (size_t)(row < 0 ? 0 : row) * p.d;
+  uint32_t x[kSpecD];
+  const bool vec = (p.d & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(p.corpus) & 15u) == 0;
+  if (vec) {
+#pragma unroll
+    for (int t = 0; t < kSpecD; t += 4) {
+      const uint4 v = row >= 0 && t < p.d
+                          ? __ldg(reinterpret_cast<const uint4*>(src + t))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      x[t] = v.x;
+      x[t + 1] = v.y;
+      x[t + 2] = v.z;
+      x[t + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < kSpecD; ++t)
+      x[t] = row >= 0 && t < p.d ? __ldg(src + t) : 0u;
+  }
+  const float aux = row >= 0 ? __ldg(p.row_aux + row) : 0.f;
+  int sum = 0;
+#pragma unroll
+  for (int t = 0; t < kSpecD; ++t) sum += __popc(qw[t] & x[t]);
+  if (c < hi) {
+    w.fd[c] = row >= 0 ? (qs.a + aux) - 2.f * static_cast<float>(sum) : kMask;
+    loaded += row >= 0;
   }
 }
 
@@ -817,7 +874,8 @@ __device__ void build_table(const Params& p, const Warp& w) {
 // speculative path's by groups of lanes.
 template <int METRIC, bool ROUND, bool SPEC, int ROW>
 __device__ int gather(const Params& p, const Warp& w,
-                      const float (&qv)[kSpecK], const QScal& qs,
+                      const float (&qv)[kSpecK],
+                      const uint32_t (&qw)[kSpecD], const QScal& qs,
                       uint32_t* vis, int lo, int hi, int mode, bool track,
                       int count, int& loaded) {
   const int lane = threadIdx.x & 31;
@@ -831,7 +889,9 @@ __device__ int gather(const Params& p, const Warp& w,
       if (mode != kUpper) word = __ldcg(vis + (nb >> 5));
       if (track) al = p.allow[nb];
     }
-    if constexpr (SPEC)
+    if constexpr (SPEC && ROW == kBqRow)
+      score_bq_lane(p, w, qw, qs, base, hi, loaded);
+    else if constexpr (SPEC)
       score_chunk<METRIC, ROUND, ROW>(p, w, qv, qs, base, hi, loaded);
     const bool ok = nb >= 0 && pres && !((word >> (nb & 31)) & 1u);
     __syncwarp();  // the chunk's ids are read before they are overwritten
@@ -943,6 +1003,10 @@ walk_kernel(Params p) {
     const int k = lane % kSpecG + kSpecG * t;
     qv[t] = SPEC && k < p.d ? w.q[k] : 0.f;
   }
+  uint32_t qw[kSpecD];  // BQ's speculative path: the query's words
+#pragma unroll
+  for (int t = 0; t < kSpecD; ++t)
+    qw[t] = SPEC && ROW == kBqRow && t < p.d ? __float_as_uint(w.q[t]) : 0u;
 
   constexpr bool kCoded = ROW == kSqRow || ROW == kRqRow || ROW == kPqRow;
   if (kCoded && lane == 0) {
@@ -977,7 +1041,7 @@ walk_kernel(Params p) {
         w.fid[j] = __ldg(uadj + (size_t)slot * p.m + j);
       __syncwarp();
       const int cnt = gather<METRIC, ROUND, SPEC, ROW>(
-          p, w, qv, qs, vis, 0, p.m, kUpper, false, 0, loaded);
+          p, w, qv, qw, qs, vis, 0, p.m, kUpper, false, 0, loaded);
       float best = kMask;
       int bi = kNone;
       for (int c = lane; c < cnt; c += 32) {
@@ -1041,7 +1105,7 @@ walk_kernel(Params p) {
     adj_rows += 1;
     if (lane == 0) src_exp[first] = 1;
     __syncwarp();
-    int nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qs, vis, 0, m0,
+    int nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qw, qs, vis, 0, m0,
                                               kHop, track, 0, loaded);
     expansions += 1;
 
@@ -1074,8 +1138,9 @@ walk_kernel(Params p) {
       }
       adj_rows += np;
       __syncwarp();
-      nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qs, vis, m0, m0 + e2,
-                                            kHop2, track, nn, loaded);
+      nn = gather<METRIC, ROUND, SPEC, ROW>(p, w, qv, qw, qs, vis, m0,
+                                            m0 + e2, kHop2, track, nn,
+                                            loaded);
     }
     accepted += nn;
 
@@ -1085,55 +1150,90 @@ walk_kernel(Params p) {
     const float bworst = beam_n == ef ? src_d[ef - 1] : kInf;
     const float kworst = track && kept_n == kk ? w.kd[buf * kk + kk - 1]
                                                : kInf;
-    int kept_new = 0;
-    for (int base = 0; base < nn; base += 32) {
-      const int c = base + lane;
+    int nna = 0;
+    if (ROW == kBqRow && nn <= 32) {
+      // BQ: a lane an entry, the landing filter, then each kept entry's
+      // rank among the kept ones (and the allowed ones'), counted over the
+      // kept lanes by shuffles
       int id = -1, al = 0;
       float dc = kInf;
-      if (c < nn) {
-        id = w.cid[c];
-        dc = w.cd[c];
-        al = w.callow[c];
+      if (lane < nn) {
+        id = w.cid[lane];
+        dc = w.cd[lane];
+        al = w.callow[lane];
       }
-      const bool keep = c < nn && (dc < bworst || (al && dc < kworst));
-      const unsigned bal = __ballot_sync(kFull, keep);
-      __syncwarp();  // the chunk is read before it is overwritten
+      const bool keep = lane < nn && (dc < bworst || (al && dc < kworst));
+      const unsigned kmask = __ballot_sync(kFull, keep);
+      const int alk = track && al;
+      int r = 0, ra = 0;
+      for (unsigned m = kmask; m; m &= m - 1u) {
+        const int j = __ffs(m) - 1;
+        const float dj = __shfl_sync(kFull, dc, j);
+        const int aj = __shfl_sync(kFull, alk, j);
+        const int less = (dj < dc) || (dj == dc && j < lane);
+        r += less;
+        ra += less & aj;
+      }
       if (keep) {
-        const int pos = kept_new + __popc(bal & ((1u << lane) - 1u));
-        w.cid[pos] = id;
-        w.cd[pos] = dc;
-        w.callow[pos] = al;
-      }
-      kept_new += __popc(bal);
-    }
-    nn = kept_new;
-    __syncwarp();
-
-    // rank the new entries among themselves (stable: frontier order on
-    // ties), all of them and the allowed ones
-    int nna = 0;
-    for (int base = 0; base < nn; base += 32) {
-      const int c = base + lane;
-      bool al = false;
-      if (c < nn) {
-        const float dc = w.cd[c];
-        al = track && w.callow[c];
-        int r = 0, ra = 0;
-#pragma unroll 8
-        for (int k = 0; k < nn; ++k) {
-          const float dk = w.cd[k];
-          const int less = (dk < dc) || (dk == dc && k < c);
-          r += less;
-          ra += less & w.callow[k];
-        }
-        w.sid[r] = w.cid[c];
+        w.sid[r] = id;
         w.sd[r] = dc;
-        if (al) {
-          w.aid[ra] = w.cid[c];
+        if (alk) {
+          w.aid[ra] = id;
           w.ad[ra] = dc;
         }
       }
-      nna += __popc(__ballot_sync(kFull, al));
+      nn = __popc(kmask);
+      nna = __popc(__ballot_sync(kFull, keep && alk));
+    } else {
+      int kept_new = 0;
+      for (int base = 0; base < nn; base += 32) {
+        const int c = base + lane;
+        int id = -1, al = 0;
+        float dc = kInf;
+        if (c < nn) {
+          id = w.cid[c];
+          dc = w.cd[c];
+          al = w.callow[c];
+        }
+        const bool keep = c < nn && (dc < bworst || (al && dc < kworst));
+        const unsigned bal = __ballot_sync(kFull, keep);
+        __syncwarp();  // the chunk is read before it is overwritten
+        if (keep) {
+          const int pos = kept_new + __popc(bal & ((1u << lane) - 1u));
+          w.cid[pos] = id;
+          w.cd[pos] = dc;
+          w.callow[pos] = al;
+        }
+        kept_new += __popc(bal);
+      }
+      nn = kept_new;
+      __syncwarp();
+
+      // rank the new entries among themselves (stable: frontier order on
+      // ties), all of them and the allowed ones
+      for (int base = 0; base < nn; base += 32) {
+        const int c = base + lane;
+        bool al = false;
+        if (c < nn) {
+          const float dc = w.cd[c];
+          al = track && w.callow[c];
+          int r = 0, ra = 0;
+#pragma unroll 8
+          for (int k = 0; k < nn; ++k) {
+            const float dk = w.cd[k];
+            const int less = (dk < dc) || (dk == dc && k < c);
+            r += less;
+            ra += less & w.callow[k];
+          }
+          w.sid[r] = w.cid[c];
+          w.sd[r] = dc;
+          if (al) {
+            w.aid[ra] = w.cid[c];
+            w.ad[ra] = dc;
+          }
+        }
+        nna += __popc(__ballot_sync(kFull, al));
+      }
     }
     __syncwarp();
     // the best new entry is the next hop's node whenever it lands ahead of
@@ -1162,15 +1262,38 @@ walk_kernel(Params p) {
         mine = min(mine, pos);
       }
     }
-    for (int i = lane; i < beam_n; i += 32) {
-      const float di = src_d[i];
-      const int pos = i + count_lt(w.sd, nn, di);
-      if (pos < ef) {
-        const uint8_t e = src_exp[i];
-        dst_id[pos] = src_id[i];
-        dst_d[pos] = di;
-        dst_exp[pos] = e;
-        if (!e) mine = min(mine, pos);
+    if (ROW == kBqRow && nn <= kFewNew) {
+      // BQ, few landing entries (89% of the probe's hops): each old entry
+      // counts the new ones below it against their distances held in
+      // registers, with no search, so its moves do not wait on each other
+      float nd[kFewNew];
+#pragma unroll
+      for (int u = 0; u < kFewNew; ++u) nd[u] = u < nn ? w.sd[u] : kInf;
+#pragma unroll 4
+      for (int i = lane; i < beam_n; i += 32) {
+        const float di = src_d[i];
+        int pos = i;
+#pragma unroll
+        for (int u = 0; u < kFewNew; ++u) pos += nd[u] < di;
+        if (pos < ef) {
+          const uint8_t e = src_exp[i];
+          dst_id[pos] = src_id[i];
+          dst_d[pos] = di;
+          dst_exp[pos] = e;
+          if (!e) mine = min(mine, pos);
+        }
+      }
+    } else {
+      for (int i = lane; i < beam_n; i += 32) {
+        const float di = src_d[i];
+        const int pos = i + count_lt(w.sd, nn, di);
+        if (pos < ef) {
+          const uint8_t e = src_exp[i];
+          dst_id[pos] = src_id[i];
+          dst_d[pos] = di;
+          dst_exp[pos] = e;
+          if (!e) mine = min(mine, pos);
+        }
       }
     }
     first = __reduce_min_sync(kFull, mine);

@@ -52,7 +52,8 @@
 // never taken. A full list is compacted to its k smallest by (key, row),
 // and the k-th key becomes the threshold. At the end of its split a list
 // is compacted to k and padded. The merge, one CTA a query, takes the
-// [splits, k] partials to k (a radix select, then a sort by (key, row)).
+// [splits, k] partials to k, reading only their taken entries (the
+// merge's own section below).
 // A search is one scan launch and one merge launch, for any B.
 //
 // Q1 (`bq_scan_kernel`): 128 queries a CTA, tiles of 64 rows through a
@@ -84,8 +85,8 @@ constexpr int kMaxK = 4096;
 constexpr uint32_t kNone = 0xffffffffu;  // never below a threshold
 constexpr unsigned kFull = 0xffffffffu;
 
-// Q1 and the merge: threads a CTA (Q1: 8 warps, 2 over the queries x 4
-// over the rows), Q1's queries a CTA, radix digit bins
+// Q1: threads a CTA (8 warps, 2 over the queries x 4 over the rows),
+// queries a CTA; radix digit bins (Q1 and the merge)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQT = 128;
@@ -1429,9 +1430,52 @@ wg_scan_kernel(const __nv_bfloat16* __restrict__ q, CodeRows x,
 
 // -- the merge ---------------------------------------------------------------
 
-// Exclusive prefix sum of v over the CTA in thread order; `total` gets the
-// CTA's sum.
-__device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
+// The merge (`merge_kernel`): one CTA of kMThreads a query takes the
+// partials its scan left, each split's list [cap] holding the split's taken
+// entries first (in row order) and then kNone / -1 padding in its first k
+// slots, to the query's k smallest (key, row), sorted. The order is the
+// plain version's stable sort over the lists concatenated in split order:
+// an entry's place in that order (split by split, each split's taken
+// entries from a multiple of 4) stands for its position, and (key << 32 |
+// place) values are distinct.
+//
+// Bound: the query's taken keys read once, its survivors' rows read once
+// and k outputs written once (bytes). What the design does about it:
+//   1. A split's taken count is searched, not read: the first padding slot
+//      (a full list's last slot tells in one read; else rounds of kProbes
+//      independent probes), a thread a split. Padding is never read or
+//      counted.
+//   2. The taken keys are staged once in shared memory by 16-byte
+//      cp.async copies, every copy of the query in flight at once (4-byte
+//      copies where the lists are not 16-byte aligned); where they do not
+//      fit the launch's stage (`stage_cap` places), each pass reads them
+//      from the lists instead (the streaming path).
+//   3. The k-th smallest value by a radix select over the key's bytes that
+//      differ between taken keys (their AND against their OR), then, only
+//      for a tie at the k-th key, the place's bytes; it stops at the first
+//      pass whose chosen bin is taken whole. A pass is a 16-byte read of
+//      four keys, a mask compare and a shared atomic into the warp's own
+//      histogram: its instructions, not its reads, set a pass's time.
+//   4. The k survivors are collected in any order and sorted by counting
+//      each one's rank among them (broadcast reads of shared memory); only
+//      a survivor's row is read from the lists.
+
+// the shared memory a merge CTA may stage in (a CTA takes what its shape's
+// fullest lists need: one CTA an SM at SQ's [131, 256, 200] and BQ's [132,
+// 256, 320]), the splits it takes, probes a round of the taken-count search
+constexpr int kMergeSmem = 200704;
+constexpr int kMergeMaxSplits = 4096;
+constexpr int kProbes = 16;
+// threads and warps a merge CTA: 16 warps, so the passes' latency hides
+// where a query's stage leaves an SM to one CTA (512 threads took BQ's
+// full lists 0.132 -> 0.099 ms and SQ's 0.088 -> 0.073 against 256 on an
+// H100, `probe_quantized.py --merge`)
+constexpr int kMThreads = 512;
+constexpr int kMWarps = kMThreads / 32;
+
+// Exclusive prefix sum of v over a merge CTA in thread order; `total` gets
+// the CTA's sum.
+__device__ __forceinline__ int merge_scan(int v, int* wsum, int& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
 #pragma unroll
@@ -1443,7 +1487,7 @@ __device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
   __syncthreads();
   int before = 0, all = 0;
 #pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
+  for (int i = 0; i < kMWarps; ++i) {
     const int c = wsum[i];
     before += i < warp ? c : 0;
     all += c;
@@ -1453,119 +1497,403 @@ __device__ __forceinline__ int block_scan(int v, int* wsum, int& total) {
   return before + x - v;
 }
 
-// entries a thread collects at once in the merge
-constexpr int kItems = 8;
+// Bytes of the merge's split offsets [splits + 1] and taken counts
+// [splits], then its survivors [k] (8 bytes each), before the stage; each
+// part from a multiple of 16 bytes.
+__host__ __device__ constexpr size_t merge_fixed(int splits, int k) {
+  return (((size_t)splits + 1) * 8 + 15) / 16 * 16 +
+         ((size_t)k * 8 + 15) / 16 * 16;
+}
 
-// One CTA a query: the k smallest (key, row) of its splits x k partials
-// (each split's in row order, splits in row order), sorted, as distances
-// and ids (MASK_DISTANCE and -1 where nothing was taken). Entry e of a
-// query is slot e % k of split e / k.
-__global__ void __launch_bounds__(kThreads)
-merge_kernel(const uint32_t* __restrict__ lk, const int* __restrict__ lr,
-             float* __restrict__ out_d, int* __restrict__ out_i, int splits,
-             int b, int cap, int k, int p) {
-  extern __shared__ unsigned long long sorted[];  // [p], (key << 32) | row
-  __shared__ int hist[kBins];
-  __shared__ int wsum[kWarps];
-  __shared__ int pick[2];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int qg = blockIdx.x;
-  const int total = splits * k;
-  auto at = [&](int e) {
-    const int sp = e / k;
-    return ((size_t)sp * b + qg) * cap + (e - sp * k);
-  };
-  uint32_t prefix = 0;
-  int need = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    const uint32_t high = shift == 24 ? 0u : (kFull << (shift + 8));
-    for (int base = 0; base < total; base += kThreads * kBatch) {
-      uint32_t v[kBatch];
+// The taken entries of a list's first k slots: its first kNone slot. A
+// full list (the usual one) takes one read of its last slot; else rounds
+// of kProbes independent probes narrow the range.
+__device__ __forceinline__ int taken_count(const uint32_t* keys, int k) {
+  if (__ldg(keys + k - 1) != kNone) return k;
+  int lo = 0, hi = k - 1;  // the slots below lo are taken; slot hi is not
+  while (lo < hi) {
+    const int step = (hi - lo + kProbes - 1) / kProbes;
+    uint32_t v[kProbes];
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int e = base + j * kThreads + tid;
-        v[j] = e < total ? lk[at(e)] : 0u;
-      }
+    for (int m = 0; m < kProbes; ++m) {
+      const int at = lo + m * step;
+      v[m] = at < hi ? __ldg(keys + at) : kNone;
+    }
+    int f = kProbes;  // the first probe on padding
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        count_digit(v[j], base + j * kThreads + tid < total, prefix, high,
-                    shift, hist);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int nd = need;
-      const int digit = pick_digit(hist, nd);
-      if (tid == 0) {
-        pick[0] = digit;
-        pick[1] = nd;
-      }
-    }
-    __syncthreads();
-    prefix |= static_cast<uint32_t>(pick[0]) << shift;
-    need = pick[1];
-    __syncthreads();  // pick is read before the next pass writes it
+    for (int m = kProbes - 1; m >= 0; --m)
+      if (v[m] == kNone) f = m;
+    const int nlo = f == 0 ? lo : lo + (f - 1) * step + 1;
+    if (f < kProbes) hi = min(hi, lo + f * step);
+    lo = nlo;
   }
-  // keys below the k-th, and the first `need` equal to it, in row order
-  int w = 0, eq_seen = 0;
-  for (int base = 0; base < total; base += kThreads * kItems) {
-    const int e0 = base + tid * kItems;
-    uint32_t key[kItems];
-    int row[kItems], eq = 0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const bool in = e0 + j < total;
-      key[j] = in ? lk[at(e0 + j)] : kNone;
-      row[j] = in ? lr[at(e0 + j)] : -1;
-      eq += in && key[j] == prefix;
-    }
-    int eq_total;
-    int eq_rank = eq_seen + block_scan(eq, wsum, eq_total);
-    bool keep[kItems];
-    int kept = 0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const bool in = e0 + j < total;
-      keep[j] = in && key[j] < prefix;
-      if (in && key[j] == prefix) keep[j] = eq_rank++ < need;
-      kept += keep[j];
-    }
-    int kept_total;
-    int pos = w + block_scan(kept, wsum, kept_total);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j)
-      if (keep[j])
-        sorted[pos++] = (static_cast<unsigned long long>(key[j]) << 32) |
-                        static_cast<uint32_t>(row[j]);
-    w += kept_total;
-    eq_seen += eq_total;
+  return lo;
+}
+
+// The split holding place i: the last s with off[s] <= i.
+__device__ __forceinline__ int split_of(const int* off, int splits, int i) {
+  int lo = 0, hi = splits;  // off[lo] <= i < off[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= i) lo = mid; else hi = mid;
   }
-  for (int i = k + tid; i < p; i += kThreads) sorted[i] = ~0ull;
-  __syncthreads();
-  // bitonic sort by (key, row)
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < p / 2; i += kThreads) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long x = sorted[lo], y = sorted[hi];
-        if ((x > y) == ((lo & size) == 0)) {
-          sorted[lo] = y;
-          sorted[hi] = x;
+  return lo;
+}
+
+// The merge's view of one query's lists: the splits' places, taken counts
+// and the staged keys (or, streaming, the lists themselves).
+struct MergeLists {
+  const uint32_t* lk;
+  const int* lr;
+  const int* off;   // [splits + 1] each split's first place (a multiple of 4)
+  const int* cnt;   // [splits] taken entries
+  const uint32_t* stage;  // [places] or null (streaming)
+  size_t qbase, sstride;
+  int splits;
+
+  // keys of places 4g .. 4g + 3 (kNone where no entry)
+  __device__ __forceinline__ uint4 group(int g) const {
+    if (stage != nullptr) return reinterpret_cast<const uint4*>(stage)[g];
+    const int s = split_of(off, splits, 4 * g);
+    const int j = 4 * g - off[s], c = cnt[s];
+    const uint32_t* src = lk + s * sstride + qbase + j;
+    return make_uint4(j < c ? __ldg(src) : kNone,
+                      j + 1 < c ? __ldg(src + 1) : kNone,
+                      j + 2 < c ? __ldg(src + 2) : kNone,
+                      j + 3 < c ? __ldg(src + 3) : kNone);
+  }
+
+  __device__ __forceinline__ int row(int place) const {
+    const int s = split_of(off, splits, place);
+    return __ldg(lr + s * sstride + qbase + (place - off[s]));
+  }
+};
+
+// The n distinct survivors (key << 32 | place), each written at its rank
+// among them as a distance and its row's id; slots n .. k-1 get
+// MASK_DISTANCE / -1. E: survivors a thread holds (n <= E x kMThreads).
+template <int E>
+__device__ void rank_write(const unsigned long long* surv, int n,
+                           const MergeLists& L, float* out_d, int* out_i,
+                           int k) {
+  const int tid = threadIdx.x;
+  unsigned long long mine[E];
+  int rank[E];
+#pragma unroll
+  for (int m = 0; m < E; ++m) {
+    const int e = tid + m * kMThreads;
+    mine[m] = e < n ? surv[e] : ~0ull;
+    rank[m] = 0;
+  }
+  // two survivors a 16-byte read (surv starts on 16 bytes), then the odd
+  // one
+  const ulonglong2* surv2 = reinterpret_cast<const ulonglong2*>(surv);
+#pragma unroll 4
+  for (int j = 0; j < n / 2; ++j) {
+    const ulonglong2 v = surv2[j];
+#pragma unroll
+    for (int m = 0; m < E; ++m) rank[m] += (v.x < mine[m]) + (v.y < mine[m]);
+  }
+  if (n & 1) {
+    const unsigned long long v = surv[n - 1];
+#pragma unroll
+    for (int m = 0; m < E; ++m) rank[m] += v < mine[m];
+  }
+#pragma unroll
+  for (int m = 0; m < E; ++m) {
+    if (tid + m * kMThreads >= n) continue;
+    const uint32_t key = static_cast<uint32_t>(mine[m] >> 32);
+    const float dist = key_to_float(key);
+    out_d[rank[m]] = dist;
+    out_i[rank[m]] =
+        dist >= kMask ? -1 : L.row(static_cast<int>(
+                                 static_cast<uint32_t>(mine[m])));
+  }
+  for (int r = n + tid; r < k; r += kMThreads) {
+    out_d[r] = kMask;
+    out_i[r] = -1;
+  }
+}
+
+// One count into bin `digit` of the shared histogram at `base` where `on`,
+// a predicated reduction: an `atomicAdd` there compiled into a branch, a
+// convergence barrier and the histogram's address worked out anew for each
+// key, about 90 instructions a key in a radix pass.
+__device__ __forceinline__ void shared_inc(uint32_t base, uint32_t digit,
+                                           bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p red.shared.add.u32 [%0], 1;\n}\n" ::"r"(base + (digit << 2)),
+      "r"(static_cast<uint32_t>(on))
+      : "memory");
+}
+
+// The key of place 4g + u of the query's lists (kNone where no entry):
+// from the stage, or (STAGED false) from the lists themselves.
+template <bool STAGED>
+__device__ __forceinline__ uint4 place_group(const MergeLists& L, int g) {
+  if (STAGED) return reinterpret_cast<const uint4*>(L.stage)[g];
+  return L.group(g);
+}
+
+// A thread's OR and AND of the taken keys of its places.
+template <bool STAGED>
+__device__ __forceinline__ void key_bits(const MergeLists& L, int groups,
+                                         uint32_t& orv, uint32_t& andv) {
+  for (int g = threadIdx.x; g < groups; g += kMThreads) {
+    const uint4 v = place_group<STAGED>(L, g);
+    const uint32_t key[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (key[u] != kNone) {
+        orv |= key[u];
+        andv &= key[u];
+      }
+  }
+}
+
+// The merge's passes over the query's places [0, 4 groups): the survivors
+// (key << 32 | place) into surv, k of them where more are taken (total),
+// else every one. `bits`: the key bits that differ between taken keys;
+// `shared`: the bits every taken key holds. Each pass counts, into its
+// warp's histogram, the digit at `shift` of the places that agree with the
+// prefix above it: a key's bytes (shift >= 32: key bits shift - 32 up),
+// then the place's.
+template <bool STAGED>
+__device__ __forceinline__ void select_survivors(
+    const MergeLists& L, int groups, int total, int k, uint32_t bits,
+    uint32_t shared_bits, unsigned long long* surv, int* wh, int* pick,
+    int* n_surv) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) *n_surv = 0;
+  // a survivor: a taken key at or below klim; or, where the k-th key is
+  // tied (ties), a key below tkey, or equal to it with the place's bits
+  // from `pshift` up at most pmax
+  uint32_t klim = kNone, tkey = 0, pmax = 0;
+  int pshift = 0;
+  bool ties = false;
+  if (total > k) {
+    uint32_t todo = 0;  // bit j: key byte j differs between taken keys
+    for (int j = 0; j < 4; ++j)
+      if ((bits >> (8 * j)) & 255u) todo |= 1u << j;
+    uint32_t pk = shared_bits, pp = 0;  // the prefixes chosen so far
+    const int place_top = (31 - __clz(max(4 * groups - 1, 1))) & ~7;
+    int shift = todo ? 32 + 8 * (31 - __clz(todo)) : place_top;
+    int need = k;
+    const uint32_t mine = smem_addr(wh + warp * kBins);  // the warp's bins
+    for (;;) {
+      for (int i = tid; i < kMWarps * kBins; i += kMThreads) wh[i] = 0;
+      __syncthreads();
+      if (shift >= 32) {
+        const int sh = shift - 32;
+        const uint32_t hm = sh >= 24 ? 0u : kFull << (sh + 8), hv = pk & hm;
+        for (int g = tid; g < groups; g += kMThreads) {
+          const uint4 v = place_group<STAGED>(L, g);
+          const uint32_t key[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            shared_inc(mine, (key[u] >> sh) & 255u,
+                       (key[u] & hm) == hv && key[u] != kNone);
+        }
+      } else {
+        const uint32_t hm = shift >= 24 ? 0u : kFull << (shift + 8),
+                       hv = pp & hm;
+        for (int g = tid; g < groups; g += kMThreads) {
+          const uint4 v = place_group<STAGED>(L, g);
+          const uint32_t key[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint32_t place = 4 * g + u;
+            shared_inc(mine, (place >> shift) & 255u,
+                       key[u] == pk && (place & hm) == hv);
+          }
         }
       }
       __syncthreads();
+      {  // the warps' histograms summed into the first
+        int sum = 0;
+        if (tid < kBins) {
+#pragma unroll
+          for (int w = 0; w < kMWarps; ++w) sum += wh[w * kBins + tid];
+        }
+        __syncthreads();
+        if (tid < kBins) wh[tid] = sum;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        int nd = need;
+        const int digit = pick_digit(wh, nd);
+        if (lane == 0) {
+          pick[0] = digit;
+          pick[1] = nd;
+          pick[2] = wh[digit];
+        }
+      }
+      __syncthreads();
+      if (shift >= 32)
+        pk |= static_cast<uint32_t>(pick[0]) << (shift - 32);
+      else
+        pp |= static_cast<uint32_t>(pick[0]) << shift;
+      need = pick[1];
+      const bool whole = pick[2] == need;
+      __syncthreads();  // pick and wh are read before they are rewritten
+      if (whole || shift == 0) {  // at shift 0 every bin is one value
+        if (shift >= 32) {  // the keys at or below pk's prefix from sh up
+          const int sh = shift - 32;
+          klim = (pk >> sh << sh) | (sh ? kFull >> (32 - sh) : 0u);
+        } else {
+          ties = true;
+          tkey = pk;
+          pmax = pp >> shift;
+          pshift = shift;
+        }
+        break;
+      }
+      if (shift > 32) {
+        // the next key byte that differs, else the place's first
+        const uint32_t below = todo & ((1u << ((shift - 32) / 8)) - 1u);
+        shift = below ? 32 + 8 * (31 - __clz(below)) : place_top;
+      } else {
+        shift = shift == 32 ? place_top : shift - 8;
+      }
     }
   }
-  for (int i = tid; i < k; i += kThreads) {
-    const unsigned long long v = sorted[i];
-    const uint32_t key = static_cast<uint32_t>(v >> 32);
-    const float dist = key == kNone ? kMask : key_to_float(key);
-    out_d[(size_t)qg * k + i] = dist;
-    out_i[(size_t)qg * k + i] =
-        dist >= kMask ? -1 : static_cast<int>(static_cast<uint32_t>(v));
+  __syncthreads();  // n_surv is zeroed
+  for (int g = tid; g < groups; g += kMThreads) {
+    const uint4 v = place_group<STAGED>(L, g);
+    const uint32_t key[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t place = 4 * g + u;
+      const bool take =
+          ties ? key[u] < tkey ||
+                     (key[u] == tkey && (place >> pshift) <= pmax)
+               : key[u] <= klim;
+      if (key[u] != kNone && take)
+        surv[atomicAdd(n_surv, 1)] =
+            (static_cast<unsigned long long>(key[u]) << 32) | place;
+    }
   }
+}
+
+// One CTA a query: the k smallest (key, row) of its splits' lists, sorted,
+// as distances and ids (MASK_DISTANCE and -1 where nothing was taken).
+// Dynamic shared memory: merge_fixed(splits, k) bytes, then the stage of
+// `stage_cap` places. VEC: the lists are 16-byte aligned (cap a multiple
+// of 4), so the stage takes 16-byte copies.
+template <bool VEC>
+__global__ void __launch_bounds__(kMThreads)
+merge_kernel(const uint32_t* __restrict__ lk, const int* __restrict__ lr,
+             float* __restrict__ out_d, int* __restrict__ out_i, int splits,
+             int b, int cap, int k, int stage_cap) {
+  extern __shared__ __align__(16) unsigned char merge_dyn[];
+  int* off = reinterpret_cast<int*>(merge_dyn);  // [splits + 1]
+  int* cnt = off + splits + 1;                    // [splits]
+  unsigned long long* surv = reinterpret_cast<unsigned long long*>(
+      merge_dyn + merge_fixed(splits, 0));  // [k]
+  uint32_t* stage = reinterpret_cast<uint32_t*>(
+      merge_dyn + merge_fixed(splits, k));  // [stage_cap]
+  __shared__ int wh[kMWarps * kBins];  // a histogram a warp
+  __shared__ int wsum[kMWarps];
+  __shared__ int pick[3];
+  __shared__ int n_surv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t qbase = (size_t)blockIdx.x * cap, sstride = (size_t)b * cap;
+  out_d += (size_t)blockIdx.x * k;
+  out_i += (size_t)blockIdx.x * k;
+
+  // each split's taken count, then its first place (a multiple of 4)
+  for (int s = tid; s < splits; s += kMThreads)
+    cnt[s] = taken_count(lk + s * sstride + qbase, k);
+  __syncthreads();
+  int places = 0, total = 0;
+  for (int s0 = 0; s0 < splits; s0 += kMThreads) {
+    const int s = s0 + tid;
+    const int c = s < splits ? cnt[s] : 0;
+    int all, all_taken;
+    const int ex = places + merge_scan((c + 3) & ~3, wsum, all);
+    merge_scan(c, wsum, all_taken);
+    if (s < splits) off[s] = ex;
+    places += all;
+    total += all_taken;
+  }
+  if (tid == 0) off[splits] = places;
+  __syncthreads();
+  const int groups = places / 4;
+  const bool staged = places <= stage_cap;
+  MergeLists L = {lk, lr, off, cnt, staged ? stage : nullptr, qbase, sstride,
+                  splits};
+
+  if (staged) {
+    // every taken key of the query in flight at once (a warp a split, a
+    // lane a group of 4 places), then the places past a split's taken
+    // entries set to kNone
+    for (int s = warp; s < splits; s += kMWarps) {
+      const int c = cnt[s];
+      const uint32_t* src = lk + s * sstride + qbase;
+      uint32_t* dst = stage + off[s];
+      for (int j = 4 * lane; j < c; j += 128) {
+        if (VEC) {
+          cp_async16(dst + j, src + j, true);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            cp_async4(dst + j + u, j + u < c ? src + j + u : src, j + u < c);
+        }
+      }
+    }
+    cp_commit();
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    for (int s = tid; s < splits; s += kMThreads)
+      for (int j = cnt[s]; j < ((cnt[s] + 3) & ~3); ++j)
+        stage[off[s] + j] = kNone;
+    __syncthreads();
+  }
+  // the bits every taken key holds (AND) and any holds (OR)
+  uint32_t orv = 0, andv = kFull;
+  if (staged)
+    key_bits<true>(L, groups, orv, andv);
+  else
+    key_bits<false>(L, groups, orv, andv);
+  orv = __reduce_or_sync(kFull, orv);
+  andv = __reduce_and_sync(kFull, andv);
+  if (lane == 0) {  // the histograms are free until the select
+    wh[warp] = static_cast<int>(orv);
+    wh[kMWarps + warp] = static_cast<int>(andv);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kMWarps; ++i) {
+    orv |= static_cast<uint32_t>(wh[i]);
+    andv &= static_cast<uint32_t>(wh[kMWarps + i]);
+  }
+  __syncthreads();  // read before the select clears the histograms
+  if (staged)
+    select_survivors<true>(L, groups, total, k, orv ^ andv, andv, surv, wh,
+                           pick, &n_surv);
+  else
+    select_survivors<false>(L, groups, total, k, orv ^ andv, andv, surv, wh,
+                            pick, &n_surv);
+  __syncthreads();  // every survivor is written
+  const int n = min(total, k);
+  if (n <= kMThreads)
+    rank_write<1>(surv, n, L, out_d, out_i, k);
+  else if (n <= 2 * kMThreads)
+    rank_write<2>(surv, n, L, out_d, out_i, k);
+  else if (n <= 4 * kMThreads)
+    rank_write<4>(surv, n, L, out_d, out_i, k);
+  else
+    rank_write<kMaxK / kMThreads>(surv, n, L, out_d, out_i, k);
+}
+
+// The merge's stage: the places a CTA stages, every split's k (rounded up
+// to 4) at most.
+int merge_stage_cap(int splits, int k) {
+  const long long room =
+      ((long long)kMergeSmem - (long long)merge_fixed(splits, k)) / 16 * 4;
+  const long long want = (long long)splits * ((k + 3) & ~3);
+  return static_cast<int>(want < room ? want : room);
 }
 
 int check_plan(int b, int n, int k, int splits, int split_rows, int cap,
@@ -1733,23 +2061,51 @@ int pq_scan(const __nv_bfloat16* q, const uint8_t* codes,
 }
 
 // The merge: out_d / out_i [b, k], each query's k smallest (key, row) over
-// the first k entries of its lists lk/lr [splits, b, cap], ascending by
+// the first k entries of its lists lk/lr [splits, b, cap] (each list's
+// taken entries first, then key 0xffffffff / row -1), ascending by
 // (distance, row), as distances and ids.
 int topk_merge(const uint32_t* lk, const int* lr, float* out_d, int* out_i,
                int splits, int b, int cap, int k, void* stream) {
-  if (b < 1 || splits < 1 || cap < k) return kBadShape;
+  if (b < 1 || splits < 1 || splits > kMergeMaxSplits || cap < k)
+    return kBadShape;
   if (k < 1 || k > kMaxK) return kBadK;
-  int p = 1;
-  while (p < k) p <<= 1;
-  merge_kernel<<<b, kThreads, (size_t)p * 8,
-                 static_cast<cudaStream_t>(stream)>>>(lk, lr, out_d, out_i,
-                                                      splits, b, cap, k, p);
-  return static_cast<int>(cudaGetLastError());
+  const int stage_cap = merge_stage_cap(splits, k);
+  const size_t smem = merge_fixed(splits, k) + (size_t)stage_cap * 4;
+  // every launch takes at most kMergeSmem bytes: allowed once a kernel
+  // and a device
+  static bool allowed[2][64] = {};
+  int dev = 0;
+  const int de = static_cast<int>(cudaGetDevice(&dev));
+  if (de) return de;
+  bool spare = false;
+  auto go = [&](auto kernel, bool& done) {
+    if (!done) {
+      const int e = allow_smem(kernel, kMergeSmem);
+      if (e) return e;
+      done = true;
+    }
+    kernel<<<b, kMThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        lk, lr, out_d, out_i, splits, b, cap, k, stage_cap);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const bool vec = cap % 4 == 0 && reinterpret_cast<uintptr_t>(lk) % 16 == 0;
+  bool& done = dev < 64 ? allowed[vec][dev] : spare;
+  return vec ? go(merge_kernel<true>, done) : go(merge_kernel<false>, done);
+}
+
+// The keys the merge stages in shared memory for a query of `splits`
+// lists keeping k (a query with more taken entries takes the streaming
+// path).
+int topk_merge_stage_cap(int splits, int k) {
+  if (splits < 1 || splits > kMergeMaxSplits || k < 1 || k > kMaxK) return -1;
+  return merge_stage_cap(splits, k);
 }
 
 const char* quantized_error_string(int code) {
   switch (code) {
-    case kBadShape: return "b, n, w and splits must be >= 1 and cap >= k";
+    case kBadShape:
+      return "b, n, w and splits must be >= 1 (the merge's splits <= 4096) "
+             "and cap >= k";
     case kBadDims:
       return "dims outside [1, 4096], words != ceil(dims/32), or the padded "
              "query width not the next multiple of 64";

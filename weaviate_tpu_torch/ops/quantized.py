@@ -37,6 +37,7 @@ torch ops: they serve the host walk, the fallback tier of the HNSW index.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import re
@@ -466,6 +467,9 @@ ROWS_TILE = {"bq": _TILES["kBqR"], **dict.fromkeys(("sq", "pq", "rq"),
                                                    _TILES["kWgR"])}
 CTAS_PER_SM = {"bq": _TILES["kBqCtasPerSm"],
                **dict.fromkeys(("sq", "pq", "rq"), _TILES["kWgCtasPerSm"])}
+# the merge: the shared memory a CTA stages keys in, the splits it takes
+MERGE_SMEM = _TILES["kMergeSmem"]
+MERGE_MAX_SPLITS = _TILES["kMergeMaxSplits"]
 # the candidate lists of a search stay under this many bytes, by taking
 # fewer splits (never fewer than one)
 LIST_BYTES = 1 << 29
@@ -637,14 +641,30 @@ def merge_partials_plain(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
     return d, ids.to(torch.int32)
 
 
+def merge_places(counts) -> int:
+    """The places the merge kernel gives a query's taken entries: each
+    split's ``counts`` rounded up to 4."""
+    return sum(-(-int(c) // 4) * 4 for c in counts)
+
+
+def merge_stage_cap(splits: int, k: int) -> int:
+    """The places (``merge_places``) a query may take for the merge kernel
+    to stage its keys in shared memory (``merge_stage_cap`` of
+    ``csrc/quantized.cu``); a query with more takes its streaming path."""
+    fixed = -(-(splits + 1) * 8 // 16) * 16 + -(-8 * k // 16) * 16
+    return min(splits * (-(-k // 4) * 4), (MERGE_SMEM - fixed) // 16 * 4)
+
+
 def merge_partials(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
                    k: int):
     """Each query's ``k`` smallest (distance, row) over the first ``k``
     entries of its lists [splits, B, cap] (int32; keys are the kernels'
     uint32 order keys): (dists [B, k] float32, ids [B, k] int32), ascending,
-    MASK_DISTANCE / -1 where nothing was taken. CUDA tensors go to the merge
-    kernel, one launch counted in ``launches``; CPU tensors to the plain
-    version."""
+    MASK_DISTANCE / -1 where nothing was taken. Each list holds its taken
+    entries first, then ``NONE_KEY`` / -1 padding, as the scans leave them
+    (``split_partials_plain``): the kernel reads only the taken prefix.
+    CUDA tensors go to the merge kernel, one launch counted in
+    ``launches``; CPU tensors to the plain version."""
     if cand_keys.device.type == "cpu":
         return merge_partials_plain(cand_keys, cand_rows, k)
     s, b, cap = cand_keys.shape
@@ -652,10 +672,16 @@ def merge_partials(cand_keys: torch.Tensor, cand_rows: torch.Tensor,
     _check("cand_keys", cand_keys, torch.int32, (s, b, cap), dev)
     _check("cand_rows", cand_rows, torch.int32, (s, b, cap), dev)
     _check_k(k)
+    if not 1 <= s <= MERGE_MAX_SPLITS:
+        raise ValueError(f"{s} splits outside the merge's [1, "
+                         f"{MERGE_MAX_SPLITS}]")
     lib = _library()
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    # the launch takes the current device: switched only where it differs
+    # (the switch costs the search a few microseconds of host time)
+    with contextlib.nullcontext() if dev.index == torch.cuda.current_device() \
+            else torch.cuda.device(dev):
         err = lib.topk_merge(cand_keys.data_ptr(), cand_rows.data_ptr(),
                              out_d.data_ptr(), out_i.data_ptr(), s, b, cap,
                              k, torch.cuda.current_stream().cuda_stream)
@@ -974,6 +1000,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rq_scan.argtypes = [p] * 8 + [i] + [p] * 3 + [i] * 8 + [p]
     lib.pq_scan.argtypes = [p] * 6 + [i] + [p] * 3 + [i] * 11 + [p]
     lib.topk_merge.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.topk_merge_stage_cap.argtypes = [i, i]
+    lib.topk_merge_stage_cap.restype = i
     for fn in (lib.bq_scan, lib.sq_scan, lib.rq_scan, lib.pq_scan,
                lib.topk_merge):
         fn.restype = i
