@@ -35,7 +35,13 @@ non-zero without the final line:
              (``merge_edges``: every split full or empty, ties at the
              k-th across splits, k = 1, the largest k whose full lists it
              stages in shared memory and one more, unaligned lists, B of
-             1 and 257, MAX_K).
+             1 and 257, MAX_K); B6a, the sparse scatter + top-k, at a
+             full config-5 tenant (550,000 docs, bench_msmarco's postings
+             made on the card) unfiltered, under 1% and 45% allow masks,
+             with min-match 2 and at k 100, and B6b, the fusion, at config
+             5's (2 legs of 32, union 64, k 10) and at unions in shared and
+             in device memory, both algorithms: each against its plain
+             version, and two launches bit for bit.
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -111,6 +117,19 @@ non-zero without the final line:
              bound and its plain version on the search's launch and on
              the build's widest launch (so in phases ``quant`` for B2-RQ
              and ``hnsw_quant`` for B2-BQ).
+13. hybrid — BASELINE.json config 5 (MS-MARCO hybrid BM25 + vector, 16
+             tenants) as ``bench.py bench_msmarco`` makes it, cut in depth
+             to HYBRID_DOCS objects a tenant (cut 7): one multi-tenant
+             collection through ``DB`` with text from the Zipf
+             vocabulary, an int ``bucket`` and 768-d cosine vectors in an
+             SQ flat index; HYBRID_REQUESTS hybrid requests a pass
+             (alpha 0.5, k 10): unfiltered (WAND, Q2, B6b), under 1% and
+             45% ``bucket`` filters (the device sparse leg, B6a),
+             rankedFusion, ``bm25_search(device_scoring=True)`` (held to
+             WAND's pages), one aggregate a tenant; p50/p99 and each leg's
+             time a pass, B6a's and B6b's launches (above zero, asserted)
+             and times on the main path's inputs, recall@10 against the
+             exact hybrid ranking, device memory.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -146,9 +165,19 @@ from weaviate_tpu_torch.index.flat import FlatIndex, exact_rescore, make_flat
 from weaviate_tpu_torch.index.hnsw import HNSWIndex
 from weaviate_tpu_torch.index.hnsw.graph import HostGraph
 from weaviate_tpu_torch.inverted.filters import Where
-from weaviate_tpu_torch.monitoring.metrics import PLANNER_PLANS
-from weaviate_tpu_torch.ops import device_beam, fused_flat, quantized
+from weaviate_tpu_torch.monitoring.metrics import (
+    HYBRID_LEG_SECONDS,
+    PLANNER_PLANS,
+)
+from weaviate_tpu_torch.ops import (
+    device_beam,
+    fused_flat,
+    fusion,
+    quantized,
+    sparse,
+)
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search, normalize
+from weaviate_tpu_torch.query.fusion import relative_score_fusion
 from weaviate_tpu_torch.query.planner import PLAN_BEAM, PLAN_EXACT
 from weaviate_tpu_torch.schema.config import (
     BQConfig,
@@ -156,6 +185,7 @@ from weaviate_tpu_torch.schema.config import (
     DataType,
     FlatIndexConfig,
     HNSWIndexConfig,
+    MultiTenancyConfig,
     PQConfig,
     Property,
     RQConfig,
@@ -289,7 +319,7 @@ def phase_env() -> dict:
         _native_build(lib) for lib in ("segment_merge", "bm25_wand")))
     host.start()
     logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL,
-                        quantized.KERNEL)
+                        quantized.KERNEL, sparse.KERNEL)
     host.join()
     errs = [e for e in host_err if e]
     if errs:
@@ -410,7 +440,9 @@ def phase_kernels(seed: int) -> dict:
             "tolerance": {"atol": ATOL, "rtol": RTOL},
             "b2": beam_kernel_grid(seed),
             "q1_q2": quant_kernel_grid(seed),
-            "merge": merge_edges(seed)}
+            "merge": merge_edges(seed),
+            "b6a": b6_sparse_grid(seed),
+            "b6b": b6_fusion_grid(seed)}
 
 
 # Q1/Q2 grid: batches, widths, fetch widths, masked shares (1% and 50%);
@@ -2576,9 +2608,10 @@ def hnsw_rq(state: dict) -> dict:
 # phase hnsw_quant: bench.py bench_hnsw_quant's bq configuration (seed 29,
 # 1,024 centres, noise 0.35, l2-squared, 768-d; queries = the first 256 rows
 # + 0.1 noise), cut in depth from HNSW_QUANT_CONFIGURED to HNSW_QUANT_ROWS
-# for the time limit (the build is host-bound at about 1,500-1,800 rows/s);
-# a fixed depth, so B2-BQ's and the build's numbers compare across runs
-HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 262_144
+# for the time limit (the build is host-bound at about 1,500-1,800 rows/s;
+# halved from 262,144 to make room for phase hybrid); a fixed depth, so
+# B2-BQ's and the build's numbers compare across runs at one depth
+HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 131_072
 HNSW_QUANT_EF, HNSW_QUANT_RESCORE = 96, 80
 
 
@@ -2950,6 +2983,632 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     }
 
 
+# ---------------------------------------------------------------------------
+# BASELINE.json config 5: MS-MARCO hybrid BM25 + vector, 16 tenants
+# ---------------------------------------------------------------------------
+
+# bench.py bench_msmarco's configuration: 8.8M docs over 16 tenants (550,000
+# a tenant), a 30,000-term Zipf vocabulary (df = 0.5 per / (1 + rank)^0.9,
+# at least 1), tf 1-3, doc lengths 40-89, queries of 3-6 terms drawn with
+# p ~ sqrt(df + 1), BM25 k1 1.2 and b 0.75, alpha 0.5, relativeScoreFusion,
+# k 10; 768-d cosine vectors from 2,048 centres with noise 0.4 in an SQ
+# flat index with rescore limit 200 a tenant
+MS_TENANTS, MS_TENANT_DOCS, MS_VOCAB = 16, 550_000, 30_000
+MS_K1, MS_B, MS_ALPHA = 1.2, 0.75, 0.5
+# phase hybrid: cut 7, HYBRID_DOCS objects a tenant (of 550,000), the
+# 16-tenant layout kept: the largest power of two at which the phase stays
+# near 90 s on an H100's host (the ingest, about 2,600 objects/s, and the
+# close, which snapshots 16 x 30,000 posting lists, are host-bound); its
+# requests, and the exact answer's fetch a leg
+HYBRID_DOCS = 8192
+HYBRID_REQUESTS = 256
+HYBRID_GT_FETCH = 100
+# B6a and B6b against their plain versions: scores to RTOL_B6, ids equal
+# wherever the neighbouring scores differ by more than that (the plain
+# versions sum with float atomics on the card, in another order)
+RTOL_B6 = 1e-5
+B6A_QUERIES = 8
+# (legs, leg length, union, k): config 5's, a union in device memory (past
+# the kernel's shared-memory plan), the widest in shared memory, k = union
+B6B_SHAPES = ((2, 32, 64, 10), (8, 2048, 16384, 100), (2, 4096, 8192, 10),
+              (3, 8, 16, 16))
+
+
+def zipf_postings(per: int, seed: int) -> dict:
+    """One tenant's postings as bench_msmarco makes them, on the card: the
+    (term, doc) edges deduplicated and sorted by term then doc (each term's
+    docs ascend, unique), tf 1-3, each term's [start, end) and df, and doc
+    lengths 40-89."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ranks = torch.arange(MS_VOCAB, device=dev)
+    df_target = torch.clamp(
+        (0.5 * per / (1.0 + ranks.double()) ** 0.9).long(), min=1)
+    terms = torch.repeat_interleave(ranks, df_target)
+    docs = torch.randint(0, per, (terms.numel(),), generator=g, device=dev)
+    key = torch.unique(terms * per + docs)
+    terms, docs = key // per, key % per
+    bounds = torch.searchsorted(terms, torch.arange(MS_VOCAB + 1,
+                                                    device=dev))
+    bounds = bounds.cpu().numpy()
+    return {"per": per, "terms": terms, "docs": docs.to(torch.int32),
+            "tf": torch.randint(1, 4, (key.numel(),), generator=g,
+                                device=dev).float(),
+            "bounds": bounds, "df": np.diff(bounds),
+            "dl": torch.randint(40, 90, (per,), generator=g,
+                                device=dev).float()}
+
+
+def query_pool(df: np.ndarray, n: int, seed: int) -> list[np.ndarray]:
+    """bench_msmarco's query terms: 3-6 draws with p ~ sqrt(df + 1)."""
+    rng = np.random.default_rng(seed)
+    p = (df + 1.0) ** 0.5
+    p /= p.sum()
+    return [np.unique(rng.choice(MS_VOCAB, int(rng.integers(3, 7)), p=p))
+            for _ in range(n)]
+
+
+def bm25_idf(n_docs: int, df: int) -> float:
+    return float(np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5)))
+
+
+def sparse_inputs(post: dict, terms, dl, avgdl: float, k: int,
+                  allow_share, gen) -> dict:
+    """B6a's operands for one query over one tenant's postings, as
+    ``InvertedIndex.bm25_device_search`` lays them out: a segment a term,
+    entries padded to a power of two with rows -1, the doc space padded to
+    ``bucket(per)``; ``allow_share`` None allows every doc."""
+    dev = torch.device("cuda")
+    b = post["bounds"]
+    lens = [int(b[t + 1] - b[t]) for t in terms]
+    idx = torch.cat([torch.arange(int(b[t]), int(b[t + 1]), device=dev)
+                     for t in terms])
+    n = idx.numel()
+    p_len = fusion.bucket(n)
+    rows = torch.full((p_len,), -1, dtype=torch.int32, device=dev)
+    rows[:n] = post["docs"][idx]
+    tf = torch.zeros(p_len, device=dev)
+    tf[:n] = post["tf"][idx]
+    dls = torch.zeros(p_len, device=dev)
+    dls[:n] = dl[rows[:n].long()]
+    w = torch.zeros(p_len, device=dev)
+    w[:n] = torch.repeat_interleave(torch.tensor(
+        [bm25_idf(post["per"], int(post["df"][t])) for t in terms],
+        dtype=torch.float32, device=dev), torch.tensor(lens, device=dev))
+    ad = torch.ones(p_len, device=dev)
+    ad[:n] = avgdl
+    grp = torch.zeros(p_len, dtype=torch.int32, device=dev)
+    grp[:n] = torch.repeat_interleave(
+        torch.arange(len(terms), dtype=torch.int32, device=dev),
+        torch.tensor(lens, device=dev))
+    seg = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                       dtype=torch.int32, device=dev)
+    per = post["per"]
+    s_len = fusion.bucket(per, floor=fusion.bucket(k))
+    allow = torch.zeros(s_len, dtype=torch.bool, device=dev)
+    allow[:per] = True if allow_share is None else (
+        torch.rand(per, generator=gen, device=dev) < allow_share)
+    return {"rows": rows, "tf": tf, "dl": dls, "w": w, "avgdl": ad,
+            "grp": grp, "seg": seg, "allow": allow, "entries": n,
+            "groups": len(terms)}
+
+
+def sparse_call(op: dict, k: int, min_match: int, fn):
+    """``fn`` (the kernel's wrapper or the plain version) on ``op``."""
+    a = (op["rows"], op["tf"], op["dl"], op["w"], op["avgdl"], op["allow"])
+    if fn is sparse.sparse_topk_plain:
+        if min_match:
+            return fn(*a, k, MS_K1, MS_B, op["grp"],
+                      fusion.bucket(op["groups"], floor=2), min_match)
+        return fn(*a, k, MS_K1, MS_B)
+    if min_match:
+        return fn(*a, op["seg"], k, MS_K1, MS_B, op["grp"],
+                  fusion.bucket(op["groups"], floor=2), min_match)
+    return fn(*a, op["seg"], k, MS_K1, MS_B)
+
+
+def check_b6(kv, ki, pv, pi, what: str) -> tuple[float, int]:
+    """Kernel (kv, ki) against plain (pv, pi): scores to RTOL_B6, -1 slots
+    equal, ids equal except where the plain page's neighbouring scores lie
+    within RTOL_B6. Returns (max abs error, ids that differ)."""
+    kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
+    err = np.abs(kv - pv)
+    if (err > RTOL_B6 * np.abs(pv) + 1e-6).any():
+        raise AssertionError(f"{what}: scores differ, max {err.max()}")
+    if ((ki == -1) != (pi == -1)).any():
+        raise AssertionError(f"{what}: -1 slots differ")
+    diff = np.nonzero(ki != pi)[0]
+    for i in diff:
+        near = [pv[x] for x in (i - 1, i + 1) if 0 <= x < len(pv)]
+        if not any(abs(v - pv[i]) <= RTOL_B6 * abs(pv[i]) for v in near):
+            raise AssertionError(f"{what}: id {i} differs outside a tie")
+    return float(err.max()) if len(err) else 0.0, len(diff)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def b6a_bound_ms(op: dict, k: int, min_match: int) -> float:
+    """B6a's bytes over the memory rate: each entry read once (row, tf, dl,
+    weight, avgdl; and its group under min-match), the allow mask, the
+    segment boundaries, the output page written once."""
+    per_entry = 20 + (4 if min_match else 0)
+    moved = (op["entries"] * per_entry + op["allow"].numel()
+             + op["seg"].numel() * 4 + k * 8)
+    return moved / HBM_BYTES_S * 1e3
+
+
+def b6_sparse_grid(seed: int) -> dict:
+    """B6a at a full config-5 tenant (550,000 docs, bench_msmarco's
+    postings made on the card): B6A_QUERIES queries unfiltered, under 1% and
+    45% allow masks, with min-match 2, and at k 100 (whose partial lists
+    merge in device memory), each against the plain version on the card,
+    two launches compared bit for bit, and the plain version on the CPU
+    (whose scatter sums in entry order, as the kernel does) compared bit
+    for bit and reported; each mode timed on its first query."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    post = zipf_postings(MS_TENANT_DOCS, seed + 5)
+    dl = post["dl"]
+    avgdl = float(dl.mean())
+    queries = query_pool(post["df"], B6A_QUERIES, seed + 7)
+    modes = {"unfiltered": (None, 0, 20), "allow_1pct": (0.01, 0, 20),
+             "allow_45pct": (0.45, 0, 20), "min_match_2": (None, 2, 20),
+             "unfiltered_k100": (None, 0, 100)}
+    out, max_err, diffs, cpu_equal, cases = {}, 0.0, 0, 0, 0
+    for mode, (share, mm, k) in modes.items():
+        timed = None
+        for qi, terms in enumerate(queries):
+            op = sparse_inputs(post, terms, dl, avgdl, k, share, gen)
+            kern = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
+            again = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
+            plain = sparse_call(op, k, mm, sparse.sparse_topk_plain)
+            torch.cuda.synchronize()
+            if not same_bits(kern, again):
+                raise AssertionError(f"B6a {mode}: two launches differ")
+            e, d = check_b6(*kern, *plain, f"B6a {mode} query {qi}")
+            cpu_op = {key: v.cpu() if torch.is_tensor(v) else v
+                      for key, v in op.items()}
+            cpu = sparse_call(cpu_op, k, mm, sparse.sparse_topk_plain)
+            cpu_equal += same_bits([t.cpu() for t in kern], cpu)
+            max_err, diffs, cases = max(max_err, e), diffs + d, cases + 1
+            if qi == 0:
+                timed = {
+                    "entries": op["entries"], "terms": len(terms),
+                    "space": op["allow"].numel(), "k": k,
+                    "kept": int((kern[1] >= 0).sum()),
+                    "ms": float(np.median(cuda_ms(lambda: sparse_call(
+                        op, k, mm, sparse.sparse_topk_cuda), 20))),
+                    "plain_ms": float(np.median(cuda_ms(lambda: sparse_call(
+                        op, k, mm, sparse.sparse_topk_plain), 5))),
+                    "bound_ms": b6a_bound_ms(op, k, mm)}
+        out[mode] = timed
+    return {"docs": MS_TENANT_DOCS, "vocab": MS_VOCAB,
+            "edges": int(post["docs"].numel()), "cases": cases,
+            "max_abs_err": max_err, "ids_differing_in_ties": diffs,
+            "bitwise_equal_to_cpu_plain": f"{cpu_equal}/{cases}",
+            "modes": out, "tolerance": {"rtol": RTOL_B6}}
+
+
+def fusion_inputs(legs: int, width: int, union: int, seed: int):
+    """Random slot matrices on the card: -1 pads, a slot repeated within a
+    leg, slots past the union, scores rounded to one decimal (ties)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, union + 4, (legs, width)).astype(np.int32)
+    slots[rng.random((legs, width)) < 0.2] = -1
+    slots[0, :2] = 3
+    scores = np.round(rng.normal(size=(legs, width)), 1).astype(np.float32)
+    weights = rng.random(legs).astype(np.float32)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(slots).to(dev), torch.from_numpy(scores).to(dev),
+            torch.from_numpy(weights).to(dev))
+
+
+def fusion_call(algo: str, slots, scores, weights, k: int, union: int,
+                kernel: bool):
+    if kernel:
+        return fusion.fusion_topk_cuda(
+            slots, None if algo == "rankedFusion" else scores, weights, k,
+            union)
+    if algo == "rankedFusion":
+        return fusion.ranked_fusion_plain(slots, weights, k, union)
+    return fusion.relative_score_fusion_plain(slots, scores, weights, k,
+                                              union)
+
+
+def b6b_bound_ms(slots, k: int) -> float:
+    """B6b's bytes over the memory rate: the slots, scores and weights read
+    once, the page written once."""
+    legs, width = slots.shape
+    return (legs * width * 8 + legs * 4 + k * 8) / HBM_BYTES_S * 1e3
+
+
+def b6_fusion_grid(seed: int) -> dict:
+    """B6b over B6B_SHAPES, both algorithms, each against the plain version
+    on the card, two launches compared bit for bit, and the plain version
+    on the CPU compared bit for bit and reported; each timed."""
+    out, max_err, diffs, cpu_equal, cases = {}, 0.0, 0, 0, 0
+    for si, (legs, width, union, k) in enumerate(B6B_SHAPES):
+        slots, scores, weights = fusion_inputs(legs, width, union,
+                                               seed + si)
+        for algo in ("relativeScoreFusion", "rankedFusion"):
+            args = (algo, slots, scores, weights, k, union)
+            kern = fusion_call(*args, True)
+            again = fusion_call(*args, True)
+            plain = fusion_call(*args, False)
+            torch.cuda.synchronize()
+            what = f"B6b {algo} {legs}x{width} union {union}"
+            if not same_bits(kern, again):
+                raise AssertionError(f"{what}: two launches differ")
+            e, d = check_b6(*kern, *plain, what)
+            cpu = fusion_call(algo, slots.cpu(), scores.cpu(),
+                              weights.cpu(), k, union, False)
+            cpu_equal += same_bits([t.cpu() for t in kern], cpu)
+            max_err, diffs, cases = max(max_err, e), diffs + d, cases + 1
+            out[f"{algo}_{legs}x{width}_u{union}_k{k}"] = {
+                "in_shared_memory": sparse._library().fusion_smem_bytes(
+                    legs, width, union) > 0,
+                "ms": float(np.median(cuda_ms(
+                    lambda: fusion_call(*args, True), 20))),
+                "plain_ms": float(np.median(cuda_ms(
+                    lambda: fusion_call(*args, False), 10))),
+                "bound_ms": b6b_bound_ms(slots, k)}
+    return {"cases": cases, "max_abs_err": max_err,
+            "ids_differing_in_ties": diffs,
+            "bitwise_equal_to_cpu_plain": f"{cpu_equal}/{cases}",
+            "shapes": out, "tolerance": {"rtol": RTOL_B6}}
+
+
+def gen_block(t: int, per: int, centers: np.ndarray) -> np.ndarray:
+    """bench_msmarco's tenant vectors: unit rows from the tenant's draws of
+    the 2,048 centres with noise 0.4."""
+    g = np.random.default_rng(1000 + t)
+    assign = g.integers(0, 2048, per)
+    blk = centers[assign] + 0.4 * g.standard_normal(
+        (per, centers.shape[1])).astype(np.float32)
+    blk /= np.linalg.norm(blk, axis=1, keepdims=True) + 1e-12
+    return blk
+
+
+def tenant_texts(post: dict) -> tuple[list[str], np.ndarray]:
+    """Each doc's text: its terms, each written tf times, and its length,
+    the sum of its tfs (the collection counts the tokens it indexes, so
+    bench_msmarco's separate lengths of 40-89 do not apply here)."""
+    docs = post["docs"].cpu().numpy()
+    terms = post["terms"].cpu().numpy()
+    tf = post["tf"].cpu().numpy().astype(np.int64)
+    order = np.argsort(docs, kind="stable")
+    words = np.array([f"t{r}" for r in range(MS_VOCAB)], dtype=object)
+    toks = np.repeat(words[terms[order]], tf[order])
+    ends = np.cumsum(np.bincount(np.repeat(docs[order], tf[order]),
+                                 minlength=post["per"]))
+    starts = np.concatenate([[0], ends[:-1]])
+    texts = [" ".join(toks[a:b]) for a, b in zip(starts, ends)]
+    return texts, (ends - starts).astype(np.float32)
+
+
+def hybrid_truth(post: dict, dl: torch.Tensor, blk: torch.Tensor, terms,
+                 qv: torch.Tensor) -> list[int]:
+    """The exact hybrid page of one query as bench_msmarco builds it: dense
+    BM25 over the tenant's postings and exact float32 cosine, the top
+    HYBRID_GT_FETCH of each, fused by relativeScoreFusion (the host twin);
+    doc rows."""
+    per = post["per"]
+    avgdl = float(dl.mean())
+    scores = torch.zeros(per, dtype=torch.float32, device="cuda")
+    b = post["bounds"]
+    for t in terms:
+        lo, hi = int(b[t]), int(b[t + 1])
+        ids = post["docs"][lo:hi].long()
+        tf = post["tf"][lo:hi]
+        denom = tf + MS_K1 * (1 - MS_B + MS_B * dl[ids] / avgdl)
+        scores.index_add_(0, ids, bm25_idf(per, hi - lo) * tf
+                          * (MS_K1 + 1) / denom)
+    top = torch.sort(scores, descending=True, stable=True).indices[
+        :HYBRID_GT_FETCH]
+    bm_set = [(d, s) for d, s in zip(top.tolist(), scores[top].tolist())
+              if s > 0]
+    dist = 1.0 - blk @ qv
+    vtop = torch.sort(dist, stable=True).indices[:HYBRID_GT_FETCH]
+    vec_set = [(d, -s) for d, s in zip(vtop.tolist(), dist[vtop].tolist())]
+    fused = relative_score_fusion([bm_set, vec_set],
+                                  [1 - MS_ALPHA, MS_ALPHA], K)
+    return [d for d, _ in fused]
+
+
+class CallSpy:
+    """Wraps a kernel wrapper of ``module`` while installed, keeping the
+    arguments of its widest call (the most entries or slots: its first
+    argument's size). The wrapper counts its launches on the module
+    attribute of its own name, so while the spy is installed the count
+    lands on the spy, and goes back to the wrapper when it leaves."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.widest = module, name, None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            if self.widest is None or \
+                    a[0].numel() >= self.widest[0][0].numel():
+                self.widest = (a, kw)
+            return self.real(*a, **kw)
+
+        spy.launches = self.real.launches
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        self.real.launches = getattr(self.module, self.name).launches
+        setattr(self.module, self.name, self.real)
+
+
+def check_pages(got, want, what: str) -> None:
+    """Two [(object, score)] pages of one request: scores to RTOL_B6,
+    uuids equal except inside near ties."""
+    gs = np.asarray([s for _, s in got])
+    ws = np.asarray([s for _, s in want])
+    if len(gs) != len(ws) or not np.allclose(gs, ws, rtol=RTOL_B6,
+                                             atol=1e-6):
+        raise AssertionError(f"{what}: scores differ {gs} {ws}")
+    for i, ((a, _), (b, _)) in enumerate(zip(got, want)):
+        near = [ws[x] for x in (i - 1, i + 1) if 0 <= x < len(ws)]
+        if a.uuid != b.uuid and not any(
+                abs(v - ws[i]) <= RTOL_B6 * abs(ws[i]) for v in near):
+            raise AssertionError(f"{what}: hit {i} differs outside a tie")
+
+
+def leg_ms() -> dict:
+    """Summed seconds and counts of the hybrid legs so far."""
+    out = {}
+    for leg in ("sparse", "dense"):
+        key = (("leg", leg),)
+        out[leg] = (HYBRID_LEG_SECONDS._sums.get(key, 0.0),
+                    HYBRID_LEG_SECONDS._totals.get(key, 0))
+    return out
+
+
+def phase_hybrid(seed: int, state: dict) -> dict:
+    """BASELINE.json config 5 through the user's entry points, cut 7:
+    ``DB`` -> one multi-tenant ``Collection`` of MS_TENANTS tenants of
+    HYBRID_DOCS objects (text from bench_msmarco's Zipf vocabulary, an int
+    ``bucket``, 768-d cosine vectors in an SQ flat index), then
+    HYBRID_REQUESTS hybrid requests a pass: unfiltered (WAND + Q2 + B6b),
+    under ``bucket == 7`` (1%) and ``bucket < 45`` (45%; the device sparse
+    leg, B6a), rankedFusion, ``bm25_search(device_scoring=True)``, and one
+    aggregate a tenant."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    centers = np.random.default_rng(99).standard_normal(
+        (2048, QUANT_DIMS)).astype(np.float32)
+    rng = np.random.default_rng(seed + 13)
+    tenants = []
+    for t in range(MS_TENANTS):
+        post = zipf_postings(HYBRID_DOCS, 1000 + t)
+        texts, lens = tenant_texts(post)
+        tenants.append({
+            "name": f"tenant{t}", "post": post, "texts": texts,
+            "dl": torch.from_numpy(lens).cuda(),
+            "vecs": gen_block(t, HYBRID_DOCS, centers),
+            "bucket": rng.integers(0, 100, HYBRID_DOCS),
+            "uuids": _uuids(rng, HYBRID_DOCS)})
+    # bench_msmarco's query pool: terms from tenant 0's df, vectors near a
+    # row of the request's tenant
+    pool = query_pool(tenants[0]["post"]["df"], HYBRID_REQUESTS, 5)
+    rng_q = np.random.default_rng(5)
+    qvecs = np.empty((HYBRID_REQUESTS, QUANT_DIMS), np.float32)
+    for t in range(MS_TENANTS):
+        sel = np.arange(t, HYBRID_REQUESTS, MS_TENANTS)
+        qv = tenants[t]["vecs"][rng_q.integers(0, HYBRID_DOCS, len(sel))] \
+            + 0.25 * rng_q.standard_normal(
+                (len(sel), QUANT_DIMS)).astype(np.float32)
+        qvecs[sel] = qv / (np.linalg.norm(qv, axis=1, keepdims=True) + 1e-12)
+    data_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    try:
+        out = _drive_hybrid(state, root, tenants, pool, qvecs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["data_s"] = data_s
+    return out
+
+
+def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
+    db = DB(root)
+    col = db.create_collection(CollectionConfig(
+        name="Msmarco",
+        properties=[Property("body", DataType.TEXT),
+                    Property("bucket", DataType.INT)],
+        vector_config=FlatIndexConfig(
+            distance="cosine", initial_capacity=HYBRID_DOCS,
+            quantizer=SQConfig(rescore_limit=SQ_RESCORE)),
+        multi_tenancy=MultiTenancyConfig(enabled=True)))
+    t0 = time.perf_counter()
+    for ten in tenants:
+        col.add_tenant(ten["name"])
+        for s in range(0, HYBRID_DOCS, DB_BATCH):
+            e = min(HYBRID_DOCS, s + DB_BATCH)
+            col.put_batch([StorageObject(
+                uuid=ten["uuids"][i], collection="Msmarco",
+                vector=ten["vecs"][i],
+                properties={"body": ten["texts"][i],
+                            "bucket": int(ten["bucket"][i])})
+                for i in range(s, e)], tenant=ten["name"])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    n_obj = MS_TENANTS * HYBRID_DOCS
+    texts = [" ".join(f"t{r}" for r in terms) for terms in pool]
+
+    def tenant_of(i):
+        return tenants[i % MS_TENANTS]
+
+    filters = {"unfiltered": None,
+               "one_pct": Where.eq("bucket", FILTER_BUCKET),
+               "near_half": Where.lt("bucket", BEAM_FILTER_BUCKETS)}
+    allowed = {"unfiltered": lambda b: True,
+               "one_pct": lambda b: b == FILTER_BUCKET,
+               "near_half": lambda b: b < BEAM_FILTER_BUCKETS}
+
+    def request(name, i):
+        ten = tenant_of(i)
+        if name == "bm25_device":
+            return col.bm25_search(texts[i], K, tenant=ten["name"],
+                                   device_scoring=True)
+        return col.hybrid_search(
+            query=texts[i], vector=qvecs[i], alpha=MS_ALPHA, k=K,
+            fusion="rankedFusion" if name == "ranked"
+            else "relativeScoreFusion",
+            flt=filters.get(name), tenant=ten["name"])
+
+    # warm each route once (kernels built, first launches) outside the
+    # counted drive
+    for name in ("unfiltered", "near_half", "bm25_device"):
+        request(name, 0)
+    passes = ("unfiltered", "one_pct", "near_half", "ranked", "bm25_device")
+    res, per_pass, last = {}, {}, {}
+    # the main path's drive: every count at 0 just before, read just after
+    sparse.sparse_topk_cuda.launches = 0
+    fusion.fusion_topk_cuda.launches = 0
+    q2_before = quantized.sq_search.launches
+    with CallSpy(sparse, "sparse_topk_cuda") as b6a_spy, \
+            CallSpy(fusion, "fusion_topk_cuda") as b6b_spy:
+        for name in passes:
+            counts = (sparse.sparse_topk_cuda.launches,
+                      fusion.fusion_topk_cuda.launches,
+                      quantized.sq_search.launches)
+            legs = leg_ms()
+            ms, rows = [], []
+            for i in range(HYBRID_REQUESTS):
+                t1 = time.perf_counter()
+                rows.append(request(name, i))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            after = leg_ms()
+            res[name] = rows
+            last[name] = (b6a_spy.widest, b6b_spy.widest)
+            b6a_spy.widest = b6b_spy.widest = None
+            per_pass[name] = {
+                "p50_ms": float(np.median(ms)),
+                "p99_ms": float(np.percentile(ms, 99)),
+                "b6a_launches": sparse.sparse_topk_cuda.launches - counts[0],
+                "b6b_launches": fusion.fusion_topk_cuda.launches - counts[1],
+                "q2_launches": quantized.sq_search.launches - counts[2],
+                **{f"{leg}_leg_ms": ((after[leg][0] - legs[leg][0])
+                                     / max(1, after[leg][1] - legs[leg][1])
+                                     * 1e3) for leg in legs}}
+    b6a_launches = sparse.sparse_topk_cuda.launches
+    b6b_launches = fusion.fusion_topk_cuda.launches
+    q2_launches = quantized.sq_search.launches - q2_before
+    if b6b_launches <= 0 or per_pass["unfiltered"]["b6b_launches"] <= 0:
+        raise AssertionError("the hybrid requests launched no B6b")
+    if b6a_launches <= 0 or per_pass["near_half"]["b6a_launches"] <= 0:
+        raise AssertionError("the filtered sparse legs launched no B6a")
+    # the pages: finite, descending, inside their filter; full where the
+    # dense leg has ten allowed rows to give
+    for name, rows in res.items():
+        for i, row in enumerate(rows):
+            sc = [s for _, s in row]
+            if not all(np.isfinite(sc)) or sc != sorted(sc, reverse=True):
+                raise AssertionError(f"{name} request {i}: bad page {sc}")
+            if name in ("unfiltered", "ranked", "near_half") and \
+                    len(row) != K:
+                raise AssertionError(f"{name} request {i}: {len(row)} hits")
+            ok = allowed.get(name, allowed["unfiltered"])
+            if not all(ok(o.properties["bucket"]) for o, _ in row):
+                raise AssertionError(f"{name} request {i}: filter broken")
+    # B6a's pages against WAND's on the same collection
+    for i in range(0, HYBRID_REQUESTS, 16):
+        check_pages(res["bm25_device"][i],
+                    col.bm25_search(texts[i], K, tenant=tenant_of(i)["name"]),
+                    f"bm25 device vs WAND, request {i}")
+    # recall@10 against the exact hybrid ranking
+    recalls = []
+    for t, ten in enumerate(tenants):
+        blk = torch.from_numpy(ten["vecs"]).cuda()
+        for i in range(t, HYBRID_REQUESTS, MS_TENANTS):
+            gt = hybrid_truth(ten["post"], ten["dl"], blk, pool[i],
+                              torch.from_numpy(qvecs[i]).cuda())
+            served = {o.uuid for o, _ in res["unfiltered"][i]}
+            recalls.append(len(served & {ten["uuids"][d] for d in gt}) / K)
+        del blk
+    # one aggregate a tenant
+    t1 = time.perf_counter()
+    for ten in tenants:
+        agg = col.aggregate({"bucket": "numeric", "body": "text"},
+                            tenant=ten["name"], top_occurrences_limit=5)
+        if agg["meta"]["count"] != HYBRID_DOCS or \
+                agg["properties"]["bucket"]["count"] != HYBRID_DOCS:
+            raise AssertionError(f"aggregate {ten['name']}: {agg['meta']}")
+    aggregate_ms = (time.perf_counter() - t1) * 1e3 / MS_TENANTS
+    # B6a (the 45% filter's sparse leg) and B6b (the unfiltered pass's
+    # fusion) on the main path's widest inputs: each against its plain
+    # version, then timed (launches made here are not the drive's, read
+    # above)
+    (a_args, a_kw), _ = last["near_half"]
+    _, (b_args, b_kw) = last["unfiltered"]
+    plain_a = a_args[:6] + a_args[7:]
+    kv, ki = sparse.sparse_topk_cuda(*a_args, **a_kw)
+    err_a, _ = check_b6(kv, ki, *sparse.sparse_topk_plain(*plain_a),
+                        "B6a on the main path")
+    slots, scores, weights, k, union = b_args
+
+    def plain_b():
+        if scores is None:
+            return fusion.ranked_fusion_plain(slots, weights, k, union)
+        return fusion.relative_score_fusion_plain(slots, scores, weights, k,
+                                                  union)
+
+    err_b, _ = check_b6(*fusion.fusion_topk_cuda(*b_args, **b_kw),
+                        *plain_b(), "B6b on the main path")
+    op = {"entries": int((a_args[0] >= 0).sum()), "allow": a_args[5],
+          "seg": a_args[6]}
+    state["kernel_b6_sparse"] = {
+        "name": "sparse_topk", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/hybrid.cu",
+        "replaces": "weaviate_tpu/ops/sparse.py:82",
+        "launches": b6a_launches, "max_abs_err": err_a,
+        "ms": float(np.median(cuda_ms(
+            lambda: sparse.sparse_topk_cuda(*a_args, **a_kw), 50))),
+        "plain_ms": float(np.median(cuda_ms(
+            lambda: sparse.sparse_topk_plain(*plain_a), 20))),
+        "bound_ms": b6a_bound_ms(op, a_args[7],
+                                 a_args[12] if len(a_args) > 10 else 0),
+        "bound_by": "bytes", "library_ms": None,
+        "entries": op["entries"], "space": int(a_args[5].numel())}
+    state["kernel_b6_fusion"] = {
+        "name": "fusion_topk", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/hybrid.cu",
+        "replaces": "weaviate_tpu/ops/fusion.py:90",
+        "launches": b6b_launches, "max_abs_err": err_b,
+        "ms": float(np.median(cuda_ms(
+            lambda: fusion.fusion_topk_cuda(*b_args, **b_kw), 50))),
+        "plain_ms": float(np.median(cuda_ms(plain_b, 20))),
+        "bound_ms": b6b_bound_ms(slots, k),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": [int(slots.shape[0]), int(slots.shape[1]), int(union), k]}
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    db.close()
+    close_s = time.perf_counter() - t1
+    return {"tenants": MS_TENANTS, "docs_per_tenant": HYBRID_DOCS,
+            "docs_configured_per_tenant": MS_TENANT_DOCS,
+            "objects": n_obj, "ingest_s": ingest_s,
+            "objects_per_s": n_obj / ingest_s,
+            "requests_per_pass": HYBRID_REQUESTS, "alpha": MS_ALPHA,
+            "k": K, "passes": per_pass,
+            "recall_at_10": float(np.mean(recalls)),
+            "recall_fetch": {"served_per_leg": 2 * K,
+                             "truth_per_leg": HYBRID_GT_FETCH},
+            "b6a_launches": b6a_launches, "b6b_launches": b6b_launches,
+            "q2_launches": q2_launches,
+            "b6a": state["kernel_b6_sparse"],
+            "b6b": state["kernel_b6_fusion"],
+            "aggregate_ms": aggregate_ms, "close_s": close_s,
+            "peak_device_bytes": peak, "card": state["card"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2971,6 +3630,7 @@ def main(argv=None) -> int:
         ("quant_db", lambda: phase_quant_db(args.seed, state)),
         ("pq", lambda: phase_pq(state)),
         ("hnsw_pq", lambda: phase_hnsw_pq(state)),
+        ("hybrid", lambda: phase_hybrid(args.seed, state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -2981,7 +3641,7 @@ def main(argv=None) -> int:
     emit({"kernels": [state[k] for k in (
         "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_b2_pq",
         "kernel_b2_rq", "kernel_q1", "kernel_q2", "kernel_q3", "kernel_q4",
-        "kernel_merge")]})
+        "kernel_merge", "kernel_b6_sparse", "kernel_b6_fusion")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -394,13 +394,8 @@ def _mt_cfg():
 
 
 UNPORTED = {
-    "bm25": (lambda col, db: col.bm25_search("w1"), "slice 6"),
-    "hybrid": (lambda col, db: col.hybrid_search("w1", np.zeros(DIMS)),
-               "slice 6"),
     "multi_target": (lambda col, db: col.multi_target_search(
         {"a": np.zeros(DIMS), "b": np.zeros(DIMS)}), "slice 7"),
-    "aggregate": (lambda col, db: col.aggregate({"bucket": None}),
-                  "slice 6"),
     "shard_multi_target": (lambda col, db: next(iter(
         col._shards.values())).multi_target_search({}, 1, "minimum"),
         "slice 7"),
@@ -495,9 +490,54 @@ def _quantized_index(kind, quantizer="sq"):
     return route
 
 
+def _keyword_route(name):
+    """Slice 6a: bm25 (WAND and device-scored), hybrid and aggregate on the
+    flat collection of the raise cases, the same answers as the JAX
+    package's."""
+    def route(col, db):
+        from weaviate_tpu.core.db import DB as JDB
+
+        jdb = JDB(os.path.join(os.path.dirname(db.root), "jax_" + name))
+        try:
+            jcol = jdb.create_collection(_cfg(jconfig))
+            _put(jcol, JaxObject, _records(8, n=20))
+            q = _records(8, n=20)[3]["vector"]
+            calls = {
+                "bm25": lambda c, f: [
+                    (o.uuid, s) for ds in (False, True)
+                    for o, s in c.bm25_search("w1 w2 w3", 5,
+                                              device_scoring=ds)],
+                "hybrid": lambda c, f: [
+                    (o.uuid, s) for fu in ("relativeScoreFusion",
+                                           "rankedFusion")
+                    for o, s in c.hybrid_search("w1 w3", q, alpha=0.5, k=5,
+                                                fusion=fu, flt=f)],
+                "aggregate": lambda c, f: c.aggregate(
+                    {"bucket": None, "text": "text"}, flt=f),
+            }[name]
+            want = calls(jcol, _jflt(FILTERS[1]))
+            got = calls(col, FILTERS[1])
+            assert got
+            if got != want:  # scores equal to float32 rounding
+                _close(got, want)
+        finally:
+            jdb.close()
+
+    return route
+
+
+def _close(got, want):
+    assert [u for u, _ in got] == [u for u, _ in want]
+    np.testing.assert_allclose([s for _, s in got], [s for _, s in want],
+                               rtol=1e-5)
+
+
 # routes of this list's slices that are ported since: each answers as the
 # JAX package does
 PORTED = {
+    "bm25": _keyword_route("bm25"),
+    "hybrid": _keyword_route("hybrid"),
+    "aggregate": _keyword_route("aggregate"),
     "dynamic_index": _dynamic_filtered_beam,
     "hnsw_index": _quantized_index("hnsw"),
     "quantizer": _quantized_index("flat"),

@@ -331,6 +331,14 @@ def test_segmented_snapshot_header_raises(tmp_path, pair):
 
 
 def test_device_bm25_raises(pair):
-    _, t = pair
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t.bm25_device_search("gamma", 10)
+    """The device scoring is ported (``tests/test_torch_sparse.py``,
+    ``tests/test_torch_hybrid.py``); its mesh form raises, naming its
+    slice, and the single-device form answers as the JAX one does."""
+    j, t = pair
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        t._device_sparse_mesh(None, None, None, None, None, None, None, 1, 1)
+    ji, js = j.bm25_device_search("gamma", 10)
+    ti, ts = t.bm25_device_search("gamma", 10, device="cpu")
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5)
+    assert len(ti) == 10

@@ -5,11 +5,11 @@ routes writes by UUID hash (``usecases/sharding/state.go``) or tenant name,
 fans searches out per shard and merges (``index.go:1928 objectVectorSearch``,
 ``search_deduplication.go``).
 
-Port of ``weaviate_tpu/core/collection.py``: the write path and the
-near-vector read path, with the same routing, scatter-gather and stable
-merge. The collection's shards live on the device it was opened with
-(``device=``, ``cuda`` unless the caller names another). Keyword, hybrid
-and multi-target search, aggregation, vectorizer modules and the frozen
+Port of ``weaviate_tpu/core/collection.py``: the write path, the
+near-vector, keyword and hybrid read paths and aggregation, with the same
+routing, scatter-gather and stable merge. The collection's shards live on
+the device it was opened with (``device=``, ``cuda`` unless the caller
+names another). Multi-target search, vectorizer modules and the frozen
 tenant tier are not ported yet: each raises ``NotImplementedError``
 naming its ROADMAP queue-A slice.
 """
@@ -1114,17 +1114,220 @@ class Collection:
         deadline=None,
         device_scoring: bool = False,
     ) -> list[tuple[StorageObject, float]]:
-        """BM25 keyword search across shards: not ported yet."""
-        raise NotImplementedError(
-            "Collection.bm25_search: not ported yet (ROADMAP queue A, "
-            "slice 6)")
+        """BM25 keyword search across shards. ``device_scoring``: score
+        with kernel B6a on the shard's device (``ops/sparse.py``) instead
+        of BlockMax-WAND on the host — the hybrid path sets it for filtered
+        legs, where WAND's skipping advantage collapses. A device error
+        raises; a shard whose tier cannot serve the device route (none in
+        the port yet) answers from WAND."""
+        from weaviate_tpu_torch.monitoring.metrics import (
+            HYBRID_FALLBACK,
+            QUERIES_TOTAL,
+            QUERY_DURATION,
+        )
+        from weaviate_tpu_torch.monitoring.slow_query import REPORTER
+        from weaviate_tpu_torch.serving.context import current_deadline
 
-    def hybrid_search(self, query: Optional[str] = None,
-                      vector: Optional[np.ndarray] = None, **kwargs):
-        """Overlapped BM25 + dense search with fusion: not ported yet."""
-        raise NotImplementedError(
-            "Collection.hybrid_search: not ported yet (ROADMAP queue A, "
-            "slice 6)")
+        if deadline is None:
+            deadline = current_deadline()
+        t0 = time.perf_counter()
+        results: list[tuple[float, Shard, int]] = []
+        # request-level slow-query tracker (folds admission queue wait in)
+        with REPORTER.track("bm25", collection=self.config.name,
+                            include_queue_wait=True):
+            for shard in self._search_shards(tenant):
+                if deadline is not None:
+                    deadline.require()  # shed between shards
+                allow = None
+                space = max(shard._next_doc_id, 1)
+                if flt is not None:
+                    allow = shard.allow_list(flt, space)
+                hit = None
+                if device_scoring:
+                    hit = shard.inverted.bm25_device_search(
+                        query, k, properties=properties,
+                        allow_list=allow, doc_space=space,
+                        operator=operator, minimum_match=minimum_match,
+                        device=shard.device,
+                    )
+                    if hit is None:
+                        from weaviate_tpu_torch.monitoring import tracing
+
+                        HYBRID_FALLBACK.inc(stage="sparse",
+                                            reason="unsupported")
+                        span = tracing.current_span()
+                        if span is not None:
+                            span.add_event("hybrid.sparse.fallback",
+                                           reason="unsupported",
+                                           shard=shard.name)
+                if hit is None:
+                    hit = shard.inverted.bm25_search(
+                        query, k, properties=properties, allow_list=allow,
+                        doc_space=space, operator=operator,
+                        minimum_match=minimum_match,
+                    )
+                ids, scores = hit
+                for i, s in zip(ids, scores):
+                    results.append((float(s), shard, int(i)))
+            results.sort(key=lambda t: -t[0])
+            out = []
+            for s, shard, docid in results[:k]:
+                obj = shard.get_by_docid(docid)
+                if obj is not None:
+                    out.append((obj, s))
+        QUERIES_TOTAL.inc(type="bm25", collection=self.config.name)
+        QUERY_DURATION.observe(time.perf_counter() - t0, type="bm25")
+        return out
+
+    def hybrid_search(
+        self,
+        query: Optional[str] = None,
+        vector: Optional[np.ndarray] = None,
+        alpha: float = 0.75,
+        k: int = 10,
+        fusion: str = "relativeScoreFusion",
+        properties: Optional[list[str]] = None,
+        flt: Optional[Filter] = None,
+        tenant: str = "",
+        target: str = DEFAULT_VECTOR,
+        max_vector_distance: Optional[float] = None,
+        operator: str = "Or",
+        minimum_match: int = 0,
+    ) -> list[tuple[StorageObject, float]]:
+        """BM25 + vector branches fused (reference ``hybrid/searcher.go:75``).
+
+        ``alpha`` weighs the vector branch (1.0 = pure vector, 0.0 = pure
+        keyword). Vector-branch scores enter fusion as negated distances so
+        "higher is better" holds for both branches.
+
+        The sparse leg runs on the collection's pool concurrently with the
+        dense leg on this thread, both under the request's serving deadline
+        and inside the ingress trace (``hybrid.sparse`` / ``hybrid.dense`` /
+        ``hybrid.fuse`` child spans). The keyword leg takes WAND on the host
+        or kernel B6a on the device (``hybrid_sparse_device``: "auto" sends
+        filtered legs to the device); the fusion is one launch of kernel
+        B6b on the collection's device. Each leg over-fetches
+        ``hybrid_overfetch_factor``·k. A leg that outlives the deadline
+        sheds while the other leg's results still fuse.
+        """
+        from weaviate_tpu_torch.index.dispatch import dispatch_group
+        from weaviate_tpu_torch.monitoring import tracing
+        from weaviate_tpu_torch.monitoring.metrics import (
+            HYBRID_LEG_SECONDS,
+            HYBRID_LEG_SHED,
+            HYBRID_REQUESTS,
+        )
+        from weaviate_tpu_torch.monitoring.tracing import TRACER
+        from weaviate_tpu_torch.query.fusion import (
+            fuse_result_sets,
+            hybrid_fetch,
+            validate_fusion,
+        )
+        from weaviate_tpu_torch.serving import context as serving_ctx
+        from weaviate_tpu_torch.utils.runtime_config import (
+            HYBRID_SPARSE_DEVICE,
+        )
+
+        validate_fusion(fusion)
+        req_ctx = serving_ctx.current()
+        deadline = req_ctx.deadline if req_ctx is not None else None
+        if deadline is not None:
+            deadline.require()
+        fetch = hybrid_fetch(k)
+        parent = tracing.current_span()
+        want_sparse = bool(query) and alpha < 1.0
+        want_dense = vector is not None and alpha > 0.0
+        sparse_mode = str(HYBRID_SPARSE_DEVICE.get()).lower()
+        if sparse_mode in ("off", "0", "false"):
+            device_sparse = False
+        elif sparse_mode in ("on", "1", "true"):
+            device_sparse = True
+        else:  # auto: filtered legs, where WAND's advantage collapses
+            device_sparse = flt is not None
+
+        def sparse_leg():
+            # pool thread: re-enter the request scope (deadline) and the
+            # ingress trace so the leg's span overlaps the dense leg's
+            with serving_ctx.request_scope(req_ctx), \
+                    TRACER.span("hybrid.sparse", parent=parent, k=fetch,
+                                device_scoring=device_sparse):
+                t0 = time.perf_counter()
+                out = self.bm25_search(
+                    query, fetch, properties=properties, flt=flt,
+                    tenant=tenant, operator=operator,
+                    minimum_match=minimum_match,
+                    device_scoring=device_sparse,
+                )
+                HYBRID_LEG_SECONDS.observe(time.perf_counter() - t0,
+                                           leg="sparse")
+                return out
+
+        sparse_future = self._pool.submit(sparse_leg) if want_sparse \
+            else None
+
+        sets: list[list[tuple[str, float]]] = []
+        weights: list[float] = []
+        by_uuid: dict[str, StorageObject] = {}
+        dense = None
+        if want_dense:
+            try:
+                with TRACER.span("hybrid.dense", parent=parent,
+                                 k=fetch), \
+                        dispatch_group(("hybrid", fusion)):
+                    t0 = time.perf_counter()
+                    dense = self.vector_search(
+                        vector, fetch, target=target, flt=flt,
+                        tenant=tenant,
+                        max_distance=max_vector_distance,
+                    )
+                    HYBRID_LEG_SECONDS.observe(time.perf_counter() - t0,
+                                               leg="dense")
+            except TimeoutError:  # DeadlineExceeded
+                # shed symmetrically: a dense leg that outlives the
+                # budget must not discard a sparse leg that finished in
+                # time — only with no completed sparse page does the
+                # request itself shed
+                if sparse_future is None or not sparse_future.done():
+                    raise
+                HYBRID_LEG_SHED.inc(leg="dense")
+                if parent is not None:
+                    parent.add_event("hybrid.leg_shed", leg="dense")
+
+        sparse = None
+        if sparse_future is not None:
+            try:
+                timeout = None
+                if deadline is not None:
+                    timeout = max(0.0, deadline.remaining())
+                sparse = sparse_future.result(timeout=timeout)
+            except (TimeoutError, FuturesTimeout):
+                # the slow leg sheds; the other leg's results still fuse
+                # (with no surviving leg the request itself is over
+                # deadline and sheds below)
+                HYBRID_LEG_SHED.inc(leg="sparse")
+                if parent is not None:
+                    parent.add_event("hybrid.leg_shed", leg="sparse")
+                if dense is None:
+                    if deadline is not None:
+                        deadline.require()  # -> DeadlineExceeded
+                    raise
+        if sparse is not None:
+            sets.append([(o.uuid, s) for o, s in sparse])
+            weights.append(1.0 - alpha)
+            for o, _ in sparse:
+                by_uuid.setdefault(o.uuid, o)
+        if dense is not None:
+            sets.append([(o.uuid, -d) for o, d in dense])
+            weights.append(alpha)
+            for o, _ in dense:
+                by_uuid.setdefault(o.uuid, o)
+
+        with TRACER.span("hybrid.fuse", parent=parent, fusion=fusion,
+                         legs=len(sets)):
+            fused = fuse_result_sets(sets, weights, k, fusion,
+                                     device=self.device)
+        HYBRID_REQUESTS.inc(fusion=fusion)
+        return [(by_uuid[u], s) for u, s in fused if u in by_uuid]
 
     def multi_target_search(self, vectors: dict[str, np.ndarray],
                             k: int = 10, **kwargs):
@@ -1134,12 +1337,101 @@ class Collection:
             "Collection.multi_target_search: not ported yet (ROADMAP "
             "queue A, slice 7)")
 
-    def aggregate(self, properties: Optional[dict] = None, **kwargs):
-        """Aggregate API (meta count + per-property aggregations): not
-        ported yet."""
-        raise NotImplementedError(
-            "Collection.aggregate (query/aggregator.py): not ported yet "
-            "(ROADMAP queue A, slice 6)")
+    def aggregate(
+        self,
+        properties: Optional[dict[str, Optional[str]]] = None,
+        flt: Optional[Filter] = None,
+        group_by: Optional[str] = None,
+        tenant: str = "",
+        top_occurrences_limit: int = 5,
+    ) -> dict:
+        """Aggregate API (reference ``aggregator/``): meta count + per-property
+        aggregations, optionally filtered and grouped by a property.
+
+        ``properties``: {prop: kind} where kind in numeric|text|boolean|date|
+        reference|auto (None = auto-infer).
+        """
+        from weaviate_tpu_torch.query.aggregator import (
+            aggregate_property,
+        )
+        from weaviate_tpu_torch.query.aggregator import (
+            per_doc_distinct as _dedup,
+        )
+
+        properties = properties or {}
+        shards = self._search_shards(tenant)
+
+        # collect (docid-scoped) values per shard under the filter mask
+        total = 0
+        prop_values: dict[str, list] = {p: [] for p in properties}
+        group_rows: dict[object, dict[str, list]] = {}
+        group_counts: dict[object, int] = {}
+
+        for shard in shards:
+            space = max(shard._next_doc_id, 1)
+            if flt is not None:
+                mask = shard.allow_list(flt, space)
+                # the inverted value maps only hold live docs, so the mask is
+                # already liveness-correct
+                total += int(mask.sum())
+            else:
+                mask = None  # all live docs
+                total += shard.count()
+
+            inv = shard.inverted
+            if getattr(inv, "segmented", False):
+                raise NotImplementedError(
+                    "aggregation over the segment-resident inverted tier: "
+                    "not ported yet (ROADMAP queue A, slice 6b)")
+
+            doc_ids = (None if mask is None
+                       else set(int(i) for i in np.nonzero(mask)[0]))
+
+            def docs_with(prop: str):
+                vals = inv.values.get(prop, {})
+                for d, v in vals.items():
+                    if doc_ids is None or d in doc_ids:
+                        yield d, _dedup(v)
+
+            if group_by is None:
+                for p in properties:
+                    prop_values[p].extend(v for _, v in docs_with(p))
+            else:
+                gvals = inv.values.get(group_by, {})
+                for d, gv in gvals.items():
+                    if doc_ids is not None and d not in doc_ids:
+                        continue
+                    for g in _dedup(gv) if isinstance(gv, list) else [gv]:
+                        group_counts[g] = group_counts.get(g, 0) + 1
+                        row = group_rows.setdefault(
+                            g, {p: [] for p in properties}
+                        )
+                        for p in properties:
+                            v = inv.values.get(p, {}).get(d)
+                            if v is not None:
+                                row[p].append(_dedup(v))
+
+        if group_by is None:
+            return {
+                "meta": {"count": total},
+                "properties": {
+                    p: aggregate_property(vals, properties[p], top_occurrences_limit)
+                    for p, vals in prop_values.items()
+                },
+            }
+        groups = []
+        # count desc, value asc on ties — engine-order independent
+        for g, count in sorted(group_counts.items(),
+                               key=lambda t: (-t[1], str(t[0]))):
+            groups.append({
+                "groupedBy": {"path": [group_by], "value": g},
+                "meta": {"count": count},
+                "properties": {
+                    p: aggregate_property(vals, properties[p], top_occurrences_limit)
+                    for p, vals in group_rows[g].items()
+                },
+            })
+        return {"meta": {"count": total}, "groups": groups}
 
     def filter_search(
         self, flt: Filter, limit: int = 100, tenant: str = ""

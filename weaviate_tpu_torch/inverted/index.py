@@ -399,12 +399,115 @@ class InvertedIndex:
         doc_space: int = 0,
         operator: str = "Or",
         minimum_match: int = 0,
+        device=None,
     ) -> Optional[tuple[np.ndarray, np.ndarray]]:
-        """Filtered BM25F scored on the device (``ops/sparse.py`` in the
-        JAX package, single device and mesh): not ported yet."""
+        """Filtered BM25F scored on ``device`` (``ops/sparse.py``, the card
+        unless the caller names another): the query terms' postings
+        flatten into one segmented entry list, one launch of kernel B6a
+        scores, masks and selects.
+
+        Same contract as ``bm25_search`` ((doc_ids, scores) descending).
+        A failed launch raises."""
+        from weaviate_tpu_torch.index.store import resolve_device
+        from weaviate_tpu_torch.ops import sparse as sops
+
+        props = self._parse_props(properties)
+        n_docs = max(1, self.doc_count)
+        all_tokens, min_match = self._min_match_groups(
+            query, props, operator, minimum_match)
+        weighted = self._weighted_query_terms(query, props, n_docs,
+                                              all_tokens)
+        if not weighted:
+            return np.empty(0, np.int64), np.empty(0, np.float32)
+
+        rows_p, tf_p, dl_p, w_p, ad_p, g_p = [], [], [], [], [], []
+        for prop, term, w, avgdl, grp in weighted:
+            plist = self.postings[prop][term]
+            ids, tfs = plist.arrays()
+            if not len(ids):
+                continue
+            lengths = self.doc_lengths.get(prop)
+            dls = (lengths.gather(ids) if lengths is not None
+                   else np.zeros(len(ids), np.float32))
+            rows_p.append(np.asarray(ids, np.int64))
+            tf_p.append(np.asarray(tfs, np.float32))
+            dl_p.append(np.asarray(dls, np.float32))
+            w_p.append(np.full(len(ids), w, np.float32))
+            ad_p.append(np.full(len(ids), avgdl, np.float32))
+            g_p.append(np.full(len(ids), grp, np.int32))
+        if not rows_p:
+            return np.empty(0, np.int64), np.empty(0, np.float32)
+        rows = np.concatenate(rows_p)
+        space = max(doc_space, int(rows.max()) + 1)
+
+        # eligibility = live docs ∧ the filter's allow mask
+        keep = self.columnar.live_mask(space).copy()
+        if allow_list is not None:
+            al = np.asarray(allow_list, bool)
+            if al.shape[0] < space:
+                al = np.pad(al, (0, space - al.shape[0]))
+            keep &= al[:space]
+
+        vals, ids_out = self._device_sparse_single(
+            rows, tf_p, dl_p, w_p, ad_p, g_p, keep, space, k, min_match,
+            len(all_tokens), resolve_device(device))
+        sops.count_dispatch()
+        ids_np = ids_out.cpu().numpy().reshape(-1)
+        vals_np = vals.cpu().numpy().reshape(-1)
+        live = ids_np >= 0
+        return ids_np[live].astype(np.int64), vals_np[live]
+
+    def _device_sparse_single(self, rows, tf_p, dl_p, w_p, ad_p, g_p,
+                              keep, space, k, min_match, n_tokens, device):
+        """Single-device dispatch: entries and doc space padded to their
+        pow2 buckets, as in the JAX package, and the segment boundaries
+        (one segment a (property, term) posting list) beside them."""
+        import torch
+
+        from weaviate_tpu_torch.ops import sparse as sops
+        from weaviate_tpu_torch.ops.fusion import bucket
+
+        n = len(rows)
+        p_len = bucket(n)
+        s_len = bucket(space, floor=bucket(k))
+        # one host buffer, one upload: rows | tf | dl | w | avgdl | grp
+        host = np.zeros((6, p_len), np.float32)
+        ints = host.view(np.int32)
+        ints[0] = -1
+        ints[0, :n] = rows
+        host[1, :n] = np.concatenate(tf_p)
+        host[2, :n] = np.concatenate(dl_p)
+        host[3, :n] = np.concatenate(w_p)
+        host[4] = 1.0
+        host[4, :n] = np.concatenate(ad_p)
+        ints[5, :n] = np.concatenate(g_p)
+        seg = np.zeros(len(tf_p) + 1, np.int32)
+        np.cumsum([len(t) for t in tf_p], out=seg[1:])
+        allow = np.zeros(s_len, bool)
+        allow[:space] = keep
+        dev_ent = torch.from_numpy(host).to(device)
+        dev_int = dev_ent.view(torch.int32)
+        r, tf, dl, w, ad = (dev_int[0], dev_ent[1], dev_ent[2], dev_ent[3],
+                            dev_ent[4])
+        t_seg = torch.from_numpy(seg).to(device)
+        t_allow = torch.from_numpy(allow).to(device)
+        kk = min(k, s_len)
+        if min_match > 1:
+            return sops.sparse_score_topk_min_match(
+                r, tf, dl, w, ad, dev_int[5], t_allow, kk, float(self.k1),
+                float(self.b), bucket(max(1, n_tokens), floor=2),
+                int(min_match), seg=t_seg)
+        return sops.sparse_score_topk(r, tf, dl, w, ad, t_allow, kk,
+                                      float(self.k1), float(self.b),
+                                      seg=t_seg)
+
+    def _device_sparse_mesh(self, *args, **kwargs):
+        """The mesh form of the device scoring (entries partitioned by doc
+        row-block along the mesh's shard axis): not ported yet."""
         raise NotImplementedError(
-            "device BM25 scoring (ops/sparse.py, and its mesh form): not "
-            "ported yet (ROADMAP queue A, slice 6; the mesh form slice 11)")
+            "device BM25 scoring on a mesh (_device_sparse_mesh, "
+            "parallel/sharded_search.py): not ported yet (ROADMAP queue A, "
+            "slice 11)")
 
     def bm25_search(
         self,

@@ -4,7 +4,7 @@
 The port has the RAM-columnar ``InvertedIndex`` only. The segment-resident
 ``SegmentedInvertedIndex`` (``storage="segment"``, and the upgrade that
 ``storage="auto"`` makes past its cutoff) comes with ROADMAP queue A
-slice 6; until then asking for it raises ``NotImplementedError``, and so
+slice 6b; until then asking for it raises ``NotImplementedError``, and so
 does a shard whose snapshot says it reached the segment tier.
 """
 
@@ -15,7 +15,7 @@ from weaviate_tpu_torch.schema.config import CollectionConfig
 
 _UNPORTED = ("segment-resident inverted index (SegmentedInvertedIndex, "
              "inverted storage 'segment' and 'auto'): not ported yet "
-             "(ROADMAP queue A, slice 6)")
+             "(ROADMAP queue A, slice 6b)")
 
 
 def make_inverted_index(config: CollectionConfig, store=None,

@@ -110,3 +110,13 @@ COMPACTION_MAX_MERGES = RUNTIME.register(
 FILTER_PLANE_PROMOTE_HITS = RUNTIME.register(
     "filter_plane_promote_hits", 3, cast=int)
 FILTER_PLANE_MAX = RUNTIME.register("filter_plane_max", 8, cast=int)
+# hybrid search (core/collection.py hybrid_search): each leg over-fetches
+# ceil(factor * k) candidates so fusion has room beyond the final page
+HYBRID_OVERFETCH_FACTOR = RUNTIME.register(
+    "hybrid_overfetch_factor", 2.0, cast=float)
+# the keyword leg's engine: "auto" scores FILTERED hybrid keyword legs on
+# the device (ops/sparse.py, where WAND's skipping advantage collapses) and
+# unfiltered ones with WAND on the host, "on" sends every hybrid keyword
+# leg to the device, "off" every one to WAND
+HYBRID_SPARSE_DEVICE = RUNTIME.register(
+    "hybrid_sparse_device", "auto", cast=str)
