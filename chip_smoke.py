@@ -35,13 +35,16 @@ non-zero without the final line:
              (``merge_edges``: every split full or empty, ties at the
              k-th across splits, k = 1, the largest k whose full lists it
              stages in shared memory and one more, unaligned lists, B of
-             1 and 257, MAX_K); B6a, the sparse scatter + top-k, at a
-             full config-5 tenant (550,000 docs, bench_msmarco's postings
-             made on the card) unfiltered, under 1% and 45% allow masks,
-             with min-match 2 and at k 100, and B6b, the fusion, at config
-             5's (2 legs of 32, union 64, k 10) and at unions in shared and
-             in device memory, both algorithms: each against its plain
-             version, and two launches bit for bit.
+             1 and 257, MAX_K); B6a, the sparse scatter + top-k, at
+             phase ``hybrid``'s tenant size (8,192 docs) and at a full
+             config-5 tenant (550,000 docs, bench_msmarco's postings made
+             on the card) unfiltered, under 1% and 45% allow masks, with
+             min-match 2 and at k 100, and B6b, the fusion, at config 5's
+             (2 legs of 32, union 64, k 10), on its small path's widest
+             (a slot repeated across its 32-position steps) and at unions
+             in shared and in device memory, both algorithms: each against
+             its plain version and the CPU plain version's bits, and two
+             launches bit for bit.
 3. main    — ``FlatIndex`` at full width: 1,000,000 seeded 768-d vectors,
              1% deleted, 256 queries, k = 10 through the fused-kernel route;
              recall@10 against the exact float32 ground truth, launch counts,
@@ -3009,9 +3012,10 @@ HYBRID_GT_FETCH = 100
 RTOL_B6 = 1e-5
 B6A_QUERIES = 8
 # (legs, leg length, union, k): config 5's, a union in device memory (past
-# the kernel's shared-memory plan), the widest in shared memory, k = union
+# the kernel's shared-memory plan), the widest in shared memory, k = union,
+# the small path's widest (a slot repeated across its 32-position steps)
 B6B_SHAPES = ((2, 32, 64, 10), (8, 2048, 16384, 100), (2, 4096, 8192, 10),
-              (3, 8, 16, 16))
+              (3, 8, 16, 16), (2, 64, 128, 64))
 
 
 def zipf_postings(per: int, seed: int) -> dict:
@@ -3055,9 +3059,10 @@ def bm25_idf(n_docs: int, df: int) -> float:
 def sparse_inputs(post: dict, terms, dl, avgdl: float, k: int,
                   allow_share, gen) -> dict:
     """B6a's operands for one query over one tenant's postings, as
-    ``InvertedIndex.bm25_device_search`` lays them out: a segment a term,
-    entries padded to a power of two with rows -1, the doc space padded to
-    ``bucket(per)``; ``allow_share`` None allows every doc."""
+    ``InvertedIndex.bm25_device_search`` lays them out: a segment a term
+    (its weight, avgdl and group a segment's), entries padded to a power
+    of two with rows -1, the doc space padded to ``bucket(per)``;
+    ``allow_share`` None allows every doc."""
     dev = torch.device("cuda")
     b = post["bounds"]
     lens = [int(b[t + 1] - b[t]) for t in terms]
@@ -3071,16 +3076,10 @@ def sparse_inputs(post: dict, terms, dl, avgdl: float, k: int,
     tf[:n] = post["tf"][idx]
     dls = torch.zeros(p_len, device=dev)
     dls[:n] = dl[rows[:n].long()]
-    w = torch.zeros(p_len, device=dev)
-    w[:n] = torch.repeat_interleave(torch.tensor(
-        [bm25_idf(post["per"], int(post["df"][t])) for t in terms],
-        dtype=torch.float32, device=dev), torch.tensor(lens, device=dev))
-    ad = torch.ones(p_len, device=dev)
-    ad[:n] = avgdl
-    grp = torch.zeros(p_len, dtype=torch.int32, device=dev)
-    grp[:n] = torch.repeat_interleave(
-        torch.arange(len(terms), dtype=torch.int32, device=dev),
-        torch.tensor(lens, device=dev))
+    seg_w = torch.tensor([bm25_idf(post["per"], int(post["df"][t]))
+                          for t in terms], dtype=torch.float32, device=dev)
+    seg_avgdl = torch.full((len(terms),), avgdl, device=dev)
+    seg_grp = torch.arange(len(terms), dtype=torch.int32, device=dev)
     seg = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
                        dtype=torch.int32, device=dev)
     per = post["per"]
@@ -3088,23 +3087,19 @@ def sparse_inputs(post: dict, terms, dl, avgdl: float, k: int,
     allow = torch.zeros(s_len, dtype=torch.bool, device=dev)
     allow[:per] = True if allow_share is None else (
         torch.rand(per, generator=gen, device=dev) < allow_share)
-    return {"rows": rows, "tf": tf, "dl": dls, "w": w, "avgdl": ad,
-            "grp": grp, "seg": seg, "allow": allow, "entries": n,
-            "groups": len(terms)}
+    return {"rows": rows, "tf": tf, "dl": dls, "seg": seg, "seg_w": seg_w,
+            "seg_avgdl": seg_avgdl, "seg_grp": seg_grp, "allow": allow,
+            "entries": n, "groups": len(terms)}
 
 
 def sparse_call(op: dict, k: int, min_match: int, fn):
     """``fn`` (the kernel's wrapper or the plain version) on ``op``."""
-    a = (op["rows"], op["tf"], op["dl"], op["w"], op["avgdl"], op["allow"])
-    if fn is sparse.sparse_topk_plain:
-        if min_match:
-            return fn(*a, k, MS_K1, MS_B, op["grp"],
-                      fusion.bucket(op["groups"], floor=2), min_match)
-        return fn(*a, k, MS_K1, MS_B)
+    a = (op["rows"], op["tf"], op["dl"], op["seg"], op["seg_w"],
+         op["seg_avgdl"], op["allow"], k, MS_K1, MS_B)
     if min_match:
-        return fn(*a, op["seg"], k, MS_K1, MS_B, op["grp"],
-                  fusion.bucket(op["groups"], floor=2), min_match)
-    return fn(*a, op["seg"], k, MS_K1, MS_B)
+        return fn(*a, op["seg_grp"], fusion.bucket(op["groups"], floor=2),
+                  min_match)
+    return fn(*a)
 
 
 def check_b6(kv, ki, pv, pi, what: str) -> tuple[float, int]:
@@ -3131,73 +3126,93 @@ def same_bits(a, b) -> bool:
 
 
 def b6a_bound_ms(op: dict, k: int, min_match: int) -> float:
-    """B6a's bytes over the memory rate: each entry read once (row, tf, dl,
-    weight, avgdl; and its group under min-match), the allow mask, the
-    segment boundaries, the output page written once."""
-    per_entry = 20 + (4 if min_match else 0)
-    moved = (op["entries"] * per_entry + op["allow"].numel()
-             + op["seg"].numel() * 4 + k * 8)
+    """B6a's bytes over the memory rate: each entry read once (row, tf,
+    dl), each segment's boundary, weight and avgdl (and its group under
+    min-match), the allow mask, the output page written once."""
+    segs = op["seg"].numel() - 1
+    moved = (op["entries"] * 12 + segs * (12 + (4 if min_match else 0)) + 4
+             + op["allow"].numel() + k * 8)
     return moved / HBM_BYTES_S * 1e3
 
 
 def b6_sparse_grid(seed: int) -> dict:
-    """B6a at a full config-5 tenant (550,000 docs, bench_msmarco's
-    postings made on the card): B6A_QUERIES queries unfiltered, under 1% and
-    45% allow masks, with min-match 2, and at k 100 (whose partial lists
-    merge in device memory), each against the plain version on the card,
+    """B6a at phase ``hybrid``'s tenant size (HYBRID_DOCS) and at a full
+    config-5 tenant (550,000 docs), bench_msmarco's postings made on the
+    card: B6A_QUERIES queries unfiltered, under 1% and 45% allow masks,
+    with min-match 2, and at k 100 (whose partial lists the last CTA reads
+    from L2 at 550,000 docs), each against the plain version on the card,
     two launches compared bit for bit, and the plain version on the CPU
     (whose scatter sums in entry order, as the kernel does) compared bit
     for bit and reported; each mode timed on its first query."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 21)
-    post = zipf_postings(MS_TENANT_DOCS, seed + 5)
-    dl = post["dl"]
-    avgdl = float(dl.mean())
-    queries = query_pool(post["df"], B6A_QUERIES, seed + 7)
-    modes = {"unfiltered": (None, 0, 20), "allow_1pct": (0.01, 0, 20),
-             "allow_45pct": (0.45, 0, 20), "min_match_2": (None, 2, 20),
+    modes = {"unfiltered": (None, 0, 10), "allow_1pct": (0.01, 0, 20),
+             "allow_45pct": (0.45, 0, 20), "min_match_2": (None, 2, 10),
              "unfiltered_k100": (None, 0, 100)}
-    out, max_err, diffs, cpu_equal, cases = {}, 0.0, 0, 0, 0
-    for mode, (share, mm, k) in modes.items():
-        timed = None
-        for qi, terms in enumerate(queries):
-            op = sparse_inputs(post, terms, dl, avgdl, k, share, gen)
-            kern = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
-            again = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
-            plain = sparse_call(op, k, mm, sparse.sparse_topk_plain)
-            torch.cuda.synchronize()
-            if not same_bits(kern, again):
-                raise AssertionError(f"B6a {mode}: two launches differ")
-            e, d = check_b6(*kern, *plain, f"B6a {mode} query {qi}")
-            cpu_op = {key: v.cpu() if torch.is_tensor(v) else v
-                      for key, v in op.items()}
-            cpu = sparse_call(cpu_op, k, mm, sparse.sparse_topk_plain)
-            cpu_equal += same_bits([t.cpu() for t in kern], cpu)
-            max_err, diffs, cases = max(max_err, e), diffs + d, cases + 1
-            if qi == 0:
-                timed = {
-                    "entries": op["entries"], "terms": len(terms),
-                    "space": op["allow"].numel(), "k": k,
-                    "kept": int((kern[1] >= 0).sum()),
-                    "ms": float(np.median(cuda_ms(lambda: sparse_call(
-                        op, k, mm, sparse.sparse_topk_cuda), 20))),
-                    "plain_ms": float(np.median(cuda_ms(lambda: sparse_call(
-                        op, k, mm, sparse.sparse_topk_plain), 5))),
-                    "bound_ms": b6a_bound_ms(op, k, mm)}
-        out[mode] = timed
-    return {"docs": MS_TENANT_DOCS, "vocab": MS_VOCAB,
-            "edges": int(post["docs"].numel()), "cases": cases,
-            "max_abs_err": max_err, "ids_differing_in_ties": diffs,
+    tenants, max_err, diffs, cpu_equal, cases = {}, 0.0, 0, 0, 0
+    for docs, post_seed in ((HYBRID_DOCS, 1000), (MS_TENANT_DOCS, seed + 5)):
+        post = zipf_postings(docs, post_seed)
+        dl = post["dl"]
+        avgdl = float(dl.mean())
+        queries = query_pool(post["df"], B6A_QUERIES, seed + 7)
+        out = {}
+        for mode, (share, mm, k) in modes.items():
+            timed = None
+            for qi, terms in enumerate(queries):
+                op = sparse_inputs(post, terms, dl, avgdl, k, share, gen)
+                kern = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
+                again = sparse_call(op, k, mm, sparse.sparse_topk_cuda)
+                plain = sparse_call(op, k, mm, sparse.sparse_topk_plain)
+                torch.cuda.synchronize()
+                what = f"B6a {docs} docs {mode} query {qi}"
+                if not same_bits(kern, again):
+                    raise AssertionError(f"{what}: two launches differ")
+                e, d = check_b6(*kern, *plain, what)
+                cpu_op = {key: v.cpu() if torch.is_tensor(v) else v
+                          for key, v in op.items()}
+                cpu = sparse_call(cpu_op, k, mm, sparse.sparse_topk_plain)
+                if not same_bits([t.cpu() for t in kern], cpu):
+                    raise AssertionError(
+                        f"{what}: the page differs from the CPU plain "
+                        f"version's bits")
+                cpu_equal += 1
+                max_err, diffs, cases = max(max_err, e), diffs + d, cases + 1
+                if qi == 0:
+                    timed = {
+                        "entries": op["entries"], "terms": len(terms),
+                        "space": op["allow"].numel(), "k": k,
+                        "ctas": sparse.sparse_ctas(op["allow"].numel()),
+                        "kept": int((kern[1] >= 0).sum()),
+                        "ms": float(np.median(cuda_ms(lambda: sparse_call(
+                            op, k, mm, sparse.sparse_topk_cuda), 20))),
+                        "plain_ms": float(np.median(cuda_ms(
+                            lambda: sparse_call(
+                                op, k, mm, sparse.sparse_topk_plain), 5))),
+                        "bound_ms": b6a_bound_ms(op, k, mm)}
+            out[mode] = timed
+        tenants[str(docs)] = {"vocab": MS_VOCAB,
+                              "edges": int(post["docs"].numel()),
+                              "modes": out}
+        del post
+    # the C entry's doc range per CTA is the wrapper's
+    for space in (1, 512, 8192, 65536, 1 << 20, (1 << 31) - 1):
+        if sparse._library().sparse_range(space) != sparse.sparse_range(
+                space):
+            raise AssertionError(f"B6a's range at {space} docs: the C entry "
+                                 f"and the wrapper differ")
+    return {"cases": cases, "max_abs_err": max_err,
+            "ids_differing_in_ties": diffs,
             "bitwise_equal_to_cpu_plain": f"{cpu_equal}/{cases}",
-            "modes": out, "tolerance": {"rtol": RTOL_B6}}
+            "tenants": tenants, "tolerance": {"rtol": RTOL_B6}}
 
 
 def fusion_inputs(legs: int, width: int, union: int, seed: int):
     """Random slot matrices on the card: -1 pads, a slot repeated within a
-    leg, slots past the union, scores rounded to one decimal (ties)."""
+    leg (at positions 0, 1 and, where the leg is that long, 40 and 63),
+    slots past the union, scores rounded to one decimal (ties)."""
     rng = np.random.default_rng(seed)
     slots = rng.integers(0, union + 4, (legs, width)).astype(np.int32)
     slots[rng.random((legs, width)) < 0.2] = -1
-    slots[0, :2] = 3
+    slots[0, [j for j in (0, 1, 40, 63) if j < width]] = 3
     scores = np.round(rng.normal(size=(legs, width)), 1).astype(np.float32)
     weights = rng.random(legs).astype(np.float32)
     dev = torch.device("cuda")
@@ -3244,11 +3259,13 @@ def b6_fusion_grid(seed: int) -> dict:
             e, d = check_b6(*kern, *plain, what)
             cpu = fusion_call(algo, slots.cpu(), scores.cpu(),
                               weights.cpu(), k, union, False)
-            cpu_equal += same_bits([t.cpu() for t in kern], cpu)
+            if not same_bits([t.cpu() for t in kern], cpu):
+                raise AssertionError(f"{what}: the page differs from the "
+                                     f"CPU plain version's bits")
+            cpu_equal += 1
             max_err, diffs, cases = max(max_err, e), diffs + d, cases + 1
             out[f"{algo}_{legs}x{width}_u{union}_k{k}"] = {
-                "in_shared_memory": sparse._library().fusion_smem_bytes(
-                    legs, width, union) > 0,
+                "path": fusion.fusion_path(legs, width, union, k),
                 "ms": float(np.median(cuda_ms(
                     lambda: fusion_call(*args, True), 20))),
                 "plain_ms": float(np.median(cuda_ms(
@@ -3548,9 +3565,8 @@ def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
     # above)
     (a_args, a_kw), _ = last["near_half"]
     _, (b_args, b_kw) = last["unfiltered"]
-    plain_a = a_args[:6] + a_args[7:]
     kv, ki = sparse.sparse_topk_cuda(*a_args, **a_kw)
-    err_a, _ = check_b6(kv, ki, *sparse.sparse_topk_plain(*plain_a),
+    err_a, _ = check_b6(kv, ki, *sparse.sparse_topk_plain(*a_args, **a_kw),
                         "B6a on the main path")
     slots, scores, weights, k, union = b_args
 
@@ -3562,8 +3578,8 @@ def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
 
     err_b, _ = check_b6(*fusion.fusion_topk_cuda(*b_args, **b_kw),
                         *plain_b(), "B6b on the main path")
-    op = {"entries": int((a_args[0] >= 0).sum()), "allow": a_args[5],
-          "seg": a_args[6]}
+    op = {"entries": int((a_args[0] >= 0).sum()), "allow": a_args[6],
+          "seg": a_args[3]}
     state["kernel_b6_sparse"] = {
         "name": "sparse_topk", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/hybrid.cu",
@@ -3572,11 +3588,11 @@ def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
         "ms": float(np.median(cuda_ms(
             lambda: sparse.sparse_topk_cuda(*a_args, **a_kw), 50))),
         "plain_ms": float(np.median(cuda_ms(
-            lambda: sparse.sparse_topk_plain(*plain_a), 20))),
+            lambda: sparse.sparse_topk_plain(*a_args, **a_kw), 20))),
         "bound_ms": b6a_bound_ms(op, a_args[7],
                                  a_args[12] if len(a_args) > 10 else 0),
         "bound_by": "bytes", "library_ms": None,
-        "entries": op["entries"], "space": int(a_args[5].numel())}
+        "entries": op["entries"], "space": int(a_args[6].numel())}
     state["kernel_b6_fusion"] = {
         "name": "fusion_topk", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/hybrid.cu",

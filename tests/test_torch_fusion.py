@@ -5,7 +5,9 @@ for both algorithms.
 Tolerance: fused scores to 1e-5 relative (float32 on both device sides;
 the host twins sum in Python floats); page order exactly wherever
 neighbouring fused scores differ by more than that, and exactly on the
-engineered ties, where both sides put the earlier-inserted key first.
+engineered ties, where both sides put the earlier-inserted key first. A
+CPU model of the kernel's small path (runs of a repeated slot within a
+leg summed in position order) is held to JAX, ids exactly.
 """
 
 import numpy as np
@@ -147,3 +149,99 @@ def test_one_dispatch_a_fusion():
                              [0.5, 0.5], 10, "relativeScoreFusion",
                              device="cpu")
     assert fusion.dispatch_count() == before + 1
+
+
+# -- a CPU model of B6b's small path -----------------------------------------
+
+
+def _small_path_model(slots, scores, weights, k, union):
+    """B6b's small path as the kernel computes it: each leg's min and max
+    over its entries (slot >= 0), its contributions, then legs in order
+    and 32 positions at a time in order, each run of one slot within the
+    32 (``__match_any_sync``) added by its lowest position in position
+    order, the slots present sorted by (descending score, ascending slot),
+    the first k out."""
+    acc = np.zeros(union, np.float32)
+    present = []
+    f32 = np.float32
+    for leg in range(slots.shape[0]):
+        sl = slots[leg]
+        ok = sl >= 0
+        if scores is not None:
+            lo = f32(scores[leg][ok].min()) if ok.any() else f32(np.inf)
+            hi = f32(scores[leg][ok].max()) if ok.any() else f32(-np.inf)
+            span = f32(hi - lo)
+        for c0 in range(0, len(sl), 32):
+            chunk = range(c0, min(c0 + 32, len(sl)))
+            for u in dict.fromkeys(int(sl[j]) for j in chunk):
+                if not 0 <= u < union:
+                    continue
+                a = acc[u]
+                for j in chunk:  # the run, in position order
+                    if sl[j] != u:
+                        continue
+                    if scores is None:
+                        c = f32(weights[leg] / f32(f32(60.0) + f32(j)))
+                    else:
+                        norm = (f32(f32(scores[leg][j] - lo)
+                                    / max(span, f32(1e-30)))
+                                if span > 0 else f32(1.0))
+                        c = f32(weights[leg] * norm)
+                    a = f32(a + c)
+                acc[u] = a
+                if u not in present:
+                    present.append(u)
+    order = sorted(present, key=lambda u: (-acc[u], u))[:k]
+    vals = np.zeros(k, np.float32)
+    ids = np.full(k, -1, np.int32)
+    vals[:len(order)] = acc[order]
+    ids[:len(order)] = order
+    return vals, ids
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize("legs,width,union,k", [
+    (2, 32, 64, 10), (2, 64, 128, 64), (1, 64, 64, 5), (2, 20, 40, 40)])
+def test_small_path_model_matches_jax(algo, legs, width, union, k):
+    """B6b's small path modelled on the CPU, on legs with a slot repeated
+    across the 32-position steps, -1 pads, slots past the union and tied
+    scores: ids exact and scores to fp32 tolerance against JAX, and equal
+    in bits to the port's plain version (the same (leg, position) order)."""
+    rng = np.random.default_rng(legs * 100 + width + k)
+    slots = rng.integers(0, union + 4, (legs, width)).astype(np.int32)
+    slots[rng.random((legs, width)) < 0.2] = -1
+    slots[0, [j for j in (0, 1, 40, 63) if j < width]] = 3
+    scores = np.round(rng.normal(size=(legs, width)), 1).astype(np.float32)
+    weights = rng.random(legs).astype(np.float32)
+    ranked = algo == "rankedFusion"
+    got = _small_path_model(slots, None if ranked else scores, weights, k,
+                            union)
+    t = [torch.from_numpy(x) for x in (slots, scores, weights)]
+    if ranked:
+        jv, ji = jfusion.ranked_fusion_topk(slots, weights, k, union)
+        pv, pi = fusion.ranked_fusion_topk(t[0], t[2], k, union)
+    else:
+        jv, ji = jfusion.relative_score_fusion_topk(slots, scores, weights,
+                                                    k, union)
+        pv, pi = fusion.relative_score_fusion_topk(*t, k, union)
+    assert fusion.fusion_path(legs, width, union, k) == "small"
+    np.testing.assert_array_equal(got[1], np.asarray(ji))
+    np.testing.assert_allclose(got[0], np.asarray(jv), rtol=RTOL, atol=1e-6)
+    np.testing.assert_array_equal(got[1], pi.numpy())
+    np.testing.assert_array_equal(got[0].view(np.int32),
+                                  pv.numpy().view(np.int32))
+
+
+def test_fusion_paths_and_shared_memory_plan():
+    """The wrapper's path and shared-memory plan, from the source's
+    constants: the widths hybrid serves take the small path, wider ones
+    the general path, in shared memory up to kFusionSmem."""
+    assert fusion.fusion_path(2, 32, 64, 10) == "small"
+    assert fusion.fusion_path(2, 64, 1024, 64) == "small"
+    assert fusion.fusion_path(3, 8, 16, 16) == "shared"
+    assert fusion.fusion_path(2, 128, 256, 10) == "shared"
+    assert fusion.fusion_path(2, 64, 128, 65) == "shared"
+    assert fusion.fusion_path(2, 4096, 8192, 10) == "shared"
+    assert fusion.fusion_path(8, 2048, 16384, 100) == "device"
+    assert fusion.fusion_smem_bytes(2, 4096, 8192) == 8192 * 8 + 8192 * 5
+    assert fusion.fusion_smem_bytes(8, 2048, 16384) == 0

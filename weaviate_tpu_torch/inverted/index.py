@@ -25,6 +25,36 @@ from weaviate_tpu_torch.storage.objects import StorageObject
 _TEXT_TYPES = (DataType.TEXT, DataType.TEXT_ARRAY)
 
 
+def sparse_operands(rows_p, tf_p, dl_p, segs, keep, space, k):
+    """B6a's operands in one host buffer of int32 words, the entries
+    and the doc space padded to their pow2 buckets as in the JAX
+    package: rows (-1 pad) | tf | dl, [P] each; the segment boundaries
+    [G + 1] (one segment a (property, term) posting list); each
+    segment's weight, avgdl and group [G] each; the allow mask [S]
+    bytes. Returns (buffer, P, G, S)."""
+    from weaviate_tpu_torch.ops.fusion import bucket
+
+    n = sum(len(r) for r in rows_p)
+    p_len = bucket(n)
+    g = len(segs)
+    s_len = bucket(space, floor=bucket(k))
+    host = np.zeros(3 * p_len + 4 * g + 1 + s_len // 4, np.int32)
+    flt = host.view(np.float32)
+    host[:p_len] = -1
+    np.concatenate(rows_p, out=host[:n], casting="unsafe")
+    np.concatenate(tf_p, out=flt[p_len:p_len + n], casting="unsafe")
+    np.concatenate(dl_p, out=flt[2 * p_len:2 * p_len + n],
+                   casting="unsafe")
+    o = 3 * p_len
+    np.cumsum([len(r) for r in rows_p], out=host[o + 1:o + g + 1])
+    w, avgdl, grp = zip(*segs)
+    flt[o + g + 1:o + 2 * g + 1] = w
+    flt[o + 2 * g + 1:o + 3 * g + 1] = avgdl
+    host[o + 3 * g + 1:o + 4 * g + 1] = grp
+    host[o + 4 * g + 1:].view(bool)[:space] = keep
+    return host, p_len, g, s_len
+
+
 class InvertedIndex:
     def __init__(self, config: CollectionConfig, store=None):
         self.config = config
@@ -420,7 +450,7 @@ class InvertedIndex:
         if not weighted:
             return np.empty(0, np.int64), np.empty(0, np.float32)
 
-        rows_p, tf_p, dl_p, w_p, ad_p, g_p = [], [], [], [], [], []
+        rows_p, tf_p, dl_p, segs = [], [], [], []
         for prop, term, w, avgdl, grp in weighted:
             plist = self.postings[prop][term]
             ids, tfs = plist.arrays()
@@ -429,16 +459,13 @@ class InvertedIndex:
             lengths = self.doc_lengths.get(prop)
             dls = (lengths.gather(ids) if lengths is not None
                    else np.zeros(len(ids), np.float32))
-            rows_p.append(np.asarray(ids, np.int64))
-            tf_p.append(np.asarray(tfs, np.float32))
-            dl_p.append(np.asarray(dls, np.float32))
-            w_p.append(np.full(len(ids), w, np.float32))
-            ad_p.append(np.full(len(ids), avgdl, np.float32))
-            g_p.append(np.full(len(ids), grp, np.int32))
+            rows_p.append(ids)
+            tf_p.append(tfs)
+            dl_p.append(dls)
+            segs.append((w, avgdl, grp))
         if not rows_p:
             return np.empty(0, np.int64), np.empty(0, np.float32)
-        rows = np.concatenate(rows_p)
-        space = max(doc_space, int(rows.max()) + 1)
+        space = max(doc_space, max(int(r[-1]) for r in rows_p) + 1)
 
         # eligibility = live docs ∧ the filter's allow mask
         keep = self.columnar.live_mask(space).copy()
@@ -449,57 +476,42 @@ class InvertedIndex:
             keep &= al[:space]
 
         vals, ids_out = self._device_sparse_single(
-            rows, tf_p, dl_p, w_p, ad_p, g_p, keep, space, k, min_match,
+            rows_p, tf_p, dl_p, segs, keep, space, k, min_match,
             len(all_tokens), resolve_device(device))
         sops.count_dispatch()
-        ids_np = ids_out.cpu().numpy().reshape(-1)
-        vals_np = vals.cpu().numpy().reshape(-1)
+        vals_np, ids_np = sops.page_to_host(vals, ids_out)
         live = ids_np >= 0
         return ids_np[live].astype(np.int64), vals_np[live]
 
-    def _device_sparse_single(self, rows, tf_p, dl_p, w_p, ad_p, g_p,
-                              keep, space, k, min_match, n_tokens, device):
-        """Single-device dispatch: entries and doc space padded to their
-        pow2 buckets, as in the JAX package, and the segment boundaries
-        (one segment a (property, term) posting list) beside them."""
+    def _device_sparse_single(self, rows_p, tf_p, dl_p, segs, keep, space,
+                              k, min_match, n_tokens, device):
+        """Single-device dispatch: the operands (``sparse_operands``) in one
+        upload, then one launch of B6a."""
         import torch
 
         from weaviate_tpu_torch.ops import sparse as sops
         from weaviate_tpu_torch.ops.fusion import bucket
 
-        n = len(rows)
-        p_len = bucket(n)
-        s_len = bucket(space, floor=bucket(k))
-        # one host buffer, one upload: rows | tf | dl | w | avgdl | grp
-        host = np.zeros((6, p_len), np.float32)
-        ints = host.view(np.int32)
-        ints[0] = -1
-        ints[0, :n] = rows
-        host[1, :n] = np.concatenate(tf_p)
-        host[2, :n] = np.concatenate(dl_p)
-        host[3, :n] = np.concatenate(w_p)
-        host[4] = 1.0
-        host[4, :n] = np.concatenate(ad_p)
-        ints[5, :n] = np.concatenate(g_p)
-        seg = np.zeros(len(tf_p) + 1, np.int32)
-        np.cumsum([len(t) for t in tf_p], out=seg[1:])
-        allow = np.zeros(s_len, bool)
-        allow[:space] = keep
-        dev_ent = torch.from_numpy(host).to(device)
-        dev_int = dev_ent.view(torch.int32)
-        r, tf, dl, w, ad = (dev_int[0], dev_ent[1], dev_ent[2], dev_ent[3],
-                            dev_ent[4])
-        t_seg = torch.from_numpy(seg).to(device)
-        t_allow = torch.from_numpy(allow).to(device)
+        host, p, g, s_len = sparse_operands(rows_p, tf_p, dl_p, segs, keep,
+                                            space, k)
+        dev = torch.from_numpy(host).to(device)
+        flt = dev.view(torch.float32)
+        o = 3 * p
+        rows, tf, dl = dev[:p], flt[p:2 * p], flt[2 * p:o]
+        seg = dev[o:o + g + 1]
+        seg_w = flt[o + g + 1:o + 2 * g + 1]
+        seg_avgdl = flt[o + 2 * g + 1:o + 3 * g + 1]
+        allow = dev[o + 4 * g + 1:].view(torch.bool)
         kk = min(k, s_len)
         if min_match > 1:
             return sops.sparse_score_topk_min_match(
-                r, tf, dl, w, ad, dev_int[5], t_allow, kk, float(self.k1),
+                rows, tf, dl, seg, seg_w, seg_avgdl,
+                dev[o + 3 * g + 1:o + 4 * g + 1], allow, kk, float(self.k1),
                 float(self.b), bucket(max(1, n_tokens), floor=2),
-                int(min_match), seg=t_seg)
-        return sops.sparse_score_topk(r, tf, dl, w, ad, t_allow, kk,
-                                      float(self.k1), float(self.b),
-                                      seg=t_seg)
+                int(min_match))
+        return sops.sparse_score_topk(rows, tf, dl, seg, seg_w, seg_avgdl,
+                                      allow, kk, float(self.k1),
+                                      float(self.b))
 
     def _device_sparse_mesh(self, *args, **kwargs):
         """The mesh form of the device scoring (entries partitioned by doc

@@ -12,8 +12,9 @@ dict-insertion order, and the top-k puts the lower slot first on equal
 scores as the host's stable sort puts the earlier key first, so the page
 order matches the host page, with scores equal up to float32 rounding.
 
-Kernel B6b (``csrc/hybrid.cu fusion_topk_kernel``) is the whole fusion in
-one launch a request on the card. The plain versions
+Kernel B6b (``csrc/hybrid.cu``: ``fusion_small_kernel`` for the widths
+hybrid search serves, ``fusion_topk_kernel`` for wider ones) is the whole
+fusion in one launch a request on the card. The plain versions
 (``ranked_fusion_plain``, ``relative_score_fusion_plain``) are the JAX
 programs step for step; ``ranked_fusion_topk`` and
 ``relative_score_fusion_topk`` take them for CPU tensors only, and on a
@@ -99,9 +100,35 @@ def relative_score_fusion_topk(slots, scores, weights, k: int, union: int):
     return fusion_topk_cuda(slots, scores, weights, k, union)
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fusion_path(legs: int, width: int, union: int, k: int) -> str:
+    """The path B6b takes at a shape: ``small`` (a warp a leg, the widths
+    hybrid search serves), ``shared`` (the general path, its buffers in
+    shared memory) or ``device`` (its buffers in device memory); the C
+    entry's choice, from the source's constants."""
+    c = sparse.CONST
+    if legs <= c["kFusionSmallLegs"] and width <= c["kFusionSmallLen"] \
+            and union <= c["kFusionSmallUnion"] and k <= c["kFusionSmallK"]:
+        return "small"
+    return "shared" if fusion_smem_bytes(legs, width, union) else "device"
+
+
+def fusion_smem_bytes(legs: int, width: int, union: int) -> int:
+    """The general path's shared memory at (legs, L, union): 0 where its
+    buffers go to device memory instead."""
+    b = (_align16(bucket(legs * width, 1) * 8) + _align16(union * 4)
+         + _align16(union))
+    return b if b <= sparse.CONST["kFusionSmem"] else 0
+
+
 def fusion_topk_cuda(slots, scores, weights, k: int, union: int):
-    """B6b on the card: one launch of ``fusion_topk_kernel`` (``scores``
-    None: rankedFusion), counted in ``launches``. Raises on arguments the
+    """B6b on the card: one launch of ``fusion_small_kernel`` or
+    ``fusion_topk_kernel`` (``scores`` None: rankedFusion), counted in
+    ``launches``, into one allocation (the page, and the general path's
+    device-memory buffers where it needs them). Raises on arguments the
     kernel does not take, or when the launch fails."""
     dev = slots.device
     if slots.dim() != 2 or slots.dtype != torch.int32 \
@@ -120,25 +147,22 @@ def fusion_topk_cuda(slots, scores, weights, k: int, union: int):
     if not 1 <= k <= union:
         raise ValueError(f"k={k} outside [1, union={union}]")
     lib = sparse._library()
-    out_v = torch.empty(k, dtype=torch.float32, device=dev)
-    out_i = torch.empty(k, dtype=torch.int32, device=dev)
-    g_acc = g_flag = g_keys = None
-    if lib.fusion_smem_bytes(legs, width, union) == 0:
-        g_acc = torch.empty(union, dtype=torch.float32, device=dev)
-        g_flag = torch.empty(union, dtype=torch.uint8, device=dev)
-        g_keys = torch.empty(bucket(legs * width, 1), dtype=torch.int64,
-                             device=dev)
-    with torch.cuda.device(dev):
+    page = -(-k // 4) * 4  # words: the scratch from 16 bytes
+    scratch = 0
+    if fusion_path(legs, width, union, k) == "device":
+        scratch = bucket(legs * width, 1) * 8 + union * 5
+    buf = torch.empty(2 * page + -(-scratch // 4), dtype=torch.int32,
+                      device=dev)
+    ptr = buf.data_ptr()
+    with sparse._launch_on(dev):
         err = lib.fusion_topk(
             slots.data_ptr(), None if scores is None else scores.data_ptr(),
             weights.data_ptr(), legs, width, union, k, int(scores is None),
-            *(None if t is None else t.data_ptr()
-              for t in (g_acc, g_flag, g_keys)),
-            out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            ptr + 8 * page if scratch else None, ptr, ptr + 4 * k,
+            torch.cuda.current_stream(dev).cuda_stream)
     sparse.raise_on(lib, err, "fusion_topk")
     fusion_topk_cuda.launches += 1
-    return out_v, out_i
+    return buf[:k].view(torch.float32), buf[k:2 * k]
 
 
 fusion_topk_cuda.launches = 0
@@ -147,9 +171,11 @@ fusion_topk_cuda.launches = 0
 def fuse_topk(slot_sets, score_sets, weights, k: int, algorithm: str,
               union_size: int, device=None):
     """Host-callable entry: pad each leg to one pow2 (legs x length)
-    bucket, run the requested fusion as one launch on ``device`` (the card
-    unless the caller names another), and hand back (slot ids [<=k] int32
-    np, fused scores [<=k] float32 np) with the absent tail trimmed.
+    bucket, pack slots, scores and weights into one host buffer and make
+    one upload, run the requested fusion as one launch on ``device`` (the
+    card unless the caller names another), and hand back (slot ids [<=k]
+    int32 np, fused scores [<=k] float32 np) in one download, with the
+    absent tail trimmed.
 
     slot_sets / score_sets: one int/float sequence per leg (rank order);
     union_size: distinct keys across all legs (slot ids are < this).
@@ -157,30 +183,34 @@ def fuse_topk(slot_sets, score_sets, weights, k: int, algorithm: str,
     from weaviate_tpu_torch.index.store import resolve_device
 
     global _dispatch_count
+    if algorithm not in ("rankedFusion", "relativeScoreFusion"):
+        raise ValueError(f"unknown fusion algorithm {algorithm!r}")
     dev = resolve_device(device)
     n_sets = max(1, len(slot_sets))
     l_max = bucket(max([1] + [len(s) for s in slot_sets]))
     union = bucket(max(union_size, k))
-    slots = np.full((n_sets, l_max), -1, np.int32)
-    scores = np.zeros((n_sets, l_max), np.float32)
+    cells = n_sets * l_max
+    # one buffer: slots [S, L] int32 | scores [S, L] float32 | weights [S]
+    host = np.zeros(2 * cells + n_sets, np.int32)
+    slots = host[:cells].reshape(n_sets, l_max)
+    scores = host[cells:2 * cells].view(np.float32).reshape(n_sets, l_max)
+    slots[:] = -1
     for i, ss in enumerate(slot_sets):
         slots[i, :len(ss)] = ss
         scores[i, :len(ss)] = score_sets[i]
-    w = np.zeros(n_sets, np.float32)
-    w[:len(weights)] = weights
+    host[2 * cells:2 * cells + len(weights)].view(np.float32)[:] = weights
+    t = torch.from_numpy(host).to(dev)
+    t_slots = t[:cells].view(n_sets, l_max)
+    t_w = t[2 * cells:].view(torch.float32)
     kk = min(k, union)
-    t_slots = torch.from_numpy(slots).to(dev)
-    t_w = torch.from_numpy(w).to(dev)
     if algorithm == "rankedFusion":
         vals, ids = ranked_fusion_topk(t_slots, t_w, kk, union)
-    elif algorithm == "relativeScoreFusion":
-        vals, ids = relative_score_fusion_topk(
-            t_slots, torch.from_numpy(scores).to(dev), t_w, kk, union)
     else:
-        raise ValueError(f"unknown fusion algorithm {algorithm!r}")
+        vals, ids = relative_score_fusion_topk(
+            t_slots, t[cells:2 * cells].view(torch.float32).view(
+                n_sets, l_max), t_w, kk, union)
     _dispatch_count += 1
     # result materialization: the one host sync of the fusion stage
-    out_ids = ids.cpu().numpy()
-    out_vals = vals.cpu().numpy()
+    out_vals, out_ids = sparse.page_to_host(vals, ids)
     live = out_ids >= 0
     return out_ids[live], out_vals[live]
