@@ -60,7 +60,8 @@ non-zero without the final line:
              and reopen seconds, search p50/p99, the kernel's share of a
              search, device memory.
 6. hnsw    — ``HNSWIndex`` at the GloVe-25 configuration of the JAX
-             package's ``bench.py bench_glove``: HNSW_ROWS seeded unit
+             package's ``bench.py bench_glove``, cut in depth (cut 8):
+             HNSW_ROWS seeded unit
              25-d rows, cosine, ef 64, ef_construction 96, M 16, the fused
              walk (B2) for search and layer-0 construction. Build rate,
              launches and B2's summed time in the build, recall@10 against
@@ -133,6 +134,24 @@ non-zero without the final line:
              time a pass, B6a's and B6b's launches (above zero, asserted)
              and times on the main path's inputs, recall@10 against the
              exact hybrid ranking, device memory.
+14. rerank — slice 7a through the user's entry points: a ``DB``
+             collection with a multivector target (MV_DOCS documents of
+             40-180 unit 128-d tokens, ColBERTv2's shapes; MUVERA at
+             Weaviate's defaults: ksim 4, dprojections 16, repetitions 10,
+             rescore 4k) searched by 256 queries of 32 tokens, k 10: the
+             FDE scan, then B7a; recall@10 against the exact MaxSim over
+             every document (on the card, in chunks), p50/p99, B7a's
+             launches and time, ingest documents/s. The HNSW rerank tier
+             at ``bench.py bench_rerank``'s configuration (RR_ROWS 128-d
+             rows, 4 tokens a row, ef 96, M 16): recall@10 and NDCG@10
+             against the exact MaxSim with and without rerank, one B2 and
+             one B7a launch a search (asserted). The multi-target cell at
+             ``bench_multitarget``'s 2t corpus (768-d and 256-d HNSW
+             targets, MT_ROWS objects): 32 queries under each of the five
+             combinations, recall@10 against the host oracle, p50, two B2
+             launches and one B7b launch a search (asserted).
+             Phase ``kernels`` holds B7a (``b7_rerank_grid``) and B7b
+             (``b7_join_grid``) against their plain versions on the card.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -172,15 +191,22 @@ from weaviate_tpu_torch.monitoring.metrics import (
     HYBRID_LEG_SECONDS,
     PLANNER_PLANS,
 )
+from weaviate_tpu_torch.modules.device import (
+    LinearRerank,
+    MaxSimRerank,
+    RerankRequest,
+)
 from weaviate_tpu_torch.ops import (
     device_beam,
     fused_flat,
     fusion,
     quantized,
+    rerank,
     sparse,
 )
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, flat_search, normalize
 from weaviate_tpu_torch.query.fusion import relative_score_fusion
+from weaviate_tpu_torch.query.multi_target import join_mode, weight_row
 from weaviate_tpu_torch.query.planner import PLAN_BEAM, PLAN_EXACT
 from weaviate_tpu_torch.schema.config import (
     BQConfig,
@@ -189,8 +215,10 @@ from weaviate_tpu_torch.schema.config import (
     FlatIndexConfig,
     HNSWIndexConfig,
     MultiTenancyConfig,
+    MultiVectorIndexConfig,
     PQConfig,
     Property,
+    RerankModuleConfig,
     RQConfig,
     SQConfig,
 )
@@ -322,7 +350,7 @@ def phase_env() -> dict:
         _native_build(lib) for lib in ("segment_merge", "bm25_wand")))
     host.start()
     logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL,
-                        quantized.KERNEL, sparse.KERNEL)
+                        quantized.KERNEL, sparse.KERNEL, rerank.KERNEL)
     host.join()
     errs = [e for e in host_err if e]
     if errs:
@@ -445,7 +473,9 @@ def phase_kernels(seed: int) -> dict:
             "q1_q2": quant_kernel_grid(seed),
             "merge": merge_edges(seed),
             "b6a": b6_sparse_grid(seed),
-            "b6b": b6_fusion_grid(seed)}
+            "b6b": b6_fusion_grid(seed),
+            "b7a": b7_rerank_grid(seed),
+            "b7b": b7_join_grid(seed)}
 
 
 # Q1/Q2 grid: batches, widths, fetch widths, masked shares (1% and 50%);
@@ -1518,7 +1548,9 @@ def _drive_db(state, root, uuids, uuid_arr, vocab, words, bucket, queries,
 
 # phase hnsw: bench.py bench_glove's configuration and data (seed 7, unit
 # iid normal 25-d rows, queries = the first 256 rows + 0.08 noise)
-HNSW_ROWS, HNSW_DIMS, HNSW_SEED = 1_200_000, 25, 7
+# cut 8: config 2's 1,200,000 rows cut to a fixed 262,144, to make room for
+# phase rerank within the time limit (PERF.md section 4)
+HNSW_ROWS, HNSW_DIMS, HNSW_SEED = 262_144, 25, 7
 HNSW_EF, HNSW_EFC, HNSW_M, HNSW_INSERT = 64, 96, 16, 4096
 HNSW_ADD_STEP = 100_000
 EF_SWEEP = (64, 128, 256, 512)
@@ -1563,16 +1595,27 @@ def host_p(fn, n: int) -> list[float]:
     return out
 
 
-class LaunchSpy:
-    """Wraps B2's wrapper while it is installed: CUDA events around every
-    launch (``ms()`` sums them), the arguments of the last launch, and
-    those of the widest (the latest of the most query rows)."""
+def _rows(a) -> int:
+    """The query rows of a B2 launch's arguments."""
+    return a[1].shape[0]
 
-    def __init__(self):
+
+class KernelSpy:
+    """Wraps the kernel wrapper ``module.name`` while installed (B2's by
+    default): CUDA events around every call (``times()`` each, ``ms()``
+    their sum), the arguments of the last call, and those of the widest
+    (the latest of the largest ``width(args)``; none without ``width``). A
+    wrapper that counts its launches on the module attribute of its own
+    name keeps counting on the spy while it is installed, and the count
+    goes back to the wrapper when the spy leaves."""
+
+    def __init__(self, module=device_beam, name: str = "fused_search_cuda",
+                 width=_rows):
+        self.module, self.name, self.width = module, name, width
         self.events, self.last, self.widest = [], None, None
 
     def __enter__(self):
-        self.real = device_beam.fused_search_cuda
+        self.real = getattr(self.module, self.name)
 
         def spy(*a, **kw):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -1582,20 +1625,32 @@ class LaunchSpy:
             e1.record()
             self.events.append((e0, e1))
             self.last = (a, kw)
-            rows = a[1].shape[0]
-            if self.widest is None or rows >= self.widest[0][1].shape[0]:
+            if self.width is not None and (
+                    self.widest is None
+                    or self.width(a) >= self.width(self.widest[0])):
                 self.widest = (a, kw)
             return out
 
-        device_beam.fused_search_cuda = spy
+        if hasattr(self.real, "launches"):
+            spy.launches = self.real.launches
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        device_beam.fused_search_cuda = self.real
+        if hasattr(self.real, "launches"):
+            self.real.launches = getattr(self.module, self.name).launches
+        setattr(self.module, self.name, self.real)
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.module, self.name).launches
+
+    def times(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
 
     def ms(self) -> float:
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
+        return sum(self.times())
 
 
 def scorer_row(scorer, operands) -> tuple[int, int, float]:
@@ -1737,7 +1792,7 @@ def phase_hnsw(state: dict) -> dict:
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
     marks = []
-    with LaunchSpy() as build_spy:
+    with KernelSpy() as build_spy:
         for s in range(0, HNSW_ROWS, HNSW_ADD_STEP):
             idx.add_batch(ids[s:s + HNSW_ADD_STEP],
                           corpus[s:s + HNSW_ADD_STEP])
@@ -1766,7 +1821,7 @@ def phase_hnsw(state: dict) -> dict:
     # B2 alone at the main path's shapes: the search's launch, and one
     # construction launch (the build's widest: the rows of a sub-batch that
     # fit the visited budget, ef_construction padded)
-    with LaunchSpy() as spy:
+    with KernelSpy() as spy:
         idx.search(queries, K)
     args, kw = spy.last
     walk = time_walk(args, kw, 30, 3)
@@ -1952,7 +2007,7 @@ def _drive_hnsw_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     # with the kept track and a two-hop budget of 1
     plans = PLANNER_PLANS.value(plan=PLAN_BEAM)
     device_beam.fused_search.launches = 0
-    with LaunchSpy() as spy:
+    with KernelSpy() as spy:
         rows_b = db_search(col, queries, beam_flt)
     beam_launches = device_beam.fused_search.launches
     if PLANNER_PLANS.value(plan=PLAN_BEAM) != plans + 1:
@@ -2650,7 +2705,7 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
     idx = HNSWIndex(d, cfg)
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
-    with LaunchSpy() as build_spy:
+    with KernelSpy() as build_spy:
         for s in range(0, rows, add_step):
             e = min(rows, s + add_step)
             idx.add_batch(np.arange(s, e), corpus[s:e])
@@ -2671,7 +2726,7 @@ def hnsw_quantized(kind: str, corpus: np.ndarray, queries: np.ndarray,
                              "launches, not one")
     rec = recall(res.ids, gt)
     search_ms = host_p(lambda: idx.search(queries, K), 20)
-    with LaunchSpy() as spy:
+    with KernelSpy() as spy:
         idx.search(queries, K)
     walk = time_walk(*spy.last, 20, 1)
     # the build's widest launch: the rows of a sub-batch that fit the
@@ -2841,7 +2896,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
         resident_filters=[beam_flt.to_dict()]))
     device_beam.fused_search.launches = 0
     t0 = time.perf_counter()
-    with LaunchSpy() as build_spy:
+    with KernelSpy() as build_spy:
         put(col, 0, n)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
@@ -2886,7 +2941,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
     # kept track
     plans = PLANNER_PLANS.value(plan=PLAN_BEAM)
     device_beam.fused_search.launches = 0
-    with LaunchSpy() as spy:
+    with KernelSpy() as spy:
         rows_b = db_search(col, queries, beam_flt)
     beam_launches = device_beam.fused_search.launches
     if PLANNER_PLANS.value(plan=PLAN_BEAM) != plans + 1 or beam_launches != 1 \
@@ -2903,7 +2958,7 @@ def _drive_quant_db(state, root, rows, queries, uuids, uuid_arr, bucket):
                              "cosine")]
     rec_b = recall(got_b, uuid_arr[gt_b])
     beam_walk = time_walk(*spy.last, 10, 1)
-    with LaunchSpy() as spy:
+    with KernelSpy() as spy:
         db_search(col, queries)
     walk = time_walk(*spy.last, 10, 1)
     cwalk = time_walk(*build_spy.widest, 5, 1)
@@ -3334,32 +3389,9 @@ def hybrid_truth(post: dict, dl: torch.Tensor, blk: torch.Tensor, terms,
     return [d for d, _ in fused]
 
 
-class CallSpy:
-    """Wraps a kernel wrapper of ``module`` while installed, keeping the
-    arguments of its widest call (the most entries or slots: its first
-    argument's size). The wrapper counts its launches on the module
-    attribute of its own name, so while the spy is installed the count
-    lands on the spy, and goes back to the wrapper when it leaves."""
-
-    def __init__(self, module, name: str):
-        self.module, self.name, self.widest = module, name, None
-
-    def __enter__(self):
-        self.real = getattr(self.module, self.name)
-
-        def spy(*a, **kw):
-            if self.widest is None or \
-                    a[0].numel() >= self.widest[0][0].numel():
-                self.widest = (a, kw)
-            return self.real(*a, **kw)
-
-        spy.launches = self.real.launches
-        setattr(self.module, self.name, spy)
-        return self
-
-    def __exit__(self, *exc):
-        self.real.launches = getattr(self.module, self.name).launches
-        setattr(self.module, self.name, self.real)
+def _numel0(a) -> int:
+    """The entries or slots of a B6 launch: its first argument's size."""
+    return a[0].numel()
 
 
 def check_pages(got, want, what: str) -> None:
@@ -3490,8 +3522,8 @@ def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
     sparse.sparse_topk_cuda.launches = 0
     fusion.fusion_topk_cuda.launches = 0
     q2_before = quantized.sq_search.launches
-    with CallSpy(sparse, "sparse_topk_cuda") as b6a_spy, \
-            CallSpy(fusion, "fusion_topk_cuda") as b6b_spy:
+    with KernelSpy(sparse, "sparse_topk_cuda", _numel0) as b6a_spy, \
+            KernelSpy(fusion, "fusion_topk_cuda", _numel0) as b6b_spy:
         for name in passes:
             counts = (sparse.sparse_topk_cuda.launches,
                       fusion.fusion_topk_cuda.launches,
@@ -3625,6 +3657,742 @@ def _drive_hybrid(state, root, tenants, pool, qvecs) -> dict:
             "peak_device_bytes": peak, "card": state["card"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 7a: the rerank stage (B7a), multivector, multi-target (B7b)
+# ---------------------------------------------------------------------------
+
+# B7a against its plain version: float32 sums of the same products in
+# another order, scores of unit-norm tokens (at most Tq = 32 a score)
+B7A_ATOL, B7A_RTOL = 2e-4, 1e-5
+B7A_GRID = dict(tq=(1, 32), t=(4, 256), d=(128, 768), c=(64, 1024),
+                out_k=(8, 64))
+# and the kernel's other paths: (b, tq, t, d, c, out_k) with D off 16-byte
+# rows, two chunks of query tokens, query tokens past shared memory (read
+# from L2), scores staged past 48 KB, and scores past shared memory
+B7A_EDGES = ((2, 5, 8, 99, 100, 10), (2, 40, 16, 128, 256, 32),
+             (1, 64, 4, 2048, 64, 8), (1, 1, 4, 128, 20_000, 64),
+             (1, 2, 4, 64, 60_000, 64))
+# the multivector cell: ColBERTv2's shapes (colbert-ir/colbertv2.0: 128-d
+# L2-normalised tokens, documents of up to 180 tokens, queries of 32) and
+# Weaviate's MUVERA defaults (ksim 4, dprojections 16, repetitions 10)
+MV_DOCS, MV_DIMS, MV_TQ = 32_768, 128, 32
+MV_TOKENS = (40, 180)
+MV_QUERIES, MV_BATCH, MV_SEED = 256, 1024, 41
+# documents in clusters of 16 that share 6 of their 10 topics (4,096 topic
+# centres); a token is a topic centre + noise of norm about 1, normalised;
+# a query token a document token + noise of norm about 0.5, normalised
+MV_TOPICS, MV_CLUSTER, MV_SHARED, MV_OWN = 4096, 16, 6, 4
+MV_TOKEN_NOISE, MV_QUERY_NOISE = 1.0, 0.5
+# the HNSW rerank cell: bench.py bench_rerank's configuration
+RR_ROWS, RR_DIMS, RR_TOKENS, RR_BATCH, RR_QUERIES = 32_768, 128, 4, 64, 64
+# the multi-target cell: bench.py bench_multitarget's 2t corpus
+MT_ROWS, MT_DIMS, MT_QUERIES = 32_768, {"a": 768, "b": 256}, 32
+# the fused search joins the same walks as the host oracle, so their top
+# 10s agree: less agreement than this is a fault
+MT_MIN_ORACLE_RECALL = 0.9
+MT_COMBOS = (("sum", None), ("average", None), ("minimum", None),
+             ("manualWeights", {"a": 0.7, "b": 0.3}),
+             ("relativeScore", {"a": 0.7, "b": 0.3}))
+
+
+def unit_rows(gen, shape) -> torch.Tensor:
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    return (x / (x.norm(dim=-1, keepdim=True) + 1e-12)).contiguous()
+
+
+def b7a_bound_ms(cand, tmask, qm, d: int) -> tuple[float, str, dict]:
+    """The least time of one B7a launch on this run's inputs: the valid
+    candidates' kept tokens read once (D float32 and a mask byte each),
+    their mask rows, the query tokens, the ids and the outputs, over the
+    memory rate, against 2 x (kept query tokens) x (kept candidate
+    tokens) x D float32 operations over the float32 peak."""
+    n = tmask.shape[0]
+    ok = (cand >= 0) & (cand < n)
+    rows = cand.clamp(0, n - 1).long()
+    kept = (tmask[rows].sum(-1) * ok).to(torch.float64)       # [B, C]
+    qkept = qm.sum(-1).to(torch.float64)                        # [B]
+    t = tmask.shape[1]
+    nbytes = float(kept.sum() * (4 * d) + ok.sum() * t
+                   + qm.numel() * (4 * d + 1) + cand.numel() * 4)
+    flops = float(2 * (qkept[:, None] * kept).sum() * d)
+    tb, to = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations",
+            {"bytes": nbytes, "flops": flops})
+
+
+def check_b7a(args, module, out_k: int) -> dict:
+    """B7a against its plain version on the same inputs: scores within
+    B7A_ATOL + B7A_RTOL * |plain|, sentinel slots alike, and where ids
+    differ the kernel's id scores (in the plain version) within that
+    tolerance of the plain score at the slot: a near tie."""
+    cand, tokens, tmask, q, qm = args
+    ki, kd = rerank.rerank_topk_cuda(*args, module, out_k)
+    pi, pd = rerank.rerank_topk_plain(*args, module, out_k)
+    valid, sc = rerank._module_scores(module, cand, tokens, tmask, q, qm)
+    sc = torch.where(valid, sc, -torch.inf)
+    torch.cuda.synchronize()
+    live = pd < MASK_DISTANCE
+    tol = B7A_ATOL + B7A_RTOL * pd.abs()
+    err = (kd - pd).abs()
+    if bool((err[live] > tol[live]).any()):
+        raise AssertionError(f"B7a scores differ: max {err[live].max()}")
+    if not bool(((ki == -1) == ~live).all() and ((pi == -1) == ~live).all()
+                and (kd[~live] >= MASK_DISTANCE).all()):
+        raise AssertionError("B7a sentinel slots differ from (-1, mask)")
+    diff = (ki != pi) & live
+    if bool(diff.any()):
+        eq = cand[:, None, :] == ki[:, :, None]
+        own = torch.where(eq, sc[:, None, :], -torch.inf).amax(-1)
+        if bool(((-own - pd).abs() > tol)[diff].any()):
+            raise AssertionError("B7a ids differ beyond a near tie")
+    n_live = int(live.sum())
+    return {"max_abs_err": float(err[live].max()) if n_live else 0.0,
+            "slots": n_live, "near_ties": int(diff.sum())}
+
+
+def b7_rerank_grid(seed: int) -> dict:
+    """B7a over Tq, T, D, C and out_k of B7A_GRID and both modules, on
+    unit-norm token planes with partly masked rows (a kept prefix of 1 to
+    T tokens), fully masked rows, twin rows (exact ties between ids), a
+    repeated id, -1 pads and masked query tokens; B = 2 (3 at the small
+    shapes)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+    modules = (MaxSimRerank(), LinearRerank(w_max=1.0, w_mean=0.25,
+                                            bias=0.5))
+    cases, worst, slots, ties = 0, 0.0, 0, 0
+    for t in B7A_GRID["t"]:
+        for d in B7A_GRID["d"]:
+            for c in B7A_GRID["c"]:
+                n = c + 64
+                tokens = unit_rows(gen, (n, t, d))
+                keep = torch.randint(1, t + 1, (n,), generator=gen,
+                                     device="cuda")
+                tmask = torch.arange(t, device="cuda")[None, :] < keep[:, None]
+                tmask[::17] = False               # row 0 among them
+                tokens[3] = tokens[2]             # twins: exact ties
+                tmask[3] = tmask[2]
+                b = 2 if t * d * c > 64 * 768 * 64 else 3
+                cand = torch.randint(0, n, (b, c), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+                cand[:, 0], cand[:, 1], cand[:, 2] = 0, 2, 3
+                cand[:, 4] = cand[:, 5]           # a repeated id
+                cand[:, c - c // 8:] = -1
+                for tq in B7A_GRID["tq"]:
+                    q = unit_rows(gen, (b, tq, d))
+                    qm = torch.ones((b, tq), dtype=torch.bool, device="cuda")
+                    qm[:, tq - tq // 4:] = False
+                    for out_k in B7A_GRID["out_k"]:
+                        for module in modules:
+                            r = check_b7a((cand, tokens, tmask, q, qm),
+                                          module, out_k)
+                            cases += 1
+                            worst = max(worst, r["max_abs_err"])
+                            slots += r["slots"]
+                            ties += r["near_ties"]
+                del q, qm
+                del tokens, tmask, cand
+                torch.cuda.empty_cache()
+    for b, tq, t, d, c, out_k in B7A_EDGES:
+        n = c + 64
+        tokens = unit_rows(gen, (n, t, d))
+        keep = torch.randint(1, t + 1, (n,), generator=gen, device="cuda")
+        tmask = torch.arange(t, device="cuda")[None, :] < keep[:, None]
+        cand = torch.randint(-1, n, (b, c), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        q = unit_rows(gen, (b, tq, d))
+        qm = torch.ones((b, tq), dtype=torch.bool, device="cuda")
+        for module in modules:
+            r = check_b7a((cand, tokens, tmask, q, qm), module, out_k)
+            cases += 1
+            worst = max(worst, r["max_abs_err"])
+            slots += r["slots"]
+            ties += r["near_ties"]
+        del tokens, tmask, cand, q, qm
+        torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": worst, "slots": slots,
+            "near_ties": ties,
+            "tolerance": {"atol": B7A_ATOL, "rtol": B7A_RTOL}}
+
+
+def join_legs(gen) -> list:
+    """One leg a row type, each its own capacity: (name, scorer, operands,
+    queries [8, ...], present [cap])."""
+    b = 8
+    specs = (("raw", "cosine", 96, 3000), ("bq", "l2-squared", 256, 2500),
+             ("sq", "l2-squared", 128, 3000), ("pq", "l2-squared", 128, 2000),
+             ("rq", "cosine", 128, 3000))
+    legs = []
+    for kind, metric, d, cap in specs:
+        rows = torch.randn(cap, d, generator=gen, device="cuda")
+        q = rows[:b] + 0.1 * torch.randn(b, d, generator=gen, device="cuda")
+        if kind == "raw":
+            scorer = device_beam.RawScorer(metric, "bf16")
+            ops, qrep = (normalize(rows).contiguous(),), normalize(q)
+        else:
+            scorer, ops, qrep = quant_walk_inputs(kind, metric, rows, q,
+                                                  segments=16)
+        present = torch.rand(cap, generator=gen, device="cuda") < 0.9
+        legs.append((kind, scorer, ops, qrep.contiguous(), present))
+    return legs
+
+
+def join_pools(gen, legs, fetch: int) -> list:
+    """[8, fetch + 8] pools: ids up to 200 past the widest capacity, the
+    first quarter of each shared with the first pool (duplicates across
+    pools), a repeat inside a pool, -1 pads."""
+    top = max(leg[4].shape[0] for leg in legs) + 200
+    pools = []
+    for i in range(len(legs)):
+        p = torch.randint(0, top, (8, fetch + 8), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        if pools:
+            p[:, : fetch // 4] = pools[0][:, : fetch // 4]
+        p[:, fetch // 2] = p[:, fetch // 2 + 1]
+        p[:, fetch - 3:fetch] = -1
+        pools.append(p.contiguous())
+    return pools
+
+
+def check_b7b(args, fetch: int, join: str) -> dict:
+    """B7b against its plain version: joined distances slot for slot
+    within ATOL + RTOL * |plain|, sentinel slots alike, no id twice; where
+    ids differ, the kernel's id is in the plain version's union with a
+    joined distance within that tolerance of the plain one at the slot: a
+    near tie."""
+    ki, kd = device_beam.mt_join_topk_cuda(*args, fetch, join)
+    pi, pd = device_beam.mt_join_topk_plain(*args, fetch, join)
+    union, joined = device_beam._mt_joined(*args, fetch, join)
+    torch.cuda.synchronize()
+    live = pd < MASK_DISTANCE
+    tol = ATOL + RTOL * pd.abs()
+    err = (kd - pd).abs()
+    if bool((err[live] > tol[live]).any()):
+        raise AssertionError(f"B7b distances differ: max {err[live].max()}")
+    if not bool(((ki == -1) == ~live).all() and ((pi == -1) == ~live).all()):
+        raise AssertionError("B7b sentinel slots differ from -1")
+    for row in ki.cpu().numpy():
+        row = row[row >= 0]
+        if len(np.unique(row)) != len(row):
+            raise AssertionError("B7b returned an id twice")
+    diff = (ki != pi) & live
+    if bool(diff.any()):
+        eq = union[:, None, :] == ki[:, :, None].long()
+        own = torch.where(eq, joined[:, None, :], torch.inf).amin(-1)
+        if bool(((own - pd).abs() > tol)[diff].any()):
+            raise AssertionError("B7b ids differ beyond a near tie")
+    n_live = int(live.sum())
+    return {"max_abs_err": float(err[live].max()) if n_live else 0.0,
+            "slots": n_live, "near_ties": int(diff.sum())}
+
+
+def b7_join_grid(seed: int) -> dict:
+    """B7b over 2 and 3 targets of every row type (raw bf16 cosine, BQ,
+    SQ, PQ through its ADC table, RQ), fetch 64 and 256, the three joins,
+    on pools with duplicates across pools, members missing a target (a
+    tenth of each target's rows absent) and ids past a target's
+    capacity."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 73)
+    legs = join_legs(gen)
+    combos = ((0, 1), (2, 3), (4, 0), (0, 2, 4), (1, 3, 2))
+    cases, worst, slots, ties = 0, 0.0, 0, 0
+    kinds = set()
+    for combo in combos:
+        sel = [legs[i] for i in combo]
+        kinds.update(leg[0] for leg in sel)
+        for fetch in (64, 256):
+            pools = join_pools(gen, sel, fetch)
+            w = 0.2 + torch.rand(8, len(sel), generator=gen, device="cuda")
+            args = ([leg[1] for leg in sel], [leg[3] for leg in sel],
+                    [leg[2] for leg in sel], [leg[4] for leg in sel], pools,
+                    w.contiguous())
+            for join in ("weighted", "minimum", "relative"):
+                r = check_b7b(args, fetch, join)
+                cases += 1
+                worst = max(worst, r["max_abs_err"])
+                slots += r["slots"]
+                ties += r["near_ties"]
+    return {"cases": cases, "row_types": sorted(kinds), "max_abs_err": worst,
+            "slots": slots, "near_ties": ties,
+            "tolerance": {"atol": ATOL, "rtol": RTOL}}
+
+
+def exact_maxsim(q_tokens, q_mask, tokens, tmask, k: int, valid=None,
+                 chunk: int = 128):
+    """Exact MaxSim top-k of each query token set against every row of the
+    token plane (bench.py ``_exact_maxsim_gt`` on the card: chunked
+    float32 products, TF32 off, a running top-k); rows without a kept
+    token, or outside ``valid``, never rank. -> (ids, scores) numpy."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nq, tq, d = q_tokens.shape
+    n, t, _ = tokens.shape
+    qf = q_tokens.reshape(nq * tq, d)
+    top_s = torch.full((nq, k), -torch.inf, device="cuda")
+    top_i = torch.full((nq, k), -1, dtype=torch.long, device="cuda")
+    live = tmask.any(1) if valid is None else (tmask.any(1) & valid)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        sims = (qf @ tokens[s:e].reshape(-1, d).T).reshape(nq, tq, e - s, t)
+        sims = torch.where(tmask[s:e][None, None], sims, -torch.inf)
+        best = sims.amax(-1)
+        best = torch.where(torch.isfinite(best), best, 0.0)
+        best = torch.where(q_mask[:, :, None], best, 0.0)
+        sc = torch.where(live[s:e][None], best.sum(1), -torch.inf)
+        ms = torch.cat([top_s, sc], 1)
+        mi = torch.cat([top_i, torch.arange(s, e, device="cuda").expand(
+            nq, -1)], 1)
+        top_s, sel = ms.topk(k, dim=1)
+        top_i = torch.gather(mi, 1, sel)
+    return top_i.cpu().numpy(), top_s.cpu().numpy()
+
+
+def ndcg_at_k(result_ids, gt_ids, gt_scores, k: int) -> float:
+    """bench.py ``_ndcg_at_k``: NDCG@k with the exact MaxSim scores as
+    graded gains (min-shifted per query); ids outside the truth gain 0."""
+    out = []
+    log2 = np.log2(np.arange(2, k + 2))
+    for i in range(len(result_ids)):
+        floor = float(gt_scores[i].min())
+        gains = {int(d): max(0.0, float(s) - floor) + 1e-9
+                 for d, s in zip(gt_ids[i], gt_scores[i])}
+        dcg = sum(gains.get(int(d), 0.0) / log2[j]
+                  for j, d in enumerate(result_ids[i][:k]))
+        idcg = sum(g / log2[j] for j, g in enumerate(
+            sorted(gains.values(), reverse=True)[:k]))
+        out.append(dcg / idcg if idcg > 0 else 0.0)
+    return float(np.mean(out))
+
+
+def b7a_entry(args, module, out_k: int, launches: int, iters: int = 50
+              ) -> dict:
+    """B7a at a main path's captured inputs: its time, its plain version's
+    and its bound, beside its launches on the main path."""
+    err = check_b7a(args, module, out_k)["max_abs_err"]
+    ms = cuda_ms(lambda: rerank.rerank_topk_cuda(*args, module, out_k),
+                 iters)
+    plain = cuda_ms(lambda: rerank.rerank_topk_plain(*args, module, out_k),
+                    max(3, iters // 10))
+    bound, by, work = b7a_bound_ms(args[0], args[2], args[4],
+                                   args[1].shape[2])
+    return {"ms": float(np.median(ms)), "plain_ms": float(np.median(plain)),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "launches": launches, "work": work,
+            "shape": {"b": int(args[0].shape[0]), "c": int(args[0].shape[1]),
+                      "t": int(args[1].shape[1]), "d": int(args[1].shape[2]),
+                      "tq": int(args[3].shape[1]), "out_k": out_k}}
+
+
+def rerank_multivector(state: dict) -> dict:
+    """The multivector cell through ``DB``: MV_DOCS documents of 40-180
+    unit 128-d tokens, clustered (MV_CLUSTER documents share MV_SHARED of
+    their topics), in a collection whose target is
+    ``MultiVectorIndexConfig`` at MUVERA's defaults; MV_QUERIES queries of
+    32 tokens jittered from a document's, k 10, one at a time."""
+    gen = torch.Generator(device="cuda").manual_seed(MV_SEED)
+    rng = np.random.default_rng(MV_SEED)
+    t0 = time.perf_counter()
+    centres = unit_rows(gen, (MV_TOPICS, MV_DIMS))
+    lens = rng.integers(MV_TOKENS[0], MV_TOKENS[1] + 1, MV_DOCS)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    n_topics = MV_SHARED + MV_OWN
+    shared = torch.randint(0, MV_TOPICS, (MV_DOCS // MV_CLUSTER + 1,
+                                          MV_SHARED), generator=gen,
+                           device="cuda")
+    own = torch.randint(0, MV_TOPICS, (MV_DOCS, MV_OWN), generator=gen,
+                        device="cuda")
+    topics = torch.cat([shared[torch.arange(MV_DOCS, device="cuda")
+                               // MV_CLUSTER], own], 1)
+    doc_of = torch.from_numpy(np.repeat(np.arange(MV_DOCS), lens)).cuda()
+    pick = torch.randint(0, n_topics, (int(offs[-1]),), generator=gen,
+                         device="cuda")
+    tok = centres[topics[doc_of, pick]] + MV_TOKEN_NOISE / MV_DIMS ** 0.5 \
+        * torch.randn(int(offs[-1]), MV_DIMS, generator=gen, device="cuda")
+    tok = (tok / tok.norm(dim=1, keepdim=True)).cpu().numpy()
+    del doc_of, pick, topics
+    qdoc = rng.choice(MV_DOCS, MV_QUERIES, replace=False)
+    q_tokens = np.empty((MV_QUERIES, MV_TQ, MV_DIMS), np.float32)
+    for i, dd in enumerate(qdoc):
+        sel = rng.choice(lens[dd], MV_TQ, replace=False)
+        q = tok[offs[dd] + sel] + MV_QUERY_NOISE / MV_DIMS ** 0.5 \
+            * rng.standard_normal((MV_TQ, MV_DIMS)).astype(np.float32)
+        q_tokens[i] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    uuids = _uuids(rng, MV_DOCS)
+    data_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_multivector_")
+    try:
+        db = DB(root)
+        col = db.create_collection(CollectionConfig(
+            name="Colbert", properties=[Property("bucket", DataType.INT)],
+            vector_config=MultiVectorIndexConfig(
+                ksim=4, dproj=16, repetitions=10, rescore_limit=0,
+                initial_capacity=MV_DOCS)))
+        t1 = time.perf_counter()
+        for s in range(0, MV_DOCS, MV_BATCH):
+            col.put_batch([StorageObject(
+                uuid=uuids[i], collection="Colbert",
+                vector=tok[offs[i]:offs[i + 1]],
+                properties={"bucket": i % 100})
+                for i in range(s, min(MV_DOCS, s + MV_BATCH))])
+        ingest_s = time.perf_counter() - t1
+        idx = next(iter(col._shards.values())).vector_index()
+        # the served path: launches from 0, one B7a launch a query
+        with KernelSpy(rerank, "rerank_topk_cuda", None) as spy:
+            l_start = spy.launches
+            col.vector_search(q_tokens[0], K)
+            spy.events.clear()
+            spy_launch0 = spy.launches
+            got, lat = [], []
+            for i in range(MV_QUERIES):
+                ts = time.perf_counter()
+                page = col.vector_search(q_tokens[i], K)
+                lat.append((time.perf_counter() - ts) * 1e3)
+                got.append([o.doc_id for o, _ in page])
+            launches = spy.launches - spy_launch0
+            main_launches = spy.launches - l_start
+            dev_ms = spy.times()
+            args, kw = spy.last
+        if launches != MV_QUERIES:
+            raise AssertionError(f"{launches} B7a launches for "
+                                 f"{MV_QUERIES} multivector searches")
+        toks, tmask = idx._token_store.sync()
+        valid = idx.inner.store.snapshot()[1]
+        qt = torch.from_numpy(q_tokens).cuda()
+        gt_ids, _ = exact_maxsim(qt, torch.ones(qt.shape[:2], dtype=torch.bool,
+                                               device="cuda"), toks, tmask, K,
+                                 valid=valid)
+        ids = np.full((MV_QUERIES, K), -1, np.int64)
+        for i, row in enumerate(got):
+            ids[i, :len(row)] = row
+        rec = recall(ids, gt_ids)
+        entry = b7a_entry(args[:5], args[5], args[6], launches)
+        peak = torch.cuda.max_memory_allocated()
+        out = {"docs": MV_DOCS, "dims": MV_DIMS, "tokens": list(MV_TOKENS),
+               "token_rows": int(offs[-1]), "query_tokens": MV_TQ,
+               "queries": MV_QUERIES, "k": K,
+               "fde_dim": idx.encoder.fde_dim, "data_s": data_s,
+               "ingest_s": ingest_s, "docs_per_s": MV_DOCS / ingest_s,
+               "search_p50_ms": float(np.percentile(lat, 50)),
+               "search_p99_ms": float(np.percentile(lat, 99)),
+               "recall_at_10": rec, "b7a_launches": launches,
+               "b7a_launches_main_path": main_launches,
+               "b7a_ms_median": float(np.median(dev_ms)),
+               "b7a": entry,
+               "token_plane_device_bytes": idx._token_store.nbytes,
+               "token_plane_host_bytes": idx._token_store.host_bytes,
+               "peak_device_bytes": peak}
+        del toks, tmask, valid, args, kw
+        db.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def rerank_hnsw(state: dict) -> dict:
+    """The HNSW rerank tier at bench_rerank's configuration: RR_ROWS
+    128-d rows around n / 2000 centres (noise 0.3), 4 jittered tokens a row
+    (set_tokens), l2-squared, ef 96, ef_construction 96, M 16, insert_batch
+    4096, ``RerankModuleConfig("rerank-maxsim", max_tokens=4)``; 64 queries
+    (a row's tokens + 0.05 noise, their mean the query vector) one at a
+    time for quality, a batch of 64 for time."""
+    rng = np.random.default_rng(13)
+    n, d = RR_ROWS, RR_DIMS
+    centres = rng.standard_normal((max(8, n // 2000), d)).astype(np.float32)
+    corpus = (centres[rng.integers(0, len(centres), n)]
+              + 0.3 * rng.standard_normal((n, d))).astype(np.float32)
+    tok = (corpus[:, None, :] + 0.15 * rng.standard_normal(
+        (n, RR_TOKENS, d))).astype(np.float32)
+    qdoc = rng.choice(n, RR_QUERIES, replace=False)
+    q_tokens = (tok[qdoc] + 0.05 * rng.standard_normal(
+        (RR_QUERIES, RR_TOKENS, d))).astype(np.float32)
+    pooled = q_tokens.mean(axis=1)
+    cfg = HNSWIndexConfig(
+        distance="l2-squared", ef_construction=96, max_connections=16, ef=96,
+        device_beam=True, flat_search_cutoff=0, insert_batch=4096,
+        initial_capacity=n,
+        rerank=RerankModuleConfig(module="rerank-maxsim",
+                                  max_tokens=RR_TOKENS))
+    t0 = time.perf_counter()
+    idx = HNSWIndex(d, cfg)
+    idx.add_batch(np.arange(n, dtype=np.int64), corpus)
+    idx.set_tokens(np.arange(n, dtype=np.int64), tok)
+    build_s = time.perf_counter() - t0
+    toks, tmask = idx._token_store.sync(min_rows=n)
+    qm = torch.ones((RR_QUERIES, RR_TOKENS), dtype=torch.bool, device="cuda")
+    gt_ids, gt_s = exact_maxsim(torch.from_numpy(q_tokens).cuda(), qm, toks,
+                                tmask, K, chunk=8192)
+    mod = MaxSimRerank()
+    quality = {}
+    with KernelSpy(rerank, "rerank_topk_cuda", None) as spy:
+        l_start = spy.launches
+        for name in ("norerank", "rerank"):
+            ids = np.full((RR_QUERIES, K), -1, np.int64)
+            for i in range(RR_QUERIES):
+                rr = (RerankRequest(mod, q_tokens[i]) if name == "rerank"
+                      else None)
+                ids[i] = idx.search(pooled[i:i + 1], K, rerank=rr).ids[0]
+            quality[name] = {"recall_at_10": recall(ids, gt_ids),
+                             "ndcg_at_10": ndcg_at_k(ids, gt_ids, gt_s, K)}
+        # the batch: B2 and B7a launches a search, from 0
+        bq = np.repeat(pooled[:1], RR_BATCH, axis=0)
+        rr = RerankRequest(mod, q_tokens[0])
+        idx.search(bq, K, rerank=rr)
+        device_beam.fused_search.launches = 0
+        l0 = spy.launches
+        idx.search(bq, K, rerank=rr)
+        b7a = spy.launches - l0
+        args, _ = spy.last
+        b2 = device_beam.fused_search.launches
+        if (b2, b7a) != (1, 1):
+            raise AssertionError(f"a reranked HNSW search made {b2} B2 and "
+                                 f"{b7a} B7a launches, not 1 and 1")
+        p_rr = host_p(lambda: idx.search(bq, K, rerank=rr), 30)
+        main_launches = spy.launches - l_start
+    p_plain = host_p(lambda: idx.search(bq, K), 30)
+    entry = b7a_entry(args[:5], args[5], args[6], main_launches)
+    del toks, tmask, idx
+    torch.cuda.empty_cache()
+    return {"rows": n, "dims": d, "tokens": RR_TOKENS, "ef": 96,
+            "ef_construction": 96, "max_connections": 16, "batch": RR_BATCH,
+            "k": K, "build_s": build_s, "quality": quality,
+            "search_p50_ms": float(np.percentile(p_rr, 50)),
+            "search_p99_ms": float(np.percentile(p_rr, 99)),
+            "search_p50_ms_without_rerank": float(np.percentile(p_plain, 50)),
+            "b2_launches_per_search": b2, "b7a_launches_per_search": b7a,
+            "b7a_launches_main_path": main_launches, "b7a": entry}
+
+
+def exact_multitarget(xs, qs, combination: str, weights, k: int,
+                      pool: int) -> np.ndarray:
+    """The brute-force multi-target answer on the card: every row's exact
+    distance under each target (float64, TF32 off), joined as the
+    combination joins them (``weight_row``, ``join_mode``);
+    relativeScore normalises over the union of each target's exact
+    top-``pool``, the pool width the fused search joins over. ``xs``
+    target -> float64 rows [N, d] on the card. -> row ids [len(qs), k]."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    targets = list(xs)
+    w = torch.from_numpy(weight_row(targets, combination, weights)).to(
+        "cuda", torch.float64)
+    per = []
+    for t in targets:
+        q = torch.from_numpy(np.stack([x[t] for x in qs])).to(
+            "cuda", torch.float64)
+        per.append((q * q).sum(1, keepdim=True) - 2 * q @ xs[t].T
+                   + (xs[t] * xs[t]).sum(1)[None])
+    dist = torch.stack(per, -1)                                # [Q, N, T]
+    mode = join_mode(combination)
+    if mode == "minimum":
+        joined = dist.amin(-1)
+    elif mode == "weighted":
+        joined = (dist * w).sum(-1)
+    else:
+        member = torch.zeros(dist.shape[:2], dtype=torch.bool, device="cuda")
+        for ti in range(len(targets)):
+            member.scatter_(1, dist[:, :, ti].topk(
+                pool, dim=1, largest=False).indices, True)
+        m = member[:, :, None]
+        lo = torch.where(m, dist, torch.inf).amin(1, keepdim=True)
+        span = torch.where(m, dist, -torch.inf).amax(1, keepdim=True) - lo
+        span = torch.where(span > 0, span, 1.0)
+        joined = torch.where(member, (((dist - lo) / span) * w).sum(-1),
+                             torch.inf)
+    return joined.topk(k, dim=1, largest=False).indices.cpu().numpy()
+
+
+def rerank_multitarget(state: dict) -> dict:
+    """The multi-target cell through ``DB``: bench_multitarget's 2t corpus
+    (targets ``a`` 768-d and ``b`` 256-d, normal rows, HNSW l2-squared, ef
+    64, ef_construction 64, the fused walk) at MT_ROWS objects; MT_QUERIES
+    queries (a row + 0.05 noise) under each combination, recall@10 against
+    the brute-force join over every row (``exact_multitarget``) and against
+    the host oracle (per-target walks 64 deep, gaps recomputed exactly).
+    Asserts agreement with the oracle of at least MT_MIN_ORACLE_RECALL and
+    the exact first hit in the top 10 of every query."""
+    rng = np.random.default_rng(29)
+    vecs = {t: rng.standard_normal((MT_ROWS, dd)).astype(np.float32)
+            for t, dd in MT_DIMS.items()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_multitarget_")
+    try:
+        db = DB(root)
+        hnsw = dict(distance="l2-squared", ef=64, ef_construction=64)
+        col = db.create_collection(CollectionConfig(
+            name="Multi2t", vector_config=HNSWIndexConfig(**hnsw),
+            named_vectors={t: HNSWIndexConfig(**hnsw, device_beam=True,
+                                              initial_capacity=MT_ROWS)
+                           for t in MT_DIMS}))
+        t0 = time.perf_counter()
+        for lo in range(0, MT_ROWS, 4096):
+            col.put_batch([StorageObject(
+                uuid=f"{i:08x}-0000-0000-0000-000000000000",
+                collection="Multi2t",
+                named_vectors={t: vecs[t][i] for t in MT_DIMS})
+                for i in range(lo, min(MT_ROWS, lo + 4096))])
+        ingest_s = time.perf_counter() - t0
+        rows = rng.choice(MT_ROWS, MT_QUERIES, replace=False)
+        qs = [{t: vecs[t][r] + 0.05 * rng.standard_normal(
+            dd).astype(np.float32) for t, dd in MT_DIMS.items()}
+            for r in rows]
+        xs = {t: torch.from_numpy(vecs[t]).to("cuda", torch.float64)
+              for t in MT_DIMS}
+        uuid_of = "{:08x}-0000-0000-0000-000000000000".format
+        per = {}
+        total = 0
+        walk_events = []
+        with KernelSpy(device_beam, "mt_join_topk_cuda", None) as spy, \
+                KernelSpy() as walks:
+            l_start = spy.launches
+            col.multi_target_search(qs[0], k=K, combination="sum")
+            for combination, weights in MT_COMBOS:
+                gt = [{o.uuid for o, _ in col._multi_target_search_host(
+                    q, k=max(4 * K, 64), combination=combination,
+                    weights=weights)[:K]} for q in qs]
+                exact = [[uuid_of(int(i)) for i in row]
+                         for row in exact_multitarget(
+                             xs, qs, combination, weights, K, 64)]
+                live, lat = [], []
+                for q in qs:
+                    device_beam.fused_search.launches = 0
+                    j0 = spy.launches
+                    w0 = len(walks.events)
+                    ts = time.perf_counter()
+                    page = col.multi_target_search(
+                        q, k=K, combination=combination, weights=weights)
+                    lat.append((time.perf_counter() - ts) * 1e3)
+                    walk_events += walks.events[w0:]
+                    b2, b7b = (device_beam.fused_search.launches,
+                               spy.launches - j0)
+                    if (b2, b7b) != (len(MT_DIMS), 1):
+                        raise AssertionError(
+                            f"a multi-target search made {b2} B2 and {b7b} "
+                            f"B7b launches, not {len(MT_DIMS)} and 1")
+                    live.append({o.uuid for o, _ in page})
+                    total += 1
+                r_oracle = float(np.mean(
+                    [len(live[i] & gt[i]) / K for i in range(len(qs))]))
+                first = sum(ex[0] in lv for ex, lv in zip(exact, live))
+                if r_oracle < MT_MIN_ORACLE_RECALL or first < len(qs):
+                    raise AssertionError(
+                        f"multi-target {combination}: recall@10 against "
+                        f"the host oracle {r_oracle}, the exact first hit "
+                        f"in {first} of {len(qs)} top 10s")
+                per[combination] = {
+                    "recall_at_10_exact": float(np.mean(
+                        [len(live[i] & set(exact[i])) / K
+                         for i in range(len(qs))])),
+                    "recall_at_10_host_oracle": r_oracle,
+                    "host_oracle_recall_at_10_exact": float(np.mean(
+                        [len(gt[i] & set(exact[i])) / K
+                         for i in range(len(qs))])),
+                    "exact_first_hit": first / len(qs),
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99))}
+            args, _ = spy.last
+            join_ms = spy.times()
+            torch.cuda.synchronize()
+            walk_ms = sum(a.elapsed_time(b) for a, b in walk_events)
+            launches = spy.launches - l_start
+        scorers, queries, operands, present, pools, weights, fetch, join = \
+            args
+        err = check_b7b(args[:6], fetch, join)["max_abs_err"]
+        ms = cuda_ms(lambda: device_beam.mt_join_topk_cuda(*args), 50)
+        plain = cuda_ms(lambda: device_beam.mt_join_topk_plain(*args), 10)
+        entry = {"ms": float(np.median(ms)),
+                 "plain_ms": float(np.median(plain)), "max_abs_err": err,
+                 "launches": launches,
+                 "shape": {"b": int(pools[0].shape[0]), "fetch": fetch,
+                           "targets": len(scorers), "join": join}}
+        entry.update(zip(("bound_ms", "bound_by", "work"),
+                         b7b_bound_ms(args[:6], fetch)))
+        del xs
+        db.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"rows": MT_ROWS, "dims": MT_DIMS, "ef": 64,
+            "ef_construction": 64, "queries": MT_QUERIES, "k": K,
+            "ingest_s": ingest_s, "objects_per_s": MT_ROWS / ingest_s,
+            "by_combination": per, "b2_launches_per_search": len(MT_DIMS),
+            "searches": total, "b7b_launches_main_path": launches,
+            "b7b_ms_median_on_path": float(np.median(join_ms)),
+            "b2_ms_per_search": walk_ms / max(1, total),
+            "b7b": entry}
+
+
+def b7b_bound_ms(args, fetch: int) -> tuple[float, str, dict]:
+    """The least time of one B7b launch on these inputs: each target's
+    pool cut to fetch and query read once, the valid members' rows of
+    every target (``scorer_row``'s bytes; PQ's codebooks once), their
+    presence bytes, the weights and the outputs, over the memory rate,
+    against the rows' element operations over their peak rate."""
+    scorers, queries, operands, present, pools, weights = args
+    b = pools[0].shape[0]
+    cand = torch.cat([p[:, :fetch].long() for p in pools], 1)
+    cand = device_beam._mt_dedup(cand)
+    ok = cand >= 0
+    for pres in present:
+        cap = pres.shape[0]
+        ok &= (cand < cap) & pres[cand.clamp(0, cap - 1)]
+    members = float(ok.sum())
+    nbytes = float(b * fetch * 4 * len(pools) + weights.numel() * 4
+                   + b * fetch * 8)
+    t_ops = 0.0
+    for sc, q, ops in zip(scorers, queries, operands):
+        row, n_ops, rate = scorer_row(sc, ops)
+        nbytes += members * (row + 1) + q.numel() * q.element_size()
+        if isinstance(sc, device_beam.PQScorer):
+            nbytes += ops[1].numel() * 2
+        t_ops += members * n_ops / rate
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "members": members})
+
+
+def phase_rerank(state: dict) -> dict:
+    """Slice 7a on the card: the multivector cell (MUVERA FDE scan, then
+    B7a), the HNSW rerank tier (B2, then B7a) and the multi-target cell
+    (one B2 launch a target, then B7b), each through the user's entry
+    point."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mv = rerank_multivector(state)
+    mv_s = time.perf_counter() - t0
+    hn = rerank_hnsw(state)
+    hn_s = time.perf_counter() - t0 - mv_s
+    mt = rerank_multitarget(state)
+    mt_s = time.perf_counter() - t0 - mv_s - hn_s
+    # each cell counts the launches of its own drive of the main path (the
+    # comparisons with the plain versions come after, uncounted)
+    b7a = mv["b7a_launches_main_path"] + hn["b7a_launches_main_path"]
+    b7b = mt["b7b_launches_main_path"]
+    if b7a < 1 or b7b < 1:
+        raise AssertionError(f"phase rerank launched B7a {b7a} and B7b "
+                             f"{b7b} times")
+    state["kernel_b7_rerank"] = {
+        "name": "rerank_topk", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/rerank.cu",
+        "replaces": "weaviate_tpu/ops/device_beam.py:161",
+        **{k: mv["b7a"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err")},
+        "launches": b7a, "library_ms": None,
+        "shape": mv["b7a"]["shape"],
+        "hnsw_tier": {k: hn["b7a"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "shape")}}
+    state["kernel_b7_join"] = {
+        "name": "mt_join_topk", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/device_beam.cu",
+        "replaces": "weaviate_tpu/ops/device_beam.py:986",
+        **{k: mt["b7b"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err", "shape")},
+        "launches": b7b, "library_ms": None}
+    return {"multivector": mv, "hnsw_rerank": hn, "multitarget": mt,
+            "seconds_by_cell": {"multivector": mv_s, "hnsw_rerank": hn_s,
+                                "multitarget": mt_s},
+            "b7a_launches": b7a, "b7b_launches": b7b,
+            "card": state["card"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3647,6 +4415,7 @@ def main(argv=None) -> int:
         ("pq", lambda: phase_pq(state)),
         ("hnsw_pq", lambda: phase_hnsw_pq(state)),
         ("hybrid", lambda: phase_hybrid(args.seed, state)),
+        ("rerank", lambda: phase_rerank(state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -3657,7 +4426,8 @@ def main(argv=None) -> int:
     emit({"kernels": [state[k] for k in (
         "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_b2_pq",
         "kernel_b2_rq", "kernel_q1", "kernel_q2", "kernel_q3", "kernel_q4",
-        "kernel_merge", "kernel_b6_sparse", "kernel_b6_fusion")]})
+        "kernel_merge", "kernel_b6_sparse", "kernel_b6_fusion",
+        "kernel_b7_rerank", "kernel_b7_join")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -394,24 +394,15 @@ def _mt_cfg():
 
 
 UNPORTED = {
-    "multi_target": (lambda col, db: col.multi_target_search(
-        {"a": np.zeros(DIMS), "b": np.zeros(DIMS)}), "slice 7"),
-    "shard_multi_target": (lambda col, db: next(iter(
-        col._shards.values())).multi_target_search({}, 1, "minimum"),
-        "slice 7"),
     "qos": (lambda col, db: db.qos, "slice 8"),
     "vectorizer": (lambda col, db: col.put_batch([StorageObject(
         uuid="", collection="Doc", properties={"bucket": 1})]), "slice 9"),
     "frozen_tenant": (lambda col, db: _freeze(db), "slice 9"),
-    "multivector_index": (lambda col, db: build_vector_index(
-        DIMS, config.MultiVectorIndexConfig(), device="cpu"), "slice 7"),
     "hfresh_index": (lambda col, db: build_vector_index(
-        DIMS, config.HFreshIndexConfig(), device="cpu"), "slice 7"),
+        DIMS, config.HFreshIndexConfig(), device="cpu"), "slice 7b"),
     "disk_raw_tier": (lambda col, db: build_vector_index(
         DIMS, config.FlatIndexConfig(raw_tier="disk16"), device="cpu"),
         "slice 9"),
-    "rerank_module": (lambda col, db: config.RerankModuleConfig().validate(),
-                      "slice 7"),
 }
 
 
@@ -534,7 +525,106 @@ def _close(got, want):
 
 # routes of this list's slices that are ported since: each answers as the
 # JAX package does
+def _multi_target_route(shard_level: bool):
+    """Multi-target search (slice 7a) through each package's collection
+    (or its one shard) over two HNSW targets: the same answers."""
+    import tempfile
+
+    def route(col, db):
+        def cfg(mod):
+            hnsw = mod.HNSWIndexConfig(distance="l2-squared", precision="fp32",
+                                       ef=32, ef_construction=32,
+                                       max_connections=8, device_beam=True)
+            return mod.CollectionConfig(
+                name="Multi", properties=[], named_vectors={
+                    "a": hnsw, "b": mod.HNSWIndexConfig(**vars(hnsw))})
+
+        rng = np.random.default_rng(4)
+        vecs = {t: rng.standard_normal((150, DIMS)).astype(np.float32)
+                for t in "ab"}
+        with tempfile.TemporaryDirectory() as root:
+            jdb = JaxDB(os.path.join(root, "j"))
+            cols = (jdb.create_collection(cfg(jconfig)),
+                    db.create_collection(cfg(config)))
+            for c, cls in zip(cols, (JaxObject, StorageObject)):
+                c.put_batch([cls(
+                    uuid=f"{i:08x}-0000-4000-8000-000000000000",
+                    collection="Multi",
+                    named_vectors={t: vecs[t][i] for t in "ab"})
+                    for i in range(150)])
+            q = {t: vecs[t][3] + 0.05 for t in "ab"}
+            for combo, w in (("sum", None), ("relativeScore",
+                                             {"a": 2.0, "b": 1.0})):
+                if shard_level:
+                    jr, tr = (next(iter(c._shards.values()))
+                              .multi_target_search(q, K, combo, w)
+                              for c in cols)
+                    np.testing.assert_array_equal(tr.ids, jr.ids)
+                    np.testing.assert_allclose(tr.dists, jr.dists,
+                                               **TOL["fp32"])
+                    continue
+                jr, tr = (c.multi_target_search(q, k=K, combination=combo,
+                                                 weights=w) for c in cols)
+                assert [o.uuid for o, _ in tr] == [o.uuid for o, _ in jr]
+                np.testing.assert_allclose([d for _, d in tr],
+                                           [d for _, d in jr], **TOL["fp32"])
+            jdb.close()
+
+    return route
+
+
+def _multivector_index(col, db):
+    """A multivector index (slice 7a) from each package's
+    ``build_vector_index``: the same MaxSim answers."""
+    from weaviate_tpu.core.shard import build_vector_index as jbuild
+
+    rng = np.random.default_rng(6)
+    sets = [rng.standard_normal((int(rng.integers(1, 6)), DIMS)).astype(
+        np.float32) for _ in range(80)]
+    jidx = jbuild(DIMS, jconfig.MultiVectorIndexConfig(precision="fp32"))
+    tidx = build_vector_index(
+        DIMS, config.MultiVectorIndexConfig(precision="fp32"), device="cpu")
+    for idx in (jidx, tidx):
+        idx.add_batch_multi(np.arange(80), sets)
+    for s in sets[:4]:
+        jr, tr = jidx.search_multi(s + 0.1, 5), tidx.search_multi(s + 0.1, 5)
+        np.testing.assert_array_equal(tr.ids, jr.ids)
+        np.testing.assert_allclose(tr.dists, jr.dists, **TOL["fp32"])
+
+
+def _rerank_module(col, db):
+    """A rerank module config (slice 7a) validates, and an HNSW index from
+    each package's ``build_vector_index`` with it answers a reranked search
+    the same."""
+    from weaviate_tpu.core.shard import build_vector_index as jbuild
+    from weaviate_tpu.modules.device import LinearRerank as JLinear
+    from weaviate_tpu.modules.device import RerankRequest as JRequest
+    from weaviate_tpu_torch.modules.device import LinearRerank, RerankRequest
+
+    def cfg(mod):
+        rr = mod.RerankModuleConfig(module="rerank-linear", max_tokens=2)
+        rr.validate()
+        return mod.HNSWIndexConfig(distance="l2-squared", precision="fp32",
+                                   ef=16, max_connections=4,
+                                   device_beam=True, rerank=rr)
+
+    vecs = np.random.default_rng(7).standard_normal((100, DIMS)).astype(
+        np.float32)
+    jidx, tidx = jbuild(DIMS, cfg(jconfig)), build_vector_index(
+        DIMS, cfg(config), device="cpu")
+    for idx in (jidx, tidx):
+        idx.add_batch(np.arange(100), vecs)
+    jr = jidx.search(vecs[:3], 4, rerank=JRequest(JLinear()))
+    tr = tidx.search(vecs[:3], 4, rerank=RerankRequest(LinearRerank()))
+    np.testing.assert_array_equal(tr.ids, jr.ids)
+    np.testing.assert_allclose(tr.dists, jr.dists, **TOL["fp32"])
+
+
 PORTED = {
+    "multi_target": _multi_target_route(False),
+    "shard_multi_target": _multi_target_route(True),
+    "multivector_index": _multivector_index,
+    "rerank_module": _rerank_module,
     "bm25": _keyword_route("bm25"),
     "hybrid": _keyword_route("hybrid"),
     "aggregate": _keyword_route("aggregate"),
@@ -584,12 +674,17 @@ def test_unported_db_options_raise(tmp_path, monkeypatch, kw, env, where):
 
 
 def test_unported_index_types_refused_at_create_and_open(dbs, tmp_path):
+    """HFresh (slice 7b) is refused at create and at open; a multivector
+    target (slice 7a) is created."""
     tdb = dbs("torch", "t")
-    for cfg in (config.MultiVectorIndexConfig(), config.HFreshIndexConfig()):
-        c = _cfg(config)
-        c.vector_config = cfg
-        with pytest.raises(ValueError, match="slice 7"):
-            tdb.create_collection(c)
+    c = _cfg(config)
+    c.vector_config = config.HFreshIndexConfig()
+    with pytest.raises(ValueError, match="slice 7b"):
+        tdb.create_collection(c)
+    c = _cfg(config)
+    c.name = "Colbert"
+    c.vector_config = config.MultiVectorIndexConfig()
+    assert tdb.create_collection(c) is not None
     # a JAX-written hfresh collection: the port refuses it at open
     jdb = dbs("jax", "hfresh")
     c = _cfg(jconfig)
@@ -597,7 +692,7 @@ def test_unported_index_types_refused_at_create_and_open(dbs, tmp_path):
     jcol = jdb.create_collection(c)
     _put(jcol, JaxObject, _records(10, n=30))
     jdb.close()
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="slice 7b"):
         DB(str(tmp_path / "hfresh"), device="cpu")
 
 

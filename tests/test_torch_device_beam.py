@@ -29,8 +29,8 @@ device_beam.py``) against the JAX package's ``device_search``, on the CPU.
   checks.
 - ``dispatch_count()`` goes up by exactly one per launch of a search: one
   for a batch whose visited bitsets fit the budget.
-- The rerank route (slice 7) raises ``NotImplementedError``; the kernel's
-  argument checks refuse what it does not take; ``probe_device_beam.py``'s
+- The rerank stage after the walk (slice 7a) answers as JAX's; the
+  kernel's argument checks refuse what it does not take; ``probe_device_beam.py``'s
   clock64 copy still applies to the kernel source.
 
 The JAX side compiles one program per shape and static arguments, so the
@@ -347,22 +347,46 @@ def _tiny_walk_args(**over):
     (dict(allow=np.ones(64, bool)), "slice 5"),
     (dict(keep_k=8), "slice 5"),
     (dict(expand=2), "slice 5"),
-    (dict(rerank=object(), rerank_k=4), "slice 7"),
+    (dict(rerank_k=4), "slice 7"),
 ])
 def test_fused_search_raises_for_later_slices(jax_index, kw, where):
-    """The rerank stage (slice 7) raises. The filter arguments of slice 5
-    answer as JAX ``device_search`` does: each alone leaves the walk
-    unfiltered (no kept track without both ``allow`` and ``keep_k``)."""
-    if where != "slice 5":
-        with pytest.raises(NotImplementedError, match=where):
-            tbeam.fused_search(**_tiny_walk_args(), **kw)
-        return
+    """The filter arguments of slice 5 answer as JAX ``device_search``
+    does: each alone leaves the walk unfiltered (no kept track without both
+    ``allow`` and ``keep_k``). The rerank stage (slice 7a) answers as JAX's
+    does: the walk's first ``rerank_k`` beam entries rescored by MaxSim
+    against their own rows as 1-token sets, the ids equal, the negated
+    scores within FILTERED_TOL."""
     import jax.numpy as jnp
 
     g = jax_index.graph
     corpus = np.asarray(jax_index.store.corpus)[: g.capacity]
     (jq, jc, jadj, jpres, jeps, jua, jus), (tq, tc, tadj, tpres, teps, tua,
                                             tus) = _walk_inputs(g, corpus, False)
+    if where == "slice 7":
+        from weaviate_tpu.modules.device import MaxSimRerank as JMaxSim
+        from weaviate_tpu_torch.modules.device import MaxSimRerank
+
+        qm = np.ones((B, 1), bool)
+        tm = np.ones((corpus.shape[0], 1), bool)
+        jout = jbeam.device_search(
+            jbeam.RawScorer("l2-squared", "fp32"), jq, (jc,), jadj, jpres,
+            jeps, ef=EF, max_steps=4 * EF + 64, upper_adj=jua,
+            upper_slots=jus, rerank=JMaxSim(), rerank_k=kw["rerank_k"],
+            rerank_q=jq[:, None, :], rerank_qmask=jnp.asarray(qm),
+            rerank_tokens=jc[:, None, :], rerank_tmask=jnp.asarray(tm))
+        tout = tbeam.fused_search(
+            tbeam.RawScorer("l2-squared", "fp32"), tq, (tc,), tadj, tpres,
+            teps, tua, tus, EF, 4 * EF + 64, rerank=MaxSimRerank(),
+            rerank_k=kw["rerank_k"], rerank_q=tq[:, None, :],
+            rerank_qmask=torch.from_numpy(qm),
+            rerank_tokens=tc[:, None, :].contiguous(),
+            rerank_tmask=torch.from_numpy(tm))
+        assert len(jout) == len(tout) == 4
+        np.testing.assert_array_equal(tout[0].numpy(), np.asarray(jout[0]))
+        np.testing.assert_array_equal(tout[2].numpy(), np.asarray(jout[2]))
+        np.testing.assert_allclose(tout[3].numpy(), np.asarray(jout[3]),
+                                   rtol=FILTERED_TOL, atol=FILTERED_TOL)
+        return
     if "allow" in kw:
         kw = dict(allow=_allow_mask(g.capacity, 0.5))
     jout = jbeam.device_search(

@@ -244,7 +244,7 @@ def test_explorer_aggregate_and_unported_steps(cols):
     params = explorer.QueryParams(collection="Msmarco", tenant="t1",
                                   bm25_query="w1",
                                   rerank=explorer.RerankParams(query="w1"))
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="slice 9"):
         explorer.Explorer(tdb).get(params)
     params = explorer.QueryParams(
         collection="Msmarco", tenant="t1", bm25_query="w1",

@@ -21,7 +21,10 @@ for name in names:
     importlib.import_module(name)
 for name in ("ops.sparse", "ops.fusion", "query.fusion", "query.explorer",
              "query.aggregator", "query.autocut", "query.sorter",
-             "query.groupby", "query.legacy_group"):
+             "query.groupby", "query.legacy_group", "ops.rerank",
+             "modules.base", "modules.device.base", "modules.device.maxsim",
+             "modules.device.linear", "modules.device.store",
+             "index.multivector", "query.multi_target"):
     assert "weaviate_tpu_torch." + name in names, name
 import chip_smoke
 import os

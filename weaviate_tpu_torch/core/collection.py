@@ -9,7 +9,8 @@ Port of ``weaviate_tpu/core/collection.py``: the write path, the
 near-vector, keyword and hybrid read paths and aggregation, with the same
 routing, scatter-gather and stable merge. The collection's shards live on
 the device it was opened with (``device=``, ``cuda`` unless the caller
-names another). Multi-target search, vectorizer modules and the frozen
+names another). Multi-target search runs on the card when every target
+walks there (``multi_target_search``). Vectorizer modules and the frozen
 tenant tier are not ported yet: each raises ``NotImplementedError``
 naming its ROADMAP queue-A slice.
 """
@@ -1329,13 +1330,179 @@ class Collection:
         HYBRID_REQUESTS.inc(fusion=fusion)
         return [(by_uuid[u], s) for u, s in fused if u in by_uuid]
 
-    def multi_target_search(self, vectors: dict[str, np.ndarray],
-                            k: int = 10, **kwargs):
-        """Search several named target vectors and join scores: not
-        ported yet."""
-        raise NotImplementedError(
-            "Collection.multi_target_search: not ported yet (ROADMAP "
-            "queue A, slice 7)")
+    def multi_target_search(
+        self,
+        vectors: dict[str, np.ndarray],
+        k: int = 10,
+        combination: str = "minimum",
+        weights: Optional[dict[str, float]] = None,
+        flt: Optional[Filter] = None,
+        tenant: str = "",
+    ) -> list[tuple[StorageObject, float]]:
+        """Search several named target vectors and join their distances:
+        one multi-target search a shard on the card when every target
+        walks there (one B2 launch a target, one B7b launch), else the
+        host per-target search and join (``_multi_target_search_host``,
+        the host oracle), which is also the route of a shard whose
+        target cannot walk on the card when the search drains. A failed
+        launch raises. Request-shape errors (unknown target, weight
+        mismatch, a query of the wrong width) raise ``ValueError`` before
+        any search runs."""
+        from weaviate_tpu_torch.core.shard import MultiTargetIneligible
+        from weaviate_tpu_torch.monitoring.metrics import (
+            MULTITARGET_FALLBACK,
+            MULTITARGET_REQUESTS,
+        )
+        from weaviate_tpu_torch.query.multi_target import (
+            join_mode,
+            validate_multi_target,
+        )
+
+        known = set(self.config.named_vectors or ()) | {DEFAULT_VECTOR}
+        validate_multi_target(list(vectors.keys()), combination, weights,
+                              known)
+        join = join_mode(combination)
+        MULTITARGET_REQUESTS.inc(join=join)
+        targets = tuple(vectors.keys())
+        shards = self._search_shards(tenant)
+        for t in targets:
+            q = np.asarray(vectors[t])
+            for s in shards:
+                idx = s.vector_index(t)
+                dims = getattr(idx, "dims", None)
+                if dims and q.shape[-1] != dims:
+                    raise ValueError(
+                        f"query vector for target {t!r} has dim "
+                        f"{q.shape[-1]}, index expects {dims}")
+                break
+        if len(targets) >= 2 and shards and all(
+                s.multi_target_device_eligible(targets) for s in shards):
+            try:
+                return self._multi_target_search_fused(
+                    vectors, k, combination, weights, flt, shards)
+            except MultiTargetIneligible:
+                pass  # a target left the card since the check: the oracle
+        elif len(targets) >= 2:
+            MULTITARGET_FALLBACK.inc(mode="ineligible")
+        return self._multi_target_search_host(
+            vectors, k, combination, weights, flt, tenant)
+
+    def _multi_target_search_fused(
+        self, vectors, k, combination, weights, flt, shards,
+    ) -> list[tuple[StorageObject, float]]:
+        """One multi-target search a shard (each over all targets), merged
+        by joined distance, as ``vector_search`` merges shards."""
+        per_shard = []
+        for shard in shards:
+            allow = None
+            if flt is not None:
+                plane = shard.filter_planes.lookup(flt)
+                allow = (plane if plane is not None
+                         else shard.allow_list(flt))
+            res = shard.multi_target_search(
+                vectors, k, combination, weights, allow_list=allow)
+            per_shard.append((shard, res))
+        merged = []
+        for shard, res in per_shard:
+            for d, i in zip(res.dists[0], res.ids[0]):
+                if i >= 0 and np.isfinite(d):
+                    merged.append((float(d), shard, int(i)))
+        merged.sort(key=lambda x: x[0])
+        out = []
+        for d, shard, docid in merged[:k]:
+            obj = shard.get_by_docid(docid)
+            if obj is not None:
+                out.append((obj, d))
+        return out
+
+    def _multi_target_search_host(
+        self,
+        vectors: dict[str, np.ndarray],
+        k: int = 10,
+        combination: str = "minimum",
+        weights: Optional[dict[str, float]] = None,
+        flt: Optional[Filter] = None,
+        tenant: str = "",
+    ) -> list[tuple[StorageObject, float]]:
+        """The host oracle: per-target searches, the distances a target's
+        search did not return recomputed exactly from stored vectors, then
+        combined (exact over the searches' union, not over every row).
+
+        Reference ``explorer.go:241`` (searchForTargets) +
+        ``shard_combine_multi_target.go``.
+        """
+        from weaviate_tpu_torch.query.multi_target import (
+            combine_multi_target,
+            np_distance,
+        )
+
+        per_target: dict[str, dict] = {}
+        objs: dict[tuple[str, int], StorageObject] = {}
+        shards = self._search_shards(tenant)
+
+        for tgt, q in vectors.items():
+            dists: dict[tuple[str, int], float] = {}
+            for shard in shards:
+                allow = None
+                est_sel = None
+                if flt is not None:
+                    plane = shard.filter_planes.lookup(flt)
+                    allow = (plane if plane is not None
+                             else shard.allow_list(flt))
+                    try:
+                        est_sel = shard.inverted.estimate_selectivity(flt)
+                    except Exception:
+                        # estimator gaps never fail a query
+                        import logging
+
+                        logging.getLogger(
+                            "weaviate_tpu_torch.core.collection").debug(
+                            "selectivity estimate failed", exc_info=True)
+                        est_sel = None
+                res = shard.vector_search(
+                    np.atleast_2d(np.asarray(q, np.float32)), k, target=tgt,
+                    allow_list=allow, est_selectivity=est_sel,
+                )
+                for d, i in zip(res.dists[0], res.ids[0]):
+                    if i >= 0:
+                        dists[(shard.name, int(i))] = float(d)
+            per_target[tgt] = dists
+
+        # union of candidates; fill distance gaps by exact recompute
+        union: set[tuple[str, int]] = set()
+        for dists in per_target.values():
+            union.update(dists.keys())
+        shard_by_name = {s.name: s for s in shards}
+        for key in union:
+            shard_name, docid = key
+            obj = shard_by_name[shard_name].get_by_docid(docid)
+            if obj is None:
+                continue
+            objs[key] = obj
+            for tgt in vectors:
+                if key not in per_target[tgt]:
+                    v = obj.named_vectors.get(tgt)
+                    if v is None and tgt == DEFAULT_VECTOR:
+                        v = obj.vector
+                    if v is None:
+                        continue
+                    cfg = (self.config.named_vectors.get(tgt)
+                           or self.config.vector_config)
+                    per_target[tgt][key] = np_distance(
+                        vectors[tgt], v, cfg.distance
+                    )
+        # drop candidates that lack a vector for some target
+        full = [key for key in union
+                if all(key in per_target[t] for t in vectors)]
+        per_target = {t: {k2: d[k2] for k2 in full}
+                      for t, d in per_target.items()}
+
+        combined = combine_multi_target(per_target, combination, weights)
+        out = []
+        for key, score in combined[:k]:
+            if key in objs:
+                out.append((objs[key], score))
+        return out
 
     def aggregate(
         self,

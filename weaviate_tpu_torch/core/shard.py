@@ -10,9 +10,10 @@ Port of ``weaviate_tpu/core/shard.py``. A shard's vector indexes and filter
 planes live on the device it was opened with (``device=``, ``cuda`` unless
 the caller names another); every on-disk artifact (LSM store, delta log,
 inverted snapshot, vector checkpoints, HNSW graph snapshot and commit log,
-counters) has the JAX package's format, so either package opens a shard directory the other wrote. The
-fused multi-target search and the segment-resident inverted tier are not
-ported yet and raise ``NotImplementedError``.
+counters) has the JAX package's format, so either package opens a shard
+directory the other wrote. A multi-target search runs one walk a target
+and the join on the card (``multi_target_search``). The segment-resident
+inverted tier is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,10 +67,16 @@ def build_vector_index(
         if not isinstance(cfg, DynamicIndexConfig):
             cfg = cfg.as_type(DynamicIndexConfig, "dynamic")
         return DynamicIndex(dims, cfg, path=path, device=device)
-    if cfg.index_type in ("multivector", "hfresh"):
+    if cfg.index_type == "multivector":
+        from weaviate_tpu_torch.index.multivector import MultiVectorIndex
+        from weaviate_tpu_torch.schema.config import MultiVectorIndexConfig
+
+        if not isinstance(cfg, MultiVectorIndexConfig):
+            cfg = cfg.as_type(MultiVectorIndexConfig, "multivector")
+        return MultiVectorIndex(dims, cfg, device=device)
+    if cfg.index_type == "hfresh":
         raise NotImplementedError(
-            f"{cfg.index_type} vector index: not ported yet (ROADMAP "
-            "queue A, slice 7)")
+            "hfresh vector index: not ported yet (ROADMAP queue A, slice 7b)")
     from weaviate_tpu_torch.index.flat import make_flat
 
     if not isinstance(cfg, FlatIndexConfig):
@@ -83,6 +90,12 @@ def build_vector_index(
     # originals on the host; it checkpoints no raw vectors, so a reopen
     # rebuilds it from the objects (``_rebuild_vector_targets``)
     return make_flat(dims, cfg, device=device)
+
+
+class MultiTargetIneligible(RuntimeError):
+    """A target of a multi-target search cannot walk on the card now (no
+    device walk, demoted, or an unfitted quantizer): the collection serves
+    the request from the host oracle."""
 
 
 def _feed_index(idx: VectorIndex, id_arr: np.ndarray, vecs: list) -> None:
@@ -138,6 +151,9 @@ class Shard:
         # _vector_indexes/_dims publish copy-on-write under this lock so
         # every reader iterates a stable snapshot lock-free.
         self._build_lock = threading.Lock()
+        # one coalescing dispatcher a (target set, join) of multi-target
+        # searches
+        self._mt_dispatchers: dict[tuple, object] = {}
         # checkpoint gate: deferred post-lock index work (ragged feeds,
         # index deletes) in flight — a checkpoint taken mid-window would
         # record a seq whose index effects haven't landed yet
@@ -812,7 +828,41 @@ class Shard:
     def objects_by_docids(self, doc_ids: np.ndarray) -> list[Optional[StorageObject]]:
         return [self.get_by_docid(int(d)) if d >= 0 else None for d in doc_ids]
 
-    # -- fused multi-target serving (docs/multitarget.md) ------------------
+    # -- multi-target serving (docs/multitarget.md) ------------------------
+    def multi_target_device_eligible(self, targets: tuple[str, ...]) -> bool:
+        """Every target has an index that walks on the card now (a fused
+        walk, device-resident). The batch runner checks again at the
+        drain and raises ``MultiTargetIneligible`` when that changed."""
+        if len(targets) < 2:
+            return False
+        for t in targets:
+            idx = self._vector_indexes.get(t)
+            if idx is None or getattr(idx, "multi_walk_inputs", None) is None:
+                return False
+            if getattr(idx, "_device_beam", None) is None \
+                    or not idx.device_resident:
+                return False
+        return True
+
+    def _mt_dispatcher(self, targets: tuple[str, ...], join: str):
+        key = (targets, join)
+        disp = self._mt_dispatchers.get(key)
+        if disp is None:
+            with self._build_lock:
+                disp = self._mt_dispatchers.get(key)
+                if disp is None:
+                    from weaviate_tpu_torch.index.dispatch import (
+                        CoalescingDispatcher,
+                    )
+
+                    def run(q, k, allow, _t=targets, _j=join):
+                        return self._run_multi_batch(_t, _j, q, k, allow)
+
+                    disp = CoalescingDispatcher(run)
+                    self._mt_dispatchers = {**self._mt_dispatchers,
+                                            key: disp}
+        return disp
+
     def multi_target_search(
         self,
         vectors: dict[str, np.ndarray],
@@ -821,11 +871,118 @@ class Shard:
         weights: Optional[dict[str, float]] = None,
         allow_list=None,
     ) -> SearchResult:
-        """One-dispatch multi-target search (fused device walk legs in the
-        JAX package): not ported yet."""
-        raise NotImplementedError(
-            "fused multi-target search (device beam legs): not ported yet "
-            "(ROADMAP queue A, slice 7)")
+        """Multi-target search on the card: the per-target query tuple
+        (weight rows first; they share the batch dimension) goes into the
+        target set's coalescing dispatcher, whose drain leader runs every
+        coalesced request as one search (one B2 launch a target, then one
+        B7b launch). A failed launch raises; a target that cannot walk on
+        the card raises ``MultiTargetIneligible``."""
+        from weaviate_tpu_torch.index.dispatch import dispatch_group
+        from weaviate_tpu_torch.query.multi_target import (
+            join_mode,
+            weight_row,
+        )
+
+        targets = tuple(vectors.keys())
+        join = join_mode(combination)
+        w = weight_row(list(targets), combination, weights)[None, :]
+        qs = tuple(np.atleast_2d(np.asarray(vectors[t], np.float32))
+                   for t in targets)
+        tier_key = tuple(
+            (getattr(self._vector_indexes.get(t), "_residency_epoch", 0), 0)
+            for t in targets)
+        disp = self._mt_dispatcher(targets, join)
+        with dispatch_group(("multitarget", targets, join)):
+            ids, dists = disp.search(
+                (w.astype(np.float32),) + qs, k, allow=allow_list,
+                tier_key=tier_key)
+        return SearchResult(ids=ids, dists=dists)
+
+    def _run_multi_batch(self, targets: tuple[str, ...], join: str,
+                         q_tuple: tuple, k: int, allow_list):
+        """Drain leader body: one walk leg per target, run as one search
+        (``_dispatch_multi_legs``), then the host sweep of deleted docids
+        and the cut to k."""
+        from weaviate_tpu_torch.monitoring.metrics import MULTITARGET_FALLBACK
+
+        weights = q_tuple[0]
+        qs = q_tuple[1:]
+        b = weights.shape[0]
+        # the leader derives one joint expansion budget from the group's
+        # shared mask (the single-target leader's rule)
+        expand = 0
+        idx0 = self._vector_indexes.get(targets[0])
+        if allow_list is not None and idx0 is not None:
+            from weaviate_tpu_torch.query.planner import expansion_budget
+
+            n_allowed = idx0._allow_popcount(allow_list)
+            expand = expansion_budget(n_allowed / max(1, idx0.count()))
+        legs = []
+        for t, q in zip(targets, qs):
+            idx = self._vector_indexes.get(t)
+            leg = None
+            if idx is not None and getattr(idx, "multi_walk_inputs", None):
+                # the walks are independent: no padding of the batch
+                leg = idx.multi_walk_inputs(
+                    q, k, b, allow_list=allow_list, expand=expand)
+            if leg is None:
+                MULTITARGET_FALLBACK.inc(mode="ineligible")
+                raise MultiTargetIneligible(
+                    f"target {t!r} cannot walk on the card")
+            legs.append(leg)
+        ids, d = self._dispatch_multi_legs(legs, weights, k, join)
+        # host sweep: deleted/tombstoned docids stay traversable on the
+        # card; a doc must be live in EVERY target's graph (and allowed)
+        # to surface, the oracle's drop semantics
+        ok = ids >= 0
+        for t in targets:
+            km = self._vector_indexes.get(t)._keep_mask(allow_list)
+            ok &= np.where(
+                ids < len(km), km[np.clip(ids, 0, len(km) - 1)], False)
+        d = np.where(ok, d, np.float32(np.inf))
+        ids = np.where(ok, ids, -1)
+        order = np.argsort(d, axis=1, kind="stable")[:, :k]
+        d = np.take_along_axis(d, order, axis=1)
+        ids = np.take_along_axis(ids, order, axis=1)
+        if d.shape[1] < k:
+            pad = k - d.shape[1]
+            d = np.pad(d, ((0, 0), (0, pad)), constant_values=np.inf)
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        return ids.astype(np.int64), d.astype(np.float32)
+
+    def _dispatch_multi_legs(self, legs, weights, k: int, join: str):
+        """One multi-target search over an assembled leg set."""
+        import time
+
+        from weaviate_tpu_torch.monitoring import tracing
+        from weaviate_tpu_torch.ops import device_beam as db
+
+        fetch = min((leg["keep_k"] if leg["keep_k"] > 0 else leg["ef_pad"])
+                    for leg in legs)
+        max_steps = max(int(4 * leg["ef_pad"] + 64) for leg in legs)
+        t_dev = time.perf_counter()
+        ids, d = db.device_multi_search(
+            scorers=tuple(leg["scorer"] for leg in legs),
+            weights=np.asarray(weights, np.float32),
+            queries=tuple(leg["q"] for leg in legs),
+            operands=tuple(leg["operands"] for leg in legs),
+            adjacency=tuple(leg["adj"] for leg in legs),
+            present=tuple(leg["present"] for leg in legs),
+            eps=tuple(leg["eps"] for leg in legs),
+            upper_adjs=tuple(leg["upper_adj"] for leg in legs),
+            upper_slots=tuple(leg["upper_slots"] for leg in legs),
+            efs=tuple(leg["ef_pad"] for leg in legs),
+            max_steps=max_steps, fetch=fetch, join=join,
+            allows=tuple(leg["allow"] for leg in legs),
+            keep_ks=tuple(leg["keep_k"] for leg in legs),
+            expands=tuple(leg["expand"] for leg in legs))
+        ids = ids.cpu().numpy().astype(np.int64)
+        d = d.cpu().numpy()
+        # the copy above is the completion sync
+        tracing.annotate(
+            device_execute_ms=round((time.perf_counter() - t_dev) * 1000, 3),
+            scorer=f"multi:{join}", mesh_mode="single")
+        return ids, d
 
     # -- tiered residency (docs/tiering.md) --------------------------------
     def hbm_bytes(self) -> int:

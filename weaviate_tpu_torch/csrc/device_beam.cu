@@ -1,7 +1,8 @@
 // Fused HNSW walk of a query batch: greedy descent over the upper layers,
 // then the layer-0 best-first beam, with the filtered walk's kept track and
 // two-hop widening. One warp a query, several queries a block, one launch a
-// batch.
+// batch. Below it, B7b (`mt_join_kernel`): the join of a multi-target
+// search after one walk a target, scoring with the same row functions.
 //
 // Replaces: the XLA program `_fused_search` of
 // weaviate_tpu/ops/device_beam.py:222 (with `_two_hop_widen` :180,
@@ -1415,6 +1416,371 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// -- B7b: the multi-target join ----------------------------------------------
+//
+// Replaces: the join of the XLA program `_fused_multi_search` of
+// weaviate_tpu/ops/device_beam.py:986 after its walks (:1013-1040, with
+// `_mt_dedup` :940, `_masked_scores` :138, `_mt_join` :950 and `_mt_topk`
+// :974). The walks themselves are B2's launches, one a target, on the same
+// stream before this one. For each query row:
+//
+//   * Union: each target's pool (its kept track when that target's walk
+//     was filtered, else its beam), cut to `fetch`, concatenated and sorted
+//     ascending; a repeated id keeps one slot (`_mt_dedup`). Empty slots
+//     (-1) are carried as INT_MAX here, so they sort last instead of first:
+//     every such slot comes out as (-1, 1e30) either way, and the live ids
+//     keep their ascending order, which is all the top-k's ties look at.
+//   * A member is valid when, for every target t, 0 <= id < cap_t and
+//     present_t[id]. Only valid members are scored and joined.
+//   * Cross-scores: member x under target t with t's own row type, through
+//     the scoring functions of B2's rows above (`term`, `finish`,
+//     `finish_row`, `code_f`): raw float32 rows (five metrics, bf16-rounded
+//     dot and cosine), BQ words, SQ and RQ codes, PQ codes through the
+//     query's ADC table in shared memory (built as B2-PQ builds it) where
+//     it fits, else through the centroid pieces read from L2.
+//   * Join (`_mt_join`): weighted, sum over t of w[b, t] * d_t in target
+//     order; minimum, the least d_t; relative, each target min-max
+//     normalised over the valid members (a span of 0 taken as 1), then the
+//     weighted sum. Invalid members are 1e30.
+//   * Top-k (`_mt_topk`): the `fetch` least joined distances, equal ones
+//     in union order (the lower id first); slots at 1e30 or above, and
+//     slots past the valid members, are (-1, 1e30).
+//
+// Bound on this card: bytes, the valid members' rows of every target read
+// once, T x fetch rows of a few KB a query, and the pools. One CTA a query
+// row: the union sorted (bitonic) and deduplicated in shared memory, a
+// warp a (member, target) pair summing lane-strided pieces of the row, a
+// serial ballot compaction of the valid members, and a rank by counting
+// over them.
+
+constexpr int kMtMaxTargets = 8;
+constexpr int kMtMaxUnion = 4096;
+constexpr int kMtMaxFetch = 512;
+constexpr int kMtThreads = 256;
+constexpr int kMtNone = 0x7fffffff;
+
+enum Join { kWeighted = 0, kMinimum = 1, kRelative = 2 };
+
+struct MtTarget {
+  const int* pool;           // [b, pool_w], -1 padded
+  const float* queries;      // [b, d] (BQ: words as their bits)
+  const void* rows;          // [nrows, d] floats, BQ words, SQ or RQ codes;
+                             // PQ [nrows, segs] codes
+  const float* row_aux;      // BQ popcounts, code rows' decoded sq norms
+  const float* row_lo;       // RQ
+  const float* row_step;     // RQ
+  const __nv_bfloat16* cb;   // PQ [segs, centroids, dsub]
+  const uint8_t* present;    // [cap]
+  int pool_w, cap, nrows, d, kind, metric, round, segs, dsub, centroids;
+  float sq_a, sq_s;
+  uint32_t last_word;        // BQ: the bits of a query's last word that count
+  int q_off;                 // floats: the query's offset in shared memory
+  int table_off;             // floats: PQ's ADC table, or -1 (none)
+};
+
+struct MtParams {
+  MtTarget tg[kMtMaxTargets];
+  const float* weights;  // [b, targets]
+  int* out_ids;          // [b, fetch]
+  float* out_d;          // [b, fetch]
+  int targets, b, fetch, join, upad;
+  // byte offsets in shared memory
+  int off_comb, off_dist, off_valid, off_q;
+};
+
+__device__ __forceinline__ float mt_block_reduce(float v, bool is_min,
+                                                 bool is_max, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(kFull, v, o);
+    v = is_min ? fminf(v, u) : (is_max ? fmaxf(v, u) : v + u);
+  }
+  __syncthreads();  // earlier readers of `red` are done
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+    r = is_min ? fminf(r, red[w]) : (is_max ? fmaxf(r, red[w]) : r + red[w]);
+  return r;
+}
+
+template <int METRIC, bool ROUND>
+__device__ __forceinline__ float mt_raw_sum(const float* q, const float* x,
+                                            int d, int lane) {
+  float acc = 0.f;
+  for (int k = lane; k < d; k += 32)
+    acc = term<METRIC, ROUND, kRawRow>(acc, q[k], __ldg(x + k));
+  return acc;
+}
+
+// Lane `lane`'s part of member `id`'s sum under target `t` (raw: the
+// metric's terms; BQ: popcounts; SQ, RQ, PQ: q . c), summed by the caller.
+__device__ float mt_lane_sum(const MtTarget& t, const float* q,
+                             const float* smem_f, int id, int lane) {
+  const int d = t.d;
+  if (t.kind == kRawRow) {
+    const float* x = static_cast<const float*>(t.rows) + (size_t)id * d;
+    switch (t.metric) {
+      case kL2: return mt_raw_sum<kL2, false>(q, x, d, lane);
+      case kDot:
+        return t.round ? mt_raw_sum<kDot, true>(q, x, d, lane)
+                       : mt_raw_sum<kDot, false>(q, x, d, lane);
+      case kCosine:
+        return t.round ? mt_raw_sum<kCosine, true>(q, x, d, lane)
+                       : mt_raw_sum<kCosine, false>(q, x, d, lane);
+      case kManhattan: return mt_raw_sum<kManhattan, false>(q, x, d, lane);
+      default: return mt_raw_sum<kHamming, false>(q, x, d, lane);
+    }
+  }
+  float acc = 0.f;
+  if (t.kind == kBqRow) {
+    const float* x = static_cast<const float*>(t.rows) + (size_t)id * d;
+    for (int k = lane; k < d; k += 32)
+      acc = term<kL2, false, kBqRow>(acc, q[k], __ldg(x + k));
+    return acc;
+  }
+  if (t.kind == kSqRow || t.kind == kRqRow) {
+    const uint8_t* x = static_cast<const uint8_t*>(t.rows) + (size_t)id * d;
+    for (int k = lane; k < d; k += 32)
+      acc = fmaf(q[k], static_cast<float>(__ldg(x + k)), acc);
+    return acc;
+  }
+  // PQ
+  const uint8_t* codes =
+      static_cast<const uint8_t*>(t.rows) + (size_t)id * t.segs;
+  if (t.table_off >= 0) {
+    const float* table = smem_f + t.table_off;
+    for (int s = lane; s < t.segs; s += 32)
+      acc += table[s * t.centroids + __ldg(codes + s)];
+    return acc;
+  }
+  for (int s = lane; s < t.segs; s += 32) {
+    const __nv_bfloat16* piece =
+        t.cb + ((size_t)s * t.centroids + __ldg(codes + s)) * t.dsub;
+    const float* qk = q + s * t.dsub;
+    for (int j = 0; j < t.dsub; ++j)
+      acc = fmaf(qk[j], __bfloat162float(piece[j]), acc);
+  }
+  return acc;
+}
+
+// The distance of member `id` under target `t` from its summed terms.
+__device__ float mt_finish(const MtTarget& t, float acc, float qa, float qb,
+                           int id) {
+  if (t.kind == kRawRow) {
+    switch (t.metric) {
+      case kL2: return finish<kL2>(acc);
+      case kDot: return finish<kDot>(acc);
+      case kCosine: return finish<kCosine>(acc);
+      case kManhattan: return finish<kManhattan>(acc);
+      default: return finish<kHamming>(acc);
+    }
+  }
+  Params p;  // the fields `finish_row` reads
+  p.metric = t.metric;
+  p.sq_a = t.sq_a;
+  p.sq_s = t.sq_s;
+  const QScal qs = {qa, qb};
+  RowAux ra = {__ldg(t.row_aux + id), 0.f, 0.f};
+  if (t.kind == kBqRow) return finish_row<kL2, kBqRow>(p, qs, acc, ra);
+  if (t.kind == kSqRow) return finish_row<kL2, kSqRow>(p, qs, acc, ra);
+  if (t.kind == kRqRow) {
+    ra.lo = __ldg(t.row_lo + id);
+    ra.st = __ldg(t.row_step + id);
+    return finish_row<kL2, kRqRow>(p, qs, acc, ra);
+  }
+  return finish_row<kL2, kPqRow>(p, qs, acc, ra);
+}
+
+__global__ void __launch_bounds__(kMtThreads) mt_join_kernel(MtParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_qa[kMtMaxTargets], s_qb[kMtMaxTargets];
+  __shared__ float s_lo[kMtMaxTargets], s_span[kMtMaxTargets];
+  __shared__ float s_red[kMtThreads / 32];
+  __shared__ int s_valid_n;
+  const int qi = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int T = p.targets, U = p.upad;
+  int* ids = reinterpret_cast<int*>(smem);
+  float* comb = reinterpret_cast<float*>(smem + p.off_comb);
+  float* dist = reinterpret_cast<float*>(smem + p.off_dist);
+  uint8_t* valid = smem + p.off_valid;
+  float* smem_f = reinterpret_cast<float*>(smem + p.off_q);
+
+  // each target's query, as B2 stages it, and its scalars
+  for (int t = 0; t < T; ++t) {
+    const MtTarget& g = p.tg[t];
+    const float* qrow = g.queries + (size_t)qi * g.d;
+    float* q = smem_f + g.q_off;
+    float a = 0.f, b2 = 0.f;
+    for (int k = tid; k < ((g.d + 3) & ~3); k += nt) {
+      float v = k < g.d ? qrow[k] : 0.f;
+      if (g.kind == kBqRow) {
+        uint32_t u = __float_as_uint(v);
+        if (k == g.d - 1) u &= g.last_word;
+        a += static_cast<float>(__popc(u));
+        q[k] = __uint_as_float(u);
+        continue;
+      }
+      a += v;
+      b2 += v * v;
+      const bool round = g.kind != kRawRow ||
+                         (g.round && (g.metric == kDot || g.metric == kCosine));
+      q[k] = round ? bf16_round(v) : v;
+    }
+    a = mt_block_reduce(a, false, false, s_red);
+    b2 = mt_block_reduce(b2, false, false, s_red);
+    if (tid == 0) {
+      s_qa[t] = a;
+      s_qb[t] = b2;
+    }
+  }
+  __syncthreads();
+  // PQ: the query's ADC table where it fits (B2-PQ's `build_table` sums)
+  for (int t = 0; t < T; ++t) {
+    const MtTarget& g = p.tg[t];
+    if (g.kind != kPqRow || g.table_off < 0) continue;
+    const float* q = smem_f + g.q_off;
+    float* table = smem_f + g.table_off;
+    for (int e = tid; e < g.segs * g.centroids; e += nt) {
+      const int s = e / g.centroids;
+      const __nv_bfloat16* piece = g.cb + (size_t)e * g.dsub;
+      float acc = 0.f;
+      for (int j = 0; j < g.dsub; ++j)
+        acc = fmaf(q[s * g.dsub + j], __bfloat162float(piece[j]), acc);
+      table[e] = acc;
+    }
+  }
+
+  // the union, sorted ascending (bitonic), empty slots as INT_MAX
+  for (int u = tid; u < U; u += nt) {
+    int id = kMtNone;
+    if (u < T * p.fetch) {
+      const int t = u / p.fetch, j = u - t * p.fetch;
+      const int v = p.tg[t].pool[(size_t)qi * p.tg[t].pool_w + j];
+      if (v >= 0) id = v;
+    }
+    ids[u] = id;
+  }
+  __syncthreads();
+  for (int k = 2; k <= U; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < U; i += nt) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const int a = ids[i], b = ids[ixj];
+          if ((a > b) == ((i & k) == 0)) {
+            ids[i] = b;
+            ids[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // validity: live, first of its run, in every target's graph
+  for (int u = tid; u < U; u += nt) {
+    const int id = ids[u];
+    bool ok = id != kMtNone && (u == 0 || ids[u - 1] != id);
+    for (int t = 0; ok && t < T; ++t) {
+      const MtTarget& g = p.tg[t];
+      ok = id < g.cap && id < g.nrows && g.present[id];
+    }
+    valid[u] = ok;
+  }
+  __syncthreads();
+
+  // cross-scores: a warp a (member, target) pair
+  for (int e = warp; e < T * U; e += nw) {
+    const int t = e / U, u = e - t * U;
+    if (!valid[u]) continue;
+    const MtTarget& g = p.tg[t];
+    float acc = mt_lane_sum(g, smem_f + g.q_off, smem_f, ids[u], lane);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+    if (lane == 0) dist[t * U + u] = mt_finish(g, acc, s_qa[t], s_qb[t], ids[u]);
+  }
+  __syncthreads();
+
+  // the join
+  if (p.join == kRelative) {
+    for (int t = 0; t < T; ++t) {
+      float lo = kMask, hi = -kInf;
+      for (int u = tid; u < U; u += nt) {
+        if (!valid[u]) continue;
+        lo = fminf(lo, dist[t * U + u]);
+        hi = fmaxf(hi, dist[t * U + u]);
+      }
+      lo = mt_block_reduce(lo, true, false, s_red);
+      hi = mt_block_reduce(hi, false, true, s_red);
+      if (tid == 0) {
+        s_lo[t] = lo;
+        s_span[t] = hi - lo > 0.f ? hi - lo : 1.f;
+      }
+    }
+    __syncthreads();
+  }
+  const float* w = p.weights + (size_t)qi * T;
+  for (int u = tid; u < U; u += nt) {
+    float c = kMask;
+    if (valid[u]) {
+      if (p.join == kMinimum) {
+        c = dist[u];
+        for (int t = 1; t < T; ++t) c = fminf(c, dist[t * U + u]);
+      } else if (p.join == kRelative) {
+        c = 0.f;
+        for (int t = 0; t < T; ++t)
+          c += ((dist[t * U + u] - s_lo[t]) / s_span[t]) * w[t];
+      } else {
+        c = 0.f;
+        for (int t = 0; t < T; ++t) c += dist[t * U + u] * w[t];
+      }
+    }
+    comb[u] = c;
+  }
+  __syncthreads();
+
+  // the valid members in union order (one warp's ballot scan), then each
+  // one's rank by counting: lower joined distance first, union order on ties
+  int* vidx = reinterpret_cast<int*>(dist);
+  float* vkey = dist + U;
+  if (warp == 0) {
+    int n = 0;
+    for (int u0 = 0; u0 < U; u0 += 32) {
+      const bool ok = valid[u0 + lane];
+      const unsigned bal = __ballot_sync(kFull, ok);
+      if (ok) {
+        const int pos = n + __popc(bal & ((1u << lane) - 1u));
+        vidx[pos] = u0 + lane;
+        vkey[pos] = comb[u0 + lane];
+      }
+      n += __popc(bal);
+    }
+    if (lane == 0) s_valid_n = n;
+  }
+  __syncthreads();
+  const int vn = s_valid_n;
+  int* oid = p.out_ids + (size_t)qi * p.fetch;
+  float* od = p.out_d + (size_t)qi * p.fetch;
+  for (int i = tid; i < vn; i += nt) {
+    const float v = vkey[i];
+    int rank = 0;
+    for (int j = 0; j < vn; ++j) {
+      const float x = vkey[j];
+      rank += (x < v) || (x == v && j < i);
+    }
+    if (rank < p.fetch) {
+      const bool ok = v < kMask;
+      oid[rank] = ok ? ids[vidx[i]] : -1;
+      od[rank] = ok ? v : kMask;
+    }
+  }
+  for (int r = vn + tid; r < p.fetch; r += nt) {
+    oid[r] = -1;
+    od[r] = kMask;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1568,13 +1934,134 @@ int device_beam_search(const float* queries, const void* corpus,
   return static_cast<int>(e);
 }
 
+// Launches B7b, the multi-target join, for `b` query rows on `stream`, after
+// the targets' walks. Per target t (`targets` of them, at most 8): eight
+// pointers in `ptrs` [8 t ..]: its pool [b, pool_w] (the beam, or the kept
+// track of a filtered walk), its queries [b, d] as its walk took them, its
+// rows, row_aux, row_lo, row_step, PQ codebooks (bf16) and present [cap];
+// eleven ints in `ints` [11 t ..]: pool_w, cap, rows, d, row_kind (B2's: 0
+// raw, 1 BQ, 2 SQ, 3 RQ, 4 PQ), metric, bf16 rounding of raw dot/cosine,
+// segs, dsub, centroids, BQ dims; two floats in `floats` [2 t ..]: SQ's a
+// and s. `weights` [b, targets]; `join` 0 weighted, 1 minimum, 2 relative.
+// Writes out_ids / out_d [b, fetch]. Returns 0, a cudaError_t (> 0), or a
+// negative code (see device_beam_error_string).
+int mt_join_topk(const void* const* ptrs, const int* ints,
+                 const float* floats, int targets, const float* weights,
+                 int* out_ids, float* out_d, int b, int fetch, int join,
+                 void* stream) {
+  if (b < 1 || targets < 1 || targets > kMtMaxTargets) return kBadShape;
+  if (fetch < 1 || fetch > kMtMaxFetch || targets * fetch > kMtMaxUnion)
+    return kBadEf;
+  if (join < kWeighted || join > kRelative) return kBadMetric;
+  MtParams p;
+  int upad = 32;
+  while (upad < targets * fetch) upad <<= 1;
+  p.targets = targets;
+  p.b = b;
+  p.fetch = fetch;
+  p.join = join;
+  p.upad = upad;
+  p.weights = weights;
+  p.out_ids = out_ids;
+  p.out_d = out_d;
+  const int tslots = targets > 2 ? targets : 2;
+  long long off = 4LL * upad;  // ids
+  p.off_comb = static_cast<int>(off);
+  off += 4LL * upad;
+  p.off_dist = static_cast<int>(off);
+  off += 4LL * tslots * upad;
+  p.off_valid = static_cast<int>(off);
+  off += (upad + 15) & ~15;
+  p.off_q = static_cast<int>(off);
+  long long floats_used = 0;
+  for (int t = 0; t < targets; ++t) {
+    MtTarget& g = p.tg[t];
+    const void* const* pp = ptrs + 8 * t;
+    const int* ii = ints + 11 * t;
+    g.pool = static_cast<const int*>(pp[0]);
+    g.queries = static_cast<const float*>(pp[1]);
+    g.rows = pp[2];
+    g.row_aux = static_cast<const float*>(pp[3]);
+    g.row_lo = static_cast<const float*>(pp[4]);
+    g.row_step = static_cast<const float*>(pp[5]);
+    g.cb = static_cast<const __nv_bfloat16*>(pp[6]);
+    g.present = static_cast<const uint8_t*>(pp[7]);
+    g.pool_w = ii[0];
+    g.cap = ii[1];
+    g.nrows = ii[2];
+    g.d = ii[3];
+    g.kind = ii[4];
+    g.metric = ii[5];
+    g.round = ii[6];
+    g.segs = ii[7];
+    g.dsub = ii[8];
+    g.centroids = ii[9];
+    const int dims = ii[10];
+    g.sq_a = floats[2 * t];
+    g.sq_s = floats[2 * t + 1];
+    g.last_word = g.kind == kBqRow && dims % 32 ? (1u << (dims % 32)) - 1u
+                                                : kFull;
+    const bool coded = g.kind == kSqRow || g.kind == kRqRow ||
+                       g.kind == kPqRow;
+    if (g.pool == nullptr || g.queries == nullptr || g.rows == nullptr ||
+        g.present == nullptr || g.pool_w < fetch || g.cap < 1 ||
+        g.nrows < 1 || g.d < 1 || g.d > kMaxD)
+      return kBadShape;
+    if (g.kind < kRawRow || g.kind > kPqRow ||
+        (g.kind != kRawRow && g.row_aux == nullptr) ||
+        (coded && g.metric > kCosine) || g.metric < kL2 ||
+        g.metric > kHamming ||
+        (g.kind == kRqRow && (g.row_lo == nullptr || g.row_step == nullptr)) ||
+        (g.kind == kPqRow &&
+         (g.cb == nullptr || g.segs < 1 || g.dsub < 1 || g.centroids < 1 ||
+          g.centroids > 256 || (long long)g.segs * g.dsub != g.d)) ||
+        (g.kind == kBqRow && (dims < 1 || g.d != (dims + 31) / 32)))
+      return kBadRow;
+    g.q_off = static_cast<int>(floats_used);
+    floats_used += (g.d + 3) & ~3;
+    g.table_off = -1;
+  }
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // static shared memory of the kernel beside the dynamic part
+  const long long fixed = 1024;
+  if (off + 4 * floats_used + fixed > smem_max) return kBadSmem;
+  // PQ's ADC tables, each where it still fits
+  for (int t = 0; t < targets; ++t) {
+    MtTarget& g = p.tg[t];
+    if (g.kind != kPqRow) continue;
+    const long long tb = (long long)g.segs * g.centroids;
+    if (off + 4 * (floats_used + tb) + fixed <= smem_max) {
+      g.table_off = static_cast<int>(floats_used);
+      floats_used += (tb + 3) & ~3LL;
+    }
+  }
+  const long long smem = off + 4 * floats_used;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(mt_join_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  mt_join_kernel<<<b, kMtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 const char* device_beam_error_string(int code) {
   switch (code) {
-    case kBadShape: return "b, rows, n >= 1, max_steps, levels >= 0 required";
-    case kBadEf: return "ef outside [1, 512]";
+    case kBadShape: return "b, rows, n >= 1, max_steps, levels >= 0 "
+                           "required (the join: 1 to 8 targets, pools at "
+                           "least fetch wide, D within [1, 4096])";
+    case kBadEf: return "ef (or the join's fetch) outside [1, 512], or "
+                        "targets x fetch above 4096";
     case kBadWidth: return "adjacency width outside [1, 128]";
     case kBadDims: return "D outside [1, 4096]";
-    case kBadMetric: return "unknown metric code";
+    case kBadMetric: return "unknown metric or join code";
     case kBadKeep: return "keep_k above ef, or no kept outputs";
     case kBadFrontier: return "expand outside [0, M0] or M0 * (1 + expand) "
                               "above 640";

@@ -164,6 +164,11 @@ class RawBackend:
     def capacity(self) -> int:
         return self.store.capacity
 
+    def device_plane_capacity(self) -> int:
+        """Rows of the device plane the walk gathers (the rerank tier's
+        token planes align to it)."""
+        return self.store.capacity
+
     @property
     def host_valid_mask(self) -> np.ndarray:
         return self.store.host_valid_mask
@@ -406,6 +411,10 @@ class QuantizedBackend:
     @property
     def capacity(self) -> int:
         return self.originals.capacity
+
+    def device_plane_capacity(self) -> int:
+        """Rows of the device code planes the walk gathers."""
+        return self.codes.capacity
 
     @property
     def host_valid_mask(self) -> np.ndarray:

@@ -24,9 +24,14 @@ A configured quantizer (BQ, SQ, PQ or RQ) swaps the whole distance tier to
 code space (``QuantizedBackend``): the walks score the device code planes,
 the host rescores exactly against the originals, and the trained quantizer
 state (PQ's codebooks and RQ's rotation included) persists beside the graph
-(``quantizer.msgpack``). Differences from the JAX index: the mesh graph and walk (slice
-11), and the fused rerank tier and the multi-target walk legs (slice 7) are
-not ported. The fused walk's rows per launch follow
+(``quantizer.msgpack``). A configured rerank module
+(``HNSWIndexConfig.rerank``) adds the rerank tier: token planes beside the
+corpus (``modules/device/store.py``; each vector its own 1-token set until
+``set_tokens`` registers real ones), and ``search(rerank=RerankRequest)``
+rescoring the walk's candidates with the module, on the card one B7a launch
+after the walk's B2 launch on the same stream. ``multi_walk_inputs`` hands
+one target's walk to a shard's multi-target search. The mesh graph and walk
+(slice 11) are not ported. The fused walk's rows per launch follow
 its bitset, not the JAX index's [B, capacity] scratch; the walks are
 independent, so the results are the same. Device-time attribution waits for
 the serving slice; the ``device_execute_ms`` trace attribute stays.
@@ -114,11 +119,6 @@ class HNSWIndex(VectorIndex):
         self.config = config or HNSWIndexConfig()
         self.metric = self.config.distance
         self.path = path
-        rr_cfg = getattr(self.config, "rerank", None)
-        if rr_cfg is not None and rr_cfg.enabled:
-            raise NotImplementedError(
-                "fused device rerank tier: not ported yet (ROADMAP queue A, "
-                "slice 7)")
         # an existing store may be handed over (dynamic-index upgrade keeps
         # the corpus in device memory and only builds the graph); a
         # configured quantizer swaps the whole distance tier to code space
@@ -168,6 +168,24 @@ class HNSWIndex(VectorIndex):
 
             self._device_beam = DeviceAdjacency(self.graph, self.device)
             self.graph.dirty_hook = self._device_beam.mark_dirty
+        # the rerank tier: a frozen module scores the walk's candidates
+        # against token planes on the card; each vector defaults to its own
+        # 1-token set (set_tokens registers late-interaction sets)
+        self._rerank_module = None
+        self._token_store = None
+        rr_cfg = getattr(self.config, "rerank", None)
+        if rr_cfg is not None and rr_cfg.enabled:
+            from weaviate_tpu_torch.modules.device import (
+                CandidateTokenStore,
+                build_device_reranker,
+            )
+
+            self._rerank_module = build_device_reranker(
+                rr_cfg.module, rr_cfg.params)
+            self._token_store = CandidateTokenStore(
+                dims, max_tokens=rr_cfg.max_tokens,
+                cap_fn=self.backend.device_plane_capacity,
+                device=self.device)
 
     # ------------------------------------------------------------------
     # persistence: the condensed graph (graph.npz) plus the commit log of
@@ -427,6 +445,9 @@ class HNSWIndex(VectorIndex):
         if len(doc_ids) == 0:
             return
         self.backend.put(doc_ids, vectors)
+        if self._token_store is not None:
+            # default token sets: the vector itself, one [m, 1, D] block
+            self._token_store.put(doc_ids, vectors[:, None, :])
         self.graph.ensure_capacity(int(doc_ids.max()) + 1)
         # a re-added tombstoned id is a fresh vector at an old id: drop the
         # stale node so it re-inserts with edges for the new vector
@@ -695,10 +716,22 @@ class HNSWIndex(VectorIndex):
     def delete(self, doc_ids: np.ndarray) -> None:
         doc_ids = np.asarray(doc_ids, np.int64)
         self.backend.delete(doc_ids)
+        if self._token_store is not None:
+            self._token_store.delete(doc_ids)
         for d in doc_ids:
             self.graph.add_tombstone(int(d))
         if self._commitlog is not None:
             self._commitlog.flush_soft()
+
+    def set_tokens(self, doc_ids: np.ndarray, token_sets: list) -> None:
+        """Register late-interaction token sets for the rerank tier
+        (overrides the 1-token default ``add_batch`` stores). Requires a
+        configured rerank module."""
+        if self._token_store is None:
+            raise ValueError(
+                "set_tokens requires a rerank module configured on this "
+                "index (HNSWIndexConfig.rerank)")
+        self._token_store.put(np.asarray(doc_ids, np.int64), token_sets)
 
     def cleanup_tombstones(self) -> int:
         """Rewire edges around tombstoned nodes, then drop them.
@@ -780,12 +813,12 @@ class HNSWIndex(VectorIndex):
         # surfaced on the plan's trace span.
         from weaviate_tpu_torch.index.base import run_tier_stable
 
-        if rerank is not None:
-            raise NotImplementedError(
-                "fused device rerank tier: not ported yet (ROADMAP queue A, "
-                "slice 7)")
+        if rerank is not None and self._token_store is None:
+            raise ValueError(
+                "rerank requested but no rerank module is configured on "
+                "this index (HNSWIndexConfig.rerank)")
         return run_tier_stable(
-            lambda: self._search_tiered(queries, k, allow_list,
+            lambda: self._search_tiered(queries, k, allow_list, rerank,
                                         est_selectivity))
 
     def _allow_host(self, allow_list):
@@ -817,11 +850,49 @@ class HNSWIndex(VectorIndex):
             fetch = min(ef, max(fetch, rl, 2 * k))
         return fetch
 
+    def _host_rerank_topk(self, rerank_batch, cand_ids: np.ndarray,
+                          k: int, reason: str
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """The rerank tier on the host, for the tiers the index picks by
+        state (a demoted store, flat triage, the host walk): the candidate
+        pool scored against the token store's host planes with the
+        module's numpy twin, counted as such."""
+        from weaviate_tpu_torch.monitoring import tracing
+        from weaviate_tpu_torch.monitoring.metrics import (
+            RERANK_FALLBACK,
+            RERANK_REQUESTS,
+        )
+
+        module, rq, rqm = rerank_batch
+        name = getattr(module, "name", type(module).__name__)
+        RERANK_REQUESTS.inc(module=name, tier="host")
+        RERANK_FALLBACK.inc(module=name, reason=reason)
+        tracing.add_event("rerank.fallback", module=name, reason=reason)
+        toks, mask = self._token_store.host_planes()
+        cand_ids = np.asarray(cand_ids, np.int64)
+        inside = (cand_ids >= 0) & (cand_ids < toks.shape[0])
+        safe = np.clip(cand_ids, 0, toks.shape[0] - 1)
+        ct = toks[safe]
+        cm = mask[safe] & inside[:, :, None]
+        scores = module.host_score(rq, rqm, ct, cm)
+        scores = np.where(inside, scores, -np.inf)
+        order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+        ids = np.take_along_axis(cand_ids, order, axis=1)
+        s = np.take_along_axis(scores, order, axis=1)
+        ids = np.where(np.isfinite(s), ids, -1)
+        d = np.where(np.isfinite(s), -s, _INF).astype(np.float32)
+        if ids.shape[1] < k:
+            pad = k - ids.shape[1]
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+            d = np.pad(d, ((0, 0), (0, pad)), constant_values=_INF)
+        return ids.astype(np.int64), d
+
     def _search_tiered(
         self,
         queries: np.ndarray,
         k: int,
         allow_list: Optional[np.ndarray] = None,
+        rerank=None,
         est_selectivity: Optional[float] = None,
     ) -> SearchResult:
         queries = np.atleast_2d(np.asarray(queries, np.float32))
@@ -842,8 +913,15 @@ class HNSWIndex(VectorIndex):
             from weaviate_tpu_torch.monitoring.tracing import TRACER
 
             with TRACER.span("tiering.host_search", rows=b, k=k):
-                d, ids = self.backend.host_topk(
-                    queries, k, self._allow_host(allow_list))
+                allow_host = self._allow_host(allow_list)
+                if rerank is not None:
+                    fetch = self._fetch_width(k, self._dynamic_ef(k))
+                    _, ids = self.backend.host_topk(
+                        queries, fetch, allow_host)
+                    ids, d = self._host_rerank_topk(
+                        rerank.batch_for(queries), ids, k, "warm_tier")
+                else:
+                    d, ids = self.backend.host_topk(queries, k, allow_host)
             return SearchResult(ids=ids, dists=d)
 
         # batch-group key: the residency epoch (a request enqueued under
@@ -886,9 +964,16 @@ class HNSWIndex(VectorIndex):
                 attrs["planner.plane"] = plane.plane_id
             tracing.annotate(**attrs)
             if chosen.plan_type == PLAN_EXACT:
-                return self._flat_filtered(queries, k,
-                                           self._allow_host(allow_list))
-            if chosen.plan_type == PLAN_OVERFETCH:
+                allow_host = self._allow_host(allow_list)
+                if rerank is not None:
+                    fetch = self._fetch_width(k, self._dynamic_ef(k))
+                    _, ids = self.backend.flat_topk(
+                        queries, fetch, allow_host)
+                    ids, d = self._host_rerank_topk(
+                        rerank.batch_for(queries), ids, k, "flat_triage")
+                    return SearchResult(ids=ids, dists=d)
+                return self._flat_filtered(queries, k, allow_host)
+            if chosen.plan_type == PLAN_OVERFETCH and rerank is None:
                 # over-fetch the unfiltered walk (it coalesces with plain
                 # traffic at fetch_k), then post-filter on the host
                 ids, d = self._dispatch.search(
@@ -902,10 +987,12 @@ class HNSWIndex(VectorIndex):
                 return SearchResult(
                     ids=np.take_along_axis(ids, order, axis=1),
                     dists=np.take_along_axis(d, order, axis=1))
-            # PLAN_BEAM: the mask rides the dispatch below
+            # PLAN_BEAM (and over-fetch under rerank, which takes the
+            # filtered beam: the rerank stage needs the mask on the card):
+            # the mask rides the dispatch below
 
         ids, d = self._dispatch.search(
-            queries, k, allow_list, tier_key=tier_key)
+            queries, k, allow_list, tier_key=tier_key, rerank=rerank)
         return SearchResult(ids=ids, dists=d)
 
     def _sub_batch(self) -> int:
@@ -916,13 +1003,20 @@ class HNSWIndex(VectorIndex):
             return _walk_rows(self.graph.capacity)
         return max(8, min(64, _VISITED_BUDGET // max(1, self.graph.capacity)))
 
-    def _run_search_batch(self, queries: np.ndarray, k: int, allow_list):
-        """Single-flight batch runner behind the coalescing dispatcher."""
+    def _run_search_batch(self, queries: np.ndarray, k: int, allow_list,
+                          rerank=None):
+        """Single-flight batch runner behind the coalescing dispatcher.
+        ``rerank``: (module, q_tokens [B, Tq, D], q_mask) concatenated by
+        the leader across the coalesced group, or None."""
         if not self.backend.device_resident:
             # a demotion landed while this group was queued: the leader
             # re-routes the whole batch to the warm host tier
-            d, ids = self.backend.host_topk(
-                queries, k, self._allow_host(allow_list))
+            allow_host = self._allow_host(allow_list)
+            if rerank is not None:
+                fetch = self._fetch_width(k, self._dynamic_ef(k))
+                _, ids = self.backend.host_topk(queries, fetch, allow_host)
+                return self._host_rerank_topk(rerank, ids, k, "warm_tier")
+            d, ids = self.backend.host_topk(queries, k, allow_host)
             return ids, d
         b = queries.shape[0]
         sub_b = self._sub_batch()
@@ -930,7 +1024,11 @@ class HNSWIndex(VectorIndex):
         out_d = np.full((b, k), _INF, np.float32)
         for s in range(0, b, sub_b):
             e = min(b, s + sub_b)
-            ids, d = self._search_one_batch(queries[s:e], k, allow_list)
+            sub_rr = rerank
+            if rerank is not None and (s or e < b):
+                sub_rr = (rerank[0], rerank[1][s:e], rerank[2][s:e])
+            ids, d = self._search_one_batch(queries[s:e], k, allow_list,
+                                            rerank=sub_rr)
             out_ids[s:e], out_d[s:e] = ids, d
         return out_ids, out_d
 
@@ -948,7 +1046,7 @@ class HNSWIndex(VectorIndex):
             keep &= al[:cap]
         return keep
 
-    def _search_one_batch(self, queries, k, allow_list):
+    def _search_one_batch(self, queries, k, allow_list, rerank=None):
         b = queries.shape[0]
         qdev = self._qdev(queries)
         ef = self._dynamic_ef(k)
@@ -964,7 +1062,7 @@ class HNSWIndex(VectorIndex):
             # fused walk: greedy descent + layer-0 beam in one launch; an
             # unfitted quantizer walks on the host (a lifecycle stage)
             out = self._device_beam_search(queries, qdev, ef, k, allow_list,
-                                           expand=expand)
+                                           rerank=rerank, expand=expand)
             if out is not None:
                 return out
         eps = np.full(b, self.graph.entrypoint, np.int64)
@@ -978,10 +1076,14 @@ class HNSWIndex(VectorIndex):
         _, _, kept_ids, kept_d = self._search_level(
             qdev, eps, ef, 0, keep_mask=keep, keep_k=keep_k, expand=expand
         )
+        if rerank is not None:
+            # the host walk (no device walk: the config, or an unfitted
+            # quantizer): its kept candidates feed the module's numpy twin
+            return self._host_rerank_topk(rerank, kept_ids, k, "host_walk")
         return self.backend.rescore_topk(queries, kept_ids, kept_d, k)
 
     def _device_beam_search(self, queries, qdev, ef, k, allow_list=None,
-                            expand: int = 0):
+                            rerank=None, expand: int = 0):
         """The entrypoint -> layer-0 walk in one launch of the fused
         kernel, gather-scoring the device corpus. The host then drops
         tombstoned and deleted ids from the returned beam (sweeping
@@ -1010,6 +1112,7 @@ class HNSWIndex(VectorIndex):
         # plane as its cached device mirror; the kept track is fetch wide,
         # padded to a power of two within the beam
         cap = int(adj.shape[0])
+        fetch_pad = min(ef_pad, _pow2_pad(fetch))
         allow, keep_k = None, 0
         if allow_list is not None:
             if getattr(allow_list, "plane_id", None) is not None:
@@ -1019,15 +1122,27 @@ class HNSWIndex(VectorIndex):
                 if len(al) < cap:
                     al = np.pad(al, (0, cap - len(al)))
                 allow = al[:cap]
-            keep_k = min(ef_pad, _pow2_pad(fetch))
+            keep_k = fetch_pad
+        # the rerank stage draws from the same fetch-wide pool: on the card
+        # one B7a launch after the walk's, on the same stream
+        rr_args: dict = {}
+        rr_name = ""
+        if rerank is not None:
+            module, rq, rqm = rerank
+            rr_name = getattr(module, "name", type(module).__name__)
+            toks, tmask = self._token_store.sync(min_rows=cap)
+            rr_args = dict(rerank=module, rerank_k=fetch_pad,
+                           rerank_q=rq, rerank_qmask=rqm,
+                           rerank_tokens=toks, rerank_tmask=tmask)
         eps = np.full(b, self.graph.entrypoint, np.int32)
         t_dev = time.perf_counter()
         out = device_search(
             scorer, q.contiguous(), operands, adj, present, eps,
             ef=ef_pad, max_steps=_max_steps(ef_pad),
             upper_adj=upper_adj, upper_slots=upper_slots,
-            allow=allow, keep_k=keep_k, expand=expand)
-        ids_t, d_t = out[2:] if allow is not None else out
+            allow=allow, keep_k=keep_k, expand=expand, **rr_args)
+        ids_t, d_t = out[2:] if (allow is not None or rerank is not None) \
+            else out
         ids = ids_t.cpu().numpy().astype(np.int64)
         d = d_t.cpu().numpy()
         # the copy above is the completion sync: the bracket is the launch
@@ -1046,13 +1161,73 @@ class HNSWIndex(VectorIndex):
         order = np.argsort(d, axis=1, kind="stable")[:, :fetch]
         d = np.take_along_axis(d, order, axis=1)
         ids = np.take_along_axis(ids, order, axis=1)
-        ids, d = self.backend.rescore_topk(queries, ids, d, k)
-        ids = ids.astype(np.int64)
+        if rerank is not None:
+            # the module score is the final order (d is the negated
+            # score): no rescore tier after it
+            from weaviate_tpu_torch.monitoring.metrics import (
+                RERANK_CANDIDATES,
+                RERANK_REQUESTS,
+            )
+
+            RERANK_REQUESTS.inc(module=rr_name, tier="fused")
+            RERANK_CANDIDATES.observe(b * fetch_pad, module=rr_name)
+            tracing.add_event("rerank.score", module=rr_name,
+                              candidates=fetch_pad, rows=b)
+            ids = ids[:, :k].astype(np.int64)
+            d = d[:, :k].astype(np.float32)
+        else:
+            ids, d = self.backend.rescore_topk(queries, ids, d, k)
+            ids = ids.astype(np.int64)
         if d.shape[1] < k:
             pad = k - d.shape[1]
             d = np.pad(d, ((0, 0), (0, pad)), constant_values=_INF)
             ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
         return ids, d
+
+    def multi_walk_inputs(self, queries, k: int, b_pad: int,
+                          allow_list=None, expand: int = 0):
+        """One walk leg of a multi-target search: what
+        ``_device_beam_search`` would hand the walk (scorer and device
+        operands, queries padded to ``b_pad`` rows by repeating row 0, the
+        synced graph mirror, the entrypoints, the power-of-two widths, the
+        device allow mask), for a shard to run every target's walk and
+        the join (``core/shard.py``). None when this index cannot walk on
+        the card now (no device walk, demoted, or an unfitted quantizer):
+        the caller then serves the request from the host oracle."""
+        if self._device_beam is None or not self.device_resident:
+            return None
+        scorer_pack = self.backend.device_scorer()
+        if scorer_pack is None:
+            return None  # quantizer unfitted: a lifecycle stage
+        scorer, operands = scorer_pack
+        q = self.backend.beam_queries(self._qdev(queries))
+        ef = self._dynamic_ef(k)
+        fetch = self._fetch_width(k, ef)
+        ef_pad = _ef_pad(ef)
+        fetch_pad = min(ef_pad, _pow2_pad(fetch))
+        b = q.shape[0]
+        if b_pad != b:
+            q = torch.cat([q, q[:1].expand(b_pad - b, *q.shape[1:])])
+        adj, present = self._device_beam.sync()
+        upper_adj, upper_slots = self._device_beam.sync_upper()
+        cap = int(adj.shape[0])
+        leg = dict(
+            scorer=scorer, operands=operands, q=q.contiguous(), adj=adj,
+            present=present, upper_adj=upper_adj, upper_slots=upper_slots,
+            ef_pad=ef_pad, fetch_pad=fetch_pad, cap=cap, allow=None,
+            keep_k=0, expand=0,
+            eps=np.full(b_pad, self.graph.entrypoint, np.int32))
+        if allow_list is not None:
+            if getattr(allow_list, "plane_id", None) is not None:
+                leg["allow"] = allow_list.device_mask(cap)
+            else:
+                al = np.asarray(allow_list, bool)
+                if len(al) < cap:
+                    al = np.pad(al, (0, cap - len(al)))
+                leg["allow"] = al[:cap]
+            leg["keep_k"] = fetch_pad
+            leg["expand"] = expand
+        return leg
 
     def _flat_filtered(self, queries, k, allow_list):
         d, ids = self.backend.flat_topk(queries, k, allow_list)
@@ -1078,12 +1253,24 @@ class HNSWIndex(VectorIndex):
         if self.store is None:  # quantized: codes rebuild from the objects
             return False
         self.store.save(path, meta)
+        if self._token_store is not None:
+            # the rerank tier's token planes checkpoint beside the corpus
+            # (the JAX index's ``<path>.rrtok.npz`` sidecar)
+            self._token_store.save(path)
         return True
 
     def load_vectors(self, path: str) -> Optional[dict]:
         if self.store is None:
             return None
-        return self.store.load(path)
+        meta = self.store.load(path)
+        if meta is None:
+            return None
+        if self._token_store is not None \
+                and not self._token_store.load(path):
+            # the corpus without its token sidecar: half a checkpoint is
+            # no checkpoint (the caller rebuilds from the objects)
+            return None
+        return meta
 
     def count(self) -> int:
         return self.graph.node_count
@@ -1104,10 +1291,15 @@ class HNSWIndex(VectorIndex):
         n = self.backend.hbm_bytes()
         if self._device_beam is not None:
             n += self._device_beam.nbytes
+        if self._token_store is not None:
+            n += self._token_store.nbytes
         return n
 
     def host_tier_bytes(self) -> int:
-        return self.backend.host_tier_bytes()
+        n = self.backend.host_tier_bytes()
+        if self._token_store is not None:
+            n += self._token_store.host_bytes
+        return n
 
     def demote_device(self) -> int:
         """Warm demotion: the corpus to host RAM and the walk's mirrored
@@ -1116,6 +1308,8 @@ class HNSWIndex(VectorIndex):
         freed = self.backend.demote_device()
         if self._device_beam is not None:
             freed += self._device_beam.drop_device()
+        if self._token_store is not None:
+            freed += self._token_store.drop_device()
         if freed:
             self._residency_epoch += 1
         return freed
@@ -1151,4 +1345,8 @@ class HNSWIndex(VectorIndex):
             # presence mask, and compact upper-layer tables
             s["device_beam"] = True
             s["device_beam_hbm_bytes"] = self._device_beam.nbytes
+        if self._rerank_module is not None:
+            s["rerank_module"] = self._rerank_module.name
+            s["rerank_hbm_bytes"] = self._token_store.nbytes
+            s["rerank_host_bytes"] = self._token_store.host_bytes
         return s

@@ -25,6 +25,17 @@ opens in either package; its codes are rebuilt from the objects.
 PQ's codebooks, RQ's rotation) into the port's quantizer, and ``array_set_from_numpy`` builds a port
 ``DeviceArraySet`` from a JAX set's code planes, valid mask, watermark and
 live count as numpy.
+
+The rerank tier and the multivector index (slice 7a) cross the same way.
+An HNSW target with a rerank module checkpoints its token planes beside its
+vector checkpoint (``<path>.rrtok.npz``: ``tokens`` [cap, T, D] float32 and
+``mask`` [cap, T]); a multivector target checkpoints its FDE corpus as a
+vector checkpoint and its token sets in ``<path>.tokens`` (msgpack, one
+record a live document). The rerank module's name and parameters live in
+``schema.json`` (``RerankModuleConfig``). ``MuveraEncoder``'s random
+matrices are not carried: the port draws the same ones from the same seed
+(``index/multivector.py``). ``token_store_from_numpy`` builds a port token
+store from a JAX store's ``host_planes()``.
 """
 
 from __future__ import annotations
@@ -119,3 +130,22 @@ def array_set_from_numpy(fields: dict, planes: dict, valid: np.ndarray,
     out._watermark = int(watermark)
     out._live = int(live)
     return out
+
+
+def token_store_from_numpy(tokens: np.ndarray, mask: np.ndarray,
+                           device=None):
+    """A port ``CandidateTokenStore`` holding exactly the given planes:
+    ``tokens`` [cap, T, D] float32 and ``mask`` [cap, T] bool (a JAX
+    store's ``host_planes()``); T must be a power of two, as every store's
+    is."""
+    from weaviate_tpu_torch.modules.device import CandidateTokenStore
+
+    cap, t, d = tokens.shape
+    if mask.shape != (cap, t) or t & (t - 1):
+        raise ValueError(f"expected tokens [cap, 2^j, D] and mask [cap, "
+                         f"2^j], got {tokens.shape}, {mask.shape}")
+    store = CandidateTokenStore(d, max_tokens=t, initial_capacity=cap,
+                                device=device)
+    store._tokens = np.array(tokens, np.float32, copy=True)
+    store._mask = np.array(mask, bool, copy=True)
+    return store

@@ -29,9 +29,22 @@ quantizer (exact integer distances, so a BQ walk equals the plain
 version's); ``SQScorer`` the byte codes of a scalar quantizer; ``RQScorer``
 a rotational quantizer's byte codes with each row's lower and step;
 ``PQScorer`` a product quantizer's codes through its codebooks. The kernel
-takes the row type of each. Not ported yet, each raising
-``NotImplementedError``: the fused rerank stage and the multi-target legs
-(slice 7), the mesh walk (slice 11).
+takes the row type of each.
+
+Two stages ride after a walk, each its own hand-written kernel launched on
+the walk's stream with no host sync between them:
+
+- the rerank stage (``_rerank_stage``; kernel B7a, ``ops/rerank.py``,
+  ``csrc/rerank.cu``): the walk's candidates rescored by a device rerank
+  module against their token planes. ``fused_flat_rerank`` puts it after a
+  flat scan instead: the multivector index's serving program.
+- the multi-target join (``mt_join_topk``; kernel B7b, ``mt_join_kernel``
+  in ``csrc/device_beam.cu``): after one walk a target, the union of the
+  targets' pools scored under every target's row type, joined and cut to
+  the best ``fetch`` (``device_multi_search``).
+
+The mesh forms of the walk, the rerank stage and the multi-target search
+raise ``NotImplementedError`` (slice 11).
 """
 
 from __future__ import annotations
@@ -145,6 +158,29 @@ def _masked_scores(scorer, q, ids, operands):
     return torch.where(ids >= 0, d, _INF)
 
 
+def _rerank_stage(rerank, out_k, cand, tokens, tmask, rq, rqmask):
+    """The rerank tail of a walk or a flat scan: module scores and a top-k,
+    -> (ids [B, out_k], neg_scores [B, out_k]); on the card one launch of
+    B7a, on CPU tensors its plain version (``ops/rerank.py``, where
+    ``_module_scores`` is JAX's ``_rerank_module_scores``)."""
+    from weaviate_tpu_torch.ops.rerank import rerank_topk
+
+    return rerank_topk(cand, tokens, tmask, rq, rqmask, rerank, out_k)
+
+
+def _walk_reranked(out, track: bool, rerank, rerank_k: int, rerank_q,
+                   rerank_qmask, rerank_tokens, rerank_tmask):
+    """A walk's outputs with the rerank stage over its first ``rerank_k``
+    candidates (the kept track when ``track``, the beam otherwise): ->
+    (beam_ids, beam_d, rerank_ids, neg_scores)."""
+    pool = (out[2] if track else out[0])[:, :rerank_k]
+    r_ids, r_d = _rerank_stage(rerank, rerank_k,
+                               pool.to(torch.int32).contiguous(),
+                               rerank_tokens, rerank_tmask, rerank_q,
+                               rerank_qmask)
+    return out[0], out[1], r_ids, r_d
+
+
 _NO_UPPER: dict = {}
 
 
@@ -192,12 +228,17 @@ def _two_hop_widen(adjacency, present, allow, queries, operands, scorer,
 
 def _fused_search(scorer, queries, operands, adjacency, present, eps,
                   upper_adj, upper_slots, ef: int, max_steps: int,
-                  allow=None, keep_k: int = 0, expand: int = 0):
+                  allow=None, keep_k: int = 0, expand: int = 0,
+                  rerank=None, rerank_k: int = 0, rerank_q=None,
+                  rerank_qmask=None, rerank_tokens=None, rerank_tmask=None):
     """The JAX program's walk as a Python loop over torch ops: ->
     (ids [B, ef] int32, dists [B, ef] float32) ascending, -1/MASK padded.
     With ``allow`` ([N] bool) and ``keep_k`` > 0 also (kept_ids [B,
     keep_k] int32, kept_d): the best allowed nodes seen along the walk,
-    -1/MASK padded."""
+    -1/MASK padded. With a ``rerank`` module the walk's first ``rerank_k``
+    candidates (the kept track when filtered, the beam otherwise) go
+    through the rerank stage, and the returns become (beam_ids, beam_d,
+    rerank_ids [B, rerank_k], neg_scores)."""
     b = queries.shape[0]
     n = adjacency.shape[0]
     dev = adjacency.device
@@ -283,11 +324,14 @@ def _fused_search(scorer, queries, operands, adjacency, present, eps,
             kept_d = torch.gather(kd, 1, korder)
         alive = bool(active.any())
         step += 1
+    out = (beam_ids.to(torch.int32), beam_d)
     if track:
         kept_ids = torch.where(kept_d >= _INF, -1, kept_ids)
-        return (beam_ids.to(torch.int32), beam_d, kept_ids.to(torch.int32),
-                kept_d)
-    return beam_ids.to(torch.int32), beam_d
+        out += (kept_ids.to(torch.int32), kept_d)
+    if rerank is not None and rerank_k > 0:
+        return _walk_reranked(out, track, rerank, rerank_k, rerank_q,
+                              rerank_qmask, rerank_tokens, rerank_tmask)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +542,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.device_beam_search.argtypes = ([p] * 16 + [i] * 16 + [f, f]
                                        + [p] * 3 + [i] * 3 + [p])
     lib.device_beam_search.restype = i
+    lib.mt_join_topk.argtypes = [p] * 3 + [i, p, p, p, i, i, i, p]
+    lib.mt_join_topk.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p
     return lib
@@ -515,29 +561,45 @@ def _library() -> ctypes.CDLL:
 def fused_search(scorer, queries, operands, adjacency, present, eps,
                  upper_adj, upper_slots, ef: int, max_steps: int,
                  allow=None, keep_k: int = 0, expand: int = 0, rerank=None,
-                 rerank_k: int = 0, **rerank_planes):
+                 rerank_k: int = 0, rerank_q=None, rerank_qmask=None,
+                 rerank_tokens=None, rerank_tmask=None):
     """The fused walk of a batch: -> (ids [B, ef] int32, dists [B, ef]
     float32) ascending, -1/MASK padded; with ``allow`` and ``keep_k`` > 0
-    also (kept_ids [B, keep_k], kept_d). CUDA tensors go to the kernel,
-    CPU tensors to the plain version. The ``launches`` attribute counts
-    kernel launches."""
-    if rerank is not None or rerank_k or rerank_planes:
-        raise NotImplementedError(
-            "fused rerank stage: not ported yet (ROADMAP queue A, slice 7)")
+    also (kept_ids [B, keep_k], kept_d); with a ``rerank`` module (beam_ids,
+    beam_d, rerank_ids, neg_scores), see ``_fused_search``. CUDA tensors go
+    to the kernels (B2, then B7a on the same stream), CPU tensors to the
+    plain version. The ``launches`` attribute counts B2's launches."""
     dev = adjacency.device
     if dev.type == "cuda":
-        return fused_search_cuda(scorer, queries, operands, adjacency,
-                                 present, eps, upper_adj, upper_slots, ef,
-                                 max_steps, allow=allow, keep_k=keep_k,
-                                 expand=expand)
+        out = fused_search_cuda(scorer, queries, operands, adjacency,
+                                present, eps, upper_adj, upper_slots, ef,
+                                max_steps, allow=allow, keep_k=keep_k,
+                                expand=expand)
+        if rerank is None or rerank_k <= 0:
+            return out
+        return _walk_reranked(out, allow is not None and keep_k > 0, rerank,
+                              rerank_k, rerank_q, rerank_qmask,
+                              rerank_tokens, rerank_tmask)
     if dev.type == "cpu":
         return _fused_search(scorer, queries, operands, adjacency, present,
                              eps, upper_adj, upper_slots, ef, max_steps,
-                             allow=allow, keep_k=keep_k, expand=expand)
+                             allow=allow, keep_k=keep_k, expand=expand,
+                             rerank=rerank, rerank_k=rerank_k,
+                             rerank_q=rerank_q, rerank_qmask=rerank_qmask,
+                             rerank_tokens=rerank_tokens,
+                             rerank_tmask=rerank_tmask)
     raise ValueError(f"no fused walk for device {dev}")
 
 
 fused_search.launches = 0
+
+
+def _as_device(x, dev, dtype):
+    """``x`` (numpy or torch) as a contiguous ``dtype`` tensor on ``dev``."""
+    if not torch.is_tensor(x):
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
+    return x.to(device=dev, dtype=dtype).contiguous()
 
 
 def device_search(
@@ -556,28 +618,47 @@ def device_search(
     expand: int = 0,
     rerank=None,
     rerank_k: int = 0,
-    **rerank_planes,
+    rerank_q=None,
+    rerank_qmask=None,
+    rerank_tokens=None,
+    rerank_tmask=None,
 ):
     """Dispatch one fused walk (descent + layer-0 beam). Without upper
     tables the walk starts at layer 0 (construction / flat graphs). With
     ``allow`` ([N] bool, numpy or torch) and ``keep_k`` > 0 it also
-    returns the kept track of the best allowed nodes (see
-    ``_fused_search``). Increments the module dispatch counter."""
+    returns the kept track of the best allowed nodes; with a ``rerank``
+    module the rerank stage follows over the walk's candidates (see
+    ``_fused_search``), ``rerank_k`` clamped to the kept track or the beam
+    it draws from. Increments the module dispatch counter."""
     global _dispatch_count
+    dev = adjacency.device
     if upper_adj is None or upper_adj.shape[0] == 0:
-        upper_adj, upper_slots = _empty_upper(adjacency.device)
-    if not torch.is_tensor(eps):
-        eps = torch.from_numpy(np.ascontiguousarray(eps, np.int32))
-    eps = eps.to(device=adjacency.device, dtype=torch.int32).contiguous()
+        upper_adj, upper_slots = _empty_upper(dev)
+    eps = _as_device(eps, dev, torch.int32)
     if allow is not None:
-        if not torch.is_tensor(allow):
-            allow = torch.from_numpy(np.ascontiguousarray(allow, bool))
-        allow = allow.to(device=adjacency.device, dtype=torch.bool).contiguous()
+        allow = _as_device(allow, dev, torch.bool)
+    if rerank is not None:
+        # the rerank pool is the kept track when filtered, the beam
+        # otherwise: never wider than its source
+        rerank_k = min(rerank_k, keep_k if (allow is not None
+                                            and keep_k > 0) else ef)
+        rerank_q = _as_device(rerank_q, dev, torch.float32)
+        rerank_qmask = _as_device(rerank_qmask, dev, torch.bool)
     _dispatch_count += 1
     return fused_search(scorer, queries, operands, adjacency, present, eps,
                         upper_adj, upper_slots, ef=ef, max_steps=max_steps,
                         allow=allow, keep_k=keep_k, expand=expand,
-                        rerank=rerank, rerank_k=rerank_k, **rerank_planes)
+                        rerank=rerank, rerank_k=rerank_k, rerank_q=rerank_q,
+                        rerank_qmask=rerank_qmask,
+                        rerank_tokens=rerank_tokens,
+                        rerank_tmask=rerank_tmask)
+
+
+def device_search_mesh(*args, **kwargs):
+    """The mesh-sharded walk (JAX ``device_search_mesh``): not ported."""
+    raise NotImplementedError(
+        "mesh-sharded device walk: not ported yet (ROADMAP queue A, "
+        "slice 11)")
 
 
 def beam_search_layer0(
@@ -598,6 +679,320 @@ def beam_search_layer0(
         RawScorer(metric, precision), queries, (corpus,), adjacency,
         present, eps, ef=ef, max_steps=max_steps, allow=allow,
         keep_k=keep_k)
+
+
+# ---------------------------------------------------------------------------
+# flat scan + rerank: the multivector (MUVERA) serving program
+# ---------------------------------------------------------------------------
+
+
+def _fused_flat_rerank(module, queries, corpus, valid, q_tokens, q_mask,
+                       tokens, tmask, fetch: int, k: int, allow=None,
+                       metric: str = "dot", precision: str = "bf16"):
+    """Coarse flat scan -> the rerank stage over its ``fetch`` candidates
+    (JAX ``_fused_flat_rerank``): -> (ids [B, k] int32, neg_scores [B, k]).
+    The scan is ``ops/distance.py flat_search``; on the card the stage is
+    one launch of B7a on the scan's stream, the candidate ids never leaving
+    the card."""
+    from weaviate_tpu_torch.ops.distance import flat_search
+
+    _, ids = flat_search(queries, corpus, k=fetch, metric=metric,
+                         valid_mask=valid, allow_mask=allow,
+                         precision=precision)
+    cand = ids.to(torch.int32)[:, :fetch].contiguous()
+    return _rerank_stage(module, k, cand, tokens, tmask, q_tokens, q_mask)
+
+
+def fused_flat_rerank(module, queries, corpus, valid, q_tokens, q_mask,
+                      tokens, tmask, fetch: int, k: int, allow=None,
+                      metric: str = "dot", precision: str = "bf16"):
+    """Dispatch the flat scan + rerank program; ``k`` is clamped to
+    ``fetch`` (the rerank pool). Increments the module dispatch counter."""
+    global _dispatch_count
+    dev = corpus.device
+    _dispatch_count += 1
+    if allow is not None:
+        allow = _as_device(allow, dev, torch.bool)
+    return _fused_flat_rerank(
+        module, _as_device(queries, dev, torch.float32), corpus, valid,
+        _as_device(q_tokens, dev, torch.float32),
+        _as_device(q_mask, dev, torch.bool), tokens, tmask, fetch=fetch,
+        k=min(k, fetch), allow=allow, metric=metric, precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# multi-target search: one walk a target, then the join (B7b)
+# ---------------------------------------------------------------------------
+#
+# Join semantics (the host oracle: query/multi_target.combine_multi_target):
+#   "weighted"  - sum_t w_t * d_t (sum: w = 1; average: 1/T; manualWeights:
+#                 the caller's weights)
+#   "minimum"   - min_t d_t
+#   "relative"  - each target min-max normalised over the candidate pool,
+#                 then sum_t w_t * norm_t (relativeScore)
+# A candidate missing any target's vector is masked to MASK_DISTANCE.
+
+_MT_JOINS = ("weighted", "minimum", "relative")
+
+
+def _mt_dedup(cand):
+    """In-row dedup of the cross-target union: an ascending sort clusters
+    duplicates (and -1 pads, which sort first); adjacent equals collapse to
+    -1."""
+    cand = torch.sort(cand, dim=1).values
+    dup = (cand[:, 1:] == cand[:, :-1]) & (cand[:, 1:] >= 0)
+    return torch.cat([cand[:, :1], torch.where(dup, -1, cand[:, 1:])], dim=1)
+
+
+def _mt_join(join, weights, stack, valid_all):
+    """[B, C, T] per-target distances + [B, C] validity -> [B, C] joined
+    distance (invalid slots at MASK_DISTANCE); ``weights`` [B, T]."""
+    if join == "minimum":
+        combined = stack.amin(dim=-1)
+    elif join == "relative":
+        vmask = valid_all[:, :, None]
+        lo = torch.where(vmask, stack, _INF).amin(dim=1, keepdim=True)
+        hi = torch.where(vmask, stack, -torch.inf).amax(dim=1, keepdim=True)
+        span = hi - lo
+        span = torch.where(span > 0, span, 1.0)
+        combined = (((stack - lo) / span) * weights[:, None, :]).sum(dim=-1)
+    else:
+        combined = (stack * weights[:, None, :]).sum(dim=-1)
+    return torch.where(valid_all, combined, _INF)
+
+
+def _mt_topk(cand, combined, fetch: int):
+    """The ``fetch`` least joined distances, ties in union order (the
+    stable sort's, as ``lax.top_k`` of the negation); slots at the mask
+    distance come out -1."""
+    order = torch.sort(combined, dim=1, stable=True)
+    d_out = order.values[:, :fetch]
+    ids = torch.gather(cand, 1, order.indices[:, :fetch])
+    ok = d_out < _INF
+    return (torch.where(ok, ids, -1).to(torch.int32),
+            torch.where(ok, d_out, _INF).to(torch.float32))
+
+
+def _mt_joined(scorers, queries, operands, present, pools, weights,
+               fetch: int, join: str):
+    """The union of the targets' pools cut to ``fetch`` (deduplicated) and
+    each member's joined distance: every member scored under every
+    target's scorer (a member past a target's capacity or absent from its
+    graph is invalid) -> (union [B, T*fetch], joined [B, T*fetch])."""
+    cand = _mt_dedup(torch.cat([p[:, :fetch].long() for p in pools], dim=1))
+    per_d = []
+    valid_all = cand >= 0
+    for t in range(len(scorers)):
+        cap_t = present[t].shape[0]
+        safe = cand.clamp(0, cap_t - 1)
+        ok_t = (cand >= 0) & (cand < cap_t) & present[t][safe]
+        per_d.append(_masked_scores(scorers[t], queries[t],
+                                    torch.where(ok_t, cand, -1),
+                                    operands[t]))
+        valid_all &= ok_t
+    return cand, _mt_join(join, weights.float(), torch.stack(per_d, dim=-1),
+                          valid_all)
+
+
+def mt_join_topk_plain(scorers, queries, operands, present, pools, weights,
+                       fetch: int, join: str):
+    """B7b in torch ops (the JAX program after its walks): each target's
+    pool [B, >= fetch] cut to ``fetch``, the union joined
+    (``_mt_joined``), the best ``fetch`` ascending -> (ids [B, fetch]
+    int32, joined [B, fetch])."""
+    return _mt_topk(*_mt_joined(scorers, queries, operands, present, pools,
+                                weights, fetch, join), fetch)
+
+
+# B7b's limits (its C side refuses the same)
+MT_MAX_TARGETS = 8
+MT_MAX_UNION = 4096
+
+
+def mt_join_topk_cuda(scorers, queries, operands, present, pools, weights,
+                      fetch: int, join: str):
+    """B7b on the card: one launch of ``mt_join_kernel`` on the current
+    stream, counted in ``launches``; the contract of ``mt_join_topk_plain``
+    (``queries`` each target's walk queries: float32 rows, BQ's packed
+    int32 words; PQ's float32 codebooks are rounded to the bfloat16 copy
+    B2 reads). Raises ``ValueError`` on arguments outside the kernel's
+    contract and ``RuntimeError`` on a failed launch."""
+    t_count = len(scorers)
+    if join not in _MT_JOINS:
+        raise ValueError(f"unknown multi-target join {join!r}")
+    if not 1 <= t_count <= MT_MAX_TARGETS:
+        raise ValueError(f"{t_count} targets outside [1, {MT_MAX_TARGETS}]")
+    if not 1 <= fetch <= MAX_EF or t_count * fetch > MT_MAX_UNION:
+        raise ValueError(f"fetch {fetch} outside [1, {MAX_EF}] or a union "
+                         f"of {t_count * fetch} above {MT_MAX_UNION}")
+    dev = pools[0].device
+    b = pools[0].shape[0]
+    if tuple(weights.shape) != (b, t_count) or weights.dtype != torch.float32 \
+            or not weights.is_contiguous() or weights.device != dev:
+        raise ValueError(f"weights must be contiguous float32 [{b}, "
+                         f"{t_count}] on {dev}")
+    ptrs, ints, floats = [], [], []
+    keep = []  # tensors made here live until the launch is enqueued
+    for t in range(t_count):
+        scorer, ops, q, pool, pres = (scorers[t], operands[t], queries[t],
+                                      pools[t], present[t])
+        rows, aux, d, want, q_dtype = _row_operands(scorer, ops)
+        want = [*want, ("queries", q, q_dtype, (b, d)),
+                ("pool", pool, torch.int32, (b, pool.shape[1])),
+                ("present", pres, torch.bool, (pres.shape[0],))]
+        for name, x, dtype, shape in want:
+            if x.dtype != dtype or tuple(x.shape) != shape:
+                raise ValueError(f"target {t}: {name} must be {dtype} "
+                                 f"{shape}, got {x.dtype} {tuple(x.shape)}")
+            if not x.is_contiguous() or x.device != dev:
+                raise ValueError(f"target {t}: {name} must be contiguous "
+                                 f"on {dev}")
+        if pool.shape[1] < fetch:
+            raise ValueError(f"target {t}: pool of {pool.shape[1]} < fetch "
+                             f"{fetch}")
+        kind = _ROW_KINDS[type(scorer)]
+        lo = step = cb = None
+        segs = dsub = cents = 0
+        sq_a = sq_s = 0.0
+        if kind == 2:
+            sq_a, sq_s = float(ops[2]), float(ops[3])
+        elif kind == 3:
+            lo, step = ops[1], ops[2]
+        elif kind == 4:
+            cb = ops[1] if ops[1].dtype == torch.bfloat16 \
+                else ops[1].to(torch.bfloat16)
+            keep.append(cb)
+            segs, cents, dsub = cb.shape
+        ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+        ptrs += [pool.data_ptr(), q.data_ptr(), rows.data_ptr(), ptr(aux),
+                 ptr(lo), ptr(step), ptr(cb), pres.data_ptr()]
+        ints += [pool.shape[1], pres.shape[0], rows.shape[0], d, kind,
+                 METRICS.index(getattr(scorer, "metric", "l2-squared")),
+                 int(getattr(scorer, "precision", "") == "bf16"), segs, dsub,
+                 cents, getattr(scorer, "dims", 0)]
+        floats += [sq_a, sq_s]
+    ids = torch.empty((b, fetch), dtype=torch.int32, device=dev)
+    dists = torch.empty((b, fetch), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mt_join_topk(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats), t_count,
+            weights.data_ptr(), ids.data_ptr(), dists.data_ptr(), b, fetch,
+            _MT_JOINS.index(join), stream)
+    if err < 0:
+        raise ValueError(
+            f"mt_join_topk refused its arguments: "
+            f"{lib.device_beam_error_string(err).decode()} (code {err})")
+    if err > 0:
+        raise RuntimeError(
+            f"mt_join_topk launch failed: "
+            f"{lib.device_beam_error_string(err).decode()} (code {err})")
+    mt_join_topk_cuda.launches += 1
+    return ids, dists
+
+
+mt_join_topk_cuda.launches = 0
+
+
+def mt_join_topk(scorers, queries, operands, present, pools, weights,
+                 fetch: int, join: str):
+    """The multi-target join: CUDA tensors go to B7b, CPU tensors to its
+    plain version."""
+    dev = pools[0].device
+    if dev.type == "cuda":
+        return mt_join_topk_cuda(scorers, queries, operands, present, pools,
+                                 weights, fetch, join)
+    if dev.type == "cpu":
+        return mt_join_topk_plain(scorers, queries, operands, present, pools,
+                                  weights, fetch, join)
+    raise ValueError(f"no multi-target join for device {dev}")
+
+
+def _mt_norm_static(t_count, allows, keep_ks, expands):
+    allows = tuple(allows) if allows is not None else (None,) * t_count
+    keep_ks = tuple(keep_ks) if keep_ks is not None else (0,) * t_count
+    expands = tuple(expands) if expands is not None else (0,) * t_count
+    return allows, keep_ks, expands
+
+
+def _fused_multi_search(scorers, weights, queries, operands, adjacency,
+                        present, eps, upper_adj, upper_slots, efs,
+                        max_steps: int, fetch: int, join: str, allows,
+                        keep_ks, expands):
+    """One walk a target (each over its own planes, graph and scorer; its
+    pool the kept track when filtered, else the beam), then the join ->
+    (ids [B, fetch], joined [B, fetch]) ascending, -1/MASK padded. On the
+    card: one B2 launch a target and one B7b launch, all on one stream."""
+    pools = []
+    for t in range(len(scorers)):
+        out = fused_search(
+            scorers[t], queries[t], operands[t], adjacency[t], present[t],
+            eps[t], upper_adj[t], upper_slots[t], ef=efs[t],
+            max_steps=max_steps, allow=allows[t], keep_k=keep_ks[t],
+            expand=expands[t])
+        filtered = allows[t] is not None and keep_ks[t] > 0
+        pools.append(out[2] if filtered else out[0])
+    return mt_join_topk(scorers, queries, operands, present, pools, weights,
+                        fetch, join)
+
+
+def device_multi_search(
+    scorers,
+    weights,
+    queries,
+    operands,
+    adjacency,
+    present,
+    eps,
+    upper_adjs,
+    upper_slots,
+    efs,
+    max_steps: int,
+    fetch: int,
+    join: str,
+    allows=None,
+    keep_ks=None,
+    expands=None,
+):
+    """Dispatch one multi-target search: per-target walks + the
+    cross-scored join + top-k. Increments the module dispatch counter once
+    (the JAX program's one dispatch; here T walk launches and one join
+    launch)."""
+    global _dispatch_count
+    t_count = len(scorers)
+    if join not in _MT_JOINS:
+        raise ValueError(f"unknown multi-target join {join!r}")
+    allows, keep_ks, expands = _mt_norm_static(
+        t_count, allows, keep_ks, expands)
+    ua, us, al, ep = [], [], [], []
+    for t in range(t_count):
+        dev = adjacency[t].device
+        a, s = upper_adjs[t], upper_slots[t]
+        if a is None or a.shape[0] == 0:
+            a, s = _empty_upper(dev)
+        ua.append(a)
+        us.append(s)
+        ep.append(_as_device(eps[t], dev, torch.int32))
+        al.append(None if allows[t] is None
+                  else _as_device(allows[t], dev, torch.bool))
+    dev = adjacency[0].device
+    _dispatch_count += 1
+    return _fused_multi_search(
+        tuple(scorers), _as_device(weights, dev, torch.float32),
+        tuple(queries), tuple(operands), tuple(adjacency), tuple(present),
+        tuple(ep), tuple(ua), tuple(us), efs=tuple(efs),
+        max_steps=max_steps, fetch=fetch, join=join, allows=tuple(al),
+        keep_ks=keep_ks, expands=expands)
+
+
+def device_multi_search_mesh(*args, **kwargs):
+    """The mesh form of the multi-target search: not ported."""
+    raise NotImplementedError(
+        "mesh-sharded multi-target search: not ported yet (ROADMAP queue A, "
+        "slice 11)")
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,8 @@ of ``weaviate_tpu/query/``).
 
 Reference: ``usecases/traverser`` (Traverser/Explorer) + ``adapters/repos/db``
 post-processing (sorter, aggregator, group-by, autocut). The cost-based
-planner and the resident filter planes live in ``query/planner/``.
-Multi-target score joining (``query/multi_target.py``) comes with ROADMAP
-queue A slice 7.
+planner and the resident filter planes live in ``query/planner/``;
+multi-target score joining in ``query/multi_target.py``.
 """
 
 from weaviate_tpu_torch.query.aggregator import aggregate_property

@@ -10,8 +10,9 @@ traverser.
 The port serves nearVector, bm25, hybrid, multi-target (as far as the
 collection does), plain and filtered fetches with sort, autocut, groupBy and
 the legacy group. The module steps raise ``NotImplementedError`` naming their
-ROADMAP queue-A slice: rerank (slice 7), generate, ask, summary, tokens
-and the vectorizer behind nearText (slice 9). ``autocorrect`` needs a
+ROADMAP queue-A slice: rerank (it reaches the host rerankers through the
+module registry), generate, ask, summary, tokens and the vectorizer behind
+nearText (slice 9). ``autocorrect`` needs a
 spellcheck module, which a collection of the port never holds: as in the
 JAX package without one, it changes nothing.
 """
@@ -223,8 +224,9 @@ class Explorer:
         raises before any search runs."""
         if params.rerank is not None:
             raise NotImplementedError(
-                "rerank (modules/device and the host rerankers): not ported "
-                "yet (ROADMAP queue A, slice 7)")
+                "the rerank step (the module registry's host rerankers "
+                "beside modules/device): not ported yet (ROADMAP queue A, "
+                "slice 9)")
         for name in ("generate", "ask", "summary", "tokens"):
             if getattr(params, name):
                 raise NotImplementedError(

@@ -221,9 +221,19 @@ class RerankModuleConfig:
     params: dict = field(default_factory=dict)
 
     def validate(self) -> None:
-        raise NotImplementedError(
-            "device rerank modules: not ported yet (ROADMAP queue A, "
-            "slice 7)")
+        from weaviate_tpu_torch.modules.device.base import (
+            build_device_reranker,
+        )
+
+        if self.max_tokens < 1:
+            raise ValueError(
+                f"rerank max_tokens must be >= 1, got {self.max_tokens}")
+        # instantiating validates both the name and the params (a typo'd
+        # weight silently defaulting would change ranking quality)
+        try:
+            build_device_reranker(self.module, self.params)
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"invalid rerank module config: {e}") from e
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -243,9 +253,9 @@ def rerank_from_dict(d: Optional[dict]) -> Optional[RerankModuleConfig]:
 
 
 # Index types with an implementation in the port (kept in sync with
-# weaviate_tpu_torch.core.shard.build_vector_index). multivector and hfresh
-# come with ROADMAP queue A slice 7.
-AVAILABLE_INDEX_TYPES = ("flat", "hnsw", "dynamic")
+# weaviate_tpu_torch.core.shard.build_vector_index). hfresh comes with
+# ROADMAP queue A slice 7b.
+AVAILABLE_INDEX_TYPES = ("flat", "hnsw", "dynamic", "multivector")
 
 
 @dataclass
@@ -283,8 +293,8 @@ class VectorIndexConfig:
         if self.index_type not in AVAILABLE_INDEX_TYPES:
             raise ValueError(
                 f"index type {self.index_type!r} not available; "
-                f"have {AVAILABLE_INDEX_TYPES} (multivector and hfresh: "
-                f"ROADMAP queue A slice 7)"
+                f"have {AVAILABLE_INDEX_TYPES} (hfresh: ROADMAP queue A "
+                f"slice 7b)"
             )
         if self.distance not in METRICS:
             raise ValueError(f"invalid distance {self.distance!r}")
