@@ -3667,15 +3667,18 @@ B7A_ATOL, B7A_RTOL = 2e-4, 1e-5
 B7A_GRID = dict(tq=(1, 32), t=(4, 256), d=(128, 768), c=(64, 1024),
                 out_k=(8, 64))
 # and the kernel's other paths: (b, tq, t, d, c, out_k) with D off 16-byte
-# rows, two chunks of query tokens, query tokens past shared memory (read
-# from L2), scores staged past 48 KB, and scores past shared memory
+# rows (4-byte copies), two passes of query-token rows, D past one staged
+# chunk with 64 query tokens, scores staged past 48 KB, and scores past
+# shared memory (ranked from L2)
 B7A_EDGES = ((2, 5, 8, 99, 100, 10), (2, 40, 16, 128, 256, 32),
              (1, 64, 4, 2048, 64, 8), (1, 1, 4, 128, 20_000, 64),
              (1, 2, 4, 64, 60_000, 64))
 # the multivector cell: ColBERTv2's shapes (colbert-ir/colbertv2.0: 128-d
 # L2-normalised tokens, documents of up to 180 tokens, queries of 32) and
-# Weaviate's MUVERA defaults (ksim 4, dprojections 16, repetitions 10)
-MV_DOCS, MV_DIMS, MV_TQ = 32_768, 128, 32
+# Weaviate's MUVERA defaults (ksim 4, dprojections 16, repetitions 10), at
+# 16,384 documents (cut 9: 32,768 left the script 26 s under its limit on a
+# slow host, its host-bound ingest 82 s of that)
+MV_DOCS, MV_DIMS, MV_TQ = 16_384, 128, 32
 MV_TOKENS = (40, 180)
 MV_QUERIES, MV_BATCH, MV_SEED = 256, 1024, 41
 # documents in clusters of 16 that share 6 of their 10 topics (4,096 topic

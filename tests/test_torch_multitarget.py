@@ -15,6 +15,8 @@
 - A join that raises makes ``multi_target_search`` raise (no host route).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -355,3 +357,267 @@ def test_request_shape_errors_match_jax(mt_cols):
             jcol.multi_target_search(bad, k=K)
         with pytest.raises(ValueError):
             tcol.multi_target_search(bad, k=K)
+
+
+# ---------------------------------------------------------------------------
+# B7b's partition (mt_join_kernel, csrc/device_beam.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+CARD_SMEM = 232_448 - 256  # 227 KB a block, less the kernel's static part
+PQ_SEGS, PQ_CENTS, PQ_DSUB = 8, 256, 2
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _pq_leg(rng, cap, b):
+    """A PQ target of random codes into random codebooks (no fit needed
+    for a join): its rows' decoded squared norms, its queries."""
+    codes = rng.integers(0, PQ_CENTS, (cap, PQ_SEGS)).astype(np.uint8)
+    cb = rng.standard_normal((PQ_SEGS, PQ_CENTS, PQ_DSUB)).astype(np.float32)
+    dec = cb[np.arange(PQ_SEGS), codes.astype(np.int64)].reshape(cap, -1)
+    return dict(kind="pq", codes=codes, cb=cb,
+                dsq=(dec * dec).sum(1).astype(np.float32),
+                q=rng.standard_normal((b, PQ_SEGS * PQ_DSUB)).astype(
+                    np.float32))
+
+
+def _cluster_case(seed):
+    """A raw, a PQ and a raw dot target: pools with repeats inside and
+    across targets, -1 pads, members missing a target, twin rows (exact
+    ties of the joined distance) in every target."""
+    rng = np.random.default_rng(seed)
+    b, fetch, cap = 3, 16, 70
+    legs = [dict(kind="raw", metric="l2-squared",
+                 rows=rng.standard_normal((cap, 12)).astype(np.float32),
+                 q=rng.standard_normal((b, 12)).astype(np.float32)),
+            _pq_leg(rng, cap, b),
+            dict(kind="raw", metric="dot",
+                 rows=rng.standard_normal((cap, 8)).astype(np.float32),
+                 q=rng.standard_normal((b, 8)).astype(np.float32))]
+    for leg in legs:
+        leg["present"] = rng.random(cap) < 0.85
+        leg["present"][[5, 6]] = True
+        leg["pool"] = rng.integers(0, cap, (b, fetch + 3)).astype(np.int32)
+        leg["pool"][:, :2] = [5, 6]
+        leg["pool"][:, 4] = leg["pool"][:, 3]
+        leg["pool"][:, fetch - 2:fetch] = -1
+        if leg["kind"] == "raw":
+            leg["rows"][6] = leg["rows"][5]
+        else:
+            leg["codes"][6] = leg["codes"][5]
+            leg["dsq"][6] = leg["dsq"][5]
+    legs[1]["pool"][:, 5:9] = legs[0]["pool"][:, 5:9]
+    w = (0.2 + rng.random((b, len(legs)))).astype(np.float32)
+    return legs, w, fetch
+
+
+def _leg_args(mod, legs, frame):
+    scorers, queries, operands, present, pools = [], [], [], [], []
+    for leg in legs:
+        if leg["kind"] == "raw":
+            scorers.append(mod.RawScorer(leg["metric"], "fp32"))
+            operands.append((frame(leg["rows"]),))
+        else:
+            scorers.append(mod.PQScorer("l2-squared"))
+            operands.append((frame(leg["codes"]), frame(leg["cb"]),
+                             frame(leg["dsq"])))
+        queries.append(frame(leg["q"]))
+        present.append(frame(leg["present"]))
+        pools.append(frame(leg["pool"]))
+    return scorers, queries, operands, present, pools
+
+
+def _b7b_model(legs, w, fetch, join, plan, seen=None):
+    """B7b as the kernel computes it under ``plan``: per query row, the
+    union's slots in pool order, each live id present in every target
+    kept at its lowest slot (the members, in slot order); CTA r of
+    ``ranks`` scores members [r V / R, (r + 1) V / R) under every target
+    (PQ through the ADC table, its segments split in slices of ceil(M /
+    R), a lookup reading the slice that holds its segment); the first
+    CTA's relative min-max, join and rank by counting (the lower id on
+    ties: the sorted union's order). ``seen`` collects every (row,
+    member, target) scored."""
+    b = w.shape[0]
+    ids = np.full((b, fetch), -1, np.int32)
+    out = np.full((b, fetch), 1e30, np.float32)
+    for qi in range(b):
+        members = []
+        for x in np.concatenate([leg["pool"][qi, :fetch] for leg in legs]):
+            if x >= 0 and int(x) not in members and all(
+                    x < len(leg["present"]) and leg["present"][x]
+                    for leg in legs):
+                members.append(int(x))
+        v_n = len(members)
+        dist = np.zeros((len(legs), v_n), np.float32)
+        for r in range(plan.ranks):
+            for v in range(v_n * r // plan.ranks, v_n * (r + 1) // plan.ranks):
+                x = members[v]
+                for t, leg in enumerate(legs):
+                    if seen is not None:
+                        seen.append((qi, v, t))
+                    q = leg["q"][qi]
+                    if leg["kind"] == "raw" and leg["metric"] == "l2-squared":
+                        diff = q - leg["rows"][x]
+                        dist[t, v] = (diff * diff).sum(dtype=np.float32)
+                    elif leg["kind"] == "raw":
+                        dist[t, v] = -(q * leg["rows"][x]).sum(
+                            dtype=np.float32)
+                    else:
+                        per = -(-PQ_SEGS // plan.ranks)
+                        table = np.einsum("sj,scj->sc",
+                                          _bf16(q).reshape(PQ_SEGS, -1),
+                                          _bf16(leg["cb"])).astype(np.float32)
+                        slices = [table[o * per:(o + 1) * per]
+                                  for o in range(plan.ranks)]
+                        ip = np.float32(0)
+                        for s, code in enumerate(leg["codes"][x]):
+                            ip += slices[s // per][s % per][code]
+                        dist[t, v] = max(np.float32(
+                            (q * q).sum(dtype=np.float32) - 2 * ip
+                            + leg["dsq"][x]), 0)
+        if join == "minimum":
+            comb = dist.min(0)
+        elif join == "relative":
+            lo = dist.min(1, keepdims=True) if v_n else 0
+            span = (dist.max(1, keepdims=True) - lo) if v_n else 1
+            span = np.where(span > 0, span, 1).astype(np.float32)
+            comb = (((dist - lo) / span) * w[qi][:, None]).sum(0)
+        else:
+            comb = (dist * w[qi][:, None]).sum(0)
+        order = np.array(members)
+        for i in range(v_n):
+            rank = int(((comb < comb[i]) | ((comb == comb[i])
+                                            & (order < order[i]))).sum())
+            if rank < fetch and comb[i] < 1e30:
+                ids[qi, rank], out[qi, rank] = members[i], comb[i]
+    return ids, out
+
+
+@pytest.mark.parametrize("targets", [1, 2, 3, 8])
+@pytest.mark.parametrize("fetch", [1, 16, 64, 512])
+def test_mt_join_plan_covers_every_member_once(targets, fetch):
+    """The launch planner: up to 8 CTAs a query row, within the shared
+    memory of a block; the CTAs' member slices cover every member once
+    whatever the union holds, and each PQ table's slices its segments."""
+    shapes = tuple((4, 1536, 96, 256) if t % 2 else (0, 768, 0, 0)
+                   for t in range(targets))
+    plan = tbeam.mt_join_plan(3, shapes, fetch, CARD_SMEM)
+    assert 1 <= plan.ranks <= 8 and plan.grid == 3 * plan.ranks
+    assert plan.upad >= targets * fetch and plan.smem <= CARD_SMEM
+    for v_n in sorted({0, 1, plan.ranks, targets * fetch // 2,
+                       targets * fetch}):
+        got = [v for r in range(plan.ranks)
+               for v in range(v_n * r // plan.ranks,
+                              v_n * (r + 1) // plan.ranks)]
+        assert got == list(range(v_n))
+    per = -(-96 // plan.ranks)
+    assert sorted(s for r in range(plan.ranks)
+                  for s in range(r * per, min(96, (r + 1) * per))) == \
+        list(range(96))
+    # the main path's shape: 8 CTAs, no table
+    main = tbeam.mt_join_plan(1, ((0, 768, 0, 0), (0, 256, 0, 0)), 64,
+                              CARD_SMEM)
+    assert (main.ranks, main.tables) == (8, 0)
+
+
+@pytest.mark.parametrize("join", ["weighted", "minimum", "relative"])
+@pytest.mark.parametrize("plan_at", ["card", "two", "one"])
+def test_mt_join_cluster_model_matches_jax(join, plan_at):
+    """The kernel's partition, modelled (``_b7b_model``), against JAX's
+    join after its walks (``_mt_dedup``, ``_masked_scores``, ``_mt_join``,
+    ``_mt_topk``) on a raw, a PQ and a raw dot target: ids equal (twin
+    rows' exact ties in union order), joined distances within 1e-5, every
+    (member, target) scored once; at the card's plan (the PQ table split
+    over 8 CTAs) and at 2 and 1 CTAs a row."""
+    import jax.numpy as jnp
+
+    legs, w, fetch = _cluster_case(31)
+    shapes = tuple((0, leg["q"].shape[1], 0, 0) if leg["kind"] == "raw"
+                   else (4, PQ_SEGS * PQ_DSUB, PQ_SEGS, PQ_CENTS)
+                   for leg in legs)
+    plan = tbeam.mt_join_plan(w.shape[0], shapes, fetch, CARD_SMEM)
+    assert plan.ranks == 3 and plan.tables == 2
+    plan = {"card": plan, "two": plan._replace(ranks=2),
+            "one": plan._replace(ranks=1)}[plan_at]
+    seen = []
+    got = _b7b_model(legs, w, fetch, join, plan, seen)
+    scorers, queries, operands, present, pools = _leg_args(
+        jbeam, legs, jnp.asarray)
+    jc = jbeam._mt_dedup(jnp.concatenate([p[:, :fetch] for p in pools],
+                                         axis=1))
+    per_d, valid_all = [], jc >= 0
+    for sc, q, ops, pres in zip(scorers, queries, operands, present):
+        cap = pres.shape[0]
+        ok = (jc >= 0) & (jc < cap) & jnp.take(pres, jnp.clip(jc, 0, cap - 1))
+        per_d.append(jbeam._masked_scores(sc, q, jnp.where(ok, jc, -1), ops))
+        valid_all &= ok
+    ji, jd = jbeam._mt_topk(jc, jbeam._mt_join(
+        join, jnp.asarray(w), jnp.stack(per_d, axis=-1), valid_all), fetch)
+    np.testing.assert_array_equal(got[0], np.asarray(ji))
+    np.testing.assert_allclose(got[1], np.asarray(jd), rtol=TOL, atol=TOL)
+    # the twins' exact tie, the lower id first
+    row = list(got[0][0])
+    assert row.index(5) + 1 == row.index(6)
+    per_row = {}
+    for qi, v, t in seen:
+        per_row.setdefault(qi, []).append((v, t))
+    for qi, pairs in per_row.items():
+        v_n = max(v for v, _ in pairs) + 1
+        assert sorted(pairs) == [(v, t) for v in range(v_n)
+                                 for t in range(len(legs))]
+    # and the port's plain version gives the same page
+    ti, td = tbeam.mt_join_topk_plain(
+        *_leg_args(tbeam, legs, torch.from_numpy), torch.from_numpy(w),
+        fetch, join)
+    np.testing.assert_array_equal(got[0], ti.numpy())
+    np.testing.assert_allclose(got[1], td.numpy(), rtol=TOL, atol=TOL)
+
+
+class _Lib:
+    """A stand-in library whose functions keep the signatures ``declare``
+    gives them."""
+
+    def __getattr__(self, name):
+        fn = type("Fn", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+def _c_params(source, fn: str) -> int:
+    import re
+
+    sig = re.search(rf"^int {fn}\(([^)]*)\)", source, re.M | re.S)
+    return len(sig.group(1).split(","))
+
+
+@pytest.mark.parametrize("module,fn", [
+    ("device_beam", "mt_join_topk"), ("device_beam", "mt_join_device_info"),
+    ("device_beam", "device_beam_search"), ("rerank", "rerank_topk"),
+    ("rerank", "rerank_device_info")])
+def test_declared_signatures_match_the_sources(module, fn):
+    """ctypes passes what ``declare`` lists: as many arguments as the C
+    entry point takes."""
+    import importlib
+
+    mod = importlib.import_module(f"weaviate_tpu_torch.ops.{module}")
+    lib = mod.declare(_Lib())
+    src = (tbeam.__file__.rsplit("/", 2)[0] + f"/csrc/{module}.cu")
+    with open(src) as f:
+        assert len(getattr(lib, fn).argtypes) == _c_params(f.read(), fn)
+
+
+def test_packed_calls_match_the_sources():
+    """The packed launch arguments are as long as the C entry points read:
+    B7a's RerankCall, B7b's MtCall and per target 8 addresses, 11 ints
+    and 2 floats."""
+    from weaviate_tpu_torch.ops import rerank as trerank
+
+    assert trerank._CALL.size == trerank.CONST["kCallBytes"]
+    with open(tbeam.__file__.rsplit("/", 2)[0] + "/csrc/device_beam.cu") as f:
+        head = int(re.search(r"constexpr int kMtHeadBytes = (\d+);",
+                             f.read()).group(1))
+    for t in range(1, tbeam.MT_MAX_TARGETS + 1):
+        assert tbeam._MT_CALL[t].size == head + t * (8 * 8 + 11 * 4 + 2 * 4)

@@ -27,6 +27,8 @@ from weaviate_tpu_torch.modules import device as tdev
 from weaviate_tpu_torch.ops import rerank as trerank
 from weaviate_tpu_torch.schema import config
 
+import probe_rerank
+
 TOL = 1e-5
 N, DIMS, TMAX = 320, 16, 4
 
@@ -356,3 +358,222 @@ def test_reranked_collection_opens_across_packages(tmp_path, writer):
     assert [u for u, _ in got] == [u for u, _ in want] and want
     np.testing.assert_allclose([d for _, d in got], [d for _, d in want],
                                rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# B7a's partition (csrc/rerank.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+CARD_SMS = 132
+CARD_SMEM = 232_448 - 64  # 227 KB a block, less the kernel's static part
+WINDOW = trerank._WINDOW
+COLS = trerank._COLS
+
+
+def _b7a_model(cand, tokens, tmask, q, qm, kind, weights, out_k, plan,
+               seen=None):
+    """B7a as the kernel computes it under ``plan``: a CTA a (query,
+    group of ``cpb`` candidates, block) -- with ``nblk`` blocks, block r of
+    a candidate takes its kept tokens of kept rank [L r / nblk, L (r + 1)
+    / nblk) -- each window of ``WINDOW`` (candidate, token) slots compacted
+    into a list, its tiles of ``COLS`` tokens against the live query rows
+    (and the mean row: linear) folded into the block's maxima and mean
+    sums, the blocks combined by max (and sum), the query rows summed,
+    then the last CTA's rank by counting. ``seen`` collects every (query,
+    candidate slot, token) a tile takes."""
+    b, c = cand.shape
+    n, t, _ = tokens.shape
+    linear = kind == 1
+    w_max, w_mean, bias = weights
+    scores = np.full((b, c), -np.inf, np.float32)
+    for qi in range(b):
+        live = np.nonzero(qm[qi])[0]
+        rows = q[qi, live]
+        if linear:
+            mean = (q[qi, live].sum(0, dtype=np.float32)
+                    / np.float32(max(len(live), 1)))
+            rows = np.vstack([rows, mean[None]]).astype(np.float32)
+        for g in range(plan.grid[1]):
+            c0 = g * plan.cpb
+            ncand = min(plan.cpb, c - c0)
+            cid = [int(cand[qi, c0 + i]) if i < ncand
+                   and 0 <= cand[qi, c0 + i] < n else -1
+                   for i in range(plan.cpb)]
+            best = np.full((plan.nblk, plan.cpb, len(live)), -np.inf,
+                           np.float32)
+            msum = np.zeros((plan.nblk, plan.cpb), np.float32)
+            kept = [int(tmask[i].sum()) if i >= 0 else 0 for i in cid]
+            for blk in range(plan.nblk):
+                klo, khi = 0, 1 << 31
+                if plan.nblk > 1:
+                    klo = kept[0] * blk // plan.nblk
+                    khi = kept[0] * (blk + 1) // plan.nblk
+                base = 0
+                slots = plan.cpb * t
+                for w0 in range(0, slots, WINDOW):
+                    flat = np.arange(w0, min(slots, w0 + WINDOW))
+                    cl = flat // t
+                    keep = np.array([cl_ < ncand and cid[cl_] >= 0
+                                     and tmask[cid[cl_], f - cl_ * t]
+                                     for f, cl_ in zip(flat, cl)], bool)
+                    ranks = base + np.cumsum(keep) - 1
+                    lst = flat[keep & (ranks >= klo) & (ranks < khi)]
+                    base += int(keep.sum())
+                    for col0 in range(0, len(lst), COLS):
+                        cols = lst[col0:col0 + COLS]
+                        owner = cols // t
+                        toks = np.stack([tokens[cid[o], f - o * t]
+                                         for f, o in zip(cols, owner)])
+                        prods = rows @ toks.T                  # float32
+                        for j, (f, o) in enumerate(zip(cols, owner)):
+                            if seen is not None:
+                                seen.append((qi, c0 + o, f - o * t))
+                            best[blk, o] = np.maximum(
+                                best[blk, o], prods[:len(live), j])
+                            if linear:
+                                msum[blk, o] += prods[len(live), j]
+            for i in range(ncand):
+                if cid[i] < 0:
+                    continue
+                m = best[:, i].max(axis=0)
+                total = np.float32(np.where(np.isfinite(m), m, 0).sum(
+                    dtype=np.float32))
+                if linear:
+                    cn = np.float32(max(kept[i], 1))
+                    total = (np.float32(w_max) * total + np.float32(w_mean)
+                             * (msum[:, i].sum(dtype=np.float32) / cn)
+                             + np.float32(bias))
+                scores[qi, c0 + i] = total
+    ids = np.full((b, out_k), -1, np.int32)
+    dists = np.full((b, out_k), 1e30, np.float32)
+    for qi in range(b):
+        for i in range(c):
+            v = scores[qi, i]
+            rank = int(((scores[qi] > v)
+                        | ((scores[qi] == v) & (np.arange(c) < i))).sum())
+            if rank < out_k and np.isfinite(v):
+                ids[qi, rank], dists[qi, rank] = cand[qi, i], -v
+    return ids, dists
+
+
+def _b7a_case(seed, b=3, c=24, t=64, tq=5, d=20, n=90):
+    """Token planes with kept prefixes and scattered masks, a fully masked
+    row, twin rows (exact ties between ids), a repeated id, -1 pads,
+    masked query tokens."""
+    rng = np.random.default_rng(seed)
+    tokens = _tokens(rng, (n, t, d))
+    tmask = rng.random((n, t)) < 0.55
+    tmask[1::3] = np.arange(t)[None, :] < rng.integers(1, t + 1,
+                                                       (len(tmask[1::3]), 1))
+    tmask[4] = False
+    tokens[7], tmask[7] = tokens[8], tmask[8]
+    cand = rng.integers(0, n, (b, c)).astype(np.int32)
+    cand[:, :4] = [4, 8, 7, 9]
+    cand[:, 5] = cand[:, 6]
+    cand[:, -3:] = -1
+    q = _tokens(rng, (b, tq, d))
+    qm = rng.random((b, tq)) < 0.8
+    qm[:, 0] = True
+    qm[1, :] = [True] + [False] * (tq - 1)
+    return cand, tokens, tmask, q, qm
+
+
+# (b, c, t, tq, d): the main path's two shapes and the model's own
+PLAN_SHAPES = [(1, 64, 256, 32, 128), (64, 32, 4, 4, 128),
+               (2, 64, 4, 1, 768), (3, 1024, 256, 32, 128),
+               (2, 100, 8, 5, 99), (2, 256, 16, 40, 128),
+               (1, 64, 4, 64, 2048), (1, 20_000, 4, 1, 128),
+               (1, 60_000, 4, 2, 64), (1, 65_535, 2048, 8, 16)]
+
+
+@pytest.mark.parametrize("linear", [False, True])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_rerank_plan_covers_every_candidate_once(shape, linear):
+    """The launch planner's grid takes every candidate of every query in
+    one CTA group, within grid.y's 65,535 and 8 CTAs a cluster, in the
+    shared memory of a block; the token blocks of a candidate cover its
+    kept tokens once."""
+    b, c, t, tq, d = shape
+    plan = trerank.rerank_plan(b, c, t, tq, d, linear, CARD_SMS, CARD_SMEM)
+    assert plan.grid[0] == b * plan.nblk and plan.grid[1] <= 65_535
+    assert 1 <= plan.nblk <= 8 and plan.smem <= CARD_SMEM
+    assert 4 * plan.rg >= tq + linear or plan.rg == 8
+    if plan.cpb > 1:
+        assert plan.nblk == 1 and plan.cpb * t <= WINDOW
+    slots = [g * plan.cpb + i for g in range(plan.grid[1])
+             for i in range(plan.cpb) if g * plan.cpb + i < c]
+    assert slots == list(range(c))
+    for kept in (0, 1, plan.nblk, t // 3, t):
+        got = [r for blk in range(plan.nblk)
+               for r in range(kept * blk // plan.nblk,
+                              kept * (blk + 1) // plan.nblk)]
+        assert got == list(range(kept))
+    assert plan.smem >= 4 * trerank.rerank_smem_words(
+        plan.rg, plan.cpb, tq, d, linear)
+    # the main path's shapes fill the card: at least two CTAs an SM
+    if shape in PLAN_SHAPES[:2]:
+        assert plan.grid[0] * plan.grid[1] >= 2 * CARD_SMS
+    with pytest.raises(ValueError, match="shared memory"):
+        trerank.rerank_plan(b, c, t, 60_000, d, linear, CARD_SMS, CARD_SMEM)
+
+
+@pytest.mark.parametrize("name", ["maxsim", "linear"])
+@pytest.mark.parametrize("plan_at", ["card", "blocks", "groups", "one"])
+def test_rerank_partition_model_matches_jax(name, plan_at):
+    """The kernel's partition, modelled (``_b7a_model``), against JAX
+    ``_rerank_stage``: ids equal (twin rows' exact ties in candidate
+    order), negated scores within 1e-5, every kept token of every valid
+    candidate taken once; at the card's plan and at others (more blocks
+    than the card gives, several candidates a CTA, one CTA a candidate)."""
+    import jax.numpy as jnp
+
+    jm, tm = _modules(name)
+    kind, w_max, w_mean, bias = tm.kernel_params()
+    cand, tokens, tmask, q, qm = _b7a_case(21)
+    b, c = cand.shape
+    n, t, d = tokens.shape
+    tq = q.shape[1]
+    plan = trerank.rerank_plan(b, c, t, tq, d, kind == 1, CARD_SMS,
+                               CARD_SMEM)
+    plan = {"card": plan,
+            "blocks": plan._replace(nblk=7, cpb=1, grid=(7 * b, c)),
+            "groups": plan._replace(nblk=1, cpb=3, grid=(b, -(-c // 3))),
+            "one": plan._replace(nblk=1, cpb=1, grid=(b, c))}[plan_at]
+    if plan_at == "card":
+        assert plan.nblk > 1  # so few candidates split their tokens
+    seen = []
+    out_k = 9
+    got = _b7a_model(cand, tokens, tmask, q, qm, kind, (w_max, w_mean, bias),
+                     out_k, plan, seen)
+    ji, jd = jbeam._rerank_stage(
+        jm, out_k, jnp.asarray(cand), jnp.asarray(tokens), jnp.asarray(tmask),
+        jnp.asarray(q), jnp.asarray(qm))
+    np.testing.assert_array_equal(got[0], np.asarray(ji))
+    np.testing.assert_allclose(got[1], np.asarray(jd), rtol=TOL, atol=TOL)
+    want = sorted((qi, j, int(k)) for qi in range(b) for j in range(c)
+                  if 0 <= cand[qi, j] < n
+                  for k in np.nonzero(tmask[cand[qi, j]])[0])
+    assert sorted(seen) == want
+    # an id past the plane is invalid, as in the port's plain version (JAX
+    # gathers past its end)
+    cand[0, -4] = n + 5
+    got = _b7a_model(cand, tokens, tmask, q, qm, kind, (w_max, w_mean, bias),
+                     out_k, plan)
+    pi, pd = trerank.rerank_topk_plain(
+        *(torch.from_numpy(x) for x in (cand, tokens, tmask, q, qm)), tm,
+        out_k)
+    np.testing.assert_array_equal(got[0], pi.numpy())
+    np.testing.assert_allclose(got[1], pd.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kernel,copy", [
+    (k, c) for k in sorted(probe_rerank.COPIES)
+    for c in sorted(probe_rerank.COPIES[k])])
+def test_probe_copies_apply_to_the_kernel_source(kernel, copy):
+    # probe_rerank.py's copies replace text the kernel source holds exactly
+    # once, so a kernel edit that drops one fails here
+    src = probe_rerank.SOURCES[kernel].read_text()
+    for old, _new in probe_rerank.COPIES[kernel][copy]:
+        assert src.count(old) == 1, repr(old)
+    assert probe_rerank.copies_of(kernel, src)[copy] != \
+        src + probe_rerank.APPENDED

@@ -129,9 +129,15 @@
 //      land at ef (keep_k) or later, so a ballot drops it before the rank,
 //      and the serial rank and merge run over a few entries, not M0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1447,17 +1453,46 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 //     slots past the valid members, are (-1, 1e30).
 //
 // Bound on this card: bytes, the valid members' rows of every target read
-// once, T x fetch rows of a few KB a query, and the pools. One CTA a query
-// row: the union sorted (bitonic) and deduplicated in shared memory, a
-// warp a (member, target) pair summing lane-strided pieces of the row, a
-// serial ballot compaction of the valid members, and a rank by counting
-// over them.
+// once, T x fetch rows of a few KB a query, and the pools: half a
+// microsecond at the main path's shape (B 1, two targets of 768 and 256
+// floats, fetch 64, 127 members). What a launch costs there is its chain
+// of dependent global rounds, so the design spreads a query's rows over
+// the card and keeps the chain short:
+//
+//   1. A thread block cluster a query row, `ranks` CTAs of 512 threads
+//      (up to 8, portable). Each CTA stages the targets' queries and
+//      finds the union's members itself (a repeat of a few hundred ids
+//      costs less than a round through the cluster), so the members are
+//      the same in every CTA without an exchange. Nothing is sorted: the
+//      lowest slot of an id stays (each slot compares its id with those
+//      before it), and the rank breaks ties by the lower id, which is the
+//      sorted union's order; each slot's presence in every target is read
+//      with its id, in the same round.
+//   2. CTA r scores the members of its slice, [r V / R, (r + 1) V / R),
+//      under every target: a group of lanes a (member, target) pair, as
+//      wide as leaves a group for every pair of the slice (16 lanes at
+//      the main path's 16 members and two targets: twelve 16-byte loads
+//      a lane of a 768-float row, issued before the first is used), so
+//      all the slice's pairs, every target's, are one round of loads.
+//   3. PQ's ADC table is built once a cluster, not once a CTA: CTA r
+//      builds the table's rows of segments [r M / R, (r + 1) M / R) in its
+//      shared memory, and a lookup reads the row's segment from the CTA
+//      that holds it, through distributed shared memory. A table whose
+//      slice does not fit leaves the lookups to the centroid pieces in L2.
+//   4. Each member's distance goes straight into the first CTA's shared
+//      memory (a distributed shared memory store); after one cluster
+//      barrier that CTA does the relative min-max over all valid members
+//      (every target's in one block reduction, as are the queries'
+//      sums), the join and a rank by counting, and writes the row's
+//      `fetch`.
 
 constexpr int kMtMaxTargets = 8;
 constexpr int kMtMaxUnion = 4096;
 constexpr int kMtMaxFetch = 512;
-constexpr int kMtThreads = 256;
+constexpr int kMtThreads = 512;
+constexpr int kMtMaxCluster = 8;
 constexpr int kMtNone = 0x7fffffff;
+constexpr int kMtHeadBytes = 64;   // a packed MtCall: 4 Q, 8 i
 
 enum Join { kWeighted = 0, kMinimum = 1, kRelative = 2 };
 
@@ -1475,7 +1510,9 @@ struct MtTarget {
   float sq_a, sq_s;
   uint32_t last_word;        // BQ: the bits of a query's last word that count
   int q_off;                 // floats: the query's offset in shared memory
-  int table_off;             // floats: PQ's ADC table, or -1 (none)
+  int table_off;             // floats: PQ's table slice, or -1 (none)
+  int table_per;             // PQ: segments a CTA's slice holds
+  int vec;                   // raw rows read 16 bytes at a time
 };
 
 struct MtParams {
@@ -1483,65 +1520,102 @@ struct MtParams {
   const float* weights;  // [b, targets]
   int* out_ids;          // [b, fetch]
   float* out_d;          // [b, fetch]
-  int targets, b, fetch, join, upad;
+  int targets, b, fetch, join, upad, ranks;
   // byte offsets in shared memory
-  int off_comb, off_dist, off_valid, off_q;
+  int off_vidx, off_comb, off_dist, off_valid, off_q;
 };
 
-__device__ __forceinline__ float mt_block_reduce(float v, bool is_min,
-                                                 bool is_max, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(kFull, v, o);
-    v = is_min ? fminf(v, u) : (is_max ? fmaxf(v, u) : v + u);
-  }
-  __syncthreads();  // earlier readers of `red` are done
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-    r = is_min ? fminf(r, red[w]) : (is_max ? fmaxf(r, red[w]) : r + red[w]);
-  return r;
+// The layout of one CTA's shared memory (bytes): the union's ids, the
+// members' ids, their joined distances, their distances a target (the
+// first CTA's are read), the slots' validity, the targets' queries, then
+// PQ's table slices.
+struct MtLayout {
+  long long vidx, comb, dist, valid, q, tables;
+};
+
+inline MtLayout mt_layout(int upad, int targets, long long q_floats) {
+  MtLayout l;
+  l.vidx = 4LL * upad;
+  l.comb = l.vidx + 4LL * upad;
+  l.dist = l.comb + 4LL * upad;
+  l.valid = l.dist + 4LL * targets * upad;
+  l.q = l.valid + ((upad + 15) & ~15);
+  l.tables = l.q + 4 * q_floats;
+  return l;
 }
 
+// 16-byte pieces of a raw row a lane loads before it uses the first
+constexpr int kMtBatch = 16;
+
 template <int METRIC, bool ROUND>
-__device__ __forceinline__ float mt_raw_sum(const float* q, const float* x,
-                                            int d, int lane) {
+__device__ __forceinline__ float mt_raw_sum(const MtTarget& t, const float* q,
+                                            const float* x, int gl, int g) {
   float acc = 0.f;
-  for (int k = lane; k < d; k += 32)
+  if (t.vec) {
+    // the lane's pieces a batch at a time, every load of a batch issued
+    // before the first is used (a 768-float row over 16 lanes: one batch)
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    const int n4 = t.d >> 2;
+    for (int u0 = gl; u0 < n4; u0 += kMtBatch * g) {
+      float4 v[kMtBatch];
+#pragma unroll
+      for (int b = 0; b < kMtBatch; ++b) {
+        const int u = u0 + b * g;
+        v[b] = u < n4 ? __ldg(x4 + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int b = 0; b < kMtBatch; ++b) {
+        const int u = u0 + b * g;
+        if (u < n4) {
+          const float4 y = q4[u];
+          acc = term<METRIC, ROUND, kRawRow>(acc, y.x, v[b].x);
+          acc = term<METRIC, ROUND, kRawRow>(acc, y.y, v[b].y);
+          acc = term<METRIC, ROUND, kRawRow>(acc, y.z, v[b].z);
+          acc = term<METRIC, ROUND, kRawRow>(acc, y.w, v[b].w);
+        }
+      }
+    }
+    return acc;
+  }
+#pragma unroll 4
+  for (int k = gl; k < t.d; k += g)
     acc = term<METRIC, ROUND, kRawRow>(acc, q[k], __ldg(x + k));
   return acc;
 }
 
-// Lane `lane`'s part of member `id`'s sum under target `t` (raw: the
+// Lane `gl` (of `g` lanes) of member `id`'s sum under target `t` (raw: the
 // metric's terms; BQ: popcounts; SQ, RQ, PQ: q . c), summed by the caller.
-__device__ float mt_lane_sum(const MtTarget& t, const float* q,
-                             const float* smem_f, int id, int lane) {
+// `smem_f` is this CTA's shared memory as floats; PQ's table rows are read
+// from the CTA of the cluster that holds their segment.
+__device__ float mt_lane_sum(const MtTarget& t, const float* q, float* smem_f,
+                             int id, int gl, int g) {
   const int d = t.d;
   if (t.kind == kRawRow) {
     const float* x = static_cast<const float*>(t.rows) + (size_t)id * d;
     switch (t.metric) {
-      case kL2: return mt_raw_sum<kL2, false>(q, x, d, lane);
+      case kL2: return mt_raw_sum<kL2, false>(t, q, x, gl, g);
       case kDot:
-        return t.round ? mt_raw_sum<kDot, true>(q, x, d, lane)
-                       : mt_raw_sum<kDot, false>(q, x, d, lane);
+        return t.round ? mt_raw_sum<kDot, true>(t, q, x, gl, g)
+                       : mt_raw_sum<kDot, false>(t, q, x, gl, g);
       case kCosine:
-        return t.round ? mt_raw_sum<kCosine, true>(q, x, d, lane)
-                       : mt_raw_sum<kCosine, false>(q, x, d, lane);
-      case kManhattan: return mt_raw_sum<kManhattan, false>(q, x, d, lane);
-      default: return mt_raw_sum<kHamming, false>(q, x, d, lane);
+        return t.round ? mt_raw_sum<kCosine, true>(t, q, x, gl, g)
+                       : mt_raw_sum<kCosine, false>(t, q, x, gl, g);
+      case kManhattan: return mt_raw_sum<kManhattan, false>(t, q, x, gl, g);
+      default: return mt_raw_sum<kHamming, false>(t, q, x, gl, g);
     }
   }
   float acc = 0.f;
   if (t.kind == kBqRow) {
     const float* x = static_cast<const float*>(t.rows) + (size_t)id * d;
-    for (int k = lane; k < d; k += 32)
+    for (int k = gl; k < d; k += g)
       acc = term<kL2, false, kBqRow>(acc, q[k], __ldg(x + k));
     return acc;
   }
   if (t.kind == kSqRow || t.kind == kRqRow) {
     const uint8_t* x = static_cast<const uint8_t*>(t.rows) + (size_t)id * d;
-    for (int k = lane; k < d; k += 32)
+#pragma unroll 4
+    for (int k = gl; k < d; k += g)
       acc = fmaf(q[k], static_cast<float>(__ldg(x + k)), acc);
     return acc;
   }
@@ -1549,12 +1623,16 @@ __device__ float mt_lane_sum(const MtTarget& t, const float* q,
   const uint8_t* codes =
       static_cast<const uint8_t*>(t.rows) + (size_t)id * t.segs;
   if (t.table_off >= 0) {
-    const float* table = smem_f + t.table_off;
-    for (int s = lane; s < t.segs; s += 32)
-      acc += table[s * t.centroids + __ldg(codes + s)];
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int s = gl; s < t.segs; s += g) {
+      const int owner = s / t.table_per;
+      const float* slice = cluster.map_shared_rank(smem_f + t.table_off,
+                                                   owner);
+      acc += slice[(s - owner * t.table_per) * t.centroids + __ldg(codes + s)];
+    }
     return acc;
   }
-  for (int s = lane; s < t.segs; s += 32) {
+  for (int s = gl; s < t.segs; s += g) {
     const __nv_bfloat16* piece =
         t.cb + ((size_t)s * t.centroids + __ldg(codes + s)) * t.dsub;
     const float* qk = q + s * t.dsub;
@@ -1592,22 +1670,60 @@ __device__ float mt_finish(const MtTarget& t, float acc, float qa, float qb,
   return finish_row<kL2, kPqRow>(p, qs, acc, ra);
 }
 
+__device__ __forceinline__ void mt_cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 __global__ void __launch_bounds__(kMtThreads) mt_join_kernel(MtParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_qa[kMtMaxTargets], s_qb[kMtMaxTargets];
+  constexpr int kW = kMtThreads / 32;
+  __shared__ float s_q[2 * kMtMaxTargets];  // a target: a, then b
   __shared__ float s_lo[kMtMaxTargets], s_span[kMtMaxTargets];
-  __shared__ float s_red[kMtThreads / 32];
+  __shared__ float s_w[kMtMaxTargets];
+  __shared__ float s_red[kW][2 * kMtMaxTargets];
   __shared__ int s_valid_n;
-  const int qi = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int R = p.ranks;
+  const int qi = blockIdx.x / R, rank = blockIdx.x - qi * R;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int T = p.targets, U = p.upad;
   int* ids = reinterpret_cast<int*>(smem);
+  int* vid = reinterpret_cast<int*>(smem + p.off_vidx);
   float* comb = reinterpret_cast<float*>(smem + p.off_comb);
   float* dist = reinterpret_cast<float*>(smem + p.off_dist);
   uint8_t* valid = smem + p.off_valid;
   float* smem_f = reinterpret_cast<float*>(smem + p.off_q);
 
-  // each target's query, as B2 stages it, and its scalars
+  // the union's slots, each id's presence in every target read at once,
+  // the hash cleared
+  for (int u = tid; u < U; u += nt) {
+    int id = kMtNone;
+    bool ok = false;
+    if (u < T * p.fetch) {
+      const int t = u / p.fetch, j = u - t * p.fetch;
+      const int v = p.tg[t].pool[(size_t)qi * p.tg[t].pool_w + j];
+      if (v >= 0) {
+        id = v;
+        int all = 1;  // the targets' loads issued together
+        for (int s = 0; s < T; ++s) {
+          const MtTarget& g = p.tg[s];
+          const bool in = id < g.cap && id < g.nrows;
+          all &= in ? __ldg(g.present + id) != 0 : 0;
+        }
+        ok = all != 0;
+      }
+    }
+    ids[u] = id;
+    valid[u] = ok;
+  }
+  if (tid < T) s_w[tid] = p.weights[(size_t)qi * T + tid];
+  // each target's query, as B2 stages it, and its scalars (BQ: |q|; the
+  // code rows: sum(q) and sum(q^2)), summed for every target at once
+  float part[2 * kMtMaxTargets];
+#pragma unroll
+  for (int i = 0; i < 2 * kMtMaxTargets; ++i) part[i] = 0.f;
   for (int t = 0; t < T; ++t) {
     const MtTarget& g = p.tg[t];
     const float* qrow = g.queries + (size_t)qi * g.d;
@@ -1628,157 +1744,232 @@ __global__ void __launch_bounds__(kMtThreads) mt_join_kernel(MtParams p) {
                          (g.round && (g.metric == kDot || g.metric == kCosine));
       q[k] = round ? bf16_round(v) : v;
     }
-    a = mt_block_reduce(a, false, false, s_red);
-    b2 = mt_block_reduce(b2, false, false, s_red);
-    if (tid == 0) {
-      s_qa[t] = a;
-      s_qb[t] = b2;
-    }
+#pragma unroll
+    for (int i = 0; i < kMtMaxTargets; ++i)
+      if (i == t) {
+        part[2 * i] = a;
+        part[2 * i + 1] = b2;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * kMtMaxTargets; ++i) {
+    float v = part[i];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+    if (lane == 0) s_red[warp][i] = v;
   }
   __syncthreads();
-  // PQ: the query's ADC table where it fits (B2-PQ's `build_table` sums)
+  if (tid < 2 * T) {
+    float v = 0.f;
+    for (int w = 0; w < kW; ++w) v += s_red[w][tid];
+    s_q[tid] = v;
+  }
+  // PQ: this CTA's slice of the query's ADC table (B2-PQ's `build_table`
+  // sums), where the tables fit
   for (int t = 0; t < T; ++t) {
     const MtTarget& g = p.tg[t];
     if (g.kind != kPqRow || g.table_off < 0) continue;
     const float* q = smem_f + g.q_off;
-    float* table = smem_f + g.table_off;
-    for (int e = tid; e < g.segs * g.centroids; e += nt) {
-      const int s = e / g.centroids;
-      const __nv_bfloat16* piece = g.cb + (size_t)e * g.dsub;
+    float* slice = smem_f + g.table_off;
+    const int s0 = rank * g.table_per;
+    const int ns = min(g.table_per, g.segs - s0);
+    for (int e = tid; e < ns * g.centroids; e += nt) {
+      const int s = s0 + e / g.centroids;
+      const __nv_bfloat16* piece =
+          g.cb + ((size_t)s0 * g.centroids + e) * g.dsub;
       float acc = 0.f;
       for (int j = 0; j < g.dsub; ++j)
         acc = fmaf(q[s * g.dsub + j], __bfloat162float(piece[j]), acc);
-      table[e] = acc;
+      slice[e] = acc;
     }
   }
-
-  // the union, sorted ascending (bitonic), empty slots as INT_MAX
+  // one slot an id (`_mt_dedup`): the lowest slot of an id stays, so
+  // every CTA lists the same members in the same order (the rank's ties go
+  // to the lower id, the order of the sorted union); a slot compares its id
+  // with every slot before it (the same id has the same presence, so the
+  // earlier slot is the member), four at a time
   for (int u = tid; u < U; u += nt) {
-    int id = kMtNone;
-    if (u < T * p.fetch) {
-      const int t = u / p.fetch, j = u - t * p.fetch;
-      const int v = p.tg[t].pool[(size_t)qi * p.tg[t].pool_w + j];
-      if (v >= 0) id = v;
-    }
-    ids[u] = id;
-  }
-  __syncthreads();
-  for (int k = 2; k <= U; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < U; i += nt) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const int a = ids[i], b = ids[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            ids[i] = b;
-            ids[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  // validity: live, first of its run, in every target's graph
-  for (int u = tid; u < U; u += nt) {
-    const int id = ids[u];
-    bool ok = id != kMtNone && (u == 0 || ids[u - 1] != id);
-    for (int t = 0; ok && t < T; ++t) {
-      const MtTarget& g = p.tg[t];
-      ok = id < g.cap && id < g.nrows && g.present[id];
-    }
-    valid[u] = ok;
-  }
-  __syncthreads();
-
-  // cross-scores: a warp a (member, target) pair
-  for (int e = warp; e < T * U; e += nw) {
-    const int t = e / U, u = e - t * U;
     if (!valid[u]) continue;
-    const MtTarget& g = p.tg[t];
-    float acc = mt_lane_sum(g, smem_f + g.q_off, smem_f, ids[u], lane);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    if (lane == 0) dist[t * U + u] = mt_finish(g, acc, s_qa[t], s_qb[t], ids[u]);
+    const int id = ids[u];
+    int dup = 0;
+#pragma unroll 4
+    for (int j = 0; j < u; ++j) dup |= ids[j] == id;
+    valid[u] = !dup;
   }
   __syncthreads();
-
-  // the join
-  if (p.join == kRelative) {
-    for (int t = 0; t < T; ++t) {
-      float lo = kMask, hi = -kInf;
-      for (int u = tid; u < U; u += nt) {
-        if (!valid[u]) continue;
-        lo = fminf(lo, dist[t * U + u]);
-        hi = fmaxf(hi, dist[t * U + u]);
-      }
-      lo = mt_block_reduce(lo, true, false, s_red);
-      hi = mt_block_reduce(hi, false, true, s_red);
-      if (tid == 0) {
-        s_lo[t] = lo;
-        s_span[t] = hi - lo > 0.f ? hi - lo : 1.f;
-      }
-    }
-    __syncthreads();
-  }
-  const float* w = p.weights + (size_t)qi * T;
-  for (int u = tid; u < U; u += nt) {
-    float c = kMask;
-    if (valid[u]) {
-      if (p.join == kMinimum) {
-        c = dist[u];
-        for (int t = 1; t < T; ++t) c = fminf(c, dist[t * U + u]);
-      } else if (p.join == kRelative) {
-        c = 0.f;
-        for (int t = 0; t < T; ++t)
-          c += ((dist[t * U + u] - s_lo[t]) / s_span[t]) * w[t];
-      } else {
-        c = 0.f;
-        for (int t = 0; t < T; ++t) c += dist[t * U + u] * w[t];
-      }
-    }
-    comb[u] = c;
-  }
-  __syncthreads();
-
-  // the valid members in union order (one warp's ballot scan), then each
-  // one's rank by counting: lower joined distance first, union order on ties
-  int* vidx = reinterpret_cast<int*>(dist);
-  float* vkey = dist + U;
+  // the valid members (one warp's ballot scan)
   if (warp == 0) {
     int n = 0;
     for (int u0 = 0; u0 < U; u0 += 32) {
       const bool ok = valid[u0 + lane];
       const unsigned bal = __ballot_sync(kFull, ok);
-      if (ok) {
-        const int pos = n + __popc(bal & ((1u << lane) - 1u));
-        vidx[pos] = u0 + lane;
-        vkey[pos] = comb[u0 + lane];
-      }
+      if (ok) vid[n + __popc(bal & ((1u << lane) - 1u))] = ids[u0 + lane];
       n += __popc(bal);
     }
     if (lane == 0) s_valid_n = n;
   }
   __syncthreads();
   const int vn = s_valid_n;
+  // every CTA's table slices are built before any lookup
+  mt_cluster_sync();
+
+  // this CTA's slice of the members under every target, a group of `gw`
+  // lanes a (member, target) pair: as wide as leaves a group for every
+  // pair (all of them one round of loads), 4 to 32 lanes; the distance
+  // stored in the first CTA
+  {
+    cg::cluster_group cluster = cg::this_cluster();
+    float* dist0 = cluster.map_shared_rank(dist, 0);
+    const int lo = (int)((long long)vn * rank / R);
+    const int hi = (int)((long long)vn * (rank + 1) / R);
+    const int pairs = (hi - lo) * T;
+    int gw = 32;
+    while (gw > 4 && (nt / gw) < pairs) gw >>= 1;
+    const int groups = nt / gw, grp = tid / gw, gl = tid - grp * gw;
+    for (int e0 = 0; e0 < pairs; e0 += groups) {
+      const int e = e0 + grp;
+      const bool live = e < pairs;
+      const int m = live ? e / T : 0;
+      const int t = live ? e - m * T : 0;
+      const MtTarget& g = p.tg[t];
+      const int id = live ? vid[lo + m] : 0;
+      float acc = live ? mt_lane_sum(g, smem_f + g.q_off, smem_f, id, gl, gw)
+                       : 0.f;
+      for (int o = gw >> 1; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(kFull, acc, o, gw);
+      if (live && gl == 0)
+        dist0[t * U + lo + m] =
+            mt_finish(g, acc, s_q[2 * t], s_q[2 * t + 1], id);
+    }
+  }
+  // the distances in the first CTA; the others' tables read to the end
+  mt_cluster_sync();
+  if (rank != 0) return;
+
+  // the join: relative takes each target's min and max over the members,
+  // every target's at once
+  if (p.join == kRelative) {
+    float lo[kMtMaxTargets], hi[kMtMaxTargets];
+#pragma unroll
+    for (int i = 0; i < kMtMaxTargets; ++i) {
+      lo[i] = kMask;
+      hi[i] = -kInf;
+    }
+    for (int v = tid; v < vn; v += nt)
+#pragma unroll
+      for (int i = 0; i < kMtMaxTargets; ++i)
+        if (i < T) {
+          lo[i] = fminf(lo[i], dist[i * U + v]);
+          hi[i] = fmaxf(hi[i], dist[i * U + v]);
+        }
+#pragma unroll
+    for (int i = 0; i < kMtMaxTargets; ++i) {
+      for (int o = 16; o > 0; o >>= 1) {
+        lo[i] = fminf(lo[i], __shfl_xor_sync(kFull, lo[i], o));
+        hi[i] = fmaxf(hi[i], __shfl_xor_sync(kFull, hi[i], o));
+      }
+      if (lane == 0) {
+        s_red[warp][i] = lo[i];
+        s_red[warp][kMtMaxTargets + i] = hi[i];
+      }
+    }
+    __syncthreads();
+    if (tid < T) {
+      float l = kMask, h = -kInf;
+      for (int w = 0; w < kW; ++w) {
+        l = fminf(l, s_red[w][tid]);
+        h = fmaxf(h, s_red[w][kMtMaxTargets + tid]);
+      }
+      s_lo[tid] = l;
+      s_span[tid] = h - l > 0.f ? h - l : 1.f;
+    }
+    __syncthreads();
+  }
+  const float* w = s_w;
+  for (int v = tid; v < vn; v += nt) {
+    float c;
+    if (p.join == kMinimum) {
+      c = dist[v];
+      for (int t = 1; t < T; ++t) c = fminf(c, dist[t * U + v]);
+    } else if (p.join == kRelative) {
+      c = 0.f;
+      for (int t = 0; t < T; ++t)
+        c += ((dist[t * U + v] - s_lo[t]) / s_span[t]) * w[t];
+    } else {
+      c = 0.f;
+      for (int t = 0; t < T; ++t) c += dist[t * U + v] * w[t];
+    }
+    comb[v] = c;
+  }
+  __syncthreads();
+
+  // each member's rank by counting: lower joined distance first, the
+  // lower id (union order) on ties; a member counted by `g` lanes of a
+  // warp (every g-th member each, the counts added by shuffles), so the
+  // serial count, a chain of dependent loads, is vn / g long
   int* oid = p.out_ids + (size_t)qi * p.fetch;
   float* od = p.out_d + (size_t)qi * p.fetch;
-  for (int i = tid; i < vn; i += nt) {
-    const float v = vkey[i];
-    int rank = 0;
-    for (int j = 0; j < vn; ++j) {
-      const float x = vkey[j];
-      rank += (x < v) || (x == v && j < i);
+  int g = 32;
+  while (g > 1 && vn * g > nt) g >>= 1;
+  for (int e0 = 0; e0 < vn * g; e0 += nt) {
+    const int e = e0 + tid, i = e / g, sub = e - i * g;
+    int rank_i = 0;
+    float v = 0.f;
+    int id = 0;
+    if (i < vn) {
+      v = comb[i];
+      id = vid[i];
+#pragma unroll 4
+      for (int j = sub; j < vn; j += g) {
+        const float x = comb[j];
+        rank_i += (x < v) | ((x == v) & (vid[j] < id));
+      }
     }
-    if (rank < p.fetch) {
+    for (int o = g >> 1; o > 0; o >>= 1)
+      rank_i += __shfl_xor_sync(kFull, rank_i, o, g);
+    if (i < vn && sub == 0 && rank_i < p.fetch) {
       const bool ok = v < kMask;
-      oid[rank] = ok ? ids[vidx[i]] : -1;
-      od[rank] = ok ? v : kMask;
+      oid[rank_i] = ok ? id : -1;
+      od[rank_i] = ok ? v : kMask;
     }
   }
   for (int r = vn + tid; r < p.fetch; r += nt) {
     oid[r] = -1;
     od[r] = kMask;
   }
+}
+
+// each device's SMs and the dynamic shared memory a block of B7b can take
+// (the opt-in limit less the kernel's static part), read once, with the
+// kernel's limit raised to it once
+struct MtDevice {
+  int sms = 0, smem_max = 0;
+  cudaError_t err = cudaSuccess;
+  std::once_flag once;
+};
+MtDevice g_mt_devices[64];
+
+cudaError_t mt_device_info(int dev, const MtDevice** out) {
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  MtDevice& g = g_mt_devices[dev];
+  std::call_once(g.once, [&] {
+    int optin = 0;
+    g.err = cudaDeviceGetAttribute(&g.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (g.err == cudaSuccess)
+      g.err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncAttributes fa;
+    if (g.err == cudaSuccess)
+      g.err = cudaFuncGetAttributes(&fa, (const void*)mt_join_kernel);
+    if (g.err == cudaSuccess) {
+      g.smem_max = optin - static_cast<int>(fa.sharedSizeBytes);
+      g.err = cudaFuncSetAttribute((const void*)mt_join_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   g.smem_max);
+    }
+  });
+  *out = &g;
+  return g.err;
 }
 
 }  // namespace
@@ -1934,25 +2125,42 @@ int device_beam_search(const float* queries, const void* corpus,
   return static_cast<int>(e);
 }
 
-// Launches B7b, the multi-target join, for `b` query rows on `stream`, after
-// the targets' walks. Per target t (`targets` of them, at most 8): eight
-// pointers in `ptrs` [8 t ..]: its pool [b, pool_w] (the beam, or the kept
-// track of a filtered walk), its queries [b, d] as its walk took them, its
-// rows, row_aux, row_lo, row_step, PQ codebooks (bf16) and present [cap];
-// eleven ints in `ints` [11 t ..]: pool_w, cap, rows, d, row_kind (B2's: 0
-// raw, 1 BQ, 2 SQ, 3 RQ, 4 PQ), metric, bf16 rounding of raw dot/cosine,
-// segs, dsub, centroids, BQ dims; two floats in `floats` [2 t ..]: SQ's a
-// and s. `weights` [b, targets]; `join` 0 weighted, 1 minimum, 2 relative.
+// Launches B7b, the multi-target join, with the arguments packed in `call`
+// as ops/device_beam.py packs them (one argument through ctypes): first
+// an MtCall (kMtHeadBytes) of `weights` [b, targets], `out_ids` / `out_d`
+// [b, fetch] and `stream`, then `targets`, `b`, `fetch`, `join` (0
+// weighted, 1 minimum, 2 relative) and the plan of ops/device_beam.py
+// `mt_join_plan`: `ranks` CTAs a query row (one cluster), bit t of
+// `tables` set where PQ target t reads its ADC table from shared memory,
+// `smem` bytes a CTA. For `b` query rows on `stream`, after the targets'
+// walks. Then, for the `targets` targets (at most 8), eight 8-byte
+// pointers each: its pool [b, pool_w] (the beam, or the kept track of a
+// filtered walk), its queries [b, d] as its walk took them, its rows,
+// row_aux, row_lo, row_step, PQ codebooks (bf16) and present [cap]; then
+// eleven 4-byte ints each: pool_w, cap, rows, d, row_kind (B2's: 0 raw, 1
+// BQ, 2 SQ, 3 RQ, 4 PQ), metric, bf16 rounding of raw dot/cosine, segs,
+// dsub, centroids, BQ dims; then two 4-byte floats each: SQ's a and s.
 // Writes out_ids / out_d [b, fetch]. Returns 0, a cudaError_t (> 0), or a
 // negative code (see device_beam_error_string).
-int mt_join_topk(const void* const* ptrs, const int* ints,
-                 const float* floats, int targets, const float* weights,
-                 int* out_ids, float* out_d, int b, int fetch, int join,
-                 void* stream) {
+int mt_join_topk(const unsigned char* call) {
+  struct MtCall {
+    uint64_t weights, out_ids, out_d, stream;
+    int32_t targets, b, fetch, join, ranks, tables, smem, pad;
+  } a;
+  memcpy(&a, call, kMtHeadBytes);
+  const unsigned char* spec = call + kMtHeadBytes;
+  const int targets = a.targets, b = a.b, fetch = a.fetch, join = a.join;
+  const int ranks = a.ranks, tables = a.tables, smem = a.smem;
+  const float* weights = reinterpret_cast<const float*>(a.weights);
+  int* out_ids = reinterpret_cast<int*>(a.out_ids);
+  float* out_d = reinterpret_cast<float*>(a.out_d);
+  void* stream = reinterpret_cast<void*>(a.stream);
   if (b < 1 || targets < 1 || targets > kMtMaxTargets) return kBadShape;
   if (fetch < 1 || fetch > kMtMaxFetch || targets * fetch > kMtMaxUnion)
     return kBadEf;
   if (join < kWeighted || join > kRelative) return kBadMetric;
+  if (ranks < 1 || ranks > kMtMaxCluster || (long long)b * ranks > 0x7fffffff)
+    return kBadShape;
   MtParams p;
   int upad = 32;
   while (upad < targets * fetch) upad <<= 1;
@@ -1961,31 +2169,29 @@ int mt_join_topk(const void* const* ptrs, const int* ints,
   p.fetch = fetch;
   p.join = join;
   p.upad = upad;
+  p.ranks = ranks;
   p.weights = weights;
   p.out_ids = out_ids;
   p.out_d = out_d;
-  const int tslots = targets > 2 ? targets : 2;
-  long long off = 4LL * upad;  // ids
-  p.off_comb = static_cast<int>(off);
-  off += 4LL * upad;
-  p.off_dist = static_cast<int>(off);
-  off += 4LL * tslots * upad;
-  p.off_valid = static_cast<int>(off);
-  off += (upad + 15) & ~15;
-  p.off_q = static_cast<int>(off);
+  const unsigned char* ints_at = spec + 8 * 8 * targets;
+  const unsigned char* floats_at = ints_at + 4 * 11 * targets;
   long long floats_used = 0;
   for (int t = 0; t < targets; ++t) {
     MtTarget& g = p.tg[t];
-    const void* const* pp = ptrs + 8 * t;
-    const int* ii = ints + 11 * t;
-    g.pool = static_cast<const int*>(pp[0]);
-    g.queries = static_cast<const float*>(pp[1]);
-    g.rows = pp[2];
-    g.row_aux = static_cast<const float*>(pp[3]);
-    g.row_lo = static_cast<const float*>(pp[4]);
-    g.row_step = static_cast<const float*>(pp[5]);
-    g.cb = static_cast<const __nv_bfloat16*>(pp[6]);
-    g.present = static_cast<const uint8_t*>(pp[7]);
+    uint64_t pp[8];
+    int ii[11];
+    float ff[2];
+    memcpy(pp, spec + 8 * 8 * t, sizeof(pp));
+    memcpy(ii, ints_at + 4 * 11 * t, sizeof(ii));
+    memcpy(ff, floats_at + 4 * 2 * t, sizeof(ff));
+    g.pool = reinterpret_cast<const int*>(pp[0]);
+    g.queries = reinterpret_cast<const float*>(pp[1]);
+    g.rows = reinterpret_cast<const void*>(pp[2]);
+    g.row_aux = reinterpret_cast<const float*>(pp[3]);
+    g.row_lo = reinterpret_cast<const float*>(pp[4]);
+    g.row_step = reinterpret_cast<const float*>(pp[5]);
+    g.cb = reinterpret_cast<const __nv_bfloat16*>(pp[6]);
+    g.present = reinterpret_cast<const uint8_t*>(pp[7]);
     g.pool_w = ii[0];
     g.cap = ii[1];
     g.nrows = ii[2];
@@ -1997,8 +2203,8 @@ int mt_join_topk(const void* const* ptrs, const int* ints,
     g.dsub = ii[8];
     g.centroids = ii[9];
     const int dims = ii[10];
-    g.sq_a = floats[2 * t];
-    g.sq_s = floats[2 * t + 1];
+    g.sq_a = ff[0];
+    g.sq_s = ff[1];
     g.last_word = g.kind == kBqRow && dims % 32 ? (1u << (dims % 32)) - 1u
                                                 : kFull;
     const bool coded = g.kind == kSqRow || g.kind == kRqRow ||
@@ -2017,46 +2223,69 @@ int mt_join_topk(const void* const* ptrs, const int* ints,
           g.centroids > 256 || (long long)g.segs * g.dsub != g.d)) ||
         (g.kind == kBqRow && (dims < 1 || g.d != (dims + 31) / 32)))
       return kBadRow;
+    if (((tables >> t) & 1) && g.kind != kPqRow) return kBadRow;
+    g.vec = g.kind == kRawRow && g.d % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(g.rows) % 16 == 0;
     g.q_off = static_cast<int>(floats_used);
     floats_used += (g.d + 3) & ~3;
     g.table_off = -1;
+    g.table_per = g.segs > 0 ? g.segs : 1;
   }
-  int dev = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // static shared memory of the kernel beside the dynamic part
-  const long long fixed = 1024;
-  if (off + 4 * floats_used + fixed > smem_max) return kBadSmem;
-  // PQ's ADC tables, each where it still fits
+  // PQ's table slices, `table_per` segments a CTA
   for (int t = 0; t < targets; ++t) {
     MtTarget& g = p.tg[t];
-    if (g.kind != kPqRow) continue;
-    const long long tb = (long long)g.segs * g.centroids;
-    if (off + 4 * (floats_used + tb) + fixed <= smem_max) {
-      g.table_off = static_cast<int>(floats_used);
-      floats_used += (tb + 3) & ~3LL;
-    }
+    if (!((tables >> t) & 1)) continue;
+    g.table_per = (g.segs + ranks - 1) / ranks;
+    g.table_off = static_cast<int>(floats_used);
+    floats_used += ((long long)g.table_per * g.centroids + 3) & ~3LL;
   }
-  const long long smem = off + 4 * floats_used;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(mt_join_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  mt_join_kernel<<<b, kMtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  const MtLayout l = mt_layout(upad, targets, floats_used);
+  p.off_vidx = static_cast<int>(l.vidx);
+  p.off_comb = static_cast<int>(l.comb);
+  p.off_dist = static_cast<int>(l.dist);
+  p.off_valid = static_cast<int>(l.valid);
+  p.off_q = static_cast<int>(l.q);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  const MtDevice* g = nullptr;
+  if (e == cudaSuccess) e = mt_device_info(dev, &g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (l.tables > smem || smem > g->smem_max) return kBadSmem;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * ranks, 1, 1);
+  cfg.blockDim = dim3(kMtThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(ranks);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, mt_join_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The card's SMs and the dynamic shared memory a block of B7b can take on
+// device `dev` (what `mt_join_plan` of ops/device_beam.py sizes a launch
+// for). Returns 0 or a cudaError_t.
+int mt_join_device_info(int dev, int* sms, int* smem_max) {
+  const MtDevice* g = nullptr;
+  const cudaError_t e = mt_device_info(dev, &g);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *sms = g->sms;
+  *smem_max = g->smem_max;
+  return 0;
 }
 
 const char* device_beam_error_string(int code) {
   switch (code) {
     case kBadShape: return "b, rows, n >= 1, max_steps, levels >= 0 "
                            "required (the join: 1 to 8 targets, pools at "
-                           "least fetch wide, D within [1, 4096])";
+                           "least fetch wide, D within [1, 4096], 1 to 8 "
+                           "CTAs a query row)";
     case kBadEf: return "ef (or the join's fetch) outside [1, 512], or "
                         "targets x fetch above 4096";
     case kBadWidth: return "adjacency width outside [1, 128]";
@@ -2066,12 +2295,14 @@ const char* device_beam_error_string(int code) {
     case kBadFrontier: return "expand outside [0, M0] or M0 * (1 + expand) "
                               "above 640";
     case kBadSmem: return "one query's state exceeds the card's shared "
-                          "memory a block";
+                          "memory a block (the join: its plan's shared "
+                          "memory is below its layout or above the card's)";
     case kBadRow: return "row kind outside 0..4, a BQ row's words not "
                          "ceil(dims / 32), a code row's metric other than "
                          "l2-squared/dot/cosine, a missing aux array, or "
                          "PQ segments x sub-dimensions != d or centroids "
-                         "outside [1, 256]";
+                         "outside [1, 256] (the join: or a table planned for "
+                         "a target that is not PQ)";
     case kBadAlign: return "PQ codebooks not 16-byte aligned";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

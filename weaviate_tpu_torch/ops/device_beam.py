@@ -52,12 +52,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+import struct
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_distance
+from weaviate_tpu_torch.ops.launch import bad_operand, launch_on, raw_stream
 from weaviate_tpu_torch.ops.quantized import (
     SQ_METRICS,
     bq_gather_distance,
@@ -542,8 +544,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.device_beam_search.argtypes = ([p] * 16 + [i] * 16 + [f, f]
                                        + [p] * 3 + [i] * 3 + [p])
     lib.device_beam_search.restype = i
-    lib.mt_join_topk.argtypes = [p] * 3 + [i, p, p, p, i, i, i, p]
+    lib.mt_join_topk.argtypes = [ctypes.c_char_p]
     lib.mt_join_topk.restype = i
+    lib.mt_join_device_info.argtypes = [i, p, p]
+    lib.mt_join_device_info.restype = i
     lib.device_beam_error_string.argtypes = [i]
     lib.device_beam_error_string.restype = ctypes.c_char_p
     return lib
@@ -807,12 +811,95 @@ def mt_join_topk_plain(scorers, queries, operands, present, pools, weights,
 # B7b's limits (its C side refuses the same)
 MT_MAX_TARGETS = 8
 MT_MAX_UNION = 4096
+MT_MAX_CLUSTER = 8
+# members a CTA of the cluster is planned for: ceil(union / this) CTAs
+MT_MEMBERS_A_CTA = 16
+
+
+class MtPlan(NamedTuple):
+    """One B7b launch: ``ranks`` CTAs a query row (one thread block
+    cluster; CTA r scores members [r V / ranks, (r + 1) V / ranks) of the
+    V valid ones), the union's padded width, the grid, bit t of
+    ``tables`` set where PQ target t reads its ADC table from the
+    cluster's shared memory (a slice of ``ceil(segs / ranks)`` segments a
+    CTA), and the dynamic shared memory a CTA (bytes)."""
+
+    ranks: int
+    upad: int
+    grid: int
+    tables: int
+    smem: int
+
+
+def _r4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+@functools.lru_cache(maxsize=4096)
+def mt_join_plan(b: int, targets: tuple, fetch: int, smem_max: int
+                 ) -> MtPlan:
+    """The launch of B7b for ``b`` query rows of ``targets`` (each (row
+    kind, query width d, PQ segments, PQ centroids)) at ``fetch``, on a
+    card whose blocks take ``smem_max`` bytes of dynamic shared memory:
+    a CTA every MT_MEMBERS_A_CTA union slots, up to 8; the layout of
+    ``mt_layout`` in the source (ids, member ids, joined distances, a
+    distance a target and member, validity, the queries), then each PQ
+    target's table slice where it still fits, in target order. Raises
+    ``ValueError`` where the layout passes the card's shared memory."""
+    t_count = len(targets)
+    union = t_count * fetch
+    upad = 32
+    while upad < union:
+        upad *= 2
+    ranks = max(1, min(MT_MAX_CLUSTER, -(-union // MT_MEMBERS_A_CTA)))
+    words = (3 + t_count) * upad + sum(_r4(t[1]) for t in targets)
+    nbytes = 4 * words + ((upad + 15) & ~15)
+    if nbytes > smem_max:
+        raise ValueError(f"B7b needs {nbytes} bytes of shared memory a block "
+                         f"({t_count} targets, fetch {fetch}), the card has "
+                         f"{smem_max}")
+    tables = 0
+    for t, (kind, _d, segs, cents) in enumerate(targets):
+        if kind != 4:
+            continue
+        slice_bytes = 4 * _r4(-(-segs // ranks) * cents)
+        if nbytes + slice_bytes <= smem_max:
+            tables |= 1 << t
+            nbytes += slice_bytes
+    return MtPlan(ranks, upad, b * ranks, tables, nbytes)
+
+
+# one launch's arguments as the C entry point reads them (see
+# ``mt_join_topk`` in the source): the call's 4 addresses (the stream
+# last) and 8 ints, then per target 8 addresses, 11 ints and 2 floats
+_MT_CALL = {t: struct.Struct(f"<4Q8i{8 * t}Q{11 * t}i{2 * t}f")
+            for t in range(1, MT_MAX_TARGETS + 1)}
+
+_mt_device: dict = {}
+
+
+def _mt_card(index: int) -> int:
+    """The dynamic shared memory a block of B7b can take on device
+    ``index``, read once from the library."""
+    smem = _mt_device.get(index)
+    if smem is None:
+        sms, got = ctypes.c_int(), ctypes.c_int()
+        lib = _library()
+        err = lib.mt_join_device_info(index, ctypes.byref(sms),
+                                      ctypes.byref(got))
+        if err:
+            raise RuntimeError(
+                f"mt_join_device_info failed: "
+                f"{lib.device_beam_error_string(err).decode()}")
+        smem = _mt_device[index] = got.value
+    return smem
 
 
 def mt_join_topk_cuda(scorers, queries, operands, present, pools, weights,
                       fetch: int, join: str):
     """B7b on the card: one launch of ``mt_join_kernel`` on the current
-    stream, counted in ``launches``; the contract of ``mt_join_topk_plain``
+    stream (the plan of ``mt_join_plan``), counted in ``launches``, its
+    outputs one allocation; the contract of ``mt_join_topk_plain``
     (``queries`` each target's walk queries: float32 rows, BQ's packed
     int32 words; PQ's float32 codebooks are rounded to the bfloat16 copy
     B2 reads). Raises ``ValueError`` on arguments outside the kernel's
@@ -826,62 +913,60 @@ def mt_join_topk_cuda(scorers, queries, operands, present, pools, weights,
         raise ValueError(f"fetch {fetch} outside [1, {MAX_EF}] or a union "
                          f"of {t_count * fetch} above {MT_MAX_UNION}")
     dev = pools[0].device
+    at = pools[0].get_device()
     b = pools[0].shape[0]
-    if tuple(weights.shape) != (b, t_count) or weights.dtype != torch.float32 \
-            or not weights.is_contiguous() or weights.device != dev:
+    if bad_operand(weights, torch.float32, (b, t_count), at):
         raise ValueError(f"weights must be contiguous float32 [{b}, "
                          f"{t_count}] on {dev}")
-    ptrs, ints, floats = [], [], []
+    ptrs, ints, floats, shapes = [], [], [], []
     keep = []  # tensors made here live until the launch is enqueued
     for t in range(t_count):
         scorer, ops, q, pool, pres = (scorers[t], operands[t], queries[t],
                                       pools[t], present[t])
         rows, aux, d, want, q_dtype = _row_operands(scorer, ops)
-        want = [*want, ("queries", q, q_dtype, (b, d)),
-                ("pool", pool, torch.int32, (b, pool.shape[1])),
-                ("present", pres, torch.bool, (pres.shape[0],))]
+        want += [("queries", q, q_dtype, (b, d)),
+                 ("pool", pool, torch.int32, (b, pool.shape[1])),
+                 ("present", pres, torch.bool, (pres.shape[0],))]
         for name, x, dtype, shape in want:
-            if x.dtype != dtype or tuple(x.shape) != shape:
-                raise ValueError(f"target {t}: {name} must be {dtype} "
-                                 f"{shape}, got {x.dtype} {tuple(x.shape)}")
-            if not x.is_contiguous() or x.device != dev:
+            if bad_operand(x, dtype, shape, at):
                 raise ValueError(f"target {t}: {name} must be contiguous "
-                                 f"on {dev}")
+                                 f"{dtype} {shape} on {dev}, got {x.dtype} "
+                                 f"{tuple(x.shape)} on {x.device}")
         if pool.shape[1] < fetch:
             raise ValueError(f"target {t}: pool of {pool.shape[1]} < fetch "
                              f"{fetch}")
         kind = _ROW_KINDS[type(scorer)]
-        lo = step = cb = None
+        lo = step = cb = 0
         segs = dsub = cents = 0
         sq_a = sq_s = 0.0
         if kind == 2:
             sq_a, sq_s = float(ops[2]), float(ops[3])
         elif kind == 3:
-            lo, step = ops[1], ops[2]
+            lo, step = ops[1].data_ptr(), ops[2].data_ptr()
         elif kind == 4:
-            cb = ops[1] if ops[1].dtype == torch.bfloat16 \
+            cbt = ops[1] if ops[1].dtype == torch.bfloat16 \
                 else ops[1].to(torch.bfloat16)
-            keep.append(cb)
-            segs, cents, dsub = cb.shape
-        ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
-        ptrs += [pool.data_ptr(), q.data_ptr(), rows.data_ptr(), ptr(aux),
-                 ptr(lo), ptr(step), ptr(cb), pres.data_ptr()]
+            keep.append(cbt)
+            segs, cents, dsub = cbt.shape
+            cb = cbt.data_ptr()
+        ptrs += [pool.data_ptr(), q.data_ptr(), rows.data_ptr(),
+                 0 if aux is None else aux.data_ptr(), lo, step, cb,
+                 pres.data_ptr()]
         ints += [pool.shape[1], pres.shape[0], rows.shape[0], d, kind,
                  METRICS.index(getattr(scorer, "metric", "l2-squared")),
                  int(getattr(scorer, "precision", "") == "bf16"), segs, dsub,
                  cents, getattr(scorer, "dims", 0)]
         floats += [sq_a, sq_s]
-    ids = torch.empty((b, fetch), dtype=torch.int32, device=dev)
-    dists = torch.empty((b, fetch), dtype=torch.float32, device=dev)
+        shapes.append((kind, d, segs, cents))
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mt_join_topk(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_float * len(floats))(*floats), t_count,
-            weights.data_ptr(), ids.data_ptr(), dists.data_ptr(), b, fetch,
-            _MT_JOINS.index(join), stream)
+    plan = mt_join_plan(b, tuple(shapes), fetch, _mt_card(dev.index))
+    out = torch.empty((2, b, fetch), dtype=torch.int32, device=dev)
+    ptr = out.data_ptr()
+    with launch_on(dev):
+        err = lib.mt_join_topk(_MT_CALL[t_count].pack(
+            weights.data_ptr(), ptr, ptr + 4 * b * fetch,
+            raw_stream(dev.index), t_count, b, fetch, _MT_JOINS.index(join),
+            plan.ranks, plan.tables, plan.smem, 0, *ptrs, *ints, *floats))
     if err < 0:
         raise ValueError(
             f"mt_join_topk refused its arguments: "
@@ -891,7 +976,7 @@ def mt_join_topk_cuda(scorers, queries, operands, present, pools, weights,
             f"mt_join_topk launch failed: "
             f"{lib.device_beam_error_string(err).decode()} (code {err})")
     mt_join_topk_cuda.launches += 1
-    return ids, dists
+    return out[0], out[1].view(torch.float32)
 
 
 mt_join_topk_cuda.launches = 0

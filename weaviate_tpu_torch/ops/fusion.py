@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops import sparse
+from weaviate_tpu_torch.ops.launch import launch_on
 
 # the classic RRF constant used by the reference (query/fusion.py twin)
 RANKED_FUSION_OFFSET = 60.0
@@ -154,7 +155,7 @@ def fusion_topk_cuda(slots, scores, weights, k: int, union: int):
     buf = torch.empty(2 * page + -(-scratch // 4), dtype=torch.int32,
                       device=dev)
     ptr = buf.data_ptr()
-    with sparse._launch_on(dev):
+    with launch_on(dev):
         err = lib.fusion_topk(
             slots.data_ptr(), None if scores is None else scores.data_ptr(),
             weights.data_ptr(), legs, width, union, k, int(scores is None),

@@ -15,14 +15,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 import threading
+from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE
+from weaviate_tpu_torch.ops.launch import (
+    bad_operand,
+    launch_on,
+    raw_stream,
+    source_ints,
+)
 
 KERNEL = "rerank"
-# the kernel's limit on candidates a query (a warp each, on grid.y)
+# the kernel's limit on candidates a query (their groups are grid.y)
 MAX_CANDIDATES = 65535
 
 
@@ -56,38 +65,129 @@ def rerank_topk_plain(cand, tokens, tmask, q_tokens, q_mask, module,
             torch.where(ok, -s, MASK_DISTANCE).to(torch.float32))
 
 
-# each (device, stream)'s tickets, one a query: zero when made, and every
-# launch leaves them zero (a query's last CTA wraps its ticket)
-_tickets: dict = {}
-_tickets_lock = threading.Lock()
+CONST = source_ints(Path(__file__).resolve().parent.parent / "csrc"
+                     / f"{KERNEL}.cu")
+_THREADS, _COLS, _DK = CONST["kThreads"], CONST["kCols"], CONST["kDK"]
+_WARPS, _WINDOW = _THREADS // 32, _THREADS
+_MAX_CLUSTER = CONST["kMaxCluster"]
+# one launch's arguments as the C entry point reads them (a RerankCall):
+# 10 addresses (the stream last), 12 ints, 3 floats
+_CALL = struct.Struct("<10Q12i3f")
 
 
-def _tickets_for(dev: torch.device, stream: int, b: int) -> torch.Tensor:
+class RerankPlan(NamedTuple):
+    """One B7a launch: ``rg`` groups of 4 query-token rows a tile (the
+    kernel instance), ``cpb`` candidates a CTA, ``nblk`` CTAs a candidate
+    (one thread block cluster, each a block of its kept tokens), the grid
+    (queries x nblk, candidate groups) and the dynamic shared memory a CTA
+    (bytes: the layout, or the c scores the last CTA stages where they
+    are more and fit)."""
+
+    rg: int
+    cpb: int
+    nblk: int
+    grid: tuple
+    smem: int
+
+
+def _r4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def rerank_smem_words(rg: int, cpb: int, tq: int, d: int,
+                      linear: bool) -> int:
+    """4-byte words of a CTA's shared memory (``layout`` of the source):
+    the staged chunks (one where D fits a chunk, else two), the warps'
+    partial sums, the window's list (positions and candidates), the live
+    query tokens, the maxima, the mean row, per-candidate sums, counts
+    and ids, the scan's totals and the mean token."""
+    stages = 2 if d > _DK else 1
+    return (stages * (4 * rg + _COLS) * (_DK + 4) + 4 * _WARPS * _COLS
+            + 2 * _WINDOW
+            + _r4(tq) + _r4(cpb * tq) + _COLS + 3 * _r4(cpb) + 2 * _WARPS
+            + (_r4(d) if linear else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def rerank_plan(b: int, c: int, t: int, tq: int, d: int, linear: bool,
+                sms: int, smem_max: int) -> RerankPlan:
+    """The launch of B7a for these shapes on a card of ``sms`` SMs and
+    ``smem_max`` bytes of dynamic shared memory a block: the fewest row
+    groups that hold the query's tokens (and the mean row); several
+    candidates a CTA where a candidate's tokens fill less than a tile,
+    as long as the batch still gives two CTAs an SM; where the batch gives
+    fewer, each candidate's kept tokens split over up to 8 CTAs (at least
+    16 token slots each). Raises ``ValueError`` where a CTA's shared
+    memory passes the card's."""
+    rows = tq + int(linear)
+    rg = next(r for r in (1, 2, 4, 8) if 4 * r >= rows or r == 8)
+    want = 2 * sms
+    cpb = 1 if t >= _COLS else max(1, min(_COLS // t, (b * c) // want))
+    nblk = 1
+    if cpb == 1 and b * c < want:
+        nblk = max(1, min(_MAX_CLUSTER, -(-want // (b * c)), t // 16))
+    groups = -(-c // cpb)
+    smem = 4 * rerank_smem_words(rg, cpb, tq, d, linear)
+    if smem > smem_max:
+        raise ValueError(f"B7a needs {smem} bytes of shared memory a block "
+                         f"(tq {tq}, d {d}), the card has {smem_max}")
+    if 4 * c <= smem_max:  # the last CTA stages the scores
+        smem = max(smem, 4 * c)
+    return RerankPlan(rg, cpb, nblk, (b * nblk, groups), smem)
+
+
+# each (device, stream)'s scratch: (the tensor, its tickets) -- first the
+# tickets, one a query, zero when made and left zero by every launch (a
+# query's last CTA wraps its ticket), then the [b, c] scores
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def _scratch_for(dev: torch.device, stream: int, b: int, c: int) -> tuple:
+    """(the tickets' address, the scores' address) of a scratch that holds
+    at least ``b`` tickets and ``b * c`` scores for ``stream``."""
     key = (dev.index, stream)
-    with _tickets_lock:
-        t = _tickets.get(key)
-        if t is None or t.numel() < b:
-            t = _tickets[key] = torch.zeros(max(b, 256), dtype=torch.int32,
-                                            device=dev)
-    return t
+    got = _scratch.get(key)
+    if got is None or got[1] < b or got[0].numel() < got[1] + b * c:
+        with _scratch_lock:
+            got = _scratch.get(key)
+            if got is None or got[1] < b or got[0].numel() < got[1] + b * c:
+                old_t, old_s = (0, 0) if got is None else (
+                    got[1], got[0].numel() - got[1])
+                tickets = _r4(max(b, old_t, 256))
+                got = _scratch[key] = (torch.zeros(
+                    tickets + max(b * c, old_s, 65536), dtype=torch.int32,
+                    device=dev), tickets)
+    base = got[0].data_ptr()
+    return base, base + 4 * got[1]
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, the candidates on {dev}")
+_device_info: dict = {}
+
+
+def _card(index: int) -> tuple:
+    """(SMs, dynamic shared memory a block) of device ``index``, read once
+    from the library."""
+    info = _device_info.get(index)
+    if info is None:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        lib = _library()
+        err = lib.rerank_device_info(index, ctypes.byref(sms),
+                                     ctypes.byref(smem))
+        if err:
+            raise RuntimeError(f"rerank_device_info failed: "
+                               f"{lib.rerank_error_string(err).decode()}")
+        info = _device_info[index] = (sms.value, smem.value)
+    return info
 
 
 def rerank_topk_cuda(cand, tokens, tmask, q_tokens, q_mask, module,
                      out_k: int):
     """B7a on the card: one launch of ``rerank_kernel`` on the current
-    stream, counted in ``launches``. ``cand`` int32 [B, C], ``tokens``
-    float32 [N, T, D], ``tmask`` bool [N, T], ``q_tokens`` float32 [B, Tq,
-    D], ``q_mask`` bool [B, Tq], all contiguous on one card. Raises
+    stream (the plan of ``rerank_plan``), counted in ``launches``, its
+    outputs one allocation. ``cand`` int32 [B, C], ``tokens`` float32 [N,
+    T, D], ``tmask`` bool [N, T], ``q_tokens`` float32 [B, Tq, D],
+    ``q_mask`` bool [B, Tq], all contiguous on one card. Raises
     ``ValueError`` on arguments outside the kernel's contract and
     ``RuntimeError`` on a failed launch."""
     dev = cand.device
@@ -97,11 +197,17 @@ def rerank_topk_cuda(cand, tokens, tmask, q_tokens, q_mask, module,
     b, c = cand.shape
     n, t, d = tokens.shape
     tq = q_tokens.shape[1]
-    _check("cand", cand, torch.int32, (b, c), dev)
-    _check("tokens", tokens, torch.float32, (n, t, d), dev)
-    _check("tmask", tmask, torch.bool, (n, t), dev)
-    _check("q_tokens", q_tokens, torch.float32, (b, tq, d), dev)
-    _check("q_mask", q_mask, torch.bool, (b, tq), dev)
+    at = cand.get_device()
+    for name, x, dtype, shape in (
+            ("cand", cand, torch.int32, (b, c)),
+            ("tokens", tokens, torch.float32, (n, t, d)),
+            ("tmask", tmask, torch.bool, (n, t)),
+            ("q_tokens", q_tokens, torch.float32, (b, tq, d)),
+            ("q_mask", q_mask, torch.bool, (b, tq))):
+        if bad_operand(x, dtype, shape, at):
+            raise ValueError(f"{name} must be contiguous {dtype} "
+                             f"{tuple(shape)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
     if not 1 <= out_k <= c:
         raise ValueError(f"out_k {out_k} outside [1, C={c}]")
     if c > MAX_CANDIDATES:
@@ -109,17 +215,17 @@ def rerank_topk_cuda(cand, tokens, tmask, q_tokens, q_mask, module,
                          f"{MAX_CANDIDATES}")
     kind, w_max, w_mean, bias = module.kernel_params()
     lib = _library()
-    scores = torch.empty((b, c), dtype=torch.float32, device=dev)
-    ids = torch.empty((b, out_k), dtype=torch.int32, device=dev)
-    dists = torch.empty((b, out_k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rerank_topk(
+    plan = rerank_plan(b, c, t, tq, d, kind == 1, *_card(dev.index))
+    out = torch.empty((2, b, out_k), dtype=torch.int32, device=dev)
+    ptr = out.data_ptr()
+    stream = raw_stream(dev.index)
+    tickets, scores = _scratch_for(dev, stream, b, c)
+    with launch_on(dev):
+        err = lib.rerank_topk(_CALL.pack(
             cand.data_ptr(), tokens.data_ptr(), tmask.data_ptr(),
-            q_tokens.data_ptr(), q_mask.data_ptr(), scores.data_ptr(),
-            _tickets_for(dev, stream, b).data_ptr(), ids.data_ptr(),
-            dists.data_ptr(), b, c, n, t, d, tq, out_k, kind, w_max, w_mean,
-            bias, stream)
+            q_tokens.data_ptr(), q_mask.data_ptr(), scores, tickets, ptr,
+            ptr + 4 * b * out_k, stream, b, c, n, t, d, tq, out_k, kind,
+            plan.rg, plan.cpb, plan.nblk, plan.smem, w_max, w_mean, bias))
     if err < 0:
         raise ValueError(f"rerank_topk refused its arguments: "
                          f"{lib.rerank_error_string(err).decode()} "
@@ -129,7 +235,7 @@ def rerank_topk_cuda(cand, tokens, tmask, q_tokens, q_mask, module,
                            f"{lib.rerank_error_string(err).decode()} "
                            f"(code {err})")
     rerank_topk_cuda.launches += 1
-    return ids, dists
+    return out[0], out[1].view(torch.float32)
 
 
 rerank_topk_cuda.launches = 0
@@ -138,9 +244,11 @@ rerank_topk_cuda.launches = 0
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of the built library (pointers and the
     stream as c_void_p: undeclared, ctypes would pass 32-bit ints)."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rerank_topk.argtypes = [p] * 9 + [i] * 8 + [f] * 3 + [p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rerank_topk.argtypes = [ctypes.c_char_p]
     lib.rerank_topk.restype = i
+    lib.rerank_device_info.argtypes = [i, p, p]
+    lib.rerank_device_info.restype = i
     lib.rerank_error_string.argtypes = [i]
     lib.rerank_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,15 +32,15 @@ CPU tensors only, and on a CUDA tensor launch B6a or raise.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-import re
 import threading
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from weaviate_tpu_torch.ops.launch import launch_on, source_ints
 
 KERNEL = "hybrid"
 
@@ -192,13 +192,7 @@ def page_to_host(vals, ids):
     return vals.cpu().numpy(), ids.cpu().numpy()
 
 
-def _source_ints(path: Path) -> dict:
-    """The ``constexpr int`` constants that a kernel source defines."""
-    return {name: int(v) for name, v in re.findall(
-        r"^constexpr int (k\w+) = (\d+);", path.read_text(), re.M)}
-
-
-CONST = _source_ints(Path(__file__).resolve().parent.parent / "csrc"
+CONST = source_ints(Path(__file__).resolve().parent.parent / "csrc"
                      / f"{KERNEL}.cu")
 
 
@@ -234,14 +228,6 @@ def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
                 t = _tickets[key] = torch.zeros(1, dtype=torch.int32,
                                                 device=dev)
     return t
-
-
-def _launch_on(dev: torch.device):
-    """The thread's device set to ``dev`` for a launch (nothing to do where
-    it is already)."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 _F32, _I32 = torch.float32, torch.int32
@@ -284,7 +270,7 @@ def sparse_topk_cuda(rows, tf, dl, seg, seg_w, seg_avgdl, allow, k: int,
     buf = torch.empty(2 * page + 2 * keys, dtype=_I32, device=dev)
     ptr = buf.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with _launch_on(dev):
+    with launch_on(dev):
         err = lib.sparse_topk(
             rows.data_ptr(), tf.data_ptr(), dl.data_ptr(), seg.data_ptr(),
             seg_w.data_ptr(), seg_avgdl.data_ptr(),
