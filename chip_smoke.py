@@ -152,6 +152,33 @@ non-zero without the final line:
              launches and one B7b launch a search (asserted).
              Phase ``kernels`` holds B7a (``b7_rerank_grid``) and B7b
              (``b7_join_grid``) against their plain versions on the card.
+15. hfresh — slice 7b: a ``DB`` collection with an HFresh target at its
+             defaults (cosine; max posting 128, probe 8, 2 replicas) of
+             HF_ROWS rows of config 4's generator (LAION-like unit 768-d
+             rows, 4,096 centres, noise 0.45, made on the card; cut 10),
+             256 queries (the first rows + 0.05 noise) through
+             ``vector_search_batch``, k 10: one B9a launch a search
+             (asserted above zero), ingest vectors/s and seconds by step,
+             centroids, largest posting, cmax, recall@10 against the exact
+             float32 answer over every row, p50/p99, B9a with and without
+             its host part beside ``b9a_bound_ms`` and its plain version,
+             close and checkpointed reopen with the same uuids, device
+             bytes. Then ``GeoIndex`` at GEO_POINTS points (past its
+             2,000,000-point device cutoff): 64 ``within_range`` and
+             ``knn`` queries at radii of 1-500 km held to numpy's float64
+             haversine, ``_dists`` on the card against the host.
+             Phase ``kernels`` holds B9a (``b9_posting_grid``) against its
+             plain version: five metrics, D 768 and 99, columns within and
+             past the keys' shared memory, k 10, 100 and past the columns,
+             masked rows, dead rows and exact duplicates.
+16. segment — slice 6b: config 5's text (SEG_DOCS docs of bench_msmarco's
+             Zipf vocabulary, cut 11) and an int ``bucket`` in a
+             ``storage="segment"`` collection and its ``"ram"`` twin, held
+             to each other (BM25 pages bit for bit, the 1% and 45% allow
+             lists, a hybrid request, an aggregate); a ``storage="auto"``
+             collection whose cutoff the ingest crosses migrates and then
+             answers as the twin does; after a close it reopens in the
+             segment tier. Ingest docs/s and BM25 p50 on each tier, close s.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Needs a CUDA card; exits non-zero
@@ -183,6 +210,7 @@ from weaviate_tpu_torch.compression import (
 )
 from weaviate_tpu_torch.compression.kmeans import _assign_chunked
 from weaviate_tpu_torch.core.db import DB
+from weaviate_tpu_torch.index import geo
 from weaviate_tpu_torch.index.flat import FlatIndex, exact_rescore, make_flat
 from weaviate_tpu_torch.index.hnsw import HNSWIndex
 from weaviate_tpu_torch.index.hnsw.graph import HostGraph
@@ -200,6 +228,7 @@ from weaviate_tpu_torch.ops import (
     device_beam,
     fused_flat,
     fusion,
+    hfresh,
     quantized,
     rerank,
     sparse,
@@ -213,7 +242,9 @@ from weaviate_tpu_torch.schema.config import (
     CollectionConfig,
     DataType,
     FlatIndexConfig,
+    HFreshIndexConfig,
     HNSWIndexConfig,
+    InvertedIndexConfig,
     MultiTenancyConfig,
     MultiVectorIndexConfig,
     PQConfig,
@@ -350,7 +381,8 @@ def phase_env() -> dict:
         _native_build(lib) for lib in ("segment_merge", "bm25_wand")))
     host.start()
     logs = _build.build(fused_flat.KERNEL, device_beam.KERNEL,
-                        quantized.KERNEL, sparse.KERNEL, rerank.KERNEL)
+                        quantized.KERNEL, sparse.KERNEL, rerank.KERNEL,
+                        hfresh.KERNEL)
     host.join()
     errs = [e for e in host_err if e]
     if errs:
@@ -475,7 +507,8 @@ def phase_kernels(seed: int) -> dict:
             "b6a": b6_sparse_grid(seed),
             "b6b": b6_fusion_grid(seed),
             "b7a": b7_rerank_grid(seed),
-            "b7b": b7_join_grid(seed)}
+            "b7b": b7_join_grid(seed),
+            "b9a": b9_posting_grid(seed)}
 
 
 # Q1/Q2 grid: batches, widths, fetch widths, masked shares (1% and 50%);
@@ -2667,9 +2700,13 @@ def hnsw_rq(state: dict) -> dict:
 # 1,024 centres, noise 0.35, l2-squared, 768-d; queries = the first 256 rows
 # + 0.1 noise), cut in depth from HNSW_QUANT_CONFIGURED to HNSW_QUANT_ROWS
 # for the time limit (the build is host-bound at about 1,500-1,800 rows/s;
-# halved from 262,144 to make room for phase hybrid); a fixed depth, so
-# B2-BQ's and the build's numbers compare across runs at one depth
-HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 131_072
+# halved from 262,144 to make room for phase hybrid, and again from 131,072
+# for phases hfresh and segment); a fixed depth, so B2-BQ's and the
+# build's numbers compare across runs at one depth. The generator makes
+# HNSW_QUANT_DATA_ROWS rows (the draws depend on the count): the cell takes
+# the first HNSW_QUANT_ROWS, phase quant_db the first 102,000
+HNSW_QUANT_CONFIGURED, HNSW_QUANT_ROWS = 1_000_000, 65_536
+HNSW_QUANT_DATA_ROWS = 131_072
 HNSW_QUANT_EF, HNSW_QUANT_RESCORE = 96, 80
 
 
@@ -2787,9 +2824,10 @@ def phase_hnsw_quant(state: dict) -> dict:
     beside its bound and its plain version."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    corpus, queries = hnsw_quant_data(HNSW_QUANT_ROWS)
+    corpus, queries = hnsw_quant_data(HNSW_QUANT_DATA_ROWS)
     state["hnsw_quant"] = (corpus, queries)
-    out = hnsw_quantized("bq", corpus, queries, HNSWIndexConfig(
+    out = hnsw_quantized("bq", corpus[:HNSW_QUANT_ROWS], queries,
+                         HNSWIndexConfig(
         distance="l2-squared", ef=HNSW_QUANT_EF, ef_construction=96,
         max_connections=16, insert_batch=4096, flat_search_cutoff=0,
         device_beam=True, initial_capacity=HNSW_QUANT_ROWS,
@@ -4396,6 +4434,571 @@ def phase_rerank(state: dict) -> dict:
             "card": state["card"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 7b: HFresh (B9a) and the geo index; slice 6b: the segment tier
+# ---------------------------------------------------------------------------
+
+# B9a against its plain version: float32 sums of the same terms in another
+# order (D up to 768; manhattan sums reach a few hundred)
+B9_ATOL, B9_RTOL = 1e-4, 1e-5
+# the grid: columns a row within the shared-memory plan's keys and past
+# them (global scratch), D off 16-byte rows, k past the columns
+B9_COLS = (1100, 30_000)
+B9_DIMS = (768, 99)
+B9_ROWS = 8
+# the HFresh cell: config 4's generator (bench.py:868 bench_bq: LAION-like
+# unit 768-d rows around 4,096 centres, noise 0.45), HFresh at its
+# defaults, cosine, cut 10: HF_ROWS rows (the host-bound ingest: 14.4 s
+# at 32,768 rows left phases hfresh and segment at 70.8 s together, over
+# their 60 s; PERF.md section 4). HF_MIN_RECALL is a floor under the
+# card's 0.559 at 16,384 rows (0.793 at 32,768: more rows a centre), not
+# a quality limit: probing 8 postings sets it.
+HF_ROWS = 16_384
+HF_CENTRES, HF_NOISE, HF_REPS, HF_STEP = 4096, 0.45, 10, 4096
+HF_MIN_RECALL = 0.5
+# the geo cell: past the device cutoff (2,000,000 points), 64 queries at
+# radii of 1 to 500 km; meters of the float32 device path against numpy's
+# float64 within GEO_ATOL + GEO_RTOL * r within GEO_NEAR_M of a query
+# (float32 coordinates are 1-2 m apart; far away arcsin's slope near 1
+# amplifies the float32 error to hundreds of meters, reported)
+GEO_POINTS, GEO_QUERIES, GEO_FULL_CHECKS = 4_194_304, 64, 4
+GEO_ATOL, GEO_RTOL, GEO_NEAR_M = 8.0, 1e-6, 1_000_000.0
+# the segment cell: config 5's text generator at SEG_DOCS docs (cut 11),
+# an "auto" twin whose cutoff the ingest crosses
+SEG_DOCS, SEG_CUTOFF, SEG_QUERIES = 8192, 4096, 64
+SEG_MIGRATION_WAIT_S = 120.0
+
+
+def device_ms(fn, n: int = 20, spin_cycles: int = 20_000_000) -> dict:
+    """Device ms a call of ``fn``: ``n`` calls enqueued behind a spin kernel
+    that holds the stream, so they run back to back whatever their host
+    part; ``held`` says the enqueue ended before the spin did."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e2 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(spin_cycles)
+    e1.record()
+    for _ in range(n):
+        fn()
+    e2.record()
+    held = not e1.query()
+    e2.synchronize()
+    return {"ms": e1.elapsed_time(e2) / n, "held": held,
+            "spin_ms": e0.elapsed_time(e1)}
+
+
+def b9_inputs(gen, b: int, n: int, d: int, c: int, metric: str):
+    """B9a's operands on the card: a corpus with a row repeated 64 times
+    (exact ties), a tenth of the rows dead, per query row a sorted unique
+    candidate set of c/2 to c rows (padded, masked), row 0 wholly masked
+    and row 1's query equal to the repeated row."""
+    dev = torch.device("cuda")
+    if metric == "hamming":
+        corpus = torch.randint(0, 3, (n, d), generator=gen,
+                               device=dev).float()
+        q = torch.randint(0, 3, (b, d), generator=gen, device=dev).float()
+    else:
+        corpus = torch.randn(n, d, generator=gen, device=dev)
+        q = torch.randn(b, d, generator=gen, device=dev)
+    corpus[100:164] = corpus[7]
+    q[1] = corpus[7]
+    if metric == "cosine":
+        corpus, q = normalize(corpus), normalize(q)
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.1
+    valid[7] = valid[100:164] = True
+    cand = torch.zeros((b, c), dtype=torch.int32, device=dev)
+    mask = torch.zeros((b, c), dtype=torch.bool, device=dev)
+    for r in range(b):
+        m = int(torch.randint(c // 2, c + 1, (1,), generator=gen,
+                              device=dev))
+        ids = torch.randperm(n, generator=gen, device=dev)[:m]
+        if r == 1:
+            ids = torch.cat([ids[:m - 65], torch.tensor(
+                [7] + list(range(100, 164)), device=dev)])
+        ids = torch.unique(ids)
+        cand[r, :ids.numel()] = ids.int()
+        mask[r, :ids.numel()] = True
+    mask[0] = False
+    return (q.contiguous(), corpus.contiguous(), valid, cand.contiguous(),
+            mask.contiguous())
+
+
+def check_b9a(args, k: int, metric: str) -> dict:
+    """B9a against its plain version: distances slot for slot within
+    B9_ATOL + B9_RTOL * |plain|; where columns differ, the kernel's column
+    is a near tie (its plain distance within that tolerance of the plain
+    one at the slot); no column twice in a row."""
+    kd, kc = hfresh.posting_topk_cuda(*args, k, metric)
+    pd, pc = hfresh.posting_topk_plain(*args, k, metric)
+    torch.cuda.synchronize()
+    tol = B9_ATOL + B9_RTOL * pd.abs()
+    err = (kd - pd).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"B9a distances differ ({metric}, k {k}): "
+                             f"max {err.max().item()}")
+    srt = torch.sort(kc.long(), dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError("B9a returned a column twice")
+    diff = kc != pc
+    if bool(diff.any()):
+        q, corpus, valid, cand, mask = args
+        full = hfresh.gather_distance(q, corpus, cand, metric, "fp32")
+        full = torch.where(mask & valid[cand.long()], full, MASK_DISTANCE)
+        own = torch.gather(full, 1, kc.long())
+        if bool(((own - pd).abs() > tol)[diff].any()):
+            raise AssertionError(f"B9a columns differ beyond a near tie "
+                                 f"({metric}, k {k})")
+    return {"max_abs_err": float(err.max()), "near_ties": int(diff.sum()),
+            "slots": int(pd.numel())}
+
+
+def b9a_bound_ms(args, k: int) -> tuple[float, str, dict]:
+    """The least time of one B9a launch on these inputs: the unique valid
+    candidate rows that a row's mask keeps, read once, the queries,
+    candidates, mask and outputs once, over the memory rate, against 2 D
+    float32 operations a kept (query, candidate) pair at the float32
+    peak."""
+    q, corpus, valid, cand, mask = args
+    b, d = q.shape
+    c = cand.shape[1]
+    kk = min(k, c)
+    keep = mask & valid[cand.long()]
+    pairs = int(keep.sum())
+    rows = int(torch.unique(cand[keep]).numel())
+    nbytes = float(rows * d * 4 + b * d * 4 + b * c * 5 + b * kk * 8)
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2.0 * pairs * d / FP32_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "unique_rows": rows, "pairs": pairs,
+             "bytes_per_pair": nbytes / max(1, pairs),
+             "read_bytes_per_pair_unshared": 4 * d})
+
+
+def b9_posting_grid(seed: int) -> dict:
+    """B9a against its plain version over every metric, D of 768 and 99,
+    columns a row within the keys' shared memory and past it, k of 10, 100
+    and past the columns, on rows wholly masked, dead store rows and exact
+    duplicate rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 91)
+    cases, worst, ties, slots = 0, 0.0, 0, 0
+    plans = set()
+    smem = hfresh._smem_max(torch.cuda.current_device())
+    for metric in hfresh.METRICS:
+        for d in B9_DIMS:
+            for c in B9_COLS:
+                args = b9_inputs(gen, B9_ROWS, max(2 * c, 4096), d, c,
+                                 metric)
+                for k in (10, 100, c + 5):
+                    r = check_b9a(args, k, metric)
+                    plans.add(hfresh.posting_plan(c, d, min(k, c), smem)[:2])
+                    cases += 1
+                    worst = max(worst, r["max_abs_err"])
+                    ties += r["near_ties"]
+                    slots += r["slots"]
+                del args
+    if len(plans) < 3:
+        raise AssertionError(f"B9a's grid missed a plan: {sorted(plans)}")
+    return {"cases": cases, "max_abs_err": worst, "near_ties": ties,
+            "slots": slots, "plans_keys_sel_in_smem": sorted(plans),
+            "smem_max": smem,
+            "tolerance": {"atol": B9_ATOL, "rtol": B9_RTOL}}
+
+
+class StepTimer:
+    """Host seconds and calls of named methods of one object, each call
+    counted inclusive of what it calls, while installed (instance
+    attributes shadow the methods; removing them restores the class's)."""
+
+    def __init__(self, obj, names):
+        self.obj, self.names = obj, names
+        self.acc = {n: [0.0, 0] for n in names}
+
+    def __enter__(self):
+        for name in self.names:
+            real = getattr(self.obj, name)
+            acc = self.acc[name]
+
+            def timed(*a, _real=real, _acc=acc, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    _acc[0] += time.perf_counter() - t0
+                    _acc[1] += 1
+
+            setattr(self.obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            delattr(self.obj, name)
+
+    def report(self) -> dict:
+        return {n: {"s": v[0], "calls": v[1]} for n, v in self.acc.items()}
+
+
+def phase_hfresh(seed: int, state: dict) -> dict:
+    """Slice 7b on the card: an HFresh collection through ``DB`` (B9a a
+    search) and the geo index past its device cutoff."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = clustered(HF_ROWS, QUANT_DIMS, HF_CENTRES, HF_NOISE, seed + 47)
+    host = rows.cpu().numpy()
+    rng = np.random.default_rng(seed + 47)
+    queries = host[:BATCH] + 0.05 * rng.standard_normal(
+        (BATCH, QUANT_DIMS)).astype(np.float32)
+    truth = exact_truth(rows, normalize(torch.from_numpy(queries).cuda()),
+                        "cosine")
+    del rows
+    uuids = _uuids(rng, HF_ROWS)
+    data_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_hfresh_")
+    try:
+        out = _drive_hfresh(state, root, host, queries, truth, uuids)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["data_s"] = data_s
+    t1 = time.perf_counter()
+    out["geo"] = geo_cell(seed)
+    out["geo"]["seconds"] = time.perf_counter() - t1
+    return out
+
+
+def _drive_hfresh(state, root, host, queries, truth, uuids) -> dict:
+    db = DB(root)
+    col = db.create_collection(CollectionConfig(
+        name="Hfresh", properties=[Property("bucket", DataType.INT)],
+        vector_config=HFreshIndexConfig(distance="cosine")))
+    shard = col._get_shard("shard0")
+    idx = shard._index_for("", QUANT_DIMS)
+    steps = StepTimer(idx, ("add_batch", "_add_assign", "_maintain",
+                            "_split", "_reassign_neighbors", "_merge",
+                            "_live_posting", "_centroid_dists"))
+    store_steps = StepTimer(idx.store, ("put", "get"))
+    t0 = time.perf_counter()
+    at = {}
+    with steps, store_steps:
+        for s in range(0, HF_ROWS, HF_STEP):
+            e = min(HF_ROWS, s + HF_STEP)
+            col.put_batch([StorageObject(
+                uuid=uuids[i], collection="Hfresh", vector=host[i],
+                properties={"bucket": i % 100}) for i in range(s, e)])
+            if e & (e - 1) == 0:  # the ingest's seconds at each power of 2
+                at[e] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    st = idx.stats()
+    col.vector_search_batch(queries, K)  # warm (the kernel built)
+    # the main path's drive: the count at 0 just before, read just after
+    hfresh.posting_topk_cuda.launches = 0
+    ms, served = [], None
+    with KernelSpy(hfresh, "posting_topk_cuda", width=None) as spy:
+        for _ in range(HF_REPS):
+            t1 = time.perf_counter()
+            served = col.vector_search_batch(queries, K)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        launches = spy.launches
+        on_path = spy.times()
+        (args, kw) = spy.last
+    if launches < 1:
+        raise AssertionError("the HFresh searches launched no B9a")
+    row_of = {u: i for i, u in enumerate(uuids)}
+    got = [[row_of[o.uuid] for o, _ in r] for r in served]
+    recall_10 = recall(np.asarray([g + [-1] * (K - len(g)) for g in got]),
+                       truth)
+    if recall_10 < HF_MIN_RECALL:
+        raise AssertionError(f"HFresh recall@10 {recall_10} < "
+                             f"{HF_MIN_RECALL}")
+    for r in served:
+        if len(r) != K or not all(np.isfinite([dd for _, dd in r])):
+            raise AssertionError("an HFresh row is short or not finite")
+    # B9a on the main path's inputs: against its plain version, then timed
+    # (launches made here are not the drive's, read above)
+    k, metric = args[5], args[6]
+    ops = args[:5]
+    chk = check_b9a(ops, k, metric)
+    bound, by, work = b9a_bound_ms(ops, k)
+    dev = device_ms(lambda: hfresh.posting_topk_cuda(*ops, k, metric))
+    state["kernel_b9_posting"] = {
+        "name": "posting_topk", "route": "cuda",
+        "source": "weaviate_tpu_torch/csrc/hfresh.cu",
+        "replaces": "weaviate_tpu/index/hfresh.py:319",
+        "launches": launches, "max_abs_err": chk["max_abs_err"],
+        "ms": float(np.median(cuda_ms(
+            lambda: hfresh.posting_topk_cuda(*ops, k, metric), 30))),
+        "device_ms": dev["ms"], "device_held": dev["held"],
+        "on_path_ms_median": float(np.median(on_path)),
+        "plain_ms": float(np.median(cuda_ms(
+            lambda: hfresh.posting_topk_plain(*ops, k, metric), 10))),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shape": {"b": int(ops[0].shape[0]), "cmax": int(ops[3].shape[1]),
+                  "d": int(ops[0].shape[1]), "k": int(k)},
+        **work, "near_ties": chk["near_ties"]}
+    peak = torch.cuda.max_memory_allocated()
+    index_bytes = idx.hbm_bytes()
+    t1 = time.perf_counter()
+    db.close()
+    close_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    db2 = DB(root)
+    reopen_s = time.perf_counter() - t1
+    col2 = db2.get_collection("Hfresh")
+    again = col2.vector_search_batch(queries, K)
+    if uuid_rows(again) != uuid_rows(served):
+        raise AssertionError("HFresh answers changed across close/reopen")
+    recovered = col2._get_shard("shard0").recovered_from
+    if recovered != "checkpoint":
+        raise AssertionError(f"HFresh reopened from {recovered}")
+    db2.close()
+    return {"rows": HF_ROWS, "dims": QUANT_DIMS, "batch": BATCH, "k": K,
+            "ingest_s": ingest_s, "vectors_per_s": HF_ROWS / ingest_s,
+            "ingest_s_at_rows": at,
+            "ingest_steps": {**steps.report(),
+                             **{f"store.{n}": v for n, v in
+                                store_steps.report().items()}},
+            "centroids": st["centroids"], "max_posting": st["max_posting"],
+            "min_posting": st["min_posting"],
+            "cmax": int(ops[3].shape[1]),
+            "recall_at_10": recall_10,
+            "p50_ms": float(np.median(ms)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "b9a_launches": launches, "b9a": state["kernel_b9_posting"],
+            "close_s": close_s, "reopen_s": reopen_s,
+            "recovered_from": recovered,
+            "index_device_bytes": index_bytes, "peak_device_bytes": peak,
+            "card": state["card"]}
+
+
+def geo_cell(seed: int) -> dict:
+    """``GeoIndex`` at GEO_POINTS seeded points (uniform on the sphere, a
+    percent deleted), past its device cutoff: GEO_QUERIES ``within_range``
+    and ``knn`` queries near stored points at radii of 1 to 500 km, each
+    held to numpy's float64 ``haversine_m``: ids equal but for points within
+    GEO_ATOL + GEO_RTOL * r of the radius, each such point checked (the
+    float64 distances are taken for every point of GEO_FULL_CHECKS queries,
+    and where the float32 distance is within that of the radius or the
+    k-th for the rest)."""
+    rng = np.random.default_rng(seed + 53)
+    lat = np.degrees(np.arcsin(rng.uniform(-1.0, 1.0, GEO_POINTS)))
+    lon = rng.uniform(-180.0, 180.0, GEO_POINTS)
+    ids = np.arange(GEO_POINTS, dtype=np.int64) * 2 + 1
+    g = geo.GeoIndex()
+    t0 = time.perf_counter()
+    g.add_batch(ids, lat, lon)
+    dead = rng.choice(GEO_POINTS, GEO_POINTS // 100, replace=False)
+    for d in ids[dead]:
+        g.delete(int(d))
+    add_s = time.perf_counter() - t0
+    live = np.ones(GEO_POINTS, bool)
+    live[dead] = False
+    if GEO_POINTS < geo._DEVICE_CUTOFF:
+        raise AssertionError("the geo cell is below the device cutoff")
+    centres = rng.choice(GEO_POINTS, GEO_QUERIES, replace=False)
+    radii = np.geomspace(1_000.0, 500_000.0, GEO_QUERIES)
+    worst, worst_near, boundary, knn_ties, hits = 0.0, 0.0, 0, 0, 0
+    range_ms, knn_ms = [], []
+    for qi, (c, r) in enumerate(zip(centres, radii)):
+        la0 = float(lat[c] + rng.normal(0, 0.01))
+        lo0 = float(lon[c] + rng.normal(0, 0.01))
+        t1 = time.perf_counter()
+        got = g.within_range(la0, lo0, r)
+        range_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        kid, kd = g.knn(la0, lo0, K)
+        knn_ms.append((time.perf_counter() - t1) * 1e3)
+        _, d32 = g._dists(la0, lo0)
+        tol = GEO_ATOL + GEO_RTOL * r
+        if qi < GEO_FULL_CHECKS:
+            d64 = geo.haversine_m(la0, lo0, lat, lon)
+            err = np.abs(d32 - d64)
+            worst = max(worst, float(err.max()))
+            worst_near = max(worst_near, float(err[d64 <= GEO_NEAR_M].max()))
+        else:
+            kth = np.partition(np.where(live, d32, np.inf), K - 1)[K - 1]
+            sub = np.flatnonzero((d32 <= r + tol) | (d32 <= kth + tol))
+            d64 = np.full(GEO_POINTS, np.inf)
+            d64[sub] = geo.haversine_m(la0, lo0, lat[sub], lon[sub])
+        want = ids[(d64 <= r) & live]
+        odd = np.setxor1d(got, want)
+        rows = (odd - 1) // 2
+        if len(odd) and not (np.abs(d64[rows] - r) <= tol).all():
+            raise AssertionError(f"geo query {qi}: ids differ beyond the "
+                                 f"radius's float32 error")
+        boundary += len(odd)
+        hits += len(got)
+        exp = geo.smallest_stable(np.where(live, d64, np.inf), K)
+        if len(kid) != K or not np.allclose(kd, d64[(kid - 1) // 2],
+                                            rtol=GEO_RTOL, atol=GEO_ATOL):
+            raise AssertionError(f"geo query {qi}: knn meters off")
+        swap = kid != ids[exp]
+        if swap.any():
+            if not np.allclose(d64[(kid[swap] - 1) // 2], d64[exp][swap],
+                               rtol=GEO_RTOL, atol=GEO_ATOL):
+                raise AssertionError(f"geo query {qi}: knn ids differ "
+                                     f"beyond a near tie")
+            knn_ties += int(swap.sum())
+    if worst_near > GEO_ATOL + GEO_RTOL * GEO_NEAR_M:
+        raise AssertionError(f"geo float32 error {worst_near} m within "
+                             f"{GEO_NEAR_M} m of a query")
+    la0, lo0 = float(lat[0]), float(lon[0])
+    dev = g._device_columns()
+    card_ms = cuda_ms(lambda: geo.haversine_device(la0, lo0, *dev), 20)
+    dists_ms = host_p(lambda: g._dists(la0, lo0), 10)
+    numpy_ms = host_p(lambda: geo.haversine_m(la0, lo0, lat, lon), 2)
+    return {"points": GEO_POINTS, "deleted": len(dead),
+            "queries": GEO_QUERIES, "radii_m": [radii[0], radii[-1]],
+            "add_s": add_s, "hits": hits,
+            "boundary_points_checked": boundary, "knn_near_ties": knn_ties,
+            "max_abs_err_m_vs_float64": worst,
+            "max_abs_err_m_within_1000_km": worst_near,
+            "tolerance": {"atol_m": GEO_ATOL, "rtol": GEO_RTOL},
+            "within_range_p50_ms": float(np.median(range_ms)),
+            "knn_p50_ms": float(np.median(knn_ms)),
+            "haversine_card_ms": float(np.median(card_ms)),
+            "dists_card_with_readback_ms": float(np.median(dists_ms)),
+            "haversine_host_float64_ms": float(np.median(numpy_ms))}
+
+
+def seg_collection(db, name: str, storage: str, cutoff: int = 1_000_000):
+    return db.create_collection(CollectionConfig(
+        name=name,
+        properties=[Property("body", DataType.TEXT),
+                    Property("bucket", DataType.INT)],
+        vector_config=FlatIndexConfig(distance="cosine", precision="fp32",
+                                      initial_capacity=SEG_DOCS),
+        inverted_config=InvertedIndexConfig(storage=storage,
+                                            segment_cutoff=cutoff)))
+
+
+def same_page(a, b, what: str) -> None:
+    """Two [(object, score)] pages: equal uuids and equal score bits."""
+    ua, ub = [o.uuid for o, _ in a], [o.uuid for o, _ in b]
+    sa = np.asarray([s for _, s in a], np.float64)
+    sb = np.asarray([s for _, s in b], np.float64)
+    if ua != ub or sa.tobytes() != sb.tobytes():
+        raise AssertionError(f"{what}: pages differ {ua} {sa} / {ub} {sb}")
+
+
+def phase_segment(seed: int, state: dict) -> dict:
+    """Slice 6b through ``DB``: config 5's text (a tenant of SEG_DOCS docs of
+    bench_msmarco's Zipf vocabulary) and an int ``bucket`` in a collection
+    with ``storage="segment"`` and its twin with ``"ram"``, held to each
+    other (BM25 pages, the 1% and 45% allow lists, a hybrid request, an
+    aggregate); then ``storage="auto"`` with its cutoff below the depth, so
+    the tier migration runs during the ingest and lands; a close and a
+    reopen that boots the auto collection into the segment tier."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    post = zipf_postings(SEG_DOCS, 1000 + seed)
+    texts, _ = tenant_texts(post)
+    centers = np.random.default_rng(99).standard_normal(
+        (2048, QUANT_DIMS)).astype(np.float32)
+    vecs = gen_block(0, SEG_DOCS, centers)
+    rng = np.random.default_rng(seed + 59)
+    bucket = rng.integers(0, 100, SEG_DOCS)
+    uuids = _uuids(rng, SEG_DOCS)
+    pool = [" ".join(f"t{r}" for r in terms)
+            for terms in query_pool(post["df"], SEG_QUERIES, 7)]
+    data_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="chip_smoke_segment_")
+    try:
+        out = _drive_segment(state, root, texts, vecs, bucket, uuids, pool)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["data_s"] = data_s
+    return out
+
+
+def _drive_segment(state, root, texts, vecs, bucket, uuids, pool) -> dict:
+    db = DB(root)
+    cols = {"segment": seg_collection(db, "SegTier", "segment"),
+            "ram": seg_collection(db, "RamTwin", "ram"),
+            "auto": seg_collection(db, "AutoTier", "auto", SEG_CUTOFF)}
+    ingest = {}
+    for tier, col in cols.items():
+        t0 = time.perf_counter()
+        for s in range(0, SEG_DOCS, DB_BATCH // 4):
+            e = min(SEG_DOCS, s + DB_BATCH // 4)
+            col.put_batch([StorageObject(
+                uuid=uuids[i], collection=col.config.name, vector=vecs[i],
+                properties={"body": texts[i], "bucket": int(bucket[i])})
+                for i in range(s, e)])
+        ingest[tier] = time.perf_counter() - t0
+    shards = {t: c._get_shard("shard0") for t, c in cols.items()}
+    if not getattr(shards["segment"].inverted, "segmented", False) or \
+            getattr(shards["ram"].inverted, "segmented", False):
+        raise AssertionError("the tiers are not the ones configured")
+    t0 = time.perf_counter()
+    deadline = t0 + SEG_MIGRATION_WAIT_S
+    while not getattr(shards["auto"].inverted, "segmented", False):
+        if time.perf_counter() > deadline:
+            raise AssertionError("the auto tier never migrated")
+        time.sleep(0.05)
+    migration_wait_s = time.perf_counter() - t0
+    # the tiers held to each other
+    bm25_ms = {t: [] for t in cols}
+    for i, q in enumerate(pool):
+        pages = {}
+        for tier, col in cols.items():
+            t1 = time.perf_counter()
+            pages[tier] = col.bm25_search(q, K)
+            bm25_ms[tier].append((time.perf_counter() - t1) * 1e3)
+        same_page(pages["segment"], pages["ram"], f"bm25 {i} segment/ram")
+        same_page(pages["auto"], pages["ram"], f"bm25 {i} auto/ram")
+    masks = {}
+    for name, flt in (("one_pct", Where.eq("bucket", FILTER_BUCKET)),
+                      ("near_half", Where.lt("bucket",
+                                             BEAM_FILTER_BUCKETS))):
+        m = {t: s.allow_list(flt) for t, s in shards.items()}
+        for t in ("segment", "auto"):
+            if not np.array_equal(m[t], m["ram"]):
+                raise AssertionError(f"{name} allow list differs ({t})")
+        masks[name] = int(m["ram"].sum())
+        dev = {t: cols[t].bm25_search(pool[0], K, flt=flt,
+                                      device_scoring=True)
+               for t in ("segment", "ram")}
+        check_pages(dev["segment"], dev["ram"], f"filtered bm25 {name}")
+    q = vecs[3] + 0.05 * np.random.default_rng(61).standard_normal(
+        QUANT_DIMS).astype(np.float32)
+    hyb = {t: cols[t].hybrid_search(query=pool[1], vector=q, alpha=MS_ALPHA,
+                                    k=K) for t in cols}
+    for t in ("segment", "auto"):
+        same_page(hyb[t], hyb["ram"], f"hybrid {t}/ram")
+    agg = {t: json.dumps(cols[t].aggregate(
+        {"bucket": "numeric", "body": "text"}, top_occurrences_limit=5,
+        flt=Where.lt("bucket", BEAM_FILTER_BUCKETS)), sort_keys=True)
+        for t in cols}
+    if not agg["segment"] == agg["auto"] == agg["ram"]:
+        raise AssertionError("aggregates differ between tiers")
+    t0 = time.perf_counter()
+    db.close()
+    close_s = time.perf_counter() - t0
+    db2 = DB(root)
+    auto2 = db2.get_collection("AutoTier")
+    inv = auto2._get_shard("shard0").inverted
+    if not getattr(inv, "segmented", False):
+        raise AssertionError("the auto collection reopened in the RAM tier")
+    same_page(auto2.bm25_search(pool[0], K),
+              db2.get_collection("RamTwin").bm25_search(pool[0], K),
+              "bm25 after reopen")
+    db2.close()
+    return {"docs": SEG_DOCS, "queries": len(pool),
+            "auto_cutoff": SEG_CUTOFF,
+            "ingest_s": ingest,
+            "docs_per_s": {t: SEG_DOCS / s for t, s in ingest.items()},
+            "migration_wait_s": migration_wait_s,
+            "bm25_p50_ms": {t: float(np.median(v))
+                            for t, v in bm25_ms.items()},
+            "allowed": masks, "close_s": close_s,
+            "card": state["card"]}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4419,6 +5022,8 @@ def main(argv=None) -> int:
         ("hnsw_pq", lambda: phase_hnsw_pq(state)),
         ("hybrid", lambda: phase_hybrid(args.seed, state)),
         ("rerank", lambda: phase_rerank(state)),
+        ("hfresh", lambda: phase_hfresh(args.seed, state)),
+        ("segment", lambda: phase_segment(args.seed, state)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -4430,7 +5035,7 @@ def main(argv=None) -> int:
         "kernel", "kernel_b2", "kernel_b2_bq", "kernel_b2_sq", "kernel_b2_pq",
         "kernel_b2_rq", "kernel_q1", "kernel_q2", "kernel_q3", "kernel_q4",
         "kernel_merge", "kernel_b6_sparse", "kernel_b6_fusion",
-        "kernel_b7_rerank", "kernel_b7_join")]})
+        "kernel_b7_rerank", "kernel_b7_join", "kernel_b9_posting")]})
     print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

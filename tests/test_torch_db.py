@@ -398,8 +398,6 @@ UNPORTED = {
     "vectorizer": (lambda col, db: col.put_batch([StorageObject(
         uuid="", collection="Doc", properties={"bucket": 1})]), "slice 9"),
     "frozen_tenant": (lambda col, db: _freeze(db), "slice 9"),
-    "hfresh_index": (lambda col, db: build_vector_index(
-        DIMS, config.HFreshIndexConfig(), device="cpu"), "slice 7b"),
     "disk_raw_tier": (lambda col, db: build_vector_index(
         DIMS, config.FlatIndexConfig(raw_tier="disk16"), device="cpu"),
         "slice 9"),
@@ -674,26 +672,44 @@ def test_unported_db_options_raise(tmp_path, monkeypatch, kw, env, where):
 
 
 def test_unported_index_types_refused_at_create_and_open(dbs, tmp_path):
-    """HFresh (slice 7b) is refused at create and at open; a multivector
-    target (slice 7a) is created."""
+    """Every index type of the JAX package is created in the port: an
+    HFresh target (slice 7b) and a multivector one (slice 7a); a
+    JAX-written HFresh collection opens in the port with the JAX
+    package's answers, and one the port wrote opens in the JAX package."""
     tdb = dbs("torch", "t")
+    assert config.AVAILABLE_INDEX_TYPES == jconfig.AVAILABLE_INDEX_TYPES
     c = _cfg(config)
-    c.vector_config = config.HFreshIndexConfig()
-    with pytest.raises(ValueError, match="slice 7b"):
-        tdb.create_collection(c)
+    c.vector_config = config.HFreshIndexConfig(distance="l2-squared")
+    tcol = tdb.create_collection(c)
     c = _cfg(config)
     c.name = "Colbert"
     c.vector_config = config.MultiVectorIndexConfig()
     assert tdb.create_collection(c) is not None
-    # a JAX-written hfresh collection: the port refuses it at open
+    recs = _records(10, n=300)
+    queries = np.stack([r["vector"] for r in recs[:16]])
+    _put(tcol, StorageObject, recs)
     jdb = dbs("jax", "hfresh")
     c = _cfg(jconfig)
     c.vector_config = jconfig.HFreshIndexConfig(distance="l2-squared")
     jcol = jdb.create_collection(c)
-    _put(jcol, JaxObject, _records(10, n=30))
+    _put(jcol, JaxObject, recs)
+    want = _answers(jcol, queries)
+    got = _answers(tcol, queries)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], **TOL["fp32"])
+    assert [row[0] for row in got[0]] == [r["uuid"] for r in recs[:16]]
     jdb.close()
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        DB(str(tmp_path / "hfresh"), device="cpu")
+    tdb.close()
+    # each package opens the directory the other wrote
+    tdb2 = DB(str(tmp_path / "hfresh"), device="cpu")
+    got = _answers(tdb2.get_collection("Doc"), queries)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], **TOL["fp32"])
+    tdb2.close()
+    jdb2 = JaxDB(str(tmp_path / "t"))
+    got = _answers(jdb2.get_collection("Doc"), queries)
+    assert got[0] == want[0]
+    jdb2.close()
 
 
 # -- the query-coalescing dispatcher ----------------------------------------

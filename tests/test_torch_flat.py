@@ -223,9 +223,12 @@ def test_config_defaults_and_checks_match_jax():
     t.validate()
     for bad in (dict(distance="l1"), dict(precision="fp16"),
                 dict(flat_approx_recall=1.0), dict(flat_approx_recall=-0.5),
-                dict(index_type="hfresh")):
+                dict(index_type="ivf")):
         with pytest.raises(ValueError):
             FlatIndexConfig(**bad).validate()
-        if "index_type" not in bad:
-            with pytest.raises(ValueError):
-                JaxConfig(**bad).validate()
+        with pytest.raises(ValueError):
+            JaxConfig(**bad).validate()
+    # every index type the JAX package takes validates in the port
+    for kind in ("flat", "hnsw", "dynamic", "multivector", "hfresh"):
+        FlatIndexConfig(index_type=kind).validate()
+        JaxConfig(index_type=kind).validate()

@@ -25,7 +25,6 @@ from weaviate_tpu.storage.store import Store as JaxStore
 from weaviate_tpu_torch.inverted import analyzer, snapshot
 from weaviate_tpu_torch.inverted.filters import Filter, Where
 from weaviate_tpu_torch.inverted.index import InvertedIndex
-from weaviate_tpu_torch.inverted.segmented import make_inverted_index
 from weaviate_tpu_torch.query.planner import cost, planes
 from weaviate_tpu_torch.schema import config
 from weaviate_tpu_torch.storage.objects import StorageObject
@@ -299,35 +298,6 @@ def test_mesh_sharded_plane_raises():
     pl.rebuild(np.ones(8, bool))
     with pytest.raises(NotImplementedError, match="slice 11"):
         pl.device_mask(8, sharding=object())
-
-
-@pytest.mark.parametrize("storage", ["segment", "auto"])
-def test_segment_tier_raises(tmp_path, storage):
-    cfg = _cfg(config)
-    cfg.inverted_config.storage = storage
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_inverted_index(cfg, Store(str(tmp_path / "s")))
-
-
-def test_segmented_snapshot_header_raises(tmp_path, pair):
-    j, _ = pair
-    p = str(tmp_path / "inv.snap")
-    jsnapshot.save_snapshot(j, p, 1)
-    assert isinstance(make_inverted_index(
-        _cfg(config), Store(str(tmp_path / "a")), snapshot_path=p),
-        InvertedIndex)
-    import msgpack
-
-    data = open(p, "rb").read()
-    unpacker = msgpack.Unpacker(raw=False, strict_map_key=False)
-    unpacker.feed(data)
-    hdr = next(unpacker)
-    hdr["mode"] = "segmented"
-    with open(p, "wb") as f:
-        f.write(msgpack.packb(hdr, use_bin_type=True))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_inverted_index(_cfg(config), Store(str(tmp_path / "b")),
-                            snapshot_path=p)
 
 
 def test_device_bm25_raises(pair):

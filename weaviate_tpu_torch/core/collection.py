@@ -1119,8 +1119,8 @@ class Collection:
         with kernel B6a on the shard's device (``ops/sparse.py``) instead
         of BlockMax-WAND on the host — the hybrid path sets it for filtered
         legs, where WAND's skipping advantage collapses. A device error
-        raises; a shard whose tier cannot serve the device route (none in
-        the port yet) answers from WAND."""
+        raises; a shard whose tier cannot serve the device route (the
+        segment tier's postings live in LSM buckets) answers from WAND."""
         from weaviate_tpu_torch.monitoring.metrics import (
             HYBRID_FALLBACK,
             QUERIES_TOTAL,
@@ -1547,9 +1547,26 @@ class Collection:
 
             inv = shard.inverted
             if getattr(inv, "segmented", False):
-                raise NotImplementedError(
-                    "aggregation over the segment-resident inverted tier: "
-                    "not ported yet (ROADMAP queue A, slice 6b)")
+                # segment tier: aggregate straight off the inv_/range_
+                # buckets with bitmap intersections — O(vocab + matching
+                # docs), no per-doc propvals decode (reference
+                # ``aggregator/`` reads the same LSM rows)
+                base = (mask if mask is not None
+                        else inv.columnar.live_mask(space))
+                if group_by is None:
+                    for p in properties:
+                        prop_values[p].extend(
+                            inv.agg_prop_values(p, base, space))
+                else:
+                    counts, rows = inv.agg_group_table(
+                        group_by, list(properties), base, space)
+                    for g, c in counts.items():
+                        group_counts[g] = group_counts.get(g, 0) + c
+                        row = group_rows.setdefault(
+                            g, {p: [] for p in properties})
+                        for p in properties:
+                            row[p].extend(rows[g][p])
+                continue
 
             doc_ids = (None if mask is None
                        else set(int(i) for i in np.nonzero(mask)[0]))

@@ -12,8 +12,10 @@ the caller names another); every on-disk artifact (LSM store, delta log,
 inverted snapshot, vector checkpoints, HNSW graph snapshot and commit log,
 counters) has the JAX package's format, so either package opens a shard
 directory the other wrote. A multi-target search runs one walk a target
-and the join on the card (``multi_target_search``). The segment-resident
-inverted tier is not ported yet and raises ``NotImplementedError``.
+and the join on the card (``multi_target_search``). Inverted storage
+``"segment"`` keeps the inverted index in LSM buckets
+(``inverted/segmented.py``); ``"auto"`` migrates a RAM index to it in the
+background past ``segment_cutoff`` live docs (``_maybe_upgrade_inverted``).
 """
 
 from __future__ import annotations
@@ -75,8 +77,12 @@ def build_vector_index(
             cfg = cfg.as_type(MultiVectorIndexConfig, "multivector")
         return MultiVectorIndex(dims, cfg, device=device)
     if cfg.index_type == "hfresh":
-        raise NotImplementedError(
-            "hfresh vector index: not ported yet (ROADMAP queue A, slice 7b)")
+        from weaviate_tpu_torch.index.hfresh import HFreshIndex
+        from weaviate_tpu_torch.schema.config import HFreshIndexConfig
+
+        if not isinstance(cfg, HFreshIndexConfig):
+            cfg = cfg.as_type(HFreshIndexConfig, "hfresh")
+        return HFreshIndex(dims, cfg, device=device)
     from weaviate_tpu_torch.index.flat import make_flat
 
     if not isinstance(cfg, FlatIndexConfig):
@@ -145,6 +151,9 @@ class Shard:
         # closed store
         self._tier_released = False
         self._lock = threading.RLock()
+        self._migrating = False  # auto tier upgrade in flight
+        self._migrate_cancel = False
+        self._migrate_thread = None
         # first-touch index builds serialize here, NOT on the shard lock:
         # the ingest drain (no shard lock held) is the usual builder, and
         # a build under the shard lock was the old convoy (docs/ingest.md).
@@ -375,6 +384,14 @@ class Shard:
         # exact convoy the pipeline removed
         self.async_queue.flush()
         with self._lock:
+            if self._migrating:
+                # the tier migration's catch-up replay depends on the delta
+                # log this would truncate; the next cycle checkpoints
+                # normally. Checked under the lock: the migration also
+                # takes it to read start_seq, so either this checkpoint
+                # completed before the migration snapshotted its seq (all
+                # later records survive) or it sees the flag and skips.
+                return
             if self._defer_ops:
                 # a racing writer's post-lock index work (ragged feed /
                 # deferred delete) is in flight: the index lags the delta
@@ -650,6 +667,7 @@ class Shard:
             # inline mode: drain our own chunks (read-your-writes) — other
             # writers' chunks coalesce into the same drain windows
             self.async_queue.ensure_drained(pushed)
+        self._maybe_upgrade_inverted()
         return doc_ids
 
     def _delete_docids_durable(self, doc_ids: list[int]) -> np.ndarray:
@@ -1062,6 +1080,10 @@ class Shard:
     def close(self) -> None:
         if self.async_queue is not None:
             self.async_queue.stop()
+        # an in-flight tier migration must not outlive the store it reads:
+        # cancel cooperatively and join (the next boot simply retries; its
+        # bucket re-adds are idempotent)
+        self._stop_migration()
         self.flush()
         self.checkpoint()
         self._delta.close()
@@ -1070,16 +1092,140 @@ class Shard:
                 idx.close()
         self.store.close()
 
+    # -- auto inverted-tier upgrade ---------------------------------------
+    def _maybe_upgrade_inverted(self) -> None:
+        """storage="auto": past segment_cutoff live docs, migrate the RAM
+        inverted index to the segment tier in the background (the same
+        grow-up move the dynamic vector index makes flat->HNSW). Writes
+        keep flowing during the bulk stream; the delta log replays the
+        stream window under the lock before the atomic swap."""
+        cfg = self.config.inverted_config
+        with self._lock:
+            if getattr(cfg, "storage", "ram") != "auto" or self._migrating \
+                    or getattr(self.inverted, "segmented", False) \
+                    or self._live_count < getattr(cfg, "segment_cutoff",
+                                                  1 << 62):
+                return
+            self._migrating = True
+            self._migrate_cancel = False
+        self._migrate_thread = threading.Thread(
+            target=self._upgrade_inverted, daemon=True)
+        self._migrate_thread.start()
+
+    def _stop_migration(self, timeout: float = 30.0) -> None:
+        """Cooperatively cancel an in-flight tier migration and wait for
+        the worker to exit (close()/reindex need exclusive ownership of
+        the inverted index and the store)."""
+        t = getattr(self, "_migrate_thread", None)
+        if t is None or not t.is_alive():
+            return
+        self._migrate_cancel = True
+        t.join(timeout=timeout)
+        if t.is_alive():
+            import logging
+
+            logging.getLogger("weaviate_tpu_torch.shard").warning(
+                "tier migration did not stop within %.0fs", timeout)
+
+    def _upgrade_inverted(self) -> None:
+        from weaviate_tpu_torch.inverted.segmented import SegmentedInvertedIndex
+        from weaviate_tpu_torch.storage.wal import WAL
+
+        try:
+            with self._lock:  # serialize with any in-flight checkpoint
+                start_seq = self._seq
+            fresh = SegmentedInvertedIndex(self.config, self.store)
+            fresh.ref_resolver = self.inverted.ref_resolver
+            # phase 1: lock-free bulk stream of the object store (docid
+            # bytes are immutable once written; concurrent writes land in
+            # the delta log and are replayed in phase 2). Bucket re-adds
+            # are idempotent, so a crash-interrupted earlier attempt only
+            # costs wasted work, never wrong rows. CHUNKED batched_writes:
+            # one shard-wide pending buffer would rebuild the whole index
+            # in RAM — the exact thing the migration exists to end.
+            chunk, pending = 20_000, 0
+            ctx = fresh.batched_writes()
+            ctx.__enter__()
+            try:
+                for _key, raw in self.objects.items():
+                    if self._migrate_cancel:
+                        return  # abandoned (close/reindex); no swap
+                    obj = StorageObject.from_bytes(raw)
+                    if obj.doc_id < len(self._live) \
+                            and self._live[obj.doc_id]:
+                        fresh.add_object(obj)
+                        pending += 1
+                        if pending >= chunk:
+                            ctx.__exit__(None, None, None)
+                            ctx = fresh.batched_writes()
+                            ctx.__enter__()
+                            pending = 0
+            finally:
+                ctx.__exit__(None, None, None)
+            # phase 2: catch up + swap under the write lock. checkpoint()
+            # is suppressed while migrating (it truncates the delta log
+            # this replay depends on). The propvals row marks docs phase 1
+            # already indexed, so re-applying their add is skipped and the
+            # RAM counters (doc_count/avgdl) can't double-count.
+            with self._lock:
+                if self._migrate_cancel:
+                    return
+                for payload in WAL.replay(self._delta_path):
+                    rec = msgpack.unpackb(payload, raw=False)
+                    if rec["s"] <= start_seq:
+                        continue
+                    if rec["o"] == "a":
+                        for d in rec["d"]:
+                            raw = self.objects.get(_DOCID.pack(d))
+                            if raw is None or not (d < len(self._live)
+                                                   and self._live[d]):
+                                continue
+                            if fresh._propvals_get(d) is not None:
+                                continue  # streamed by phase 1 already
+                            fresh.add_object(StorageObject.from_bytes(raw))
+                    else:
+                        for d in rec["d"]:
+                            fresh.delete_docid(d)
+                self.inverted = fresh
+        finally:
+            self._migrating = False
+
     def reindex_inverted(self) -> int:
         """Rebuild the inverted index (+filter columns) from stored objects.
 
         Reference ``adapters/repos/db/inverted_reindexer.go``: run after a
-        tokenization/schema change that invalidates existing postings. The
-        rebuilt RAM index swaps in atomically (searches during the rebuild
-        keep using the old postings); the next checkpoint persists it.
-        Returns objects reindexed."""
+        tokenization/schema change that invalidates existing postings. RAM
+        mode swaps the rebuilt index in atomically (searches during the
+        rebuild keep using the old postings); segmented mode must truncate
+        the shared buckets first, so racing queries get a retriable
+        ShardClosed for the rebuild window instead. The next checkpoint
+        persists the new state. Returns objects reindexed."""
+        # a racing tier migration would swap stale-tokenization postings
+        # over the rebuilt index — stop it first (it reruns on next write)
+        self._stop_migration()
         with self._lock:
-            fresh = make_inverted_index(self.config, self.store)
+            was_segmented = getattr(self.inverted, "segmented", False)
+            if was_segmented:
+                # segmented state lives in shared buckets: mark the live
+                # index superseded (queries racing the rebuild raise a
+                # retriable ShardClosed rather than reading recreated-empty
+                # buckets), then truncate so stale-tokenization rows can't
+                # survive (map merges would resurrect them). The RAM path's
+                # atomic swap does not apply to segmented mode.
+                self.inverted._closed = True
+                for name in os.listdir(self.store.dir):
+                    if name.startswith(("inv_", "post_", "range_")) \
+                            or name == "propvals":
+                        self.store.drop_bucket(name)
+                # rebuild into the tier the shard had reached — an "auto"
+                # shard that upgraded must not silently downgrade here
+                from weaviate_tpu_torch.inverted.segmented import (
+                    SegmentedInvertedIndex,
+                )
+
+                fresh = SegmentedInvertedIndex(self.config, self.store)
+            else:
+                fresh = make_inverted_index(self.config, self.store)
             # collection-attached hooks must carry over: a fresh index
             # without the ref_resolver would fail every reference filter
             # until the shard reopens

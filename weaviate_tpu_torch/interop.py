@@ -36,6 +36,13 @@ record a live document). The rerank module's name and parameters live in
 matrices are not carried: the port draws the same ones from the same seed
 (``index/multivector.py``). ``token_store_from_numpy`` builds a port token
 store from a JAX store's ``host_planes()``.
+
+An HFresh target (slice 7b) checkpoints its centroids and postings in the
+``hfresh`` entry of its vector checkpoint's meta (float32 and int64 bytes)
+and opens in either package; ``hfresh_from_numpy`` builds a port
+``HFreshIndex`` from a JAX index's centroids, postings and store arrays.
+The segment-resident inverted tier is the shard's bucket files and its
+snapshot header: it crosses by opening the directory.
 """
 
 from __future__ import annotations
@@ -149,3 +156,37 @@ def token_store_from_numpy(tokens: np.ndarray, mask: np.ndarray,
     store._tokens = np.array(tokens, np.float32, copy=True)
     store._mask = np.array(mask, bool, copy=True)
     return store
+
+
+def hfresh_from_numpy(centroids: np.ndarray, postings: list,
+                      corpus: np.ndarray, valid: np.ndarray, config=None,
+                      device=None):
+    """A port ``HFreshIndex`` holding exactly the given state: ``centroids``
+    [C, D] float32, ``postings`` C int64 arrays of doc ids, and the store's
+    ``corpus`` [cap, D] and ``valid`` [cap] (a JAX index's ``_centroids``,
+    ``_postings`` and ``store.snapshot()`` as numpy); ``config`` its
+    ``HFreshIndexConfig``. The store's squared norms are recomputed, its
+    live count is the valid rows' and its watermark the last valid row's
+    plus one."""
+    from weaviate_tpu_torch.index.hfresh import HFreshIndex
+    from weaviate_tpu_torch.schema.config import HFreshIndexConfig
+
+    config = config or HFreshIndexConfig()
+    corpus = np.asarray(corpus, np.float32)
+    valid = np.asarray(valid, bool)
+    cap, dims = corpus.shape
+    live = np.flatnonzero(valid)
+    idx = HFreshIndex(dims, config, device=device)
+    idx.store = store_from_numpy(
+        corpus, valid, (corpus * corpus).sum(1, dtype=np.float32),
+        int(live[-1]) + 1 if len(live) else 0, len(live),
+        config.distance == "cosine", device=device)
+    idx._centroids = np.array(centroids, np.float32, copy=True).reshape(
+        -1, dims)
+    idx._postings = [np.array(p, np.int64, copy=True) for p in postings]
+    if len(idx._postings) != len(idx._centroids):
+        raise ValueError(f"{len(idx._postings)} postings for "
+                         f"{len(idx._centroids)} centroids")
+    idx._doc_posting = {int(d): row for row, ids in enumerate(idx._postings)
+                        for d in ids}
+    return idx

@@ -252,10 +252,9 @@ def rerank_from_dict(d: Optional[dict]) -> Optional[RerankModuleConfig]:
 # ---------------------------------------------------------------------------
 
 
-# Index types with an implementation in the port (kept in sync with
-# weaviate_tpu_torch.core.shard.build_vector_index). hfresh comes with
-# ROADMAP queue A slice 7b.
-AVAILABLE_INDEX_TYPES = ("flat", "hnsw", "dynamic", "multivector")
+# Index types with a registered implementation (kept in sync with
+# weaviate_tpu_torch.core.shard.build_vector_index).
+AVAILABLE_INDEX_TYPES = ("flat", "hnsw", "dynamic", "multivector", "hfresh")
 
 
 @dataclass
@@ -293,8 +292,7 @@ class VectorIndexConfig:
         if self.index_type not in AVAILABLE_INDEX_TYPES:
             raise ValueError(
                 f"index type {self.index_type!r} not available; "
-                f"have {AVAILABLE_INDEX_TYPES} (hfresh: ROADMAP queue A "
-                f"slice 7b)"
+                f"have {AVAILABLE_INDEX_TYPES}"
             )
         if self.distance not in METRICS:
             raise ValueError(f"invalid distance {self.distance!r}")

@@ -120,3 +120,6 @@ HYBRID_OVERFETCH_FACTOR = RUNTIME.register(
 # leg to the device, "off" every one to WAND
 HYBRID_SPARSE_DEVICE = RUNTIME.register(
     "hybrid_sparse_device", "auto", cast=str)
+# the segment tier's bounded WAND term cache (inverted/segmented.py), in
+# MB; -1 follows the WEAVIATE_TPU_WAND_CACHE_MB env / built-in 64 MB
+WAND_CACHE_MB = RUNTIME.register("wand_cache_mb", -1.0, cast=float)
