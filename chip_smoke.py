@@ -160,9 +160,12 @@ non-zero without the final line:
              ``vector_search_batch``, k 10: one B9a launch a search
              (asserted above zero), ingest vectors/s and seconds by step,
              centroids, largest posting, cmax, recall@10 against the exact
-             float32 answer over every row, p50/p99, B9a with and without
-             its host part beside ``b9a_bound_ms`` and its plain version,
-             close and checkpointed reopen with the same uuids, device
+             float32 answer over every row, p50/p99, B9a's device time,
+             with its host part, and on the path (from the batch's posting
+             operands to the call's end) beside ``b9a_bound_ms`` and its
+             plain version, the device posting table's host ms (built once
+             after the ingest), close and checkpointed reopen with the
+             same uuids, device
              bytes. Then ``GeoIndex`` at GEO_POINTS points (past its
              2,000,000-point device cutoff): 64 ``within_range`` and
              ``knn`` queries at radii of 1-500 km held to numpy's float64
@@ -211,6 +214,7 @@ from weaviate_tpu_torch.compression import (
 from weaviate_tpu_torch.compression.kmeans import _assign_chunked
 from weaviate_tpu_torch.core.db import DB
 from weaviate_tpu_torch.index import geo
+from weaviate_tpu_torch.index import hfresh as hfresh_index
 from weaviate_tpu_torch.index.flat import FlatIndex, exact_rescore, make_flat
 from weaviate_tpu_torch.index.hnsw import HNSWIndex
 from weaviate_tpu_torch.index.hnsw.graph import HostGraph
@@ -4445,7 +4449,9 @@ B9_ATOL, B9_RTOL = 1e-4, 1e-5
 # them (global scratch), D off 16-byte rows, k past the columns
 B9_COLS = (1100, 30_000)
 B9_DIMS = (768, 99)
-B9_ROWS = 8
+# query rows and postings of a grid case: posting 0 is probed by every
+# row, more than the TILE_QUERIES of one scoring tile
+B9_ROWS, B9_POSTINGS = 24, 80
 # the HFresh cell: config 4's generator (bench.py:868 bench_bq: LAION-like
 # unit 768-d rows around 4,096 centres, noise 0.45), HFresh at its
 # defaults, cosine, cut 10: HF_ROWS rows (the host-bound ingest: 14.4 s
@@ -4491,10 +4497,16 @@ def device_ms(fn, n: int = 20, spin_cycles: int = 20_000_000) -> dict:
 
 
 def b9_inputs(gen, b: int, n: int, d: int, c: int, metric: str):
-    """B9a's operands on the card: a corpus with a row repeated 64 times
-    (exact ties), a tenth of the rows dead, per query row a sorted unique
-    candidate set of c/2 to c rows (padded, masked), row 0 wholly masked
-    and row 1's query equal to the repeated row."""
+    """B9a's operands on the card, drawn as postings: B9_POSTINGS postings
+    of about c/16 to c/8 rows (a third of the rows of posting 1 are posting 0's:
+    replicas), one empty, one holding a row and its 64 exact copies;
+    query r probes posting 0 (probed by every query: more queries than a
+    tile) and 7 others, query 1 the copies' posting with its query equal
+    to the copied row, query 2 the empty one; a tenth of the rows dead;
+    each query's candidates the sorted union of its postings' rows, padded
+    to c columns with n - 1 (masked; a row stays sorted), query 0 wholly
+    masked and a third of query 3's columns off (an allow list). ->
+    (queries, corpus, valid, cand, mask, the ``Postings`` on the card)."""
     dev = torch.device("cuda")
     if metric == "hamming":
         corpus = torch.randint(0, 3, (n, d), generator=gen,
@@ -4509,30 +4521,45 @@ def b9_inputs(gen, b: int, n: int, d: int, c: int, metric: str):
         corpus, q = normalize(corpus), normalize(q)
     valid = torch.rand(n, generator=gen, device=dev) >= 0.1
     valid[7] = valid[100:164] = True
-    cand = torch.zeros((b, c), dtype=torch.int32, device=dev)
-    mask = torch.zeros((b, c), dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2 ** 31 - 1, (1,), generator=gen, device=dev)))
+    nprobe, size = 8, max(16, (c - 65) // 8)  # room for posting 3
+    postings = [rng.choice(n, int(rng.integers(size // 2, size + 1)),
+                           replace=False) for _ in range(B9_POSTINGS)]
+    postings[1][:len(postings[1]) // 3] = postings[0][:len(postings[1]) // 3]
+    postings[2] = np.empty(0, np.int64)
+    postings[3] = np.r_[7, np.arange(100, 164)]
+    probe = np.zeros((b, nprobe), np.int64)
     for r in range(b):
-        m = int(torch.randint(c // 2, c + 1, (1,), generator=gen,
-                              device=dev))
-        ids = torch.randperm(n, generator=gen, device=dev)[:m]
-        if r == 1:
-            ids = torch.cat([ids[:m - 65], torch.tensor(
-                [7] + list(range(100, 164)), device=dev)])
-        ids = torch.unique(ids)
-        cand[r, :ids.numel()] = ids.int()
-        mask[r, :ids.numel()] = True
+        probe[r, 1:] = 4 + rng.choice(B9_POSTINGS - 4, nprobe - 1,
+                                      replace=False)
+    probe[1, 1], probe[2, 1] = 3, 2
+    cand_lists = [np.unique(np.concatenate([postings[p] for p in row]))
+                  for row in probe]
+    cand = np.full((b, c), n - 1, np.int32)
+    mask = np.zeros((b, c), bool)
+    for r, ids in enumerate(cand_lists):
+        if len(ids) > c:
+            raise AssertionError(f"B9a's grid drew {len(ids)} > {c} columns")
+        cand[r, :len(ids)] = ids
+        mask[r, :len(ids)] = True
     mask[0] = False
-    return (q.contiguous(), corpus.contiguous(), valid, cand.contiguous(),
-            mask.contiguous())
+    mask[3, rng.random(c) < 1 / 3] = False
+    q_t, cand_t, mask_t, posts = hfresh.posting_operands(
+        q.cpu().numpy(), cand, mask, probe,
+        hfresh.posting_table(postings, n, dev), n, dev)
+    return q_t, corpus.contiguous(), valid, cand_t, mask_t, posts
 
 
 def check_b9a(args, k: int, metric: str) -> dict:
     """B9a against its plain version: distances slot for slot within
     B9_ATOL + B9_RTOL * |plain|; where columns differ, the kernel's column
     is a near tie (its plain distance within that tolerance of the plain
-    one at the slot); no column twice in a row."""
-    kd, kc = hfresh.posting_topk_cuda(*args, k, metric)
-    pd, pc = hfresh.posting_topk_plain(*args, k, metric)
+    one at the slot); no column twice in a row. ``args``: queries, corpus,
+    valid, cand, mask and the ``Postings``."""
+    ops, posts = args[:5], args[5]
+    kd, kc = hfresh.posting_topk_cuda(*ops, k, metric, posts)
+    pd, pc = hfresh.posting_topk_plain(*ops, k, metric)
     torch.cuda.synchronize()
     tol = B9_ATOL + B9_RTOL * pd.abs()
     err = (kd - pd).abs()
@@ -4544,7 +4571,7 @@ def check_b9a(args, k: int, metric: str) -> dict:
         raise AssertionError("B9a returned a column twice")
     diff = kc != pc
     if bool(diff.any()):
-        q, corpus, valid, cand, mask = args
+        q, corpus, valid, cand, mask = ops
         full = hfresh.gather_distance(q, corpus, cand, metric, "fp32")
         full = torch.where(mask & valid[cand.long()], full, MASK_DISTANCE)
         own = torch.gather(full, 1, kc.long())
@@ -4561,7 +4588,7 @@ def b9a_bound_ms(args, k: int) -> tuple[float, str, dict]:
     candidates, mask and outputs once, over the memory rate, against 2 D
     float32 operations a kept (query, candidate) pair at the float32
     peak."""
-    q, corpus, valid, cand, mask = args
+    q, corpus, valid, cand, mask = args[:5]
     b, d = q.shape
     c = cand.shape[1]
     kk = min(k, c)
@@ -4581,8 +4608,12 @@ def b9a_bound_ms(args, k: int) -> tuple[float, str, dict]:
 def b9_posting_grid(seed: int) -> dict:
     """B9a against its plain version over every metric, D of 768 and 99,
     columns a row within the keys' shared memory and past it, k of 10, 100
-    and past the columns, on rows wholly masked, dead store rows and exact
-    duplicate rows."""
+    and past the columns, on postings as ``b9_inputs`` draws them (shared
+    and unshared, replicas, an empty one, a posting over more queries than
+    a tile), rows wholly masked, dead store rows and exact duplicate
+    rows."""
+    if B9_ROWS <= hfresh.TILE_QUERIES:
+        raise AssertionError("B9a's grid has no posting over two tiles")
     gen = torch.Generator(device="cuda").manual_seed(seed + 91)
     cases, worst, ties, slots = 0, 0.0, 0, 0
     plans = set()
@@ -4693,20 +4724,51 @@ def _drive_hfresh(state, root, host, queries, truth, uuids) -> dict:
         torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     st = idx.stats()
-    col.vector_search_batch(queries, K)  # warm (the kernel built)
-    # the main path's drive: the count at 0 just before, read just after
-    hfresh.posting_topk_cuda.launches = 0
-    ms, served = [], None
-    with KernelSpy(hfresh, "posting_topk_cuda", width=None) as spy:
-        for _ in range(HF_REPS):
+    # the posting operands and the device posting table, host ms each
+    # with its upload; a CUDA event where each batch's operands start
+    operands_ms, table_ms, starts = [], [], []
+    build, table = hfresh_index.posting_operands, hfresh_index.posting_table
+
+    def timed(fn, out, events=None):
+        def call(*a, **kw):
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
             t1 = time.perf_counter()
-            served = col.vector_search_batch(queries, K)
-            ms.append((time.perf_counter() - t1) * 1e3)
-        launches = spy.launches
-        on_path = spy.times()
-        (args, kw) = spy.last
+            try:
+                return fn(*a, **kw)
+            finally:
+                out.append((time.perf_counter() - t1) * 1e3)
+        return call
+
+    hfresh_index.posting_table = timed(table, table_ms)
+    hfresh_index.posting_operands = timed(build, operands_ms, starts)
+    try:
+        col.vector_search_batch(queries, K)  # warm: the kernel built and
+        # the table of the ingest's postings
+        tables_at_warm, operands_ms[:], starts[:] = len(table_ms), [], []
+        # the main path's drive: the count at 0 just before, read just after
+        hfresh.posting_topk_cuda.launches = 0
+        ms, served = [], None
+        with KernelSpy(hfresh, "posting_topk_cuda", width=None) as spy:
+            for _ in range(HF_REPS):
+                t1 = time.perf_counter()
+                served = col.vector_search_batch(queries, K)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            launches = spy.launches
+            call_on_path = spy.times()
+            (args, kw) = spy.last
+        # B9a on the path: from the operands' start to the call's end
+        on_path = [a.elapsed_time(e1)
+                   for a, (_, e1) in zip(starts, spy.events)]
+    finally:
+        hfresh_index.posting_operands, hfresh_index.posting_table = (
+            build, table)
     if launches < 1:
         raise AssertionError("the HFresh searches launched no B9a")
+    if len(on_path) != HF_REPS or len(table_ms) != tables_at_warm:
+        raise AssertionError("the HFresh drive's operands and calls do not "
+                             "pair, or its postings changed")
     row_of = {u: i for i, u in enumerate(uuids)}
     got = [[row_of[o.uuid] for o, _ in r] for r in served]
     recall_10 = recall(np.asarray([g + [-1] * (K - len(g)) for g in got]),
@@ -4720,24 +4782,38 @@ def _drive_hfresh(state, root, host, queries, truth, uuids) -> dict:
     # B9a on the main path's inputs: against its plain version, then timed
     # (launches made here are not the drive's, read above)
     k, metric = args[5], args[6]
-    ops = args[:5]
+    ops = args[:5] + (args[7],)
     chk = check_b9a(ops, k, metric)
     bound, by, work = b9a_bound_ms(ops, k)
-    dev = device_ms(lambda: hfresh.posting_topk_cuda(*ops, k, metric))
+
+    def kernel():
+        return hfresh.posting_topk_cuda(*ops[:5], k, metric, ops[5])
+
+    dev = device_ms(kernel)
+    posts = ops[5]
+    _, per = np.unique(posts.probe.cpu().numpy(), return_counts=True)
     state["kernel_b9_posting"] = {
         "name": "posting_topk", "route": "cuda",
         "source": "weaviate_tpu_torch/csrc/hfresh.cu",
         "replaces": "weaviate_tpu/index/hfresh.py:319",
-        "launches": launches, "max_abs_err": chk["max_abs_err"],
-        "ms": float(np.median(cuda_ms(
-            lambda: hfresh.posting_topk_cuda(*ops, k, metric), 30))),
+        "launches": launches,
+        "max_abs_err": chk["max_abs_err"],
+        "ms": float(np.median(cuda_ms(kernel, 30))),
         "device_ms": dev["ms"], "device_held": dev["held"],
         "on_path_ms_median": float(np.median(on_path)),
+        "call_on_path_ms_median": float(np.median(call_on_path)),
+        "operands_host_ms_median": float(np.median(operands_ms)),
+        "table_host_ms": table_ms[-1] if table_ms else None,
         "plain_ms": float(np.median(cuda_ms(
-            lambda: hfresh.posting_topk_plain(*ops, k, metric), 10))),
+            lambda: hfresh.posting_topk_plain(*ops[:5], k, metric), 10))),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": {"b": int(ops[0].shape[0]), "cmax": int(ops[3].shape[1]),
                   "d": int(ops[0].shape[1]), "k": int(k)},
+        "postings": int(posts.table.off.numel() - 1),
+        "postings_probed": int(per.size),
+        "queries_a_posting_mean": float(per.mean()),
+        "queries_a_posting_max": int(per.max()),
+        "table_entries": int(posts.table.rows.numel()),
         **work, "near_ties": chk["near_ties"]}
     peak = torch.cuda.max_memory_allocated()
     index_bytes = idx.hbm_bytes()

@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import inspect
 import json
 import subprocess
@@ -69,35 +68,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import probe_common as common
+from probe_common import build, queued, stream
+
 ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "weaviate_tpu_torch" / "csrc" / "hybrid.cu"
 OUT = ROOT / "weaviate_tpu_torch" / "_build" / "probe_h"
 AGAINST = "against"
 K1, B = 1.2, 0.75
-SPIN_NS = 40_000_000
 LEG_TENANTS = 4
 LEG_FETCH = 20
 
-# the probe's own entry points, appended to every copy: an empty kernel,
-# a kernel that holds the stream for a while, a memset of one int and the
-# shared-memory attribute alone
-APPENDED = r"""
-__global__ void probe_empty_kernel() {}
-__global__ void probe_spin_kernel(long long ns) {
-  long long t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  do {
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  } while (t - t0 < ns);
-}
-extern "C" int probe_empty(void* stream) {
-  probe_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}
-extern "C" int probe_spin(long long ns, void* stream) {
-  probe_spin_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ns);
-  return static_cast<int>(cudaGetLastError());
-}
+# the probe's own entry points, appended to every copy: those of
+# probe_common.py, a memset of one int and the shared-memory attribute
+# alone
+APPENDED = common.APPENDED + r"""
 extern "C" int probe_memset(void* p, void* stream) {
   return static_cast<int>(
       cudaMemsetAsync(p, 0, sizeof(int), static_cast<cudaStream_t>(stream)));
@@ -151,55 +136,16 @@ AGAINST_COPIES = {
 }
 
 
-def edited(edits, text: str) -> str:
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"probe: the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def copies_of(text: str) -> dict:
     """The copies that apply to ``text``: this source's, else those of
     commit 0e77736's kernel (AGAINST_COPIES)."""
-    for table in (COPIES, AGAINST_COPIES):
-        if all(old in text for edits in table.values() for old, _ in edits):
-            return {name: edited(edits, text) + APPENDED
-                    for name, edits in table.items()}
-    raise SystemExit("probe: neither table of copies applies to the source")
-
-
-def build(sources: dict) -> dict:
-    """Each source text compiled with the port's flags, one nvcc each,
-    together; returns the libraries' paths."""
-    from weaviate_tpu_torch import _build
-
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(text)
-        lib = OUT / f"lib{name}.so"
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    out = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"probe: nvcc failed for {name}:\n{log}")
-        if name == "as_is":
-            print(log, file=sys.stderr, flush=True)
-        out[name] = lib
-    return out
+    return common.copies_of((COPIES, AGAINST_COPIES), text, APPENDED,
+                            "the source")
 
 
 def load(mod, path: Path) -> ctypes.CDLL:
-    lib = mod.declare(ctypes.CDLL(str(path)))
-    lib.probe_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    lib.probe_empty.argtypes = [ctypes.c_void_p]
-    lib.probe_memset.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    return lib
+    return common.load(mod, path,
+                       probe_memset=[ctypes.c_void_p, ctypes.c_void_p])
 
 
 def other_checkout(root: Path):
@@ -207,46 +153,11 @@ def other_checkout(root: Path):
     beside this one's (their ``_library`` set by the caller)."""
     mods = {}
     for name in ("sparse", "fusion"):
-        spec = importlib.util.spec_from_file_location(
-            f"{name}_against",
-            root / "weaviate_tpu_torch" / "ops" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mods[name] = mod
+        mods[name] = common.load_module(
+            root / "weaviate_tpu_torch" / "ops" / f"{name}.py",
+            f"{name}_against")
     mods["fusion"].sparse = mods["sparse"]
     return mods["sparse"], mods["fusion"]
-
-
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def queued(lib, fn, iters: int) -> dict:
-    """``fn``'s device ms a call with the stream held while ``iters`` calls
-    are enqueued, the host ms a call to enqueue, and CUDA events around
-    the calls back to back."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    lib.probe_spin(SPIN_NS, stream())
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host = time.perf_counter() - t0
-    b.record()
-    b.synchronize()
-    dev = a.elapsed_time(b) / iters
-    held = host * 1e9 < SPIN_NS
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return {"device_ms": dev, "host_ms": host * 1e3 / iters,
-            "back_to_back_ms": a.elapsed_time(b) / iters, "held": held}
 
 
 def floor(lib, iters: int) -> dict:
@@ -616,7 +527,7 @@ def main(argv=None) -> int:
         sources[f"{AGAINST}_as_is"] = other + APPENDED
         sources.update({f"{AGAINST}_{n}": t
                         for n, t in copies_of(other).items()})
-    paths = build(sources)
+    paths = build(sources, OUT)
     sparse.fusion = fusion
     mods = {"this": (sparse, {n: load(sparse, p) for n, p in paths.items()
                               if not n.startswith(AGAINST)})}

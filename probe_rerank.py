@@ -55,17 +55,17 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import shutil
-import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+import probe_common as common
+from probe_common import Capture, build, host_ms, queued, stream
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "weaviate_tpu_torch" / "csrc"
@@ -73,32 +73,15 @@ SOURCES = {"rerank": CSRC / "rerank.cu",
            "device_beam": CSRC / "device_beam.cu"}
 OUT = ROOT / "weaviate_tpu_torch" / "_build" / "probe_r"
 AGAINST = "against"
-SPIN_NS = 40_000_000
 # the captured paths' corpora: the phase's widths at a smaller depth
 MV_DOCS, MV_DIMS, MV_TQ, MV_TOKENS = 4096, 128, 32, (40, 180)
 HNSW_ROWS, HNSW_TOKENS, HNSW_BATCH = 32_768, 4, 64
 MT_ROWS, MT_DIMS = 32_768, {"a": 768, "b": 256}
 MT_SEARCHES = 8
 
-# the probe's own entry points, appended to every copy: an empty kernel
-# and a kernel that holds the stream for a while
-APPENDED = r"""
-__global__ void probe_empty_kernel() {}
-__global__ void probe_spin_kernel(long long ns) {
-  long long t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  do {
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  } while (t - t0 < ns);
-}
-extern "C" int probe_empty(void* stream) {
-  probe_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}
-extern "C" int probe_spin(long long ns, void* stream) {
-  probe_spin_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ns);
-  return static_cast<int>(cudaGetLastError());
-}
+# the probe's own entry points, appended to every copy: those of
+# probe_common.py and an empty kernel in clusters of 8
+APPENDED = common.APPENDED + r"""
 // an empty kernel in clusters of 8: launched with the cluster a launch
 // attribute (cudaLaunchKernelEx), or compiled into the kernel
 __global__ void probe_empty_ex_kernel() {}
@@ -277,58 +260,17 @@ AGAINST_COPIES = {
 }
 
 
-def edited(edits, text: str) -> str:
-    for old, new in edits:
-        if old not in text:
-            raise SystemExit(f"probe: the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def copies_of(kernel: str, text: str) -> dict:
     """The copies of ``kernel``'s source that apply to ``text``: this
     version's (COPIES), else the other's (AGAINST_COPIES)."""
-    for table in (COPIES, AGAINST_COPIES):
-        edits = table.get(kernel)
-        if edits and all(old in text for e in edits.values()
-                         for old, _ in e):
-            return {name: edited(e, text) + APPENDED
-                    for name, e in edits.items()}
-    raise SystemExit(f"probe: no table of copies applies to {kernel}.cu")
-
-
-def build(sources: dict) -> dict:
-    """Each source text compiled with the port's flags, one nvcc each,
-    together; returns the libraries' paths."""
-    from weaviate_tpu_torch import _build
-
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(text)
-        lib = OUT / f"lib{name}.so"
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    out = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"probe: nvcc failed for {name}:\n{log}")
-        if name.endswith("as_is"):
-            print(log, file=sys.stderr, flush=True)
-        out[name] = lib
-    return out
+    return common.copies_of((COPIES.get(kernel), AGAINST_COPIES.get(kernel)),
+                            text, APPENDED, f"{kernel}.cu")
 
 
 def load(mod, path: Path) -> ctypes.CDLL:
-    lib = mod.declare(ctypes.CDLL(str(path)))
-    lib.probe_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    lib.probe_empty.argtypes = [ctypes.c_void_p]
-    lib.probe_empty_cluster_ex.argtypes = [ctypes.c_void_p]
-    lib.probe_empty_cluster_dims.argtypes = [ctypes.c_void_p]
-    return lib
+    return common.load(mod, path,
+                       probe_empty_cluster_ex=[ctypes.c_void_p],
+                       probe_empty_cluster_dims=[ctypes.c_void_p])
 
 
 def other_checkout(root: Path) -> dict:
@@ -336,13 +278,9 @@ def other_checkout(root: Path) -> dict:
     loaded beside this one's (their ``_library`` set by the caller)."""
     mods = {}
     for name in ("rerank", "device_beam"):
-        spec = importlib.util.spec_from_file_location(
-            f"{name}_against",
-            root / "weaviate_tpu_torch" / "ops" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[spec.name] = mod  # its dataclasses look it up there
-        spec.loader.exec_module(mod)
-        mods[name] = mod
+        mods[name] = common.load_module(
+            root / "weaviate_tpu_torch" / "ops" / f"{name}.py",
+            f"{name}_against")
     # the captured calls hold this checkout's scorers: the other module
     # takes them as its own
     from weaviate_tpu_torch.ops import device_beam
@@ -353,46 +291,6 @@ def other_checkout(root: Path) -> dict:
         setattr(theirs, name, getattr(device_beam, name))
     theirs._ROW_KINDS = {getattr(device_beam, n): v for n, v in kinds.items()}
     return mods
-
-
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def queued(lib, fn, iters: int) -> dict:
-    """``fn``'s device ms a call with the stream held while ``iters`` calls
-    are enqueued, the host ms a call to enqueue, and CUDA events around
-    the calls back to back."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    lib.probe_spin(SPIN_NS, stream())
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host = time.perf_counter() - t0
-    b.record()
-    b.synchronize()
-    dev = a.elapsed_time(b) / iters
-    held = host * 1e9 < SPIN_NS
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return {"device_ms": dev, "host_ms": host * 1e3 / iters,
-            "back_to_back_ms": a.elapsed_time(b) / iters, "held": held}
-
-
-def host_ms(fn, iters: int) -> float:
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def floor(lib, iters: int) -> dict:
@@ -416,30 +314,6 @@ def floor(lib, iters: int) -> dict:
 # ---------------------------------------------------------------------------
 # the captured inputs
 # ---------------------------------------------------------------------------
-
-
-class Capture:
-    """Wraps ``module.name`` while installed, keeping every call's
-    arguments."""
-
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
-
-    def __enter__(self):
-        self.real = getattr(self.module, self.name)
-
-        def spy(*a, **kw):
-            self.calls.append((a, kw))
-            return self.real(*a, **kw)
-
-        spy.launches = getattr(self.real, "launches", 0)
-        setattr(self.module, self.name, spy)
-        return self
-
-    def __exit__(self, *exc):
-        if hasattr(self.real, "launches"):
-            self.real.launches = getattr(self.module, self.name).launches
-        setattr(self.module, self.name, self.real)
 
 
 def unit(x: np.ndarray) -> np.ndarray:
@@ -692,7 +566,7 @@ def main(argv=None) -> int:
             sources[f"{AGAINST}_{kernel}__as_is"] = other + APPENDED
             sources.update({f"{AGAINST}_{kernel}__{n}": t
                             for n, t in copies_of(kernel, other).items()})
-    paths = build(sources)
+    paths = build(sources, OUT)
     own = {"rerank": rerank, "device_beam": device_beam}
     mods = {"this": {}, AGAINST: {}}
     theirs = other_checkout(args.against) if args.against else {}

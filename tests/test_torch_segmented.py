@@ -202,11 +202,59 @@ def shards(tmp_path):
             pass
 
 
-@pytest.mark.parametrize("flush", [False, True])
-def test_filter_and_bm25_parity(shards, tmp_path, flush):
-    ram = shards("torch", tmp_path / "ram", "ram")
-    seg = shards("torch", tmp_path / "seg", "segment")
-    jseg = shards("jax", tmp_path / "jseg", "segment")
+def _engine(s) -> str:
+    """A shard's BM25 engine: the native WAND engine (a RAM index's
+    ``native``, the segment tier's bounded ``_wand`` cache) or the dense
+    path."""
+    inv = s.inverted
+    eng = inv._wand if getattr(inv, "segmented", False) else inv.native
+    return "native" if eng is not None else "dense"
+
+
+def _on_one_engine(build_jax, build_torch):
+    """``build_jax(tag)`` -> a JAX shard and ``build_torch()`` -> a list of
+    the port's shards, on one BM25 engine: where the JAX package's native
+    engine did not come up, the port's shards are built with theirs off;
+    where the port's did not, the JAX shard is built again with its own
+    off (under ``tag`` "-dense"). Returns (jax shard, torch shards)."""
+    j = build_jax("")
+    with pytest.MonkeyPatch.context() as mp:
+        if _engine(j) == "dense":
+            mp.setenv("WEAVIATE_TPU_NATIVE_BM25", "off")
+        ts = build_torch()
+    if _engine(j) == "native" and any(_engine(t) == "dense" for t in ts):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("WEAVIATE_TPU_NATIVE_BM25", "off")
+            j = build_jax("-dense")
+    engines = {_engine(j)} | {_engine(t) for t in ts}
+    assert len(engines) == 1, engines
+    return j, ts
+
+
+def _forced_off(monkeypatch, side):
+    """``side``'s native BM25 engine does not come up (None: both do)."""
+    if side is None:
+        return
+    from weaviate_tpu.inverted import native_bm25 as jnative
+    from weaviate_tpu_torch.inverted import native_bm25 as tnative
+
+    monkeypatch.setattr(jnative if side == "jax" else tnative,
+                        "try_native_bm25", lambda k1, b: None)
+
+
+def _segment_trio(shards, path):
+    """(JAX segment shard, port's RAM shard, port's segment shard) of the
+    same 240 objects, the two segment shards on one BM25 engine (the RAM
+    shard beside the port's, on its engine)."""
+    jseg, (ram, seg) = _on_one_engine(
+        lambda tag: shards("jax", path / f"jseg{tag}", "segment"),
+        lambda: [shards("torch", path / "ram", "ram"),
+                 shards("torch", path / "seg", "segment")])
+    return jseg, ram, seg
+
+
+def _filter_and_bm25_parity(shards, path, flush):
+    jseg, ram, seg = _segment_trio(shards, path)
     assert isinstance(seg.inverted, SegmentedInvertedIndex)
     assert not getattr(ram.inverted, "segmented", False)
     if flush:  # results from disk segments, not memtables
@@ -214,12 +262,16 @@ def test_filter_and_bm25_parity(shards, tmp_path, flush):
         jseg.store.flush_all()
     _assert_parity(ram, seg)
     _assert_same_pages(seg, jseg)
+    return jseg, seg
 
 
-def test_deletes_and_updates_parity(shards, tmp_path):
-    ram = shards("torch", tmp_path / "ram", "ram")
-    seg = shards("torch", tmp_path / "seg", "segment")
-    jseg = shards("jax", tmp_path / "jseg", "segment")
+@pytest.mark.parametrize("flush", [False, True])
+def test_filter_and_bm25_parity(shards, tmp_path, flush):
+    _filter_and_bm25_parity(shards, tmp_path, flush)
+
+
+def _deletes_and_updates_parity(shards, path):
+    jseg, ram, seg = _segment_trio(shards, path)
     victims = [f"00000000-0000-0000-0000-{i:012d}" for i in range(0, 240, 7)]
     for s in (ram, seg, jseg):
         assert s.delete(victims) == len(victims)
@@ -228,6 +280,11 @@ def test_deletes_and_updates_parity(shards, tmp_path):
     jseg.put_batch(_mk_objs(30, seed=99, cls=JaxObject))
     _assert_parity(ram, seg)
     _assert_same_pages(seg, jseg)
+    return jseg, seg
+
+
+def test_deletes_and_updates_parity(shards, tmp_path):
+    _deletes_and_updates_parity(shards, tmp_path)
 
 
 def test_restart_from_checkpoint(tmp_path):
@@ -389,10 +446,8 @@ def test_auto_upgrade_with_concurrent_writes(tmp_path):
     sh.close()
 
 
-def test_search_operator_parity(shards, tmp_path):
-    seg = shards("torch", tmp_path / "seg", "segment")
-    ram = shards("torch", tmp_path / "ram", "ram")
-    jseg = shards("jax", tmp_path / "jseg", "segment")
+def _search_operator_parity(shards, path):
+    jseg, ram, seg = _segment_trio(shards, path)
     for q, kw in [("apple banana", dict(operator="And")),
                   ("apple banana cherry", dict(minimum_match=2)),
                   ("quantum zzzmissing", dict(operator="And"))]:
@@ -403,6 +458,32 @@ def test_search_operator_parity(shards, tmp_path):
         np.testing.assert_array_equal(ids_s, ids_j)
         np.testing.assert_allclose(sc_s, sc_j, rtol=RTOL)
         assert set(ids_r) <= set(_bm25(ram, q, 240)[0])
+    return jseg, seg
+
+
+def test_search_operator_parity(shards, tmp_path):
+    _search_operator_parity(shards, tmp_path)
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_pages_follow_an_engine_that_did_not_come_up(shards, tmp_path,
+                                                     monkeypatch, side):
+    """One package's native engine forced off: every comparison with the
+    JAX segment shard is built on the dense path on both sides and agrees
+    page for page."""
+    _forced_off(monkeypatch, side)
+    for check, path in ((lambda p: _filter_and_bm25_parity(shards, p, True),
+                         "filters"),
+                        (lambda p: _deletes_and_updates_parity(shards, p),
+                         "deletes"),
+                        (lambda p: _search_operator_parity(shards, p),
+                         "operators"),
+                        (lambda p: _opens_across_packages(shards, p, "jax"),
+                         "written_by_jax"),
+                        (lambda p: _opens_across_packages(shards, p, "torch"),
+                         "written_by_torch")):
+        jseg, seg = check(tmp_path / path)
+        assert _engine(jseg) == _engine(seg) == "dense", path
 
 
 def test_wand_cache_eviction_and_invalidation(tmp_path, monkeypatch):
@@ -430,25 +511,39 @@ def test_wand_cache_eviction_and_invalidation(tmp_path, monkeypatch):
     ram2.close()
 
 
-@pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_segmented_shard_opens_across_packages(tmp_path, writer):
+def _opens_across_packages(shards, path, writer):
+    """A segment shard written by ``writer`` opens in the other package and
+    pages as a twin written by ``writer``, the two on one BM25 engine."""
     reader = "torch" if writer == "jax" else "jax"
-    d = tmp_path / "s"
+    d = path / "s"
+    victims = [f"00000000-0000-0000-0000-{i:012d}" for i in range(0, 200, 11)]
     a = _shard(writer, d, "segment", 200)
-    a.delete([f"00000000-0000-0000-0000-{i:012d}" for i in range(0, 200, 11)])
+    a.delete(victims)
     a.close()
-    b = _shard(reader, d, "segment", 0)
-    assert b.recovered_from == "checkpoint"
-    assert getattr(b.inverted, "segmented", False)
-    twin = _shard(writer, tmp_path / "twin", "segment", 200)
-    twin.delete([f"00000000-0000-0000-0000-{i:012d}"
-                 for i in range(0, 200, 11)])
-    if reader == "torch":
-        _assert_same_pages(b, twin, "jax")
-    else:
-        _assert_same_pages(twin, b, "jax")
-    b.close()
-    twin.close()
+    opened = {}
+
+    def build(pkg, tag=""):
+        if pkg == reader:
+            if pkg in opened:
+                opened[pkg].close()
+            s = shards(reader, d, "segment", 0)
+            assert s.recovered_from == "checkpoint"
+            assert getattr(s.inverted, "segmented", False)
+        else:
+            s = shards(writer, path / f"twin{tag}", "segment", 200)
+            s.delete(victims)
+        opened[pkg] = s
+        return s
+
+    j, (t,) = _on_one_engine(lambda tag: build("jax", tag),
+                             lambda: [build("torch")])
+    _assert_same_pages(t, j, "jax")
+    return j, t
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_segmented_shard_opens_across_packages(shards, tmp_path, writer):
+    _opens_across_packages(shards, tmp_path, writer)
 
 
 def test_factory_follows_the_snapshot_header(tmp_path):
@@ -500,10 +595,22 @@ def _article_db(mod, db_cls, root, storage, **kw):
 
 @pytest.mark.parametrize("storage", ["ram", "segment"])
 def test_hybrid_filtered_sorted_aggregated(tmp_path, storage):
-    db, col = _article_db(config, DB, tmp_path / storage, storage,
-                          device="cpu")
-    jdb, jcol = _article_db(jconfig, JaxDB, tmp_path / f"j{storage}",
-                            storage)
+    dbs = {}
+
+    def build(pkg, tag=""):
+        if pkg in dbs:
+            dbs[pkg][0].close()
+        if pkg == "torch":
+            dbs[pkg] = _article_db(config, DB, tmp_path / storage, storage,
+                                   device="cpu")
+        else:
+            dbs[pkg] = _article_db(jconfig, JaxDB,
+                                   tmp_path / f"j{storage}{tag}", storage)
+        return dbs[pkg][1]._get_shard("shard0")
+
+    # the hybrid pages' keyword legs on one BM25 engine
+    _on_one_engine(lambda tag: build("jax", tag), lambda: [build("torch")])
+    (db, col), (jdb, jcol) = dbs["torch"], dbs["jax"]
     if storage == "segment":
         assert getattr(col._get_shard("shard0").inverted, "segmented", False)
     q = np.zeros(D, np.float32)

@@ -9,9 +9,12 @@ split re-homes the members of nearby postings; a search probes the closest
 probe selection are host numpy code, the JAX package's own, so centroids,
 postings and probes are equal to the JAX index's after the same batches.
 The vectors stay doc-addressed in a ``DeviceVectorStore`` on the index's
-device; a search's device step is one launch of kernel B9a
+device; a search's device step is one call of kernel B9a
 (``ops/hfresh.py posting_topk``: the candidates' distances, the mask and
-the top-k) for the whole batch.
+the top-k) for the whole batch, fed the batch's probes
+(``posting_operands``) beside the posting snapshot, which stays on the
+device (``posting_table``) until the postings change, so that the kernel
+reads each probed posting once for the queries that probe it.
 """
 
 from __future__ import annotations
@@ -20,12 +23,11 @@ from typing import Optional
 
 import numpy as np
 
-import torch
-
 from weaviate_tpu_torch.index.base import SearchResult, VectorIndex
 from weaviate_tpu_torch.index.store import DeviceVectorStore
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE
-from weaviate_tpu_torch.ops.hfresh import posting_topk
+from weaviate_tpu_torch.ops.hfresh import (posting_operands, posting_table,
+                                           posting_topk)
 from weaviate_tpu_torch.schema.config import HFreshIndexConfig
 
 
@@ -48,6 +50,12 @@ class HFreshIndex(VectorIndex):
         # posting lists: centroid row -> doc id array
         self._postings: list[np.ndarray] = []
         self._doc_posting: dict[int, int] = {}  # doc -> primary posting row
+        # every change of the postings counts here (_add_assign,
+        # load_vectors, interop.hfresh_from_numpy); a search keeps the
+        # device table of the snapshot it last saw with its count and
+        # the store's size
+        self._version = 0
+        self._table = None  # (version, n, PostingTable)
         # guards centroids/postings against search-vs-insert races (the
         # guarded sections are tiny host work; device calls run outside)
         self._lock = threading.Lock()
@@ -88,6 +96,7 @@ class HFreshIndex(VectorIndex):
             self._add_assign(doc_ids, prepped)
 
     def _add_assign(self, doc_ids: np.ndarray, prepped: np.ndarray) -> None:
+        self._version += 1
         if len(self._centroids) == 0:
             self._centroids = prepped[:1].copy()
             self._postings = [np.empty(0, np.int64)]
@@ -284,6 +293,7 @@ class HFreshIndex(VectorIndex):
         with self._lock:
             centroids = self._centroids
             postings = list(self._postings)
+            version = self._version
         if len(centroids) == 0:
             return SearchResult(ids=np.full((b, k), -1, np.int64),
                                 dists=np.full((b, k), np.inf, np.float32))
@@ -308,7 +318,9 @@ class HFreshIndex(VectorIndex):
         if cmax == 0:
             return SearchResult(ids=np.full((b, k), -1, np.int64),
                                 dists=np.full((b, k), np.inf, np.float32))
-        cand = np.zeros((b, cmax), np.int64)
+        # padded past each query's candidates with ids above every row, so
+        # that each row stays sorted (B9a searches it)
+        cand = np.full((b, cmax), np.iinfo(np.int64).max)
         mask = np.zeros((b, cmax), bool)
         for qi, ids in enumerate(cand_lists):
             cand[qi, : len(ids)] = ids
@@ -319,17 +331,23 @@ class HFreshIndex(VectorIndex):
             mask = mask & np.where(ok, al[np.clip(cand, 0, len(al) - 1)],
                                    False)
 
-        # one B9a launch: distances, the mask (and the store's valid bits)
-        # and the top-k stay on the device; only [B, kk] crosses back
+        # one B9a call: distances, the mask (and the store's valid bits)
+        # and the top-k stay on the device; only [B, kk] crosses back. The
+        # queries, candidates, mask and probes go up in one copy, beside
+        # the device's posting table, so that the kernel reads each
+        # posting once for the queries that probe it
         corpus, valid, _ = self.store.snapshot()
         dev = corpus.device
-        rows = torch.from_numpy(
-            np.clip(cand, 0, corpus.shape[0] - 1).astype(np.int32)).to(dev)
+        n = corpus.shape[0]
+        held = self._table
+        if held is None or held[:2] != (version, n):
+            held = self._table = (version, n,
+                                  posting_table(postings, n, dev))
+        q_t, rows, mask_t, posts = posting_operands(
+            qp, cand, mask, probe, held[2], n, dev)
         kk = min(k, cmax)
-        out_d_t, sel_t = posting_topk(
-            torch.from_numpy(np.ascontiguousarray(qp, np.float32)).to(dev),
-            corpus, valid, rows, torch.from_numpy(mask).to(dev), kk,
-            self.metric)
+        out_d_t, sel_t = posting_topk(q_t, corpus, valid, rows, mask_t, kk,
+                                      self.metric, posts)
         out_d = out_d_t.cpu().numpy()
         sel = sel_t.cpu().numpy().astype(np.int64)
         out_i = np.take_along_axis(cand, sel, axis=1)
@@ -375,6 +393,7 @@ class HFreshIndex(VectorIndex):
             hf["n_centroids"], self.dims).copy()
         self._postings = [np.frombuffer(p, np.int64).copy()
                           for p in hf["postings"]]
+        self._version += 1
         self._doc_posting = {
             int(d): row
             for row, ids in enumerate(self._postings)

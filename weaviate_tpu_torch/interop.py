@@ -184,6 +184,7 @@ def hfresh_from_numpy(centroids: np.ndarray, postings: list,
     idx._centroids = np.array(centroids, np.float32, copy=True).reshape(
         -1, dims)
     idx._postings = [np.array(p, np.int64, copy=True) for p in postings]
+    idx._version += 1
     if len(idx._postings) != len(idx._centroids):
         raise ValueError(f"{len(idx._postings)} postings for "
                          f"{len(idx._centroids)} centroids")

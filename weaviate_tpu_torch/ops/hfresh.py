@@ -5,11 +5,23 @@ For each query row: the distance to each of its candidate columns (corpus
 rows named by ``cand``), ``MASK_DISTANCE`` where ``mask`` or the store's
 ``valid`` bit is off, and the ``kk = min(k, C)`` smallest ascending, equal
 distances lower column first (``lax.top_k``'s order on the negated
-distances). ``posting_topk_plain`` is the plain PyTorch version;
-``posting_topk_cuda`` launches the hand-written kernel ``csrc/hfresh.cu``
-(one launch a batch, counted in ``launches``); ``posting_topk`` takes the
-plain version for CPU tensors and the kernel for CUDA tensors, with no
-fallback between them.
+distances). A query's candidates are the sorted union of the postings
+it probes, each row once, padded with ids not below the last
+(``HFreshIndex.search`` pads with n - 1) so that each row is sorted. The
+posting snapshot stays on the kernel's device as a CSR
+(``posting_table``, rebuilt only when the postings change) and a batch
+adds only its probes, uploaded with its queries, candidates and mask in
+one copy (``posting_operands``); the kernels group the probes by posting
+themselves, so a probed posting is read once a tile of the queries that
+probe it.
+``posting_topk_plain`` is the plain PyTorch version (it checks the
+posting operands' shapes and ids and reads nothing else of them);
+``posting_topk_cuda`` launches the hand-written kernels of
+``csrc/hfresh.cu`` (a call is three launches on the current stream, the
+inverse, the scoring pass and the select pass, the last two as
+programmatic dependents of the one before, counted once a call in
+``launches``); ``posting_topk`` takes the plain version for CPU tensors
+and the kernels for CUDA tensors, with no fallback between them.
 """
 
 from __future__ import annotations
@@ -17,7 +29,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops.distance import MASK_DISTANCE, METRICS, gather_distance
@@ -25,17 +39,123 @@ from weaviate_tpu_torch.ops.launch import bad_operand, launch_on, raw_stream
 from weaviate_tpu_torch.ops.topk import smallest_k
 
 KERNEL = "hfresh"
-# one launch's arguments as the C entry point reads them (a PostingCall):
-# 10 addresses (the stream last), 9 ints
-_CALL = struct.Struct("<10Q9i")
+# one call's arguments as the C entry point reads them (a PostingCall):
+# 14 addresses (the stream last), 12 ints
+_CALL = struct.Struct("<14Q12i")
 _BINS, _MISC = 256, 16
+# queries and rows a tile of the scoring pass (kTileQueries and kTileRows
+# of the source: 8 warps of kWarpRows 4)
+TILE_QUERIES, TILE_ROWS = 8, 32
+
+
+class PostingTable(NamedTuple):
+    """A posting snapshot as B9a reads it: ``rows`` every posting's row
+    ids, posting after posting, clipped to [0, n); ``off`` [P + 1] where
+    each posting starts (both int32, views of one tensor); ``max_len`` the
+    longest posting's length."""
+
+    rows: torch.Tensor
+    off: torch.Tensor
+    max_len: int
+
+
+class Postings(NamedTuple):
+    """A batch's posting operands: ``probe`` [B, nprobe] int32, the
+    postings each query probes (ids into ``table``), and the snapshot's
+    ``PostingTable``."""
+
+    probe: torch.Tensor
+    table: PostingTable
+
+
+def posting_table(postings, n: int, device=None) -> PostingTable:
+    """The ``PostingTable`` of ``postings`` (a list of row-id arrays) for a
+    store of ``n`` rows: one int32 buffer filled on the host, on
+    ``device`` where given (one copy from pinned memory, not waited for,
+    on a CUDA device)."""
+    p = len(postings)
+    sizes = np.fromiter(map(len, postings), np.int64, p)
+    pinned = device is not None and torch.device(device).type == "cuda"
+    buf = torch.empty(p + 1 + int(sizes.sum()), dtype=torch.int32,
+                      pin_memory=pinned)
+    host = buf.numpy()
+    off, rows = host[:p + 1], host[p + 1:]
+    off[0] = 0
+    np.cumsum(sizes, out=off[1:])
+    if p:
+        np.concatenate(postings, out=rows, casting="unsafe")
+    np.clip(rows, 0, max(n - 1, 0), out=rows)
+    if device is not None:
+        buf = buf.to(device, non_blocking=pinned)
+    return PostingTable(buf[p + 1:], buf[:p + 1],
+                        int(sizes.max()) if p else 0)
+
+
+def posting_operands(queries, cand, mask, probe, table: PostingTable,
+                     n: int, device=None) -> tuple:
+    """B9a's operands of a batch beside ``table``, in one host buffer with
+    one copy to ``device`` where given (pinned and not waited for on a
+    CUDA device): ``queries`` [B, D] as float32; ``cand`` [B, C], each
+    query's candidates (the sorted union of its probed postings, each row
+    once, padded with ids not below the last, as ``HFreshIndex.search``
+    builds them), clipped to [0, n) as int32; ``mask`` [B, C] bool;
+    ``probe`` [B, nprobe] (posting ids into ``table``) as int32. ->
+    (queries, cand, mask, ``Postings``), views of the one tensor. Raises
+    ``ValueError`` on a posting id outside the table."""
+    probe, cand = np.asarray(probe), np.asarray(cand)
+    if probe.size and (probe.min() < 0
+                       or probe.max() >= table.off.shape[0] - 1):
+        raise ValueError("a probe names no posting of the table")
+    b, d = queries.shape
+    c = cand.shape[1]
+    ends = np.cumsum([4 * b * d, 4 * b * c, 4 * probe.size, b * c])
+    pinned = device is not None and torch.device(device).type == "cuda"
+    buf = torch.empty(int(ends[-1]), dtype=torch.uint8, pin_memory=pinned)
+    host = buf.numpy()
+    host[:ends[0]].view(np.float32).reshape(b, d)[...] = queries
+    np.clip(cand, 0, n - 1, out=host[ends[0]:ends[1]].view(
+        np.int32).reshape(b, c), casting="unsafe")
+    host[ends[1]:ends[2]].view(np.int32)[...] = probe.reshape(-1)
+    host[ends[2]:].view(np.bool_).reshape(b, c)[...] = mask
+    if device is not None:
+        buf = buf.to(device, non_blocking=pinned)
+    return (buf[:ends[0]].view(torch.float32).view(b, d),
+            buf[ends[0]:ends[1]].view(torch.int32).view(b, c),
+            buf[ends[2]:].view(torch.bool).view(b, c),
+            Postings(buf[ends[1]:ends[2]].view(torch.int32).view(
+                probe.shape), table))
+
+
+def check_postings(posts: Postings, b: int) -> None:
+    """Raises ``ValueError`` where ``posts`` cannot be a batch of ``b``
+    query rows as B9a's kernels read it: shapes and dtypes, offsets that
+    do not span the table, posting ids outside the table. Vectorised; it
+    does not check that the candidates are the probed postings' union
+    (the tests do)."""
+    probe, (rows, off, max_len) = posts
+    if (any(x.dtype != torch.int32 for x in (probe, rows, off))
+            or probe.dim() != 2 or probe.shape[0] != b or off.dim() != 1
+            or off.numel() < 1):
+        raise ValueError("B9a's posting operands have the wrong shapes or "
+                         "dtypes")
+    sizes = off.diff()
+    top = int(sizes.max()) if sizes.numel() else 0
+    if (int(off[0]) != 0 or int(off[-1]) != rows.numel()
+            or bool((sizes < 0).any()) or top != max_len):
+        raise ValueError("B9a's posting table does not span its rows")
+    if bool(((probe < 0) | (probe >= off.numel() - 1)).any()):
+        raise ValueError("B9a's posting operands hold ids out of range")
 
 
 def posting_topk_plain(queries, corpus, valid, cand, mask, k: int,
-                       metric: str):
+                       metric: str, posts: Postings = None):
     """B9a in torch ops: -> (distances [B, kk] float32, columns [B, kk]
     int32). ``queries`` [B, D] float32, ``corpus`` [N, D] float32, ``valid``
-    [N] bool, ``cand`` [B, C] int (in [0, N)), ``mask`` [B, C] bool."""
+    [N] bool, ``cand`` [B, C] int (in [0, N)), ``mask`` [B, C] bool.
+    ``posts``, where given, is checked (``check_postings``) and not
+    otherwise read."""
+    if posts is not None:
+        check_postings(posts, cand.shape[0])
     d = gather_distance(queries, corpus, cand, metric, precision="fp32")
     live = valid[cand.long()]
     d = torch.where(mask & live, d, MASK_DISTANCE)
@@ -43,21 +163,28 @@ def posting_topk_plain(queries, corpus, valid, cand, mask, k: int,
     return v, pos.to(torch.int32)
 
 
-def head_bytes(d: int) -> int:
-    """Shared memory of a CTA before its keys (``head_bytes`` of the
-    source): the query rounded to 16 bytes, the histogram, the scalars."""
-    return 4 * ((d + 3) & ~3) + 4 * _BINS + 4 * _MISC
+def head_bytes() -> int:
+    """Shared memory of a select CTA before its keys (``head_bytes`` of
+    the source): the histogram and the scalars."""
+    return 4 * _BINS + 4 * _MISC
+
+
+def score_bytes(d: int) -> int:
+    """Shared memory of a scoring CTA (``score_bytes`` of the source): the
+    tile's queries, each rounded to 16 bytes."""
+    return 4 * TILE_QUERIES * ((d + 3) & ~3)
 
 
 def posting_plan(c: int, d: int, kk: int, smem_max: int) -> tuple:
-    """(keys in shared memory, kept keys in shared memory, bytes a CTA):
-    the keys of a row's C columns stay in shared memory where they fit
-    beside the query, then the kk kept keys where they fit too; the rest
-    go to a global scratch."""
-    smem = head_bytes(d)
-    if smem > smem_max:
-        raise ValueError(f"B9a needs {smem} bytes of shared memory for "
-                         f"d {d}, the card has {smem_max}")
+    """(keys in shared memory, kept keys in shared memory, bytes a select
+    CTA): the keys of a row's C columns stay in shared memory where they
+    fit, then the kk kept keys where they fit too; the rest stay in the
+    global scratch. Raises where a scoring CTA's queries at ``d`` do not
+    fit."""
+    if score_bytes(d) > smem_max:
+        raise ValueError(f"B9a needs {score_bytes(d)} bytes of shared "
+                         f"memory for d {d}, the card has {smem_max}")
+    smem = head_bytes()
     keys_smem = smem + 8 * c <= smem_max
     if keys_smem:
         smem += 8 * c
@@ -85,14 +212,27 @@ def _smem_max(index: int) -> int:
     return got
 
 
+def invert_ints(postings: int, probes: int, max_len: int) -> int:
+    """Ints of the inverse's scratch (``invert_ints`` of the source): a
+    count, a query start and a tile start a posting, two ends, a place
+    and a query a probe, and a posting a tile for as many tiles as the
+    probes can have (each at most its posting's row tiles)."""
+    return (3 * postings + 2 + 2 * probes
+            + probes * -(-max_len // TILE_ROWS))
+
+
 def posting_topk_cuda(queries, corpus, valid, cand, mask, k: int,
-                      metric: str):
-    """B9a on the card: one launch of ``posting_topk_kernel`` on the current
-    stream, counted in ``launches``, its outputs one allocation.
-    ``queries`` float32 [B, D], ``corpus`` float32 [N, D], ``valid`` bool
-    [N], ``cand`` int32 [B, C] in [0, N), ``mask`` bool [B, C], all
-    contiguous on one card. Raises ``ValueError`` on arguments outside the
-    kernel's contract and ``RuntimeError`` on a failed launch."""
+                      metric: str, posts: Postings):
+    """B9a on the card: the inverse, the scoring and the select kernel on
+    the current stream (one call, counted once in ``launches``), its
+    outputs one allocation and its scratch another. ``queries`` float32
+    [B, D], ``corpus`` float32 [N, D], ``valid`` bool [N], ``cand`` int32
+    [B, C] in [0, N), each row sorted and holding an id once but in its
+    padding, ``mask`` bool [B, C], ``posts`` the
+    batch's ``Postings`` (int32), all contiguous on one card (the kernels
+    trust that every column with its mask on is a row of a posting its
+    query probes). Raises ``ValueError`` on arguments outside the kernel's
+    contract and ``RuntimeError`` on a failed launch."""
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if queries.dim() != 2 or corpus.dim() != 2 or cand.dim() != 2:
@@ -103,12 +243,18 @@ def posting_topk_cuda(queries, corpus, valid, cand, mask, k: int,
     n = corpus.shape[0]
     c = cand.shape[1]
     at = queries.get_device()
+    probe, (rows, off, max_len) = posts
+    p = off.shape[0] - 1
+    nprobe = probe.shape[1] if probe.dim() == 2 else -1
     for name, x, dtype, shape in (
             ("queries", queries, torch.float32, (b, d)),
             ("corpus", corpus, torch.float32, (n, d)),
             ("valid", valid, torch.bool, (n,)),
             ("cand", cand, torch.int32, (b, c)),
-            ("mask", mask, torch.bool, (b, c))):
+            ("mask", mask, torch.bool, (b, c)),
+            ("posts.probe", probe, torch.int32, (b, nprobe)),
+            ("posts.table.rows", rows, torch.int32, rows.shape[:1]),
+            ("posts.table.off", off, torch.int32, (p + 1,))):
         if bad_operand(x, dtype, shape, at):
             raise ValueError(f"{name} must be contiguous {dtype} "
                              f"{tuple(shape)} on {dev}, got {x.dtype} "
@@ -119,20 +265,23 @@ def posting_topk_cuda(queries, corpus, valid, cand, mask, k: int,
     lib = _library()
     keys_smem, sel_smem, smem = posting_plan(c, d, kk, _smem_max(dev.index))
     out = torch.empty((2, b, kk), dtype=torch.int32, device=dev)
-    keys_g = (None if keys_smem else
-              torch.empty((b, c), dtype=torch.int64, device=dev))
-    sel_g = (None if sel_smem else
-             torch.empty((b, kk), dtype=torch.int64, device=dev))
+    # the keys [b, c], the kept keys [b, kk] where they do not fit in
+    # shared memory, the inverse's ints
+    sel = 0 if sel_smem else b * kk
+    scratch = torch.empty(
+        b * c + sel + (invert_ints(p, b * nprobe, max_len) + 1) // 2,
+        dtype=torch.int64, device=dev)
+    keys = scratch.data_ptr()
     ptr = out.data_ptr()
     with launch_on(dev):
         err = lib.hfresh_posting_topk(_CALL.pack(
             queries.data_ptr(), corpus.data_ptr(), valid.data_ptr(),
-            cand.data_ptr(), mask.data_ptr(),
-            0 if keys_g is None else keys_g.data_ptr(),
-            0 if sel_g is None else sel_g.data_ptr(),
+            cand.data_ptr(), mask.data_ptr(), probe.data_ptr(),
+            rows.data_ptr(), off.data_ptr(),
+            keys + 8 * (b * c + sel), keys, keys + 8 * b * c if sel else 0,
             ptr, ptr + 4 * b * kk, raw_stream(dev.index),
-            b, c, n, d, kk, METRICS.index(metric), int(keys_smem),
-            int(sel_smem), smem))
+            b, c, n, d, kk, METRICS.index(metric), p, nprobe, max_len,
+            int(keys_smem), int(sel_smem), smem))
     if err < 0:
         raise ValueError(f"hfresh_posting_topk refused its arguments: "
                          f"{lib.hfresh_error_string(err).decode()} "
@@ -169,16 +318,17 @@ def _library() -> ctypes.CDLL:
     return declare(_build.load(KERNEL))
 
 
-def posting_topk(queries, corpus, valid, cand, mask, k: int, metric: str):
-    """The posting top-k: CUDA tensors go to the kernel, CPU tensors to the
-    plain version (the same contract as ``posting_topk_plain``)."""
+def posting_topk(queries, corpus, valid, cand, mask, k: int, metric: str,
+                 posts: Postings):
+    """The posting top-k: CUDA tensors go to the kernels, CPU tensors to
+    the plain version (the same contract as ``posting_topk_plain``)."""
     dev = queries.device
     if dev.type == "cuda":
         return posting_topk_cuda(
             queries.float().contiguous(), corpus.float().contiguous(),
             valid.contiguous(), cand.to(torch.int32).contiguous(),
-            mask.contiguous(), k, metric)
+            mask.contiguous(), k, metric, posts)
     if dev.type == "cpu":
         return posting_topk_plain(queries, corpus, valid, cand, mask, k,
-                                  metric)
+                                  metric, posts)
     raise ValueError(f"no posting top-k for device {dev}")
